@@ -1,8 +1,9 @@
 """Model configuration system (a copy of ``repro.configs.base``).
 
 Every architecture is a :class:`ModelConfig` registered under its id
-(``--arch <id>``).  The port serves the all-global-attention decoders; the
-registry holds the configs it has been brought up on.
+(``--arch <id>``); a :class:`ShapeConfig` names a sequence length and
+global batch (``--shape <name>``).  The registry holds the configs the
+port has been brought up on.
 """
 from __future__ import annotations
 
@@ -82,6 +83,27 @@ class ModelConfig:
         return count_params(model_spec(self))
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+# smoke/test shapes (reduced)
+SMOKE_SHAPES: dict[str, ShapeConfig] = {
+    "smoke_train": ShapeConfig("smoke_train", 32, 2, "train"),
+    "smoke_decode": ShapeConfig("smoke_decode", 64, 2, "decode"),
+}
+
 _REGISTRY: dict[str, "ModelConfig"] = {}
 
 
@@ -103,7 +125,7 @@ def list_configs() -> list[str]:
 
 def _ensure_loaded():
     # import the config modules for their registration side effects
-    from repro_torch.configs import qwen2_7b  # noqa: F401
+    from repro_torch.configs import famous_bert, qwen2_7b  # noqa: F401
 
 
 def shrink(cfg: ModelConfig, **over) -> ModelConfig:

@@ -33,13 +33,34 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def tree_from_jax(tree: dict, device="cuda") -> dict:
+    """Any JAX tree of arrays, leaf for leaf, as tensors on ``device``
+    (the spec-tree layout that ``transformer.forward`` takes)."""
+    return tree_map(lambda a: to_torch(a, device), tree)
+
+
 def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     """The JAX parameter tree (``init_params(model_spec(cfg), ...)``,
-    stacked leaves included) as the port's serving-layout params: every
-    leaf crosses once, then ``[Wq|Wk|Wv]`` is fused per layer at load time
+    stacked leaves included; LayerNorm biases and ungated MLPs too) as the
+    port's serving-layout params: every leaf crosses once, then
+    ``[Wq|Wk|Wv]`` is fused per layer at load time
     (``transformer.prepare_params``)."""
-    return transformer.prepare_params(
-        tree_map(lambda a: to_torch(a, device), tree), cfg)
+    return transformer.prepare_params(tree_from_jax(tree, device), cfg)
+
+
+def train_state_from_jax(state: dict, device="cuda") -> dict:
+    """The JAX train state ``{"params", "opt": {"m", "v", "count"},
+    "step"}`` as the port's (``repro_torch.train.step``): parameters and
+    moments on ``device``, the parameters requiring grad; ``count`` and
+    ``step`` as 0-dim int32 host tensors."""
+    params = tree_from_jax(state["params"], device)
+    tree_map(lambda p: p.requires_grad_(True), params)
+    opt = state["opt"]
+    return {"params": params,
+            "opt": {"m": tree_from_jax(opt["m"], device),
+                    "v": tree_from_jax(opt["v"], device),
+                    "count": to_torch(opt["count"], "cpu").to(torch.int32)},
+            "step": to_torch(state["step"], "cpu").to(torch.int32)}
 
 
 def caches_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> list:

@@ -9,12 +9,15 @@ of them, selected by ``FamousConfig.impl``:
   impl="xla"        plain torch ops: one fused projection, dense masked
                     attention.
   impl="pallas"     the hand-written Hopper kernels (kernels/qkv,
-                    kernels/decode) on CUDA tensors; their plain versions
-                    on CPU tensors.
+                    kernels/attention, kernels/decode) on CUDA tensors;
+                    their plain versions on CPU tensors.  Trainable: the
+                    attention kernel carries a flash autograd function
+                    whose dq and dk/dv passes are kernels too, and the QKV
+                    matmul kernel differentiates through itself.
 
-Only the functions on the serving path are ported here: the projection,
-chunked-prefill attention and decode attention.  Full-sequence attention
-(``attention`` / ``mha_block``) comes with the next slice of the port.
+Ported: the projection, full-sequence attention (``attention`` with the
+flash autograd function of ``attention_xla``, and ``mha_block``), and the
+serving path's chunked-prefill and decode attention.
 """
 from __future__ import annotations
 
@@ -117,8 +120,21 @@ def qkv_projection(x, wq, wk, wv, bq=None, bk=None, bv=None, *,
 
 
 # ---------------------------------------------------------------------------
-# attention against a KV cache (serving)
+# masks
 # ---------------------------------------------------------------------------
+
+
+def _mask_bias(q_pos, k_pos, *, causal: bool, window: int,
+               dtype=torch.float32):
+    """Additive mask bias (0 / -inf) for (len(q_pos), len(k_pos))."""
+    ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        ok &= k_pos[None, :] <= q_pos[:, None]
+    if window:
+        ok &= k_pos[None, :] > q_pos[:, None] - window
+    return torch.zeros(ok.shape, dtype=dtype, device=ok.device).masked_fill(
+        ~ok, float("-inf"))
 
 
 def _broadcast_kv(x, num_q_heads):
@@ -127,6 +143,158 @@ def _broadcast_kv(x, num_q_heads):
     if kv == num_q_heads:
         return x
     return torch.repeat_interleave(x, num_q_heads // kv, dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# QK_PM + softmax + SV_PM — Algorithms 2 & 3
+# ---------------------------------------------------------------------------
+
+
+def attention_reference(q, k, v, *, causal=True, window=0, scale=None,
+                        q_offset=0):
+    """Paper-faithful QK_PM/SV_PM: materialise S (the FPGA keeps S in
+    BRAM), full softmax, then S·V.  A row with no visible key is NaN, as
+    in JAX.  q: (B, Sq, H, dh); k, v: (B, Skv, KV, dh)."""
+    B, Sq, H, dh = q.shape
+    Skv = k.shape[1]
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(dh)
+    k = _broadcast_kv(k, H)
+    v = _broadcast_kv(v, H)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Skv, device=q.device)
+    s = s + _mask_bias(q_pos, k_pos, causal=causal, window=window)[None, None]
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32))
+    return out.to(q.dtype)
+
+
+def _flash_forward(q, k, v, *, causal, window, scale, q_offset, block_k):
+    """Online-softmax forward over key tiles.  q, k, v: (B, S, H, dh), kv
+    already broadcast to H heads.  Returns (out (B, Sq, H, dh),
+    lse (B, H, Sq))."""
+    B, Sq, H, dh = q.shape
+    Skv = k.shape[1]
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    acc = torch.zeros((B, H, Sq, dh), dtype=torch.float32, device=q.device)
+    m = torch.full((B, H, Sq), float("-inf"), device=q.device)
+    l = torch.zeros((B, H, Sq), device=q.device)
+    for k0 in range(0, Skv, block_k):
+        kt, vt = k[:, k0:k0 + block_k], v[:, k0:k0 + block_k]
+        k_pos = k0 + torch.arange(kt.shape[1], device=q.device)
+        # f32 products of the operands (exact for bf16), f32 sums: JAX's
+        # native-dtype dot with preferred_element_type=f32
+        s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                         kt.to(torch.float32)) * scale
+        s = s + _mask_bias(q_pos, k_pos, causal=causal,
+                           window=window)[None, None]
+        m_new = torch.maximum(m, s.amax(-1))
+        # fully masked rows (m_new = -inf): exp(-inf - -inf) -> guard
+        safe_m = torch.where(torch.isinf(m_new), 0.0, m_new)
+        p = torch.exp(torch.where(torch.isinf(s), float("-inf"),
+                                  s - safe_m[..., None]))
+        corr = torch.where(torch.isinf(m), 0.0, torch.exp(m - safe_m))
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p, vt.to(torch.float32))
+        m = m_new
+    l_safe = l.clamp_min(1e-30)
+    out = (acc / l_safe[..., None]).transpose(1, 2).to(q.dtype)
+    lse = torch.where(torch.isinf(m), m, m + torch.log(l_safe))
+    return out, lse
+
+
+def _flash_bwd(q, k, v, out, lse, dout, *, causal, window, scale, q_offset,
+               block_k):
+    """Flash backward: recompute probabilities block by block, so the full
+    S / P matrices are never held.  Returns (dq, dk, dv) in the inputs'
+    dtypes."""
+    B, Sq, H, dh = q.shape
+    Skv = k.shape[1]
+    qf = q.to(torch.float32) * scale
+    do = dout.to(torch.float32).transpose(1, 2)                  # (B,H,Sq,dh)
+    delta = torch.sum(do * out.to(torch.float32).transpose(1, 2), -1)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    dq = torch.zeros((B, Sq, H, dh), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, Skv, H, dh), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for k0 in range(0, Skv, block_k):
+        kt = k[:, k0:k0 + block_k].to(torch.float32)
+        vt = v[:, k0:k0 + block_k].to(torch.float32)
+        k_pos = k0 + torch.arange(kt.shape[1], device=q.device)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kt)
+        s = s + _mask_bias(q_pos, k_pos, causal=causal,
+                           window=window)[None, None]
+        p = torch.where(torch.isinf(s) | torch.isinf(lse[..., None]), 0.0,
+                        torch.exp(s - lse[..., None]))
+        dv[:, k0:k0 + block_k] = torch.einsum("bhqk,bhqd->bkhd", p, do)
+        dp = torch.einsum("bhqd,bkhd->bhqk", do, vt)
+        ds = p * (dp - delta[..., None])
+        dq += scale * torch.einsum("bhqk,bkhd->bqhd", ds, kt)
+        dk[:, k0:k0 + block_k] = scale * torch.einsum(
+            "bhqk,bqhd->bkhd", ds, q.to(torch.float32))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash custom VJP of ``attention_xla`` (JAX ``_flash_fwd_rule`` /
+    ``_flash_bwd_rule``): saves (q, k, v, out, lse), recomputes P per key
+    tile in the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, q_offset, block_k):
+        args = dict(causal=causal, window=window, scale=scale,
+                    q_offset=q_offset, block_k=block_k)
+        out, lse = _flash_forward(q, k, v, **args)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = args
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, **ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def attention_xla(q, k, v, *, causal=True, window=0, scale=None, q_offset=0,
+                  block_k: int = 512):
+    """Plain torch ops with the tiling idea: online softmax over key tiles
+    (running max/sum) so S is never materialised, with a flash autograd
+    function (blockwise recompute) so the backward never holds P either.
+    Short or ragged key lengths take the reference."""
+    B, Sq, H, dh = q.shape
+    Skv = k.shape[1]
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(dh)
+    k = _broadcast_kv(k, H)
+    v = _broadcast_kv(v, H)
+    if Skv <= block_k or Skv % block_k:
+        return attention_reference(q, k, v, causal=causal, window=window,
+                                   scale=scale, q_offset=q_offset)
+    return _FlashAttention.apply(q, k, v, causal, window, scale, q_offset,
+                                 block_k)
+
+
+def attention(q, k, v, *, causal=True, window=0, scale=None, q_offset=0,
+              cfg: FamousConfig = FamousConfig()):
+    """Dense multi-head attention — FAMOUS QK_PM -> softmax -> SV_PM.
+    q: (B, Sq, H, dh); k, v: (B, Skv, KV, dh).  Returns (B, Sq, H, dh)."""
+    if cfg.impl == "reference":
+        return attention_reference(q, k, v, causal=causal, window=window,
+                                   scale=scale, q_offset=q_offset)
+    if cfg.impl == "pallas":
+        from repro_torch.kernels.attention import ops as attn_ops
+        return attn_ops.mha(q, k, v, causal=causal, window=window,
+                            scale=scale, q_offset=q_offset,
+                            block_q=cfg.tile_q, block_k=cfg.tile_k)
+    return attention_xla(q, k, v, causal=causal, window=window, scale=scale,
+                         q_offset=q_offset, block_k=cfg.tile_k)
+
+
+# ---------------------------------------------------------------------------
+# attention against a KV cache (serving)
+# ---------------------------------------------------------------------------
 
 
 def _dense_masked(q, k, v, ok, scale):
@@ -179,3 +347,26 @@ def chunked_prefill_attention(q, k_cache, v_cache, q_offset: int, *,
     q_pos = q_offset + torch.arange(C, device=q.device)
     ok = torch.arange(Skv, device=q.device)[None, :] <= q_pos[:, None]
     return _dense_masked(q, k_cache, v_cache, ok[None, None], scale)
+
+
+# ---------------------------------------------------------------------------
+# Full MHA layer (projection + attention + output) — the paper's fig. 3 box.
+# ---------------------------------------------------------------------------
+
+
+def mha_block(x, params, *, num_heads, num_kv_heads, causal=True, window=0,
+              qk_norm_fn=None, cfg: FamousConfig = FamousConfig(),
+              rope_fn=None, q_offset=0):
+    """x: (B, S, D).  params: dict with wq/wk/wv (D, H, dh), optional b*,
+    wo (H, dh, D).  Returns (B, S, D)."""
+    del num_heads, num_kv_heads  # read off the weights' shapes
+    q, k, v = qkv_projection(
+        x, params["wq"], params["wk"], params["wv"],
+        params.get("bq"), params.get("bk"), params.get("bv"), cfg=cfg)
+    if qk_norm_fn is not None:
+        q, k = qk_norm_fn(q, k)
+    if rope_fn is not None:
+        q, k = rope_fn(q, k)
+    out = attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                    cfg=cfg)
+    return torch.einsum("bshe,hed->bsd", out, params["wo"].to(out.dtype))

@@ -35,6 +35,14 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The masks of the TPU attention kernels (_tile_mask in
+// src/repro/kernels/attention/mha.py): key position kp is visible to query
+// position qp (both absolute) when causal allows it (kp <= qp) and it lies
+// inside the sliding window (kp > qp - window; window <= 0 is global).
+__device__ __forceinline__ bool key_visible(int qp, int kp, int causal, int window) {
+  return (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
+}
+
 // Raise the dynamic shared-memory cap of `kernel` when a launch needs more
 // than the default 48 KB.
 template <typename K>

@@ -14,7 +14,7 @@ that lie on the CPU.
 :data:`STATS` holds the launch counters: each kernel wrapper adds one to
 ``STATS.launches[name]`` where it launches its kernel, and each plain
 version adds one to ``STATS.plain_on_cuda[name]`` when it is handed CUDA
-tensors (which the serving path never does).
+tensors (which the serving and training paths never do).
 """
 from __future__ import annotations
 
@@ -32,7 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]
-KERNELS = ("matmul_tiled", "decode_attention", "chunk_prefill")
+KERNELS = ("matmul_tiled", "decode_attention", "chunk_prefill",
+           "mha_forward", "mha_bwd_dq", "mha_bwd_dkv")
 
 # dtype codes of the C interface
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -133,6 +134,12 @@ _SIGNATURES = {
                                 _LL, _LL, _LL, _LL, _LL, _LL, _F, _P],
     "famous_chunk_prefill": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _LL, _LL, _LL, _LL, _LL, _LL, _F, _P],
+    "famous_mha_forward": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _F, _P],
+    "famous_mha_bwd_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _F, _P],
+    "famous_mha_bwd_dkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _F, _P],
 }
 
 

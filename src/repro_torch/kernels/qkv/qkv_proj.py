@@ -5,6 +5,16 @@ cast to the operands' dtype.  On CUDA tensors it launches the hand-written
 kernel of ``kernels/csrc/matmul_tiled.cu`` (the port of the Pallas
 ``_proj_kernel`` in ``repro/kernels/qkv/qkv_proj.py``); on CPU tensors it
 runs the plain version in :mod:`repro_torch.kernels.qkv.ref`.
+
+Differentiable, as the JAX custom VJP is: the backward of a matmul is two
+matmuls, and both run through the same kernel (or the same plain version
+on the CPU): dX = g·Wᵀ is (T, F) @ (F, D) and dW = Xᵀ·g is (D, T) @ (T, F).
+The transposed operands are contiguous copies, not a strided kernel
+argument: the kernel's tile loads are coalesced along the contiguous dim,
+which a transposed view would turn into a stride of D (or T) between
+neighbouring threads, and one copy of W or X is one pass over T·D or D·F
+elements against the product's T·D·F multiply-adds.  A call that needs no
+gradient (the serving path) launches the kernel directly.
 """
 from __future__ import annotations
 
@@ -17,10 +27,33 @@ NAME = "matmul_tiled"
 
 
 def matmul_tiled(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x: (T, D) @ w: (D, F) -> (T, F) in ``x.dtype``."""
+    """x: (T, D) @ w: (D, F) -> (T, F) in ``x.dtype``; differentiable."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _MatmulTiled.apply(x, w)
+    return _matmul(x, w)
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu" and w.device.type == "cpu":
         return ref.matmul_reference(x, w)
     return _launch(x, w)
+
+
+class _MatmulTiled(torch.autograd.Function):
+    """The kernel with its VJP: dX and dW through the same kernel."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = _matmul(g, w.t().contiguous()) if ctx.needs_input_grad[0] else None
+        dw = _matmul(x.t().contiguous(), g) if ctx.needs_input_grad[1] else None
+        return dx, dw
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

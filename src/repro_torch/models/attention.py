@@ -1,6 +1,7 @@
-"""Attention block: GQA dense MHA built on the FAMOUS core, with a
-contiguous per-slot KV cache for serving (the port of
-``repro.models.attention``, global-attention branch).
+"""Attention block: GQA dense MHA built on the FAMOUS core — full-sequence
+attention for training and encoders, and a contiguous per-slot KV cache
+for serving (the port of ``repro.models.attention``, global-attention
+branch).
 
 Cache writes are **in place**: ``apply_attn_chunk`` writes the chunk's K/V
 into ``cache["k"][slot, offset:offset+C]`` and ``apply_attn_decode`` writes
@@ -78,6 +79,18 @@ def _out_proj(out, wo):
     """einsum("bshe,hed->bsd") as one matmul."""
     B, S, H, dh = out.shape
     return out.reshape(B, S, H * dh) @ wo.to(out.dtype).reshape(H * dh, -1)
+
+
+def apply_attn(p: dict, x: torch.Tensor, cfg: ModelConfig,
+               fcfg: famous.FamousConfig, *, window: int = 0,
+               q_offset: int = 0) -> torch.Tensor:
+    """Full-sequence attention (training / encoder). x: (B, S, D)."""
+    S = x.shape[1]
+    positions = q_offset + torch.arange(S, device=x.device)
+    q, k, v = _project(p, x, cfg, fcfg, positions)
+    out = famous.attention(q, k, v, causal=cfg.causal, window=window,
+                           q_offset=q_offset, cfg=fcfg)
+    return _out_proj(out, p["wo"])
 
 
 def apply_attn_chunk(p: dict, x: torch.Tensor, cache: dict, slot: int,

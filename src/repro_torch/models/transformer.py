@@ -1,16 +1,19 @@
-"""Block-stack decoder for serving (the port of ``repro.models.transformer``,
-all-global-attention stacks with a dense FFN).
+"""Block-stack model (the port of ``repro.models.transformer``,
+all-global-attention stacks with a dense FFN: decoders such as qwen2-7b
+and the famous-bert encoder).
 
 Parameters come in two layouts:
 
   * the **spec tree** of :func:`model_spec` — the JAX package's structure,
     stacked ``(num_units, ...)`` leaves included, as ``init_params`` and
-    ``repro_torch.convert.params_from_jax`` produce it;
+    ``repro_torch.convert`` produce it.  :func:`forward` (training) takes
+    this one, so gradients land in the stacked leaves;
   * the **serving layout** of :func:`prepare_params` — one dict per layer
     (views into the stacked leaves), ``[Wq|Wk|Wv]`` fused once per layer,
-    and one f32 copy of the LM head.  The step functions take this one.
+    and one f32 copy of the LM head.  The serving step functions take it.
 
-JAX's ``lax.scan`` over the stacked units becomes a loop over layers.
+JAX's ``lax.scan`` over the stacked units becomes a loop over them; its
+``jax.checkpoint`` around each unit becomes ``torch.utils.checkpoint``.
 Caches are one contiguous ``{"k", "v"}`` pair per layer, written in place
 (see ``models/attention.py``).
 """
@@ -19,6 +22,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.core.famous import FamousConfig
@@ -32,16 +36,18 @@ from repro_torch.models.module import ParamSpec, stack_specs
 
 def _check_supported(cfg: ModelConfig) -> None:
     kinds = set(cfg.pattern_unit) | set(cfg.tail_layers)
-    if (kinds != {ATTN} or cfg.num_experts or cfg.norm != "rmsnorm"
-            or cfg.act != "silu"):
+    if (kinds != {ATTN} or cfg.num_experts or cfg.qk_norm
+            or cfg.norm not in ("rmsnorm", "layernorm")
+            or cfg.act not in ("silu", "gelu")):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves all-global-attention stacks with "
-            "RMSNorm and a SiLU-gated dense FFN; other blocks, norms and "
-            "activations come with later slices (ROADMAP Queue 1)")
+            f"{cfg.name}: the port runs all-global-attention stacks with "
+            "RMSNorm or LayerNorm and a dense SiLU/GELU FFN; other blocks, "
+            "MoE and qk_norm come with later slices (ROADMAP Queue 1)")
 
 
 def _ffn_spec(cfg: ModelConfig):
-    return layers.mlp_spec(cfg.d_model, cfg.d_ff)
+    gated = cfg.act in ("silu", "gelu") and cfg.norm == "rmsnorm"
+    return layers.mlp_spec(cfg.d_model, cfg.d_ff, cfg.act, gated=gated)
 
 
 def block_spec(kind: str, cfg: ModelConfig) -> dict:
@@ -49,9 +55,9 @@ def block_spec(kind: str, cfg: ModelConfig) -> dict:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     d = cfg.d_model
     return {
-        "ln1": layers.norm_spec(d),
+        "ln1": layers.norm_spec(d, cfg.norm),
         "attn": attention.attn_spec(cfg),
-        "ln2": layers.norm_spec(d),
+        "ln2": layers.norm_spec(d, cfg.norm),
         "ffn": _ffn_spec(cfg),
     }
 
@@ -63,7 +69,7 @@ def model_spec(cfg: ModelConfig) -> dict:
     spec: dict[str, Any] = {
         "embed": layers.embed_spec(cfg.vocab_size, cfg.d_model),
         "blocks": stack_specs(unit, cfg.num_units),
-        "final_norm": layers.norm_spec(cfg.d_model),
+        "final_norm": layers.norm_spec(cfg.d_model, cfg.norm),
     }
     for i, k in enumerate(cfg.tail_layers):
         spec[f"tail{i}"] = block_spec(k, cfg)
@@ -112,13 +118,70 @@ def prepare_params(params: dict, cfg: ModelConfig) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# blocks
+# block application (full sequence)
+# ---------------------------------------------------------------------------
+
+
+def apply_block(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
+                fcfg: FamousConfig, q_offset: int = 0) -> torch.Tensor:
+    """One attention block on the full sequence, x: (B, S, D).  (The JAX
+    block's ``constrain_residual`` sharding hints have no meaning on one
+    device and are dropped.)"""
+    if kind != ATTN:
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    x = x + attention.apply_attn(p["attn"],
+                                 layers.apply_norm(p["ln1"], x, cfg.norm),
+                                 cfg, fcfg, q_offset=q_offset)
+    h = layers.apply_norm(p["ln2"], x, cfg.norm)
+    return x + layers.apply_mlp(p["ffn"], h, cfg.act)
+
+
+def forward(params: dict, inputs: torch.Tensor, cfg: ModelConfig,
+            fcfg: FamousConfig = FamousConfig(), *, remat: bool = True,
+            return_hidden: bool = False, compute_dtype=None) -> torch.Tensor:
+    """inputs: int tokens (B, S), on the spec tree.  Returns f32 logits
+    (B, S, vocab), or the final hidden states (B, S, D) when
+    ``return_hidden`` (the chunked loss computes logits chunk by chunk).
+
+    The loop over stacked units indexes the ``(num_units, ...)`` leaves,
+    so gradients land in them.  ``remat=True`` recomputes each unit in the
+    backward (``torch.utils.checkpoint``, non-reentrant), as
+    ``jax.checkpoint`` does."""
+    _check_supported(cfg)
+    x = layers.embed_lookup(
+        params["embed"], inputs,
+        compute_dtype or params["final_norm"]["scale"].dtype)
+
+    def unit_body(x, u):
+        unit = _index_tree(params["blocks"], u)
+        for i, kind in enumerate(cfg.pattern_unit):
+            x = apply_block(kind, unit[f"pos{i}"], x, cfg, fcfg)
+        return x
+
+    for u in range(cfg.num_units):
+        x = (checkpoint(unit_body, x, u, use_reentrant=False) if remat
+             else unit_body(x, u))
+    for i, kind in enumerate(cfg.tail_layers):
+        x = apply_block(kind, params[f"tail{i}"], x, cfg, fcfg)
+    x = layers.apply_norm(params["final_norm"], x, cfg.norm)
+    if return_hidden:
+        return x
+    return logits_fn(params, x, cfg)
+
+
+# ---------------------------------------------------------------------------
+# serving: caches, chunked prefill, decode
 # ---------------------------------------------------------------------------
 
 
 def logits_fn(params, x, cfg: ModelConfig):
-    """f32 logits (B, S, vocab) from the final hidden states."""
-    return x.to(torch.float32) @ params["unembed_f32"]
+    """f32 logits (..., vocab) from final hidden states, on either layout
+    (the serving layout holds its f32 LM head once)."""
+    if "unembed_f32" in params:
+        return x.to(torch.float32) @ params["unembed_f32"]
+    if cfg.tie_embeddings:
+        return layers.unembed_logits(params["embed"], x)
+    return x.to(torch.float32) @ params["lm_head"]["w"].to(torch.float32)
 
 
 def _compute_dtype(params):
@@ -148,10 +211,11 @@ def prefill_chunk(params, tokens, caches, slot: int, offset: int,
     x = layers.embed_lookup(params["embed"], tokens, _compute_dtype(params))
     for p, cache in zip(params["layers"], caches):
         a, _ = attention.apply_attn_chunk(
-            p["attn"], layers.apply_norm(p["ln1"], x), cache, slot, offset,
-            cfg, fcfg)
+            p["attn"], layers.apply_norm(p["ln1"], x, cfg.norm), cache, slot,
+            offset, cfg, fcfg)
         x = x + a
-        x = x + layers.apply_mlp(p["ffn"], layers.apply_norm(p["ln2"], x))
+        x = x + layers.apply_mlp(
+            p["ffn"], layers.apply_norm(p["ln2"], x, cfg.norm), cfg.act)
     return caches
 
 
@@ -166,11 +230,12 @@ def decode_step(params, tokens, caches, cache_len, cfg: ModelConfig,
                             _compute_dtype(params))
     for p, cache in zip(params["layers"], caches):
         a, _ = attention.apply_attn_decode(
-            p["attn"], layers.apply_norm(p["ln1"], x), cache, cache_len,
-            cfg, fcfg)
+            p["attn"], layers.apply_norm(p["ln1"], x, cfg.norm), cache,
+            cache_len, cfg, fcfg)
         x = x + a
-        x = x + layers.apply_mlp(p["ffn"], layers.apply_norm(p["ln2"], x))
-    x = layers.apply_norm(params["final_norm"], x)
+        x = x + layers.apply_mlp(
+            p["ffn"], layers.apply_norm(p["ln2"], x, cfg.norm), cfg.act)
+    x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     return logits_fn(params, x, cfg)[:, 0], caches
 
 
