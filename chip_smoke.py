@@ -14,17 +14,22 @@ Phases, in order; any failure exits non-zero before the result line:
      the 50 MB L2), and the least time the card could take (bytes over
      3.35 TB/s or operations over the type's peak).  Serving shapes of
      qwen2-7b for ``matmul_tiled``, ``decode_attention`` and
-     ``chunk_prefill``; training shapes of famous-bert (B=8, S=512, 8
-     heads, dh=96, non-causal) and qwen2-7b (B=1, S=2048, 28/4 heads,
-     dh=128, causal) for ``mha_forward``, ``mha_bwd_dq``, ``mha_bwd_dkv``
-     and ``matmul_tiled`` in its dX / dW roles;
+     ``chunk_prefill``, and for the four paged kernels (fp and int8 pools,
+     a 513-page pool of 16-token pages; no library call reads a page
+     table, so they have no library time); training shapes of
+     famous-bert (B=8, S=512, 8 heads, dh=96, non-causal) and qwen2-7b
+     (B=1, S=2048, 28/4 heads, dh=128, causal) for ``mha_forward``,
+     ``mha_bwd_dq``, ``mha_bwd_dkv`` and ``matmul_tiled`` in its dX / dW
+     roles;
   4. Table I: the paper's topology (SL=64, d_model=768, h=8) through
      ``famous.qkv_projection`` + ``famous.attention`` with impl reference,
      xla and pallas; the three must agree;
   5. slice parity: a 2-layer cut of qwen2-7b at full width runs
      ``prefill_chunk`` + ``decode_step`` through the kernels
      (``impl="pallas"``) and through plain torch ops (``impl="xla"``) on
-     the same weights; the logits must agree;
+     the same weights, on contiguous caches, on paged pools and (bf16) on
+     int8 pools; the logits must agree, and at f32 the paged kernels'
+     logits must agree with the contiguous kernels';
   6. training parity: the same 2-layer cut, one ``make_train_step``
      gradient through ``impl="pallas"`` and ``impl="xla"`` on one state
      and batch, in f32 and bf16 compute; loss, global gradient norm and
@@ -35,13 +40,17 @@ Phases, in order; any failure exits non-zero before the result line:
      and qwen2-7b at full width with 2 layers (B=1, S=2048, 5 steps);
   8. serving: the full 28-layer qwen2-7b in bf16, random weights made on
      the card from ``--seed``, serves 8 greedy requests through
-     ``ServingEngine.run``.
+     ``ServingEngine.run``; then 8 requests that share a 1024-token system
+     prompt, on contiguous KV, on the paged pool with the prefix cache, and
+     on int8 pools with the prefix cache (requests 4-7 must hit the cached
+     prompt, and only the paged kernels may serve attention there).
 
 The launch counters are set to 0 before each run of phases 7 and 8 and
 read after it: every kernel must have launched on those paths and no plain
-version may have run on the card.  The last three lines of output are the
-per-kernel JSON record (``{"kernels": [...]}``), the ``nvidia-smi`` name
-and power limit, and ``{"ok": true, "device": {...}}``.  Details go to
+version may have run on the card.  Each phase prints its seconds.  The
+last three lines of output are the per-kernel JSON record
+(``{"kernels": [...]}``), the ``nvidia-smi`` name and power limit, and
+``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside this file, it exits non-zero.
 """
@@ -68,6 +77,9 @@ ATTN_TOL = {"f32": 2e-5, "bf16": 2e-2}
 L2_BYTES = 50 * 2**20
 BWD_TOL = {"f32": 1e-4, "bf16": 1e-4}          # f32 math on the same inputs
 SERVING_KERNELS = ("matmul_tiled", "decode_attention", "chunk_prefill")
+PAGED_KERNELS = {"fp": ("paged_decode_attention", "paged_chunk_prefill"),
+                 "int8": ("paged_decode_attention_int8",
+                          "paged_chunk_prefill_int8")}
 TRAINING_KERNELS = ("matmul_tiled", "mha_forward", "mha_bwd_dq",
                     "mha_bwd_dkv")
 REPLACES = {
@@ -77,9 +89,15 @@ REPLACES = {
     "mha_forward": "src/repro/kernels/attention/mha.py:122",
     "mha_bwd_dq": "src/repro/kernels/attention/mha.py:262",
     "mha_bwd_dkv": "src/repro/kernels/attention/mha.py:282",
+    "paged_decode_attention": "src/repro/kernels/decode/decode_attn.py:193",
+    "paged_decode_attention_int8":
+        "src/repro/kernels/decode/decode_attn.py:249",
+    "paged_chunk_prefill": "src/repro/kernels/decode/chunk_prefill.py:189",
+    "paged_chunk_prefill_int8":
+        "src/repro/kernels/decode/chunk_prefill.py:285",
 }
-SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
-           for name in REPLACES}
+SOURCES = {name: "src/repro_torch/kernels/csrc/"
+           f"{name.removesuffix('_int8')}.cu" for name in REPLACES}
 # the training shapes of the attention kernels:
 # name, B, S, H, KV, dh, causal
 TRAIN_ATTN = (("famous-bert", 8, 512, 8, 8, 96, False),
@@ -302,11 +320,91 @@ def kernel_phase(torch, iters, seed):
                    plain, library, sets,
                    2 * C * H * dh * e + (off + C) * KV * dh * 2 * e,
                    4.0 * H * dh * visible)
+    paged_kernel_rows(torch, dts, randn, record, iters, gen)
     training_kernel_rows(torch, F, dts, randn, record, iters)
     torch.cuda.synchronize()
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
     return rows
+
+
+def paged_kernel_rows(torch, dts, randn, record, iters, gen):
+    """The four paged kernels at qwen2-7b's serving shapes: a 513-page pool
+    of 16-token pages (the engine's default for 4 slots of 2048), page ids
+    a seeded permutation; decode at B=4 with lens 1/37/1000/2048, chunk
+    prefill of C=256 at offset 1792 for one slot; fp pools in the query's
+    dtype, int8 pools (quantized by ``core.quant``) with f32 scales.  No
+    single PyTorch call reads a page table, so these rows have no library
+    time."""
+    from repro_torch.core import quant
+    from repro_torch.kernels.decode import chunk_prefill, decode_attn
+    from repro_torch.kernels.decode import ref as dec_ref
+
+    dev = torch.device("cuda")
+    B, H, KV, dh, ps, n_pages = 4, 28, 4, 128, 16, 513
+    n_p, scale = 2048 // ps, dh ** -0.5
+    pt = (torch.randperm(n_pages - 1, generator=gen, device=dev)[:B * n_p]
+          + 1).to(torch.int32).reshape(B, n_p).contiguous()
+    lens_list = [1, 37, 1000, 2048]
+    lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+    live = sum(lens_list)
+    live_pages = sum(-(-n // ps) for n in lens_list)
+    C, off = 256, 1792
+    visible = sum(off + c + 1 for c in range(C))
+    pool_shape = (n_pages, ps, KV, dh)
+
+    def pools(dtype, kind):
+        k, v = randn(pool_shape, dtype), randn(pool_shape, dtype)
+        if kind == "fp":
+            return (k, v)
+        (kq, ks), (vq, vs) = quant.quantize(k, -1), quant.quantize(v, -1)
+        return (kq, vq, ks[..., 0].contiguous(), vs[..., 0].contiguous())
+
+    for dt, dtype in dts.items():
+        e = torch.tensor([], dtype=dtype).element_size()
+        for kind in ("fp", "int8"):
+            # bytes of one K/V row (dh elements) and its scale
+            row = dh * e if kind == "fp" else dh + 4
+            sfx = "" if kind == "fp" else "_int8"
+            per = 2 * n_pages * ps * KV * row
+            sets = [(randn((B, H, dh), dtype), *pools(dtype, kind))
+                    for _ in range(n_sets(per))]
+            dec_k = getattr(decode_attn, "paged_decode_attention" + sfx)
+            dec_p = getattr(dec_ref, "paged_decode_reference" + sfx)
+
+            def kern(q, *pool, fn=dec_k):
+                return fn(q, *pool, pt, lens, scale=scale)
+
+            def plain(q, *pool, fn=dec_p):
+                return fn(q, *pool, pt, lens, scale=scale)
+
+            q0 = sets[0]
+            record("paged_decode_attention" + sfx,
+                   f"B={B} H={H} KV={KV} dh={dh} page={ps} pool={n_pages} "
+                   f"lens={lens_list}", dt, kern(*q0), plain(*q0),
+                   ATTN_TOL[dt], kern, plain, None, sets,
+                   2 * B * H * dh * e + live * KV * row * 2
+                   + 4 * (live_pages + B), 4.0 * H * dh * live)
+
+            csets = [(randn((1, C, H, dh), dtype), *pool[1:])
+                     for pool in sets[:min(8, len(sets))]]
+            ch_k = getattr(chunk_prefill, "paged_chunk_prefill" + sfx)
+            ch_p = getattr(dec_ref, "paged_chunk_prefill_reference" + sfx)
+
+            def ckern(q, *pool, fn=ch_k):
+                return fn(q, *pool, pt[2:3], off, scale=scale)
+
+            def cplain(q, *pool, fn=ch_p):
+                return fn(q, *pool, pt[2:3], off, scale=scale)
+
+            c0 = csets[0]
+            record("paged_chunk_prefill" + sfx,
+                   f"C={C} offset={off} H={H} KV={KV} dh={dh} page={ps} "
+                   f"pool={n_pages}", dt, ckern(*c0), cplain(*c0),
+                   ATTN_TOL[dt], ckern, cplain, None, csets,
+                   2 * C * H * dh * e + (off + C) * KV * row * 2
+                   + 4 * ((off + C) // ps), 4.0 * H * dh * visible)
+            del sets, csets
 
 
 def training_kernel_rows(torch, F, dts, randn, record, iters):
@@ -474,6 +572,12 @@ def random_params(torch, cfg, dtype, seed):
 
 
 def slice_phase(torch, seed):
+    """The 2-layer full-width cut through ``prefill_chunk`` + ``decode_step``
+    on contiguous caches, on paged pools (a 513-page pool of 16-token pages,
+    page ids a seeded permutation) and, in bf16, on int8 pools: the kernels
+    (``impl="pallas"``) against plain torch ops (``impl="xla"``) on the
+    same weights, and at f32 the paged kernels against the contiguous
+    ones."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.famous import FamousConfig
     from repro_torch.models import transformer
@@ -483,42 +587,65 @@ def slice_phase(torch, seed):
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     prompt = torch.randint(0, cfg.vocab_size, (1, 512), generator=gen,
                            device=dev)
-    n_slots, max_seq, C, n = 4, 2048, 256, 400
+    n_slots, max_seq, C, n, ps, n_pages = 4, 2048, 256, 400, 16, 513
+    pt = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1).to(
+        torch.int32).reshape(n_slots, max_seq // ps).contiguous()
     results = {}
+
+    def run(params, dtype, impl, kind):
+        fcfg = FamousConfig(impl=impl)
+        if kind == "contiguous":
+            caches = transformer.make_caches(cfg, n_slots, max_seq, dtype,
+                                             dev)
+            kw = {}
+        else:
+            caches = transformer.make_caches(
+                cfg, n_slots, max_seq, dtype, dev, cache_kind="paged",
+                page_size=ps, n_pages=n_pages,
+                kv_dtype="int8" if kind == "int8" else "fp")
+            kw = {"page_table": pt}
+        for start in (0, C):
+            transformer.prefill_chunk(
+                params, prompt[:, start:start + C], caches, 1, start,
+                min(C, n - start), cfg, fcfg, **kw)
+        last = torch.tensor([5, int(prompt[0, n - 1]), 9, 11], device=dev)
+        clen = torch.tensor([0, n - 1, 0, 0], dtype=torch.int32, device=dev)
+        lg, _ = transformer.decode_step(params, last, caches, clen, cfg, fcfg,
+                                        **kw)
+        return lg
+
     # tolerance relative to the largest logit: f32 differs only in the
     # order of sums; bf16 also rounds q/k/v and the attention output at
-    # other places on the two paths, and 2 layers carry that to the logits
-    for dt, dtype, tol in (("f32", torch.float32, 1e-4),
-                           ("bf16", torch.bfloat16, 5e-2)):
+    # other places on the two paths (int8 pools quantize what each path
+    # wrote), and 2 layers carry that to the logits
+    for dt, dtype, tol, kinds in (
+            ("f32", torch.float32, 1e-4, ("contiguous", "paged")),
+            ("bf16", torch.bfloat16, 5e-2, ("contiguous", "paged", "int8"))):
         params = random_params(torch, cfg, dtype, seed)
-        logits = {}
-        for impl in ("pallas", "xla"):
-            fcfg = FamousConfig(impl=impl)
-            caches = transformer.make_caches(cfg, n_slots, max_seq, dtype, dev)
-            for start in (0, C):
-                transformer.prefill_chunk(
-                    params, prompt[:, start:start + C], caches, 1, start,
-                    min(C, n - start), cfg, fcfg)
-            last = torch.tensor([5, int(prompt[0, n - 1]), 9, 11], device=dev)
-            clen = torch.tensor([0, n - 1, 0, 0], dtype=torch.int32,
-                                device=dev)
-            lg, _ = transformer.decode_step(params, last, caches, clen, cfg,
-                                            fcfg)
-            logits[impl] = lg
+        logits = {(kind, impl): run(params, dtype, impl, kind)
+                  for kind in kinds for impl in ("pallas", "xla")}
         torch.cuda.synchronize()
-        ref = logits["xla"]
-        err = float((logits["pallas"] - ref).abs().max())
-        limit = tol * float(ref.abs().max())
-        finite = bool(torch.isfinite(logits["pallas"]).all())
-        results[dt] = dict(max_abs_err=err, limit=limit,
-                           max_abs_logit=float(ref.abs().max()),
-                           shape=list(ref.shape))
-        print(f"slice parity {dt}: 2-layer qwen2-7b at full width, logits "
-              f"{tuple(ref.shape)}, max|kernels - plain| = {err:.3e} "
-              f"(limit {limit:.3e} = {tol:g} * max|logit|)",
-              flush=True)
-        check(finite and err <= limit,
-              f"slice parity {dt} failed: {results[dt]}")
+        pairs = [(kind, (kind, "pallas"), (kind, "xla")) for kind in kinds]
+        if dt == "f32":
+            pairs.append(("paged vs contiguous kernels", ("paged", "pallas"),
+                          ("contiguous", "pallas")))
+        for label, a, b in pairs:
+            ref = logits[b]
+            err = float((logits[a] - ref).abs().max())
+            limit = tol * float(ref.abs().max())
+            finite = bool(torch.isfinite(logits[a]).all())
+            key = dt if label == "contiguous" else f"{dt} {label}"
+            results[key] = dict(max_abs_err=err, limit=limit,
+                                max_abs_logit=float(ref.abs().max()),
+                                shape=list(ref.shape))
+            what = (label if label.endswith("kernels")
+                    else f"{label}: kernels vs plain")
+            print(f"slice parity {dt} {what}: 2-layer qwen2-7b at full "
+                  f"width, logits {tuple(ref.shape)}, max|diff| = "
+                  f"{err:.3e} (limit {limit:.3e} = {tol:g} * max|logit|)",
+                  flush=True)
+            check(finite and err <= limit,
+                  f"slice parity {key} failed: {results[key]}")
         del params, logits
         torch.cuda.empty_cache()
     return results
@@ -750,14 +877,131 @@ def serving_phase(torch, seed):
           f"{res['peak_mem_gb']:.1f} GB", flush=True)
     print("kernels " + json.dumps(launches), flush=True)
     res["steps"] = step_breakdown(torch, engine)
+    del engine
+    torch.cuda.empty_cache()
+    res["shared_prefix"] = shared_prefix_runs(torch, cfg, params, seed)
     return res
+
+
+# phase 8's shared-prefix traffic: the contiguous run the two paged runs
+# are compared with, then the two paged runs (page 16, the default pool)
+SHARED_PREFIX_RUNS = (
+    ("contiguous", {}),
+    ("paged", dict(cache_kind="paged", prefix_cache=True)),
+    ("paged int8", dict(cache_kind="paged", prefix_cache=True,
+                        kv_dtype="int8")),
+)
+
+
+def shared_prefix_runs(torch, cfg, params, seed):
+    """8 greedy requests, each a seeded 1024-token system prompt shared by
+    all plus its own 32-512-token suffix, 32 new tokens each, through the
+    full model with 4 slots, max_seq 2048 and chunk 256: on contiguous KV,
+    then on the paged pool with the prefix cache, then on int8 pools with
+    the prefix cache.  Requests 4-7 are admitted after the first retire and
+    must hit the 64 pages of the system prompt; only the paged kernels may
+    serve attention on the paged runs.  The share of tokens equal to the
+    contiguous run is reported, not gated: random weights leave near
+    ties."""
+    import numpy as np
+
+    from repro_torch.core.famous import FamousConfig
+    from repro_torch.kernels import lib
+    from repro_torch.obs.runtime import NullObserver
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    class PrefixHits(NullObserver):
+        """Each request's prefix-cache hit pages at its last admission."""
+
+        def __init__(self):
+            self.pages = {}
+
+        def on_prefix_lookup(self, rid, hit_pages, hit_tokens):
+            self.pages[rid] = hit_pages
+
+    rng = np.random.default_rng(seed + 3)
+    system = [int(t) for t in rng.integers(0, cfg.vocab_size, size=1024)]
+    suffixes = [int(n) for n in rng.integers(32, 513, size=8)]
+    prompts = [system + [int(t) for t in rng.integers(0, cfg.vocab_size,
+                                                      size=n)]
+               for n in suffixes]
+    out, ref_tokens = {}, None
+    for label, kw in SHARED_PREFIX_RUNS:
+        hits = PrefixHits()
+        engine = ServingEngine(params, cfg, FamousConfig(impl="pallas"),
+                               n_slots=4, max_seq=2048, dtype=torch.bfloat16,
+                               chunk=256, page_size=16, observer=hits,
+                               device="cuda", **kw)
+        reqs = [Request(rid=i, tokens=list(p), max_new=32)
+                for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        lib.STATS.reset()
+        t0 = time.perf_counter()
+        done = sorted(engine.run(reqs), key=lambda r: r.rid)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(lib.STATS.launches)
+        plain = dict(lib.STATS.plain_on_cuda)
+        check(len(done) == 8 and all(r.error is None for r in done),
+              f"{label}: {[(r.rid, r.error) for r in done]}")
+        for r in done:
+            check(len(r.out) == 32 and all(0 <= t < cfg.vocab_size
+                                           for t in r.out),
+                  f"{label}: request {r.rid} made {r.out}")
+        check(not any(plain.values()),
+              f"{label}: a plain version ran on CUDA tensors: {plain}")
+        outs = [r.out for r in done]
+        if ref_tokens is None:
+            ref_tokens = outs
+            check(all(launches[k] > 0 for k in SERVING_KERNELS),
+                  f"{label}: a kernel never launched: {launches}")
+        else:
+            paged = PAGED_KERNELS[kw.get("kv_dtype", "fp")]
+            check(all(launches[k] > 0 for k in paged)
+                  and launches["decode_attention"] == 0
+                  and launches["chunk_prefill"] == 0,
+                  f"{label}: attention did not run on {paged}: {launches}")
+            check(all(hits.pages.get(rid, 0) >= 64 for rid in range(4, 8)),
+                  f"{label}: prefix hit pages by request {hits.pages}")
+        same = sum(a == b for o, r in zip(outs, ref_tokens)
+                   for a, b in zip(o, r)) / sum(len(r) for r in ref_tokens)
+        toks = sum(len(o) for o in outs)
+        ttft = sorted(r.t_first - r.t_submit for r in done)
+        # engine steps from submission to first token: the prefix cache's
+        # effect on TTFT without the host's per-step time in it
+        ttft_steps = [engine.sched.fairness(r.rid)["ttft_steps"]
+                      for r in done]
+        res = dict(suffixes=suffixes, tokens=toks, wall_s=wall,
+                   tok_per_s=toks / wall, ttft_p50_s=float(np.median(ttft)),
+                   ttft_max_s=ttft[-1], ttft_steps=ttft_steps,
+                   ttft_steps_p50=float(np.median(ttft_steps)),
+                   prefix_hit_pages=engine.prefix_hit_pages,
+                   hit_pages_by_request=hits.pages,
+                   pool_bytes=engine.cache_bytes_per_device(),
+                   token_share_equal_to_contiguous=same, launches=launches)
+        print(f"serving {label} (shared 1024-token system prompt, suffixes "
+              f"{suffixes}): {toks} tokens in {wall:.2f}s = "
+              f"{toks / wall:.1f} tok/s, TTFT p50 "
+              f"{res['ttft_p50_s'] * 1e3:.0f} ms ({res['ttft_steps_p50']:g} "
+              f"steps; by request {ttft_steps}), prefix hit pages "
+              f"{engine.prefix_hit_pages} (by request {hits.pages}), KV "
+              f"bytes {res['pool_bytes']}, tokens equal to the contiguous "
+              f"run {same:.3f}", flush=True)
+        print("kernels " + json.dumps(launches), flush=True)
+        if label != "contiguous":
+            res["steps"] = step_breakdown(torch, engine)
+        out[label] = res
+        del engine
+        torch.cuda.empty_cache()
+    return out
 
 
 def step_breakdown(torch, engine):
     """Device time of one decode step (4 slots at 1024 cached tokens) and
     one 256-token prefill chunk (offset 1024) of the serving engine's model:
     the step's time from CUDA events, and its kernels' device time by
-    group from ``torch.profiler``."""
+    group from ``torch.profiler``.  A paged engine gets a page table with
+    80 private pages per slot (1280 tokens)."""
     from repro_torch.models import transformer
 
     dev = torch.device("cuda")
@@ -765,11 +1009,19 @@ def step_breakdown(torch, engine):
     last = torch.ones(engine.n_slots, dtype=torch.long, device=dev)
     clen = torch.full((engine.n_slots,), 1024, dtype=torch.int32, device=dev)
     chunk = torch.ones((1, engine.chunk), dtype=torch.long, device=dev)
+    kw = {}
+    if engine.paged:
+        per = (1024 + engine.chunk) // engine.pcfg.page_size
+        pt = torch.zeros((engine.n_slots, engine.alloc.pages_per_slot),
+                         dtype=torch.int32, device=dev)
+        pt[:, :per] = 1 + torch.arange(engine.n_slots * per, device=dev,
+                                       dtype=torch.int32).reshape(-1, per)
+        kw = {"page_table": pt}
     steps = {
         "decode_step": lambda: transformer.decode_step(p, last, caches, clen,
-                                                       cfg, fcfg),
+                                                       cfg, fcfg, **kw),
         "prefill_chunk": lambda: transformer.prefill_chunk(
-            p, chunk, caches, 0, 1024, engine.chunk, cfg, fcfg),
+            p, chunk, caches, 0, 1024, engine.chunk, cfg, fcfg, **kw),
     }
     out = {}
     for name, fn in steps.items():
@@ -799,7 +1051,7 @@ def profile_groups(torch, fn):
         if not us:
             continue
         key = ev.key
-        group = next((k for k in lib.KERNELS if k in key), None)
+        group = kernel_group(key, lib.KERNELS)
         if group is None:
             group = ("library GEMM" if any(
                 w in key.lower() for w in ("gemm", "gemv", "xmma",
@@ -810,6 +1062,17 @@ def profile_groups(torch, fn):
                   for ev in prof.key_averages()), reverse=True)
     return dict(device_ms=sum(groups.values()), by_group_ms=groups,
                 top_kernels=top[:12])
+
+
+def kernel_group(key, names):
+    """The port kernel a profiler key belongs to: the paged kernels by
+    their CUDA symbol (the int8 instantiation reads ``signed char``
+    pools), the others by their name."""
+    for sym, name in (("paged_decode_kernel", "paged_decode_attention"),
+                      ("paged_chunk_prefill_kernel", "paged_chunk_prefill")):
+        if sym in key:
+            return name + ("_int8" if "signed char" in key else "")
+    return next((k for k in names if k in key), None)
 
 
 def group_text(groups):
@@ -849,14 +1112,24 @@ def main(argv=None) -> int:
     print(f"build: {path} in {t_build:.1f}s", flush=True)
     print(ptxas_summary(lib.BUILD_LOG), flush=True)
 
-    rows = kernel_phase(torch, args.iters, args.seed)
-    table_one = table_one_phase(torch, args.seed)
-    parity = slice_phase(torch, args.seed)
-    train_parity = train_parity_phase(torch, args.seed)
-    training = training_phase(torch, args.seed)
-    serving = serving_phase(torch, args.seed)
+    phase_s = {}
+
+    def phase(name, fn, *a):
+        t = time.perf_counter()
+        res = fn(torch, *a)
+        phase_s[name] = time.perf_counter() - t
+        print(f"phase {name}: {phase_s[name]:.1f}s", flush=True)
+        return res
+
+    rows = phase("kernels", kernel_phase, args.iters, args.seed)
+    table_one = phase("table I", table_one_phase, args.seed)
+    parity = phase("slice parity", slice_phase, args.seed)
+    train_parity = phase("training parity", train_parity_phase, args.seed)
+    training = phase("training runs", training_phase, args.seed)
+    serving = phase("serving", serving_phase, args.seed)
 
     paths = [r["launches"] for r in training.values()] + [serving["launches"]]
+    paths += [r["launches"] for r in serving["shared_prefix"].values()]
     launches = {k: sum(p[k] for p in paths) for k in lib.KERNELS}
     check(all(v > 0 for v in launches.values()),
           f"a kernel never launched on the training and serving paths: "
@@ -864,7 +1137,11 @@ def main(argv=None) -> int:
     main_shape = {"matmul_tiled": "T=4 ", "decode_attention": "B=4",
                   "chunk_prefill": "C=256 offset=1792",
                   "mha_forward": "famous-bert", "mha_bwd_dq": "famous-bert",
-                  "mha_bwd_dkv": "famous-bert"}
+                  "mha_bwd_dkv": "famous-bert",
+                  "paged_decode_attention": "B=4",
+                  "paged_decode_attention_int8": "B=4",
+                  "paged_chunk_prefill": "C=256 offset=1792",
+                  "paged_chunk_prefill_int8": "C=256 offset=1792"}
     entries = []
     for name in lib.KERNELS:
         r = next(r for r in rows if r["name"] == name and r["dtype"] == "bf16"
@@ -882,7 +1159,8 @@ def main(argv=None) -> int:
                                    kernels=rows, table_one=table_one,
                                    slice_parity=parity,
                                    train_parity=train_parity,
-                                   training=training, serving=serving),
+                                   training=training, serving=serving,
+                                   phase_s=phase_s),
                               indent=1))
     print(json.dumps({"kernels": entries}))
     print(smi_line())

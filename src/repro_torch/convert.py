@@ -64,16 +64,17 @@ def train_state_from_jax(state: dict, device="cuda") -> dict:
 
 
 def caches_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> list:
-    """The JAX contiguous cache tree ``{"blocks": {"pos<i>": {"k", "v"}}}``
-    (stacked ``(num_units, B, S, kv, dh)`` leaves, plus ``tail<i>``) as the
-    port's per-layer caches."""
+    """The JAX cache tree ``{"blocks": {"pos<i>": {...}}}`` (stacked
+    ``(num_units, ...)`` leaves, plus ``tail<i>``) as the port's per-layer
+    caches, every leaf carried: contiguous ``k``/``v`` stripes, paged
+    pools, and the int8 pools' ``k_scale``/``v_scale``."""
     out = []
     for u in range(cfg.num_units):
         for i in range(len(cfg.pattern_unit)):
             c = tree["blocks"][f"pos{i}"]
-            out.append({n: to_torch(np.asarray(c[n])[u], device)
-                        for n in ("k", "v")})
+            out.append({n: to_torch(np.asarray(a)[u], device)
+                        for n, a in c.items()})
     for i in range(len(cfg.tail_layers)):
         c = tree[f"tail{i}"]
-        out.append({n: to_torch(c[n], device) for n in ("k", "v")})
+        out.append({n: to_torch(a, device) for n, a in c.items()})
     return out

@@ -17,7 +17,8 @@ of them, selected by ``FamousConfig.impl``:
 
 Ported: the projection, full-sequence attention (``attention`` with the
 flash autograd function of ``attention_xla``, and ``mha_block``), and the
-serving path's chunked-prefill and decode attention.
+serving path's chunked-prefill and decode attention, on contiguous caches
+and on paged pools (fp and int8).
 """
 from __future__ import annotations
 
@@ -347,6 +348,61 @@ def chunked_prefill_attention(q, k_cache, v_cache, q_offset: int, *,
     q_pos = q_offset + torch.arange(C, device=q.device)
     ok = torch.arange(Skv, device=q.device)[None, :] <= q_pos[:, None]
     return _dense_masked(q, k_cache, v_cache, ok[None, None], scale)
+
+
+def _gather_pools(k_pages, v_pages, page_table, k_scale, v_scale):
+    from repro_torch.kernels.decode import ref as dec_ref
+    pt = page_table.to(k_pages.device)
+    if k_scale is not None:
+        return (dec_ref.gather_pages_int8(k_pages, k_scale, pt),
+                dec_ref.gather_pages_int8(v_pages, v_scale, pt))
+    return (dec_ref.gather_pages(k_pages, pt),
+            dec_ref.gather_pages(v_pages, pt))
+
+
+def paged_chunked_prefill_attention(q, k_pages, v_pages, page_table,
+                                    q_offset: int, *, scale=None,
+                                    k_scale=None, v_scale=None,
+                                    cfg: FamousConfig = FamousConfig()):
+    """Chunked-prefill attention against a *paged* KV cache.
+
+    q: (B, C, H, dh) at positions ``[q_offset, q_offset + C)``; pools:
+    (n_pages, page_size, KV, dh); page_table: (B, n_p) int32.  The chunk's
+    K/V must already be in the slot's pages.  impl="pallas" runs the paged
+    kernels; other impls gather the table into a contiguous view and run
+    the dense chunked path.  ``k_scale``/``v_scale`` select the int8 pools.
+    """
+    dh = q.shape[-1]
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(dh)
+    if cfg.impl == "pallas":
+        from repro_torch.kernels.decode import ops as dec_ops
+        return dec_ops.paged_chunk_prefill_attention(
+            q, k_pages, v_pages, page_table, q_offset, k_scale=k_scale,
+            v_scale=v_scale, scale=scale)
+    k, v = _gather_pools(k_pages, v_pages, page_table, k_scale, v_scale)
+    return chunked_prefill_attention(q, k, v, q_offset, scale=scale, cfg=cfg)
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, cache_len, *,
+                           scale=None, k_scale=None, v_scale=None,
+                           cfg: FamousConfig = FamousConfig()):
+    """One-token attention against a *paged* KV cache.
+
+    q: (B, 1, H, dh); pools: (n_pages, page_size, KV, dh) shared by every
+    slot; page_table: (B, n_p) int32; cache_len: (B,) int32 valid entries
+    (the new token's K/V already written to its page).  impl="pallas" runs
+    the paged kernels; other impls gather the table into a contiguous
+    per-slot view and reuse the dense decode path.  ``k_scale``/``v_scale``
+    select the int8 pools."""
+    dh = q.shape[-1]
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(dh)
+    if cfg.impl == "pallas":
+        from repro_torch.kernels.decode import ops as dec_ops
+        return dec_ops.paged_decode_attention(
+            q, k_pages, v_pages, page_table, cache_len, k_scale=k_scale,
+            v_scale=v_scale, scale=scale)
+    k, v = _gather_pools(k_pages, v_pages, page_table, k_scale, v_scale)
+    return decode_attention(q, k, v, cache_len, scale=scale, cfg=cfg)
 
 
 # ---------------------------------------------------------------------------

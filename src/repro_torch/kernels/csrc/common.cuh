@@ -5,6 +5,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <type_traits>
+
 namespace famous {
 
 // dtype codes of the C interface (repro_torch/kernels/lib.py: DTYPE_CODE)
@@ -41,6 +44,34 @@ __device__ __forceinline__ float warp_sum(float v) {
 // inside the sliding window (kp > qp - window; window <= 0 is global).
 __device__ __forceinline__ bool key_visible(int qp, int kp, int causal, int window) {
   return (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
+}
+
+// Paged K/V pools (paged_decode_attention.cu, paged_chunk_prefill.cu) are
+// contiguous (n_pages, page_size, KV, dh) tensors; a "row" is one (token,
+// kv head) vector of dh elements, row = (page * page_size + pos % page_size)
+// * KV + kv_head.  int8 pools carry f32 (n_pages, page_size, KV) scale pools,
+// one scale per row.
+
+// The row of key `pos` of kv head `hk` in a slot whose page-table row is
+// `pt`.  An id outside [0, n_pages) reads the null page 0 instead of
+// faulting (the engine never writes one; XLA's gather clamps likewise).
+__device__ __forceinline__ long long pool_row(const int* pt, int pos, int ps, int KV, int hk,
+                                              int n_pages) {
+  int page = pt[pos / ps];
+  if (page < 0 || page >= n_pages) page = 0;
+  return ((long long)page * ps + pos % ps) * KV + hk;
+}
+
+// Element d of pool row `row` in f32: a cast from f32 or bf16, or the int8
+// value times the row's f32 scale (the in-tile dequantization of the int8
+// kernels, done before any product, as in the TPU kernels).
+template <typename E>
+__device__ __forceinline__ float pool_elem(const E* pool, const float* row_scale, long long row,
+                                           int dh, int d) {
+  if constexpr (std::is_same<E, int8_t>::value)
+    return static_cast<float>(pool[row * dh + d]) * row_scale[row];
+  else
+    return to_f(pool[row * dh + d]);
 }
 
 // Raise the dynamic shared-memory cap of `kernel` when a launch needs more

@@ -9,6 +9,12 @@ ending at run time at the last key its rows can see.  ``q_offset`` is a
 plain integer argument of the launch, so one build serves every offset.
 On CPU tensors it runs the plain version in
 :mod:`repro_torch.kernels.decode.ref`.
+
+``paged_chunk_prefill`` and ``paged_chunk_prefill_int8`` launch the
+kernels of ``kernels/csrc/paged_chunk_prefill.cu`` (the ports of the
+Pallas ``_paged_chunk_prefill_kernel`` and its int8 twin): the same
+design, reading each key through the slot's page table from a shared
+(n_pages, page_size, KV, dh) pool, f32/bf16 or int8 with f32 scales.
 """
 from __future__ import annotations
 
@@ -56,4 +62,67 @@ def _launch(q, k_cache, v_cache, q_offset, scale):
         float(scale), lib.stream_of(q))
     lib.check(NAME, err)
     lib.STATS.launches[NAME] += 1
+    return out
+
+
+PAGED = "paged_chunk_prefill"
+PAGED_INT8 = "paged_chunk_prefill_int8"
+
+
+def paged_chunk_prefill(q, k_pages, v_pages, page_table, q_offset: int, *,
+                        scale: float):
+    """q: (B, C, H, dh) at positions [q_offset, q_offset + C); pools:
+    (n_pages, page_size, KV, dh) with the chunk rows already written;
+    page_table: (B, n_p) int32 on the pools' device.  Returns
+    (B, C, H, dh)."""
+    if q.device.type == "cpu":
+        return ref.paged_chunk_prefill_reference(q, k_pages, v_pages,
+                                                 page_table, q_offset,
+                                                 scale=scale)
+    return _launch_paged(PAGED, q, k_pages, v_pages, None, None, page_table,
+                         int(q_offset), scale)
+
+
+def paged_chunk_prefill_int8(q, k_pages, v_pages, k_scale, v_scale,
+                             page_table, q_offset: int, *, scale: float):
+    """:func:`paged_chunk_prefill` on int8 pools with f32
+    (n_pages, page_size, KV) scale pools, dequantized in the kernel's
+    tiles."""
+    if q.device.type == "cpu":
+        return ref.paged_chunk_prefill_reference_int8(
+            q, k_pages, v_pages, k_scale, v_scale, page_table, q_offset,
+            scale=scale)
+    return _launch_paged(PAGED_INT8, q, k_pages, v_pages, k_scale, v_scale,
+                         page_table, int(q_offset), scale)
+
+
+def _launch_paged(name, q, k_pages, v_pages, k_scale, v_scale, page_table,
+                  q_offset, scale):
+    int8 = k_scale is not None
+    lib.require_cuda(name, q, k_pages, v_pages, page_table,
+                     *((k_scale, v_scale) if int8 else ()))
+    code = lib.require_dtype(name, q) if int8 else \
+        lib.require_dtype(name, q, k_pages, v_pages)
+    B, C, H, dh = q.shape
+    n_pages, ps, KV, _ = k_pages.shape
+    n_p = page_table.shape[-1]
+    lib.require_pool(name, k_pages, v_pages, k_scale, v_scale, dh, H)
+    if page_table.shape != (B, n_p):
+        raise ValueError(f"{name}: q {tuple(q.shape)}, page_table "
+                         f"{tuple(page_table.shape)}")
+    lib.require_int32(name, page_table)
+    if q_offset < 0:
+        raise ValueError(f"{name}: q_offset {q_offset} < 0")
+    if not q.is_contiguous():
+        raise ValueError(f"{name}: q must be contiguous")
+    out = torch.empty_like(q)
+    so = lib.load()
+    ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()]
+    if int8:
+        ptrs += [k_scale.data_ptr(), v_scale.data_ptr()]
+    err = getattr(so, f"famous_{name}")(
+        code, *ptrs, page_table.data_ptr(), out.data_ptr(), B, C, H, KV, dh,
+        ps, n_p, n_pages, q_offset, float(scale), lib.stream_of(q))
+    lib.check(name, err)
+    lib.STATS.launches[name] += 1
     return out

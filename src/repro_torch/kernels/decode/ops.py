@@ -1,10 +1,10 @@
 """Decode / chunked-prefill attention from the model's (B, S, H, dh)
-layout.
+layout, on contiguous caches and on paged pools (fp and int8).
 
-The JAX wrappers transpose q and both caches to kv-major rows on every
-call; the port's kernels read the model layout by strides, so the only
-layout work left here is dropping the decode step's unit sequence axis (a
-view) and making q contiguous for the kernels."""
+The JAX wrappers transpose q (and the contiguous caches) to kv-major rows
+on every call; the port's kernels read the model layout by strides, so the
+only layout work left here is dropping the decode step's unit sequence
+axis (a view) and making q contiguous for the kernels."""
 from __future__ import annotations
 
 import math
@@ -35,3 +35,42 @@ def chunk_prefill_attention(q, k_cache, v_cache, q_offset: int, *,
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     return chunk_kernels.chunk_prefill(q.contiguous(), k_cache, v_cache,
                                        int(q_offset), scale=scale)
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, cache_len, *,
+                           k_scale=None, v_scale=None, scale=None):
+    """q: (B, 1, H, dh); pools: (n_pages, page_size, KV, dh); page_table:
+    (B, n_p) int32; cache_len: (B,) valid entries.  ``k_scale``/``v_scale``
+    (f32 (n_pages, page_size, KV)) select the int8-pool kernel.  Returns
+    (B, 1, H, dh)."""
+    B, _, H, dh = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    dev = k_pages.device
+    lens = cache_len.to(device=dev, dtype=torch.int32).contiguous()
+    pt = page_table.to(device=dev, dtype=torch.int32).contiguous()
+    qf = q[:, 0].contiguous()
+    if k_scale is not None:
+        out = decode_attn.paged_decode_attention_int8(
+            qf, k_pages, v_pages, k_scale, v_scale, pt, lens, scale=scale)
+    else:
+        out = decode_attn.paged_decode_attention(qf, k_pages, v_pages, pt,
+                                                 lens, scale=scale)
+    return out.reshape(B, 1, H, dh)
+
+
+def paged_chunk_prefill_attention(q, k_pages, v_pages, page_table,
+                                  q_offset: int, *, k_scale=None,
+                                  v_scale=None, scale=None):
+    """q: (B, C, H, dh) at positions [q_offset, q_offset + C); pools:
+    (n_pages, page_size, KV, dh) with the chunk rows already written;
+    page_table: (B, n_p) int32; q_offset: a host integer.  ``k_scale``/
+    ``v_scale`` select the int8-pool kernel.  Returns (B, C, H, dh)."""
+    dh = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    pt = page_table.to(device=k_pages.device, dtype=torch.int32).contiguous()
+    if k_scale is not None:
+        return chunk_kernels.paged_chunk_prefill_int8(
+            q.contiguous(), k_pages, v_pages, k_scale, v_scale, pt,
+            int(q_offset), scale=scale)
+    return chunk_kernels.paged_chunk_prefill(q.contiguous(), k_pages, v_pages,
+                                             pt, int(q_offset), scale=scale)

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the decode and chunked-prefill attention
-kernels, at the kernels' own layouts.
+kernels, contiguous and paged (fp and int8 pools), at the kernels' own
+layouts.
 
 The kernel wrappers run them for tensors on the CPU; ``chip_smoke.py`` holds
 the CUDA kernels against them on the card.  Like the kernels they give a
@@ -20,12 +21,20 @@ def _softmax_pv(s: torch.Tensor, ok: torch.Tensor, v: torch.Tensor):
     return p @ v
 
 
+def _count(name: str, t: torch.Tensor) -> None:
+    if t.is_cuda:
+        STATS.plain_on_cuda[name] += 1
+
+
 def decode_reference(q, k_cache, v_cache, cache_len, *, scale: float):
     """q: (B, H, dh); caches: (B, Skv, KV, dh); cache_len: (B,) int.
     Returns (B, H, dh): query head h attends kv head h // (H // KV) at
     positions < cache_len[b]."""
-    if q.is_cuda:
-        STATS.plain_on_cuda["decode_attention"] += 1
+    _count("decode_attention", q)
+    return _decode(q, k_cache, v_cache, cache_len, scale)
+
+
+def _decode(q, k_cache, v_cache, cache_len, scale):
     B, H, dh = q.shape
     Skv, KV = k_cache.shape[1], k_cache.shape[2]
     g = H // KV
@@ -44,8 +53,11 @@ def chunk_prefill_reference(q, k_cache, v_cache, q_offset: int, *,
     """q: (B, C, H, dh) at positions [q_offset, q_offset + C); caches:
     (B, Skv, KV, dh) with the chunk rows already written.  Row c sees cache
     position j iff j <= q_offset + c.  Returns (B, C, H, dh)."""
-    if q.is_cuda:
-        STATS.plain_on_cuda["chunk_prefill"] += 1
+    _count("chunk_prefill", q)
+    return _chunk(q, k_cache, v_cache, q_offset, scale)
+
+
+def _chunk(q, k_cache, v_cache, q_offset, scale):
     B, C, H, dh = q.shape
     Skv, KV = k_cache.shape[1], k_cache.shape[2]
     g = H // KV
@@ -58,3 +70,65 @@ def chunk_prefill_reference(q, k_cache, v_cache, q_offset: int, *,
           <= (q_offset + torch.arange(C, device=q.device))[:, None])
     out = _softmax_pv(s, ok, vf)                              # (B, KV, g, C, dh)
     return out.permute(0, 3, 1, 2, 4).reshape(B, C, H, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# paged pools: (n_pages, page_size, KV, dh), addressed by (B, n_p) page ids
+# ---------------------------------------------------------------------------
+
+
+def gather_pages(pages, page_table):
+    """Flatten a page pool into per-slot contiguous caches.
+
+    pages: (n_pages, page_size, KV, dh); page_table: (B, n_p) int.
+    Returns (B, n_p * page_size, KV, dh)."""
+    n_p, ps = page_table.shape[1], pages.shape[1]
+    g = pages[page_table.long()]                  # (B, n_p, ps, KV, dh)
+    return g.reshape(g.shape[0], n_p * ps, *pages.shape[2:])
+
+
+def gather_pages_int8(pages, scale_pool, page_table):
+    """Dequantizing gather of an int8 pool: int8 (n_pages, ps, KV, dh) rows
+    times their f32 (n_pages, ps, KV) scales.  Returns f32 (B, n_p * ps,
+    KV, dh): what the int8 kernels compute tile by tile, made whole."""
+    g = gather_pages(pages, page_table).to(torch.float32)
+    s = gather_pages(scale_pool[..., None], page_table)
+    return g * s.to(torch.float32)
+
+
+def paged_decode_reference(q, k_pages, v_pages, page_table, cache_len, *,
+                           scale: float):
+    """q: (B, H, dh); pools: (n_pages, ps, KV, dh); page_table: (B, n_p);
+    cache_len: (B,).  Returns (B, H, dh)."""
+    _count("paged_decode_attention", q)
+    return _decode(q, gather_pages(k_pages, page_table),
+                   gather_pages(v_pages, page_table), cache_len, scale)
+
+
+def paged_decode_reference_int8(q, k_pages, v_pages, k_scale, v_scale,
+                                page_table, cache_len, *, scale: float):
+    """:func:`paged_decode_reference` on int8 pools with f32 scale pools."""
+    _count("paged_decode_attention_int8", q)
+    return _decode(q, gather_pages_int8(k_pages, k_scale, page_table),
+                   gather_pages_int8(v_pages, v_scale, page_table),
+                   cache_len, scale)
+
+
+def paged_chunk_prefill_reference(q, k_pages, v_pages, page_table,
+                                  q_offset: int, *, scale: float):
+    """q: (B, C, H, dh) at positions [q_offset, q_offset + C); pools as
+    :func:`paged_decode_reference`, the chunk rows already written.
+    Returns (B, C, H, dh)."""
+    _count("paged_chunk_prefill", q)
+    return _chunk(q, gather_pages(k_pages, page_table),
+                  gather_pages(v_pages, page_table), q_offset, scale)
+
+
+def paged_chunk_prefill_reference_int8(q, k_pages, v_pages, k_scale,
+                                       v_scale, page_table, q_offset: int,
+                                       *, scale: float):
+    """:func:`paged_chunk_prefill_reference` on int8 pools."""
+    _count("paged_chunk_prefill_int8", q)
+    return _chunk(q, gather_pages_int8(k_pages, k_scale, page_table),
+                  gather_pages_int8(v_pages, v_scale, page_table),
+                  q_offset, scale)

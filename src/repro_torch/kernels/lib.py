@@ -33,7 +33,9 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]
 KERNELS = ("matmul_tiled", "decode_attention", "chunk_prefill",
-           "mha_forward", "mha_bwd_dq", "mha_bwd_dkv")
+           "mha_forward", "mha_bwd_dq", "mha_bwd_dkv",
+           "paged_decode_attention", "paged_decode_attention_int8",
+           "paged_chunk_prefill", "paged_chunk_prefill_int8")
 
 # dtype codes of the C interface
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -140,6 +142,20 @@ _SIGNATURES = {
                           _I, _I, _I, _F, _P],
     "famous_mha_bwd_dkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _I, _I, _I, _F, _P],
+    # dtype, q, k, v, [k_scale, v_scale,] page_table, lens, out,
+    # B, H, KV, dh, page_size, n_p, n_pages, scale, stream
+    "famous_paged_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _I, _I, _I, _I, _F, _P],
+    "famous_paged_decode_attention_int8": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                           _I, _I, _I, _I, _I, _I, _I, _F,
+                                           _P],
+    # dtype, q, k, v, [k_scale, v_scale,] page_table, out,
+    # B, C, H, KV, dh, page_size, n_p, n_pages, q_offset, scale, stream
+    "famous_paged_chunk_prefill": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _I, _F, _P],
+    "famous_paged_chunk_prefill_int8": [_I, _P, _P, _P, _P, _P, _P, _P, _I,
+                                        _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                        _P],
 }
 
 
@@ -186,3 +202,35 @@ def require_dtype(name: str, *tensors: torch.Tensor) -> int:
         raise ValueError(f"{name}: float32 or bfloat16 operands of one dtype, "
                          f"got {[t.dtype for t in tensors]}")
     return DTYPE_CODE[dt]
+
+
+def require_int32(name: str, *tensors: torch.Tensor) -> None:
+    """Index operands (page tables, lengths): contiguous int32."""
+    for t in tensors:
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name}: index operands must be contiguous "
+                             f"int32, got {t.dtype}")
+
+
+def require_pool(name: str, k_pages, v_pages, k_scale, v_scale, dh: int,
+                 H: int) -> None:
+    """The paged kernels' pools: contiguous (n_pages, page_size, KV, dh)
+    K and V of one shape with KV dividing H; int8 pools with contiguous
+    f32 (n_pages, page_size, KV) scale pools, fp pools of the query's
+    dtype (checked by the caller) and no scales."""
+    if (k_pages.dim() != 4 or k_pages.shape != v_pages.shape
+            or k_pages.shape[3] != dh or H % k_pages.shape[2]):
+        raise ValueError(f"{name}: pools {tuple(k_pages.shape)}/"
+                         f"{tuple(v_pages.shape)} for dh={dh}, H={H}")
+    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
+        raise ValueError(f"{name}: pools must be contiguous")
+    if k_scale is None:
+        return
+    if k_pages.dtype != torch.int8 or v_pages.dtype != torch.int8:
+        raise ValueError(f"{name}: int8 pools, got {k_pages.dtype}")
+    for s in (k_scale, v_scale):
+        if (s.shape != k_pages.shape[:3] or s.dtype != torch.float32
+                or not s.is_contiguous()):
+            raise ValueError(f"{name}: scale pools must be contiguous f32 "
+                             f"{tuple(k_pages.shape[:3])}, got "
+                             f"{s.dtype} {tuple(s.shape)}")

@@ -41,6 +41,24 @@ def main(argv=None):
                     help="sampling temperature for every request (0 = greedy)")
     ap.add_argument("--top-k", type=int, default=0,
                     help="per-request top-k filter (0 = full vocab)")
+    ap.add_argument("--cache-kind", choices=("contiguous", "paged"),
+                    default="contiguous",
+                    help="KV-cache layout: per-slot max_seq stripes, or a "
+                         "shared page pool with per-slot page tables")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page (paged mode)")
+    ap.add_argument("--n-pages", type=int, default=0,
+                    help="pool pages incl. the null page (paged mode); 0 = "
+                         "full contiguous-equivalent capacity, less "
+                         "oversubscribes")
+    ap.add_argument("--kv-dtype", choices=("fp", "int8"), default="fp",
+                    help="KV-cache element type (paged only): int8 stores "
+                         "quantized pages plus per-token-per-kv-head f32 "
+                         "scale pools, dequantized inside the attention "
+                         "kernels")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share identical full prompt blocks across "
+                         "requests through refcounted pages (paged only)")
     ap.add_argument("--metrics", action="store_true",
                     help="attach an Observer and print the Prometheus text "
                          "exposition after the run")
@@ -62,7 +80,12 @@ def main(argv=None):
     engine = ServingEngine(params, cfg, FamousConfig(impl="pallas"),
                            n_slots=args.slots, max_seq=args.max_seq,
                            dtype=dtype, chunk=args.chunk,
-                           token_budget=args.token_budget, observer=obs,
+                           token_budget=args.token_budget,
+                           cache_kind=args.cache_kind,
+                           page_size=args.page_size,
+                           n_pages=args.n_pages or None,
+                           kv_dtype=args.kv_dtype,
+                           prefix_cache=args.prefix_cache, observer=obs,
                            device=device)
     rng = np.random.default_rng(args.seed)
     # prompt lengths from max_seq / 32 to three quarters of max_seq
@@ -83,7 +106,9 @@ def main(argv=None):
     tok = sum(len(r.out) for r in done)
     print(f"served {len(done)} requests, {tok} tokens in {dt:.2f}s "
           f"({tok / dt:.1f} tok/s) on {device}; kernel launches "
-          f"{engine.kernel_launches}")
+          f"{engine.kernel_launches}; KV cache "
+          f"{engine.cache_bytes_per_device()} bytes ({args.cache_kind}, "
+          f"{args.kv_dtype}), prefix hit pages {engine.prefix_hit_pages}")
     for r in sorted(done, key=lambda r: r.rid)[:3]:
         ttft = (r.t_first - r.t_submit) * 1e3 if r.t_first else float("nan")
         print(f"  req {r.rid}: prompt {len(r.tokens)} tokens -> "

@@ -1,13 +1,14 @@
 """Attention block: GQA dense MHA built on the FAMOUS core — full-sequence
-attention for training and encoders, and a contiguous per-slot KV cache
-for serving (the port of ``repro.models.attention``, global-attention
-branch).
+attention for training and encoders, and for serving a contiguous
+per-slot KV cache or a shared page pool, fp or int8 (the port of
+``repro.models.attention``, global-attention branch).
 
 Cache writes are **in place**: ``apply_attn_chunk`` writes the chunk's K/V
-into ``cache["k"][slot, offset:offset+C]`` and ``apply_attn_decode`` writes
-each slot's new K/V at its ``cache_len``, mutating the tensors the caller
-passed.  The JAX functions are functional (they return updated copies);
-both return the cache so the call sites read alike.
+into ``cache["k"][slot, offset:offset+C]``, ``apply_attn_decode`` writes
+each slot's new K/V at its ``cache_len``, and the paged twins scatter rows
+into the pool pages their page table names, mutating the tensors the
+caller passed.  The JAX functions are functional (they return updated
+copies); all return the cache so the call sites read alike.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import famous
+from repro_torch.core import quant as quant_lib
 from repro_torch.models import layers
 from repro_torch.models.module import ParamSpec
 
@@ -59,6 +61,71 @@ def make_attn_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
     shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def make_paged_attn_cache(cfg: ModelConfig, n_pages: int, page_size: int,
+                          dtype, kv_dtype: str = "fp", device="cuda") -> dict:
+    """Shared page pool of one global-attention layer: every slot's K/V
+    live in fixed-size pages addressed through its page table (the pool
+    has no slot axis).  ``kv_dtype="int8"`` stores int8 pools with f32
+    ``k_scale``/``v_scale`` pools of shape (n_pages, page_size, kv), one
+    symmetric scale per (token, kv head), written in the same scatter as
+    the row, so a scale row shares its page's id and lifetime."""
+    shape = (n_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+    if kv_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=device),
+                "v_scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _kv_quantize(x):
+    """Per-(token, kv head) symmetric int8 over head_dim: x (..., kv, dh)
+    -> (int8 (..., kv, dh), f32 scale (..., kv))."""
+    q, s = quant_lib.quantize(x, axis=-1)
+    return q, s[..., 0]
+
+
+def _paged_write(cache: dict, pids, offs, k, v) -> dict:
+    """Write per-token K/V rows (..., kv, dh) into the pool at page
+    ``pids``, row ``offs`` in place, quantizing when the pool is int8
+    (``k_scale`` present).  Duplicate (pid, off) pairs only ever name the
+    null page, which nothing reads as valid."""
+    if "k_scale" in cache:
+        kq, ks = _kv_quantize(k)
+        vq, vs = _kv_quantize(v)
+        cache["k"][pids, offs] = kq
+        cache["v"][pids, offs] = vq
+        cache["k_scale"][pids, offs] = ks
+        cache["v_scale"][pids, offs] = vs
+    else:
+        cache["k"][pids, offs] = k.to(cache["k"].dtype)
+        cache["v"][pids, offs] = v.to(cache["v"].dtype)
+    return cache
+
+
+def _pool_scales(cache: dict) -> dict:
+    """kwargs routing famous.* paged attention onto the int8 pools."""
+    if "k_scale" in cache:
+        return {"k_scale": cache["k_scale"], "v_scale": cache["v_scale"]}
+    return {}
+
+
+def _page_of(page_table, positions, page_size: int):
+    """Page ids of ``positions`` (tensor, broadcast against the table's
+    leading axes) from a (..., n_p) page table.  A position past the table
+    maps to the null page: torch indexing raises where JAX's gather clamps,
+    and a clamped write would land in the slot's last, possibly live,
+    page."""
+    n_p = page_table.shape[-1]
+    blk = torch.div(positions, page_size, rounding_mode="floor")
+    inside = blk < n_p
+    pids = torch.gather(page_table, -1, blk.clamp(max=n_p - 1))
+    return torch.where(inside, pids, torch.zeros_like(pids))
 
 
 def _project(p, x, cfg: ModelConfig, fcfg: famous.FamousConfig, positions):
@@ -132,4 +199,50 @@ def apply_attn_decode(p: dict, x: torch.Tensor, cache: dict,
     cache["v"][rows, at] = v[:, 0].to(cache["v"].dtype)
     out = famous.decode_attention(q, cache["k"], cache["v"], cache_len + 1,
                                   cfg=fcfg)
+    return _out_proj(out, p["wo"]), cache
+
+
+def apply_attn_chunk_paged(p: dict, x: torch.Tensor, cache: dict,
+                           page_table: torch.Tensor, slot: int, offset: int,
+                           cfg: ModelConfig, fcfg: famous.FamousConfig):
+    """Chunked prefill against the shared page pool.
+
+    x: (1, C, D) at absolute positions [offset, offset+C); cache: pools
+    (n_pages, page_size, kv, dh); page_table: (n_slots, n_p) int32 on the
+    device.  The chunk's K/V go to page ``page_table[slot, p // ps]``, row
+    ``p % ps``; pad positions past the slot's pages land on the null page.
+    With a prefix-cache hit ``offset`` starts past the slot's shared pages,
+    so every write lands in a private page.  Returns (out, cache)."""
+    C = x.shape[1]
+    positions = offset + torch.arange(C, device=x.device)
+    q, k, v = _project(p, x, cfg, fcfg, positions)
+    ps = cache["k"].shape[1]
+    pt_row = page_table[slot:slot + 1]                     # (1, n_p)
+    pids = _page_of(pt_row[0], positions, ps)
+    _paged_write(cache, pids, positions % ps, k[0], v[0])
+    out = famous.paged_chunked_prefill_attention(
+        q, cache["k"], cache["v"], pt_row, offset, cfg=fcfg,
+        **_pool_scales(cache))
+    return _out_proj(out, p["wo"]), cache
+
+
+def apply_attn_decode_paged(p: dict, x: torch.Tensor, cache: dict,
+                            page_table: torch.Tensor, cache_len: torch.Tensor,
+                            cfg: ModelConfig, fcfg: famous.FamousConfig):
+    """One-token decode against the shared page pool.
+
+    x: (B, 1, D); page_table: (B, n_p) int32 and cache_len: (B,) int32
+    valid entries BEFORE this token, both on the device.  The new token's
+    K/V go to page ``page_table[b, len // ps]``, row ``len % ps``: a
+    private page of a decoding slot (aliased prefix pages lie before it),
+    the null page of a free slot, the next private page of a slot mid
+    prefill (its next chunk overwrites the junk).  Returns (out, cache)."""
+    positions = cache_len[:, None]
+    q, k, v = _project(p, x, cfg, fcfg, positions)
+    ps = cache["k"].shape[1]
+    pids = _page_of(page_table, positions.long(), ps)[:, 0]
+    _paged_write(cache, pids, cache_len.long() % ps, k[:, 0], v[:, 0])
+    out = famous.paged_decode_attention(q, cache["k"], cache["v"], page_table,
+                                        cache_len + 1, cfg=fcfg,
+                                        **_pool_scales(cache))
     return _out_proj(out, p["wo"]), cache

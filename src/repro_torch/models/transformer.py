@@ -14,8 +14,10 @@ Parameters come in two layouts:
 
 JAX's ``lax.scan`` over the stacked units becomes a loop over them; its
 ``jax.checkpoint`` around each unit becomes ``torch.utils.checkpoint``.
-Caches are one contiguous ``{"k", "v"}`` pair per layer, written in place
-(see ``models/attention.py``).
+Caches are one ``{"k", "v"}`` pair per layer — contiguous per-slot stripes,
+or a shared page pool (plus f32 scale pools when int8) that the serving
+steps address through a ``page_table`` — written in place (see
+``models/attention.py``).
 """
 from __future__ import annotations
 
@@ -189,30 +191,59 @@ def _compute_dtype(params):
 
 
 def make_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype,
-                device="cuda") -> list:
-    """One contiguous ``(batch, max_seq, kv, dh)`` K/V pair per layer."""
+                device="cuda", *, cache_kind: str = "contiguous",
+                page_size: int = 0, n_pages: int = 0,
+                kv_dtype: str = "fp") -> list:
+    """One K/V cache per layer.
+
+    cache_kind="contiguous": a ``(batch, max_seq, kv, dh)`` pair per layer.
+    cache_kind="paged": a shared ``(n_pages, page_size, kv, dh)`` pool per
+    layer, addressed through the page table that ``prefill_chunk`` and
+    ``decode_step`` receive; memory then follows live tokens, not
+    ``batch x max_seq`` (see ``serve/paged.py``).  kv_dtype="int8" (paged
+    only) stores int8 pools with f32 per-token scale pools; writes
+    quantize, the kernels dequantize in their tiles."""
     _check_supported(cfg)
-    return [attention.make_attn_cache(cfg, batch, max_seq, dtype, device)
+    if cache_kind not in ("contiguous", "paged"):
+        raise ValueError(f"cache_kind {cache_kind!r}")
+    if kv_dtype not in ("fp", "int8"):
+        raise ValueError(f"kv_dtype {kv_dtype!r}")
+    if cache_kind == "contiguous":
+        if kv_dtype != "fp":
+            raise ValueError("kv_dtype='int8' requires paged caches")
+        return [attention.make_attn_cache(cfg, batch, max_seq, dtype, device)
+                for _ in range(cfg.num_layers)]
+    if page_size <= 0 or n_pages <= 0:
+        raise ValueError(f"paged caches need page_size and n_pages, got "
+                         f"{page_size}, {n_pages}")
+    return [attention.make_paged_attn_cache(cfg, n_pages, page_size, dtype,
+                                            kv_dtype, device)
             for _ in range(cfg.num_layers)]
 
 
 def prefill_chunk(params, tokens, caches, slot: int, offset: int,
                   n_valid: int, cfg: ModelConfig,
-                  fcfg: FamousConfig = FamousConfig()):
+                  fcfg: FamousConfig = FamousConfig(), page_table=None):
     """One fixed-shape prefill chunk for a single slot of the batched caches.
 
     tokens: (1, C) int at absolute positions [offset, offset+C); only the
     first ``n_valid`` are real (the pad tail's junk K/V is never read).
-    Writes K/V for ``slot`` into the caches in place.  ``slot``, ``offset``
-    and ``n_valid`` are host integers.  Returns the caches only: prefill
-    logits are dead weight (generation restarts by decoding the last prompt
-    token), so the LM head is never computed."""
+    Writes K/V for ``slot`` into the caches in place — its contiguous
+    stripe, or, given ``page_table`` ((n_slots, n_p) int32 on the device),
+    its pages of the pools.  ``slot``, ``offset`` and ``n_valid`` are host
+    integers.  Returns the caches only: prefill logits are dead weight
+    (generation restarts by decoding the last prompt token), so the LM
+    head is never computed."""
     del n_valid  # attention-only stacks mask the pad tail causally
     x = layers.embed_lookup(params["embed"], tokens, _compute_dtype(params))
     for p, cache in zip(params["layers"], caches):
-        a, _ = attention.apply_attn_chunk(
-            p["attn"], layers.apply_norm(p["ln1"], x, cfg.norm), cache, slot,
-            offset, cfg, fcfg)
+        h = layers.apply_norm(p["ln1"], x, cfg.norm)
+        if page_table is not None:
+            a, _ = attention.apply_attn_chunk_paged(
+                p["attn"], h, cache, page_table, slot, offset, cfg, fcfg)
+        else:
+            a, _ = attention.apply_attn_chunk(p["attn"], h, cache, slot,
+                                              offset, cfg, fcfg)
         x = x + a
         x = x + layers.apply_mlp(
             p["ffn"], layers.apply_norm(p["ln2"], x, cfg.norm), cfg.act)
@@ -220,18 +251,23 @@ def prefill_chunk(params, tokens, caches, slot: int, offset: int,
 
 
 def decode_step(params, tokens, caches, cache_len, cfg: ModelConfig,
-                fcfg: FamousConfig = FamousConfig()):
-    """tokens: (B,) int; cache_len: (B,) int32 on the device.  Runs over
-    every slot (fixed batch): attention caches need no ``active`` mask, as
-    the junk K/V of inactive slots is masked by ``cache_len`` and
-    overwritten by the next chunk.  Returns (logits (B, vocab) f32,
-    caches)."""
+                fcfg: FamousConfig = FamousConfig(), page_table=None):
+    """tokens: (B,) int; cache_len: (B,) int32 on the device; page_table:
+    optional (B, n_p) int32 on the device, given when the caches are page
+    pools.  Runs over every slot (fixed batch): attention caches need no
+    ``active`` mask, as the junk K/V of inactive slots is masked by
+    ``cache_len`` and overwritten by the next chunk (or lands on the null
+    page).  Returns (logits (B, vocab) f32, caches)."""
     x = layers.embed_lookup(params["embed"], tokens[:, None],
                             _compute_dtype(params))
     for p, cache in zip(params["layers"], caches):
-        a, _ = attention.apply_attn_decode(
-            p["attn"], layers.apply_norm(p["ln1"], x, cfg.norm), cache,
-            cache_len, cfg, fcfg)
+        h = layers.apply_norm(p["ln1"], x, cfg.norm)
+        if page_table is not None:
+            a, _ = attention.apply_attn_decode_paged(
+                p["attn"], h, cache, page_table, cache_len, cfg, fcfg)
+        else:
+            a, _ = attention.apply_attn_decode(p["attn"], h, cache,
+                                               cache_len, cfg, fcfg)
         x = x + a
         x = x + layers.apply_mlp(
             p["ffn"], layers.apply_norm(p["ln2"], x, cfg.norm), cfg.act)
@@ -239,9 +275,14 @@ def decode_step(params, tokens, caches, cache_len, cfg: ModelConfig,
     return logits_fn(params, x, cfg)[:, 0], caches
 
 
-def clear_slot(caches, slot: int) -> list:
+def clear_slot(caches, slot: int, paged: bool = False) -> list:
     """Zero slot ``slot``'s cache rows in place (stale-state hygiene for
-    length-1 admissions that skip prefill)."""
+    length-1 admissions that skip prefill).  Page pools have no slot axis
+    (``buf[slot]`` would be page ``slot``, a live page) and are left
+    alone: the slot's pages were freed, and any stale content is
+    unreachable (its table row is null, reads are ``cache_len``-masked)."""
+    if paged:
+        return caches
     for cache in caches:
         for buf in cache.values():
             buf[slot].zero_()

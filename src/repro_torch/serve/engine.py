@@ -9,17 +9,25 @@ one slot at a runtime offset, written straight into the slot's cache
 rows), then one batched decode across all slots
 (``transformer.decode_step``), then greedy or seeded sampling.
 
-This slice of the port serves the contiguous cache with chunked prefill and
-plain decode.  ``cache_kind="paged"``, ``prefix_cache``, ``speculative``,
-``kv_dtype="int8"``, ``mesh`` and ``prefill_mode="monolithic"`` raise
-``NotImplementedError`` naming the ROADMAP slice that brings them.
+The KV cache is per-slot contiguous stripes, or (``cache_kind="paged"``)
+one shared page pool per layer with the host-side
+:class:`~repro_torch.serve.paged.PageAllocator` doing admission control,
+youngest-first preemption and, with ``prefix_cache=True``, aliasing of
+identical full prompt blocks across requests (admission maps cached
+blocks into the page table and prefill starts at the first uncached
+token; retirement publishes the prompt's blocks onto the cached-free
+LRU).  ``kv_dtype="int8"`` (paged only) quantizes K/V at write time and
+the paged kernels dequantize in their tiles.  ``speculative``, ``mesh``
+and ``prefill_mode="monolithic"`` raise ``NotImplementedError`` naming the
+ROADMAP slice that brings them.
 
 PyTorch runs eagerly, so there is no executable cache: ``compilations``
 reports zero executables of each kind (the kernels are built once, into one
 shared library), and ``kernel_launches`` reads the kernel wrappers' launch
 counters.  Per-slot sequence state lives on the host as numpy arrays and is
-copied to the device once per launch; each decode step makes exactly one
-device->host sync, to read the sampled tokens.
+copied to the device once per launch (the page table only when the
+allocator changed it); each decode step makes exactly one device->host
+sync, to read the sampled tokens.
 
 Observability is one injectable seam: pass
 ``observer=repro_torch.obs.Observer(...)``.
@@ -40,6 +48,8 @@ from repro_torch.models import transformer
 from repro_torch.obs.runtime import NULL_OBSERVER
 from repro_torch.obs.trace import now as _clock
 from repro_torch.serve import sampling
+from repro_torch.serve.paged import (PageAllocator, PagedCacheConfig,
+                                     PagePoolExhausted, block_hashes)
 from repro_torch.serve.scheduler import DECODE, Scheduler, SchedulerConfig
 
 
@@ -55,7 +65,7 @@ class Request:
     seed: Optional[int] = None
     out: list = dataclasses.field(default_factory=list)
     done: bool = False
-    error: Optional[str] = None
+    error: Optional[str] = None  # set when the page pool can never back it
     # wall-clock marks for TTFT/TPOT accounting (repro_torch.obs.trace.now)
     t_submit: Optional[float] = None
     t_first: Optional[float] = None
@@ -85,21 +95,17 @@ class ServingEngine:
 
     def __init__(self, params, cfg: ModelConfig, fcfg: FamousConfig,
                  n_slots: int = 4, max_seq: int = 256, dtype=torch.float32,
-                 cache_kind: str = "contiguous", prefill_mode: str = "chunked",
+                 cache_kind: str = "contiguous", page_size: int = 16,
+                 n_pages: Optional[int] = None, prefill_mode: str = "chunked",
                  chunk: int = 32, token_budget: int = 0,
                  prefix_cache: bool = False, speculative: bool = False,
                  kv_dtype: str = "fp", mesh=None, observer=None,
                  device="cuda"):
         """``params``: the spec tree (``init_params(model_spec(cfg))`` or
         ``convert.params_from_jax``) or the serving layout of
-        ``transformer.prepare_params``, on ``device``."""
-        if cache_kind == "paged":
-            raise _not_ported("cache_kind='paged'", "slice 4 (paged KV)")
-        if prefix_cache:
-            raise _not_ported("prefix_cache", "slice 4 (paged KV and the "
-                              "prefix cache)")
-        if kv_dtype == "int8":
-            raise _not_ported("kv_dtype='int8'", "slice 5 (int8 KV)")
+        ``transformer.prepare_params``, on ``device``.  ``n_pages`` (paged
+        only) counts the null page; ``None`` backs a full batch of
+        ``max_seq`` sequences, less oversubscribes the pool."""
         if speculative:
             raise _not_ported("speculative", "slice 6 (speculative verify)")
         if mesh is not None:
@@ -107,9 +113,17 @@ class ServingEngine:
         if prefill_mode == "monolithic":
             raise _not_ported("prefill_mode='monolithic'",
                               "slice 7 (monolithic prefill)")
-        assert cache_kind == "contiguous", cache_kind
-        assert prefill_mode == "chunked", prefill_mode
-        assert kv_dtype == "fp", kv_dtype
+        if cache_kind not in ("contiguous", "paged"):
+            raise ValueError(f"cache_kind {cache_kind!r}")
+        if prefill_mode != "chunked":
+            raise ValueError(f"prefill_mode {prefill_mode!r}")
+        if kv_dtype not in ("fp", "int8"):
+            raise ValueError(f"kv_dtype {kv_dtype!r}")
+        if kv_dtype == "int8" and cache_kind != "paged":
+            raise ValueError("kv_dtype='int8' requires cache_kind='paged'")
+        if prefix_cache and cache_kind != "paged":
+            raise ValueError("prefix_cache requires cache_kind='paged' and "
+                             "chunked prefill")
         self.device = resolve_device(device)
         self.obs = observer if observer is not None else NULL_OBSERVER
         self.params = transformer.prepare_params(params, cfg)
@@ -118,6 +132,7 @@ class ServingEngine:
         self.n_slots = n_slots
         self.max_seq = max_seq
         self.dtype = dtype
+        self.paged = cache_kind == "paged"
         self.chunk = min(chunk, max_seq)
         # pads stay inside the cache (positions < ceil(target/C)*C <= max_seq)
         assert max_seq % self.chunk == 0, (max_seq, self.chunk)
@@ -125,13 +140,36 @@ class ServingEngine:
         self.sched = Scheduler(n_slots, SchedulerConfig(
             chunk=self.chunk, token_budget=token_budget, decode_width=1),
             observer=self.obs)
-        self.caches = transformer.make_caches(cfg, n_slots, max_seq, dtype,
-                                              self.device)
+        if self.paged:
+            assert max_seq % page_size == 0, (max_seq, page_size)
+            if n_pages is None:
+                n_pages = PagedCacheConfig.default_pool(n_slots, max_seq,
+                                                        page_size)
+            self.pcfg = PagedCacheConfig(page_size=page_size, n_pages=n_pages)
+            self.alloc = PageAllocator(self.pcfg, n_slots, max_seq,
+                                       observer=self.obs)
+            self.caches = transformer.make_caches(
+                cfg, n_slots, max_seq, dtype, self.device, cache_kind="paged",
+                page_size=page_size, n_pages=n_pages, kv_dtype=kv_dtype)
+        else:
+            self.caches = transformer.make_caches(cfg, n_slots, max_seq,
+                                                  dtype, self.device)
+        # the port's stacks are all global attention, so every prefix is
+        # content-addressable in the pool (the JAX engine's
+        # ``prefix_shareable`` is always true here)
+        self.prefix_cache_active = prefix_cache
+        self.prefix_lookups = 0        # admissions that probed the index
+        self.prefix_hit_pages = 0      # pages aliased instead of allocated
+        self.prefix_hit_tokens = 0     # tokens whose prefill was skipped
+        self._slot_hashes: list[Optional[list]] = [None] * n_slots
         # per-slot sequence state lives on the HOST: slot-granular updates
         # are plain numpy writes, copied to the device once per launch
         self.cache_len = np.zeros((n_slots,), np.int32)
         self.last_token = np.zeros((n_slots,), np.int32)
         self._slot_seq: list[Optional[list]] = [None] * n_slots
+        self._failed: list[Request] = []
+        self._pt_version = -1          # device page-table cache key
+        self._pt_device = None
         self.obs.register_census(lambda: self.compilations)
 
     @property
@@ -147,41 +185,148 @@ class ServingEngine:
         (``repro_torch.kernels.lib.STATS``)."""
         return dict(lib.STATS.launches)
 
+    def cache_bytes_per_device(self) -> int:
+        """KV cache bytes resident on the (one) device: the pools and, for
+        int8, their scale pools."""
+        return sum(buf.numel() * buf.element_size()
+                   for cache in self.caches for buf in cache.values())
+
+    def _page_table(self):
+        """Device copy of the page table, re-uploaded only when the
+        allocator mutated it (steady-state decode reuses it)."""
+        if self._pt_version != self.alloc.version:
+            self._pt_device = torch.from_numpy(self.alloc.page_table).to(
+                self.device)
+            self._pt_version = self.alloc.version
+        return self._pt_device
+
     # -- admission ------------------------------------------------------------
+    def _prefix_hashes(self, req: Request, n: int):
+        """(prompt-block hashes, lookup cap) for an admission of total
+        sequence length ``n``.  Only full prompt blocks inside the first
+        ``n - 1`` tokens may be aliased: decode restarts at token ``n - 1``
+        and writes its K/V, so the page holding position ``n - 1`` must be
+        private.  Memoized on the request (a request deferred at the queue
+        head is probed every step)."""
+        ps = self.pcfg.page_size
+        cached = getattr(req, "_block_hashes", None)
+        if cached is None or cached[0] != ps:
+            cached = (ps, block_hashes(req.tokens, ps))
+            req._block_hashes = cached
+        hashes = cached[1]
+        return hashes, min(len(hashes), (n - 1) // ps)
+
     def add_request(self, req: Request) -> int:
         """Admit a request into a free slot.  No prefill happens here: the
-        scheduler doles the prompt out as chunks inside :meth:`step`."""
+        scheduler doles the prompt out as chunks inside :meth:`step`.  Paged
+        mode reserves the sequence's pages first; on
+        :class:`PagePoolExhausted` the engine state is untouched.  With the
+        prefix cache, every full prompt block that hits the index is
+        aliased into the slot's page table and prefill starts at the first
+        uncached token.  A preempted request (non-empty ``req.out``)
+        re-prefills prompt + generated-so-far, minus any cached head."""
         slot = self.sched.free_slot()
         assert slot is not None, "no free slot"
         seq = list(req.tokens) + list(req.out)
         n = len(seq)
         assert 1 <= n <= self.max_seq
-        state = self.sched.bind(slot, req, n, cached=0)
+        n_cached = 0
+        if self.paged:
+            if self.prefix_cache_active:
+                hashes, cap = self._prefix_hashes(req, n)
+                hits = self.alloc.lookup(hashes[:cap])
+                self.prefix_lookups += 1
+                self.obs.on_prefix_lookup(req.rid, len(hits),
+                                          len(hits) * self.pcfg.page_size)
+                if hits:
+                    self.alloc.map_prefix(slot, hits)
+                    n_cached = len(hits) * self.pcfg.page_size
+                    self.prefix_hit_pages += len(hits)
+                    self.prefix_hit_tokens += n_cached
+                self._slot_hashes[slot] = hashes
+            try:
+                self.alloc.grow(slot, n)  # PagePoolExhausted if oversize
+            except PagePoolExhausted:
+                self.alloc.free(slot)     # roll back any mapped prefix
+                self._slot_hashes[slot] = None
+                raise
+        state = self.sched.bind(slot, req, n, cached=n_cached)
         self._slot_seq[slot] = seq
         if req.t_submit is None:
             req.t_submit = _clock()
         if state == DECODE and self.sched.slots[slot].target == 0:
             # nothing to prefill: clear any stale per-slot state
-            transformer.clear_slot(self.caches, slot)
+            transformer.clear_slot(self.caches, slot, paged=self.paged)
         if state == DECODE:
             # generation restarts at the last prompt token: it is re-decoded
-            # so its K/V entry lands at position n-1
+            # so its K/V entry lands at position n-1 (a private page, even
+            # when everything before it was a prefix-cache hit)
             self.cache_len[slot] = n - 1
             self.last_token[slot] = seq[-1]
         else:
-            self.cache_len[slot] = 0
+            self.cache_len[slot] = n_cached
         return slot
+
+    # -- preemption / page growth ---------------------------------------------
+    def _preempt(self, slot: int) -> None:
+        """Evict a running sequence: free its pages and queue it for
+        re-admission ahead of fresh requests.  Its generated tokens stay on
+        the request; resuming is a longer chunked prefill."""
+        req = self.sched.preempt(slot)
+        self.cache_len[slot] = 0
+        self._slot_seq[slot] = None
+        self._slot_hashes[slot] = None   # partial prefill: never published
+        self.alloc.free(slot)
+        self.sched.enqueue(req, front=True)
+
+    def _fail_slot(self, slot: int, err: str) -> None:
+        req = self.sched.release(slot)
+        req.error, req.done = err, True
+        req.t_done = _clock()
+        self.cache_len[slot] = 0
+        self._slot_seq[slot] = None
+        self._slot_hashes[slot] = None
+        if self.paged:
+            self.alloc.free(slot)
+        self.obs.on_retire(req, slot)
+        self._failed.append(req)
+
+    def _grow_active(self, active: list) -> list:
+        """Reserve the next token's page for every decoding slot, preempting
+        youngest-first when the pool runs dry.  A lone sequence that cannot
+        grow is failed rather than crashing."""
+        for i in list(active):
+            if i not in active:
+                continue
+            while True:
+                try:
+                    self.alloc.grow(i, int(self.cache_len[i]) + 1)
+                    break
+                except PagePoolExhausted as e:
+                    victim = self.sched.preempt_victim()
+                    if victim == i and len(self.sched.occupied()) == 1:
+                        self._fail_slot(i, str(e))
+                        active.remove(i)
+                        break
+                    self._preempt(victim)
+                    if victim in active:
+                        active.remove(victim)
+                    if victim == i:
+                        break
+        return active
 
     # -- the step -------------------------------------------------------------
     def step(self):
         """Execute one scheduler plan: budgeted prefill chunks, then one
         batched decode across the decoding slots.  Returns the requests
-        that finished this step."""
+        that finished (or, paged, failed) this step."""
         finished = []
         self.obs.on_step(
             queue_depth=len(self.sched.resume) + len(self.sched.pending),
             occupied=len(self.sched.occupied()))
         plan = self.sched.plan()
+        kw = {"page_table": self._page_table()} \
+            if self.paged and plan.chunks else {}
         for ch in plan.chunks:
             seq = self._slot_seq[ch.slot]
             toks = np.zeros((1, self.chunk), np.int64)
@@ -191,7 +336,8 @@ class ServingEngine:
                                 start=ch.start, n=ch.n):
                 transformer.prefill_chunk(
                     self.params, torch.from_numpy(toks).to(self.device),
-                    self.caches, ch.slot, ch.start, ch.n, self.cfg, self.fcfg)
+                    self.caches, ch.slot, ch.start, ch.n, self.cfg, self.fcfg,
+                    **kw)
             self.cache_len[ch.slot] = ch.start + ch.n
             if self.sched.on_chunk(ch.slot, ch.n):
                 # prefill complete: decode restarts at the last token,
@@ -227,12 +373,25 @@ class ServingEngine:
             self.sched.release(i)
             self._slot_seq[i] = None
             self.cache_len[i] = 0
+            if self.paged:
+                if self.prefix_cache_active and self._slot_hashes[i]:
+                    # publish-on-retire: the slot's full prompt blocks (now
+                    # written) become index entries; its pages drop to
+                    # refcount 0 in free() but stay warm on the LRU
+                    self.alloc.publish(i, self._slot_hashes[i])
+                self._slot_hashes[i] = None
+                self.alloc.free(i)
 
     def _decode_plain(self, active: list, finished: list) -> None:
+        if self.paged and active:
+            active = self._grow_active(active)
+            finished.extend(self._failed)
+            self._failed.clear()
         if not active:
             return
         act = np.zeros((self.n_slots,), bool)
         act[active] = True
+        kw = {"page_table": self._page_table()} if self.paged else {}
         # the observer phase wraps dispatch AND the step's one device->host
         # sync, so the span is the host-observed decode latency
         with self.obs.phase("decode", slots=len(active)):
@@ -242,7 +401,7 @@ class ServingEngine:
                     self.device),
                 self.caches,
                 torch.from_numpy(self.cache_len).to(self.device),
-                self.cfg, self.fcfg)
+                self.cfg, self.fcfg, **kw)
             temps, topks, seeds, idxs = self._sampling_operands(active)
             if temps.any():
                 k_cap = next_pow2(max(int(topks.max()), 1))
@@ -263,12 +422,36 @@ class ServingEngine:
             self.sched.on_decode_token(i)
             self._maybe_retire(i, req, now, finished)
 
+    # -- admission control ----------------------------------------------------
+    def _admissible(self, req: Request) -> bool:
+        """Paged admission control: admit only if the sequence's pages are
+        free right now.  Raises :class:`PagePoolExhausted` for a request no
+        pool state could ever admit."""
+        if not self.paged:
+            return True
+        n = len(req.tokens) + len(req.out)
+        if n > self.max_seq:
+            raise PagePoolExhausted(
+                f"request {req.rid} length {n} exceeds max_seq "
+                f"{self.max_seq}")
+        need = self.pcfg.pages_for(n)
+        if need > self.pcfg.n_pages - 1:
+            raise PagePoolExhausted(
+                f"request {req.rid} needs {need} pages but the pool only "
+                f"has {self.pcfg.n_pages - 1} allocatable")
+        if self.prefix_cache_active:
+            hashes, cap = self._prefix_hashes(req, n)
+            return self.alloc.can_admit(
+                n, hits=self.alloc.lookup(hashes[:cap]))
+        return self.alloc.can_admit(n)
+
     # -- the loop -------------------------------------------------------------
     def run(self, requests: list[Request], max_steps: int = 1000):
-        """Serve ``requests`` to completion.  Exhausting ``max_steps``
-        returns *every* request: unfinished ones come back with
-        ``req.error`` set, ``done=False`` and whatever ``req.out`` they
-        produced."""
+        """Serve ``requests`` to completion.  Preempted sequences re-enter
+        ahead of fresh ones; requests the pool can never back come back
+        with ``req.error`` set.  Exhausting ``max_steps`` returns *every*
+        request: unfinished ones come back with ``req.error`` set,
+        ``done=False`` and whatever ``req.out`` they produced."""
         now = _clock()
         for req in requests:
             if req.t_submit is None:
@@ -279,6 +462,16 @@ class ServingEngine:
         while (self.sched.has_queued or self.sched.busy) \
                 and steps < max_steps:
             while self.sched.has_queued and self.sched.free_slot() is not None:
+                try:
+                    if not self._admissible(self.sched.next_queued()):
+                        break
+                except PagePoolExhausted as e:
+                    req = self.sched.pop_queued()
+                    req.error, req.done = str(e), True
+                    req.t_done = _clock()
+                    self.obs.on_retire(req)
+                    done.append(req)
+                    continue
                 self.add_request(self.sched.pop_queued())
             done.extend(self.step())
             steps += 1
@@ -286,6 +479,9 @@ class ServingEngine:
             req = self.sched.release(slot)
             self.cache_len[slot] = 0
             self._slot_seq[slot] = None
+            if self.paged:
+                self._slot_hashes[slot] = None
+                self.alloc.free(slot)
             req.error = req.error or (
                 f"evicted mid-flight at max_steps={max_steps}")
             done.append(req)

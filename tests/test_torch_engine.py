@@ -148,17 +148,20 @@ def test_seeded_tokens_match_jax_engine(timpl):
     assert [r.out for r in done] == [r.out for r in jdone]
 
 
-@pytest.mark.parametrize("kw,needle", [
-    (dict(cache_kind="paged"), "slice 4"),
-    (dict(prefix_cache=True), "slice 4"),
-    (dict(kv_dtype="int8"), "slice 5"),
-    (dict(speculative=True), "slice 6"),
-    (dict(prefill_mode="monolithic"), "slice 7"),
-    (dict(mesh=object()), "slice 10"),
+@pytest.mark.parametrize("kw,exc,needle", [
+    (dict(speculative=True), NotImplementedError, "slice 6"),
+    (dict(prefill_mode="monolithic"), NotImplementedError, "slice 7"),
+    (dict(mesh=object()), NotImplementedError, "slice 10"),
+    (dict(kv_dtype="int8"), ValueError, "int8' requires cache_kind='paged'"),
+    (dict(prefix_cache=True), ValueError,
+     "prefix_cache requires cache_kind='paged' and chunked"),
 ])
-def test_unported_options_raise(kw, needle):
+def test_unported_options_raise(kw, exc, needle):
+    """Options of later slices raise naming the slice; int8 KV and the
+    prefix cache need the paged cache (and the prefix cache chunked
+    prefill, the only prefill mode ported)."""
     cfg, _ = _cfgs()
-    with pytest.raises(NotImplementedError, match=needle):
+    with pytest.raises(exc, match=needle):
         ServingEngine({}, cfg, FamousConfig(), device="cpu", **kw)
 
 
@@ -178,12 +181,26 @@ def test_engine_without_cuda_raises_unless_asked_for_cpu():
         torch.zeros(2, dtype=torch.int32, device="meta"), scale=0.25),
     lambda t: chunk_prefill.chunk_prefill(
         t((1, 4, 4, 16)), t((1, 8, 2, 16)), t((1, 8, 2, 16)), 0, scale=0.25),
+    lambda t: decode_attn.paged_decode_attention(
+        t((2, 4, 16)), t((9, 4, 2, 16)), t((9, 4, 2, 16)),
+        t((2, 2), torch.int32), t((2,), torch.int32), scale=0.25),
+    lambda t: decode_attn.paged_decode_attention_int8(
+        t((2, 4, 16)), t((9, 4, 2, 16), torch.int8),
+        t((9, 4, 2, 16), torch.int8), t((9, 4, 2)), t((9, 4, 2)),
+        t((2, 2), torch.int32), t((2,), torch.int32), scale=0.25),
+    lambda t: chunk_prefill.paged_chunk_prefill(
+        t((1, 4, 4, 16)), t((9, 4, 2, 16)), t((9, 4, 2, 16)),
+        t((1, 2), torch.int32), 0, scale=0.25),
+    lambda t: chunk_prefill.paged_chunk_prefill_int8(
+        t((1, 4, 4, 16)), t((9, 4, 2, 16), torch.int8),
+        t((9, 4, 2, 16), torch.int8), t((9, 4, 2)), t((9, 4, 2)),
+        t((1, 2), torch.int32), 0, scale=0.25),
 ])
 def test_kernel_wrappers_never_fall_back_off_the_cpu(call):
     """A tensor that is not on the CPU goes to the kernel launch, which
     refuses it here; the plain version is never returned instead."""
-    def t(shape):
-        return torch.empty(shape, device="meta")
+    def t(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
     before = dict(lib.STATS.launches)
     with pytest.raises(ValueError, match="CUDA tensors"):
         call(t)
@@ -212,14 +229,15 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 48, mods\n"
+        "assert len(mods) >= 50, mods\n"
         "new = {'repro_torch.kernels.attention.mha', "
         "'repro_torch.kernels.attention.ops', "
         "'repro_torch.kernels.attention.ref', 'repro_torch.train.step', "
         "'repro_torch.train.trainer', 'repro_torch.train.checkpoint', "
         "'repro_torch.train.losses', 'repro_torch.optim.adamw', "
         "'repro_torch.data.pipeline', 'repro_torch.launch.train', "
-        "'repro_torch.configs.famous_bert'}\n"
+        "'repro_torch.configs.famous_bert', 'repro_torch.serve.paged', "
+        "'repro_torch.core.quant'}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
