@@ -9,12 +9,15 @@ Phases, in order; any failure exits non-zero before the result line:
   2. build: every CUDA source under ``src/repro_torch/kernels/csrc`` is
      compiled for sm_90a into one shared library (``build/``);
   3. kernels: each hand-written kernel against its plain PyTorch version,
-     in f32 and bf16, with the kernel's, the plain version's and one
+     in f32 and bf16 (the int8 projection on int8 operands, exactly), with
+     the kernel's, the plain version's and one
      library call's time (CUDA events, inputs rotated through more than
      the 50 MB L2), and the least time the card could take (bytes over
      3.35 TB/s or operations over the type's peak).  Serving shapes of
-     qwen2-7b for ``matmul_tiled``, ``decode_attention`` and
-     ``chunk_prefill``, and for the four paged kernels (fp and int8 pools,
+     qwen2-7b for ``matmul_tiled``, ``matmul_tiled_int8`` (T = 4 decode,
+     20 verify, 256 chunk), ``decode_attention`` (also as verify rows,
+     5 per slot) and ``chunk_prefill``, and for the four paged kernels (fp
+     and int8 pools,
      a 513-page pool of 16-token pages; no library call reads a page
      table, so they have no library time); training shapes of
      famous-bert (B=8, S=512, 8 heads, dh=96, non-causal) and qwen2-7b
@@ -23,13 +26,18 @@ Phases, in order; any failure exits non-zero before the result line:
      roles;
   4. Table I: the paper's topology (SL=64, d_model=768, h=8) through
      ``famous.qkv_projection`` + ``famous.attention`` with impl reference,
-     xla and pallas; the three must agree;
+     xla and pallas; the three must agree; then ``mha_block`` with the
+     paper's 8-bit projection (``quant="int8"``): the kernel's projection
+     must equal plain torch ops' exactly;
   5. slice parity: a 2-layer cut of qwen2-7b at full width runs
      ``prefill_chunk`` + ``decode_step`` through the kernels
      (``impl="pallas"``) and through plain torch ops (``impl="xla"``) on
      the same weights, on contiguous caches, on paged pools and (bf16) on
-     int8 pools; the logits must agree, and at f32 the paged kernels'
-     logits must agree with the contiguous kernels';
+     int8 pools, and with the int8 projection; the logits must agree, and
+     at f32 the paged kernels' logits must agree with the contiguous
+     kernels'; then ``verify_step`` (5 tokens a slot) must give the logits
+     of 5 sequential ``decode_step`` calls at f32 on contiguous, paged and
+     int8 pools;
   6. training parity: the same 2-layer cut, one ``make_train_step``
      gradient through ``impl="pallas"`` and ``impl="xla"`` on one state
      and batch, in f32 and bf16 compute; loss, global gradient norm and
@@ -43,7 +51,13 @@ Phases, in order; any failure exits non-zero before the result line:
      ``ServingEngine.run``; then 8 requests that share a 1024-token system
      prompt, on contiguous KV, on the paged pool with the prefix cache, and
      on int8 pools with the prefix cache (requests 4-7 must hit the cached
-     prompt, and only the paged kernels may serve attention there).
+     prompt, and only the paged kernels may serve attention there); the
+     first 8 requests again with the int8 projection (``FamousConfig(
+     quant="int8")``: only ``matmul_tiled_int8`` may project); the shared-
+     prefix traffic speculatively (``draft_k=4``) on the paged pool with
+     the prefix cache, with the fp and the int8 projection; and a 2-layer
+     full-width f32 run whose drafter proposes the plain run's own tokens
+     (every draft accepted; the tokens must equal the plain run's).
 
 The launch counters are set to 0 before each run of phases 7 and 8 and
 read after it: every kernel must have launched on those paths and no plain
@@ -71,7 +85,8 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}   # dense bf16 tensor core; f32 FMA
+# dense bf16 and int8 tensor core; f32 FMA
+PEAK_FLOPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 TOL = {"f32": 1e-4, "bf16": 2e-2}             # kernel vs plain, atol = rtol
 ATTN_TOL = {"f32": 2e-5, "bf16": 2e-2}
 L2_BYTES = 50 * 2**20
@@ -84,6 +99,7 @@ TRAINING_KERNELS = ("matmul_tiled", "mha_forward", "mha_bwd_dq",
                     "mha_bwd_dkv")
 REPLACES = {
     "matmul_tiled": "src/repro/kernels/qkv/qkv_proj.py:71",
+    "matmul_tiled_int8": "src/repro/kernels/qkv/qkv_proj.py:129",
     "decode_attention": "src/repro/kernels/decode/decode_attn.py:276",
     "chunk_prefill": "src/repro/kernels/decode/chunk_prefill.py:91",
     "mha_forward": "src/repro/kernels/attention/mha.py:122",
@@ -96,8 +112,11 @@ REPLACES = {
     "paged_chunk_prefill_int8":
         "src/repro/kernels/decode/chunk_prefill.py:285",
 }
-SOURCES = {name: "src/repro_torch/kernels/csrc/"
-           f"{name.removesuffix('_int8')}.cu" for name in REPLACES}
+# the paged int8 kernels are instantiations in their fp kernels' sources;
+# the int8 projection has a source of its own
+SOURCES = {name: "src/repro_torch/kernels/csrc/" + (
+    f"{name}.cu" if name.startswith("matmul") else
+    f"{name.removesuffix('_int8')}.cu") for name in REPLACES}
 # the training shapes of the attention kernels:
 # name, B, S, H, KV, dh, causal
 TRAIN_ATTN = (("famous-bert", 8, 512, 8, 8, 96, False),
@@ -248,6 +267,8 @@ def kernel_phase(torch, iters, seed):
                    torch.matmul, sets, (T * D + D * Fo + T * Fo) * e,
                    2.0 * T * D * Fo)
 
+    int8_kernel_rows(torch, gen, record, iters)
+
     # decode_attention: 4 slots, 28 query / 4 kv heads, mixed lengths
     B, H, KV, dh, Skv = 4, 28, 4, 128, 2048
     lens_list = [1, 37, 1000, 2048]
@@ -284,6 +305,34 @@ def kernel_phase(torch, iters, seed):
                kern, plain, library, sets,
                2 * B * H * dh * e + live * KV * dh * 2 * e + 4 * B,
                4.0 * H * dh * live)
+
+        # the same kernel as speculative-verify rows: W = 5 rows a slot,
+        # row j of slot b sees lens[b] + j keys (clipped to Skv), all rows
+        # of a slot reading its cache in place
+        W = 5
+        vlens = torch.clamp(lens[:, None] + torch.arange(
+            W, device=dev, dtype=torch.int32), max=Skv).reshape(-1).contiguous()
+        vlive = int(vlens.sum())
+        # each slot's keys are read once for its W rows
+        slot_keys = sum(min(n + W - 1, Skv) for n in lens_list)
+        vsets = [(randn((B * W, H, dh), dtype), k, v, vlens)
+                 for _, k, v, _ in sets]
+
+        def vkern(q, k, v, ln):
+            return decode_attn.decode_attention(q, k, v, ln, scale=scale,
+                                                rows_per_slot=W)
+
+        def vplain(q, k, v, ln):
+            return dec_ref.decode_reference(q, k, v, ln, scale=scale,
+                                            rows_per_slot=W)
+
+        q, k, v, ln = vsets[0]
+        record("decode_attention", f"verify B={B} W={W} H={H} KV={KV} "
+               f"dh={dh} Skv={Skv} lens={lens_list}+j", dt, vkern(q, k, v, ln),
+               vplain(q, k, v, ln), ATTN_TOL[dt], vkern, vplain, None, vsets,
+               2 * B * W * H * dh * e + slot_keys * KV * dh * 2 * e
+               + 4 * B * W, 4.0 * H * dh * vlive)
+        del vsets
 
     # chunk_prefill: one slot of the batched cache, C = 256 at two offsets
     C, slot = 256, 2
@@ -326,6 +375,55 @@ def kernel_phase(torch, iters, seed):
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
     return rows
+
+
+def int8_kernel_rows(torch, gen, record, iters):
+    """``matmul_tiled_int8`` at the serving path's shapes, the fused QKV
+    projection of qwen2-7b (D = 3584, F = 4608) with the paper's 8-bit
+    operands: T = 4 (decode), 20 (verify: 4 slots x 5) and 256 (a chunk).
+    X is quantized per token and W per column by ``core.quant``; the kernel
+    takes W transposed (F, D), the plain version (D, F).  The kernel must
+    equal the plain version exactly (integer sums, the same two f32
+    multiplies).  Library: ``torch._int_mm`` (cuBLASLt's int8 GEMM) plus the
+    same dequantize, where it takes the shape (T > 16 and a multiple of
+    8: T = 256 only)."""
+    from repro_torch.core import quant
+    from repro_torch.kernels.qkv import qkv_proj
+    from repro_torch.kernels.qkv import ref as qkv_ref
+
+    dev = torch.device("cuda")
+    D, Fo = 3584, 4608
+
+    def operands(T):
+        x = torch.randn((T, D), generator=gen, device=dev)
+        w = torch.randn((D, Fo), generator=gen, device=dev) * D ** -0.5
+        (xq, sx), (wq, sw) = quant.quantize(x, 1), quant.quantize(w, 0)
+        return xq, wq, wq.t().contiguous(), sx, sw
+
+    def kern(xq, wq, wqt, sx, sw):
+        return qkv_proj.matmul_tiled_int8(xq, wqt, sx, sw)
+
+    def plain(xq, wq, wqt, sx, sw):
+        return qkv_ref.matmul_int8_reference(xq, wq, sx, sw)
+
+    def library(xq, wq, wqt, sx, sw):
+        return torch._int_mm(xq, wq).to(torch.float32) * sx * sw
+
+    for T in (4, 20, 256):
+        per = T * D + 2 * D * Fo
+        sets = [operands(T) for _ in range(n_sets(per))]
+        out, ref = kern(*sets[0]), plain(*sets[0])
+        lib_fn = None
+        if T > 16 and T % 8 == 0:
+            lib_err, _ = compare(torch, library(*sets[0]), ref, 0.0)
+            print(f"  (library vs plain max_abs_err {lib_err:.3e})")
+            lib_fn = library
+        record("matmul_tiled_int8", f"T={T} D={D} F={Fo}", "int8", out, ref,
+               0.0, kern, plain, lib_fn, sets,
+               T * D + D * Fo + 4 * (T + Fo) + 4 * T * Fo, 2.0 * T * D * Fo)
+        check(torch.equal(out, ref),
+              f"matmul_tiled_int8 T={T} differs from its plain version")
+        del sets
 
 
 def paged_kernel_rows(torch, dts, randn, record, iters, gen):
@@ -539,6 +637,37 @@ def table_one_phase(torch, seed):
           f"{errs['pallas']:.2e} (limit 1e-4) {'ok' if ok else 'FAIL'}",
           flush=True)
     check(ok, f"Table I impls disagree: {errs}")
+
+    # the paper's 8-bit projection: the int8 kernel (pallas) against plain
+    # torch ops (xla: int8_einsum), exactly on the projection; mha_block
+    # through both, and its output against the fp block's
+    params = dict(zip(("wq", "wk", "wv"), ws))
+    params["wo"] = torch.randn((H, dh, D), generator=gen, device=dev) * 0.05
+    kw = dict(num_heads=H, num_kv_heads=H, causal=False)
+    proj, blocks = {}, {}
+    for impl in ("pallas", "xla"):
+        cfg = famous.FamousConfig(impl=impl, quant="int8", tile_q=64,
+                                  tile_k=64)
+        proj[impl] = famous.qkv_projection(x, *ws, cfg=cfg)
+        blocks[impl] = famous.mha_block(x, params, cfg=cfg, **kw)
+    fp = famous.mha_block(x, params, cfg=famous.FamousConfig(
+        impl="pallas", tile_q=64, tile_k=64), **kw)
+    torch.cuda.synchronize()
+    exact = all(torch.equal(a, b) for a, b in zip(proj["pallas"], proj["xla"]))
+    blk_err = float((blocks["pallas"] - blocks["xla"]).abs().max())
+    q_err = float((fp - blocks["pallas"]).abs().max())
+    blk_ok = (blk_err < 1e-4 * max(1.0, float(blocks["xla"].abs().max()))
+              and bool(torch.isfinite(blocks["pallas"]).all()))
+    print(f"table I int8 (quant='int8'): projection kernel == plain "
+          f"{'exactly' if exact else 'NOT exactly'}; mha_block out "
+          f"{tuple(fp.shape)} max|pallas - xla| = {blk_err:.2e} (limit 1e-4 "
+          f"relative); int8 vs fp block max|diff| = {q_err:.3e} (max|out| "
+          f"{float(fp.abs().max()):.3e}) {'ok' if exact and blk_ok else 'FAIL'}",
+          flush=True)
+    check(exact and blk_ok, f"Table I int8: projection exact {exact}, block "
+          f"error {blk_err}")
+    errs.update(int8_projection_exact=exact, int8_block_err=blk_err,
+                int8_vs_fp_block_err=q_err)
     return errs
 
 
@@ -574,10 +703,13 @@ def random_params(torch, cfg, dtype, seed):
 def slice_phase(torch, seed):
     """The 2-layer full-width cut through ``prefill_chunk`` + ``decode_step``
     on contiguous caches, on paged pools (a 513-page pool of 16-token pages,
-    page ids a seeded permutation) and, in bf16, on int8 pools: the kernels
+    page ids a seeded permutation), in bf16 on int8 pools, and with the
+    int8 projection (``quant="int8"``, contiguous caches; the kernels on
+    weights quantized once by ``transformer.quantize_qkv``): the kernels
     (``impl="pallas"``) against plain torch ops (``impl="xla"``) on the
     same weights, and at f32 the paged kernels against the contiguous
-    ones."""
+    ones.  The int8 projection's logits against the fp ones are reported.
+    Then, at f32, ``verify_step`` against sequential ``decode_step``."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.famous import FamousConfig
     from repro_torch.models import transformer
@@ -593,8 +725,11 @@ def slice_phase(torch, seed):
     results = {}
 
     def run(params, dtype, impl, kind):
-        fcfg = FamousConfig(impl=impl)
-        if kind == "contiguous":
+        quant = "int8" if kind == "int8 projection" else "none"
+        fcfg = FamousConfig(impl=impl, quant=quant)
+        if quant == "int8" and impl == "pallas":
+            params = transformer.quantize_qkv(params)
+        if kind in ("contiguous", "int8 projection"):
             caches = transformer.make_caches(cfg, n_slots, max_seq, dtype,
                                              dev)
             kw = {}
@@ -619,8 +754,10 @@ def slice_phase(torch, seed):
     # other places on the two paths (int8 pools quantize what each path
     # wrote), and 2 layers carry that to the logits
     for dt, dtype, tol, kinds in (
-            ("f32", torch.float32, 1e-4, ("contiguous", "paged")),
-            ("bf16", torch.bfloat16, 5e-2, ("contiguous", "paged", "int8"))):
+            ("f32", torch.float32, 1e-4,
+             ("contiguous", "paged", "int8 projection")),
+            ("bf16", torch.bfloat16, 5e-2,
+             ("contiguous", "paged", "int8", "int8 projection"))):
         params = random_params(torch, cfg, dtype, seed)
         logits = {(kind, impl): run(params, dtype, impl, kind)
                   for kind in kinds for impl in ("pallas", "xla")}
@@ -646,9 +783,72 @@ def slice_phase(torch, seed):
                   flush=True)
             check(finite and err <= limit,
                   f"slice parity {key} failed: {results[key]}")
+        q_err = float((logits[("int8 projection", "pallas")]
+                       - logits[("contiguous", "pallas")]).abs().max())
+        results[f"{dt} int8 vs fp projection"] = dict(max_abs_err=q_err)
+        print(f"slice {dt}: int8 vs fp projection (kernels), max|logit "
+              f"diff| = {q_err:.3e} (max|logit| "
+              f"{float(logits[('contiguous', 'pallas')].abs().max()):.3e}; "
+              f"reported, not gated)", flush=True)
+        if dt == "f32":
+            results["verify"] = verify_parity(torch, cfg, params, prompt, pt,
+                                              n, C, ps, n_pages)
         del params, logits
         torch.cuda.empty_cache()
     return results
+
+
+def verify_parity(torch, cfg, params, prompt, pt, n, C, ps, n_pages, W=5):
+    """``verify_step`` of W tokens a slot against W sequential
+    ``decode_step`` calls from the same caches, through the kernels at
+    f32, on contiguous caches, paged pools and int8 pools.  Slot 1 holds a
+    prefilled prompt of ``n`` tokens; slots 0, 2 and 3 are empty and
+    verify from position 0.  Limit: 1e-4 x max|logit| (sums in another
+    order: the projection and MLP see 20 rows instead of 4)."""
+    from repro_torch.core.famous import FamousConfig
+    from repro_torch.models import transformer
+
+    dev = torch.device("cuda")
+    fcfg = FamousConfig(impl="pallas")
+    gen = torch.Generator(device=dev).manual_seed(n)
+    toks = torch.randint(0, cfg.vocab_size, (4, W), generator=gen, device=dev)
+    toks[1, 0] = prompt[0, n - 1]
+    clen = torch.tensor([0, n - 1, 0, 0], dtype=torch.int32, device=dev)
+    out = {}
+    for kind in ("contiguous", "paged", "int8"):
+        kw = {}
+        if kind == "contiguous":
+            caches = transformer.make_caches(cfg, 4, 2048, torch.float32, dev)
+        else:
+            caches = transformer.make_caches(
+                cfg, 4, 2048, torch.float32, dev, cache_kind="paged",
+                page_size=ps, n_pages=n_pages,
+                kv_dtype="int8" if kind == "int8" else "fp")
+            kw = {"page_table": pt}
+        for start in (0, C):
+            transformer.prefill_chunk(params, prompt[:, start:start + C],
+                                      caches, 1, start, min(C, n - start),
+                                      cfg, fcfg, **kw)
+        seq = [{k: v.clone() for k, v in c.items()} for c in caches]
+        vlog, _ = transformer.verify_step(params, toks, caches, clen, cfg,
+                                          fcfg, **kw)
+        slog = torch.stack([transformer.decode_step(
+            params, toks[:, j], seq, clen + j, cfg, fcfg, **kw)[0]
+            for j in range(W)], dim=1)
+        torch.cuda.synchronize()
+        err = float((vlog - slog).abs().max())
+        limit = 1e-4 * float(slog.abs().max())
+        finite = bool(torch.isfinite(vlog).all())
+        out[kind] = dict(max_abs_err=err, limit=limit,
+                         shape=list(vlog.shape))
+        print(f"verify parity f32 {kind}: verify_step of {W} tokens x 4 "
+              f"slots vs {W} sequential decode_steps (kernels), logits "
+              f"{tuple(vlog.shape)}, max|diff| = {err:.3e} (limit "
+              f"{limit:.3e}) {'ok' if finite and err <= limit else 'FAIL'}",
+              flush=True)
+        check(finite and err <= limit, f"verify parity {kind}: {out[kind]}")
+        del caches, seq
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -879,17 +1079,175 @@ def serving_phase(torch, seed):
     res["steps"] = step_breakdown(torch, engine)
     del engine
     torch.cuda.empty_cache()
+    res["int8_projection"] = int8_projection_run(
+        torch, cfg, params, [list(r.tokens) for r in reqs],
+        [r.out for r in sorted(done, key=lambda r: r.rid)])
     res["shared_prefix"] = shared_prefix_runs(torch, cfg, params, seed)
+    del params
+    torch.cuda.empty_cache()
+    res["oracle_speculative"] = oracle_speculative_run(torch, seed)
     return res
 
 
-# phase 8's shared-prefix traffic: the contiguous run the two paged runs
-# are compared with, then the two paged runs (page 16, the default pool)
+def int8_projection_run(torch, cfg, params, prompts, fp_tokens):
+    """The same 8 requests as the fp run, through the paper's 8-bit QKV_PM
+    (``FamousConfig(impl="pallas", quant="int8")``: the engine quantizes
+    each layer's fused W once).  Every projection must go through
+    ``matmul_tiled_int8``: 28 launches per decode step and per chunk (as
+    many as the attention kernels), none of ``matmul_tiled``.  The share
+    of tokens equal to the fp run's is reported, not gated (near ties of
+    random weights flip under any lossy change)."""
+    import numpy as np
+
+    from repro_torch.core.famous import FamousConfig
+    from repro_torch.kernels import lib
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    engine = ServingEngine(params, cfg,
+                           FamousConfig(impl="pallas", quant="int8"),
+                           n_slots=4, max_seq=2048, dtype=torch.bfloat16,
+                           chunk=256, device="cuda")
+    reqs = [Request(rid=i, tokens=list(p), max_new=32)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    lib.STATS.reset()
+    t0 = time.perf_counter()
+    done = sorted(engine.run(reqs), key=lambda r: r.rid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(lib.STATS.launches)
+    plain = dict(lib.STATS.plain_on_cuda)
+    check(len(done) == 8 and all(r.error is None and len(r.out) == 32
+                                 for r in done),
+          f"int8 projection: {[(r.rid, r.error, len(r.out)) for r in done]}")
+    check(all(0 <= t < cfg.vocab_size for r in done for t in r.out),
+          "int8 projection: token out of range")
+    check(not any(plain.values()),
+          f"int8 projection: a plain version ran on CUDA tensors: {plain}")
+    per_step = launches["decode_attention"] + launches["chunk_prefill"]
+    check(launches["matmul_tiled"] == 0 and per_step > 0
+          and launches["matmul_tiled_int8"] == per_step,
+          f"int8 projection: the projection did not run on "
+          f"matmul_tiled_int8 once per layer and step: {launches}")
+    outs = [r.out for r in done]
+    same = sum(a == b for o, r in zip(outs, fp_tokens)
+               for a, b in zip(o, r)) / sum(len(r) for r in fp_tokens)
+    toks = sum(len(o) for o in outs)
+    ttft = sorted(r.t_first - r.t_submit for r in done)
+    ttft_steps = [engine.sched.fairness(r.rid)["ttft_steps"] for r in done]
+    res = dict(tokens=toks, wall_s=wall, tok_per_s=toks / wall,
+               ttft_p50_s=float(np.median(ttft)), ttft_steps=ttft_steps,
+               ttft_steps_p50=float(np.median(ttft_steps)),
+               token_share_equal_to_fp=same, launches=launches,
+               decode_steps=launches["decode_attention"] // cfg.num_layers,
+               chunks=launches["chunk_prefill"] // cfg.num_layers)
+    print(f"serving int8 projection (FamousConfig(quant='int8'), the same 8 "
+          f"requests): {toks} tokens in {wall:.2f}s = {toks / wall:.1f} "
+          f"tok/s, TTFT p50 {res['ttft_p50_s'] * 1e3:.0f} ms "
+          f"({res['ttft_steps_p50']:g} steps), matmul_tiled_int8 "
+          f"{launches['matmul_tiled_int8']} launches = {cfg.num_layers} x "
+          f"({res['decode_steps']} decode steps + {res['chunks']} chunks), "
+          f"matmul_tiled {launches['matmul_tiled']}; tokens equal to the fp "
+          f"run {same:.3f}", flush=True)
+    print("kernels " + json.dumps(launches), flush=True)
+    res["steps"] = step_breakdown(torch, engine)
+    del engine
+    torch.cuda.empty_cache()
+    return res
+
+
+def oracle_speculative_run(torch, seed):
+    """Speculation that exercises accept and rollback at full width: a
+    2-layer cut of qwen2-7b at f32 serves 4 requests plainly on the paged
+    pool, then speculatively (``draft_k=4``) with a drafter that proposes
+    the plain run's own tokens.  Every draft is then accepted, so the run
+    takes far fewer steps; its tokens must equal the plain run's."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.famous import FamousConfig
+    from repro_torch.kernels import lib
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    cfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=2)
+    params = random_params(torch, cfg, torch.float32, seed + 4)
+    rng = np.random.default_rng(seed + 4)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, size=n)]
+               for n in (100, 300, 50, 700)]
+
+    class Oracle:
+        def __init__(self, ref):
+            self.ref = ref
+
+        def draft(self, seq, k):
+            for p, out in self.ref:
+                if seq[:len(p)] == p:
+                    pos = len(seq) - len(p)
+                    return out[pos:pos + k]
+            return []
+
+    kw = dict(n_slots=4, max_seq=1024, dtype=torch.float32, chunk=256,
+              cache_kind="paged", page_size=16, device="cuda")
+    runs = {}
+    for label, extra in (("plain", {}), ("speculative", dict(
+            speculative=True, draft_k=4))):
+        if extra:
+            extra["drafter"] = Oracle(list(zip(prompts, runs["plain"][0])))
+        engine = ServingEngine(params, cfg, FamousConfig(impl="pallas"),
+                               **kw, **extra)
+        reqs = [Request(rid=i, tokens=list(p), max_new=32)
+                for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        lib.STATS.reset()
+        t0 = time.perf_counter()
+        done = sorted(engine.run(reqs), key=lambda r: r.rid)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(lib.STATS.launches)
+        check(all(r.error is None and len(r.out) == 32 for r in done),
+              f"oracle {label}: {[(r.rid, r.error) for r in done]}")
+        check(not any(lib.STATS.plain_on_cuda.values()),
+              f"oracle {label}: a plain version ran on CUDA tensors")
+        engine.alloc.assert_invariants()
+        runs[label] = ([r.out for r in done], engine, wall, launches)
+    (ref, _, _, _), (outs, eng, wall, launches) = runs["plain"], \
+        runs["speculative"]
+    toks = sum(len(o) for o in outs)
+    per_slot_step = toks / (toks - eng.spec_accepted)
+    res = dict(tokens_equal=outs == ref, spec_steps=eng.spec_steps,
+               drafted=eng.spec_drafted, accepted=eng.spec_accepted,
+               acceptance_rate=eng.acceptance_rate,
+               tokens_per_slot_step=per_slot_step, wall_s=wall,
+               plain_wall_s=runs["plain"][2], launches=launches,
+               plain_launches=runs["plain"][3])
+    print(f"serving oracle speculative (2-layer qwen2-7b f32, paged, "
+          f"draft_k=4): tokens equal to the plain run: {outs == ref}; "
+          f"{eng.spec_drafted} drafted, {eng.spec_accepted} accepted (rate "
+          f"{eng.acceptance_rate:.3f}), {eng.spec_steps} verify steps for "
+          f"{toks} tokens ({per_slot_step:.2f} per slot and step); "
+          f"{wall:.2f}s vs plain {runs['plain'][2]:.2f}s", flush=True)
+    print("kernels " + json.dumps(launches), flush=True)
+    check(outs == ref, "oracle speculative: tokens differ from the plain run")
+    check(all(launches[k] > 0 for k in PAGED_KERNELS["fp"]),
+          f"oracle speculative: paged kernels not launched: {launches}")
+    del runs, eng, params
+    torch.cuda.empty_cache()
+    return res
+
+
+# phase 8's shared-prefix traffic: the contiguous run the paged runs are
+# compared with, then the paged runs (page 16, the default pool): fp and
+# int8 KV, and speculative (draft_k 4) with the fp and the int8 projection
 SHARED_PREFIX_RUNS = (
     ("contiguous", {}),
     ("paged", dict(cache_kind="paged", prefix_cache=True)),
     ("paged int8", dict(cache_kind="paged", prefix_cache=True,
                         kv_dtype="int8")),
+    ("paged speculative", dict(cache_kind="paged", prefix_cache=True,
+                               speculative=True, draft_k=4)),
+    ("paged speculative int8 projection", dict(
+        cache_kind="paged", prefix_cache=True, speculative=True, draft_k=4,
+        quant="int8")),
 )
 
 
@@ -898,9 +1256,12 @@ def shared_prefix_runs(torch, cfg, params, seed):
     all plus its own 32-512-token suffix, 32 new tokens each, through the
     full model with 4 slots, max_seq 2048 and chunk 256: on contiguous KV,
     then on the paged pool with the prefix cache, then on int8 pools with
-    the prefix cache.  Requests 4-7 are admitted after the first retire and
+    the prefix cache, then speculatively (``draft_k=4``, the prompt-lookup
+    drafter) on the paged pool with the prefix cache, with the fp and the
+    int8 projection.  Requests 4-7 are admitted after the first retire and
     must hit the 64 pages of the system prompt; only the paged kernels may
-    serve attention on the paged runs.  The share of tokens equal to the
+    serve attention on the paged runs, and only ``matmul_tiled_int8`` may
+    project on the int8-projection run.  The share of tokens equal to the
     contiguous run is reported, not gated: random weights leave near
     ties."""
     import numpy as np
@@ -927,8 +1288,11 @@ def shared_prefix_runs(torch, cfg, params, seed):
                for n in suffixes]
     out, ref_tokens = {}, None
     for label, kw in SHARED_PREFIX_RUNS:
+        kw = dict(kw)
+        quant = kw.pop("quant", "none")
         hits = PrefixHits()
-        engine = ServingEngine(params, cfg, FamousConfig(impl="pallas"),
+        engine = ServingEngine(params, cfg,
+                               FamousConfig(impl="pallas", quant=quant),
                                n_slots=4, max_seq=2048, dtype=torch.bfloat16,
                                chunk=256, page_size=16, observer=hits,
                                device="cuda", **kw)
@@ -963,6 +1327,10 @@ def shared_prefix_runs(torch, cfg, params, seed):
                   f"{label}: attention did not run on {paged}: {launches}")
             check(all(hits.pages.get(rid, 0) >= 64 for rid in range(4, 8)),
                   f"{label}: prefix hit pages by request {hits.pages}")
+        proj = "matmul_tiled_int8" if quant == "int8" else "matmul_tiled"
+        other = "matmul_tiled" if quant == "int8" else "matmul_tiled_int8"
+        check(launches[proj] > 0 and launches[other] == 0,
+              f"{label}: the projection did not run on {proj}: {launches}")
         same = sum(a == b for o, r in zip(outs, ref_tokens)
                    for a, b in zip(o, r)) / sum(len(r) for r in ref_tokens)
         toks = sum(len(o) for o in outs)
@@ -979,6 +1347,21 @@ def shared_prefix_runs(torch, cfg, params, seed):
                    hit_pages_by_request=hits.pages,
                    pool_bytes=engine.cache_bytes_per_device(),
                    token_share_equal_to_contiguous=same, launches=launches)
+        spec = ""
+        if engine.speculative_active:
+            # every token of a speculative run comes from a verify step:
+            # one per slot and step, plus the accepted drafts
+            slot_steps = toks - engine.spec_accepted
+            res.update(spec_steps=engine.spec_steps,
+                       drafted=engine.spec_drafted,
+                       accepted=engine.spec_accepted,
+                       acceptance_rate=engine.acceptance_rate,
+                       tokens_per_slot_step=toks / slot_steps)
+            spec = (f"; speculative: {engine.spec_drafted} drafted, "
+                    f"{engine.spec_accepted} accepted (rate "
+                    f"{engine.acceptance_rate:.3f}), {engine.spec_steps} "
+                    f"verify steps, {toks / slot_steps:.3f} tokens per slot "
+                    f"and step")
         print(f"serving {label} (shared 1024-token system prompt, suffixes "
               f"{suffixes}): {toks} tokens in {wall:.2f}s = "
               f"{toks / wall:.1f} tok/s, TTFT p50 "
@@ -986,9 +1369,9 @@ def shared_prefix_runs(torch, cfg, params, seed):
               f"steps; by request {ttft_steps}), prefix hit pages "
               f"{engine.prefix_hit_pages} (by request {hits.pages}), KV "
               f"bytes {res['pool_bytes']}, tokens equal to the contiguous "
-              f"run {same:.3f}", flush=True)
+              f"run {same:.3f}{spec}", flush=True)
         print("kernels " + json.dumps(launches), flush=True)
-        if label != "contiguous":
+        if label in ("paged", "paged int8"):
             res["steps"] = step_breakdown(torch, engine)
         out[label] = res
         del engine
@@ -1067,7 +1450,10 @@ def profile_groups(torch, fn):
 def kernel_group(key, names):
     """The port kernel a profiler key belongs to: the paged kernels by
     their CUDA symbol (the int8 instantiation reads ``signed char``
-    pools), the others by their name."""
+    pools; the int8 projection's symbol is ``matmul_int8_kernel``), the
+    others by their name."""
+    if "matmul_int8_kernel" in key:
+        return "matmul_tiled_int8"
     for sym, name in (("paged_decode_kernel", "paged_decode_attention"),
                       ("paged_chunk_prefill_kernel", "paged_chunk_prefill")):
         if sym in key:
@@ -1130,11 +1516,14 @@ def main(argv=None) -> int:
 
     paths = [r["launches"] for r in training.values()] + [serving["launches"]]
     paths += [r["launches"] for r in serving["shared_prefix"].values()]
+    paths += [serving["int8_projection"]["launches"],
+              serving["oracle_speculative"]["launches"]]
     launches = {k: sum(p[k] for p in paths) for k in lib.KERNELS}
     check(all(v > 0 for v in launches.values()),
           f"a kernel never launched on the training and serving paths: "
           f"{launches}")
-    main_shape = {"matmul_tiled": "T=4 ", "decode_attention": "B=4",
+    main_shape = {"matmul_tiled": "T=4 ", "matmul_tiled_int8": "T=4 ",
+                  "decode_attention": "B=4",
                   "chunk_prefill": "C=256 offset=1792",
                   "mha_forward": "famous-bert", "mha_bwd_dq": "famous-bert",
                   "mha_bwd_dkv": "famous-bert",
@@ -1144,7 +1533,8 @@ def main(argv=None) -> int:
                   "paged_chunk_prefill_int8": "C=256 offset=1792"}
     entries = []
     for name in lib.KERNELS:
-        r = next(r for r in rows if r["name"] == name and r["dtype"] == "bf16"
+        dt = "int8" if name == "matmul_tiled_int8" else "bf16"
+        r = next(r for r in rows if r["name"] == name and r["dtype"] == dt
                  and r["shape"].startswith(main_shape[name]))
         entries.append(dict(
             name=name, route="cuda", source=SOURCES[name],

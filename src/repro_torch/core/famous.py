@@ -15,10 +15,13 @@ of them, selected by ``FamousConfig.impl``:
                     whose dq and dk/dv passes are kernels too, and the QKV
                     matmul kernel differentiates through itself.
 
-Ported: the projection, full-sequence attention (``attention`` with the
-flash autograd function of ``attention_xla``, and ``mha_block``), and the
-serving path's chunked-prefill and decode attention, on contiguous caches
-and on paged pools (fp and int8).
+Ported: the projection, fp and the paper's 8-bit fixed point
+(``quant="int8"``: ``int8_einsum`` for xla, the int8 kernel for pallas;
+the reference ignores ``quant``, as JAX's does), full-sequence attention
+(``attention`` with the flash autograd function of ``attention_xla``, and
+``mha_block``), and the serving path's chunked-prefill, decode and
+speculative-verify attention, on contiguous caches and on paged pools (fp
+and int8).
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ import dataclasses
 import math
 
 import torch
+
+from repro_torch.core import quant as quant_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,13 +46,6 @@ class FamousConfig:
     max_heads: int = 0
     max_seq: int = 0
     max_d_model: int = 0
-
-
-def _check_quant(cfg: FamousConfig) -> None:
-    if cfg.quant != "none":
-        raise NotImplementedError(
-            "quant='int8' comes with the int8 slice of the port "
-            "(ROADMAP Queue 2: matmul_tiled_int8)")
 
 
 # ---------------------------------------------------------------------------
@@ -87,27 +85,37 @@ def fuse_qkv_weights(wq, wk, wv) -> torch.Tensor:
 
 
 def qkv_projection_xla(x, wq, wk, wv, bq=None, bk=None, bv=None, *,
-                       w_qkv=None):
+                       quantized: bool = False, w_qkv=None):
     """Fused projection in ``x.dtype``: one read of x feeds three matmuls,
-    like the shared X BRAM in QKV_PM."""
-    w = w_qkv if w_qkv is not None else fuse_qkv_weights(wq, wk, wv)
-    qkv = x @ w.to(x.dtype)
-    nq = wq.shape[1] * wq.shape[2]
-    nk = wk.shape[1] * wk.shape[2]
-    q = qkv[..., :nq].reshape(x.shape[:-1] + wq.shape[1:])
-    k = qkv[..., nq:nq + nk].reshape(x.shape[:-1] + wk.shape[1:])
-    v = qkv[..., nq + nk:].reshape(x.shape[:-1] + wv.shape[1:])
+    like the shared X BRAM in QKV_PM.  ``quantized``: the 8-bit fixed-point
+    path, three ``int8_einsum`` calls as in JAX."""
+    if quantized:
+        spec = "...sd,dhe->...she"
+        q = quant_lib.int8_einsum(spec, x, wq)
+        k = quant_lib.int8_einsum(spec, x, wk)
+        v = quant_lib.int8_einsum(spec, x, wv)
+    else:
+        w = w_qkv if w_qkv is not None else fuse_qkv_weights(wq, wk, wv)
+        qkv = x @ w.to(x.dtype)
+        nq = wq.shape[1] * wq.shape[2]
+        nk = wk.shape[1] * wk.shape[2]
+        q = qkv[..., :nq].reshape(x.shape[:-1] + wq.shape[1:])
+        k = qkv[..., nq:nq + nk].reshape(x.shape[:-1] + wk.shape[1:])
+        v = qkv[..., nq + nk:].reshape(x.shape[:-1] + wv.shape[1:])
     if bq is not None:
         q, k, v = q + bq.to(q.dtype), k + bk.to(k.dtype), v + bv.to(v.dtype)
     return q, k, v
 
 
 def qkv_projection(x, wq, wk, wv, bq=None, bk=None, bv=None, *,
-                   cfg: FamousConfig = FamousConfig(), w_qkv=None):
+                   cfg: FamousConfig = FamousConfig(), w_qkv=None,
+                   w_int8=None):
     """x: (B, S, D); w*: (D, heads, dh).  ``w_qkv``: the fused matrix when
     the caller holds one (the model does: it is fused once at load time);
-    otherwise it is concatenated here."""
-    _check_quant(cfg)
+    otherwise it is concatenated here.  ``w_int8``: that matrix quantized
+    once at load (``attention.quantize_qkv``), read by the pallas impl
+    when ``cfg.quant == "int8"``.  The reference impl ignores ``quant``, as
+    JAX's does."""
     if cfg.impl == "reference":
         return qkv_projection_reference(x, wq, wk, wv, bq, bk, bv,
                                         tile_d=cfg.tile_d)
@@ -115,9 +123,14 @@ def qkv_projection(x, wq, wk, wv, bq=None, bk=None, bv=None, *,
         from repro_torch.kernels.qkv import ops as qkv_ops
         w = w_qkv if w_qkv is not None else fuse_qkv_weights(wq, wk, wv)
         shapes = (wq.shape[1:], wk.shape[1:], wv.shape[1:])
+        if cfg.quant == "int8":
+            # quantized from W's own dtype, as JAX quantizes the fused W
+            return qkv_ops.qkv_projection(x, w, shapes, bq, bk, bv,
+                                          quant="int8", w_int8=w_int8)
         return qkv_ops.qkv_projection(x, w.to(x.dtype).contiguous(), shapes,
                                       bq, bk, bv)
-    return qkv_projection_xla(x, wq, wk, wv, bq, bk, bv, w_qkv=w_qkv)
+    return qkv_projection_xla(x, wq, wk, wv, bq, bk, bv,
+                              quantized=cfg.quant == "int8", w_qkv=w_qkv)
 
 
 # ---------------------------------------------------------------------------
@@ -350,6 +363,31 @@ def chunked_prefill_attention(q, k_cache, v_cache, q_offset: int, *,
     return _dense_masked(q, k_cache, v_cache, ok[None, None], scale)
 
 
+def verify_attention(q, k_cache, v_cache, cache_len, *, scale=None,
+                     cfg: FamousConfig = FamousConfig()):
+    """Speculative-verify attention against a contiguous KV cache.
+
+    q: (B, W, H, dh) — the W verify tokens of each slot at absolute
+    positions ``cache_len[b] + j`` (their K/V already written); caches:
+    (B, S_max, KV, dh); cache_len: (B,) int.  Query j attends keys at
+    positions ``<= cache_len[b] + j``: W == 1 is :func:`decode_attention`.
+    impl="pallas" runs each (slot, verify position) pair as a row of the
+    decode kernel (kernels/decode/ops.py); other impls run the dense
+    masked oracle."""
+    B, W, H, dh = q.shape
+    Smax = k_cache.shape[1]
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(dh)
+    if cfg.impl == "pallas":
+        from repro_torch.kernels.decode import ops as dec_ops
+        return dec_ops.verify_attention(q, k_cache, v_cache, cache_len,
+                                        scale=scale)
+    q_pos = (cache_len.to(q.device)[:, None]
+             + torch.arange(W, device=q.device)[None, :])         # (B, W)
+    ok = (torch.arange(Smax, device=q.device)[None, None, :]
+          <= q_pos[:, :, None])                                   # (B, W, Smax)
+    return _dense_masked(q, k_cache, v_cache, ok[:, None], scale)
+
+
 def _gather_pools(k_pages, v_pages, page_table, k_scale, v_scale):
     from repro_torch.kernels.decode import ref as dec_ref
     pt = page_table.to(k_pages.device)
@@ -381,6 +419,27 @@ def paged_chunked_prefill_attention(q, k_pages, v_pages, page_table,
             v_scale=v_scale, scale=scale)
     k, v = _gather_pools(k_pages, v_pages, page_table, k_scale, v_scale)
     return chunked_prefill_attention(q, k, v, q_offset, scale=scale, cfg=cfg)
+
+
+def paged_verify_attention(q, k_pages, v_pages, page_table, cache_len, *,
+                           scale=None, k_scale=None, v_scale=None,
+                           cfg: FamousConfig = FamousConfig()):
+    """Speculative-verify attention against a *paged* KV cache.
+
+    q: (B, W, H, dh) at per-slot positions ``cache_len[b] + j``; pools:
+    (n_pages, page_size, KV, dh); page_table: (B, n_p) int32.  impl=
+    "pallas" runs (slot, verify position) pairs as rows of the paged decode
+    kernels (int8 with ``k_scale``/``v_scale``); other impls gather the
+    table into a contiguous view and reuse :func:`verify_attention`."""
+    dh = q.shape[-1]
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(dh)
+    if cfg.impl == "pallas":
+        from repro_torch.kernels.decode import ops as dec_ops
+        return dec_ops.paged_verify_attention(
+            q, k_pages, v_pages, page_table, cache_len, k_scale=k_scale,
+            v_scale=v_scale, scale=scale)
+    k, v = _gather_pools(k_pages, v_pages, page_table, k_scale, v_scale)
+    return verify_attention(q, k, v, cache_len, scale=scale, cfg=cfg)
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, cache_len, *,

@@ -1,10 +1,16 @@
 // decode_attention: one new query token per slot against the slot's
 // contiguous KV cache, GQA, f32 online softmax.
 //
-//   q      (B, H, dh)            contiguous (the decode step's (B, 1, H, dh))
-//   k, v   (B, Skv, KV, dh)      read by strides, dh contiguous
-//   lens   (B,) int32            valid entries of each slot, on the device
-//   out    (B, H, dh)
+//   q      (R, H, dh)            contiguous (the decode step's (B, 1, H, dh))
+//   k, v   (R / rps, Skv, KV, dh) read by strides, dh contiguous
+//   lens   (R,) int32            valid entries of each row, on the device
+//   out    (R, H, dh)
+//
+// Row r reads slot r / rps of the caches.  Decode has one row per slot
+// (rps = 1); speculative verify flattens (slot, verify position j) into
+// row slot * W + j with rps = W and length cache_len + j + 1, so the W
+// rows of a slot share its cache in place, where the JAX wrapper
+// broadcasts the cache W ways.
 //
 // Replaces: src/repro/kernels/decode/decode_attn.py, decode_attention (the
 // Pallas kernel _decode_kernel).  There the JAX wrapper first transposes
@@ -49,7 +55,7 @@ template <typename T>
 __global__ void __launch_bounds__(kDecThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ lens,
-                        T* __restrict__ out, int H, int KV, int dh, int Skv,
+                        T* __restrict__ out, int H, int KV, int dh, int Skv, int rps,
                         long long k_sb, long long k_ss, long long k_sh,
                         long long v_sb, long long v_ss, long long v_sh, float scale) {
   extern __shared__ float smem[];
@@ -77,8 +83,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < kDecDPT; ++i) acc[g][i] = 0.f;
 
   const int len = max(0, min(lens[b], Skv));
-  const T* kb = k + b * k_sb + hk * k_sh;
-  const T* vb = v + b * v_sb + hk * v_sh;
+  const T* kb = k + (b / rps) * k_sb + hk * k_sh;
+  const T* vb = v + (b / rps) * v_sb + hk * v_sh;
   __syncthreads();
 
   for (int k0 = 0; k0 < len; k0 += kDecBK) {
@@ -152,7 +158,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 static cudaError_t launch_decode(const void* q, const void* k, const void* v, const int* lens,
-                                 void* out, int B, int H, int KV, int dh, int Skv,
+                                 void* out, int B, int H, int KV, int dh, int Skv, int rps,
                                  long long k_sb, long long k_ss, long long k_sh,
                                  long long v_sb, long long v_ss, long long v_sh, float scale,
                                  cudaStream_t stream) {
@@ -162,7 +168,7 @@ static cudaError_t launch_decode(const void* q, const void* k, const void* v, co
   dim3 grid(KV, B);
   decode_attention_kernel<T><<<grid, kDecThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lens,
-      static_cast<T*>(out), H, KV, dh, Skv, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale);
+      static_cast<T*>(out), H, KV, dh, Skv, rps, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale);
   return cudaGetLastError();
 }
 
@@ -170,21 +176,22 @@ static cudaError_t launch_decode(const void* q, const void* k, const void* v, co
 
 extern "C" int famous_decode_attention(int dtype, const void* q, const void* k, const void* v,
                                        const void* lens, void* out, int B, int H, int KV,
-                                       int dh, int Skv, long long k_sb, long long k_ss,
+                                       int dh, int Skv, int rps, long long k_sb, long long k_ss,
                                        long long k_sh, long long v_sb, long long v_ss,
                                        long long v_sh, float scale, void* stream) {
   using namespace famous;
-  if (KV <= 0 || H % KV != 0 || H / KV > kDecMaxGroup || dh <= 0 || dh > kDecMaxDh)
+  if (KV <= 0 || H % KV != 0 || H / KV > kDecMaxGroup || dh <= 0 || dh > kDecMaxDh ||
+      rps <= 0 || B % rps != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* l = static_cast<const int*>(lens);
   cudaError_t e;
   if (dtype == kF32)
-    e = launch_decode<float>(q, k, v, l, out, B, H, KV, dh, Skv, k_sb, k_ss, k_sh, v_sb, v_ss,
+    e = launch_decode<float>(q, k, v, l, out, B, H, KV, dh, Skv, rps, k_sb, k_ss, k_sh, v_sb, v_ss,
                              v_sh, scale, s);
   else if (dtype == kBF16)
-    e = launch_decode<__nv_bfloat16>(q, k, v, l, out, B, H, KV, dh, Skv, k_sb, k_ss, k_sh,
+    e = launch_decode<__nv_bfloat16>(q, k, v, l, out, B, H, KV, dh, Skv, rps, k_sb, k_ss, k_sh,
                                      v_sb, v_ss, v_sh, scale, s);
   else
     e = cudaErrorInvalidValue;

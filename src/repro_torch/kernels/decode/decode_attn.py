@@ -24,21 +24,25 @@ from repro_torch.kernels.decode import ref
 NAME = "decode_attention"
 
 
-def decode_attention(q, k_cache, v_cache, cache_len, *, scale: float):
-    """q: (B, H, dh); caches: (B, Skv, KV, dh); cache_len: (B,) int32 on
-    the caches' device.  Returns (B, H, dh)."""
+def decode_attention(q, k_cache, v_cache, cache_len, *, scale: float,
+                     rows_per_slot: int = 1):
+    """q: (R, H, dh); caches: (R / rows_per_slot, Skv, KV, dh); cache_len:
+    (R,) int32 on the caches' device.  Row r attends slot
+    ``r // rows_per_slot`` (speculative verify: the W rows of a slot share
+    its cache, each with its own length).  Returns (R, H, dh)."""
     if q.device.type == "cpu":
         return ref.decode_reference(q, k_cache, v_cache, cache_len,
-                                    scale=scale)
-    return _launch(q, k_cache, v_cache, cache_len, scale)
+                                    scale=scale, rows_per_slot=rows_per_slot)
+    return _launch(q, k_cache, v_cache, cache_len, scale, rows_per_slot)
 
 
-def _launch(q, k_cache, v_cache, cache_len, scale):
+def _launch(q, k_cache, v_cache, cache_len, scale, rows_per_slot):
     lib.require_cuda(NAME, q, k_cache, v_cache, cache_len)
     code = lib.require_dtype(NAME, q, k_cache, v_cache)
     B, H, dh = q.shape
     _, Skv, KV, _ = k_cache.shape
-    if (k_cache.shape != v_cache.shape or k_cache.shape[0] != B
+    if (k_cache.shape != v_cache.shape
+            or k_cache.shape[0] * rows_per_slot != B
             or k_cache.shape[3] != dh or H % KV or cache_len.shape != (B,)):
         raise ValueError(f"{NAME}: q {tuple(q.shape)}, caches "
                          f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}, "
@@ -54,7 +58,7 @@ def _launch(q, k_cache, v_cache, cache_len, scale):
     err = so.famous_decode_attention(
         code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         cache_len.data_ptr(), out.data_ptr(), B, H, KV, dh, Skv,
-        k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
+        rows_per_slot, k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
         float(scale), lib.stream_of(q))
     lib.check(NAME, err)

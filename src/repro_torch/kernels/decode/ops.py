@@ -1,5 +1,6 @@
-"""Decode / chunked-prefill attention from the model's (B, S, H, dh)
-layout, on contiguous caches and on paged pools (fp and int8).
+"""Decode / speculative-verify / chunked-prefill attention from the model's
+(B, S, H, dh) layout, on contiguous caches and on paged pools (fp and
+int8).
 
 The JAX wrappers transpose q (and the contiguous caches) to kv-major rows
 on every call; the port's kernels read the model layout by strides, so the
@@ -24,6 +25,53 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None):
     out = decode_attn.decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
                                        lens.contiguous(), scale=scale)
     return out.reshape(B, 1, H, dh)
+
+
+def _verify_lens(cache_len, W: int, cap: int, device):
+    """(B * W,) int32 row lengths of a verify: position j of slot b sees
+    ``cache_len[b] + j + 1`` keys, clipped to ``cap`` (pad rows past a
+    nearly full slot; the engine discards their output)."""
+    cl = cache_len.to(device=device, dtype=torch.int32)
+    j = torch.arange(1, W + 1, dtype=torch.int32, device=device)
+    return torch.clamp(cl[:, None] + j, max=cap).reshape(-1).contiguous()
+
+
+def verify_attention(q, k_cache, v_cache, cache_len, *, scale=None):
+    """Speculative verify on the decode kernel: q: (B, W, H, dh) at
+    per-slot positions ``cache_len[b] + j`` (their K/V already written);
+    caches: (B, Skv, KV, dh); cache_len: (B,) valid entries before the
+    first verify token.  Returns (B, W, H, dh).
+
+    Each (slot, verify position) pair is a kernel row ``b * W + j`` with
+    its own length; the kernel reads slot ``row // W`` of the caches in
+    place (``rows_per_slot=W``), where the JAX wrapper broadcasts each
+    slot's cache W ways."""
+    B, W, H, dh = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    lens = _verify_lens(cache_len, W, k_cache.shape[1], k_cache.device)
+    out = decode_attn.decode_attention(q.reshape(B * W, H, dh).contiguous(),
+                                       k_cache, v_cache, lens, scale=scale,
+                                       rows_per_slot=W)
+    return out.reshape(B, W, H, dh)
+
+
+def paged_verify_attention(q, k_pages, v_pages, page_table, cache_len, *,
+                           k_scale=None, v_scale=None, scale=None):
+    """Paged speculative verify: q: (B, W, H, dh); pools: (n_pages,
+    page_size, KV, dh); page_table: (B, n_p) int32; cache_len: (B,).
+    Returns (B, W, H, dh).  The rows of :func:`verify_attention` on the
+    paged decode kernels (int8 with ``k_scale``/``v_scale``): only the page
+    table is repeated per verify position, never the pool."""
+    B, W, H, dh = q.shape
+    dev = k_pages.device
+    n_p = page_table.shape[1]
+    pt = page_table.to(device=dev, dtype=torch.int32)
+    pt = pt[:, None].expand(B, W, n_p).reshape(B * W, n_p).contiguous()
+    lens = _verify_lens(cache_len, W, n_p * k_pages.shape[1], dev)
+    out = paged_decode_attention(q.reshape(B * W, 1, H, dh), k_pages,
+                                 v_pages, pt, lens, k_scale=k_scale,
+                                 v_scale=v_scale, scale=scale)
+    return out.reshape(B, W, H, dh)
 
 
 def chunk_prefill_attention(q, k_cache, v_cache, q_offset: int, *,

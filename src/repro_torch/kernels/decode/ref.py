@@ -26,11 +26,15 @@ def _count(name: str, t: torch.Tensor) -> None:
         STATS.plain_on_cuda[name] += 1
 
 
-def decode_reference(q, k_cache, v_cache, cache_len, *, scale: float):
-    """q: (B, H, dh); caches: (B, Skv, KV, dh); cache_len: (B,) int.
-    Returns (B, H, dh): query head h attends kv head h // (H // KV) at
-    positions < cache_len[b]."""
+def decode_reference(q, k_cache, v_cache, cache_len, *, scale: float,
+                     rows_per_slot: int = 1):
+    """q: (R, H, dh); caches: (R / rows_per_slot, Skv, KV, dh); cache_len:
+    (R,) int.  Returns (R, H, dh): row r, query head h attends kv head
+    h // (H // KV) of slot r // rows_per_slot at positions < cache_len[r]."""
     _count("decode_attention", q)
+    if rows_per_slot > 1:
+        k_cache = k_cache.repeat_interleave(rows_per_slot, dim=0)
+        v_cache = v_cache.repeat_interleave(rows_per_slot, dim=0)
     return _decode(q, k_cache, v_cache, cache_len, scale)
 
 

@@ -32,7 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]
-KERNELS = ("matmul_tiled", "decode_attention", "chunk_prefill",
+KERNELS = ("matmul_tiled", "matmul_tiled_int8", "decode_attention",
+           "chunk_prefill",
            "mha_forward", "mha_bwd_dq", "mha_bwd_dkv",
            "paged_decode_attention", "paged_decode_attention_int8",
            "paged_chunk_prefill", "paged_chunk_prefill_int8")
@@ -132,8 +133,12 @@ def build() -> Path:
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "famous_matmul_tiled": [_I, _P, _P, _P, _I, _I, _I, _P],
+    # xq, wqt, sx, sw, out, T, D, F, stream
+    "famous_matmul_tiled_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # dtype, q, k, v, lens, out, rows, H, KV, dh, Skv, rows_per_slot,
+    # k strides (slot, pos, head), v strides, scale, stream
     "famous_decode_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _LL, _LL, _LL, _LL, _LL, _LL, _F, _P],
+                                _I, _LL, _LL, _LL, _LL, _LL, _LL, _F, _P],
     "famous_chunk_prefill": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _LL, _LL, _LL, _LL, _LL, _LL, _F, _P],
     "famous_mha_forward": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -1,4 +1,4 @@
-"""Tiled QKV-projection kernel wrapper — FAMOUS Algorithm 1 on Hopper.
+"""Tiled QKV-projection kernel wrappers — FAMOUS Algorithm 1 on Hopper.
 
 ``matmul_tiled`` computes X(T, D) @ W(D, F) with an f32 accumulator and one
 cast to the operands' dtype.  On CUDA tensors it launches the hand-written
@@ -15,6 +15,16 @@ which a transposed view would turn into a stride of D (or T) between
 neighbouring threads, and one copy of W or X is one pass over T·D or D·F
 elements against the product's T·D·F multiply-adds.  A call that needs no
 gradient (the serving path) launches the kernel directly.
+
+``matmul_tiled_int8`` is the paper's 8-bit fixed point: int8 X and W, an
+exact integer accumulator and the per-token x per-column dequantize on
+flush, f32 out.  On CUDA tensors it launches
+``kernels/csrc/matmul_tiled_int8.cu`` (the port of the Pallas
+``_proj_kernel_int8``), which takes W **transposed**, as (F, D): the model
+quantizes the fused W once at load and stores it so (see
+``models/attention.quantize_qkv``).  On CPU tensors it runs the plain
+version, which keeps JAX's (D, F) signature.  No gradient: the JAX kernel
+has none either, and ``round`` has none.
 """
 from __future__ import annotations
 
@@ -24,6 +34,7 @@ from repro_torch.kernels import lib
 from repro_torch.kernels.qkv import ref
 
 NAME = "matmul_tiled"
+NAME_INT8 = "matmul_tiled_int8"
 
 
 def matmul_tiled(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -71,4 +82,42 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                                  out.data_ptr(), T, D, F, lib.stream_of(x))
     lib.check(NAME, err)
     lib.STATS.launches[NAME] += 1
+    return out
+
+
+def matmul_tiled_int8(xq: torch.Tensor, wqt: torch.Tensor, sx: torch.Tensor,
+                      sw: torch.Tensor) -> torch.Tensor:
+    """xq: (T, D) int8; wqt: (F, D) int8, the quantized W transposed; sx:
+    (T, 1) and sw: (1, F) f32 scales.  Returns (T, F) f32
+    ``(xq @ wqt.T) * sx * sw``."""
+    if xq.device.type == "cpu" and wqt.device.type == "cpu":
+        return ref.matmul_int8_reference(xq, wqt.t(), sx, sw)
+    return _launch_int8(xq, wqt, sx, sw)
+
+
+def _launch_int8(xq, wqt, sx, sw):
+    lib.require_cuda(NAME_INT8, xq, wqt, sx, sw)
+    if xq.dtype != torch.int8 or wqt.dtype != torch.int8:
+        raise ValueError(f"{NAME_INT8}: int8 operands, got {xq.dtype}, "
+                         f"{wqt.dtype}")
+    if xq.ndim != 2 or wqt.ndim != 2 or xq.shape[1] != wqt.shape[1]:
+        raise ValueError(f"{NAME_INT8}: shapes {tuple(xq.shape)} @ "
+                         f"{tuple(wqt.shape)}^T")
+    T, D = xq.shape
+    F = wqt.shape[0]
+    if (sx.dtype != torch.float32 or sw.dtype != torch.float32
+            or sx.numel() != T or sw.numel() != F):
+        raise ValueError(f"{NAME_INT8}: f32 scales of {T} and {F} entries, "
+                         f"got {sx.dtype} {tuple(sx.shape)}, {sw.dtype} "
+                         f"{tuple(sw.shape)}")
+    if not all(t.is_contiguous() for t in (xq, wqt, sx, sw)):
+        raise ValueError(f"{NAME_INT8}: contiguous operands required")
+    out = torch.empty((T, F), dtype=torch.float32, device=xq.device)
+    so = lib.load()
+    err = so.famous_matmul_tiled_int8(xq.data_ptr(), wqt.data_ptr(),
+                                      sx.data_ptr(), sw.data_ptr(),
+                                      out.data_ptr(), T, D, F,
+                                      lib.stream_of(xq))
+    lib.check(NAME_INT8, err)
+    lib.STATS.launches[NAME_INT8] += 1
     return out

@@ -1,8 +1,9 @@
-"""Plain PyTorch version of the tiled QKV-projection kernel (Algorithm 1).
+"""Plain PyTorch versions of the tiled QKV-projection kernels (Algorithm 1),
+fp and int8.
 
-The kernel wrapper (:func:`repro_torch.kernels.qkv.qkv_proj.matmul_tiled`)
-runs it for tensors on the CPU; ``chip_smoke.py`` holds the CUDA kernel
-against it on the card.  The serving path never calls it on CUDA tensors
+The kernel wrappers (:mod:`repro_torch.kernels.qkv.qkv_proj`) run them for
+tensors on the CPU; ``chip_smoke.py`` holds the CUDA kernels against them on
+the card.  The serving path never calls them on CUDA tensors
 (``lib.STATS.plain_on_cuda`` counts any such call)."""
 from __future__ import annotations
 
@@ -17,3 +18,16 @@ def matmul_reference(x: torch.Tensor, w: torch.Tensor,
     if x.is_cuda:
         STATS.plain_on_cuda["matmul_tiled"] += 1
     return (x.to(torch.float32) @ w.to(torch.float32)).to(out_dtype or x.dtype)
+
+
+def matmul_int8_reference(xq: torch.Tensor, wq: torch.Tensor,
+                          sx: torch.Tensor, sw: torch.Tensor,
+                          out_dtype=torch.float32) -> torch.Tensor:
+    """xq: (T, D) int8 @ wq: (D, F) int8, exact integer sums, dequantized
+    as ``acc.f32 * sx * sw`` with sx: (T, 1) and sw: (1, F) f32 (JAX's
+    ``matmul_int8_reference``).  The sums run in f64, exact for integers
+    below 2^53, since torch has no integer matmul on CUDA."""
+    if xq.is_cuda:
+        STATS.plain_on_cuda["matmul_tiled_int8"] += 1
+    acc = xq.to(torch.float64) @ wq.to(torch.float64)
+    return (acc.to(torch.float32) * sx * sw).to(out_dtype)

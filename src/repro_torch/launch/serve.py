@@ -59,6 +59,14 @@ def main(argv=None):
     ap.add_argument("--prefix-cache", action="store_true",
                     help="share identical full prompt blocks across "
                          "requests through refcounted pages (paged only)")
+    ap.add_argument("--speculative", action="store_true",
+                    help="draft-model-free speculative decoding: a host-side "
+                         "prompt-lookup drafter proposes tokens, one batched "
+                         "verify step accepts the longest matching prefix "
+                         "(token-identical to plain decode)")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="max draft tokens per verify step (the verify "
+                         "step's width is draft-k + 1)")
     ap.add_argument("--metrics", action="store_true",
                     help="attach an Observer and print the Prometheus text "
                          "exposition after the run")
@@ -85,7 +93,9 @@ def main(argv=None):
                            page_size=args.page_size,
                            n_pages=args.n_pages or None,
                            kv_dtype=args.kv_dtype,
-                           prefix_cache=args.prefix_cache, observer=obs,
+                           prefix_cache=args.prefix_cache,
+                           speculative=args.speculative,
+                           draft_k=args.draft_k, observer=obs,
                            device=device)
     rng = np.random.default_rng(args.seed)
     # prompt lengths from max_seq / 32 to three quarters of max_seq
@@ -109,6 +119,12 @@ def main(argv=None):
           f"{engine.kernel_launches}; KV cache "
           f"{engine.cache_bytes_per_device()} bytes ({args.cache_kind}, "
           f"{args.kv_dtype}), prefix hit pages {engine.prefix_hit_pages}")
+    if args.speculative:
+        print(f"speculative: draft_k={args.draft_k}, "
+              f"{engine.spec_accepted}/{engine.spec_drafted} drafts accepted "
+              f"(rate {engine.acceptance_rate:.2f}, "
+              f"{engine.accepted_per_step:.2f} tokens/step over "
+              f"{engine.spec_steps} steps)")
     for r in sorted(done, key=lambda r: r.rid)[:3]:
         ttft = (r.t_first - r.t_submit) * 1e3 if r.t_first else float("nan")
         print(f"  req {r.rid}: prompt {len(r.tokens)} tokens -> "

@@ -1,13 +1,15 @@
 """Attention block: GQA dense MHA built on the FAMOUS core — full-sequence
 attention for training and encoders, and for serving a contiguous
-per-slot KV cache or a shared page pool, fp or int8 (the port of
-``repro.models.attention``, global-attention branch).
+per-slot KV cache or a shared page pool, fp or int8, by chunked prefill,
+decode or speculative verify (the port of ``repro.models.attention``,
+global-attention branch).
 
 Cache writes are **in place**: ``apply_attn_chunk`` writes the chunk's K/V
 into ``cache["k"][slot, offset:offset+C]``, ``apply_attn_decode`` writes
-each slot's new K/V at its ``cache_len``, and the paged twins scatter rows
-into the pool pages their page table names, mutating the tensors the
-caller passed.  The JAX functions are functional (they return updated
+each slot's new K/V at its ``cache_len``, ``apply_attn_verify`` the W
+verify tokens at ``cache_len + j``, and the paged twins scatter rows into
+the pool pages their page table names, mutating the tensors the caller
+passed.  The JAX functions are functional (they return updated
 copies); all return the cache so the call sites read alike.
 """
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import famous
 from repro_torch.core import quant as quant_lib
+from repro_torch.kernels.qkv import ops as qkv_ops
 from repro_torch.models import layers
 from repro_torch.models.module import ParamSpec
 
@@ -52,6 +55,20 @@ def fuse_qkv(p: dict) -> dict:
     out["wq"] = w[:, :nq].unflatten(1, (H, dh))
     out["wk"] = w[:, nq:nq + nk].unflatten(1, (KV, dh))
     out["wv"] = w[:, nq + nk:].unflatten(1, (KV, dh))
+    return out
+
+
+def quantize_qkv(p: dict) -> dict:
+    """One layer's attention params with the fused ``w_qkv`` also quantized
+    once, for ``FamousConfig(quant="int8")`` on the kernels: ``w_qkv_q``
+    int8 (F, D) (the int8 kernel's transposed layout) and ``w_qkv_s`` its
+    f32 (1, F) per-column scale.  Quantized from the weights' own dtype, as
+    JAX quantizes the fused W on every call, so the two agree bit for bit;
+    at qwen2-7b this adds 28 x 3584 x 4608 bytes (462 MB) of int8."""
+    if "w_qkv_q" in p:
+        return p
+    out = dict(p)
+    out["w_qkv_q"], out["w_qkv_s"] = qkv_ops.quantize_weight(p["w_qkv"])
     return out
 
 
@@ -129,9 +146,10 @@ def _page_of(page_table, positions, page_size: int):
 
 
 def _project(p, x, cfg: ModelConfig, fcfg: famous.FamousConfig, positions):
+    w_int8 = (p["w_qkv_q"], p["w_qkv_s"]) if "w_qkv_q" in p else None
     q, k, v = famous.qkv_projection(
         x, p["wq"], p["wk"], p["wv"], p.get("bq"), p.get("bk"), p.get("bv"),
-        cfg=fcfg, w_qkv=p.get("w_qkv"))
+        cfg=fcfg, w_qkv=p.get("w_qkv"), w_int8=w_int8)
     if cfg.qk_norm:
         raise NotImplementedError(
             "qk_norm comes with the model-forward slice of the port "
@@ -244,5 +262,72 @@ def apply_attn_decode_paged(p: dict, x: torch.Tensor, cache: dict,
     _paged_write(cache, pids, cache_len.long() % ps, k[:, 0], v[:, 0])
     out = famous.paged_decode_attention(q, cache["k"], cache["v"], page_table,
                                         cache_len + 1, cfg=fcfg,
+                                        **_pool_scales(cache))
+    return _out_proj(out, p["wo"]), cache
+
+
+def verify_writes(cache_len: torch.Tensor, W: int, max_seq: int):
+    """Where the W verify tokens of each slot go in a contiguous cache:
+    (slot, position, row) index tensors of the tokens at positions below
+    ``max_seq``, ``row`` indexing the flattened (B * W) tokens.  Positions
+    past ``max_seq`` (pad rows of a slot near capacity) are dropped, as
+    JAX's ``.at[].set(mode="drop")`` drops them: torch indexing has no drop
+    mode, and a clamped write would corrupt a live entry.  Computed from a
+    host copy of ``cache_len`` (one sync, which :func:`transformer.
+    verify_step` makes once for all layers)."""
+    cl = cache_len.detach().to("cpu", torch.int64)
+    pos = cl[:, None] + torch.arange(W)
+    keep = (pos < max_seq).reshape(-1)
+    rows = torch.arange(cl.shape[0] * W)[keep]
+    dev = cache_len.device
+    return (torch.div(rows, W, rounding_mode="floor").to(dev),
+            pos.reshape(-1)[keep].to(dev), rows.to(dev))
+
+
+def apply_attn_verify(p: dict, x: torch.Tensor, cache: dict,
+                      cache_len: torch.Tensor, cfg: ModelConfig,
+                      fcfg: famous.FamousConfig, writes):
+    """Speculative verify: W tokens per slot in one forward.  x: (B, W, D)
+    at absolute positions ``cache_len[b] + j``; cache_len: (B,) int32 valid
+    entries BEFORE the first verify token, on the device.  The tokens' K/V
+    are written in place at their positions (``writes``: the indices of
+    :func:`verify_writes`, which leave out positions past ``max_seq``).  Rejected draft positions need no rollback: their
+    K/V stay as junk past the accepted ``cache_len``, masked by every later
+    read and overwritten before they become visible.  Returns (out, cache).
+    """
+    B, W = x.shape[:2]
+    positions = cache_len[:, None] + torch.arange(W, device=x.device)
+    q, k, v = _project(p, x, cfg, fcfg, positions)
+    b_idx, pos, rows = writes
+    kd = k.reshape(B * W, *k.shape[2:])
+    vd = v.reshape(B * W, *v.shape[2:])
+    cache["k"][b_idx, pos] = kd[rows].to(cache["k"].dtype)
+    cache["v"][b_idx, pos] = vd[rows].to(cache["v"].dtype)
+    out = famous.verify_attention(q, cache["k"], cache["v"], cache_len,
+                                  cfg=fcfg)
+    return _out_proj(out, p["wo"]), cache
+
+
+def apply_attn_verify_paged(p: dict, x: torch.Tensor, cache: dict,
+                            page_table: torch.Tensor, cache_len: torch.Tensor,
+                            cfg: ModelConfig, fcfg: famous.FamousConfig):
+    """Speculative verify against the shared page pool.  x: (B, W, D);
+    page_table: (B, n_p) int32 and cache_len: (B,) int32 valid entries
+    BEFORE the first verify token, both on the device.  Position p of slot
+    b goes to page ``page_table[b, p // ps]``, row ``p % ps``, through
+    :func:`_paged_write` (quantizing for int8 pools); a position past the
+    table goes to the null page (a clamped page would alias a live one).
+    Rollback of rejected tokens is the allocator's (``PageAllocator.
+    shrink``); their junk in kept pages is masked and overwritten as in
+    the contiguous case.  Returns (out, cache)."""
+    B, W = x.shape[:2]
+    positions = cache_len[:, None] + torch.arange(W, device=x.device)
+    q, k, v = _project(p, x, cfg, fcfg, positions)
+    ps = cache["k"].shape[1]
+    pos = positions.long()
+    pids = _page_of(page_table, pos, ps)
+    _paged_write(cache, pids, pos % ps, k, v)
+    out = famous.paged_verify_attention(q, cache["k"], cache["v"],
+                                        page_table, cache_len, cfg=fcfg,
                                         **_pool_scales(cache))
     return _out_proj(out, p["wo"]), cache

@@ -9,7 +9,8 @@ Parameters come in two layouts:
     ``repro_torch.convert`` produce it.  :func:`forward` (training) takes
     this one, so gradients land in the stacked leaves;
   * the **serving layout** of :func:`prepare_params` — one dict per layer
-    (views into the stacked leaves), ``[Wq|Wk|Wv]`` fused once per layer,
+    (views into the stacked leaves), ``[Wq|Wk|Wv]`` fused once per layer
+    (and, by :func:`quantize_qkv`, quantized once for the int8 kernel),
     and one f32 copy of the LM head.  The serving step functions take it.
 
 JAX's ``lax.scan`` over the stacked units becomes a loop over them; its
@@ -117,6 +118,16 @@ def prepare_params(params: dict, cfg: ModelConfig) -> dict:
         unembed = params["lm_head"]["w"].to(torch.float32)
     return {"embed": params["embed"], "layers": out_layers,
             "final_norm": params["final_norm"], "unembed_f32": unembed}
+
+
+def quantize_qkv(params: dict) -> dict:
+    """The serving layout with every layer's fused QKV weight also
+    quantized once to int8 (``attention.quantize_qkv``), for
+    ``FamousConfig(impl="pallas", quant="int8")``.  Returns a new dict;
+    the tensors it shares with ``params`` are not copied."""
+    layers_q = [dict(blk, attn=attention.quantize_qkv(blk["attn"]))
+                for blk in params["layers"]]
+    return dict(params, layers=layers_q)
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +284,45 @@ def decode_step(params, tokens, caches, cache_len, cfg: ModelConfig,
             p["ffn"], layers.apply_norm(p["ln2"], x, cfg.norm), cfg.act)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     return logits_fn(params, x, cfg)[:, 0], caches
+
+
+def verify_step(params, tokens, caches, cache_len, cfg: ModelConfig,
+                fcfg: FamousConfig = FamousConfig(), page_table=None):
+    """Speculative verify: decode W tokens per slot in ONE forward.
+
+    tokens: (B, W) int — row b is ``[last_token, draft_1..draft_{W-1}]``
+    at absolute positions ``cache_len[b] + j`` (pad rows past a short draft
+    are ignored by the caller); cache_len: (B,) int32 valid entries BEFORE
+    the first token, on the device; page_table as in :func:`decode_step`.
+    Returns (logits (B, W, vocab) f32, caches): ``logits[b, j]`` is what
+    the j+1-th of sequential :func:`decode_step` calls over ``tokens[b,
+    :j+1]`` would give (causal attention makes the two identical), so the
+    engine can accept the longest draft prefix the model agrees with and
+    stay token-identical to plain decode.  Only global-attention stacks
+    verify (the port runs no other kind)."""
+    kinds = set(cfg.pattern_unit) | set(cfg.tail_layers)
+    if kinds != {ATTN}:
+        raise ValueError(f"verify_step only supports global-attention "
+                         f"layers, got {sorted(kinds)}")
+    x = layers.embed_lookup(params["embed"], tokens, _compute_dtype(params))
+    writes = None
+    if page_table is None:   # one host sync for every layer's write indices
+        writes = attention.verify_writes(cache_len, tokens.shape[1],
+                                         caches[0]["k"].shape[1])
+    for p, cache in zip(params["layers"], caches):
+        h = layers.apply_norm(p["ln1"], x, cfg.norm)
+        if page_table is not None:
+            a, _ = attention.apply_attn_verify_paged(
+                p["attn"], h, cache, page_table, cache_len, cfg, fcfg)
+        else:
+            a, _ = attention.apply_attn_verify(p["attn"], h, cache,
+                                               cache_len, cfg, fcfg,
+                                               writes=writes)
+        x = x + a
+        x = x + layers.apply_mlp(
+            p["ffn"], layers.apply_norm(p["ln2"], x, cfg.norm), cfg.act)
+    x = layers.apply_norm(params["final_norm"], x, cfg.norm)
+    return logits_fn(params, x, cfg), caches
 
 
 def clear_slot(caches, slot: int, paged: bool = False) -> list:

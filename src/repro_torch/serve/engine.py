@@ -7,7 +7,13 @@ package's).  Each :meth:`ServingEngine.step` executes one plan: budgeted
 prefill chunks first (``transformer.prefill_chunk``: ``chunk`` tokens of
 one slot at a runtime offset, written straight into the slot's cache
 rows), then one batched decode across all slots
-(``transformer.decode_step``), then greedy or seeded sampling.
+(``transformer.decode_step``), then greedy or seeded sampling.  With
+``speculative=True`` the decode is replaced by one verify step
+(``transformer.verify_step``, width ``draft_k + 1``): a host-side
+prompt-lookup drafter proposes tokens, the verify forward scores all of
+them at once, and the engine accepts the longest prefix the model agrees
+with plus the model's own next token (token-identical to plain decode),
+rolling back the rest by bookkeeping.
 
 The KV cache is per-slot contiguous stripes, or (``cache_kind="paged"``)
 one shared page pool per layer with the host-side
@@ -17,8 +23,10 @@ identical full prompt blocks across requests (admission maps cached
 blocks into the page table and prefill starts at the first uncached
 token; retirement publishes the prompt's blocks onto the cached-free
 LRU).  ``kv_dtype="int8"`` (paged only) quantizes K/V at write time and
-the paged kernels dequantize in their tiles.  ``speculative``, ``mesh``
-and ``prefill_mode="monolithic"`` raise ``NotImplementedError`` naming the
+the paged kernels dequantize in their tiles.  ``FamousConfig(impl=
+"pallas", quant="int8")`` runs every QKV projection through the int8
+kernel on weights quantized once here.  ``mesh`` and
+``prefill_mode="monolithic"`` raise ``NotImplementedError`` naming the
 ROADMAP slice that brings them.
 
 PyTorch runs eagerly, so there is no executable cache: ``compilations``
@@ -48,6 +56,7 @@ from repro_torch.models import transformer
 from repro_torch.obs.runtime import NULL_OBSERVER
 from repro_torch.obs.trace import now as _clock
 from repro_torch.serve import sampling
+from repro_torch.serve.draft import PromptLookupDrafter
 from repro_torch.serve.paged import (PageAllocator, PagedCacheConfig,
                                      PagePoolExhausted, block_hashes)
 from repro_torch.serve.scheduler import DECODE, Scheduler, SchedulerConfig
@@ -99,15 +108,20 @@ class ServingEngine:
                  n_pages: Optional[int] = None, prefill_mode: str = "chunked",
                  chunk: int = 32, token_budget: int = 0,
                  prefix_cache: bool = False, speculative: bool = False,
-                 kv_dtype: str = "fp", mesh=None, observer=None,
-                 device="cuda"):
+                 draft_k: int = 4, drafter=None, kv_dtype: str = "fp",
+                 mesh=None, observer=None, device="cuda"):
         """``params``: the spec tree (``init_params(model_spec(cfg))`` or
         ``convert.params_from_jax``) or the serving layout of
         ``transformer.prepare_params``, on ``device``.  ``n_pages`` (paged
         only) counts the null page; ``None`` backs a full batch of
-        ``max_seq`` sequences, less oversubscribes the pool."""
-        if speculative:
-            raise _not_ported("speculative", "slice 6 (speculative verify)")
+        ``max_seq`` sequences, less oversubscribes the pool.
+        ``speculative``: verify up to ``draft_k`` drafted tokens a step;
+        ``drafter`` is any object with ``draft(seq, k) -> list`` (default
+        :class:`~repro_torch.serve.draft.PromptLookupDrafter`)."""
+        if draft_k < 1:
+            raise ValueError(f"draft_k must be at least 1, got {draft_k}")
+        if fcfg.quant not in ("none", "int8"):
+            raise ValueError(f"quant {fcfg.quant!r}")
         if mesh is not None:
             raise _not_ported("mesh", "slice 10 (tensor-parallel serving)")
         if prefill_mode == "monolithic":
@@ -127,6 +141,9 @@ class ServingEngine:
         self.device = resolve_device(device)
         self.obs = observer if observer is not None else NULL_OBSERVER
         self.params = transformer.prepare_params(params, cfg)
+        if fcfg.quant == "int8" and fcfg.impl == "pallas":
+            # the int8 kernel's W, quantized once here (JAX: every call)
+            self.params = transformer.quantize_qkv(self.params)
         self.cfg = cfg
         self.fcfg = fcfg
         self.n_slots = n_slots
@@ -137,8 +154,22 @@ class ServingEngine:
         # pads stay inside the cache (positions < ceil(target/C)*C <= max_seq)
         assert max_seq % self.chunk == 0, (max_seq, self.chunk)
         assert self.chunk <= 64 or self.chunk % 64 == 0, self.chunk
+        # -- speculative decoding -------------------------------------------
+        # The verify step writes K/V at [cache_len, cache_len + W) and rolls
+        # back by bookkeeping only: rejected positions hold junk that is
+        # masked and overwritten before it is read.  That needs position-
+        # addressed storage, which every stack the port runs has (global
+        # attention only), so ``speculative_active`` is ``speculative``.
+        self.draft_k = draft_k
+        self.speculative_active = speculative
+        self.drafter = drafter if drafter is not None else \
+            PromptLookupDrafter(observer=self.obs)
+        self.spec_steps = 0      # verify steps executed
+        self.spec_drafted = 0    # draft tokens proposed to the verifier
+        self.spec_accepted = 0   # draft tokens accepted (bonus excluded)
         self.sched = Scheduler(n_slots, SchedulerConfig(
-            chunk=self.chunk, token_budget=token_budget, decode_width=1),
+            chunk=self.chunk, token_budget=token_budget,
+            decode_width=(draft_k + 1) if speculative else 1),
             observer=self.obs)
         if self.paged:
             assert max_seq % page_size == 0, (max_seq, page_size)
@@ -178,6 +209,17 @@ class ServingEngine:
         every kind reports 0 (the kernels are one shared library, built
         once per process)."""
         return {"prefill": 0, "decode": 0, "verify": 0, "clear": 0}
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Accepted draft tokens / proposed draft tokens (bonus excluded)."""
+        return self.spec_accepted / max(self.spec_drafted, 1)
+
+    @property
+    def accepted_per_step(self) -> float:
+        """Mean tokens emitted per verify step (1.0 = plain-decode pace)."""
+        return ((self.spec_steps + self.spec_accepted)
+                / max(self.spec_steps, 1))
 
     @property
     def kernel_launches(self) -> dict:
@@ -343,7 +385,10 @@ class ServingEngine:
                 # prefill complete: decode restarts at the last token,
                 # whose K/V entry is then written exactly once at n-1
                 self.last_token[ch.slot] = seq[-1]
-        self._decode_plain(list(plan.decode_slots), finished)
+        if self.speculative_active:
+            self._decode_speculative(list(plan.decode_slots), finished)
+        else:
+            self._decode_plain(list(plan.decode_slots), finished)
         self.sched.tick()
         return finished
 
@@ -420,6 +465,109 @@ class ServingEngine:
             if req.t_first is None:
                 req.t_first = now
             self.sched.on_decode_token(i)
+            self._maybe_retire(i, req, now, finished)
+
+    # -- speculative decode ---------------------------------------------------
+    def _draft_for(self, i: int) -> list:
+        """The slot's draft, capped so a full accept can neither overshoot
+        ``max_new`` nor run ``cache_len`` past the ``max_seq - 1`` retire
+        line.  A drafter's failure is the request's (caught by the caller).
+        """
+        req = self.sched.slots[i].req
+        room = min(self.draft_k,
+                   req.max_new - len(req.out) - 1,
+                   self.max_seq - 2 - int(self.cache_len[i]))
+        if room <= 0:
+            return []
+        seq = list(req.tokens) + list(req.out)
+        return [int(t) for t in self.drafter.draft(seq, room)][:room]
+
+    def _decode_speculative(self, active: list, finished: list) -> None:
+        """One verify step: draft on the host, verify every slot's draft in
+        ONE forward of width ``draft_k + 1``, accept each slot's longest
+        matching prefix plus the model's bonus/correction token, and roll
+        back the rest by bookkeeping (contiguous: junk K/V past
+        ``cache_len`` is masked and overwritten; paged: tail pages grown
+        for rejected tokens shrink back to the pool)."""
+        W = self.draft_k + 1
+        drafts: dict[int, list] = {}
+        for i in list(active):
+            try:
+                drafts[i] = self._draft_for(i)
+            except Exception as e:   # a poisoned request fails alone
+                self._fail_slot(i, f"drafter failed: {type(e).__name__}: {e}")
+                active.remove(i)
+        if self.paged and active:
+            # the next token's page as in plain decode (preempting
+            # youngest-first); draft pages on top are opportunistic: on
+            # exhaustion the draft is dropped, never a live sequence
+            active = self._grow_active(active)
+            for i in list(active):
+                d = drafts.get(i, [])
+                if not d:
+                    continue
+                try:
+                    self.alloc.grow(i, int(self.cache_len[i]) + 1 + len(d))
+                except PagePoolExhausted:
+                    drafts[i] = []
+        finished.extend(self._failed)
+        self._failed.clear()
+        if not active:
+            return
+        toks = np.zeros((self.n_slots, W), np.int64)
+        for i in active:
+            toks[i, 0] = self.last_token[i]
+            d = drafts.get(i, [])
+            if d:
+                toks[i, 1:1 + len(d)] = d
+        kw = {"page_table": self._page_table()} if self.paged else {}
+        with self.obs.phase("verify", slots=len(active),
+                            drafted=sum(len(d) for d in drafts.values())):
+            logits, self.caches = transformer.verify_step(
+                self.params, torch.from_numpy(toks).to(self.device),
+                self.caches, torch.from_numpy(self.cache_len).to(self.device),
+                self.cfg, self.fcfg, **kw)
+            temps, topks, seeds, idxs = self._sampling_operands(active)
+            if temps.any():
+                k_cap = next_pow2(max(int(topks.max()), 1))
+                cand = sampling.verify_tokens(logits, temps, topks, seeds,
+                                              idxs, k_cap=k_cap)
+            else:
+                cand = torch.argmax(logits, dim=-1)
+            cand = cand.cpu().numpy()    # (n_slots, W); the ONE host sync
+        now = _clock()
+        self.spec_steps += 1
+        self.obs.on_spec_step()
+        for i in active:
+            req = self.sched.slots[i].req
+            d = drafts.get(i, [])
+            # cand[i, j] is the token sequential decode would emit after the
+            # draft prefix d[:j]; draft token j survives iff it is exactly
+            # that, and the first mismatch position contributes the model's
+            # own token, so every step emits 1..W tokens of plain decode's
+            # stream
+            n_acc = 1
+            for j, dt in enumerate(d):
+                if int(cand[i, j]) != dt:
+                    break
+                n_acc += 1
+            emitted = [int(t) for t in cand[i, :n_acc]]
+            self.spec_drafted += len(d)
+            self.spec_accepted += n_acc - 1
+            self.obs.on_draft_verified(req.rid, len(d), n_acc - 1)
+            self.obs.on_tokens(n_acc)
+            self.sched.on_draft(i, len(d), n_acc - 1)
+            self.cache_len[i] += n_acc
+            self.last_token[i] = emitted[-1]
+            req.out.extend(emitted)
+            if req.t_first is None:
+                req.t_first = now
+            for _ in range(n_acc):
+                self.sched.on_decode_token(i)
+            if self.paged:
+                # rollback: return the pages grown for rejected draft
+                # tokens (a draft cut at a page boundary must not leak)
+                self.alloc.shrink(i, int(self.cache_len[i]))
             self._maybe_retire(i, req, now, finished)
 
     # -- admission control ----------------------------------------------------

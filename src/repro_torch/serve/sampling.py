@@ -110,3 +110,23 @@ def sample_tokens(logits, temperature, top_k, seed, index, k_cap: int = 0):
         _sample_one(logits[b], float(temperature[b]), int(top_k[b]),
                     int(seed[b]), int(index[b]), cap)
         for b in range(logits.shape[0])])
+
+
+def verify_tokens(logits, temperature, top_k, seed, index0, k_cap: int = 0):
+    """Sample all W verify positions of every slot.
+
+    logits: (B, W, vocab) f32 from ``transformer.verify_step``; position j
+    of slot b samples with token index ``index0[b] + j`` — the index plain
+    decode reaches after accepting j tokens — and the request's own
+    (temperature, top_k, seed), so entry (b, j) is *the* token sequential
+    decoding of the draft prefix would emit (:func:`_sample_one` is a pure
+    function of seed, index and logits).  Host operands as in
+    :func:`sample_tokens`.  Returns (B, W) int64 on the logits' device."""
+    v = logits.shape[-1]
+    cap = v if k_cap <= 0 else min(k_cap, v)
+    return torch.stack([
+        torch.stack([
+            _sample_one(logits[b, j], float(temperature[b]), int(top_k[b]),
+                        int(seed[b]), int(index0[b]) + j, cap)
+            for j in range(logits.shape[1])])
+        for b in range(logits.shape[0])])

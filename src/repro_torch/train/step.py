@@ -59,6 +59,11 @@ def make_train_step(cfg: ModelConfig, fcfg: FamousConfig, tcfg: TrainConfig):
         raise NotImplementedError(
             "grad_compression=True comes with the mesh / gradient-"
             "compression slice of the port (ROADMAP Queue 1, slice 8)")
+    if fcfg.quant != "none":
+        raise ValueError(
+            f"quant={fcfg.quant!r} cannot be trained: the int8 projection "
+            "kernel has no gradient (neither has the JAX kernel: it defines "
+            "no VJP) and rounding to int8 has none")
 
     def loss_fn(params, batch):
         return losses.lm_loss(params, batch, cfg, fcfg, remat=tcfg.remat,

@@ -149,7 +149,8 @@ def test_seeded_tokens_match_jax_engine(timpl):
 
 
 @pytest.mark.parametrize("kw,exc,needle", [
-    (dict(speculative=True), NotImplementedError, "slice 6"),
+    (dict(speculative=True, draft_k=0), ValueError,
+     "draft_k must be at least 1"),
     (dict(prefill_mode="monolithic"), NotImplementedError, "slice 7"),
     (dict(mesh=object()), NotImplementedError, "slice 10"),
     (dict(kv_dtype="int8"), ValueError, "int8' requires cache_kind='paged'"),
@@ -159,7 +160,8 @@ def test_seeded_tokens_match_jax_engine(timpl):
 def test_unported_options_raise(kw, exc, needle):
     """Options of later slices raise naming the slice; int8 KV and the
     prefix cache need the paged cache (and the prefix cache chunked
-    prefill, the only prefill mode ported)."""
+    prefill, the only prefill mode ported); a speculative engine needs a
+    draft of at least one token (JAX asserts it)."""
     cfg, _ = _cfgs()
     with pytest.raises(exc, match=needle):
         ServingEngine({}, cfg, FamousConfig(), device="cpu", **kw)
@@ -176,9 +178,16 @@ def test_engine_without_cuda_raises_unless_asked_for_cpu():
 
 @pytest.mark.parametrize("call", [
     lambda t: qkv_proj.matmul_tiled(t((4, 8)), t((8, 16))),
+    lambda t: qkv_proj.matmul_tiled_int8(
+        t((4, 32), torch.int8), t((16, 32), torch.int8), t((4, 1)),
+        t((1, 16))),
     lambda t: decode_attn.decode_attention(
         t((2, 4, 16)), t((2, 8, 2, 16)), t((2, 8, 2, 16)),
         torch.zeros(2, dtype=torch.int32, device="meta"), scale=0.25),
+    lambda t: decode_attn.decode_attention(
+        t((6, 4, 16)), t((2, 8, 2, 16)), t((2, 8, 2, 16)),
+        torch.zeros(6, dtype=torch.int32, device="meta"), scale=0.25,
+        rows_per_slot=3),
     lambda t: chunk_prefill.chunk_prefill(
         t((1, 4, 4, 16)), t((1, 8, 2, 16)), t((1, 8, 2, 16)), 0, scale=0.25),
     lambda t: decode_attn.paged_decode_attention(
@@ -237,7 +246,7 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.train.losses', 'repro_torch.optim.adamw', "
         "'repro_torch.data.pipeline', 'repro_torch.launch.train', "
         "'repro_torch.configs.famous_bert', 'repro_torch.serve.paged', "
-        "'repro_torch.core.quant'}\n"
+        "'repro_torch.core.quant', 'repro_torch.serve.draft'}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
