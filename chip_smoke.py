@@ -23,7 +23,11 @@ Phases, in order; any failure exits non-zero before the result line:
      famous-bert (B=8, S=512, 8 heads, dh=96, non-causal) and qwen2-7b
      (B=1, S=2048, 28/4 heads, dh=128, causal) for ``mha_forward``,
      ``mha_bwd_dq``, ``mha_bwd_dkv`` and ``matmul_tiled`` in its dX / dW
-     roles;
+     roles; and the two linear-recurrence kernels at their serving shapes
+     (``rglru_scan``: recurrentgemma-2b's 256-token chunk, B=1, R=2560;
+     ``wkv6_scan``: rwkv6-1.6b's, B·H=32, dh=64, chunk 64, without and
+     with a carried state, out and final state checked; kernels under
+     30 us timed by the profiler's device time);
   4. Table I: the paper's topology (SL=64, d_model=768, h=8) through
      ``famous.qkv_projection`` + ``famous.attention`` with impl reference,
      xla and pallas; the three must agree; then ``mha_block`` with the
@@ -57,9 +61,19 @@ Phases, in order; any failure exits non-zero before the result line:
      prefix traffic speculatively (``draft_k=4``) on the paged pool with
      the prefix cache, with the fp and the int8 projection; and a 2-layer
      full-width f32 run whose drafter proposes the plain run's own tokens
-     (every draft accepted; the tokens must equal the plain run's).
+     (every draft accepted; the tokens must equal the plain run's);
+  9. recurrent slice parity: one (RG-LRU, RG-LRU, local attention) unit
+     of recurrentgemma-2b and two RWKV-6 layers of rwkv6-1.6b at full
+     width through ``prefill_chunk`` + ``decode_step``, kernels against
+     plain torch ops, f32 and bf16; the recurrentgemma prompt (2300 tokens,
+     9 chunks) wraps its 2048-token ring, and an inactive slot's recurrent
+     state must not move during decode;
+ 10. recurrent serving: recurrentgemma-2b (max_seq 4096, prompts of
+     88-3600 tokens, three past the window) and rwkv6-1.6b (max_seq 2048)
+     at full depth in bf16, 8 greedy requests each, with launch counts
+     checked per chunk and decode step.
 
-The launch counters are set to 0 before each run of phases 7 and 8 and
+The launch counters are set to 0 before each run of phases 7, 8 and 10 and
 read after it: every kernel must have launched on those paths and no plain
 version may have run on the card.  Each phase prints its seconds.  The
 last three lines of output are the per-kernel JSON record
@@ -97,6 +111,12 @@ PAGED_KERNELS = {"fp": ("paged_decode_attention", "paged_chunk_prefill"),
                           "paged_chunk_prefill_int8")}
 TRAINING_KERNELS = ("matmul_tiled", "mha_forward", "mha_bwd_dq",
                     "mha_bwd_dkv")
+# the RG-LRU scan against its plain version: one f32 add and multiply per
+# step on the same inputs, in the same order (bit-exact in practice)
+RGLRU_TOL = {"f32": 1e-5, "bf16": 2e-2}
+# a kernel faster than this is timed by the profiler's device time: CUDA
+# events over back-to-back launches read the host's launch rate there
+DEVICE_TIME_UNDER_MS = 0.03
 REPLACES = {
     "matmul_tiled": "src/repro/kernels/qkv/qkv_proj.py:71",
     "matmul_tiled_int8": "src/repro/kernels/qkv/qkv_proj.py:129",
@@ -111,6 +131,8 @@ REPLACES = {
     "paged_chunk_prefill": "src/repro/kernels/decode/chunk_prefill.py:189",
     "paged_chunk_prefill_int8":
         "src/repro/kernels/decode/chunk_prefill.py:285",
+    "rglru_scan": "src/repro/kernels/scan/linear_scan.py:57",
+    "wkv6_scan": "src/repro/kernels/scan/linear_scan.py:127",
 }
 # the paged int8 kernels are instantiations in their fp kernels' sources;
 # the int8 projection has a source of its own
@@ -187,6 +209,28 @@ def time_ms(torch, fn, sets, iters):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, sets, iters, key):
+    """Mean device ms per launch of the kernels whose profiler name holds
+    ``key``, over ``iters`` calls of ``fn`` cycling through ``sets``; None
+    when the profiler saw no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for args in sets[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*sets[i % len(sets)])
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for ev in prof.key_averages():
+        if key in ev.key:
+            total_us += getattr(ev, "self_device_time_total", None) or \
+                getattr(ev, "self_cuda_time_total", 0)
+            count += ev.count
+    return total_us / 1e3 / count if count and total_us else None
+
+
 def n_sets(bytes_per_set: int) -> int:
     return max(2, min(64, math.ceil(2 * L2_BYTES / max(bytes_per_set, 1)) + 1))
 
@@ -234,15 +278,22 @@ def kernel_phase(torch, iters, seed):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
     def record(name, shape, dt, out, ref, tol, fn, plain, lib_fn, sets,
-               nbytes, flops, n_iter=iters, lib_sets=None):
+               nbytes, flops, n_iter=iters, lib_sets=None, profile_key=None,
+               ops_dt=None):
         err, ok = compare(torch, out, ref, tol)
         ms = time_ms(torch, fn, sets, n_iter)
+        timed_by = "events"
+        if profile_key and ms < DEVICE_TIME_UNDER_MS:
+            dev_ms = device_ms(torch, fn, sets, n_iter, profile_key)
+            if dev_ms is not None:
+                ms, timed_by = dev_ms, "profiler"
         plain_ms = time_ms(torch, plain, sets, max(3, n_iter // 4))
         library_ms = (time_ms(torch, lib_fn, lib_sets or sets, n_iter)
                       if lib_fn else None)
-        b_ms, b_by = bound(nbytes, flops, dt)
+        b_ms, b_by = bound(nbytes, flops, ops_dt or dt)
         row = dict(name=name, shape=shape, dtype=dt, max_abs_err=err, tol=tol,
-                   ok=ok, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   ok=ok, ms=ms, timed_by=timed_by, plain_ms=plain_ms,
+                   library_ms=library_ms,
                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
         rows.append(row)
         print(f"kernel {name:17s} {shape:34s} {dt:4s} max_abs_err={err:.3e} "
@@ -371,6 +422,7 @@ def kernel_phase(torch, iters, seed):
                    4.0 * H * dh * visible)
     paged_kernel_rows(torch, dts, randn, record, iters, gen)
     training_kernel_rows(torch, F, dts, randn, record, iters)
+    scan_kernel_rows(torch, dts, randn, record, iters)
     torch.cuda.synchronize()
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
@@ -601,6 +653,85 @@ def training_kernel_rows(torch, F, dts, randn, record, iters):
                        qkv_proj.matmul_tiled, qkv_ref.matmul_reference,
                        torch.matmul, sets, (m * kd + kd * n + m * n) * e,
                        2.0 * m * kd * n, n_iter=slow)
+
+
+def scan_kernel_rows(torch, dts, randn, record, iters):
+    """The two linear-recurrence kernels at the serving shapes of their
+    models.  ``rglru_scan``: recurrentgemma-2b's 256-token chunk, B=1,
+    R=2560 (a = sigmoid of a normal draw, b normal x 0.1; f32 inputs on the
+    main path, bf16 inputs checked too).  ``wkv6_scan``: rwkv6-1.6b's
+    256-token chunk, B·H=32, dh=64, chunk 64, without and with a random
+    carried state s0 (the main path always carries one), out and s_final
+    both checked; r, k, v in f32 or bf16 and logw in f32, as the model
+    makes them.  Without s0 the kernel is also held to the sequential
+    recurrence (JAX's chunked-vs-sequential tolerance, 1e-4 / rtol 1e-3).
+    No single PyTorch call computes either scan, so they have no library
+    time.  Both run every product on f32 FMA units, so their operation
+    bound is at the f32 rate whatever the input type."""
+    from repro_torch.kernels.scan import linear_scan
+    from repro_torch.kernels.scan import ref as scan_ref
+
+    f32 = torch.float32
+    B, S, R = 1, 256, 2560
+    for dt, dtype in dts.items():
+        e = torch.tensor([], dtype=dtype).element_size()
+        sets = [(torch.sigmoid(randn((B, S, R), f32)).to(dtype),
+                 randn((B, S, R), dtype, 0.1))
+                for _ in range(n_sets(2 * B * S * R * e))]
+        a, b = sets[0]
+        record("rglru_scan", f"B={B} S={S} R={R}", dt,
+               linear_scan.rglru_scan(a, b), scan_ref.rglru_reference(a, b),
+               RGLRU_TOL[dt], linear_scan.rglru_scan,
+               scan_ref.rglru_reference, None, sets,
+               2 * B * S * R * e + 4 * B * S * R, 2.0 * B * S * R,
+               profile_key="rglru_scan_kernel", ops_dt="f32")
+        del sets
+
+    BH, S, dh, C = 32, 256, 64, 64
+    n_chunks = S // C
+    # multiply-adds the chunked form needs: inter and state 2 C dh^2 each,
+    # the strictly lower scores and their product with v C (C-1) dh each,
+    # the diagonal bonus and the elementwise decay terms
+    flops = float(n_chunks * BH * (4 * C * dh * dh + 2 * C * (C - 1) * dh
+                                   + 8 * C * dh + 2 * dh * dh))
+    for dt, dtype in dts.items():
+        e = torch.tensor([], dtype=dtype).element_size()
+        for carried in (False, True):
+            def operands():
+                r, k, v = (randn((BH, S, dh), dtype, 0.5) for _ in range(3))
+                logw = -torch.exp(torch.clamp(randn((BH, S, dh), f32), -20, 0))
+                u = randn((BH, dh), f32, 0.5)
+                s0 = randn((BH, dh, dh), f32) if carried else None
+                return r, k, v, logw, u, s0
+
+            per = 3 * BH * S * dh * e + 4 * BH * S * dh
+            sets = [operands() for _ in range(n_sets(per))]
+
+            def kern(r, k, v, logw, u, s0):
+                return linear_scan.wkv6_scan(r, k, v, logw, u, s0, chunk=C)
+
+            def plain(r, k, v, logw, u, s0):
+                return scan_ref.wkv6_chunked_reference(r, k, v, logw, u, s0,
+                                                       chunk=C)
+
+            out = kern(*sets[0])
+            state_bytes = 4 * BH * dh * dh * (2 if carried else 1)
+            record("wkv6_scan", f"BH={BH} S={S} dh={dh} chunk={C} "
+                   f"s0={'random' if carried else 'none'} (logw f32)", dt,
+                   out, plain(*sets[0]), TOL[dt], kern, plain, None, sets,
+                   per + 4 * BH * dh + 4 * BH * S * dh + state_bytes, flops,
+                   profile_key="wkv6_scan_kernel", ops_dt="f32")
+            if not carried:
+                seq = scan_ref.wkv6_reference(*sets[0][:5])
+                err = float((out[0] - seq).abs().max())
+                ok = bool(torch.all((out[0] - seq).abs()
+                                    <= 1e-4 + 1e-3 * seq.abs()))
+                print(f"  (wkv6_scan {dt} vs the sequential recurrence: "
+                      f"max_abs_err {err:.3e}, limit 1e-4 + 1e-3 |ref| "
+                      f"{'ok' if ok else 'FAIL'})", flush=True)
+                check(ok, f"wkv6_scan {dt} differs from the sequential "
+                      f"recurrence by {err}")
+            del sets
 
 
 # ---------------------------------------------------------------------------
@@ -1379,6 +1510,225 @@ def shared_prefix_runs(torch, cfg, params, seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 9 and 10: the recurrent families
+# ---------------------------------------------------------------------------
+
+# arch, cut depth of the slice, its prompt length and max_seq: one
+# (RG-LRU, RG-LRU, local attention) unit of recurrentgemma-2b on a prompt
+# past its 2048-token window (9 chunks: the ring wraps, the state crosses
+# chunks), two RWKV-6 layers on 3 chunks
+RECURRENT_SLICES = (("recurrentgemma-2b", 3, 2300, 4096),
+                    ("rwkv6-1.6b", 2, 600, 1024))
+
+
+def recurrent_slice_phase(torch, seed):
+    """Each recurrent family at full width and cut depth through
+    ``prefill_chunk`` + ``decode_step``, through the kernels
+    (``impl="pallas"``) and through their plain versions (``impl="xla"``)
+    on the same weights, in f32 and bf16, chunk 256.  Slot 1 prefills the
+    prompt (the last chunk has a pad tail); slot 0 holds one chunk of
+    another prompt and sits inactive through the two decode steps, so its
+    recurrent state must come out unchanged.  Limits as the qwen2-7b
+    slice: 1e-4 / 5e-2 x max|logit| at f32 / bf16."""
+    from repro_torch.configs.base import RGLRU, RWKV6, get_config
+    from repro_torch.core.famous import FamousConfig
+    from repro_torch.models import transformer
+
+    dev = torch.device("cuda")
+    C = 256
+    results = {}
+    for arch, depth, n, max_seq in RECURRENT_SLICES:
+        cfg = dataclasses.replace(get_config(arch), num_layers=depth)
+        kinds = transformer.layer_kinds(cfg)
+        gen = torch.Generator(device=dev).manual_seed(seed + 5)
+        prompt = torch.zeros((1, -(-n // C) * C), dtype=torch.long,
+                             device=dev)
+        prompt[:, :n] = torch.randint(0, cfg.vocab_size, (1, n),
+                                      generator=gen, device=dev)
+        other = torch.randint(0, cfg.vocab_size, (1, C + 1), generator=gen,
+                              device=dev)
+        follow = torch.randint(0, cfg.vocab_size, (2,), generator=gen,
+                               device=dev)
+        for dt, dtype, tol in (("f32", torch.float32, 1e-4),
+                               ("bf16", torch.bfloat16, 5e-2)):
+            params = random_params(torch, cfg, dtype, seed)
+            logits = {}
+            for impl in ("pallas", "xla"):
+                fcfg = FamousConfig(impl=impl)
+                caches = transformer.make_caches(cfg, 2, max_seq, dtype, dev)
+                transformer.prefill_chunk(params, other[:, :C], caches, 0, 0,
+                                          C, cfg, fcfg)
+                for start in range(0, n, C):
+                    transformer.prefill_chunk(
+                        params, prompt[:, start:start + C], caches, 1, start,
+                        min(C, n - start), cfg, fcfg)
+                held = [{k: v[0].clone() for k, v in c.items()}
+                        for kind, c in zip(kinds, caches)
+                        if kind in (RGLRU, RWKV6)]
+                last = torch.stack([other[0, C], prompt[0, n - 1]])
+                clen = torch.tensor([C, n - 1], dtype=torch.int32, device=dev)
+                active = torch.tensor([False, True], device=dev)
+                outs = []
+                for j in range(2):
+                    lg, _ = transformer.decode_step(params, last, caches, clen,
+                                                    cfg, fcfg, active=active)
+                    outs.append(lg[1])
+                    last = torch.stack([other[0, C], follow[j]])
+                    clen = clen + torch.tensor([0, 1], dtype=torch.int32,
+                                               device=dev)
+                after = [{k: v[0] for k, v in c.items()}
+                         for kind, c in zip(kinds, caches)
+                         if kind in (RGLRU, RWKV6)]
+                frozen = all(torch.equal(a[k], b[k])
+                             for a, b in zip(held, after) for k in a)
+                check(frozen, f"{arch} {dt} {impl}: the inactive slot's "
+                      f"recurrent state moved during decode")
+                logits[impl] = torch.stack(outs)
+                del caches, held, after
+            torch.cuda.synchronize()
+            ref = logits["xla"]
+            err = float((logits["pallas"] - ref).abs().max())
+            limit = tol * float(ref.abs().max())
+            finite = bool(torch.isfinite(logits["pallas"]).all())
+            results[f"{arch} {dt}"] = dict(
+                max_abs_err=err, limit=limit,
+                max_abs_logit=float(ref.abs().max()), layers=depth,
+                prompt=n, chunks=-(-n // C), shape=list(ref.shape))
+            print(f"recurrent slice {dt} {arch}: {depth} layers at full "
+                  f"width, a {n}-token prompt in {-(-n // C)} chunks of {C} "
+                  f"then 2 decode steps (slot 0 inactive, its state "
+                  f"unchanged), kernels vs plain logits {tuple(ref.shape)}: "
+                  f"max|diff| = {err:.3e} (limit {limit:.3e} = {tol:g} * "
+                  f"max|logit|) {'ok' if finite and err <= limit else 'FAIL'}",
+                  flush=True)
+            check(finite and err <= limit,
+                  f"recurrent slice {arch} {dt}: {results[f'{arch} {dt}']}")
+            del params, logits
+            torch.cuda.empty_cache()
+    return results
+
+
+class _StepCounter:
+    """Counts the engine's prefill chunks and decode steps (its observer
+    phases), to check launch counts per step."""
+
+    def __init__(self):
+        from repro_torch.obs.runtime import NullObserver
+        self._null = NullObserver()
+        self.phases = {}
+
+    def phase(self, name, **args):
+        self.phases[name] = self.phases.get(name, 0) + 1
+        return self._null.phase(name)
+
+    def __getattr__(self, name):
+        return getattr(self._null, name)
+
+
+def recurrent_serving_phase(torch, seed):
+    """Both recurrent families at full depth, bf16, random weights made on
+    the card, 8 greedy requests of 32 new tokens through
+    ``ServingEngine.run`` (4 slots, chunk 256, contiguous caches):
+    recurrentgemma-2b at max_seq 4096 on prompts of 88-3600 tokens, three
+    of them past the 2048-token window (their decode reads a wrapped
+    ring); rwkv6-1.6b at max_seq 2048 on the qwen2-7b run's prompt
+    lengths.  Per chunk, ``rglru_scan`` must launch once per RG-LRU layer
+    (18) and ``wkv6_scan`` once per RWKV-6 layer (24); per decode step
+    ``decode_attention`` once per local-attention layer (8), and the QKV
+    projection once per attention layer and step; no plain scan may run
+    on the card."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.famous import FamousConfig
+    from repro_torch.kernels import lib
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    out = {}
+    for arch, max_seq in (("recurrentgemma-2b", 4096), ("rwkv6-1.6b", 2048)):
+        cfg = get_config(arch)
+        kinds = transformer.layer_kinds(cfg)
+        per_kind = {k: kinds.count(k) for k in set(kinds)}
+        if arch == "rwkv6-1.6b":
+            rng = np.random.default_rng(seed)    # the qwen2-7b run's lengths
+            lens = [int(x) for x in rng.integers(64, 1537, size=8)]
+        else:
+            rng = np.random.default_rng(seed + 6)
+            lens = [int(x) for x in rng.integers(88, 3601, size=8)]
+            lens[:3] = [int(x) for x in rng.integers(2049, 3601, size=3)]
+        prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, size=n)]
+                   for n in lens]
+        t0 = time.perf_counter()
+        params = random_params(torch, cfg, torch.bfloat16, seed)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        counter = _StepCounter()
+        engine = ServingEngine(params, cfg, FamousConfig(impl="pallas"),
+                               n_slots=4, max_seq=max_seq,
+                               dtype=torch.bfloat16, chunk=256,
+                               observer=counter, device="cuda")
+        reqs = [Request(rid=i, tokens=list(p), max_new=32)
+                for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        lib.STATS.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        done = sorted(engine.run(reqs), key=lambda r: r.rid)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(lib.STATS.launches)
+        plain = dict(lib.STATS.plain_on_cuda)
+        chunks = counter.phases.get("prefill_chunk", 0)
+        steps = counter.phases.get("decode", 0)
+        check(len(done) == 8 and all(r.error is None and len(r.out) == 32
+                                     for r in done),
+              f"{arch}: {[(r.rid, r.error, len(r.out)) for r in done]}")
+        check(all(0 <= t < cfg.vocab_size for r in done for t in r.out),
+              f"{arch}: token out of range")
+        check(not any(plain.values()),
+              f"{arch}: a plain version ran on CUDA tensors: {plain}")
+        want = {"rglru_scan": per_kind.get("rglru", 0) * chunks,
+                "wkv6_scan": per_kind.get("rwkv6", 0) * chunks,
+                "decode_attention": per_kind.get("local_attn", 0) * steps,
+                "matmul_tiled": per_kind.get("local_attn", 0)
+                * (steps + chunks),
+                "chunk_prefill": 0}
+        got = {k: launches[k] for k in want}
+        check(got == want and chunks > 0 and steps > 0,
+              f"{arch}: launches {got}, want {want} for {chunks} chunks and "
+              f"{steps} decode steps")
+        toks = sum(len(r.out) for r in done)
+        ttft = sorted(r.t_first - r.t_submit for r in done)
+        ttft_steps = [engine.sched.fairness(r.rid)["ttft_steps"] for r in done]
+        res = dict(layers=cfg.num_layers, params=cfg.param_count(),
+                   prompt_lens=lens, max_seq=max_seq, tokens=toks,
+                   wall_s=wall, tok_per_s=toks / wall,
+                   ttft_p50_s=float(np.median(ttft)), ttft_max_s=ttft[-1],
+                   ttft_steps=ttft_steps,
+                   ttft_steps_p50=float(np.median(ttft_steps)),
+                   chunks=chunks, decode_steps=steps, launches=launches,
+                   cache_bytes=engine.cache_bytes_per_device(),
+                   init_s=t_init,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        print(f"serving {arch}: {cfg.num_layers} layers bf16 "
+              f"({res['params'] / 1e9:.2f}B params), max_seq {max_seq}, "
+              f"8 requests (prompts {lens}), {toks} tokens in {wall:.2f}s = "
+              f"{toks / wall:.1f} tok/s, TTFT p50 "
+              f"{res['ttft_p50_s'] * 1e3:.0f} ms ({res['ttft_steps_p50']:g} "
+              f"steps; by request {ttft_steps}), {chunks} chunks and {steps} "
+              f"decode steps, launches {got} (as expected), cache bytes "
+              f"{res['cache_bytes']}, peak memory {res['peak_mem_gb']:.1f} GB",
+              flush=True)
+        print("kernels " + json.dumps(launches), flush=True)
+        res["steps"] = step_breakdown(torch, engine)
+        out[arch] = res
+        del engine, params
+        torch.cuda.empty_cache()
+    return out
+
+
 def step_breakdown(torch, engine):
     """Device time of one decode step (4 slots at 1024 cached tokens) and
     one 256-token prefill chunk (offset 1024) of the serving engine's model:
@@ -1513,11 +1863,16 @@ def main(argv=None) -> int:
     train_parity = phase("training parity", train_parity_phase, args.seed)
     training = phase("training runs", training_phase, args.seed)
     serving = phase("serving", serving_phase, args.seed)
+    rec_parity = phase("recurrent slice parity", recurrent_slice_phase,
+                       args.seed)
+    rec_serving = phase("recurrent serving", recurrent_serving_phase,
+                        args.seed)
 
     paths = [r["launches"] for r in training.values()] + [serving["launches"]]
     paths += [r["launches"] for r in serving["shared_prefix"].values()]
     paths += [serving["int8_projection"]["launches"],
               serving["oracle_speculative"]["launches"]]
+    paths += [r["launches"] for r in rec_serving.values()]
     launches = {k: sum(p[k] for p in paths) for k in lib.KERNELS}
     check(all(v > 0 for v in launches.values()),
           f"a kernel never launched on the training and serving paths: "
@@ -1530,10 +1885,15 @@ def main(argv=None) -> int:
                   "paged_decode_attention": "B=4",
                   "paged_decode_attention_int8": "B=4",
                   "paged_chunk_prefill": "C=256 offset=1792",
-                  "paged_chunk_prefill_int8": "C=256 offset=1792"}
+                  "paged_chunk_prefill_int8": "C=256 offset=1792",
+                  "rglru_scan": "B=1 S=256",
+                  "wkv6_scan": "BH=32 S=256 dh=64 chunk=64 s0=random"}
+    # the dtypes the main path hands each kernel: the RG-LRU's a and b are
+    # f32 in a bf16 model
+    main_dt = {"matmul_tiled_int8": "int8", "rglru_scan": "f32"}
     entries = []
     for name in lib.KERNELS:
-        dt = "int8" if name == "matmul_tiled_int8" else "bf16"
+        dt = main_dt.get(name, "bf16")
         r = next(r for r in rows if r["name"] == name and r["dtype"] == dt
                  and r["shape"].startswith(main_shape[name]))
         entries.append(dict(
@@ -1541,7 +1901,8 @@ def main(argv=None) -> int:
             replaces=REPLACES[name], launches=launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], shape=r["shape"], dtype=r["dtype"]))
+            library_ms=r["library_ms"], shape=r["shape"], dtype=r["dtype"],
+            timed_by=r["timed_by"]))
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(card=smi, torch=torch.__version__,
@@ -1550,6 +1911,8 @@ def main(argv=None) -> int:
                                    slice_parity=parity,
                                    train_parity=train_parity,
                                    training=training, serving=serving,
+                                   recurrent_slice_parity=rec_parity,
+                                   recurrent_serving=rec_serving,
                                    phase_s=phase_s),
                               indent=1))
     print(json.dumps({"kernels": entries}))

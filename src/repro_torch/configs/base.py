@@ -125,7 +125,8 @@ def list_configs() -> list[str]:
 
 def _ensure_loaded():
     # import the config modules for their registration side effects
-    from repro_torch.configs import famous_bert, qwen2_7b  # noqa: F401
+    from repro_torch.configs import (famous_bert, qwen2_7b,  # noqa: F401
+                                     recurrentgemma_2b, rwkv6_1b6)
 
 
 def shrink(cfg: ModelConfig, **over) -> ModelConfig:

@@ -42,9 +42,9 @@ def tree_from_jax(tree: dict, device="cuda") -> dict:
 def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     """The JAX parameter tree (``init_params(model_spec(cfg), ...)``,
     stacked leaves included; LayerNorm biases and ungated MLPs too) as the
-    port's serving-layout params: every leaf crosses once, then
-    ``[Wq|Wk|Wv]`` is fused per layer at load time
-    (``transformer.prepare_params``)."""
+    port's serving-layout params: every leaf crosses once (recurrent
+    blocks' ``rec``/``tm``/``cm`` leaves too), then ``[Wq|Wk|Wv]`` is fused
+    in each attention layer at load time (``transformer.prepare_params``)."""
     return transformer.prepare_params(tree_from_jax(tree, device), cfg)
 
 
@@ -66,8 +66,10 @@ def train_state_from_jax(state: dict, device="cuda") -> dict:
 def caches_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> list:
     """The JAX cache tree ``{"blocks": {"pos<i>": {...}}}`` (stacked
     ``(num_units, ...)`` leaves, plus ``tail<i>``) as the port's per-layer
-    caches, every leaf carried: contiguous ``k``/``v`` stripes, paged
-    pools, and the int8 pools' ``k_scale``/``v_scale``."""
+    caches, every leaf carried: contiguous ``k``/``v`` stripes and
+    sliding-window rings, paged pools and the int8 pools'
+    ``k_scale``/``v_scale``, RG-LRU ``h``/``conv`` and RWKV-6
+    ``s``/``x_tm``/``x_cm`` state."""
     out = []
     for u in range(cfg.num_units):
         for i in range(len(cfg.pattern_unit)):

@@ -21,7 +21,8 @@ the reference ignores ``quant``, as JAX's does), full-sequence attention
 (``attention`` with the flash autograd function of ``attention_xla``, and
 ``mha_block``), and the serving path's chunked-prefill, decode and
 speculative-verify attention, on contiguous caches and on paged pools (fp
-and int8).
+and int8), and ``attention_at_positions`` (the sliding-window ring's
+chunked prefill).
 """
 from __future__ import annotations
 
@@ -341,6 +342,26 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None,
     pos = torch.arange(Smax, device=q.device)[None, :]
     ok = pos < cache_len.to(q.device)[:, None]                # (B, Smax)
     return _dense_masked(q, k_cache, v_cache, ok[:, None, None, :], scale)
+
+
+def attention_at_positions(q, k, v, q_pos, k_pos, *, window: int = 0,
+                           scale=None):
+    """Dense masked attention with explicit absolute positions.
+
+    q: (B, Sq, H, dh) at positions ``q_pos`` (Sq,); k/v: (B, Skv, KV, dh) at
+    positions ``k_pos`` (Skv,).  Query i sees key j iff ``k_pos[j] <=
+    q_pos[i]`` (and ``k_pos[j] > q_pos[i] - window`` when ``window`` is
+    set); a negative ``k_pos`` marks an invalid key (a ring-buffer slot not
+    yet written) and is always masked.  The helper of the ring-buffer
+    chunked prefill, where the keys are a gathered window rather than a
+    cache prefix; JAX computes it with XLA ops and no Pallas kernel, so
+    torch ops are its port on every impl."""
+    dh = q.shape[-1]
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(dh)
+    ok = (k_pos[None, :] <= q_pos[:, None]) & (k_pos >= 0)[None, :]
+    if window:
+        ok &= k_pos[None, :] > q_pos[:, None] - window
+    return _dense_masked(q, k, v, ok[None, None], scale)
 
 
 def chunked_prefill_attention(q, k_cache, v_cache, q_offset: int, *,

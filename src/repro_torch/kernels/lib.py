@@ -36,7 +36,8 @@ KERNELS = ("matmul_tiled", "matmul_tiled_int8", "decode_attention",
            "chunk_prefill",
            "mha_forward", "mha_bwd_dq", "mha_bwd_dkv",
            "paged_decode_attention", "paged_decode_attention_int8",
-           "paged_chunk_prefill", "paged_chunk_prefill_int8")
+           "paged_chunk_prefill", "paged_chunk_prefill_int8",
+           "rglru_scan", "wkv6_scan")
 
 # dtype codes of the C interface
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -161,6 +162,12 @@ _SIGNATURES = {
     "famous_paged_chunk_prefill_int8": [_I, _P, _P, _P, _P, _P, _P, _P, _I,
                                         _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                         _P],
+    # dtype, a, b, out, B, S, R, stream
+    "famous_rglru_scan": [_I, _P, _P, _P, _I, _I, _I, _P],
+    # dtype (r, k, v), logw dtype, r, k, v, logw, u, s0 (or null), out,
+    # s_final, BH, S, dh, chunk, stream
+    "famous_wkv6_scan": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _P],
 }
 
 

@@ -1,4 +1,5 @@
-"""Serving launcher: ``python -m repro_torch.launch.serve --arch qwen2-7b``.
+"""Serving launcher: ``python -m repro_torch.launch.serve --arch qwen2-7b``
+(or ``--arch recurrentgemma-2b``, ``--arch rwkv6-1.6b``).
 
 Drives the Scheduler/Runtime continuous-batching engine over a synthetic
 request stream on the GPU, at the config's full width and depth with random
@@ -13,7 +14,7 @@ import argparse
 import numpy as np
 import torch
 
-from repro_torch.configs.base import get_config, shrink
+from repro_torch.configs.base import get_config, list_configs, shrink
 from repro_torch.core.famous import FamousConfig
 from repro_torch.models import module, transformer
 from repro_torch.obs.runtime import Observer
@@ -23,7 +24,10 @@ from repro_torch.serve.engine import Request, ServingEngine, resolve_device
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-7b")
+    ap.add_argument("--arch", default="qwen2-7b", choices=list_configs(),
+                    help="a registered config: the dense qwen2-7b, the "
+                         "hybrid recurrentgemma-2b (RG-LRU + sliding-window "
+                         "attention) or the attention-free rwkv6-1.6b")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda without a GPU raises")
     ap.add_argument("--smoke", action="store_true",

@@ -1,8 +1,8 @@
 """Attention block: GQA dense MHA built on the FAMOUS core — full-sequence
 attention for training and encoders, and for serving a contiguous
-per-slot KV cache or a shared page pool, fp or int8, by chunked prefill,
-decode or speculative verify (the port of ``repro.models.attention``,
-global-attention branch).
+per-slot KV cache, a sliding-window ring, or a shared page pool, fp or
+int8, by chunked prefill, decode or speculative verify (the port of
+``repro.models.attention``).
 
 Cache writes are **in place**: ``apply_attn_chunk`` writes the chunk's K/V
 into ``cache["k"][slot, offset:offset+C]``, ``apply_attn_decode`` writes
@@ -73,9 +73,12 @@ def quantize_qkv(p: dict) -> dict:
 
 
 def make_attn_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
-                    device="cuda") -> dict:
-    """Contiguous (batch, max_seq, kv, dh) K/V buffers of one layer."""
-    shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+                    device="cuda", window: int = 0) -> dict:
+    """Contiguous (batch, max_seq, kv, dh) K/V buffers of one layer; a
+    sliding-window layer keeps an O(window) ring of ``min(max_seq,
+    window)`` rows instead, position p in row p % ring."""
+    rows = min(max_seq, window) if window else max_seq
+    shape = (batch, rows, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -179,44 +182,78 @@ def apply_attn(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def apply_attn_chunk(p: dict, x: torch.Tensor, cache: dict, slot: int,
-                     offset: int, cfg: ModelConfig,
-                     fcfg: famous.FamousConfig):
+                     offset: int, n_valid: int, cfg: ModelConfig,
+                     fcfg: famous.FamousConfig, *, window: int = 0):
     """Chunked prefill for one slot of the batched cache.
 
-    x: (1, C, D) — the chunk at absolute positions [offset, offset+C);
-    cache: {"k","v"} (n_slots, S, kv, dh).  Writes the chunk's K/V into the
-    slot in place and attends against resident prefix + own chunk, read
-    from the slot's stripe as a view (no copy).  Pad positions at the
-    chunk tail write junk K/V beyond the prompt, which is never read.
-    Returns (out (1, C, D), cache)."""
+    x: (1, C, D) — the chunk at absolute positions [offset, offset+C), of
+    which the first ``n_valid`` are real; cache: {"k","v"} (n_slots,
+    S | ring, kv, dh).  Global attention (``window`` 0) writes the chunk's
+    K/V into the slot's stripe in place and attends against resident
+    prefix + own chunk, read from the stripe as a view (no copy); pad
+    positions at the chunk tail write junk K/V beyond the prompt, which is
+    never read.
+
+    A sliding-window layer keeps a ring (position p in row p % ring): the
+    pre-chunk ring is gathered in position order (positions offset - ring
+    .. offset - 1; negative, never-written positions are masked), the chunk
+    attends over [ring ‖ chunk] through ``famous.attention_at_positions``,
+    and then only the last ``min(n_valid, ring)`` real positions are
+    written — pad junk must not clobber live rows, and older positions
+    would alias newer ones.  JAX redirects the other writes out of bounds
+    and drops them; ``n_valid`` is a host integer here, so the kept rows
+    are chosen on the host.  Returns (out (1, C, D), cache)."""
     C = x.shape[1]
     positions = offset + torch.arange(C, device=x.device)
     q, k, v = _project(p, x, cfg, fcfg, positions)
-    cache["k"][slot, offset:offset + C] = k[0].to(cache["k"].dtype)
-    cache["v"][slot, offset:offset + C] = v[0].to(cache["v"].dtype)
-    out = famous.chunked_prefill_attention(
-        q, cache["k"][slot:slot + 1], cache["v"][slot:slot + 1], offset,
-        cfg=fcfg)
+    if not window:
+        cache["k"][slot, offset:offset + C] = k[0].to(cache["k"].dtype)
+        cache["v"][slot, offset:offset + C] = v[0].to(cache["v"].dtype)
+        out = famous.chunked_prefill_attention(
+            q, cache["k"][slot:slot + 1], cache["v"][slot:slot + 1], offset,
+            cfg=fcfg)
+        return _out_proj(out, p["wo"]), cache
+    ring = cache["k"].shape[1]
+    prev_pos = offset - ring + torch.arange(ring, device=x.device)
+    order = torch.remainder(prev_pos, ring)
+    keys = torch.cat([cache["k"][slot, order][None].to(k.dtype), k], dim=1)
+    vals = torch.cat([cache["v"][slot, order][None].to(v.dtype), v], dim=1)
+    out = famous.attention_at_positions(q, keys, vals, positions,
+                                        torch.cat([prev_pos, positions]),
+                                        window=window)
+    lo = max(0, n_valid - ring)
+    rows = torch.remainder(torch.arange(offset + lo, offset + n_valid,
+                                        device=x.device), ring)
+    cache["k"][slot, rows] = k[0, lo:n_valid].to(cache["k"].dtype)
+    cache["v"][slot, rows] = v[0, lo:n_valid].to(cache["v"].dtype)
     return _out_proj(out, p["wo"]), cache
 
 
 def apply_attn_decode(p: dict, x: torch.Tensor, cache: dict,
                       cache_len: torch.Tensor, cfg: ModelConfig,
-                      fcfg: famous.FamousConfig):
+                      fcfg: famous.FamousConfig, *, window: int = 0):
     """One-token decode. x: (B, 1, D); cache_len: (B,) int32 valid entries
     BEFORE this token, on the device.  Every slot writes its new K/V at its
     ``cache_len`` (clamped to the last row, as JAX's dynamic_update_slice
-    clamps) — inactive slots write junk that the next chunk overwrites.
-    Returns (out, cache)."""
+    clamps), or, in a sliding-window ring, at ``cache_len % ring`` — and
+    then attends over ``cache_len + 1`` rows (``min(cache_len + 1, ring)``
+    in a ring, whose rows hold positions out of order: attention does not
+    care).  Inactive slots write junk that the next chunk overwrites or
+    that lies outside every later window.  Returns (out, cache)."""
     B = x.shape[0]
     positions = cache_len[:, None]                 # (B, 1) absolute positions
     q, k, v = _project(p, x, cfg, fcfg, positions)
     rows = torch.arange(B, device=x.device)
-    at = cache_len.clamp(max=cache["k"].shape[1] - 1)
+    n = cache["k"].shape[1]
+    if window:
+        at = torch.remainder(cache_len, n)
+        valid = torch.clamp(cache_len + 1, max=n)
+    else:
+        at = cache_len.clamp(max=n - 1)
+        valid = cache_len + 1
     cache["k"][rows, at] = k[:, 0].to(cache["k"].dtype)
     cache["v"][rows, at] = v[:, 0].to(cache["v"].dtype)
-    out = famous.decode_attention(q, cache["k"], cache["v"], cache_len + 1,
-                                  cfg=fcfg)
+    out = famous.decode_attention(q, cache["k"], cache["v"], valid, cfg=fcfg)
     return _out_proj(out, p["wo"]), cache
 
 

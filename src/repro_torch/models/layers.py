@@ -67,9 +67,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 def act_fn(name: str):
     """``jax.nn.gelu`` defaults to the tanh approximation, so gelu here is
-    ``F.gelu(approximate="tanh")``; ``jax.nn.silu`` is ``F.silu``."""
+    ``F.gelu(approximate="tanh")``; ``jax.nn.silu`` is ``F.silu``; relu_sq
+    is RWKV's squared ReLU."""
     return {"silu": F.silu,
-            "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
+            "gelu": lambda x: F.gelu(x, approximate="tanh"),
+            "relu_sq": lambda x: torch.square(F.relu(x))}[name]
 
 
 def mlp_spec(d: int, d_ff: int, act: str = "silu", gated: bool = True) -> dict:

@@ -25,8 +25,8 @@ class ParamSpec:
     Attributes:
       shape:  tensor shape.
       axes:   logical axis name per dim (None = replicated/unsharded dim).
-      init:   "zeros" | "ones" | "fan_in" | "embed" (the kinds the ported
-              specs use).
+      init:   "zeros" | "ones" | "fan_in" | "embed" | "uniform" (the kinds
+              the ported specs use).
       scale:  multiplier applied to the random initializer.
       dtype:  parameter dtype; None -> use the model-wide default.
     """
@@ -73,6 +73,10 @@ def _materialise(spec: ParamSpec, gen: torch.Generator, default_dtype,
         x = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=device)
         return x.mul_(std).to(dtype)
+    if spec.init == "uniform":
+        x = torch.rand(shape, generator=gen, dtype=torch.float32,
+                       device=device)
+        return x.mul_(2.0).sub_(1.0).mul_(spec.scale).to(dtype)
     raise ValueError(f"unknown init {spec.init!r}")
 
 

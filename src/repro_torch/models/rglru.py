@@ -1,0 +1,160 @@
+"""Griffin/RecurrentGemma recurrent block: temporal conv + RG-LRU (the port
+of ``repro.models.rglru``, serving half).
+
+Chunked prefill runs the recurrence h_t = a_t h_{t-1} + b_t over the chunk
+through ``kernels/scan`` (``impl="pallas"``: the ``rglru_scan`` kernel on
+CUDA tensors) or its plain sequential version (other impls), carrying the
+slot's state across chunks; decode carries (h, conv window) state one
+token at a time in torch ops.  The block takes ``fcfg`` only to choose
+between the kernel and its plain version, as the attention ops do.  The
+full-sequence ``apply_rglru`` without a cache (training) is not ported.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.famous import FamousConfig
+from repro_torch.kernels.scan import ops as scan_ops
+from repro_torch.models import layers
+from repro_torch.models.module import ParamSpec
+
+_C = 8.0  # RG-LRU decay sharpness constant (Griffin §2.4)
+f32 = torch.float32
+
+
+def rglru_spec(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    r = cfg.lru_width or d
+    w = cfg.conv_width
+    return {
+        "w_x": ParamSpec((d, r), ("embed", "mlp")),
+        "w_gate": ParamSpec((d, r), ("embed", "mlp")),
+        "conv_w": ParamSpec((w, r), (None, "mlp"), scale=0.5),
+        "conv_b": ParamSpec((r,), ("mlp",), init="zeros"),
+        "w_a": ParamSpec((r, r), ("mlp", None)),
+        "b_a": ParamSpec((r,), (None,), init="zeros"),
+        "w_i": ParamSpec((r, r), ("mlp", None)),
+        "b_i": ParamSpec((r,), (None,), init="zeros"),
+        # Λ parameterised so a = exp(-C*softplus(Λ)·r_t) starts near 0.9..0.99
+        "lam": ParamSpec((r,), (None,), init="uniform", scale=1.0),
+        "w_out": ParamSpec((r, d), ("mlp", "embed")),
+    }
+
+
+def _gates(p, xc):
+    """Recurrence gate r_t and input gate i_t from the conv output."""
+    rg = torch.sigmoid((xc @ p["w_a"].to(xc.dtype)).to(f32)
+                       + p["b_a"].to(f32))
+    ig = torch.sigmoid((xc @ p["w_i"].to(xc.dtype)).to(f32)
+                       + p["b_i"].to(f32))
+    return rg, ig
+
+
+def _decay(p, rg):
+    # jax.nn.softplus is logaddexp(x, 0)
+    lam = p["lam"].to(f32)
+    log_a = -_C * torch.logaddexp(lam, torch.zeros_like(lam)) * rg
+    a = torch.exp(log_a)
+    return a, torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
+
+
+def rglru_scan(p, xc, h0=None, n_valid=None,
+               fcfg: FamousConfig = FamousConfig()):
+    """xc: (B, S, R) conv output -> recurrence output (B, S, R) f32.
+
+    h0: optional (B, R) carried state (chunked prefill), folded in as
+    ``h_1 = a_1 h0 + b_1``.  n_valid: optional host integer — positions
+    >= n_valid are pad, their update masked to the identity (a = 1, b = 0),
+    so ``h[:, -1]`` is exactly the state after the last real token.  After
+    those two steps the scan is the kernel's function of (a, b):
+    ``impl="pallas"`` runs ``scan_ops.rglru``, other impls its plain
+    sequential version."""
+    rg, ig = _gates(p, xc)
+    a, gain = _decay(p, rg)
+    b = gain * (ig * xc.to(f32))
+    if n_valid is not None:
+        valid = (torch.arange(xc.shape[1], device=xc.device)
+                 < n_valid)[None, :, None]
+        a = torch.where(valid, a, torch.ones((), dtype=f32, device=a.device))
+        b = torch.where(valid, b, torch.zeros((), dtype=f32, device=b.device))
+    if h0 is not None:
+        b = b.clone()
+        b[:, 0] += a[:, 0] * h0.to(f32)
+    return scan_ops.rglru(a, b, plain=fcfg.impl != "pallas")
+
+
+def rglru_step(p, xc_t, h_prev):
+    """One decode step. xc_t: (B, R); h_prev: (B, R) f32 -> h_t."""
+    xc = xc_t[:, None, :]
+    rg, ig = _gates(p, xc)
+    a, gain = _decay(p, rg)
+    b = gain * (ig * xc.to(f32))
+    return a[:, 0] * h_prev + b[:, 0]
+
+
+def _conv1d(p, x, state=None, n_valid=None):
+    """Causal depthwise temporal conv of width W. x: (B, S, R); state:
+    (B, W-1, R) previous inputs.  Returns (y f32, new state): the W-1
+    inputs ending at the last real position (``n_valid``, a host integer;
+    the pad tail excluded) or at the end."""
+    w = p["conv_w"].to(f32)  # (W, R)
+    W = w.shape[0]
+    S = x.shape[1]
+    xf = x.to(f32)
+    if state is None:
+        pad = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=f32,
+                          device=x.device)
+    else:
+        pad = state.to(f32)
+    xp = torch.cat([pad, xf], dim=1)
+    y = 0
+    for i in range(W):          # Python's sum, in the JAX order
+        y = y + xp[:, i:i + S] * w[i]
+    y = y + p["conv_b"].to(f32)
+    if n_valid is None:
+        new_state = xp[:, -(W - 1):]
+    else:
+        new_state = xp[:, n_valid:n_valid + W - 1]
+    return y, new_state
+
+
+def make_rglru_cache(cfg: ModelConfig, batch: int, dtype,
+                     device="cuda") -> dict:
+    """Per-slot state: ``h`` (batch, R) and the conv window ``conv``
+    (batch, W-1, R), both f32 whatever the model dtype, as in JAX."""
+    r = cfg.lru_width or cfg.d_model
+    return {
+        "h": torch.zeros((batch, r), dtype=f32, device=device),
+        "conv": torch.zeros((batch, cfg.conv_width - 1, r), dtype=f32,
+                            device=device),
+    }
+
+
+def _out(p, gate, h, x):
+    y = layers.act_fn("gelu")(gate.to(f32)) * h
+    return y.to(x.dtype) @ p["w_out"].to(x.dtype)
+
+
+def apply_rglru_chunk(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                      cache: dict, n_valid: int,
+                      fcfg: FamousConfig = FamousConfig()):
+    """Chunked prefill: carries the recurrent state across chunks (the
+    caller zeroes it for a fresh sequence) and masks pad positions >=
+    ``n_valid`` so their updates are the identity.  x: (1, C, D); cache:
+    {"h", "conv"} of the slot.  Returns (out (1, C, D), new state)."""
+    xb = x @ p["w_x"].to(x.dtype)
+    gate = x @ p["w_gate"].to(x.dtype)
+    xc, conv_state = _conv1d(p, xb, cache["conv"], n_valid=n_valid)
+    h = rglru_scan(p, xc, h0=cache["h"], n_valid=n_valid, fcfg=fcfg)
+    return _out(p, gate, h, x), {"h": h[:, -1], "conv": conv_state}
+
+
+def apply_rglru_decode(p: dict, x: torch.Tensor, cache: dict,
+                       cfg: ModelConfig):
+    """One token. x: (B, 1, D) -> (out (B, 1, D), new state)."""
+    xb = x @ p["w_x"].to(x.dtype)
+    gate = x @ p["w_gate"].to(x.dtype)
+    xc, conv_state = _conv1d(p, xb, cache["conv"])
+    h = rglru_step(p, xc[:, 0], cache["h"])
+    return _out(p, gate[:, 0], h, x)[:, None], {"h": h, "conv": conv_state}

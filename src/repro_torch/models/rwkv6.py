@@ -1,0 +1,177 @@
+"""RWKV-6 "Finch" block: data-dependent-decay linear attention + channel mix
+(the port of ``repro.models.rwkv6``, serving half).
+
+wkv6 recurrence per head (state S of dk x dv):
+
+    out_t = r_t · (S_{t-1} + diag(u) k_t v_tᵀ)
+    S_t   = diag(w_t) S_{t-1} + k_t v_tᵀ,       w_t = exp(-exp(ŵ_t)) ∈ (0,1)
+
+Chunked prefill runs the chunked parallel form through ``kernels/scan``
+(``impl="pallas"``: the ``wkv6_scan`` kernel on CUDA tensors; other impls:
+its plain torch version, the JAX ``wkv6_chunked``), carrying the state
+across engine chunks; decode runs one step in torch ops, as JAX does.  The
+time-mix block takes ``fcfg`` only to choose between the kernel and its
+plain version.  The full-sequence blocks (training) are not ported.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.famous import FamousConfig
+from repro_torch.kernels.scan import ops as scan_ops
+from repro_torch.models import layers
+from repro_torch.models.module import ParamSpec
+
+_LORA = 64  # low-rank width of the data-dependent decay projection
+f32 = torch.float32
+
+
+def rwkv6_spec(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    h = d // cfg.rwkv_head_dim
+    dh = cfg.rwkv_head_dim
+    lora = min(_LORA, d)
+    return {
+        # token-shift mixing coefficients (r, k, v, w, g)
+        "mu": ParamSpec((5, d), (None, "embed"), init="uniform", scale=0.5),
+        "w_r": ParamSpec((d, d), ("embed", "heads_flat")),
+        "w_k": ParamSpec((d, d), ("embed", "heads_flat")),
+        "w_v": ParamSpec((d, d), ("embed", "heads_flat")),
+        "w_g": ParamSpec((d, d), ("embed", "heads_flat")),
+        # decay: ŵ_t = w0 + tanh(x̄ A) B   (low-rank data dependence)
+        "w0": ParamSpec((d,), ("heads_flat",), init="uniform", scale=1.0),
+        "wA": ParamSpec((d, lora), ("embed", None), scale=0.1),
+        "wB": ParamSpec((lora, d), (None, "heads_flat"), scale=0.1),
+        "u": ParamSpec((h, dh), ("heads", "head_dim"), init="uniform",
+                       scale=0.5),
+        "ln_scale": ParamSpec((d,), ("heads_flat",), init="ones"),
+        "ln_bias": ParamSpec((d,), ("heads_flat",), init="zeros"),
+        "w_o": ParamSpec((d, d), ("heads_flat", "embed")),
+    }
+
+
+def channel_mix_spec(cfg: ModelConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "mu": ParamSpec((2, d), (None, "embed"), init="uniform", scale=0.5),
+        "w_k": ParamSpec((d, f), ("embed", "mlp")),
+        "w_v": ParamSpec((f, d), ("mlp", "embed")),
+        "w_r": ParamSpec((d, d), ("embed", None)),
+    }
+
+
+def wkv6_step(r, k, v, logw, u, s):
+    """One decode step. r, k, v, logw: (B, H, dh); u: (H, dh); s: (B, H,
+    dh, dh) f32.  Returns (out (B, H, dh) f32, new state)."""
+    r, k, v, logw = (x.to(f32) for x in (r, k, v, logw))
+    kv = k[..., :, None] * v[..., None, :]
+    out = torch.einsum("bhd,bhde->bhe", r, s + u[None, :, :, None] * kv)
+    return out, torch.exp(logw)[..., None] * s + kv
+
+
+def _token_shift(x, prev):
+    """x: (B, S, D); prev: (B, D) last token of the previous segment."""
+    if prev is None:
+        prev = torch.zeros_like(x[:, 0])
+    return torch.cat([prev.to(x.dtype)[:, None], x[:, :-1]], dim=1)
+
+
+def _mix(x, x_prev, mu):
+    return x + (x_prev - x) * mu.to(x.dtype)
+
+
+def make_rwkv_cache(cfg: ModelConfig, batch: int, dtype,
+                    device="cuda") -> dict:
+    """Per-slot state: the wkv state ``s`` (batch, H, dh, dh) f32 and the
+    two token-shift rows ``x_tm``/``x_cm`` (batch, D) in the model dtype."""
+    d = cfg.d_model
+    h = d // cfg.rwkv_head_dim
+    dh = cfg.rwkv_head_dim
+    return {
+        "s": torch.zeros((batch, h, dh, dh), dtype=f32, device=device),
+        "x_tm": torch.zeros((batch, d), dtype=dtype, device=device),
+        "x_cm": torch.zeros((batch, d), dtype=dtype, device=device),
+    }
+
+
+def _time_mix_qkvwg(p, x, x_prev):
+    dt = x.dtype
+    xs = [_mix(x, x_prev, p["mu"][i]) for i in range(5)]
+    r = xs[0] @ p["w_r"].to(dt)
+    k = xs[1] @ p["w_k"].to(dt)
+    v = xs[2] @ p["w_v"].to(dt)
+    g = xs[4] @ p["w_g"].to(dt)
+    wx = xs[3].to(f32)
+    what = (p["w0"].to(f32)
+            + torch.tanh(wx @ p["wA"].to(f32)) @ p["wB"].to(f32))
+    # Clamp ŵ ≤ 0 so per-step log-decay ∈ [-1, 0): keeps the chunked form's
+    # exp(-cumsum) factors within f32 range (|cw| ≤ chunk).  Documented
+    # deviation: decays faster than 1/e per token are saturated.
+    logw = -torch.exp(torch.clamp(what, -20.0, 0.0))
+    return r, k, v, g, logw
+
+
+def _heads(x, h, dh):
+    return x.reshape(x.shape[0], x.shape[1], h, dh).transpose(1, 2)
+
+
+def _finish(p, out, g, x):
+    """Norm over the model width, the silu gate and the output projection."""
+    out = layers.apply_norm({"scale": p["ln_scale"], "bias": p["ln_bias"]},
+                            out.to(x.dtype), "layernorm")
+    out = out * F.silu(g)
+    return out @ p["w_o"].to(x.dtype)
+
+
+def apply_rwkv_time_mix_chunk(p, x, cache, cfg: ModelConfig, n_valid: int,
+                              chunk: int = 64,
+                              fcfg: FamousConfig = FamousConfig()):
+    """Chunked prefill: carry (s, x_tm) across fixed-shape chunks.
+
+    x: (1, C, D), only the first ``n_valid`` (a host integer) positions
+    real.  Pad positions cannot pollute the carried state: their k is
+    zeroed (no kv contribution) and their log-decay is zeroed (identity
+    decay), so ``s_final`` is the state after the last real token; the
+    token-shift state becomes ``x[:, n_valid - 1]``.  Pad outputs are junk,
+    discarded upstream."""
+    B, S, D = x.shape
+    h, dh = D // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    x_prev = _token_shift(x, cache["x_tm"])
+    r, k, v, g, logw = _time_mix_qkvwg(p, x, x_prev)
+    valid = (torch.arange(S, device=x.device) < n_valid)[None, :, None]
+    k = torch.where(valid, k, torch.zeros((), dtype=k.dtype, device=k.device))
+    logw = torch.where(valid, logw, torch.zeros((), dtype=f32,
+                                                device=logw.device))
+    rh, kh, vh, wh = (_heads(t, h, dh) for t in (r, k, v, logw))
+    out, s_fin = scan_ops.wkv6(rh, kh, vh, wh, p["u"].to(f32), s0=cache["s"],
+                               chunk=chunk, plain=fcfg.impl != "pallas")
+    out = out.transpose(1, 2).reshape(B, S, D)
+    return _finish(p, out, g, x), {"s": s_fin, "x_tm": x[:, n_valid - 1]}
+
+
+def apply_rwkv_time_mix_decode(p, x, cache, cfg: ModelConfig):
+    """One token. x: (B, 1, D); cache: {"s", "x_tm"}.  Returns (y, new
+    {"s", "x_tm"})."""
+    B, _, D = x.shape
+    h, dh = D // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    x_prev = cache["x_tm"].to(x.dtype)[:, None]
+    r, k, v, g, logw = _time_mix_qkvwg(p, x, x_prev)
+    out, s_new = wkv6_step(r.reshape(B, h, dh), k.reshape(B, h, dh),
+                           v.reshape(B, h, dh), logw.reshape(B, h, dh),
+                           p["u"].to(f32), cache["s"])
+    return _finish(p, out.reshape(B, 1, D), g, x), {"s": s_new,
+                                                    "x_tm": x[:, -1]}
+
+
+def apply_channel_mix(p, x, cfg: ModelConfig, cache_x=None):
+    """RWKV channel mix (relu² FFN with token shift). Returns (y, x_last)."""
+    x_prev = _token_shift(x, cache_x)
+    xk = _mix(x, x_prev, p["mu"][0])
+    xr = _mix(x, x_prev, p["mu"][1])
+    dt = x.dtype
+    kk = layers.act_fn("relu_sq")(xk @ p["w_k"].to(dt))
+    vv = kk @ p["w_v"].to(dt)
+    rr = torch.sigmoid(xr @ p["w_r"].to(dt))
+    return rr * vv, x[:, -1]

@@ -1,6 +1,8 @@
-"""Block-stack model (the port of ``repro.models.transformer``,
-all-global-attention stacks with a dense FFN: decoders such as qwen2-7b
-and the famous-bert encoder).
+"""Block-stack model (the port of ``repro.models.transformer``): stacks
+of global attention, sliding-window attention (a per-slot ring buffer),
+RG-LRU and RWKV-6 blocks with a dense FFN — decoders such as qwen2-7b,
+the hybrid recurrentgemma-2b, the attention-free rwkv6-1.6b, and the
+famous-bert encoder.
 
 Parameters come in two layouts:
 
@@ -9,15 +11,18 @@ Parameters come in two layouts:
     ``repro_torch.convert`` produce it.  :func:`forward` (training) takes
     this one, so gradients land in the stacked leaves;
   * the **serving layout** of :func:`prepare_params` — one dict per layer
-    (views into the stacked leaves), ``[Wq|Wk|Wv]`` fused once per layer
-    (and, by :func:`quantize_qkv`, quantized once for the int8 kernel),
-    and one f32 copy of the LM head.  The serving step functions take it.
+    (views into the stacked leaves; :func:`layer_kinds` names each one's
+    block kind), ``[Wq|Wk|Wv]`` fused once in every attention layer (and,
+    by :func:`quantize_qkv`, quantized once for the int8 kernel), and one
+    f32 copy of the LM head.  The serving step functions take it.
 
 JAX's ``lax.scan`` over the stacked units becomes a loop over them; its
 ``jax.checkpoint`` around each unit becomes ``torch.utils.checkpoint``.
-Caches are one ``{"k", "v"}`` pair per layer — contiguous per-slot stripes,
-or a shared page pool (plus f32 scale pools when int8) that the serving
-steps address through a ``page_table`` — written in place (see
+Caches are one dict per layer — ``{"k", "v"}`` contiguous per-slot stripes
+or sliding-window rings, or a shared page pool (plus f32 scale pools when
+int8) that global-attention layers address through a ``page_table``;
+``{"h", "conv"}`` for RG-LRU and ``{"s", "x_tm", "x_cm"}`` for RWKV-6
+layers, per slot even when the attention is paged — written in place (see
 ``models/attention.py``).
 """
 from __future__ import annotations
@@ -27,9 +32,10 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.configs.base import (ATTN, LOCAL_ATTN, RGLRU, RWKV6,
+                                      ModelConfig)
 from repro_torch.core.famous import FamousConfig
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, rglru, rwkv6
 from repro_torch.models.module import ParamSpec, stack_specs
 
 # ---------------------------------------------------------------------------
@@ -38,14 +44,22 @@ from repro_torch.models.module import ParamSpec, stack_specs
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    kinds = set(cfg.pattern_unit) | set(cfg.tail_layers)
-    if (kinds != {ATTN} or cfg.num_experts or cfg.qk_norm
+    kinds = set(layer_kinds(cfg))
+    if (not kinds <= {ATTN, LOCAL_ATTN, RGLRU, RWKV6} or cfg.num_experts
+            or cfg.qk_norm or cfg.frontend
             or cfg.norm not in ("rmsnorm", "layernorm")
-            or cfg.act not in ("silu", "gelu")):
+            or cfg.act not in ("silu", "gelu", "relu_sq")):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs all-global-attention stacks with "
-            "RMSNorm or LayerNorm and a dense SiLU/GELU FFN; other blocks, "
-            "MoE and qk_norm come with later slices (ROADMAP Queue 1)")
+            f"{cfg.name}: the port runs global-attention, sliding-window, "
+            "RG-LRU and RWKV-6 stacks with RMSNorm or LayerNorm and a dense "
+            "SiLU/GELU/relu² FFN; MoE, qk_norm and frontends come with "
+            "later slices (ROADMAP Queue 1)")
+
+
+def layer_kinds(cfg: ModelConfig) -> tuple[str, ...]:
+    """The block kind of every layer, in order: the pattern unit repeated
+    ``num_units`` times, then the tail (the serving layout's order)."""
+    return tuple(cfg.pattern_unit) * cfg.num_units + tuple(cfg.tail_layers)
 
 
 def _ffn_spec(cfg: ModelConfig):
@@ -54,15 +68,29 @@ def _ffn_spec(cfg: ModelConfig):
 
 
 def block_spec(kind: str, cfg: ModelConfig) -> dict:
-    if kind != ATTN:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     d = cfg.d_model
-    return {
-        "ln1": layers.norm_spec(d, cfg.norm),
-        "attn": attention.attn_spec(cfg),
-        "ln2": layers.norm_spec(d, cfg.norm),
-        "ffn": _ffn_spec(cfg),
-    }
+    if kind in (ATTN, LOCAL_ATTN):
+        return {
+            "ln1": layers.norm_spec(d, cfg.norm),
+            "attn": attention.attn_spec(cfg),
+            "ln2": layers.norm_spec(d, cfg.norm),
+            "ffn": _ffn_spec(cfg),
+        }
+    if kind == RGLRU:
+        return {
+            "ln1": layers.norm_spec(d, cfg.norm),
+            "rec": rglru.rglru_spec(cfg),
+            "ln2": layers.norm_spec(d, cfg.norm),
+            "ffn": _ffn_spec(cfg),
+        }
+    if kind == RWKV6:
+        return {
+            "ln1": layers.norm_spec(d, cfg.norm),
+            "tm": rwkv6.rwkv6_spec(cfg),
+            "ln2": layers.norm_spec(d, cfg.norm),
+            "cm": rwkv6.channel_mix_spec(cfg),
+        }
+    raise NotImplementedError(f"block kind {kind!r} is not ported yet")
 
 
 def model_spec(cfg: ModelConfig) -> dict:
@@ -110,7 +138,8 @@ def prepare_params(params: dict, cfg: ModelConfig) -> dict:
     out_layers = []
     for blk in per_layer:
         blk = dict(blk)
-        blk["attn"] = attention.fuse_qkv(blk["attn"])
+        if "attn" in blk:
+            blk["attn"] = attention.fuse_qkv(blk["attn"])
         out_layers.append(blk)
     if cfg.tie_embeddings:
         unembed = params["embed"]["embedding"].to(torch.float32).t()
@@ -126,7 +155,7 @@ def quantize_qkv(params: dict) -> dict:
     ``FamousConfig(impl="pallas", quant="int8")``.  Returns a new dict;
     the tensors it shares with ``params`` are not copied."""
     layers_q = [dict(blk, attn=attention.quantize_qkv(blk["attn"]))
-                for blk in params["layers"]]
+                if "attn" in blk else blk for blk in params["layers"]]
     return dict(params, layers=layers_q)
 
 
@@ -135,16 +164,24 @@ def quantize_qkv(params: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _not_ported_forward(kind: str):
+    return NotImplementedError(
+        f"the full-sequence {kind} block (forward, training) is not ported "
+        "yet: it comes with slice 7 (ROADMAP Queue 1); the port serves "
+        "recurrent blocks through prefill_chunk and decode_step")
+
+
 def apply_block(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
                 fcfg: FamousConfig, q_offset: int = 0) -> torch.Tensor:
-    """One attention block on the full sequence, x: (B, S, D).  (The JAX
-    block's ``constrain_residual`` sharding hints have no meaning on one
-    device and are dropped.)"""
-    if kind != ATTN:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    """One attention block on the full sequence, x: (B, S, D), global or
+    sliding-window.  (The JAX block's ``constrain_residual`` sharding hints
+    have no meaning on one device and are dropped.)"""
+    if kind not in (ATTN, LOCAL_ATTN):
+        raise _not_ported_forward(kind)
+    window = cfg.window if kind == LOCAL_ATTN else 0
     x = x + attention.apply_attn(p["attn"],
                                  layers.apply_norm(p["ln1"], x, cfg.norm),
-                                 cfg, fcfg, q_offset=q_offset)
+                                 cfg, fcfg, window=window, q_offset=q_offset)
     h = layers.apply_norm(p["ln2"], x, cfg.norm)
     return x + layers.apply_mlp(p["ffn"], h, cfg.act)
 
@@ -201,35 +238,84 @@ def _compute_dtype(params):
     return params["final_norm"]["scale"].dtype
 
 
+def _layer_cache(kind, cfg, batch, max_seq, dtype, device, cache_kind,
+                 page_size, n_pages, kv_dtype):
+    if kind == ATTN and cache_kind == "paged":
+        return attention.make_paged_attn_cache(cfg, n_pages, page_size,
+                                               dtype, kv_dtype, device)
+    if kind in (ATTN, LOCAL_ATTN):
+        window = cfg.window if kind == LOCAL_ATTN else 0
+        return attention.make_attn_cache(cfg, batch, max_seq, dtype, device,
+                                         window=window)
+    if kind == RGLRU:
+        return rglru.make_rglru_cache(cfg, batch, dtype, device)
+    return rwkv6.make_rwkv_cache(cfg, batch, dtype, device)
+
+
 def make_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype,
                 device="cuda", *, cache_kind: str = "contiguous",
                 page_size: int = 0, n_pages: int = 0,
                 kv_dtype: str = "fp") -> list:
-    """One K/V cache per layer.
+    """One cache per layer.
 
-    cache_kind="contiguous": a ``(batch, max_seq, kv, dh)`` pair per layer.
-    cache_kind="paged": a shared ``(n_pages, page_size, kv, dh)`` pool per
-    layer, addressed through the page table that ``prefill_chunk`` and
-    ``decode_step`` receive; memory then follows live tokens, not
-    ``batch x max_seq`` (see ``serve/paged.py``).  kv_dtype="int8" (paged
-    only) stores int8 pools with f32 per-token scale pools; writes
-    quantize, the kernels dequantize in their tiles."""
+    cache_kind="contiguous": a ``(batch, max_seq, kv, dh)`` K/V pair per
+    global-attention layer.  cache_kind="paged": a shared ``(n_pages,
+    page_size, kv, dh)`` pool per global-attention layer instead, addressed
+    through the page table that ``prefill_chunk`` and ``decode_step``
+    receive; memory then follows live tokens, not ``batch x max_seq`` (see
+    ``serve/paged.py``).  kv_dtype="int8" (paged only) stores int8 pools
+    with f32 per-token scale pools; writes quantize, the kernels dequantize
+    in their tiles.  Sliding-window rings (``min(max_seq, window)`` rows)
+    and recurrent state are O(window) or O(1) per slot and stay per slot
+    in both kinds."""
     _check_supported(cfg)
     if cache_kind not in ("contiguous", "paged"):
         raise ValueError(f"cache_kind {cache_kind!r}")
     if kv_dtype not in ("fp", "int8"):
         raise ValueError(f"kv_dtype {kv_dtype!r}")
-    if cache_kind == "contiguous":
-        if kv_dtype != "fp":
-            raise ValueError("kv_dtype='int8' requires paged caches")
-        return [attention.make_attn_cache(cfg, batch, max_seq, dtype, device)
-                for _ in range(cfg.num_layers)]
-    if page_size <= 0 or n_pages <= 0:
+    if cache_kind == "contiguous" and kv_dtype != "fp":
+        raise ValueError("kv_dtype='int8' requires paged caches")
+    if cache_kind == "paged" and (page_size <= 0 or n_pages <= 0):
         raise ValueError(f"paged caches need page_size and n_pages, got "
                          f"{page_size}, {n_pages}")
-    return [attention.make_paged_attn_cache(cfg, n_pages, page_size, dtype,
-                                            kv_dtype, device)
-            for _ in range(cfg.num_layers)]
+    return [_layer_cache(kind, cfg, batch, max_seq, dtype, device,
+                         cache_kind, page_size, n_pages, kv_dtype)
+            for kind in layer_kinds(cfg)]
+
+
+def _read_slot_state(cache: dict, slot: int, offset: int) -> dict:
+    """The slot's row of a per-slot state (a view), or zeros when
+    ``offset == 0``, so a reused slot cannot leak the previous occupant's
+    recurrent state into a fresh sequence (chunk 0 starts from zero state;
+    later chunks carry)."""
+    if offset > 0:
+        return {n: buf[slot:slot + 1] for n, buf in cache.items()}
+    return {n: torch.zeros_like(buf[slot:slot + 1])
+            for n, buf in cache.items()}
+
+
+def _write_slot_state(cache: dict, sub: dict, slot: int) -> None:
+    for n, buf in cache.items():
+        buf[slot:slot + 1] = sub[n].to(buf.dtype)
+
+
+def _commit_state(cache: dict, new: dict, active) -> None:
+    """Write a decode step's recurrent state in place, only for the
+    ``active`` slots when a mask is given.  The decode step runs over every
+    slot, and a slot that is free or partway through a chunked prefill gets
+    junk state; its carried state must survive the step (JAX's
+    ``_mask_state_update``)."""
+    for n, buf in cache.items():
+        val = new[n].to(buf.dtype)
+        if active is not None:
+            keep = active.reshape((-1,) + (1,) * (buf.ndim - 1))
+            val = torch.where(keep, val, buf)
+        buf.copy_(val)
+
+
+def _mlp(p, x, cfg: ModelConfig):
+    return x + layers.apply_mlp(
+        p["ffn"], layers.apply_norm(p["ln2"], x, cfg.norm), cfg.act)
 
 
 def prefill_chunk(params, tokens, caches, slot: int, offset: int,
@@ -238,50 +324,84 @@ def prefill_chunk(params, tokens, caches, slot: int, offset: int,
     """One fixed-shape prefill chunk for a single slot of the batched caches.
 
     tokens: (1, C) int at absolute positions [offset, offset+C); only the
-    first ``n_valid`` are real (the pad tail's junk K/V is never read).
-    Writes K/V for ``slot`` into the caches in place — its contiguous
-    stripe, or, given ``page_table`` ((n_slots, n_p) int32 on the device),
-    its pages of the pools.  ``slot``, ``offset`` and ``n_valid`` are host
-    integers.  Returns the caches only: prefill logits are dead weight
-    (generation restarts by decoding the last prompt token), so the LM
-    head is never computed."""
-    del n_valid  # attention-only stacks mask the pad tail causally
+    first ``n_valid`` are real: the pad tail's junk K/V is never read (a
+    ring keeps only real positions), and its recurrent updates are masked
+    to the identity.  Writes the slot's K/V into the caches in place — its
+    contiguous stripe or ring, or, given ``page_table`` ((n_slots, n_p)
+    int32 on the device), its pages of the pools — and carries its
+    recurrent state across chunks (``offset == 0`` starts from zero
+    state).  ``slot``, ``offset`` and ``n_valid`` are host integers.
+    Returns the caches only: prefill logits are dead weight (generation
+    restarts by decoding the last prompt token), so the LM head is never
+    computed."""
     x = layers.embed_lookup(params["embed"], tokens, _compute_dtype(params))
-    for p, cache in zip(params["layers"], caches):
+    for kind, p, cache in zip(layer_kinds(cfg), params["layers"], caches):
         h = layers.apply_norm(p["ln1"], x, cfg.norm)
-        if page_table is not None:
+        if kind == ATTN and page_table is not None:
             a, _ = attention.apply_attn_chunk_paged(
                 p["attn"], h, cache, page_table, slot, offset, cfg, fcfg)
+            x = _mlp(p, x + a, cfg)
+        elif kind in (ATTN, LOCAL_ATTN):
+            a, _ = attention.apply_attn_chunk(
+                p["attn"], h, cache, slot, offset, n_valid, cfg, fcfg,
+                window=cfg.window if kind == LOCAL_ATTN else 0)
+            x = _mlp(p, x + a, cfg)
+        elif kind == RGLRU:
+            sub = _read_slot_state(cache, slot, offset)
+            a, sub = rglru.apply_rglru_chunk(p["rec"], h, cfg, sub, n_valid,
+                                             fcfg)
+            x = _mlp(p, x + a, cfg)
+            _write_slot_state(cache, sub, slot)
         else:
-            a, _ = attention.apply_attn_chunk(p["attn"], h, cache, slot,
-                                              offset, cfg, fcfg)
-        x = x + a
-        x = x + layers.apply_mlp(
-            p["ffn"], layers.apply_norm(p["ln2"], x, cfg.norm), cfg.act)
+            sub = _read_slot_state(cache, slot, offset)
+            a, tm = rwkv6.apply_rwkv_time_mix_chunk(p["tm"], h, sub, cfg,
+                                                    n_valid, fcfg=fcfg)
+            x = x + a
+            h = layers.apply_norm(p["ln2"], x, cfg.norm)
+            y, _ = rwkv6.apply_channel_mix(p["cm"], h, cfg,
+                                           cache_x=sub["x_cm"])
+            x = x + y
+            _write_slot_state(cache, dict(tm, x_cm=h[:, n_valid - 1]), slot)
     return caches
 
 
 def decode_step(params, tokens, caches, cache_len, cfg: ModelConfig,
-                fcfg: FamousConfig = FamousConfig(), page_table=None):
+                fcfg: FamousConfig = FamousConfig(), page_table=None,
+                active=None):
     """tokens: (B,) int; cache_len: (B,) int32 on the device; page_table:
-    optional (B, n_p) int32 on the device, given when the caches are page
-    pools.  Runs over every slot (fixed batch): attention caches need no
-    ``active`` mask, as the junk K/V of inactive slots is masked by
-    ``cache_len`` and overwritten by the next chunk (or lands on the null
-    page).  Returns (logits (B, vocab) f32, caches)."""
+    optional (B, n_p) int32 on the device, given when the global-attention
+    caches are page pools; active: optional (B,) bool on the device.  Runs
+    over every slot (fixed batch).  Attention caches need no mask: the junk
+    K/V of inactive slots is masked by ``cache_len`` and overwritten by the
+    next chunk (or lands on the null page, or outside every later window).
+    Recurrent state is read unconditionally and carried across prefill
+    chunks, so it commits only where ``active`` (everywhere when None).
+    Returns (logits (B, vocab) f32, caches)."""
     x = layers.embed_lookup(params["embed"], tokens[:, None],
                             _compute_dtype(params))
-    for p, cache in zip(params["layers"], caches):
+    for kind, p, cache in zip(layer_kinds(cfg), params["layers"], caches):
         h = layers.apply_norm(p["ln1"], x, cfg.norm)
-        if page_table is not None:
+        if kind == ATTN and page_table is not None:
             a, _ = attention.apply_attn_decode_paged(
                 p["attn"], h, cache, page_table, cache_len, cfg, fcfg)
+            x = _mlp(p, x + a, cfg)
+        elif kind in (ATTN, LOCAL_ATTN):
+            a, _ = attention.apply_attn_decode(
+                p["attn"], h, cache, cache_len, cfg, fcfg,
+                window=cfg.window if kind == LOCAL_ATTN else 0)
+            x = _mlp(p, x + a, cfg)
+        elif kind == RGLRU:
+            a, new = rglru.apply_rglru_decode(p["rec"], h, cache, cfg)
+            x = _mlp(p, x + a, cfg)
+            _commit_state(cache, new, active)
         else:
-            a, _ = attention.apply_attn_decode(p["attn"], h, cache,
-                                               cache_len, cfg, fcfg)
-        x = x + a
-        x = x + layers.apply_mlp(
-            p["ffn"], layers.apply_norm(p["ln2"], x, cfg.norm), cfg.act)
+            a, tm = rwkv6.apply_rwkv_time_mix_decode(p["tm"], h, cache, cfg)
+            x = x + a
+            h = layers.apply_norm(p["ln2"], x, cfg.norm)
+            y, _ = rwkv6.apply_channel_mix(p["cm"], h, cfg,
+                                           cache_x=cache["x_cm"])
+            x = x + y
+            _commit_state(cache, dict(tm, x_cm=h[:, -1]), active)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     return logits_fn(params, x, cfg)[:, 0], caches
 
@@ -299,8 +419,10 @@ def verify_step(params, tokens, caches, cache_len, cfg: ModelConfig,
     :j+1]`` would give (causal attention makes the two identical), so the
     engine can accept the longest draft prefix the model agrees with and
     stay token-identical to plain decode.  Only global-attention stacks
-    verify (the port runs no other kind)."""
-    kinds = set(cfg.pattern_unit) | set(cfg.tail_layers)
+    verify: a ring would overwrite its oldest rows before the accepted
+    count is known, and recurrent state cannot roll back to an
+    intermediate position (the engine decodes plainly instead)."""
+    kinds = set(layer_kinds(cfg))
     if kinds != {ATTN}:
         raise ValueError(f"verify_step only supports global-attention "
                          f"layers, got {sorted(kinds)}")
@@ -325,15 +447,17 @@ def verify_step(params, tokens, caches, cache_len, cfg: ModelConfig,
     return logits_fn(params, x, cfg), caches
 
 
-def clear_slot(caches, slot: int, paged: bool = False) -> list:
-    """Zero slot ``slot``'s cache rows in place (stale-state hygiene for
-    length-1 admissions that skip prefill).  Page pools have no slot axis
-    (``buf[slot]`` would be page ``slot``, a live page) and are left
-    alone: the slot's pages were freed, and any stale content is
+def clear_slot(caches, slot: int, cfg: ModelConfig,
+               paged: bool = False) -> list:
+    """Zero slot ``slot``'s per-slot cache rows in place — K/V stripes,
+    rings and recurrent state (stale-state hygiene for length-1 admissions
+    that skip prefill).  Page pools (global attention, ``paged``) have no
+    slot axis (``buf[slot]`` would be page ``slot``, a live page) and are
+    left alone: the slot's pages were freed, and any stale content is
     unreachable (its table row is null, reads are ``cache_len``-masked)."""
-    if paged:
-        return caches
-    for cache in caches:
+    for kind, cache in zip(layer_kinds(cfg), caches):
+        if paged and kind == ATTN:
+            continue
         for buf in cache.values():
             buf[slot].zero_()
     return caches

@@ -15,8 +15,11 @@ them at once, and the engine accepts the longest prefix the model agrees
 with plus the model's own next token (token-identical to plain decode),
 rolling back the rest by bookkeeping.
 
-The KV cache is per-slot contiguous stripes, or (``cache_kind="paged"``)
-one shared page pool per layer with the host-side
+The KV cache is per-slot contiguous stripes (rings for sliding-window
+layers; RG-LRU and RWKV-6 layers keep per-slot recurrent state, which the
+decode step commits only for the slots it decodes), or
+(``cache_kind="paged"``) one shared page pool per global-attention layer
+with the host-side
 :class:`~repro_torch.serve.paged.PageAllocator` doing admission control,
 youngest-first preemption and, with ``prefix_cache=True``, aliasing of
 identical full prompt blocks across requests (admission maps cached
@@ -48,7 +51,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.core.famous import FamousConfig
 from repro_torch.core.flexible import next_pow2
 from repro_torch.kernels import lib
@@ -158,10 +161,13 @@ class ServingEngine:
         # The verify step writes K/V at [cache_len, cache_len + W) and rolls
         # back by bookkeeping only: rejected positions hold junk that is
         # masked and overwritten before it is read.  That needs position-
-        # addressed storage, which every stack the port runs has (global
-        # attention only), so ``speculative_active`` is ``speculative``.
+        # addressed storage: sliding-window rings overwrite their oldest
+        # rows and recurrent state cannot rewind, so only all-global-
+        # attention stacks run speculatively; the others decode plainly
+        # (``speculative_active`` False), as in the JAX engine.
         self.draft_k = draft_k
-        self.speculative_active = speculative
+        all_attn = all(k == ATTN for k in transformer.layer_kinds(cfg))
+        self.speculative_active = speculative and all_attn
         self.drafter = drafter if drafter is not None else \
             PromptLookupDrafter(observer=self.obs)
         self.spec_steps = 0      # verify steps executed
@@ -169,7 +175,7 @@ class ServingEngine:
         self.spec_accepted = 0   # draft tokens accepted (bonus excluded)
         self.sched = Scheduler(n_slots, SchedulerConfig(
             chunk=self.chunk, token_budget=token_budget,
-            decode_width=(draft_k + 1) if speculative else 1),
+            decode_width=(draft_k + 1) if self.speculative_active else 1),
             observer=self.obs)
         if self.paged:
             assert max_seq % page_size == 0, (max_seq, page_size)
@@ -185,10 +191,11 @@ class ServingEngine:
         else:
             self.caches = transformer.make_caches(cfg, n_slots, max_seq,
                                                   dtype, self.device)
-        # the port's stacks are all global attention, so every prefix is
-        # content-addressable in the pool (the JAX engine's
-        # ``prefix_shareable`` is always true here)
-        self.prefix_cache_active = prefix_cache
+        # aliasing cached prompt blocks needs an architecture whose whole
+        # prefix state lives in the page pool: rings and recurrent state are
+        # per slot and not content-addressable, so hybrid and recurrent
+        # stacks prefill cold (``prefix_cache_active`` False), as in JAX
+        self.prefix_cache_active = prefix_cache and all_attn
         self.prefix_lookups = 0        # admissions that probed the index
         self.prefix_hit_pages = 0      # pages aliased instead of allocated
         self.prefix_hit_tokens = 0     # tokens whose prefill was skipped
@@ -298,7 +305,8 @@ class ServingEngine:
             req.t_submit = _clock()
         if state == DECODE and self.sched.slots[slot].target == 0:
             # nothing to prefill: clear any stale per-slot state
-            transformer.clear_slot(self.caches, slot, paged=self.paged)
+            transformer.clear_slot(self.caches, slot, self.cfg,
+                                   paged=self.paged)
         if state == DECODE:
             # generation restarts at the last prompt token: it is re-decoded
             # so its K/V entry lands at position n-1 (a private page, even
@@ -446,7 +454,8 @@ class ServingEngine:
                     self.device),
                 self.caches,
                 torch.from_numpy(self.cache_len).to(self.device),
-                self.cfg, self.fcfg, **kw)
+                self.cfg, self.fcfg,
+                active=torch.from_numpy(act).to(self.device), **kw)
             temps, topks, seeds, idxs = self._sampling_operands(active)
             if temps.any():
                 k_cap = next_pow2(max(int(topks.max()), 1))

@@ -246,7 +246,12 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.train.losses', 'repro_torch.optim.adamw', "
         "'repro_torch.data.pipeline', 'repro_torch.launch.train', "
         "'repro_torch.configs.famous_bert', 'repro_torch.serve.paged', "
-        "'repro_torch.core.quant', 'repro_torch.serve.draft'}\n"
+        "'repro_torch.core.quant', 'repro_torch.serve.draft', "
+        "'repro_torch.kernels.scan.linear_scan', "
+        "'repro_torch.kernels.scan.ops', 'repro_torch.kernels.scan.ref', "
+        "'repro_torch.models.rglru', 'repro_torch.models.rwkv6', "
+        "'repro_torch.configs.recurrentgemma_2b', "
+        "'repro_torch.configs.rwkv6_1b6'}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -257,3 +262,53 @@ def test_port_imports_neither_jax_nor_repro():
     smoke = (SRC.parent / "chip_smoke.py").read_text()
     assert not re.search(r"^\s*(import|from)\s+(jax|repro)\b", smoke,
                          re.MULTILINE)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-1.6b"])
+def test_recurrent_archs_build_an_engine(arch):
+    """Both recurrent families build an engine from the spec tree: per-slot
+    rings and recurrent state, no speculation, no prefix sharing."""
+    cfg = shrink(get_config(arch))
+    params = module.init_params(transformer.model_spec(cfg),
+                                torch.Generator().manual_seed(0),
+                                torch.float32, "cpu")
+    eng = ServingEngine(params, cfg, FamousConfig(impl="pallas"), n_slots=2,
+                        max_seq=64, chunk=8, cache_kind="paged",
+                        prefix_cache=True, speculative=True, device="cpu")
+    assert not eng.speculative_active and not eng.prefix_cache_active
+    kinds = transformer.layer_kinds(cfg)
+    assert len(eng.caches) == len(kinds) == cfg.num_layers
+    for kind, cache in zip(kinds, eng.caches):
+        want = {"local_attn": {"k", "v"}, "rglru": {"h", "conv"},
+                "rwkv6": {"s", "x_tm", "x_cm"}}[kind]
+        assert set(cache) == want
+        assert all(buf.shape[0] == 2 for buf in cache.values())
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("qwen2-7b", dict(num_experts=4, experts_per_token=2)),
+    ("qwen2-7b", dict(qk_norm=True)),
+    ("recurrentgemma-2b", dict(num_experts=4, experts_per_token=2)),
+    ("rwkv6-1.6b", dict(qk_norm=True)),
+])
+def test_moe_and_qk_norm_still_raise(arch, over):
+    cfg = shrink(get_config(arch), **over)
+    with pytest.raises(NotImplementedError, match="MoE, qk_norm"):
+        transformer.model_spec(cfg)
+    with pytest.raises(NotImplementedError, match="MoE, qk_norm"):
+        ServingEngine({}, cfg, FamousConfig(), device="cpu")
+
+
+@pytest.mark.parametrize("arch,kind", [("recurrentgemma-2b", "rglru"),
+                                       ("rwkv6-1.6b", "rwkv6")])
+def test_forward_on_a_recurrent_kind_raises(arch, kind):
+    cfg = shrink(get_config(arch))
+    params = module.init_params(transformer.model_spec(cfg),
+                                torch.Generator().manual_seed(0),
+                                torch.float32, "cpu")
+    toks = torch.zeros((1, 8), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match=f"{kind} block.*slice 7"):
+        transformer.forward(params, toks, cfg)
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        transformer.apply_block(kind, {}, torch.zeros((1, 8, 64)), cfg,
+                                FamousConfig())
