@@ -12,11 +12,19 @@ Phases, in order; any failure exits non-zero before the result line:
      in f32 and bf16 (the int8 projection on int8 operands, exactly), with
      the kernel's, the plain version's and one
      library call's time (CUDA events, inputs rotated through more than
-     the 50 MB L2), and the least time the card could take (bytes over
-     3.35 TB/s or operations over the type's peak).  Serving shapes of
-     qwen2-7b for ``matmul_tiled``, ``matmul_tiled_int8`` (T = 4 decode,
-     20 verify, 256 chunk), ``decode_attention`` (also as verify rows,
-     5 per slot) and ``chunk_prefill``, and for the four paged kernels (fp
+     the 50 MB L2; where the kernel's profiled device time is under
+     30 us, that time of the whole call, second pass included, for both
+     the kernel and the library call), and the least time the card could take
+     (bytes over 3.35 TB/s or operations over the type's peak).  Serving
+     shapes of qwen2-7b for ``matmul_tiled`` (T = 4, 256, 1, 17, 100; also
+     recurrentgemma-2b's D=2560 F=3072 and a D, F off multiples of 8),
+     ``matmul_tiled_int8`` (T = 4 decode, 20 verify, 256 chunk),
+     ``decode_attention`` (also as verify rows, 5 per slot, at
+     recurrentgemma-2b's 10 / 1 heads of 256, and at lengths on its range
+     boundaries with an empty row, which must be exactly 0 and match the
+     plain mirror of the split-and-combine algebra) and ``chunk_prefill``;
+     ``matmul_tiled`` and ``decode_attention`` relaunched on the same
+     inputs must give the same bits; and for the four paged kernels (fp
      and int8 pools,
      a 513-page pool of 16-token pages; no library call reads a page
      table, so they have no library time); training shapes of
@@ -26,8 +34,7 @@ Phases, in order; any failure exits non-zero before the result line:
      roles; and the two linear-recurrence kernels at their serving shapes
      (``rglru_scan``: recurrentgemma-2b's 256-token chunk, B=1, R=2560;
      ``wkv6_scan``: rwkv6-1.6b's, B·H=32, dh=64, chunk 64, without and
-     with a carried state, out and final state checked; kernels under
-     30 us timed by the profiler's device time);
+     with a carried state, out and final state checked);
   4. Table I: the paper's topology (SL=64, d_model=768, h=8) through
      ``famous.qkv_projection`` + ``famous.attention`` with impl reference,
      xla and pallas; the three must agree; then ``mha_block`` with the
@@ -114,8 +121,9 @@ TRAINING_KERNELS = ("matmul_tiled", "mha_forward", "mha_bwd_dq",
 # the RG-LRU scan against its plain version: one f32 add and multiply per
 # step on the same inputs, in the same order (bit-exact in practice)
 RGLRU_TOL = {"f32": 1e-5, "bf16": 2e-2}
-# a kernel faster than this is timed by the profiler's device time: CUDA
-# events over back-to-back launches read the host's launch rate there
+# a kernel whose profiled device time is under this is timed by it, and so
+# is its library call (each call's kernels summed): CUDA events over
+# back-to-back launches read the host's launch rate there
 DEVICE_TIME_UNDER_MS = 0.03
 REPLACES = {
     "matmul_tiled": "src/repro/kernels/qkv/qkv_proj.py:71",
@@ -139,6 +147,12 @@ REPLACES = {
 SOURCES = {name: "src/repro_torch/kernels/csrc/" + (
     f"{name}.cu" if name.startswith("matmul") else
     f"{name.removesuffix('_int8')}.cu") for name in REPLACES}
+# the QKV projection's serving rows (T, D, F): qwen2-7b at decode (T=4),
+# a chunk (256), one row, a speculative verify past 16 rows (17) and a
+# ragged last chunk (100); recurrentgemma-2b's; and a D and F that are not
+# multiples of 8 (the kernel's element-by-element tile loads)
+SERVING_PROJ = tuple((T, 3584, 4608) for T in (4, 256, 1, 17, 100)) + (
+    (4, 2560, 3072), (256, 2560, 3072), (4, 3581, 4603), (100, 3581, 4603))
 # the training shapes of the attention kernels:
 # name, B, S, H, KV, dh, causal
 TRAIN_ATTN = (("famous-bert", 8, 512, 8, 8, 96, False),
@@ -209,10 +223,10 @@ def time_ms(torch, fn, sets, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, sets, iters, key):
-    """Mean device ms per launch of the kernels whose profiler name holds
-    ``key``, over ``iters`` calls of ``fn`` cycling through ``sets``; None
-    when the profiler saw no such kernel."""
+def device_ms(torch, fn, sets, iters):
+    """Mean device ms per call of ``fn`` over ``iters`` calls cycling
+    through ``sets``: the profiler's device time of every kernel the call
+    launches (a second pass included); None when it saw none."""
     from torch.profiler import ProfilerActivity, profile
 
     for args in sets[:2]:
@@ -222,13 +236,10 @@ def device_ms(torch, fn, sets, iters, key):
         for i in range(iters):
             fn(*sets[i % len(sets)])
         torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for ev in prof.key_averages():
-        if key in ev.key:
-            total_us += getattr(ev, "self_device_time_total", None) or \
-                getattr(ev, "self_cuda_time_total", 0)
-            count += ev.count
-    return total_us / 1e3 / count if count and total_us else None
+    total_us = sum(getattr(ev, "self_device_time_total", None)
+                   or getattr(ev, "self_cuda_time_total", 0)
+                   for ev in prof.key_averages())
+    return total_us / 1e3 / iters if total_us else None
 
 
 def n_sets(bytes_per_set: int) -> int:
@@ -262,6 +273,7 @@ def compare(torch, out, ref, tol):
 def kernel_phase(torch, iters, seed):
     import torch.nn.functional as F
 
+    from repro_torch.kernels import lib
     from repro_torch.kernels.decode import chunk_prefill, decode_attn
     from repro_torch.kernels.decode import ref as dec_ref
     from repro_torch.kernels.qkv import qkv_proj
@@ -278,35 +290,46 @@ def kernel_phase(torch, iters, seed):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
     def record(name, shape, dt, out, ref, tol, fn, plain, lib_fn, sets,
-               nbytes, flops, n_iter=iters, lib_sets=None, profile_key=None,
-               ops_dt=None):
+               nbytes, flops, n_iter=iters, lib_sets=None, ops_dt=None,
+               again=None):
+        """One kernel row.  ``again``: a second launch's output on the
+        same inputs, which must equal ``out`` bit for bit."""
         err, ok = compare(torch, out, ref, tol)
+        identical = None if again is None else bool(torch.equal(out, again))
+        ok = ok and identical is not False
+        lib_sets = lib_sets or sets
         ms = time_ms(torch, fn, sets, n_iter)
-        timed_by = "events"
-        if profile_key and ms < DEVICE_TIME_UNDER_MS:
-            dev_ms = device_ms(torch, fn, sets, n_iter, profile_key)
-            if dev_ms is not None:
-                ms, timed_by = dev_ms, "profiler"
-        plain_ms = time_ms(torch, plain, sets, max(3, n_iter // 4))
-        library_ms = (time_ms(torch, lib_fn, lib_sets or sets, n_iter)
+        library_ms = (time_ms(torch, lib_fn, lib_sets, n_iter)
                       if lib_fn else None)
+        timed_by = "events"
+        dev_ms = device_ms(torch, fn, sets, n_iter)
+        if dev_ms is not None and dev_ms < DEVICE_TIME_UNDER_MS:
+            # kernel and library call both by device time, whole call
+            ms, timed_by = dev_ms, "profiler"
+            if lib_fn:
+                library_ms = device_ms(torch, lib_fn, lib_sets, n_iter) \
+                    or library_ms
+        plain_ms = time_ms(torch, plain, sets, max(3, n_iter // 4))
         b_ms, b_by = bound(nbytes, flops, ops_dt or dt)
         row = dict(name=name, shape=shape, dtype=dt, max_abs_err=err, tol=tol,
                    ok=ok, ms=ms, timed_by=timed_by, plain_ms=plain_ms,
-                   library_ms=library_ms,
+                   library_ms=library_ms, device_ms=dev_ms,
+                   bit_identical=identical,
                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
         rows.append(row)
+        same = "" if identical is None else \
+            f" relaunch {'bit-identical' if identical else 'DIFFERS'}"
         print(f"kernel {name:17s} {shape:34s} {dt:4s} max_abs_err={err:.3e} "
-              f"(tol {tol:g}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"(tol {tol:g}) kernel_ms={ms:.4f} ({timed_by}) "
+              f"plain_ms={plain_ms:.4f} "
               f"library_ms={library_ms if library_ms is None else round(library_ms, 4)} "
-              f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}",
+              f"bound_ms={b_ms:.4f} ({b_by}){same} {'ok' if ok else 'FAIL'}",
               flush=True)
 
-    # matmul_tiled: the fused QKV projection, T = 4 (decode) and 256 (chunk)
-    D, Fo = 3584, 4608
+    # matmul_tiled: the fused QKV projection (see SERVING_PROJ)
     for dt, dtype in dts.items():
         e = torch.tensor([], dtype=dtype).element_size()
-        for T in (4, 256):
+        for T, D, Fo in SERVING_PROJ:
             per = (T * D + D * Fo) * e
             sets = [(randn((T, D), dtype), randn((D, Fo), dtype, D ** -0.5))
                     for _ in range(n_sets(per))]
@@ -316,7 +339,8 @@ def kernel_phase(torch, iters, seed):
             record("matmul_tiled", f"T={T} D={D} F={Fo}", dt, out, ref,
                    TOL[dt], qkv_proj.matmul_tiled, qkv_ref.matmul_reference,
                    torch.matmul, sets, (T * D + D * Fo + T * Fo) * e,
-                   2.0 * T * D * Fo)
+                   2.0 * T * D * Fo, again=qkv_proj.matmul_tiled(x, w))
+            del sets
 
     int8_kernel_rows(torch, gen, record, iters)
 
@@ -324,9 +348,13 @@ def kernel_phase(torch, iters, seed):
     B, H, KV, dh, Skv = 4, 28, 4, 128, 2048
     lens_list = [1, 37, 1000, 2048]
     scale = dh ** -0.5
-    live = sum(lens_list)
-    for dt, dtype in dts.items():
+
+    def decode_row(dt, dtype, H, KV, dh, lens_list, extra=""):
+        """One ``decode_attention`` row at B = len(lens_list), Skv; library:
+        SDPA with GQA and a length mask.  Returns the first input set, the
+        kernel's output and the plain version's."""
         e = torch.tensor([], dtype=dtype).element_size()
+        scale, live = dh ** -0.5, sum(lens_list)
         lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
         mask = (torch.arange(Skv, device=dev)[None, :] < lens[:, None])
         mask = mask[:, None, None, :]
@@ -348,14 +376,22 @@ def kernel_phase(torch, iters, seed):
 
         q, k, v, ln = sets[0]
         out, ref = kern(q, k, v, ln), plain(q, k, v, ln)
+        nonempty = lens > 0   # SDPA gives NaN on an empty row
         lib_out = library(q, k, v, ln)[:, :, 0]
-        lib_err, _ = compare(torch, lib_out, ref, ATTN_TOL[dt])
+        lib_err, _ = compare(torch, lib_out[nonempty], ref[nonempty],
+                             ATTN_TOL[dt])
         print(f"  (library vs plain max_abs_err {lib_err:.3e})")
         record("decode_attention", f"B={B} H={H} KV={KV} dh={dh} "
-               f"Skv={Skv} lens={lens_list}", dt, out, ref, ATTN_TOL[dt],
-               kern, plain, library, sets,
+               f"Skv={Skv} lens={lens_list}{extra}", dt, out, ref,
+               ATTN_TOL[dt], kern, plain, library, sets,
                2 * B * H * dh * e + live * KV * dh * 2 * e + 4 * B,
-               4.0 * H * dh * live)
+               4.0 * H * dh * live, again=kern(q, k, v, ln))
+        del sets
+        return (q, k, v, ln), out, ref
+
+    for dt, dtype in dts.items():
+        e = torch.tensor([], dtype=dtype).element_size()
+        (_, k, v, lens), _, _ = decode_row(dt, dtype, H, KV, dh, lens_list)
 
         # the same kernel as speculative-verify rows: W = 5 rows a slot,
         # row j of slot b sees lens[b] + j keys (clipped to Skv), all rows
@@ -366,8 +402,10 @@ def kernel_phase(torch, iters, seed):
         vlive = int(vlens.sum())
         # each slot's keys are read once for its W rows
         slot_keys = sum(min(n + W - 1, Skv) for n in lens_list)
-        vsets = [(randn((B * W, H, dh), dtype), k, v, vlens)
-                 for _, k, v, _ in sets]
+        vsets = [(randn((B * W, H, dh), dtype), k, v, vlens)] + [
+            (randn((B * W, H, dh), dtype), randn(k.shape, dtype),
+             randn(k.shape, dtype), vlens)
+            for _ in range(n_sets(2 * k.numel() * e) - 1)]
 
         def vkern(q, k, v, ln):
             return decode_attn.decode_attention(q, k, v, ln, scale=scale,
@@ -382,8 +420,32 @@ def kernel_phase(torch, iters, seed):
                f"dh={dh} Skv={Skv} lens={lens_list}+j", dt, vkern(q, k, v, ln),
                vplain(q, k, v, ln), ATTN_TOL[dt], vkern, vplain, None, vsets,
                2 * B * W * H * dh * e + slot_keys * KV * dh * 2 * e
-               + 4 * B * W, 4.0 * H * dh * vlive)
-        del vsets
+               + 4 * B * W, 4.0 * H * dh * vlive, again=vkern(q, k, v, ln))
+        del vsets, k, v
+
+        # recurrentgemma-2b's layout: 10 query heads over one kv head of
+        # 256, 1025 keys a slot (a decode step at 1024 cached tokens)
+        decode_row(dt, dtype, 10, 1, 256, [1025] * B)
+        # lengths at the kernel's range boundaries, an empty row first:
+        # that row must be exactly 0, and the kernel must also match the
+        # plain mirror of its split-and-combine algebra
+        L = decode_attn.keys_per_split(lib.DTYPE_CODE[dtype], B, KV, dh, Skv,
+                                       lib.sm_count(dev))
+        edge = [0, L - 1, L, L + 1]
+        (q, k, v, ln), out, _ = decode_row(dt, dtype, H, KV, dh, edge,
+                                           f" (L={L})")
+        split = dec_ref.decode_split_reference(q, k, v, ln, scale=scale,
+                                               keys_per_split=L)
+        s_err, s_ok = compare(torch, out, split, ATTN_TOL[dt])
+        zero = bool(torch.all(out[0] == 0))
+        rows[-1].update(split_mirror_err=s_err, empty_row_zero=zero)
+        print(f"  (decode_attention {dt} lens {edge}: vs the split mirror "
+              f"max_abs_err {s_err:.3e} (tol {ATTN_TOL[dt]:g}), empty row "
+              f"{'exactly 0' if zero else 'NOT 0'}) "
+              f"{'ok' if s_ok and zero else 'FAIL'}", flush=True)
+        check(s_ok and zero, f"decode_attention {dt} at lens {edge}: mirror "
+              f"error {s_err}, empty row zero {zero}")
+        del q, k, v
 
     # chunk_prefill: one slot of the batched cache, C = 256 at two offsets
     C, slot = 256, 2
@@ -684,7 +746,7 @@ def scan_kernel_rows(torch, dts, randn, record, iters):
                RGLRU_TOL[dt], linear_scan.rglru_scan,
                scan_ref.rglru_reference, None, sets,
                2 * B * S * R * e + 4 * B * S * R, 2.0 * B * S * R,
-               profile_key="rglru_scan_kernel", ops_dt="f32")
+               ops_dt="f32")
         del sets
 
     BH, S, dh, C = 32, 256, 64, 64
@@ -720,7 +782,7 @@ def scan_kernel_rows(torch, dts, randn, record, iters):
                    f"s0={'random' if carried else 'none'} (logw f32)", dt,
                    out, plain(*sets[0]), TOL[dt], kern, plain, None, sets,
                    per + 4 * BH * dh + 4 * BH * S * dh + state_bytes, flops,
-                   profile_key="wkv6_scan_kernel", ops_dt="f32")
+                   ops_dt="f32")
             if not carried:
                 seq = scan_ref.wkv6_reference(*sets[0][:5])
                 err = float((out[0] - seq).abs().max())

@@ -74,6 +74,21 @@ __device__ __forceinline__ float pool_elem(const E* pool, const float* row_scale
     return to_f(pool[row * dh + d]);
 }
 
+// 16-byte asynchronous copy global -> shared (cp.async.cg, bypassing L1);
+// src_bytes < 16 zero-fills the rest (0: a masked chunk reads nothing).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // Raise the dynamic shared-memory cap of `kernel` when a launch needs more
 // than the default 48 KB.
 template <typename K>

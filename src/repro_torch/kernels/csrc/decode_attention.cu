@@ -1,5 +1,5 @@
-// decode_attention: one new query token per slot against the slot's
-// contiguous KV cache, GQA, f32 online softmax.
+// decode_attention: one new query token per row against its slot's
+// contiguous KV cache, GQA, f32 softmax.
 //
 //   q      (R, H, dh)            contiguous (the decode step's (B, 1, H, dh))
 //   k, v   (R / rps, Skv, KV, dh) read by strides, dh contiguous
@@ -13,186 +13,462 @@
 // broadcasts the cache W ways.
 //
 // Replaces: src/repro/kernels/decode/decode_attn.py, decode_attention (the
-// Pallas kernel _decode_kernel).  There the JAX wrapper first transposes
-// both caches to kv-major rows (a full copy of the cache per layer per step
-// in eager PyTorch) and the grid visits every key tile of Skv whatever the
-// length.  Here one block owns one (slot, kv head) pair and reads the cache
-// in place by strides; the group of query heads that share the kv head are
-// the block's rows (qwen2-7b: 7), so each K/V tile is read once for all of
-// them.  The key loop stops at lens[b] at run time, without a rebuild.
-// The softmax is the TPU kernel's: f32 running max and sum, masked scores
-// at -1e30, and the final divide by max(l, 1e-30), which gives an empty
-// slot (len 0) an output of 0.
+// Pallas kernel _decode_kernel).  There one grid row per (slot, kv head)
+// walks every key tile of Skv in sequence with an f32 online softmax
+// (running max and sum, masked scores at -1e30, a final divide by
+// max(l, 1e-30), which gives an empty slot an output of 0).
 //
-// What bounds it on an H100: memory.  Each live token costs 2 * KV * dh
-// elements (2 KB in bf16 for qwen2-7b) per layer and is read once; the
-// arithmetic is 4 * H * dh FLOP per token.  Design: 32-key tiles staged
-// through shared memory with coalesced loads (consecutive threads read
-// consecutive head-dim elements), one warp per query row for the softmax
-// (lane = key), and an f32 accumulator held in registers.  B * KV blocks
-// (16 at decode) do not fill the card; splitting the key range across
-// blocks (flash-decoding) is a later change.
+// What bounds it on an H100: memory.  Each live key costs 2 * KV * dh
+// elements per layer (2 KB in bf16 for qwen2-7b), read once; the
+// arithmetic is 4 * H * dh FLOP a key.  At 4 slots there are only
+// rows * KV (row, kv head) pairs to spread over 132 SMs: 16 for qwen2-7b,
+// 4 for recurrentgemma-2b's single kv head.
+//
+// Design: flash-decoding.  The grid is (split, kv head, row): each block
+// owns a range of L keys of one (row, kv head) and all `group` query heads
+// that share the kv head, so each K/V byte is read once for all of them.
+// L comes from static shapes only (rows, KV, dh, Skv, the SM count; see
+// famous_decode_attention_split_keys): the largest power of two up to
+// 256 whose ranges give every SM a block at full length and whose K and V
+// fit 64 KB of shared memory.  The grid never depends on a length read on
+// the host.  A block whose range starts at or past lens[row] exits at
+// once.  Inside a block:
+//   1. the range's K rows, then its V rows, go to shared memory as two
+//      groups of 16-byte cp.async copies (neighbouring threads on
+//      neighbouring addresses), the whole range in flight at once;
+//   2. scores, while V is still arriving: a key's dh is split across a
+//      group of lanes, 8 elements each (two keys per warp step at dh 128,
+//      one at 256); each lane holds its 8 elements of every query head of
+//      the group in registers for the whole range, forms its partial dot
+//      for each head, and the lanes sum them by warp shuffles that halve
+//      the values a lane keeps at each step (15 shuffles for 16 heads);
+//      the sum is then scaled;
+//   3. softmax over the range, one warp per query head: max, exp, sum;
+//   4. P V with each of the 256 threads owning one head-dim column for
+//      all heads, f32 accumulators in registers.
+// Three __syncthreads per block.  With one range per row (L >= Skv) the
+// block divides by max(l, 1e-30) and writes the output.  Otherwise it
+// writes its partial (m, l, acc[group][dh]) in f32 to a workspace that the
+// wrapper allocates, and a second kernel combines the live ranges of each
+// (row, head) in a fixed order (bit-identical from launch to launch) with
+// the same divide; a row of length 0 has no live range and gets exactly 0.
 #include "common.cuh"
+
+#include <algorithm>
 
 namespace famous {
 
-constexpr int kDecBK = 32;      // keys per tile (= warp size: lane = key)
-constexpr int kDecThreads = 128;
+constexpr int kDecThreads = 256;
 constexpr int kDecWarps = kDecThreads / 32;
 constexpr int kDecMaxGroup = 16;
-constexpr int kDecMaxDh = 256;
-constexpr int kDecDPT = kDecMaxDh / kDecThreads;  // head-dim entries per thread
+constexpr int kDecMaxDh = 256;  // = kDecThreads: one P V column a thread
+constexpr int kDecMinKeys = 16, kDecMaxKeys = 256;
+constexpr int kDecKVBytes = 64 * 1024;  // K + V of one range in shared memory
+constexpr int kCombineThreads = 128;
 
-__host__ __device__ inline size_t decode_smem_floats(int group, int dh) {
-  return (size_t)group * dh                // q (pre-scaled)
-         + (size_t)kDecBK * (dh + 1)       // K tile (padded rows)
-         + (size_t)kDecBK * dh             // V tile
-         + (size_t)group * kDecBK          // scores / probabilities
-         + 3 * (size_t)group;              // running max, sum, correction
+__host__ __device__ inline int round8(int x) { return (x + 7) & ~7; }
+__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
+
+// shared memory of a block: K and V ranges (L x dhp, raw), scores /
+// probabilities (L x gp, f32), m and l (gp each)
+inline size_t decode_smem_bytes(int group, int dh, int L, int esize) {
+  const size_t dhp = round8(dh), gp = round4(group);
+  return 2 * (size_t)L * dhp * esize + (L * gp + 2 * gp) * sizeof(float);
 }
 
+// Copy n rows of dh elements (row stride `stride`) into shared rows of dhp
+// elements.  vec: 16-byte aligned rows with dh % 8 == 0 (so dhp == dh), by
+// cp.async; otherwise element by element, the padding zero-filled.
 template <typename T>
-__global__ void __launch_bounds__(kDecThreads)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const int* __restrict__ lens,
-                        T* __restrict__ out, int H, int KV, int dh, int Skv, int rps,
-                        long long k_sb, long long k_ss, long long k_sh,
-                        long long v_sb, long long v_ss, long long v_sh, float scale) {
-  extern __shared__ float smem[];
-  const int group = H / KV;
-  const int hk = blockIdx.x, b = blockIdx.y;
-  float* q_s = smem;
-  float* k_s = q_s + group * dh;
-  float* v_s = k_s + kDecBK * (dh + 1);
-  float* p_s = v_s + kDecBK * dh;
-  float* m_s = p_s + group * kDecBK;
-  float* l_s = m_s + group;
-  float* c_s = l_s + group;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  const long long q_base = ((long long)b * H + (long long)hk * group) * dh;
-  for (int i = tid; i < group * dh; i += kDecThreads) q_s[i] = to_f(q[q_base + i]) * scale;
-  if (tid < group) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
+__device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src, long long stride,
+                                          int n, int dh, int dhp, bool vec) {
+  if (vec) {
+    constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
+    const int cpr = dh / EPC;
+    for (int i = threadIdx.x; i < n * cpr; i += kDecThreads) {
+      const int j = i / cpr, c = (i % cpr) * EPC;
+      cp_async16(dst + j * dhp + c, src + j * stride + c, 16);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n * dhp; i += kDecThreads) {
+      const int j = i / dhp, d = i % dhp;
+      dst[j * dhp + d] = d < dh ? src[j * stride + d] : from_f<T>(0.f);
+    }
   }
-  float acc[kDecMaxGroup][kDecDPT];
+}
+
+// 8 consecutive shared-memory elements (16-byte aligned) in f32
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w, f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x, f[2 * i + 1] = x.y;
+  }
+}
+
+// A lane's 8-element chunk of one query head, held in registers for the
+// whole range: bf16 pairs as stored (exact; the scale is applied to the
+// summed score) or f32.  load: n valid elements of p (the rest 0); vec: a
+// 16-byte aligned full chunk.
+template <typename T> struct QChunk;
+
+template <> struct QChunk<float> {
+  float x[8];
+  __device__ __forceinline__ void load(const float* __restrict__ p, int n, bool vec) {
+    if (vec) {
+      load8(p, x);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] = e < n ? p[e] : 0.f;
+    }
+  }
+  __device__ __forceinline__ float dot(const float (&k)[8]) const {
+    float s = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s = fmaf(x[e], k[e], s);
+    return s;
+  }
+};
+
+template <> struct QChunk<__nv_bfloat16> {
+  __nv_bfloat162 x[4];
+  __device__ __forceinline__ void load(const __nv_bfloat16* __restrict__ p, int n, bool vec) {
+    if (vec) {
+      const uint4 u = *reinterpret_cast<const uint4*>(p);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[i] = h[i];
+    } else {
+      const __nv_bfloat16 z = __float2bfloat16(0.f);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        x[i] = __halves2bfloat162(2 * i < n ? p[2 * i] : z, 2 * i + 1 < n ? p[2 * i + 1] : z);
+    }
+  }
+  __device__ __forceinline__ float dot(const float (&k)[8]) const {
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(x[i]);
+      s = fmaf(f.x, k[2 * i], s);
+      s = fmaf(f.y, k[2 * i + 1], s);
+    }
+    return s;
+  }
+};
+
+// Sum NV per-head partials over the lanes of a key group (xor offsets O,
+// O/2, ..., 1) while halving the values each lane keeps: at offset O a
+// lane with bit O set keeps the upper half and sends the lower.  16 values
+// over 16 lanes take 15 shuffles (lane c ends with head c) where a
+// butterfly per head would take 64.
+template <int NV, int O>
+__device__ __forceinline__ void reduce_heads(float (&v)[kDecMaxGroup], int lane) {
+  if constexpr (O >= 1) {
+    if constexpr (NV > 1) {
+      constexpr int H = NV / 2;
+      const bool up = lane & O;
+#pragma unroll
+      for (int i = 0; i < H; ++i) {
+        const float send = up ? v[i] : v[i + H];
+        const float keep = up ? v[i + H] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+      }
+      reduce_heads<H, O / 2>(v, lane);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+      reduce_heads<1, O / 2>(v, lane);
+    }
+  }
+}
+
+// Block (split, hk, r): keys [split * L, min((split + 1) * L, len)) of
+// kv head hk of row r.  LPK lanes per key, 8 head-dim elements each
+// (dhp <= 8 * LPK).  ws == nullptr: one range per row, write out; else
+// write the partial to ws (layout: see the combine kernel).
+template <typename T, int LPK>
+__global__ void __launch_bounds__(kDecThreads)
+decode_attention_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const int* __restrict__ lens,
+                              T* __restrict__ out, float* __restrict__ ws, int R, int H, int KV,
+                              int dh, int Skv, int rps, int L, int S, long long k_sb,
+                              long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+                              long long v_sh, float scale, int vec) {
+  constexpr int KPP = 32 / LPK;                              // keys per warp step
+  constexpr int NVF = LPK >= 16 ? 1 : kDecMaxGroup / LPK;    // heads a lane ends with
+  constexpr int SHARE = LPK == 32 ? 2 : 1;                   // lanes holding one head
+  extern __shared__ __align__(16) unsigned char dec_smem[];
+  const int group = H / KV, dhp = round8(dh), gp = round4(group);
+  const int split = blockIdx.x, hk = blockIdx.y, r = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long q_base = ((long long)r * H + (long long)hk * group) * dh;
+
+  const int len = max(0, min(lens[r], Skv));
+  const int k_lo = split * L;
+  if (k_lo >= len) {  // no live key in this range
+    if (ws == nullptr)
+      for (int i = tid; i < group * dh; i += kDecThreads) out[q_base + i] = from_f<T>(0.f);
+    return;
+  }
+  const int nkeys = min(L, len - k_lo);
+
+  T* k_s = reinterpret_cast<T*>(dec_smem);
+  T* v_s = k_s + L * dhp;
+  float* s_s = reinterpret_cast<float*>(v_s + L * dhp);  // [key][gp]
+  float* m_s = s_s + L * gp;
+  float* l_s = m_s + gp;
+
+  const T* kb = k + (r / rps) * k_sb + hk * k_sh + k_lo * k_ss;
+  const T* vb = v + (r / rps) * v_sb + hk * v_sh + k_lo * v_ss;
+  load_rows(k_s, kb, k_ss, nkeys, dh, dhp, vec);
+  cp_async_commit();
+  load_rows(v_s, vb, v_ss, nkeys, dh, dhp, vec);
+  cp_async_commit();
+  // scores: lane chunk c holds elements [8c, 8c + 8) of key j and of every
+  // query head; the group's partial dots are summed across the key's lanes
+  // by reduce_heads
+  const int c = lane % LPK;
+  const bool c_ok = 8 * c < dhp;
+  QChunk<T> qc[kDecMaxGroup];
 #pragma unroll
   for (int g = 0; g < kDecMaxGroup; ++g)
-#pragma unroll
-    for (int i = 0; i < kDecDPT; ++i) acc[g][i] = 0.f;
-
-  const int len = max(0, min(lens[b], Skv));
-  const T* kb = k + (b / rps) * k_sb + hk * k_sh;
-  const T* vb = v + (b / rps) * v_sb + hk * v_sh;
+    if (g < group && c_ok) qc[g].load(q + q_base + (long long)g * dh + 8 * c, dh - 8 * c, vec);
+  cp_async_wait<1>();  // K has landed (V may still be in flight)
   __syncthreads();
 
-  for (int k0 = 0; k0 < len; k0 += kDecBK) {
-    for (int i = tid; i < kDecBK * dh; i += kDecThreads) {
-      const int j = i / dh, d = i % dh, pos = k0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (pos < len) {
-        kx = to_f(kb[pos * k_ss + d]);
-        vx = to_f(vb[pos * v_ss + d]);
-      }
-      k_s[j * (dh + 1) + d] = kx;
-      v_s[j * dh + d] = vx;
-    }
-    __syncthreads();
-    // scores: (group x 32) dot products of length dh
-    for (int i = tid; i < group * kDecBK; i += kDecThreads) {
-      const int g = i / kDecBK, j = i % kDecBK;
-      const float* qr = q_s + g * dh;
-      const float* kr = k_s + j * (dh + 1);
-      float s = 0.f;
-      for (int d = 0; d < dh; ++d) s = fmaf(qr[d], kr[d], s);
-      p_s[i] = s;
-    }
-    __syncthreads();
-    // online softmax: one warp per query row, lane = key
-    for (int g = warp; g < group; g += kDecWarps) {
-      const bool ok = k0 + lane < len;
-      const float s = ok ? p_s[g * kDecBK + lane] : kNegInf;
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, warp_max(s));
-      const float p = ok ? expf(s - m_new) : 0.f;
-      const float corr = expf(m_prev - m_new);
-      const float psum = warp_sum(p);
-      p_s[g * kDecBK + lane] = p;
-      if (lane == 0) {
-        l_s[g] = l_s[g] * corr + psum;
-        m_s[g] = m_new;
-        c_s[g] = corr;
-      }
-    }
-    __syncthreads();
-    // acc = acc * corr + P @ V; thread owns head-dim entries tid, tid + 128
+  for (int j0 = warp * KPP; j0 < nkeys; j0 += kDecWarps * KPP) {
+    const int j = j0 + lane / LPK;
+    const bool live = c_ok && j < nkeys;
+    float kf[8];
+    if (live) {
+      load8(k_s + j * dhp + 8 * c, kf);
+    } else {
 #pragma unroll
-    for (int i = 0; i < kDecDPT; ++i) {
-      const int d = tid + i * kDecThreads;
-      if (d >= dh) continue;
+      for (int e = 0; e < 8; ++e) kf[e] = 0.f;
+    }
+    float part[kDecMaxGroup];
 #pragma unroll
-      for (int g = 0; g < kDecMaxGroup; ++g) {
-        if (g >= group) break;
-        float a = acc[g][i] * c_s[g];
-        const float* pr = p_s + g * kDecBK;
-#pragma unroll 8
-        for (int j = 0; j < kDecBK; ++j) a = fmaf(pr[j], v_s[j * dh + d], a);
-        acc[g][i] = a;
+    for (int g = 0; g < kDecMaxGroup; ++g) part[g] = g < group && live ? qc[g].dot(kf) : 0.f;
+    reduce_heads<kDecMaxGroup, LPK / 2>(part, lane);
+    if (j < nkeys && c % SHARE == 0) {
+#pragma unroll
+      for (int i = 0; i < NVF; ++i) {
+        const int g = (c / SHARE) * NVF + i;
+        if (g < group) s_s[j * gp + g] = part[i] * scale;
       }
     }
-    __syncthreads();
+  }
+  __syncthreads();
+
+  // softmax over the range's live keys (at least one): a warp per head
+  for (int g = warp; g < group; g += kDecWarps) {
+    float m = kNegInf;
+    for (int j = lane; j < nkeys; j += 32) m = fmaxf(m, s_s[j * gp + g]);
+    m = warp_max(m);
+    float l = 0.f;
+    for (int j = lane; j < nkeys; j += 32) {
+      const float p = expf(s_s[j * gp + g] - m);
+      s_s[j * gp + g] = p;
+      l += p;
+    }
+    l = warp_sum(l);
+    if (lane == 0) {
+      m_s[g] = m;
+      l_s[g] = l;
+    }
+  }
+  cp_async_wait<0>();  // V has landed
+  __syncthreads();
+
+  const long long RH = (long long)R * H;
+  const long long row0 = (long long)r * H + (long long)hk * group;  // (row, head 0)
+  if (ws != nullptr && tid < group) {
+    ws[RH * S * dh + (row0 + tid) * S + split] = m_s[tid];
+    ws[RH * S * (dh + 1) + (row0 + tid) * S + split] = l_s[tid];
+  }
+
+  // P V: thread tid owns head-dim column tid for every head
+  const int d = tid;
+  if (d >= dh) return;
+  float acc[kDecMaxGroup];
+#pragma unroll
+  for (int g = 0; g < kDecMaxGroup; ++g) acc[g] = 0.f;
+#pragma unroll 4
+  for (int j = 0; j < nkeys; ++j) {
+    const float vv = to_f(v_s[j * dhp + d]);
+    const float* pr = s_s + j * gp;
+#pragma unroll
+    for (int g4 = 0; g4 < kDecMaxGroup; g4 += 4) {
+      if (g4 < group) {
+        const float4 p = *reinterpret_cast<const float4*>(pr + g4);
+        acc[g4] = fmaf(p.x, vv, acc[g4]);
+        acc[g4 + 1] = fmaf(p.y, vv, acc[g4 + 1]);
+        acc[g4 + 2] = fmaf(p.z, vv, acc[g4 + 2]);
+        acc[g4 + 3] = fmaf(p.w, vv, acc[g4 + 3]);
+      }
+    }
   }
 
 #pragma unroll
-  for (int i = 0; i < kDecDPT; ++i) {
-    const int d = tid + i * kDecThreads;
-    if (d >= dh) continue;
-#pragma unroll
-    for (int g = 0; g < kDecMaxGroup; ++g) {
-      if (g >= group) break;
-      out[q_base + (long long)g * dh + d] = from_f<T>(acc[g][i] / fmaxf(l_s[g], 1e-30f));
-    }
+  for (int g = 0; g < kDecMaxGroup; ++g) {
+    if (g >= group) break;
+    if (ws == nullptr)
+      out[(row0 + g) * dh + d] = from_f<T>(acc[g] / fmaxf(l_s[g], 1e-30f));
+    else
+      ws[((row0 + g) * S + split) * dh + d] = acc[g];
   }
+}
+
+// The second pass: for (row r, head h) = block (h, r), combine the live
+// ranges s < ceil(len / L) in order s = 0, 1, ...:  M = max m_s, w_s =
+// exp(m_s - M), out = sum w_s acc_s / max(sum w_s l_s, 1e-30).  The
+// weights are computed once into shared memory; each sum runs in order
+// s = 0, 1, ... in one thread (deterministic).  Workspace: acc (R*H, S,
+// dh), then m (R*H, S), then l (R*H, S), f32.
+template <typename T>
+__global__ void __launch_bounds__(kCombineThreads)
+decode_attention_combine_kernel(const float* __restrict__ ws, const int* __restrict__ lens,
+                                T* __restrict__ out, int R, int H, int dh, int Skv, int L,
+                                int S) {
+  extern __shared__ float w_s[];  // S weights, then S l values
+  __shared__ float red[kCombineThreads / 32];
+  const int h = blockIdx.x, r = blockIdx.y, tid = threadIdx.x;
+  const long long RH = (long long)R * H, row = (long long)r * H + h;
+  const int len = max(0, min(lens[r], Skv));
+  const int n = min(S, (len + L - 1) / L);
+  const float* acc = ws + row * S * dh;
+  const float* ms = ws + RH * S * dh + row * S;
+  const float* ls = ws + RH * S * (dh + 1) + row * S;
+  float* l_s = w_s + S;
+  float M = kNegInf;
+  for (int s = tid; s < n; s += kCombineThreads) M = fmaxf(M, ms[s]);
+  M = warp_max(M);
+  if ((tid & 31) == 0) red[tid >> 5] = M;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kCombineThreads / 32; ++i) M = fmaxf(M, red[i]);
+  for (int s = tid; s < n; s += kCombineThreads) {
+    w_s[s] = expf(ms[s] - M);
+    l_s[s] = ls[s];
+  }
+  __syncthreads();
+  float l = 0.f;
+  for (int s = 0; s < n; ++s) l += w_s[s] * l_s[s];
+  for (int d = tid; d < dh; d += kCombineThreads) {
+    float a = 0.f;
+#pragma unroll 8
+    for (int s = 0; s < n; ++s) a += w_s[s] * acc[(long long)s * dh + d];
+    out[row * dh + d] = from_f<T>(a / fmaxf(l, 1e-30f));
+  }
+}
+
+template <typename T, int LPK>
+static cudaError_t launch_split(dim3 grid, size_t smem, cudaStream_t stream, const T* q,
+                                const T* k, const T* v, const int* lens, T* out, float* ws,
+                                int R, int H, int KV, int dh, int Skv, int rps, int L, int S,
+                                long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+                                long long v_ss, long long v_sh, float scale, int vec) {
+  auto kernel = decode_attention_split_kernel<T, LPK>;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kDecThreads, smem, stream>>>(q, k, v, lens, out, ws, R, H, KV, dh, Skv, rps, L,
+                                              S, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, vec);
+  return cudaGetLastError();
 }
 
 template <typename T>
 static cudaError_t launch_decode(const void* q, const void* k, const void* v, const int* lens,
-                                 void* out, int B, int H, int KV, int dh, int Skv, int rps,
-                                 long long k_sb, long long k_ss, long long k_sh,
+                                 void* out, float* ws, int R, int H, int KV, int dh, int Skv,
+                                 int rps, int L, long long k_sb, long long k_ss, long long k_sh,
                                  long long v_sb, long long v_ss, long long v_sh, float scale,
                                  cudaStream_t stream) {
-  const size_t smem = decode_smem_floats(H / KV, dh) * sizeof(float);
-  cudaError_t e = allow_smem(decode_attention_kernel<T>, smem);
+  const int S = (Skv + L - 1) / L;
+  if ((S > 1) != (ws != nullptr)) return cudaErrorInvalidValue;
+  const size_t smem = decode_smem_bytes(H / KV, dh, L, sizeof(T));
+  constexpr long long EPC = 16 / sizeof(T);
+  const int vec = dh % 8 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(v) % 16 == 0 && k_sb % EPC == 0 &&
+                  k_ss % EPC == 0 && k_sh % EPC == 0 && v_sb % EPC == 0 && v_ss % EPC == 0 &&
+                  v_sh % EPC == 0;
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  T* ot = static_cast<T*>(out);
+  const dim3 grid(S, KV, R);
+  const int dhp = round8(dh);
+  cudaError_t e;
+  // lanes per key: 8 head-dim elements a lane
+  if (dhp <= 64)
+    e = launch_split<T, 8>(grid, smem, stream, qt, kt, vt, lens, ot, ws, R, H, KV, dh, Skv, rps,
+                           L, S, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, vec);
+  else if (dhp <= 128)
+    e = launch_split<T, 16>(grid, smem, stream, qt, kt, vt, lens, ot, ws, R, H, KV, dh, Skv, rps,
+                            L, S, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, vec);
+  else
+    e = launch_split<T, 32>(grid, smem, stream, qt, kt, vt, lens, ot, ws, R, H, KV, dh, Skv, rps,
+                            L, S, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, vec);
+  if (e != cudaSuccess || ws == nullptr) return e;
+  const size_t csmem = 2 * (size_t)S * sizeof(float);
+  e = allow_smem(decode_attention_combine_kernel<T>, csmem);
   if (e != cudaSuccess) return e;
-  dim3 grid(KV, B);
-  decode_attention_kernel<T><<<grid, kDecThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lens,
-      static_cast<T*>(out), H, KV, dh, Skv, rps, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale);
+  decode_attention_combine_kernel<T><<<dim3(H, R), kCombineThreads, csmem, stream>>>(
+      ws, lens, ot, R, H, dh, Skv, L, S);
   return cudaGetLastError();
 }
 
 }  // namespace famous
 
+// Keys per range L, from static shapes and the SM count only: the largest
+// power of two in [16, 256] whose K and V ranges fit 64 KB of shared
+// memory, halved while rows * KV * ceil(Skv / L) < sms (every SM a block
+// when the rows are full) and while L / 2 still covers Skv.  The wrapper
+// allocates the workspace for ceil(Skv / L) ranges from it.
+extern "C" int famous_decode_attention_split_keys(int dtype, int R, int KV, int dh, int Skv,
+                                                  int sms) {
+  using namespace famous;
+  const long long esize = dtype == kF32 ? 4 : 2;
+  const long long dhp = round8(std::max(dh, 1));
+  int L = kDecMaxKeys;
+  while (L > kDecMinKeys && 2 * L * dhp * esize > kDecKVBytes) L >>= 1;
+  const long long pairs = (long long)std::max(R, 1) * std::max(KV, 1);
+  while (L > kDecMinKeys && pairs * ((Skv + L - 1) / L) < sms) L >>= 1;
+  while (L > kDecMinKeys && L / 2 >= Skv) L >>= 1;
+  return L;
+}
+
+// ws: f32 workspace of R * H * S * (dh + 2) elements, S = ceil(Skv / L),
+// when S > 1; null when S == 1.
 extern "C" int famous_decode_attention(int dtype, const void* q, const void* k, const void* v,
-                                       const void* lens, void* out, int B, int H, int KV,
-                                       int dh, int Skv, int rps, long long k_sb, long long k_ss,
-                                       long long k_sh, long long v_sb, long long v_ss,
-                                       long long v_sh, float scale, void* stream) {
+                                       const void* lens, void* out, void* ws, int R, int H,
+                                       int KV, int dh, int Skv, int rps, int L, long long k_sb,
+                                       long long k_ss, long long k_sh, long long v_sb,
+                                       long long v_ss, long long v_sh, float scale,
+                                       void* stream) {
   using namespace famous;
   if (KV <= 0 || H % KV != 0 || H / KV > kDecMaxGroup || dh <= 0 || dh > kDecMaxDh ||
-      rps <= 0 || B % rps != 0)
+      rps <= 0 || R % rps != 0 || L < 1 || L > kDecMaxKeys)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (B <= 0) return static_cast<int>(cudaGetLastError());
+  if (R <= 0) return static_cast<int>(cudaGetLastError());
+  if (Skv <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* l = static_cast<const int*>(lens);
+  float* w = static_cast<float*>(ws);
   cudaError_t e;
   if (dtype == kF32)
-    e = launch_decode<float>(q, k, v, l, out, B, H, KV, dh, Skv, rps, k_sb, k_ss, k_sh, v_sb, v_ss,
-                             v_sh, scale, s);
+    e = launch_decode<float>(q, k, v, l, out, w, R, H, KV, dh, Skv, rps, L, k_sb, k_ss, k_sh, v_sb,
+                             v_ss, v_sh, scale, s);
   else if (dtype == kBF16)
-    e = launch_decode<__nv_bfloat16>(q, k, v, l, out, B, H, KV, dh, Skv, rps, k_sb, k_ss, k_sh,
-                                     v_sb, v_ss, v_sh, scale, s);
+    e = launch_decode<__nv_bfloat16>(q, k, v, l, out, w, R, H, KV, dh, Skv, rps, L, k_sb, k_ss,
+                                     k_sh, v_sb, v_ss, v_sh, scale, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

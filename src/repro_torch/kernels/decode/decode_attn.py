@@ -2,19 +2,28 @@
 
 On CUDA tensors ``decode_attention`` launches the hand-written kernel of
 ``kernels/csrc/decode_attention.cu`` (the port of the Pallas
-``_decode_kernel`` in ``repro/kernels/decode/decode_attn.py``): one block
-per (slot, kv head), the grouped query heads as its rows, the cache read in
-place by strides, the key loop ending at each slot's length at run time.
+``_decode_kernel`` in ``repro/kernels/decode/decode_attn.py``):
+flash-decoding.  Each block owns a range of L keys of one (row, kv head),
+the grouped query heads as its rows, and reads the cache in place by
+strides; a range past the row's length exits at once.  L comes from static
+shapes only (:func:`keys_per_split`), so the grid never depends on a length
+read on the host.  With more than one range the blocks write f32 partials
+to a workspace allocated here, and the kernel's second pass combines them
+in a fixed order (one launch count per call, bit-identical relaunches).
 On CPU tensors it runs the plain version in
-:mod:`repro_torch.kernels.decode.ref`.
+:mod:`repro_torch.kernels.decode.ref` (where ``decode_split_reference``
+mirrors the split-and-combine algebra for the tests).
 
 ``paged_decode_attention`` and ``paged_decode_attention_int8`` launch the
 kernels of ``kernels/csrc/paged_decode_attention.cu`` (the ports of the
-Pallas ``_paged_decode_kernel`` and ``_paged_decode_kernel_int8``): the
-same design, reading each key through the slot's page table from a shared
-(n_pages, page_size, KV, dh) pool, f32/bf16 or int8 with f32 scales.
+Pallas ``_paged_decode_kernel`` and ``_paged_decode_kernel_int8``): one
+block per (slot, kv head) walking the whole key range, reading each key
+through the slot's page table from a shared (n_pages, page_size, KV, dh)
+pool, f32/bf16 or int8 with f32 scales.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -54,16 +63,33 @@ def _launch(q, k_cache, v_cache, cache_len, scale, rows_per_slot):
     if k_cache.stride(3) != 1 or v_cache.stride(3) != 1:
         raise ValueError(f"{NAME}: caches need a contiguous head dim")
     out = torch.empty_like(q)
-    so = lib.load()
-    err = so.famous_decode_attention(
+    L = keys_per_split(code, B, KV, dh, Skv, lib.sm_count(q.device))
+    n_split = -(-Skv // L)
+    # each range's (acc, m, l) in f32, combined by the kernel's second pass
+    ws = (torch.empty(B * H * n_split * (dh + 2), dtype=torch.float32,
+                      device=q.device) if n_split > 1 else None)
+    err = lib.load().famous_decode_attention(
         code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        cache_len.data_ptr(), out.data_ptr(), B, H, KV, dh, Skv,
-        rows_per_slot, k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
+        cache_len.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), B, H, KV, dh, Skv,
+        rows_per_slot, L, k_cache.stride(0), k_cache.stride(1),
+        k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
         float(scale), lib.stream_of(q))
     lib.check(NAME, err)
     lib.STATS.launches[NAME] += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def keys_per_split(code: int, rows: int, KV: int, dh: int, Skv: int,
+                   sms: int) -> int:
+    """Keys per block range L of the contiguous kernel for a static shape
+    (``lib.DTYPE_CODE`` dtype code, row count, kv heads, head dim, cache
+    length, SM count): the grid splits Skv into ``ceil(Skv / L)`` ranges,
+    whatever the lengths."""
+    return lib.load().famous_decode_attention_split_keys(code, rows, KV, dh,
+                                                         Skv, sms)
 
 
 PAGED = "paged_decode_attention"

@@ -52,6 +52,51 @@ def _decode(q, k_cache, v_cache, cache_len, scale):
     return out.reshape(B, H, dh).to(q.dtype)
 
 
+def decode_split_reference(q, k_cache, v_cache, cache_len, *, scale: float,
+                           keys_per_split: int, rows_per_slot: int = 1):
+    """The contiguous decode kernel's split-and-combine algebra, in f32:
+    :func:`decode_reference` computed as the kernel computes it.  The key
+    axis is cut into ranges of ``keys_per_split`` keys; each range that
+    starts below a row's length gives a partial (m, l, acc): the max of its
+    live scores, the sum of exp(s - m) and exp(s - m) @ V.  The live ranges
+    are then combined in order, ``M = max m_s``, ``out = sum e^(m_s - M)
+    acc_s / max(sum e^(m_s - M) l_s, 1e-30)``; a row with no live range
+    (length 0) comes out exactly 0.  Used by the tests and ``chip_smoke.py``
+    only, never on the serving path."""
+    _count("decode_attention", q)
+    if rows_per_slot > 1:
+        k_cache = k_cache.repeat_interleave(rows_per_slot, dim=0)
+        v_cache = v_cache.repeat_interleave(rows_per_slot, dim=0)
+    B, H, dh = q.shape
+    Skv, KV = k_cache.shape[1], k_cache.shape[2]
+    L = keys_per_split
+    qf = q.to(torch.float32).reshape(B, KV, H // KV, dh) * scale
+    kf = k_cache.to(torch.float32).permute(0, 2, 3, 1)        # (B, KV, dh, Skv)
+    vf = v_cache.to(torch.float32).permute(0, 2, 1, 3)        # (B, KV, Skv, dh)
+    lens = cache_len.to(device=q.device, dtype=torch.long).clamp(0, Skv)
+    parts = []
+    for lo in range(0, Skv, L):
+        hi = min(lo + L, Skv)
+        s = qf @ kf[..., lo:hi]                               # (B, KV, g, n)
+        pos = torch.arange(lo, hi, device=q.device)
+        ok = (pos[None, :] < lens[:, None])[:, None, None, :]
+        s = s.masked_fill(~ok, -1e30)
+        m = s.amax(-1)
+        p = torch.where(ok, torch.exp(s - m[..., None]), 0.0)
+        parts.append((lens > lo, m, p.sum(-1), p @ vf[:, :, lo:hi]))
+    live_m = [torch.where(live[:, None, None], m, -1e30)
+              for live, m, _, _ in parts]
+    M = torch.stack(live_m).amax(0)
+    l = torch.zeros_like(M)
+    acc = torch.zeros_like(parts[0][3])
+    for (live, m, ls, a), lm in zip(parts, live_m):
+        w = torch.where(live[:, None, None], torch.exp(lm - M), 0.0)
+        l = l + w * ls
+        acc = acc + w[..., None] * a
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, H, dh).to(q.dtype)
+
+
 def chunk_prefill_reference(q, k_cache, v_cache, q_offset: int, *,
                             scale: float):
     """q: (B, C, H, dh) at positions [q_offset, q_offset + C); caches:

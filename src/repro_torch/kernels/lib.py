@@ -19,6 +19,7 @@ tensors (which the serving and training paths never do).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -133,13 +134,20 @@ def build() -> Path:
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "famous_matmul_tiled": [_I, _P, _P, _P, _I, _I, _I, _P],
+    # dtype, x, w, out, split-K workspace (or null), splits, T, D, F, stream
+    "famous_matmul_tiled": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # dtype, T, D, F, SM count -> splits
+    "famous_matmul_tiled_splits": [_I, _I, _I, _I, _I],
     # xq, wqt, sx, sw, out, T, D, F, stream
     "famous_matmul_tiled_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # dtype, q, k, v, lens, out, rows, H, KV, dh, Skv, rows_per_slot,
-    # k strides (slot, pos, head), v strides, scale, stream
-    "famous_decode_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _I, _LL, _LL, _LL, _LL, _LL, _LL, _F, _P],
+    # dtype, q, k, v, lens, out, workspace (or null), rows, H, KV, dh, Skv,
+    # rows_per_slot, keys per range, k strides (slot, pos, head), v
+    # strides, scale, stream
+    "famous_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL, _F,
+                                _P],
+    # dtype, rows, KV, dh, Skv, SM count -> keys per range
+    "famous_decode_attention_split_keys": [_I, _I, _I, _I, _I, _I],
     "famous_chunk_prefill": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _LL, _LL, _LL, _LL, _LL, _LL, _F, _P],
     "famous_mha_forward": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -191,6 +199,13 @@ def check(name: str, err: int) -> None:
     if err != 0:
         msg = _LIB.famous_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (the split rules of
+    ``matmul_tiled`` and ``decode_attention`` size their grids by it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(t: torch.Tensor) -> int:

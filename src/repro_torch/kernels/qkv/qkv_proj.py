@@ -3,8 +3,14 @@
 ``matmul_tiled`` computes X(T, D) @ W(D, F) with an f32 accumulator and one
 cast to the operands' dtype.  On CUDA tensors it launches the hand-written
 kernel of ``kernels/csrc/matmul_tiled.cu`` (the port of the Pallas
-``_proj_kernel`` in ``repro/kernels/qkv/qkv_proj.py``); on CPU tensors it
-runs the plain version in :mod:`repro_torch.kernels.qkv.ref`.
+``_proj_kernel`` in ``repro/kernels/qkv/qkv_proj.py``): bf16 on tensor cores
+(``mma.sync`` with a ``cp.async`` ring), f32 on the CUDA cores in full f32.
+At T <= 32 (decode, verify) the bf16 kernel splits D across blocks so that
+W streams from every SM; the f32 partials go to a workspace allocated here
+and the kernel's second pass sums them in a fixed order (one launch count
+per call, bit-identical relaunches).  The split count comes from the
+static shape and the SM count (:func:`_splits`).  On CPU tensors it runs
+the plain version in :mod:`repro_torch.kernels.qkv.ref`.
 
 Differentiable, as the JAX custom VJP is: the backward of a matmul is two
 matmuls, and both run through the same kernel (or the same plain version
@@ -27,6 +33,8 @@ version, which keeps JAX's (D, F) signature.  No gradient: the JAX kernel
 has none either, and ``round`` has none.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -77,12 +85,23 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     T, D = x.shape
     F = w.shape[1]
     out = torch.empty((T, F), dtype=x.dtype, device=x.device)
-    so = lib.load()
-    err = so.famous_matmul_tiled(code, x.data_ptr(), w.data_ptr(),
-                                 out.data_ptr(), T, D, F, lib.stream_of(x))
+    splits = _splits(code, T, D, F, lib.sm_count(x.device))
+    # split-K partials, summed in order by the kernel's second pass
+    part = (torch.empty(splits * T * F, dtype=torch.float32, device=x.device)
+            if splits > 1 else None)
+    err = lib.load().famous_matmul_tiled(
+        code, x.data_ptr(), w.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), splits, T, D, F,
+        lib.stream_of(x))
     lib.check(NAME, err)
     lib.STATS.launches[NAME] += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _splits(code: int, T: int, D: int, F: int, sms: int) -> int:
+    """The kernel's split-K count for a static shape (1: no split)."""
+    return lib.load().famous_matmul_tiled_splits(code, T, D, F, sms)
 
 
 def matmul_tiled_int8(xq: torch.Tensor, wqt: torch.Tensor, sx: torch.Tensor,
