@@ -110,6 +110,9 @@ HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
 PEAK_FLOPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 TOL = {"f32": 1e-4, "bf16": 2e-2}             # kernel vs plain, atol = rtol
 ATTN_TOL = {"f32": 2e-5, "bf16": 2e-2}
+# the decode rows added with the split kernel (recurrentgemma-2b's heads,
+# range-boundary lengths, the split mirror): bf16 at a tenth of ATTN_TOL
+DECODE_NEW_TOL = {"f32": ATTN_TOL["f32"], "bf16": 2e-3}
 L2_BYTES = 50 * 2**20
 BWD_TOL = {"f32": 1e-4, "bf16": 1e-4}          # f32 math on the same inputs
 SERVING_KERNELS = ("matmul_tiled", "decode_attention", "chunk_prefill")
@@ -349,10 +352,11 @@ def kernel_phase(torch, iters, seed):
     lens_list = [1, 37, 1000, 2048]
     scale = dh ** -0.5
 
-    def decode_row(dt, dtype, H, KV, dh, lens_list, extra=""):
+    def decode_row(dt, dtype, H, KV, dh, lens_list, extra="", tol=None):
         """One ``decode_attention`` row at B = len(lens_list), Skv; library:
         SDPA with GQA and a length mask.  Returns the first input set, the
         kernel's output and the plain version's."""
+        tol = tol or ATTN_TOL[dt]
         e = torch.tensor([], dtype=dtype).element_size()
         scale, live = dh ** -0.5, sum(lens_list)
         lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
@@ -378,12 +382,11 @@ def kernel_phase(torch, iters, seed):
         out, ref = kern(q, k, v, ln), plain(q, k, v, ln)
         nonempty = lens > 0   # SDPA gives NaN on an empty row
         lib_out = library(q, k, v, ln)[:, :, 0]
-        lib_err, _ = compare(torch, lib_out[nonempty], ref[nonempty],
-                             ATTN_TOL[dt])
+        lib_err, _ = compare(torch, lib_out[nonempty], ref[nonempty], tol)
         print(f"  (library vs plain max_abs_err {lib_err:.3e})")
         record("decode_attention", f"B={B} H={H} KV={KV} dh={dh} "
                f"Skv={Skv} lens={lens_list}{extra}", dt, out, ref,
-               ATTN_TOL[dt], kern, plain, library, sets,
+               tol, kern, plain, library, sets,
                2 * B * H * dh * e + live * KV * dh * 2 * e + 4 * B,
                4.0 * H * dh * live, again=kern(q, k, v, ln))
         del sets
@@ -415,32 +418,49 @@ def kernel_phase(torch, iters, seed):
             return dec_ref.decode_reference(q, k, v, ln, scale=scale,
                                             rows_per_slot=W)
 
+        # library: SDPA over each slot's W query rows at once, row j
+        # masked to its own length
+        vmask = (torch.arange(Skv, device=dev)[None, None, :]
+                 < vlens.view(B, W)[:, :, None])[:, None]
+
+        def vlibrary(q, k, v, ln):
+            o = F.scaled_dot_product_attention(
+                q.view(B, W, H, dh).transpose(1, 2), k.transpose(1, 2),
+                v.transpose(1, 2), attn_mask=vmask, scale=scale,
+                enable_gqa=True)
+            return o.transpose(1, 2).reshape(B * W, H, dh)
+
         q, k, v, ln = vsets[0]
+        vref = vplain(q, k, v, ln)
+        lib_err, _ = compare(torch, vlibrary(q, k, v, ln), vref, ATTN_TOL[dt])
+        print(f"  (library vs plain max_abs_err {lib_err:.3e})")
         record("decode_attention", f"verify B={B} W={W} H={H} KV={KV} "
                f"dh={dh} Skv={Skv} lens={lens_list}+j", dt, vkern(q, k, v, ln),
-               vplain(q, k, v, ln), ATTN_TOL[dt], vkern, vplain, None, vsets,
+               vref, ATTN_TOL[dt], vkern, vplain, vlibrary, vsets,
                2 * B * W * H * dh * e + slot_keys * KV * dh * 2 * e
                + 4 * B * W, 4.0 * H * dh * vlive, again=vkern(q, k, v, ln))
         del vsets, k, v
 
         # recurrentgemma-2b's layout: 10 query heads over one kv head of
         # 256, 1025 keys a slot (a decode step at 1024 cached tokens)
-        decode_row(dt, dtype, 10, 1, 256, [1025] * B)
+        decode_row(dt, dtype, 10, 1, 256, [1025] * B,
+                   tol=DECODE_NEW_TOL[dt])
         # lengths at the kernel's range boundaries, an empty row first:
         # that row must be exactly 0, and the kernel must also match the
         # plain mirror of its split-and-combine algebra
-        L = decode_attn.keys_per_split(lib.DTYPE_CODE[dtype], B, KV, dh, Skv,
-                                       lib.sm_count(dev))
+        L, _ = decode_attn.plan(lib.DTYPE_CODE[dtype], B, H, KV, dh, Skv,
+                                lib.sm_count(dev))
         edge = [0, L - 1, L, L + 1]
+        tol = DECODE_NEW_TOL[dt]
         (q, k, v, ln), out, _ = decode_row(dt, dtype, H, KV, dh, edge,
-                                           f" (L={L})")
+                                           f" (L={L})", tol=tol)
         split = dec_ref.decode_split_reference(q, k, v, ln, scale=scale,
                                                keys_per_split=L)
-        s_err, s_ok = compare(torch, out, split, ATTN_TOL[dt])
+        s_err, s_ok = compare(torch, out, split, tol)
         zero = bool(torch.all(out[0] == 0))
         rows[-1].update(split_mirror_err=s_err, empty_row_zero=zero)
         print(f"  (decode_attention {dt} lens {edge}: vs the split mirror "
-              f"max_abs_err {s_err:.3e} (tol {ATTN_TOL[dt]:g}), empty row "
+              f"max_abs_err {s_err:.3e} (tol {tol:g}), empty row "
               f"{'exactly 0' if zero else 'NOT 0'}) "
               f"{'ok' if s_ok and zero else 'FAIL'}", flush=True)
         check(s_ok and zero, f"decode_attention {dt} at lens {edge}: mirror "

@@ -28,7 +28,7 @@
 // owns a range of L keys of one (row, kv head) and all `group` query heads
 // that share the kv head, so each K/V byte is read once for all of them.
 // L comes from static shapes only (rows, KV, dh, Skv, the SM count; see
-// famous_decode_attention_split_keys): the largest power of two up to
+// famous_decode_attention_plan): the largest power of two up to
 // 256 whose ranges give every SM a block at full length and whose K and V
 // fit 64 KB of shared memory.  The grid never depends on a length read on
 // the host.  A block whose range starts at or past lens[row] exits at
@@ -46,12 +46,12 @@
 //   3. softmax over the range, one warp per query head: max, exp, sum;
 //   4. P V with each of the 256 threads owning one head-dim column for
 //      all heads, f32 accumulators in registers.
-// Three __syncthreads per block.  With one range per row (L >= Skv) the
-// block divides by max(l, 1e-30) and writes the output.  Otherwise it
-// writes its partial (m, l, acc[group][dh]) in f32 to a workspace that the
-// wrapper allocates, and a second kernel combines the live ranges of each
-// (row, head) in a fixed order (bit-identical from launch to launch) with
-// the same divide; a row of length 0 has no live range and gets exactly 0.
+// Three __syncthreads per block.  Each block writes its partial (m, l,
+// acc[group][dh]) in f32 to a workspace that the wrapper allocates (its
+// size from famous_decode_attention_plan), and a second kernel combines
+// the live ranges of each (row, head) in a fixed order (bit-identical from
+// launch to launch) and divides by max(l, 1e-30); a row of length 0 has no
+// live range and gets exactly 0.
 #include "common.cuh"
 
 #include <algorithm>
@@ -74,6 +74,12 @@ __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
 inline size_t decode_smem_bytes(int group, int dh, int L, int esize) {
   const size_t dhp = round8(dh), gp = round4(group);
   return 2 * (size_t)L * dhp * esize + (L * gp + 2 * gp) * sizeof(float);
+}
+
+// f32 workspace of a launch: acc (R * H, S, dh), then m and l (R * H, S)
+// each, S = ceil(Skv / L) ranges
+inline long long decode_ws_elems(int R, int H, int dh, int Skv, int L) {
+  return (long long)R * H * ((Skv + L - 1) / L) * (dh + 2);
 }
 
 // Copy n rows of dh elements (row stride `stride`) into shared rows of dhp
@@ -192,13 +198,13 @@ __device__ __forceinline__ void reduce_heads(float (&v)[kDecMaxGroup], int lane)
 
 // Block (split, hk, r): keys [split * L, min((split + 1) * L, len)) of
 // kv head hk of row r.  LPK lanes per key, 8 head-dim elements each
-// (dhp <= 8 * LPK).  ws == nullptr: one range per row, write out; else
-// write the partial to ws (layout: see the combine kernel).
+// (dhp <= 8 * LPK).  The partial goes to ws (layout: see the combine
+// kernel).
 template <typename T, int LPK>
 __global__ void __launch_bounds__(kDecThreads)
 decode_attention_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v, const int* __restrict__ lens,
-                              T* __restrict__ out, float* __restrict__ ws, int R, int H, int KV,
+                              float* __restrict__ ws, int R, int H, int KV,
                               int dh, int Skv, int rps, int L, int S, long long k_sb,
                               long long k_ss, long long k_sh, long long v_sb, long long v_ss,
                               long long v_sh, float scale, int vec) {
@@ -213,11 +219,7 @@ decode_attention_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int len = max(0, min(lens[r], Skv));
   const int k_lo = split * L;
-  if (k_lo >= len) {  // no live key in this range
-    if (ws == nullptr)
-      for (int i = tid; i < group * dh; i += kDecThreads) out[q_base + i] = from_f<T>(0.f);
-    return;
-  }
+  if (k_lo >= len) return;  // no live key in this range
   const int nkeys = min(L, len - k_lo);
 
   T* k_s = reinterpret_cast<T*>(dec_smem);
@@ -290,7 +292,7 @@ decode_attention_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const long long RH = (long long)R * H;
   const long long row0 = (long long)r * H + (long long)hk * group;  // (row, head 0)
-  if (ws != nullptr && tid < group) {
+  if (tid < group) {
     ws[RH * S * dh + (row0 + tid) * S + split] = m_s[tid];
     ws[RH * S * (dh + 1) + (row0 + tid) * S + split] = l_s[tid];
   }
@@ -320,10 +322,7 @@ decode_attention_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int g = 0; g < kDecMaxGroup; ++g) {
     if (g >= group) break;
-    if (ws == nullptr)
-      out[(row0 + g) * dh + d] = from_f<T>(acc[g] / fmaxf(l_s[g], 1e-30f));
-    else
-      ws[((row0 + g) * S + split) * dh + d] = acc[g];
+    ws[((row0 + g) * S + split) * dh + d] = acc[g];
   }
 }
 
@@ -372,15 +371,15 @@ decode_attention_combine_kernel(const float* __restrict__ ws, const int* __restr
 
 template <typename T, int LPK>
 static cudaError_t launch_split(dim3 grid, size_t smem, cudaStream_t stream, const T* q,
-                                const T* k, const T* v, const int* lens, T* out, float* ws,
+                                const T* k, const T* v, const int* lens, float* ws,
                                 int R, int H, int KV, int dh, int Skv, int rps, int L, int S,
                                 long long k_sb, long long k_ss, long long k_sh, long long v_sb,
                                 long long v_ss, long long v_sh, float scale, int vec) {
   auto kernel = decode_attention_split_kernel<T, LPK>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, kDecThreads, smem, stream>>>(q, k, v, lens, out, ws, R, H, KV, dh, Skv, rps, L,
-                                              S, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, vec);
+  kernel<<<grid, kDecThreads, smem, stream>>>(q, k, v, lens, ws, R, H, KV, dh, Skv, rps, L, S,
+                                              k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, vec);
   return cudaGetLastError();
 }
 
@@ -391,7 +390,6 @@ static cudaError_t launch_decode(const void* q, const void* k, const void* v, co
                                  long long v_sb, long long v_ss, long long v_sh, float scale,
                                  cudaStream_t stream) {
   const int S = (Skv + L - 1) / L;
-  if ((S > 1) != (ws != nullptr)) return cudaErrorInvalidValue;
   const size_t smem = decode_smem_bytes(H / KV, dh, L, sizeof(T));
   constexpr long long EPC = 16 / sizeof(T);
   const int vec = dh % 8 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
@@ -408,15 +406,15 @@ static cudaError_t launch_decode(const void* q, const void* k, const void* v, co
   cudaError_t e;
   // lanes per key: 8 head-dim elements a lane
   if (dhp <= 64)
-    e = launch_split<T, 8>(grid, smem, stream, qt, kt, vt, lens, ot, ws, R, H, KV, dh, Skv, rps,
+    e = launch_split<T, 8>(grid, smem, stream, qt, kt, vt, lens, ws, R, H, KV, dh, Skv, rps,
                            L, S, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, vec);
   else if (dhp <= 128)
-    e = launch_split<T, 16>(grid, smem, stream, qt, kt, vt, lens, ot, ws, R, H, KV, dh, Skv, rps,
+    e = launch_split<T, 16>(grid, smem, stream, qt, kt, vt, lens, ws, R, H, KV, dh, Skv, rps,
                             L, S, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, vec);
   else
-    e = launch_split<T, 32>(grid, smem, stream, qt, kt, vt, lens, ot, ws, R, H, KV, dh, Skv, rps,
+    e = launch_split<T, 32>(grid, smem, stream, qt, kt, vt, lens, ws, R, H, KV, dh, Skv, rps,
                             L, S, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, vec);
-  if (e != cudaSuccess || ws == nullptr) return e;
+  if (e != cudaSuccess) return e;
   const size_t csmem = 2 * (size_t)S * sizeof(float);
   e = allow_smem(decode_attention_combine_kernel<T>, csmem);
   if (e != cudaSuccess) return e;
@@ -430,10 +428,10 @@ static cudaError_t launch_decode(const void* q, const void* k, const void* v, co
 // Keys per range L, from static shapes and the SM count only: the largest
 // power of two in [16, 256] whose K and V ranges fit 64 KB of shared
 // memory, halved while rows * KV * ceil(Skv / L) < sms (every SM a block
-// when the rows are full) and while L / 2 still covers Skv.  The wrapper
-// allocates the workspace for ceil(Skv / L) ranges from it.
-extern "C" int famous_decode_attention_split_keys(int dtype, int R, int KV, int dh, int Skv,
-                                                  int sms) {
+// when the rows are full) and while L / 2 still covers Skv.  *ws_elems:
+// the f32 workspace the launch needs, which the wrapper allocates.
+extern "C" int famous_decode_attention_plan(int dtype, int R, int H, int KV, int dh, int Skv,
+                                            int sms, long long* ws_elems) {
   using namespace famous;
   const long long esize = dtype == kF32 ? 4 : 2;
   const long long dhp = round8(std::max(dh, 1));
@@ -442,11 +440,11 @@ extern "C" int famous_decode_attention_split_keys(int dtype, int R, int KV, int 
   const long long pairs = (long long)std::max(R, 1) * std::max(KV, 1);
   while (L > kDecMinKeys && pairs * ((Skv + L - 1) / L) < sms) L >>= 1;
   while (L > kDecMinKeys && L / 2 >= Skv) L >>= 1;
+  *ws_elems = decode_ws_elems(R, H, dh, Skv, L);
   return L;
 }
 
-// ws: f32 workspace of R * H * S * (dh + 2) elements, S = ceil(Skv / L),
-// when S > 1; null when S == 1.
+// ws: f32 workspace of decode_ws_elems(R, H, dh, Skv, L) elements.
 extern "C" int famous_decode_attention(int dtype, const void* q, const void* k, const void* v,
                                        const void* lens, void* out, void* ws, int R, int H,
                                        int KV, int dh, int Skv, int rps, int L, long long k_sb,
@@ -455,7 +453,7 @@ extern "C" int famous_decode_attention(int dtype, const void* q, const void* k, 
                                        void* stream) {
   using namespace famous;
   if (KV <= 0 || H % KV != 0 || H / KV > kDecMaxGroup || dh <= 0 || dh > kDecMaxDh ||
-      rps <= 0 || R % rps != 0 || L < 1 || L > kDecMaxKeys)
+      rps <= 0 || R % rps != 0 || L < 1 || L > kDecMaxKeys || ws == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (R <= 0) return static_cast<int>(cudaGetLastError());
   if (Skv <= 0) return static_cast<int>(cudaErrorInvalidValue);

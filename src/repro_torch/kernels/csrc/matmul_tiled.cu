@@ -26,8 +26,8 @@
 // Two regimes, chosen from the static T:
 //   T <= 32  rows padded to 16 (or 32), 128-column W stripes, 64-deep D
 //            steps; the D range is split across blocks (split-K) so that
-//            about two blocks per SM stream W, each with up to 48 KB in
-//            flight.  Each split writes its f32 partial tile to a
+//            up to two blocks per SM stream W in one wave, each with up
+//            to 48 KB in flight.  Each split writes its f32 partial tile to a
 //            workspace (allocated by the wrapper); a second kernel sums
 //            the splits in a fixed order and casts once, so the result is
 //            the same bit for bit from launch to launch (no atomics).
@@ -321,21 +321,29 @@ static cudaError_t launch_bf16(const bf16* x, const bf16* w, bf16* out, float* p
 }  // namespace famous
 
 // The split count of the bf16 small-T regime, from static shapes and the
-// SM count only: enough 128-column stripes x splits for about two blocks
-// per SM, each split at least 4 D steps deep, no split left empty.  1 for
-// f32, for T > 32 and where one split already fills the card.
-extern "C" int famous_matmul_tiled_splits(int dtype, int Tn, int D, int F, int sms) {
+// SM count only: as many 128-column stripes x splits as fit two blocks
+// per SM in one wave (rounded down: a second, partial wave costs more than
+// the blocks it adds), each split at least 4 D steps deep, no split left
+// empty.  1 for f32, for T > 32 and where one split already fills the
+// card.  *ws_elems:
+// the f32 workspace of the split partials (splits x T x F; 0 for one
+// split), which the wrapper allocates.
+extern "C" int famous_matmul_tiled_plan(int dtype, int Tn, int D, int F, int sms,
+                                        long long* ws_elems) {
   using namespace famous;
+  *ws_elems = 0;
   if (dtype != kBF16 || Tn > kSmallT || Tn <= 0 || D <= 0 || F <= 0) return 1;
   const int stripes = (F + kSmallBN - 1) / kSmallBN;
   const int nk = (D + kSmallBK - 1) / kSmallBK;
-  int splits = (2 * sms + stripes - 1) / stripes;
+  int splits = 2 * sms / stripes;
   splits = std::max(1, std::min(splits, nk / 4));
   const int kps = (nk + splits - 1) / splits;
-  return (nk + kps - 1) / kps;
+  splits = (nk + kps - 1) / kps;
+  if (splits > 1) *ws_elems = (long long)splits * Tn * F;
+  return splits;
 }
 
-// part: f32 workspace of splits x T x F elements when splits > 1, else null.
+// part: the workspace of famous_matmul_tiled_plan when splits > 1, else null.
 extern "C" int famous_matmul_tiled(int dtype, const void* x, const void* w, void* out,
                                    void* part, int splits, int Tn, int D, int F, void* stream) {
   using namespace famous;

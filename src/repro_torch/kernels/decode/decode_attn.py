@@ -6,10 +6,10 @@ On CUDA tensors ``decode_attention`` launches the hand-written kernel of
 flash-decoding.  Each block owns a range of L keys of one (row, kv head),
 the grouped query heads as its rows, and reads the cache in place by
 strides; a range past the row's length exits at once.  L comes from static
-shapes only (:func:`keys_per_split`), so the grid never depends on a length
-read on the host.  With more than one range the blocks write f32 partials
-to a workspace allocated here, and the kernel's second pass combines them
-in a fixed order (one launch count per call, bit-identical relaunches).
+shapes only (:func:`plan`), so the grid never depends on a length read on
+the host.  The blocks write f32 partials to a workspace allocated here (its
+size from the same plan), and the kernel's second pass combines them in a
+fixed order (one launch count per call, bit-identical relaunches).
 On CPU tensors it runs the plain version in
 :mod:`repro_torch.kernels.decode.ref` (where ``decode_split_reference``
 mirrors the split-and-combine algebra for the tests).
@@ -63,15 +63,13 @@ def _launch(q, k_cache, v_cache, cache_len, scale, rows_per_slot):
     if k_cache.stride(3) != 1 or v_cache.stride(3) != 1:
         raise ValueError(f"{NAME}: caches need a contiguous head dim")
     out = torch.empty_like(q)
-    L = keys_per_split(code, B, KV, dh, Skv, lib.sm_count(q.device))
-    n_split = -(-Skv // L)
+    L, n_ws = plan(code, B, H, KV, dh, Skv, lib.sm_count(q.device))
     # each range's (acc, m, l) in f32, combined by the kernel's second pass
-    ws = (torch.empty(B * H * n_split * (dh + 2), dtype=torch.float32,
-                      device=q.device) if n_split > 1 else None)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
     err = lib.load().famous_decode_attention(
         code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         cache_len.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), B, H, KV, dh, Skv,
+        ws.data_ptr(), B, H, KV, dh, Skv,
         rows_per_slot, L, k_cache.stride(0), k_cache.stride(1),
         k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
@@ -82,14 +80,15 @@ def _launch(q, k_cache, v_cache, cache_len, scale, rows_per_slot):
 
 
 @functools.lru_cache(maxsize=None)
-def keys_per_split(code: int, rows: int, KV: int, dh: int, Skv: int,
-                   sms: int) -> int:
+def plan(code: int, rows: int, H: int, KV: int, dh: int, Skv: int,
+         sms: int) -> tuple[int, int]:
     """Keys per block range L of the contiguous kernel for a static shape
-    (``lib.DTYPE_CODE`` dtype code, row count, kv heads, head dim, cache
-    length, SM count): the grid splits Skv into ``ceil(Skv / L)`` ranges,
-    whatever the lengths."""
-    return lib.load().famous_decode_attention_split_keys(code, rows, KV, dh,
-                                                         Skv, sms)
+    (``lib.DTYPE_CODE`` dtype code, row count, query and kv heads, head
+    dim, cache length, SM count), and the f32 elements of its workspace:
+    the grid splits Skv into ``ceil(Skv / L)`` ranges, whatever the
+    lengths."""
+    return lib.plan("famous_decode_attention_plan", code, rows, H, KV, dh,
+                    Skv, sms)
 
 
 PAGED = "paged_decode_attention"

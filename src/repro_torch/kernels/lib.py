@@ -133,21 +133,23 @@ def build() -> Path:
 
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_PLL = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     # dtype, x, w, out, split-K workspace (or null), splits, T, D, F, stream
     "famous_matmul_tiled": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # dtype, T, D, F, SM count -> splits
-    "famous_matmul_tiled_splits": [_I, _I, _I, _I, _I],
+    # dtype, T, D, F, SM count, [out] workspace elements -> splits
+    "famous_matmul_tiled_plan": [_I, _I, _I, _I, _I, _PLL],
     # xq, wqt, sx, sw, out, T, D, F, stream
     "famous_matmul_tiled_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # dtype, q, k, v, lens, out, workspace (or null), rows, H, KV, dh, Skv,
+    # dtype, q, k, v, lens, out, workspace, rows, H, KV, dh, Skv,
     # rows_per_slot, keys per range, k strides (slot, pos, head), v
     # strides, scale, stream
     "famous_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL, _F,
                                 _P],
-    # dtype, rows, KV, dh, Skv, SM count -> keys per range
-    "famous_decode_attention_split_keys": [_I, _I, _I, _I, _I, _I],
+    # dtype, rows, H, KV, dh, Skv, SM count, [out] workspace elements ->
+    # keys per range
+    "famous_decode_attention_plan": [_I, _I, _I, _I, _I, _I, _I, _PLL],
     "famous_chunk_prefill": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _LL, _LL, _LL, _LL, _LL, _LL, _F, _P],
     "famous_mha_forward": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -192,6 +194,15 @@ def load():
         lib.famous_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def plan(query: str, *args) -> tuple[int, int]:
+    """A kernel's launch plan for a static shape: the C query ``query``
+    returns its launch parameter (split count, keys per range) and sets the
+    f32 workspace elements the launch needs (0: none)."""
+    n = ctypes.c_longlong(0)
+    first = getattr(load(), query)(*args, ctypes.byref(n))
+    return first, n.value
 
 
 def check(name: str, err: int) -> None:

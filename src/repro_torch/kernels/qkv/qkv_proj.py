@@ -9,7 +9,8 @@ At T <= 32 (decode, verify) the bf16 kernel splits D across blocks so that
 W streams from every SM; the f32 partials go to a workspace allocated here
 and the kernel's second pass sums them in a fixed order (one launch count
 per call, bit-identical relaunches).  The split count comes from the
-static shape and the SM count (:func:`_splits`).  On CPU tensors it runs
+static shape and the SM count (:func:`_plan`, which also sizes the
+workspace).  On CPU tensors it runs
 the plain version in :mod:`repro_torch.kernels.qkv.ref`.
 
 Differentiable, as the JAX custom VJP is: the backward of a matmul is two
@@ -85,10 +86,10 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     T, D = x.shape
     F = w.shape[1]
     out = torch.empty((T, F), dtype=x.dtype, device=x.device)
-    splits = _splits(code, T, D, F, lib.sm_count(x.device))
+    splits, n_ws = _plan(code, T, D, F, lib.sm_count(x.device))
     # split-K partials, summed in order by the kernel's second pass
-    part = (torch.empty(splits * T * F, dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
+    part = (torch.empty(n_ws, dtype=torch.float32, device=x.device)
+            if n_ws else None)
     err = lib.load().famous_matmul_tiled(
         code, x.data_ptr(), w.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(), splits, T, D, F,
@@ -99,9 +100,10 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _splits(code: int, T: int, D: int, F: int, sms: int) -> int:
-    """The kernel's split-K count for a static shape (1: no split)."""
-    return lib.load().famous_matmul_tiled_splits(code, T, D, F, sms)
+def _plan(code: int, T: int, D: int, F: int, sms: int) -> tuple[int, int]:
+    """The kernel's split-K count for a static shape (1: no split) and
+    the f32 elements of its partials' workspace (0: none)."""
+    return lib.plan("famous_matmul_tiled_plan", code, T, D, F, sms)
 
 
 def matmul_tiled_int8(xq: torch.Tensor, wqt: torch.Tensor, sx: torch.Tensor,
