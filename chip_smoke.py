@@ -22,12 +22,16 @@ Phases, in order; any failure exits non-zero before the result line:
      ``decode_attention`` (also as verify rows, 5 per slot, at
      recurrentgemma-2b's 10 / 1 heads of 256, and at lengths on its range
      boundaries with an empty row, which must be exactly 0 and match the
-     plain mirror of the split-and-combine algebra) and ``chunk_prefill``;
-     ``matmul_tiled`` and ``decode_attention`` relaunched on the same
-     inputs must give the same bits; and for the four paged kernels (fp
-     and int8 pools,
-     a 513-page pool of 16-token pages; no library call reads a page
-     table, so they have no library time); training shapes of
+     plain mirror of the split-and-combine algebra) and ``chunk_prefill``
+     (offsets 0, 1792 and 1000, the last in bf16 also against the plain
+     mirror of its tensor-core algebra); ``matmul_tiled``,
+     ``decode_attention``, ``chunk_prefill`` and the paged decode kernels
+     relaunched on the same inputs must give the same bits; and for the
+     four paged kernels (fp and int8 pools, a 513-page pool of 16-token
+     pages; the decode kernels also at their range boundaries, with the
+     empty row exactly 0 and the paged split mirror, and as verify rows
+     reading each slot's page-table row in place; no library call reads a
+     page table, so they have no library time); training shapes of
      famous-bert (B=8, S=512, 8 heads, dh=96, non-causal) and qwen2-7b
      (B=1, S=2048, 28/4 heads, dh=128, causal) for ``mha_forward``,
      ``mha_bwd_dq``, ``mha_bwd_dkv`` and ``matmul_tiled`` in its dX / dW
@@ -111,7 +115,8 @@ PEAK_FLOPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 TOL = {"f32": 1e-4, "bf16": 2e-2}             # kernel vs plain, atol = rtol
 ATTN_TOL = {"f32": 2e-5, "bf16": 2e-2}
 # the decode rows added with the split kernel (recurrentgemma-2b's heads,
-# range-boundary lengths, the split mirror): bf16 at a tenth of ATTN_TOL
+# range-boundary lengths, the split mirrors, contiguous and paged) and the
+# chunk kernel against its tensor-core mirror: bf16 at a tenth of ATTN_TOL
 DECODE_NEW_TOL = {"f32": ATTN_TOL["f32"], "bf16": 2e-3}
 L2_BYTES = 50 * 2**20
 BWD_TOL = {"f32": 1e-4, "bf16": 1e-4}          # f32 math on the same inputs
@@ -467,11 +472,14 @@ def kernel_phase(torch, iters, seed):
               f"error {s_err}, empty row zero {zero}")
         del q, k, v
 
-    # chunk_prefill: one slot of the batched cache, C = 256 at two offsets
+    # chunk_prefill: one slot of the batched cache, C = 256 at offsets 0,
+    # 1792 and 1000 (off the 64-key tiles); every launch relaunched for
+    # bit identity, and in bf16 at 1000 the kernel held to the plain mirror
+    # of its tensor-core algebra (split count from its plan)
     C, slot = 256, 2
     for dt, dtype in dts.items():
         e = torch.tensor([], dtype=dtype).element_size()
-        for off in (0, 1792):
+        for off in (0, 1792, 1000):
             visible = sum(off + c + 1 for c in range(C))
             per = (C * H * dh + 2 * (off + C) * KV * dh) * e
             cmask = (torch.arange(Skv, device=dev)[None, :]
@@ -501,7 +509,22 @@ def kernel_phase(torch, iters, seed):
                    f"dh={dh} Skv={Skv}", dt, out, ref, ATTN_TOL[dt], kern,
                    plain, library, sets,
                    2 * C * H * dh * e + (off + C) * KV * dh * 2 * e,
-                   4.0 * H * dh * visible)
+                   4.0 * H * dh * visible, again=kern(q, k, v))
+            if dt == "bf16" and off == 1000:
+                splits, _ = chunk_prefill.plan(
+                    lib.DTYPE_CODE[dtype], 1, C, H, KV, dh, Skv,
+                    lib.sm_count(dev))
+                mirror = dec_ref.chunk_prefill_tc_reference(
+                    q, k[slot:slot + 1], v[slot:slot + 1], off, scale=scale,
+                    splits=splits)
+                m_err, m_ok = compare(torch, out, mirror, DECODE_NEW_TOL[dt])
+                rows[-1].update(tc_mirror_err=m_err)
+                print(f"  (chunk_prefill {dt} offset {off}: vs the "
+                      f"tensor-core mirror ({splits} splits) max_abs_err "
+                      f"{m_err:.3e} (tol {DECODE_NEW_TOL[dt]:g})) "
+                      f"{'ok' if m_ok else 'FAIL'}", flush=True)
+                check(m_ok, f"chunk_prefill {dt} offset {off}: mirror "
+                      f"error {m_err}")
     paged_kernel_rows(torch, dts, randn, record, iters, gen)
     training_kernel_rows(torch, F, dts, randn, record, iters)
     scan_kernel_rows(torch, dts, randn, record, iters)
@@ -565,9 +588,13 @@ def paged_kernel_rows(torch, dts, randn, record, iters, gen):
     of 16-token pages (the engine's default for 4 slots of 2048), page ids
     a seeded permutation; decode at B=4 with lens 1/37/1000/2048, chunk
     prefill of C=256 at offset 1792 for one slot; fp pools in the query's
-    dtype, int8 pools (quantized by ``core.quant``) with f32 scales.  No
-    single PyTorch call reads a page table, so these rows have no library
-    time."""
+    dtype, int8 pools (quantized by ``core.quant``) with f32 scales.  The
+    decode kernels also at lengths on their range boundaries [0, L-1, L,
+    L+1] (the empty row must be exactly 0, and the kernel must match the
+    plain mirror of its paged split-and-combine algebra) and as verify
+    rows (5 a slot, reading the slot's page-table row in place); every
+    decode launch is relaunched for bit identity.  No single PyTorch call
+    reads a page table, so these rows have no library time."""
     from repro_torch.core import quant
     from repro_torch.kernels.decode import chunk_prefill, decode_attn
     from repro_torch.kernels.decode import ref as dec_ref
@@ -616,7 +643,10 @@ def paged_kernel_rows(torch, dts, randn, record, iters, gen):
                    f"lens={lens_list}", dt, kern(*q0), plain(*q0),
                    ATTN_TOL[dt], kern, plain, None, sets,
                    2 * B * H * dh * e + live * KV * row * 2
-                   + 4 * (live_pages + B), 4.0 * H * dh * live)
+                   + 4 * (live_pages + B), 4.0 * H * dh * live,
+                   again=kern(*q0))
+            paged_decode_extra_rows(torch, dt, kind, sets, pt, record, randn,
+                                    scale)
 
             csets = [(randn((1, C, H, dh), dtype), *pool[1:])
                      for pool in sets[:min(8, len(sets))]]
@@ -637,6 +667,87 @@ def paged_kernel_rows(torch, dts, randn, record, iters, gen):
                    2 * C * H * dh * e + (off + C) * KV * row * 2
                    + 4 * ((off + C) // ps), 4.0 * H * dh * visible)
             del sets, csets
+
+
+def paged_decode_extra_rows(torch, dt, kind, sets, pt, record, randn, scale):
+    """``paged_decode_attention`` (fp pools) or its int8 instantiation on
+    ``sets`` (q, pools) and page table ``pt`` at the lengths on the range
+    boundaries of the kernel's plan, [0, L-1, L, L+1], and as verify rows
+    (W = 5 a slot; row j of slot b sees lens[b] + j keys of 1/37/1000/2043,
+    clipped, through slot b's page-table row in place)."""
+    from repro_torch.kernels import lib
+    from repro_torch.kernels.decode import decode_attn
+    from repro_torch.kernels.decode import ref as dec_ref
+
+    dev = torch.device("cuda")
+    sfx = "" if kind == "fp" else "_int8"
+    fn = getattr(decode_attn, "paged_decode_attention" + sfx)
+    ref = getattr(dec_ref, "paged_decode_reference" + sfx)
+    q0, pool = sets[0][0], sets[0][1:]
+    B, H, dh = q0.shape
+    n_pages, ps, KV, _ = pool[0].shape
+    n_p = pt.shape[1]
+    e, esize = q0.element_size(), pool[0].element_size()
+    row = dh * esize + (0 if kind == "fp" else 4)  # a K/V row and its scale
+    tol = DECODE_NEW_TOL[dt]
+    L, _ = decode_attn.paged_plan(B, H, KV, dh, n_p * ps, esize,
+                                  lib.sm_count(dev))
+    shape = f"H={H} KV={KV} dh={dh} page={ps} pool={n_pages}"
+
+    edge = [0, L - 1, L, L + 1]
+    lens = torch.tensor(edge, dtype=torch.int32, device=dev)
+
+    def kern(q, *pool):
+        return fn(q, *pool, pt, lens, scale=scale)
+
+    def plain(q, *pool):
+        return ref(q, *pool, pt, lens, scale=scale)
+
+    out = kern(*sets[0])
+    live = sum(edge)
+    pages = sum(-(-n // ps) for n in edge)
+    record("paged_decode_attention" + sfx, f"edge B={B} {shape} lens={edge} "
+           f"(L={L})", dt, out, plain(*sets[0]), tol, kern, plain, None, sets,
+           2 * B * H * dh * e + live * KV * row * 2 + 4 * (pages + B),
+           4.0 * H * dh * live, again=kern(*sets[0]))
+    mirror = dec_ref.paged_decode_split_reference(
+        q0, pool[0], pool[1], pt, lens, scale=scale, keys_per_split=L,
+        k_scale=pool[2] if kind == "int8" else None,
+        v_scale=pool[3] if kind == "int8" else None)
+    s_err, s_ok = compare(torch, out, mirror, tol)
+    zero = bool(torch.all(out[0] == 0))
+    print(f"  (paged_decode_attention{sfx} {dt} lens {edge}: vs the split "
+          f"mirror max_abs_err {s_err:.3e} (tol {tol:g}), empty row "
+          f"{'exactly 0' if zero else 'NOT 0'}) "
+          f"{'ok' if s_ok and zero else 'FAIL'}", flush=True)
+    check(s_ok and zero, f"paged_decode_attention{sfx} {dt} at lens {edge}: "
+          f"mirror error {s_err}, empty row zero {zero}")
+
+    # verify rows at the contiguous verify row's tolerance: rows of 1-5
+    # keys give outputs up to a few units, where one bf16 step of the
+    # output exceeds the mirror tolerance
+    W, base = 5, [1, 37, 1000, 2043]
+    vlens = torch.clamp(torch.tensor(base, dtype=torch.int32, device=dev)
+                        [:, None] + torch.arange(W, dtype=torch.int32,
+                                                 device=dev),
+                        max=n_p * ps).reshape(-1).contiguous()
+    vsets = [(randn((B * W, H, dh), q0.dtype), *st[1:]) for st in sets]
+
+    def vkern(q, *pool):
+        return fn(q, *pool, pt, vlens, scale=scale, rows_per_slot=W)
+
+    def vplain(q, *pool):
+        return ref(q, *pool, pt, vlens, scale=scale, rows_per_slot=W)
+
+    # each slot's keys (and pages) are read once for its W rows
+    slot_keys = [min(n + W - 1, n_p * ps) for n in base]
+    pages = sum(-(-n // ps) for n in slot_keys)
+    record("paged_decode_attention" + sfx, f"verify B={B} W={W} {shape} "
+           f"lens={base}+j", dt, vkern(*vsets[0]), vplain(*vsets[0]),
+           ATTN_TOL[dt], vkern, vplain, None, vsets,
+           2 * B * W * H * dh * e + sum(slot_keys) * KV * row * 2
+           + 4 * (pages + B * W), 4.0 * H * dh * int(vlens.sum()),
+           again=vkern(*vsets[0]))
 
 
 def training_kernel_rows(torch, F, dts, randn, record, iters):
@@ -1880,16 +1991,20 @@ def profile_groups(torch, fn):
 
 
 def kernel_group(key, names):
-    """The port kernel a profiler key belongs to: the paged kernels by
-    their CUDA symbol (the int8 instantiation reads ``signed char``
-    pools; the int8 projection's symbol is ``matmul_int8_kernel``), the
-    others by their name."""
+    """The port kernel a profiler key belongs to.  The decode split kernel
+    and its combine pass by their row source: ``PagedRows`` for the paged
+    kernels (the int8 instantiation reads ``signed char`` pools),
+    ``ContigRows`` for ``decode_attention``; the paged chunk kernel by its
+    symbol and pool type likewise; the int8 projection's symbol is
+    ``matmul_int8_kernel``; the others by their name."""
     if "matmul_int8_kernel" in key:
         return "matmul_tiled_int8"
-    for sym, name in (("paged_decode_kernel", "paged_decode_attention"),
+    for sym, name in (("PagedRows", "paged_decode_attention"),
                       ("paged_chunk_prefill_kernel", "paged_chunk_prefill")):
         if sym in key:
             return name + ("_int8" if "signed char" in key else "")
+    if "ContigRows" in key:
+        return "decode_attention"
     return next((k for k in names if k in key), None)
 
 

@@ -1,9 +1,11 @@
-"""Design sweeps of the port's two redesigned kernels, on one H100.
+"""Design sweeps of the port's redesigned kernels, on one H100.
 
-    python3 scripts/torch_kernel_sweep.py [--iters N]
+    python3 scripts/torch_kernel_sweep.py [--iters N] [--parts LIST]
 
-Backs the fixed choices in ``kernels/csrc/matmul_tiled.cu`` and
-``kernels/csrc/decode_attention.cu`` with times taken on the card:
+Backs the fixed choices in ``kernels/csrc/matmul_tiled.cu``,
+``kernels/csrc/decode_split.cuh`` (``decode_attention`` and
+``paged_decode_attention``) and ``kernels/csrc/chunk_prefill.cu`` with
+times taken on the card:
 
 - ``matmul_tiled`` bf16 above T = 32: eight output-tile shapes (BM x BN x
   BK, warps, ring stages) at the serving-chunk and training shapes;
@@ -11,11 +13,20 @@ Backs the fixed choices in ``kernels/csrc/matmul_tiled.cu`` and
   and verify (T = 20), against the count the kernel's plan picks;
 - ``decode_attention``: the keys per block range L, against the L the
   kernel's plan picks, at the chip_smoke table shape, a qwen2-7b decode
-  step and recurrentgemma-2b's heads.
+  step and recurrentgemma-2b's heads;
+- ``paged_decode_attention`` (bf16 and int8 pools): L against the plan's,
+  at the table shape and a qwen2-7b decode step (513-page pool of
+  16-token pages);
+- ``chunk_prefill`` bf16 at C = 256 on qwen2-7b (offsets 0, 1024, 1792):
+  seven tile geometries (warps and rows a warp, keys a tile, ring stages,
+  (chunk row, query head) rows packed per kv head) times the key-range
+  split count 1-4, against the kernel's own geometry at the plan's split
+  count and SDPA with GQA and the causal mask.
 
 Each variant is built from the committed sources (a generated file that
-includes the kernel's ``.cu`` and instantiates the variant), checked
-against ``torch.matmul`` or the plain decode version, and timed by the
+includes the kernel's ``.cu`` and instantiates the variant; the paged L
+through the port's own entry points, L being a launch argument), checked
+against ``torch.matmul`` or the kernel's plain version, and timed by the
 profiler's device time of the whole call, inputs rotated past the L2 as
 ``chip_smoke.py`` does; the library call (``torch.matmul``, SDPA) on the
 same clock.  Prints one line per shape and writes
@@ -46,6 +57,14 @@ MM_SHAPES = [(100, 3584, 4608), (200, 3584, 4608), (256, 3584, 4608),
              (768, 4096, 2304)]
 MM_SPLITS = [1, 2, 4, 7, 14]
 MM_SPLIT_SHAPES = [(4, 3584, 4608), (20, 3584, 4608), (4, 2560, 3072)]
+# chunk_prefill tile geometries (chunk_prefill.cu's TcTiles: warps, 16-row
+# m-tiles a warp, keys a K/V tile, ring stages, rows packed per kv head);
+# the first is the kernel's own (ServeTiles)
+CP_TILES = [(4, 2, 64, 2, False), (4, 1, 64, 2, False), (4, 1, 64, 3, False),
+            (4, 1, 32, 2, False), (4, 2, 32, 2, False), (8, 1, 64, 2, False),
+            (4, 1, 64, 2, True)]
+CP_SPLITS = [1, 2, 3, 4]
+CP_OFFSETS = [0, 1024, 1792]
 # (label, B, H, KV, dh, lens), Skv = 2048
 DEC_SHAPES = [("table", 4, 28, 4, 128, [1, 37, 1000, 2048]),
               ("qwen2-7b step", 4, 28, 4, 128, [1025] * 4),
@@ -85,7 +104,34 @@ extern "C" long long sweep_decode_ws(int R, int H, int dh, int Skv, int L) {{
   return famous::decode_ws_elems(R, H, dh, Skv, L);
 }}
 """
-    return {"sweep_mm.cu": mm, "sweep_decode.cu": dec}
+    cp_cases = "\n".join(
+        f"    case {i}: e = launch_chunk_tc<128, "
+        f"TcTiles<{w}, {mt}, {bk}, {st}, {str(pk).lower()}>>("
+        "qb, kb, vb, ob, static_cast<float*>(part), splits, 1, C, H, KV, dh, "
+        "Skv, off, ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale, s); "
+        "break;"
+        for i, (w, mt, bk, st, pk) in enumerate(CP_TILES))
+    cp = f"""#include "{csrc / 'chunk_prefill.cu'}"
+
+extern "C" int sweep_chunk(int cfg, const void* q, const void* k,
+                           const void* v, void* out, void* part, int splits,
+                           int C, int H, int KV, int dh, int Skv, int off,
+                           const long long* ks, const long long* vs,
+                           float scale, void* stream) {{
+  using namespace famous;
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  bf16* ob = static_cast<bf16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaErrorInvalidValue;
+  switch (cfg) {{
+{cp_cases}
+  }}
+  return static_cast<int>(e);
+}}
+"""
+    return {"sweep_mm.cu": mm, "sweep_decode.cu": dec, "sweep_chunk.cu": cp}
 
 
 def build(out_dir: Path) -> ctypes.CDLL:
@@ -101,6 +147,7 @@ def build(out_dir: Path) -> ctypes.CDLL:
         [lib.nvcc_path(), *lib.ARCH_FLAGS, *lib.NVCC_FLAGS, "-shared",
          "-o", str(so), *srcs, str(lib.CSRC / "errors.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    (out_dir / "build.log").write_text(run.stdout)
     if run.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{run.stdout}")
     so_lib = ctypes.CDLL(str(so))
@@ -108,10 +155,13 @@ def build(out_dir: Path) -> ctypes.CDLL:
     so_lib.sweep_mm.argtypes = [I, P, P, P, I, I, I, P]
     so_lib.sweep_decode_ws.argtypes = [I, I, I, I, I]
     so_lib.sweep_decode_ws.restype = ctypes.c_longlong
+    PLL = ctypes.POINTER(ctypes.c_longlong)
+    so_lib.sweep_chunk.argtypes = [I, P, P, P, P, P, I, I, I, I, I, I, I,
+                                   PLL, PLL, ctypes.c_float, P]
     for name in ("famous_matmul_tiled", "famous_decode_attention"):
         getattr(so_lib, name).argtypes = lib._SIGNATURES[name]
     for fn in (so_lib.sweep_mm, so_lib.famous_matmul_tiled,
-               so_lib.famous_decode_attention):
+               so_lib.famous_decode_attention, so_lib.sweep_chunk):
         fn.restype = I
     return so_lib
 
@@ -119,6 +169,8 @@ def build(out_dir: Path) -> ctypes.CDLL:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=30)
+    ap.add_argument("--parts", default="matmul,decode,paged,chunk",
+                    help="comma-separated sweeps to run")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -142,7 +194,7 @@ def main(argv=None) -> int:
     smi = cs.smi_line()
     print(f"card: {smi}", flush=True)
     result = {"card": smi, "matmul_tiles": [], "matmul_splits": [],
-              "decode_L": []}
+              "decode_L": [], "paged_decode_L": [], "chunk_prefill": []}
 
     def randn(shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev)
@@ -154,8 +206,9 @@ def main(argv=None) -> int:
     def dev_ms(fn, sets):
         return cs.device_ms(torch, fn, sets, it)
 
+    parts = set(args.parts.split(","))
     # matmul_tiled above T = 32: output-tile shapes
-    for T, D, F in MM_SHAPES:
+    for T, D, F in MM_SHAPES if "matmul" in parts else ():
         sets = [(randn((T, D)), randn((D, F), D ** -0.5))
                 for _ in range(cs.n_sets((T * D + D * F) * 2))]
         ref = torch.matmul(sets[0][0].float(), sets[0][1].float())
@@ -175,14 +228,12 @@ def main(argv=None) -> int:
                          "ok": ok}
         result["matmul_tiles"].append(row)
         print(f"matmul_tiled T={T} D={D} F={F}: torch.matmul "
-              f"{row['library_ms']:.4f} ms | " + " | ".join(
-                  f"{k} {v['ms']:.4f}{'' if v['ok'] else ' WRONG'}"
-                  for k, v in row.items() if isinstance(v, dict)),
+              f"{ms_text(row['library_ms'])} ms | " + row_text(row),
               flush=True)
         del sets
 
     # matmul_tiled at T <= 32: split-K counts through the kernel's entry
-    for T, D, F in MM_SPLIT_SHAPES:
+    for T, D, F in MM_SPLIT_SHAPES if "matmul" in parts else ():
         sets = [(randn((T, D)), randn((D, F), D ** -0.5))
                 for _ in range(cs.n_sets((T * D + D * F) * 2))]
         ref = torch.matmul(sets[0][0].float(), sets[0][1].float())
@@ -206,15 +257,14 @@ def main(argv=None) -> int:
                                   "max_abs_err": err, "ok": ok}
         result["matmul_splits"].append(row)
         print(f"matmul_tiled T={T} D={D} F={F} (plan: {chosen} splits): "
-              f"torch.matmul {row['library_ms']:.4f} ms | " + " | ".join(
-                  f"{k} {v['ms']:.4f}{'' if v['ok'] else ' WRONG'}"
-                  for k, v in row.items() if isinstance(v, dict)),
-              flush=True)
+              f"torch.matmul {ms_text(row['library_ms'])} ms | "
+              + row_text(row), flush=True)
         del sets
 
     # decode_attention: keys per block range
     Skv = DEC_SKV
-    for label, B, H, KV, dh, lens_list in DEC_SHAPES:
+    for label, B, H, KV, dh, lens_list in (DEC_SHAPES if "decode" in parts
+                                           else ()):
         scale = dh ** -0.5
         lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
         mask = (torch.arange(Skv, device=dev)[None, :]
@@ -258,21 +308,157 @@ def main(argv=None) -> int:
         result["decode_L"].append(row)
         print(f"decode_attention {label} B={B} H={H} KV={KV} dh={dh} "
               f"lens={lens_list} (plan: L={chosen}): SDPA "
-              f"{row['library_ms']:.4f} ms | " + " | ".join(
-                  f"{k} " + ("n/a" if v["ms"] is None else
-                             f"{v['ms']:.4f}{'' if v['ok'] else ' WRONG'}")
-                  for k, v in row.items() if isinstance(v, dict)),
+              f"{ms_text(row['library_ms'])} ms | " + row_text(row),
               flush=True)
         del sets
+
+    if "paged" in parts:
+        paged_decode_sweep(torch, lib, so, randn, dev_ms, result, sms)
+    if "chunk" in parts:
+        chunk_sweep(torch, Fn, lib, so, randn, dev_ms, result, sms)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "kernel_sweep.json").write_text(json.dumps(result, indent=1))
-    bad = [k for sec in ("matmul_tiles", "matmul_splits", "decode_L")
+    bad = [k for sec in ("matmul_tiles", "matmul_splits", "decode_L",
+                         "paged_decode_L", "chunk_prefill")
            for row in result[sec] for k, v in row.items()
            if isinstance(v, dict) and v.get("ok") is False]
     print(json.dumps({"ok": not bad, "wrong": bad}))
     return 1 if bad else 0
+
+
+def ms_text(ms):
+    """A time, or "n/a" where the variant did not run or the profiler saw
+    no device time."""
+    return "n/a" if ms is None else f"{ms:.4f}"
+
+
+def row_text(row):
+    return " | ".join(
+        f"{k} {ms_text(v['ms'])}{'' if v.get('ok', True) else ' WRONG'}"
+        for k, v in row.items() if isinstance(v, dict))
+
+
+def paged_decode_sweep(torch, lib, so, randn, dev_ms, result, sms):
+    """``paged_decode_attention`` (bf16 pools) and its int8 instantiation:
+    keys per block range L through the port's own entry points (L is a
+    launch argument), each against the plan's L."""
+    import chip_smoke as cs
+    from repro_torch.core import quant
+    from repro_torch.kernels.decode import decode_attn
+    from repro_torch.kernels.decode import ref as dec_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    B, H, KV, dh, ps, n_pages = 4, 28, 4, 128, 16, 513
+    n_p, scale = 2048 // ps, dh ** -0.5
+    pt = (torch.randperm(n_pages - 1, generator=gen, device=dev)[:B * n_p]
+          + 1).to(torch.int32).reshape(B, n_p).contiguous()
+    code = lib.DTYPE_CODE[torch.bfloat16]
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, lens_list in (("table", [1, 37, 1000, 2048]),
+                             ("qwen2-7b step", [1025] * 4)):
+        lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+        for kind in ("fp", "int8"):
+            def pools():
+                k = randn((n_pages, ps, KV, dh))
+                v = randn((n_pages, ps, KV, dh))
+                if kind == "fp":
+                    return (k, v)
+                (kq, ks), (vq, vs) = (quant.quantize(x, -1) for x in (k, v))
+                return (kq, vq, ks[..., 0].contiguous(),
+                        vs[..., 0].contiguous())
+            esize = 2 if kind == "fp" else 1
+            sets = [(randn((B, H, dh)), *pools())
+                    for _ in range(cs.n_sets(2 * n_pages * ps * KV * dh
+                                             * esize))]
+            plain = (dec_ref.paged_decode_reference if kind == "fp" else
+                     dec_ref.paged_decode_reference_int8)
+            ref = plain(*sets[0], pt, lens, scale=scale)
+            chosen, _ = decode_attn.paged_plan(B, H, KV, dh, n_p * ps, esize,
+                                               sms)
+            name = "famous_paged_decode_attention" + (
+                "" if kind == "fp" else "_int8")
+            row = {"shape": label, "pool": kind, "lens": lens_list,
+                   "plan_L": chosen}
+            for L in DEC_L:
+                ws = torch.empty(so.sweep_decode_ws(B, H, dh, n_p * ps, L),
+                                 dtype=torch.float32, device=dev)
+
+                def kern(q, *pool, L=L, ws=ws, name=name):
+                    out = torch.empty_like(q)
+                    lib.check(name, getattr(lib.load(), name)(
+                        code, q.data_ptr(), *(x.data_ptr() for x in pool),
+                        pt.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                        ws.data_ptr(), B, H, KV, dh, ps, n_p, n_pages, 1, L,
+                        scale, stream))
+                    return out
+                err, ok = cs.compare(torch, kern(*sets[0]), ref,
+                                     cs.ATTN_TOL["bf16"])
+                row[f"L={L}"] = {"ms": dev_ms(kern, sets), "max_abs_err": err,
+                                 "ok": ok}
+            result["paged_decode_L"].append(row)
+            print(f"paged_decode_attention {label} {kind} pools "
+                  f"lens={lens_list} (plan: L={chosen}): " + row_text(row),
+                  flush=True)
+            del sets
+
+
+def chunk_sweep(torch, Fn, lib, so, randn, dev_ms, result, sms):
+    """``chunk_prefill`` bf16 at C = 256 on qwen2-7b's heads (one slot of
+    a 2048-key cache): each tiling of CP_TILES at each split count, against
+    the plan's split count and SDPA with GQA and the causal mask, on the
+    same clock."""
+    import chip_smoke as cs
+    from repro_torch.kernels.decode import chunk_prefill
+    from repro_torch.kernels.decode import ref as dec_ref
+
+    dev = torch.device("cuda")
+    C, H, KV, dh, Skv = 256, 28, 4, 128, 2048
+    scale = dh ** -0.5
+    code = lib.DTYPE_CODE[torch.bfloat16]
+    stream = torch.cuda.current_stream().cuda_stream
+    chosen, _ = chunk_prefill.plan(code, 1, C, H, KV, dh, Skv, sms)
+    sets = [(randn((1, C, H, dh)), randn((1, Skv, KV, dh)),
+             randn((1, Skv, KV, dh))) for _ in range(8)]
+    for off in CP_OFFSETS:
+        cmask = (torch.arange(Skv, device=dev)[None, :]
+                 <= off + torch.arange(C, device=dev)[:, None])
+
+        def library(q, k, v, cmask=cmask):
+            return Fn.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=cmask, scale=scale, enable_gqa=True)
+        ref = dec_ref.chunk_prefill_reference(*sets[0], off, scale=scale)
+        row = {"C": C, "offset": off, "plan_splits": chosen,
+               "library_ms": dev_ms(library, sets)}
+        for i, (warps, mt, bk, st, pack) in enumerate(CP_TILES):
+            for n in CP_SPLITS:
+                part = torch.empty(n * C * H * (dh + 2), dtype=torch.float32,
+                                   device=dev)
+
+                def kern(q, k, v, i=i, n=n, part=part, off=off):
+                    out = torch.empty_like(q)
+                    ks = (ctypes.c_longlong * 3)(*k.stride()[:3])
+                    vs = (ctypes.c_longlong * 3)(*v.stride()[:3])
+                    lib.check("sweep_chunk", so.sweep_chunk(
+                        i, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), part.data_ptr(), n, C, H, KV, dh,
+                        Skv, off, ks, vs, scale, stream))
+                    return out
+                err, ok = cs.compare(torch, kern(*sets[0]), ref,
+                                     cs.ATTN_TOL["bf16"])
+                name = (f"{16 * mt * warps} rows ({warps}w x {16 * mt}) "
+                        f"{bk} keys {st} stages{' packed' if pack else ''} "
+                        f"splits={n}")
+                row[name] = {"ms": dev_ms(kern, sets), "max_abs_err": err,
+                             "ok": ok}
+        result["chunk_prefill"].append(row)
+        print(f"chunk_prefill C={C} offset={off} (plan: the first tiling, "
+              f"{chosen} splits): SDPA {ms_text(row['library_ms'])} ms | "
+              + row_text(row), flush=True)
+    del sets
 
 
 if __name__ == "__main__":

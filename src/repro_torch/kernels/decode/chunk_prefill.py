@@ -3,12 +3,18 @@
 On CUDA tensors ``chunk_prefill`` launches the hand-written kernel of
 ``kernels/csrc/chunk_prefill.cu`` (the port of the Pallas
 ``_chunk_prefill_kernel`` in ``repro/kernels/decode/chunk_prefill.py``):
-the chunk rows split over blocks of (32 rows, one query head), q and the
-slot's cache stripe read in place by strides, and each block's key loop
-ending at run time at the last key its rows can see.  ``q_offset`` is a
-plain integer argument of the launch, so one build serves every offset.
-On CPU tensors it runs the plain version in
-:mod:`repro_torch.kernels.decode.ref`.
+in bf16, flash attention on tensor cores over blocks of (64 chunk rows,
+one query head), q and the slot's cache stripe read in place by strides,
+each block's key loop ending at run time at the last key its rows can see;
+f32 keeps the CUDA-core kernel.  ``q_offset`` is a plain integer argument
+of the launch, so one build serves every offset.  The bf16 kernel may
+split each block's key range over several blocks (:func:`plan`, from
+static shapes only); their f32 partials go to a workspace allocated here
+and the kernel's second pass combines them in a fixed order (one launch
+count per call, bit-identical relaunches).  On CPU tensors it runs the
+plain version in :mod:`repro_torch.kernels.decode.ref` (where
+``chunk_prefill_tc_reference`` mirrors the tensor-core algebra for the
+tests).
 
 ``paged_chunk_prefill`` and ``paged_chunk_prefill_int8`` launch the
 kernels of ``kernels/csrc/paged_chunk_prefill.cu`` (the ports of the
@@ -17,6 +23,8 @@ design, reading each key through the slot's page table from a shared
 (n_pages, page_size, KV, dh) pool, f32/bf16 or int8 with f32 scales.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -53,16 +61,30 @@ def _launch(q, k_cache, v_cache, q_offset, scale):
     if k_cache.stride(3) != 1 or v_cache.stride(3) != 1:
         raise ValueError(f"{NAME}: caches need a contiguous head dim")
     out = torch.empty_like(q)
-    so = lib.load()
-    err = so.famous_chunk_prefill(
+    splits, n_ws = plan(code, B, C, H, KV, dh, Skv, lib.sm_count(q.device))
+    # each split's (O, m, l) in f32, combined by the kernel's second pass
+    ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
+    err = lib.load().famous_chunk_prefill(
         code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        out.data_ptr(), B, C, H, KV, dh, Skv, q_offset,
+        out.data_ptr(), ws.data_ptr() if n_ws else None, splits, B, C, H,
+        KV, dh, Skv, q_offset,
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
         float(scale), lib.stream_of(q))
     lib.check(NAME, err)
     lib.STATS.launches[NAME] += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def plan(code: int, B: int, C: int, H: int, KV: int, dh: int, Skv: int,
+         sms: int) -> tuple[int, int]:
+    """Key-range splits of the bf16 kernel for a static shape
+    (``lib.DTYPE_CODE`` dtype code, slots, chunk length, query and kv
+    heads, head dim, cache length, SM count), and the f32 elements of its
+    workspace (0 for one split; always 1 split in f32)."""
+    return lib.plan("famous_chunk_prefill_plan", code, B, C, H, KV, dh, Skv,
+                    sms)
 
 
 PAGED = "paged_chunk_prefill"

@@ -16,10 +16,14 @@ mirrors the split-and-combine algebra for the tests).
 
 ``paged_decode_attention`` and ``paged_decode_attention_int8`` launch the
 kernels of ``kernels/csrc/paged_decode_attention.cu`` (the ports of the
-Pallas ``_paged_decode_kernel`` and ``_paged_decode_kernel_int8``): one
-block per (slot, kv head) walking the whole key range, reading each key
-through the slot's page table from a shared (n_pages, page_size, KV, dh)
-pool, f32/bf16 or int8 with f32 scales.
+Pallas ``_paged_decode_kernel`` and ``_paged_decode_kernel_int8``): the
+same split-key kernel and combine pass (``csrc/decode_split.cuh``), each
+block resolving its range's page ids once and reading the rows of a shared
+(n_pages, page_size, KV, dh) pool, f32/bf16 or int8 with f32 scales; L and
+the workspace from :func:`paged_plan`.  ``rows_per_slot`` lets the W
+verify rows of a slot read its page-table row in place.  On CPU tensors
+they run the plain versions (``paged_decode_split_reference`` mirrors the
+paged split-and-combine algebra for the tests).
 """
 from __future__ import annotations
 
@@ -96,57 +100,76 @@ PAGED_INT8 = "paged_decode_attention_int8"
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, cache_len, *,
-                           scale: float):
-    """q: (B, H, dh); pools: (n_pages, page_size, KV, dh); page_table:
-    (B, n_p) int32 page ids; cache_len: (B,) int32, both on the pools'
-    device.  Returns (B, H, dh)."""
+                           scale: float, rows_per_slot: int = 1):
+    """q: (R, H, dh); pools: (n_pages, page_size, KV, dh); page_table:
+    (R / rows_per_slot, n_p) int32 page ids; cache_len: (R,) int32, both on
+    the pools' device.  Row r reads slot ``r // rows_per_slot``.  Returns
+    (R, H, dh)."""
     if q.device.type == "cpu":
         return ref.paged_decode_reference(q, k_pages, v_pages, page_table,
-                                          cache_len, scale=scale)
+                                          cache_len, scale=scale,
+                                          rows_per_slot=rows_per_slot)
     return _launch_paged(PAGED, q, k_pages, v_pages, None, None, page_table,
-                         cache_len, scale)
+                         cache_len, scale, rows_per_slot)
 
 
 def paged_decode_attention_int8(q, k_pages, v_pages, k_scale, v_scale,
-                                page_table, cache_len, *, scale: float):
+                                page_table, cache_len, *, scale: float,
+                                rows_per_slot: int = 1):
     """:func:`paged_decode_attention` on int8 pools with f32
     (n_pages, page_size, KV) scale pools, dequantized in the kernel's
     tiles."""
     if q.device.type == "cpu":
-        return ref.paged_decode_reference_int8(q, k_pages, v_pages, k_scale,
-                                               v_scale, page_table, cache_len,
-                                               scale=scale)
+        return ref.paged_decode_reference_int8(
+            q, k_pages, v_pages, k_scale, v_scale, page_table, cache_len,
+            scale=scale, rows_per_slot=rows_per_slot)
     return _launch_paged(PAGED_INT8, q, k_pages, v_pages, k_scale, v_scale,
-                         page_table, cache_len, scale)
+                         page_table, cache_len, scale, rows_per_slot)
 
 
 def _launch_paged(name, q, k_pages, v_pages, k_scale, v_scale, page_table,
-                  cache_len, scale):
+                  cache_len, scale, rows_per_slot):
     int8 = k_scale is not None
     lib.require_cuda(name, q, k_pages, v_pages, page_table, cache_len,
                      *((k_scale, v_scale) if int8 else ()))
     code = lib.require_dtype(name, q) if int8 else \
         lib.require_dtype(name, q, k_pages, v_pages)
-    B, H, dh = q.shape
+    R, H, dh = q.shape
     n_pages, ps, KV, _ = k_pages.shape
     n_p = page_table.shape[-1]
     lib.require_pool(name, k_pages, v_pages, k_scale, v_scale, dh, H)
-    if page_table.shape != (B, n_p) or cache_len.shape != (B,):
+    if (page_table.shape[0] * rows_per_slot != R or page_table.dim() != 2
+            or cache_len.shape != (R,)):
         raise ValueError(f"{name}: q {tuple(q.shape)}, page_table "
                          f"{tuple(page_table.shape)}, cache_len "
-                         f"{tuple(cache_len.shape)}")
+                         f"{tuple(cache_len.shape)}, rows_per_slot "
+                         f"{rows_per_slot}")
     lib.require_int32(name, page_table, cache_len)
     if not q.is_contiguous():
         raise ValueError(f"{name}: q must be contiguous")
     out = torch.empty_like(q)
-    so = lib.load()
+    L, n_ws = paged_plan(R, H, KV, dh, n_p * ps, k_pages.element_size(),
+                         lib.sm_count(q.device))
+    # each range's (acc, m, l) in f32, combined by the kernel's second pass
+    ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
     ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()]
     if int8:
         ptrs += [k_scale.data_ptr(), v_scale.data_ptr()]
-    err = getattr(so, f"famous_{name}")(
+    err = getattr(lib.load(), f"famous_{name}")(
         code, *ptrs, page_table.data_ptr(), cache_len.data_ptr(),
-        out.data_ptr(), B, H, KV, dh, ps, n_p, n_pages, float(scale),
-        lib.stream_of(q))
+        out.data_ptr(), ws.data_ptr(), R, H, KV, dh, ps, n_p, n_pages,
+        rows_per_slot, L, float(scale), lib.stream_of(q))
     lib.check(name, err)
     lib.STATS.launches[name] += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def paged_plan(rows: int, H: int, KV: int, dh: int, Skv: int, esize: int,
+               sms: int) -> tuple[int, int]:
+    """Keys per block range L of the paged kernels for a static shape (row
+    count, query and kv heads, head dim, keys a slot's page table can hold
+    ``n_p * page_size``, pool element bytes, SM count), and the f32
+    elements of their workspace."""
+    return lib.plan("famous_paged_decode_attention_plan", rows, H, KV, dh,
+                    Skv, esize, sms)

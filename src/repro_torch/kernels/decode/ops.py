@@ -60,17 +60,16 @@ def paged_verify_attention(q, k_pages, v_pages, page_table, cache_len, *,
     """Paged speculative verify: q: (B, W, H, dh); pools: (n_pages,
     page_size, KV, dh); page_table: (B, n_p) int32; cache_len: (B,).
     Returns (B, W, H, dh).  The rows of :func:`verify_attention` on the
-    paged decode kernels (int8 with ``k_scale``/``v_scale``): only the page
-    table is repeated per verify position, never the pool."""
+    paged decode kernels (int8 with ``k_scale``/``v_scale``): row ``b * W +
+    j`` reads slot b's page-table row in place (``rows_per_slot=W``); only
+    the lengths are per row."""
     B, W, H, dh = q.shape
-    dev = k_pages.device
-    n_p = page_table.shape[1]
-    pt = page_table.to(device=dev, dtype=torch.int32)
-    pt = pt[:, None].expand(B, W, n_p).reshape(B * W, n_p).contiguous()
-    lens = _verify_lens(cache_len, W, n_p * k_pages.shape[1], dev)
+    lens = _verify_lens(cache_len, W, page_table.shape[1] * k_pages.shape[1],
+                        k_pages.device)
     out = paged_decode_attention(q.reshape(B * W, 1, H, dh), k_pages,
-                                 v_pages, pt, lens, k_scale=k_scale,
-                                 v_scale=v_scale, scale=scale)
+                                 v_pages, page_table, lens, k_scale=k_scale,
+                                 v_scale=v_scale, scale=scale,
+                                 rows_per_slot=W)
     return out.reshape(B, W, H, dh)
 
 
@@ -86,12 +85,13 @@ def chunk_prefill_attention(q, k_cache, v_cache, q_offset: int, *,
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, cache_len, *,
-                           k_scale=None, v_scale=None, scale=None):
-    """q: (B, 1, H, dh); pools: (n_pages, page_size, KV, dh); page_table:
-    (B, n_p) int32; cache_len: (B,) valid entries.  ``k_scale``/``v_scale``
-    (f32 (n_pages, page_size, KV)) select the int8-pool kernel.  Returns
-    (B, 1, H, dh)."""
-    B, _, H, dh = q.shape
+                           k_scale=None, v_scale=None, scale=None,
+                           rows_per_slot: int = 1):
+    """q: (R, 1, H, dh); pools: (n_pages, page_size, KV, dh); page_table:
+    (R / rows_per_slot, n_p) int32; cache_len: (R,) valid entries.
+    ``k_scale``/``v_scale`` (f32 (n_pages, page_size, KV)) select the
+    int8-pool kernel.  Returns (R, 1, H, dh)."""
+    R, _, H, dh = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     dev = k_pages.device
     lens = cache_len.to(device=dev, dtype=torch.int32).contiguous()
@@ -99,11 +99,13 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, cache_len, *,
     qf = q[:, 0].contiguous()
     if k_scale is not None:
         out = decode_attn.paged_decode_attention_int8(
-            qf, k_pages, v_pages, k_scale, v_scale, pt, lens, scale=scale)
+            qf, k_pages, v_pages, k_scale, v_scale, pt, lens, scale=scale,
+            rows_per_slot=rows_per_slot)
     else:
-        out = decode_attn.paged_decode_attention(qf, k_pages, v_pages, pt,
-                                                 lens, scale=scale)
-    return out.reshape(B, 1, H, dh)
+        out = decode_attn.paged_decode_attention(
+            qf, k_pages, v_pages, pt, lens, scale=scale,
+            rows_per_slot=rows_per_slot)
+    return out.reshape(R, 1, H, dh)
 
 
 def paged_chunk_prefill_attention(q, k_pages, v_pages, page_table,

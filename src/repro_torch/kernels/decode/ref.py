@@ -67,23 +67,69 @@ def decode_split_reference(q, k_cache, v_cache, cache_len, *, scale: float,
     if rows_per_slot > 1:
         k_cache = k_cache.repeat_interleave(rows_per_slot, dim=0)
         v_cache = v_cache.repeat_interleave(rows_per_slot, dim=0)
-    B, H, dh = q.shape
-    Skv, KV = k_cache.shape[1], k_cache.shape[2]
-    L = keys_per_split
-    qf = q.to(torch.float32).reshape(B, KV, H // KV, dh) * scale
-    kf = k_cache.to(torch.float32).permute(0, 2, 3, 1)        # (B, KV, dh, Skv)
-    vf = v_cache.to(torch.float32).permute(0, 2, 1, 3)        # (B, KV, Skv, dh)
+
+    def keys(lo, hi):
+        return (k_cache[:, lo:hi].to(torch.float32),
+                v_cache[:, lo:hi].to(torch.float32))
+
+    return _split_combine(q, keys, cache_len, k_cache.shape[1],
+                          keys_per_split, scale)
+
+
+def paged_decode_split_reference(q, k_pages, v_pages, page_table, cache_len,
+                                 *, scale: float, keys_per_split: int,
+                                 rows_per_slot: int = 1, k_scale=None,
+                                 v_scale=None):
+    """The paged decode kernels' split-and-combine algebra, in f32: the
+    algebra of :func:`decode_split_reference`, each range's keys read
+    through the page table as the kernels read them.  Row r reads slot
+    ``r // rows_per_slot``'s row of ``page_table`` ((slots, n_p) page ids
+    into (n_pages, page_size, KV, dh) pools); an id outside [0, n_pages)
+    reads the null page 0; with ``k_scale``/``v_scale`` (f32 (n_pages,
+    page_size, KV)) the pools are int8 and each row is dequantized, int8
+    times its scale, before any product.  Used by the tests and
+    ``chip_smoke.py`` only, never on the serving path."""
+    _count("paged_decode_attention" + ("" if k_scale is None else "_int8"),
+           q)
+    n_pages, ps = k_pages.shape[:2]
+    pt = page_table.to(device=q.device, dtype=torch.long)
+    pt = pt.repeat_interleave(rows_per_slot, dim=0)
+    pt = torch.where((pt >= 0) & (pt < n_pages), pt, 0)
+
+    def rows(pool, scales, pos):
+        ids, off = pt[:, pos // ps], pos % ps                 # (R, n)
+        x = pool[ids, off].to(torch.float32)                  # (R, n, KV, dh)
+        return x if scales is None else x * scales[ids, off][..., None]
+
+    def keys(lo, hi):
+        pos = torch.arange(lo, hi, device=q.device)
+        return rows(k_pages, k_scale, pos), rows(v_pages, v_scale, pos)
+
+    return _split_combine(q, keys, cache_len, pt.shape[1] * ps,
+                          keys_per_split, scale)
+
+
+def _split_combine(q, keys, cache_len, Skv, L, scale):
+    """Partials over ranges of L keys and their ordered combine (see
+    :func:`decode_split_reference`); ``keys(lo, hi)`` gives the range's f32
+    K and V rows, (R, hi - lo, KV, dh) each."""
+    R, H, dh = q.shape
     lens = cache_len.to(device=q.device, dtype=torch.long).clamp(0, Skv)
+    qf = None
     parts = []
     for lo in range(0, Skv, L):
         hi = min(lo + L, Skv)
-        s = qf @ kf[..., lo:hi]                               # (B, KV, g, n)
+        k, v = keys(lo, hi)
+        KV = k.shape[2]
+        if qf is None:
+            qf = q.to(torch.float32).reshape(R, KV, H // KV, dh) * scale
+        s = qf @ k.permute(0, 2, 3, 1)                        # (R, KV, g, n)
         pos = torch.arange(lo, hi, device=q.device)
         ok = (pos[None, :] < lens[:, None])[:, None, None, :]
         s = s.masked_fill(~ok, -1e30)
         m = s.amax(-1)
         p = torch.where(ok, torch.exp(s - m[..., None]), 0.0)
-        parts.append((lens > lo, m, p.sum(-1), p @ vf[:, :, lo:hi]))
+        parts.append((lens > lo, m, p.sum(-1), p @ v.permute(0, 2, 1, 3)))
     live_m = [torch.where(live[:, None, None], m, -1e30)
               for live, m, _, _ in parts]
     M = torch.stack(live_m).amax(0)
@@ -94,7 +140,7 @@ def decode_split_reference(q, k_cache, v_cache, cache_len, *, scale: float,
         l = l + w * ls
         acc = acc + w[..., None] * a
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(B, H, dh).to(q.dtype)
+    return out.reshape(R, H, dh).to(q.dtype)
 
 
 def chunk_prefill_reference(q, k_cache, v_cache, q_offset: int, *,
@@ -118,6 +164,70 @@ def _chunk(q, k_cache, v_cache, q_offset, scale):
     ok = (torch.arange(Skv, device=q.device)[None, :]
           <= (q_offset + torch.arange(C, device=q.device))[:, None])
     out = _softmax_pv(s, ok, vf)                              # (B, KV, g, C, dh)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, C, H, dh).to(q.dtype)
+
+
+def chunk_prefill_tc_reference(q, k_cache, v_cache, q_offset: int, *,
+                               scale: float, splits: int = 1,
+                               block_rows: int = 128, tile_keys: int = 64):
+    """The bf16 tensor-core chunk kernel's algebra, in f32:
+    :func:`chunk_prefill_reference` computed as that kernel computes it.
+    Chunk rows go in blocks of ``block_rows``; a block's keys end at its
+    last row's diagonal and are cut into tiles of ``tile_keys``, and
+    ``splits`` blocks share them (tiles [z * tps, (z + 1) * tps), tps =
+    ceil(tiles / splits)).  Per tile: S = (Q K^T) * scale * log2(e) (the
+    scale after the product), causal mask at -1e30, then the online update
+    m' = max(m, max S), l = l 2^(m - m') + sum P, O = O 2^(m - m') + P V
+    with P = 2^(S - m') (0 where masked) in f32 for l and, for bf16 inputs,
+    rounded to bf16 for P V.  Splits combine in order, w_z = 2^(m_z - max
+    m); the result is O / max(l, 1e-30).  Used by the tests and
+    ``chip_smoke.py`` only, never on the serving path."""
+    _count("chunk_prefill", q)
+    B, C, H, dh = q.shape
+    Skv, KV = k_cache.shape[1], k_cache.shape[2]
+    g = H // KV
+    rnd = q.dtype == torch.bfloat16
+    sl = scale * 1.4426950408889634
+    qf = q.to(torch.float32).reshape(B, C, KV, g, dh).permute(0, 2, 3, 1, 4)
+    kf = k_cache.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]
+    vf = v_cache.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]
+    out = torch.empty_like(qf)                            # (B, KV, g, C, dh)
+    for c0 in range(0, C, block_rows):
+        c1 = min(C, c0 + block_rows)
+        kend = min(Skv, q_offset + c1)
+        nt = -(-kend // tile_keys)
+        tps = -(-nt // splits)
+        lim = q_offset + torch.arange(c0, c1, device=q.device)
+        parts = []
+        for z in range(splits):
+            m = torch.full(qf.shape[:3] + (c1 - c0,), -1e30, device=q.device)
+            l = torch.zeros_like(m)
+            o = torch.zeros(m.shape + (dh,), device=q.device)
+            t_lo = min(nt, z * tps)
+            for t in range(t_lo, min(nt, t_lo + tps)):
+                k0, k1 = t * tile_keys, min(kend, (t + 1) * tile_keys)
+                s = (qf[..., c0:c1, :] @ kf[..., k0:k1, :].transpose(-1, -2)
+                     * sl)
+                ok = (torch.arange(k0, k1, device=q.device)[None, :]
+                      <= lim[:, None])
+                s = torch.where(ok, s, -1e30)
+                mx = torch.maximum(m, s.amax(-1))
+                corr = torch.exp2(m - mx)
+                p = torch.where(ok, torch.exp2(s - mx[..., None]), 0.0)
+                l = l * corr + p.sum(-1)
+                if rnd:
+                    p = p.to(torch.bfloat16).to(torch.float32)
+                o = o * corr[..., None] + p @ vf[..., k0:k1, :]
+                m = mx
+            parts.append((m, l, o))
+        M = torch.stack([m for m, _, _ in parts]).amax(0)
+        l = torch.zeros_like(M)
+        acc = torch.zeros_like(parts[0][2])
+        for mz, lz, oz in parts:
+            w = torch.exp2(mz - M)
+            l = l + w * lz
+            acc = acc + w[..., None] * oz
+        out[..., c0:c1, :] = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(B, C, H, dh).to(q.dtype)
 
 
@@ -146,21 +256,24 @@ def gather_pages_int8(pages, scale_pool, page_table):
 
 
 def paged_decode_reference(q, k_pages, v_pages, page_table, cache_len, *,
-                           scale: float):
-    """q: (B, H, dh); pools: (n_pages, ps, KV, dh); page_table: (B, n_p);
-    cache_len: (B,).  Returns (B, H, dh)."""
+                           scale: float, rows_per_slot: int = 1):
+    """q: (R, H, dh); pools: (n_pages, ps, KV, dh); page_table:
+    (R / rows_per_slot, n_p); cache_len: (R,).  Row r reads slot
+    ``r // rows_per_slot``.  Returns (R, H, dh)."""
     _count("paged_decode_attention", q)
-    return _decode(q, gather_pages(k_pages, page_table),
-                   gather_pages(v_pages, page_table), cache_len, scale)
+    pt = page_table.repeat_interleave(rows_per_slot, dim=0)
+    return _decode(q, gather_pages(k_pages, pt), gather_pages(v_pages, pt),
+                   cache_len, scale)
 
 
 def paged_decode_reference_int8(q, k_pages, v_pages, k_scale, v_scale,
-                                page_table, cache_len, *, scale: float):
+                                page_table, cache_len, *, scale: float,
+                                rows_per_slot: int = 1):
     """:func:`paged_decode_reference` on int8 pools with f32 scale pools."""
     _count("paged_decode_attention_int8", q)
-    return _decode(q, gather_pages_int8(k_pages, k_scale, page_table),
-                   gather_pages_int8(v_pages, v_scale, page_table),
-                   cache_len, scale)
+    pt = page_table.repeat_interleave(rows_per_slot, dim=0)
+    return _decode(q, gather_pages_int8(k_pages, k_scale, pt),
+                   gather_pages_int8(v_pages, v_scale, pt), cache_len, scale)
 
 
 def paged_chunk_prefill_reference(q, k_pages, v_pages, page_table,

@@ -150,8 +150,14 @@ _SIGNATURES = {
     # dtype, rows, H, KV, dh, Skv, SM count, [out] workspace elements ->
     # keys per range
     "famous_decode_attention_plan": [_I, _I, _I, _I, _I, _I, _I, _PLL],
-    "famous_chunk_prefill": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             _LL, _LL, _LL, _LL, _LL, _LL, _F, _P],
+    # dtype, q, k, v, out, split workspace (or null), splits, B, C, H, KV,
+    # dh, Skv, q_offset, k strides (slot, pos, head), v strides, scale,
+    # stream
+    "famous_chunk_prefill": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _LL, _LL, _LL, _LL, _LL, _LL, _F, _P],
+    # dtype, B, C, H, KV, dh, Skv, SM count, [out] workspace elements ->
+    # key-range splits
+    "famous_chunk_prefill_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _PLL],
     "famous_mha_forward": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _I, _F, _P],
     "famous_mha_bwd_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -159,12 +165,16 @@ _SIGNATURES = {
     "famous_mha_bwd_dkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _I, _I, _I, _F, _P],
     # dtype, q, k, v, [k_scale, v_scale,] page_table, lens, out,
-    # B, H, KV, dh, page_size, n_p, n_pages, scale, stream
-    "famous_paged_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                      _I, _I, _I, _I, _F, _P],
+    # workspace, rows, H, KV, dh, page_size, n_p, n_pages, rows_per_slot,
+    # keys per range, scale, stream
+    "famous_paged_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                      _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "famous_paged_decode_attention_int8": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                           _I, _I, _I, _I, _I, _I, _I, _F,
-                                           _P],
+                                           _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                           _I, _F, _P],
+    # rows, H, KV, dh, n_p * page_size, pool element bytes, SM count,
+    # [out] workspace elements -> keys per range
+    "famous_paged_decode_attention_plan": [_I, _I, _I, _I, _I, _I, _I, _PLL],
     # dtype, q, k, v, [k_scale, v_scale,] page_table, out,
     # B, C, H, KV, dh, page_size, n_p, n_pages, q_offset, scale, stream
     "famous_paged_chunk_prefill": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -214,8 +224,9 @@ def check(name: str, err: int) -> None:
 
 @functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of a CUDA device (the split rules of
-    ``matmul_tiled`` and ``decode_attention`` size their grids by it)."""
+    """Streaming multiprocessors of a CUDA device (the plans of
+    ``matmul_tiled``, ``chunk_prefill`` and the decode kernels size their
+    grids by it)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
