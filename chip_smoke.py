@@ -25,13 +25,16 @@ Phases, in order; any failure exits non-zero before the result line:
      plain mirror of the split-and-combine algebra) and ``chunk_prefill``
      (offsets 0, 1792 and 1000, the last in bf16 also against the plain
      mirror of its tensor-core algebra); ``matmul_tiled``,
-     ``decode_attention``, ``chunk_prefill`` and the paged decode kernels
+     ``decode_attention``, ``chunk_prefill`` and the paged kernels
      relaunched on the same inputs must give the same bits; and for the
      four paged kernels (fp and int8 pools, a 513-page pool of 16-token
      pages; the decode kernels also at their range boundaries, with the
      empty row exactly 0 and the paged split mirror, and as verify rows
-     reading each slot's page-table row in place; no library call reads a
-     page table, so they have no library time); training shapes of
+     reading each slot's page-table row in place; the bf16 chunk kernels
+     also at offset 1000 against the paged tensor-core mirror, and on
+     identity pages over a contiguous cache, where they must give
+     ``chunk_prefill``'s bits; no library call reads a page table, so
+     they have no library time); training shapes of
      famous-bert (B=8, S=512, 8 heads, dh=96, non-causal) and qwen2-7b
      (B=1, S=2048, 28/4 heads, dh=128, causal) for ``mha_forward``,
      ``mha_bwd_dq``, ``mha_bwd_dkv`` and ``matmul_tiled`` in its dX / dW
@@ -333,6 +336,7 @@ def kernel_phase(torch, iters, seed):
               f"library_ms={library_ms if library_ms is None else round(library_ms, 4)} "
               f"bound_ms={b_ms:.4f} ({b_by}){same} {'ok' if ok else 'FAIL'}",
               flush=True)
+        return row
 
     # matmul_tiled: the fused QKV projection (see SERVING_PROJ)
     for dt, dtype in dts.items():
@@ -592,9 +596,13 @@ def paged_kernel_rows(torch, dts, randn, record, iters, gen):
     decode kernels also at lengths on their range boundaries [0, L-1, L,
     L+1] (the empty row must be exactly 0, and the kernel must match the
     plain mirror of its paged split-and-combine algebra) and as verify
-    rows (5 a slot, reading the slot's page-table row in place); every
-    decode launch is relaunched for bit identity.  No single PyTorch call
-    reads a page table, so these rows have no library time."""
+    rows (5 a slot, reading the slot's page-table row in place).  The
+    bf16 chunk kernels also at offset 1000, there held to the plain mirror
+    of their tensor-core algebra, and the fp one on a pool holding a
+    contiguous cache under identity pages, which must give
+    ``chunk_prefill``'s bits.  Every launch is relaunched for bit
+    identity.  No single PyTorch call reads a page table, so these rows
+    have no library time."""
     from repro_torch.core import quant
     from repro_torch.kernels.decode import chunk_prefill, decode_attn
     from repro_torch.kernels.decode import ref as dec_ref
@@ -609,7 +617,6 @@ def paged_kernel_rows(torch, dts, randn, record, iters, gen):
     live = sum(lens_list)
     live_pages = sum(-(-n // ps) for n in lens_list)
     C, off = 256, 1792
-    visible = sum(off + c + 1 for c in range(C))
     pool_shape = (n_pages, ps, KV, dh)
 
     def pools(dtype, kind):
@@ -652,21 +659,87 @@ def paged_kernel_rows(torch, dts, randn, record, iters, gen):
                      for pool in sets[:min(8, len(sets))]]
             ch_k = getattr(chunk_prefill, "paged_chunk_prefill" + sfx)
             ch_p = getattr(dec_ref, "paged_chunk_prefill_reference" + sfx)
+            # the bf16 rows again at offset 1000 (off the 64-key tiles),
+            # held to the plain mirror of the tensor-core algebra
+            for c_off in (off, 1000) if dt == "bf16" else (off,):
+                c_vis = sum(c_off + c + 1 for c in range(C))
 
-            def ckern(q, *pool, fn=ch_k):
-                return fn(q, *pool, pt[2:3], off, scale=scale)
+                def ckern(q, *pool, fn=ch_k, c_off=c_off):
+                    return fn(q, *pool, pt[2:3], c_off, scale=scale)
 
-            def cplain(q, *pool, fn=ch_p):
-                return fn(q, *pool, pt[2:3], off, scale=scale)
+                def cplain(q, *pool, fn=ch_p, c_off=c_off):
+                    return fn(q, *pool, pt[2:3], c_off, scale=scale)
 
-            c0 = csets[0]
-            record("paged_chunk_prefill" + sfx,
-                   f"C={C} offset={off} H={H} KV={KV} dh={dh} page={ps} "
-                   f"pool={n_pages}", dt, ckern(*c0), cplain(*c0),
-                   ATTN_TOL[dt], ckern, cplain, None, csets,
-                   2 * C * H * dh * e + (off + C) * KV * row * 2
-                   + 4 * ((off + C) // ps), 4.0 * H * dh * visible)
+                c0 = csets[0]
+                out = ckern(*c0)
+                r = record("paged_chunk_prefill" + sfx,
+                           f"C={C} offset={c_off} H={H} KV={KV} dh={dh} "
+                           f"page={ps} pool={n_pages}", dt, out, cplain(*c0),
+                           ATTN_TOL[dt], ckern, cplain, None, csets,
+                           2 * C * H * dh * e + (c_off + C) * KV * row * 2
+                           + 4 * ((c_off + C) // ps), 4.0 * H * dh * c_vis,
+                           again=ckern(*c0))
+                if c_off == 1000:
+                    r.update(tc_mirror_err=paged_chunk_mirror_check(
+                        torch, kind, c0, pt[2:3], c_off, scale, out))
+            if dt == "bf16" and kind == "fp":
+                paged_chunk_identity_check(torch, randn, dtype, C, H, KV, dh,
+                                           ps, scale)
             del sets, csets
+
+
+def paged_chunk_mirror_check(torch, kind, inputs, pt, off, scale, out):
+    """A bf16 paged chunk kernel's output ``out`` on ``inputs`` (q, pools)
+    against the plain mirror of its tensor-core algebra (split count from
+    the kernel's plan over the table's n_p * page_size keys) at
+    DECODE_NEW_TOL.  Returns the max error."""
+    from repro_torch.kernels import lib
+    from repro_torch.kernels.decode import chunk_prefill
+    from repro_torch.kernels.decode import ref as dec_ref
+
+    q, pools = inputs[0], inputs[1:]
+    _, C, H, dh = q.shape
+    _, ps, KV, _ = pools[0].shape
+    splits, _ = chunk_prefill.plan(lib.DTYPE_CODE[q.dtype], 1, C, H, KV, dh,
+                                   pt.shape[1] * ps, lib.sm_count(q.device))
+    fn = (dec_ref.paged_chunk_prefill_tc_reference if kind == "fp" else
+          dec_ref.paged_chunk_prefill_tc_reference_int8)
+    mirror = fn(q, *pools, pt, off, scale=scale, splits=splits)
+    tol = DECODE_NEW_TOL["bf16"]
+    err, ok = compare(torch, out, mirror, tol)
+    sfx = "" if kind == "fp" else "_int8"
+    print(f"  (paged_chunk_prefill{sfx} bf16 offset {off}: vs the "
+          f"tensor-core mirror ({splits} splits) max_abs_err {err:.3e} "
+          f"(tol {tol:g})) {'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, f"paged_chunk_prefill{sfx} bf16 offset {off}: mirror error "
+          f"{err}")
+    return err
+
+
+def paged_chunk_identity_check(torch, randn, dtype, C, H, KV, dh, ps, scale):
+    """``paged_chunk_prefill`` on a pool that holds one contiguous cache
+    page by page, read through an identity page table, must give
+    ``chunk_prefill``'s bits on that cache (one body, one split plan), at
+    offsets 1792 and 1000."""
+    from repro_torch.kernels.decode import chunk_prefill
+
+    dev = torch.device("cuda")
+    Skv = 2048
+    q = randn((1, C, H, dh), dtype)
+    k, v = randn((1, Skv, KV, dh), dtype), randn((1, Skv, KV, dh), dtype)
+    kp, vp = (x.reshape(Skv // ps, ps, KV, dh) for x in (k, v))
+    pt = torch.arange(Skv // ps, dtype=torch.int32, device=dev)[None]
+    for off in (1792, 1000):
+        same = torch.equal(
+            chunk_prefill.paged_chunk_prefill(q, kp, vp, pt, off,
+                                              scale=scale),
+            chunk_prefill.chunk_prefill(q, k, v, off, scale=scale))
+        got = "bit for bit" if same else "DIFFERS"
+        print(f"  (paged_chunk_prefill bf16 offset {off} on identity pages "
+              f"against chunk_prefill: {got}) {'ok' if same else 'FAIL'}",
+              flush=True)
+        check(same, f"paged_chunk_prefill on identity pages at offset {off} "
+              f"differs from chunk_prefill")
 
 
 def paged_decode_extra_rows(torch, dt, kind, sets, pt, record, randn, scale):
@@ -1992,19 +2065,24 @@ def profile_groups(torch, fn):
 
 def kernel_group(key, names):
     """The port kernel a profiler key belongs to.  The decode split kernel
-    and its combine pass by their row source: ``PagedRows`` for the paged
-    kernels (the int8 instantiation reads ``signed char`` pools),
-    ``ContigRows`` for ``decode_attention``; the paged chunk kernel by its
-    symbol and pool type likewise; the int8 projection's symbol is
-    ``matmul_int8_kernel``; the others by their name."""
+    and the bf16 chunk kernel, and their combine passes, by their row
+    source: ``PagedRows`` for the paged decode kernels and ``PagedKV`` for
+    the paged chunk kernels (an int8 instantiation reads ``signed char``
+    pools), ``ContigRows`` for ``decode_attention`` and ``ContigKV`` for
+    ``chunk_prefill``; the f32 paged chunk kernel by its symbol and pool
+    type likewise; the int8 projection's symbol is ``matmul_int8_kernel``;
+    the others by their name."""
     if "matmul_int8_kernel" in key:
         return "matmul_tiled_int8"
     for sym, name in (("PagedRows", "paged_decode_attention"),
+                      ("PagedKV", "paged_chunk_prefill"),
                       ("paged_chunk_prefill_kernel", "paged_chunk_prefill")):
         if sym in key:
             return name + ("_int8" if "signed char" in key else "")
     if "ContigRows" in key:
         return "decode_attention"
+    if "ContigKV" in key:
+        return "chunk_prefill"
     return next((k for k in names if k in key), None)
 
 

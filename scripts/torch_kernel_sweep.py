@@ -4,8 +4,9 @@
 
 Backs the fixed choices in ``kernels/csrc/matmul_tiled.cu``,
 ``kernels/csrc/decode_split.cuh`` (``decode_attention`` and
-``paged_decode_attention``) and ``kernels/csrc/chunk_prefill.cu`` with
-times taken on the card:
+``paged_decode_attention``) and ``kernels/csrc/chunk_tc.cuh``
+(``chunk_prefill`` and the paged chunk kernels) with times taken on the
+card:
 
 - ``matmul_tiled`` bf16 above T = 32: eight output-tile shapes (BM x BN x
   BK, warps, ring stages) at the serving-chunk and training shapes;
@@ -21,7 +22,13 @@ times taken on the card:
   seven tile geometries (warps and rows a warp, keys a tile, ring stages,
   (chunk row, query head) rows packed per kv head) times the key-range
   split count 1-4, against the kernel's own geometry at the plan's split
-  count and SDPA with GQA and the causal mask.
+  count and SDPA with GQA and the causal mask;
+- ``paged_chunk_prefill`` and ``paged_chunk_prefill_int8`` (bf16 queries)
+  at C = 256 on qwen2-7b (offsets 1024, 1792; pages of 16 and 64 tokens):
+  the int8 pools' two stagings (``chunk_tc.cuh``'s KVStage: an int8
+  cp.async ring, or registers) and 128- and 64-row blocks, each at split
+  counts 1-4, against ``chunk_prefill`` on a contiguous cache of the same
+  shape through its own entry point.
 
 Each variant is built from the committed sources (a generated file that
 includes the kernel's ``.cu`` and instantiates the variant; the paged L
@@ -65,6 +72,17 @@ CP_TILES = [(4, 2, 64, 2, False), (4, 1, 64, 2, False), (4, 1, 64, 3, False),
             (4, 1, 64, 2, True)]
 CP_SPLITS = [1, 2, 3, 4]
 CP_OFFSETS = [0, 1024, 1792]
+# paged chunk variants: (pool, int8 staging, tile geometry); the first of
+# each pool is the kernel's own (ServeTiles, kServeInt8Stage)
+PC_VARIANTS = [("fp", "kCopy", (4, 2, 64, 2)),
+               ("int8", "kRing8", (4, 2, 64, 2)),
+               ("int8", "kRegs8", (4, 2, 64, 2)),
+               ("fp", "kCopy", (4, 1, 64, 2)),
+               ("int8", "kRing8", (4, 1, 64, 2)),
+               ("int8", "kRegs8", (4, 1, 64, 2)),
+               ("int8", "kRegs8", (8, 1, 64, 2))]
+PC_OFFSETS = [1024, 1792]
+PC_PAGE_SIZES = [16, 64]
 # (label, B, H, KV, dh, lens), Skv = 2048
 DEC_SHAPES = [("table", 4, 28, 4, 128, [1, 37, 1000, 2048]),
               ("qwen2-7b step", 4, 28, 4, 128, [1025] * 4),
@@ -107,10 +125,21 @@ extern "C" long long sweep_decode_ws(int R, int H, int dh, int Skv, int L) {{
     cp_cases = "\n".join(
         f"    case {i}: e = launch_chunk_tc<128, "
         f"TcTiles<{w}, {mt}, {bk}, {st}, {str(pk).lower()}>>("
-        "qb, kb, vb, ob, static_cast<float*>(part), splits, 1, C, H, KV, dh, "
-        "Skv, off, ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale, s); "
-        "break;"
+        "qb, ContigKV{kb, vb, ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], "
+        "Skv}, ob, static_cast<float*>(part), splits, 1, C, H, KV, dh, "
+        "off, scale, s); break;"
         for i, (w, mt, bk, st, pk) in enumerate(CP_TILES))
+    pc_cases = "\n".join(
+        f"    case {i}: e = launch_chunk_tc<128, "
+        f"TcTiles<{w}, {mt}, {bk}, {st}, false>>(qb, "
+        + ("PagedKV<bf16, KVStage::kCopy>{static_cast<const bf16*>(k), "
+           "static_cast<const bf16*>(v), nullptr, nullptr"
+           if pool == "fp" else
+           f"PagedKV<int8_t, KVStage::{stage}>{{static_cast<const int8_t*>"
+           "(k), static_cast<const int8_t*>(v), ks, vs")
+        + ", pt, ps, n_p, n_pages, n_p * ps}, ob, static_cast<float*>(part), "
+        "splits, 1, C, H, KV, dh, off, scale, s); break;"
+        for i, (pool, stage, (w, mt, bk, st)) in enumerate(PC_VARIANTS))
     cp = f"""#include "{csrc / 'chunk_prefill.cu'}"
 
 extern "C" int sweep_chunk(int cfg, const void* q, const void* k,
@@ -131,7 +160,28 @@ extern "C" int sweep_chunk(int cfg, const void* q, const void* k,
   return static_cast<int>(e);
 }}
 """
-    return {"sweep_mm.cu": mm, "sweep_decode.cu": dec, "sweep_chunk.cu": cp}
+    pc = f"""#include "{csrc / 'paged_chunk_prefill.cu'}"
+
+extern "C" int sweep_paged_chunk(int cfg, const void* q, const void* k,
+                                 const void* v, const float* ks,
+                                 const float* vs, const int* pt, void* out,
+                                 void* part, int splits, int C, int H,
+                                 int KV, int dh, int ps, int n_p,
+                                 int n_pages, int off, float scale,
+                                 void* stream) {{
+  using namespace famous;
+  const bf16* qb = static_cast<const bf16*>(q);
+  bf16* ob = static_cast<bf16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaErrorInvalidValue;
+  switch (cfg) {{
+{pc_cases}
+  }}
+  return static_cast<int>(e);
+}}
+"""
+    return {"sweep_mm.cu": mm, "sweep_decode.cu": dec, "sweep_chunk.cu": cp,
+            "sweep_paged_chunk.cu": pc}
 
 
 def build(out_dir: Path) -> ctypes.CDLL:
@@ -158,10 +208,13 @@ def build(out_dir: Path) -> ctypes.CDLL:
     PLL = ctypes.POINTER(ctypes.c_longlong)
     so_lib.sweep_chunk.argtypes = [I, P, P, P, P, P, I, I, I, I, I, I, I,
                                    PLL, PLL, ctypes.c_float, P]
+    so_lib.sweep_paged_chunk.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I,
+                                         I, I, I, I, I, I, ctypes.c_float, P]
     for name in ("famous_matmul_tiled", "famous_decode_attention"):
         getattr(so_lib, name).argtypes = lib._SIGNATURES[name]
     for fn in (so_lib.sweep_mm, so_lib.famous_matmul_tiled,
-               so_lib.famous_decode_attention, so_lib.sweep_chunk):
+               so_lib.famous_decode_attention, so_lib.sweep_chunk,
+               so_lib.sweep_paged_chunk):
         fn.restype = I
     return so_lib
 
@@ -169,7 +222,7 @@ def build(out_dir: Path) -> ctypes.CDLL:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=30)
-    ap.add_argument("--parts", default="matmul,decode,paged,chunk",
+    ap.add_argument("--parts", default="matmul,decode,paged,chunk,pagedchunk",
                     help="comma-separated sweeps to run")
     args = ap.parse_args(argv)
     import torch
@@ -194,7 +247,8 @@ def main(argv=None) -> int:
     smi = cs.smi_line()
     print(f"card: {smi}", flush=True)
     result = {"card": smi, "matmul_tiles": [], "matmul_splits": [],
-              "decode_L": [], "paged_decode_L": [], "chunk_prefill": []}
+              "decode_L": [], "paged_decode_L": [], "chunk_prefill": [],
+              "paged_chunk_prefill": []}
 
     def randn(shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev)
@@ -316,12 +370,15 @@ def main(argv=None) -> int:
         paged_decode_sweep(torch, lib, so, randn, dev_ms, result, sms)
     if "chunk" in parts:
         chunk_sweep(torch, Fn, lib, so, randn, dev_ms, result, sms)
+    if "pagedchunk" in parts:
+        paged_chunk_sweep(torch, lib, so, randn, dev_ms, result, sms)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "kernel_sweep.json").write_text(json.dumps(result, indent=1))
     bad = [k for sec in ("matmul_tiles", "matmul_splits", "decode_L",
-                         "paged_decode_L", "chunk_prefill")
+                         "paged_decode_L", "chunk_prefill",
+                         "paged_chunk_prefill")
            for row in result[sec] for k, v in row.items()
            if isinstance(v, dict) and v.get("ok") is False]
     print(json.dumps({"ok": not bad, "wrong": bad}))
@@ -459,6 +516,85 @@ def chunk_sweep(torch, Fn, lib, so, randn, dev_ms, result, sms):
               f"{chosen} splits): SDPA {ms_text(row['library_ms'])} ms | "
               + row_text(row), flush=True)
     del sets
+
+
+def paged_chunk_sweep(torch, lib, so, randn, dev_ms, result, sms):
+    """The bf16 paged chunk kernels at C = 256 on qwen2-7b's heads, one
+    slot whose 2048 keys lie on shuffled pages of a 4-slot pool (16- or
+    64-token pages): each variant of PC_VARIANTS at each split count,
+    checked against the plain paged version, against ``chunk_prefill``
+    on a contiguous cache of the same shape (its own entry point and plan)
+    on the same clock."""
+    import chip_smoke as cs
+    from repro_torch.core import quant
+    from repro_torch.kernels.decode import chunk_prefill
+    from repro_torch.kernels.decode import ref as dec_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    C, H, KV, dh, Skv = 256, 28, 4, 128, 2048
+    scale = dh ** -0.5
+    code = lib.DTYPE_CODE[torch.bfloat16]
+    stream = torch.cuda.current_stream().cuda_stream
+    chosen, _ = chunk_prefill.plan(code, 1, C, H, KV, dh, Skv, sms)
+    csets = [(randn((1, C, H, dh)), randn((1, Skv, KV, dh)),
+              randn((1, Skv, KV, dh))) for _ in range(8)]
+    for ps in PC_PAGE_SIZES:
+        n_p = Skv // ps
+        n_pages = 4 * n_p + 1
+        pt = (torch.randperm(n_pages - 1, generator=gen, device=dev)[:n_p]
+              + 1).to(torch.int32)[None].contiguous()
+        pools = {}
+        for kind in ("fp", "int8"):
+            sets = []
+            for q, _, _ in csets:
+                k = randn((n_pages, ps, KV, dh))
+                v = randn((n_pages, ps, KV, dh))
+                if kind == "int8":
+                    (k, ks), (v, vs) = (quant.quantize(x, -1) for x in (k, v))
+                    sets.append((q, k, v, ks[..., 0].contiguous(),
+                                 vs[..., 0].contiguous()))
+                else:
+                    sets.append((q, k, v))
+            pools[kind] = sets
+        for off in PC_OFFSETS:
+            row = {"C": C, "offset": off, "page_size": ps,
+                   "plan_splits": chosen,
+                   "chunk_prefill_ms": dev_ms(
+                       lambda q, k, v, off=off: chunk_prefill.chunk_prefill(
+                           q, k, v, off, scale=scale), csets)}
+            refs = {"fp": dec_ref.paged_chunk_prefill_reference(
+                        *pools["fp"][0], pt, off, scale=scale),
+                    "int8": dec_ref.paged_chunk_prefill_reference_int8(
+                        *pools["int8"][0], pt, off, scale=scale)}
+            for i, (kind, stage, (w, mt, _, _)) in enumerate(PC_VARIANTS):
+                for n in CP_SPLITS:
+                    part = torch.empty(n * C * H * (dh + 2),
+                                       dtype=torch.float32, device=dev)
+
+                    def kern(q, k, v, ks=None, vs=None, i=i, n=n, part=part,
+                             off=off):
+                        out = torch.empty_like(q)
+                        lib.check("sweep_paged_chunk", so.sweep_paged_chunk(
+                            i, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            None if ks is None else ks.data_ptr(),
+                            None if vs is None else vs.data_ptr(),
+                            pt.data_ptr(), out.data_ptr(), part.data_ptr(),
+                            n, C, H, KV, dh, ps, n_p, n_pages, off, scale,
+                            stream))
+                        return out
+                    err, ok = cs.compare(torch, kern(*pools[kind][0]),
+                                         refs[kind], cs.ATTN_TOL["bf16"])
+                    name = (f"{kind} {stage} {16 * mt * w} rows ({w}w x "
+                            f"{16 * mt}) splits={n}")
+                    row[name] = {"ms": dev_ms(kern, pools[kind]),
+                                 "max_abs_err": err, "ok": ok}
+            result["paged_chunk_prefill"].append(row)
+            print(f"paged_chunk_prefill C={C} offset={off} page={ps} (plan: "
+                  f"the first of each pool, {chosen} splits): chunk_prefill "
+                  f"{ms_text(row['chunk_prefill_ms'])} ms | " + row_text(row),
+                  flush=True)
+        del pools
 
 
 if __name__ == "__main__":

@@ -16,29 +16,39 @@
 // (Pallas _paged_chunk_prefill_kernel) and paged_chunk_prefill_int8
 // (_paged_chunk_prefill_kernel_int8).  On the TPU one block holds all
 // group * C rows of one kv head in the (B, KV, group * C, dh) layout the
-// wrapper transposes q into, and the grid walks every one of the slot's
-// n_p pages through the scalar-prefetched table.  Here the design is
-// chunk_prefill.cu's: q is read in the model's layout by strides, the rows
-// are split over blocks of (32 chunk rows, one query head), 8 x 28 = 224
-// blocks at C = 256 on qwen2-7b, and each block's key loop ends at run time
-// at its causal edge q_offset + min(C, c0 + 32).  Only the addressing
-// changes: before each 32-key tile the block resolves the tile's page ids
-// once into shared memory, then loads the rows from those pages.  Keys past
-// the causal edge are never read, so the null page that pads a short page
-// table never adds to an output.  The fp and int8 kernels are two
-// instantiations of one template that differ only in how a K/V element
-// reaches the f32 tile (pool_elem in common.cuh: a cast, or int8 times its
-// row's f32 scale before any product, as at chunk_prefill.py:215-216).
-// The softmax is the TPU kernels': f32 running max and sum, -1e30 masks,
-// divide by max(l, 1e-30).
+// wrapper transposes q into, the grid walks every one of the slot's n_p
+// pages through the scalar-prefetched table, and int8 pages are
+// dequantized in f32 before the products (chunk_prefill.py:215-216).
 //
-// What bounds it on an H100: operations (7.5 GFLOP for C = 256 after 1792
-// cached keys on qwen2-7b, about 7.6 us at the bf16 tensor-core peak) more
-// than bytes (the slot's K/V pages, 4 MB in bf16, half that in int8).  This
-// first version runs f32 FMAs on the CUDA cores from 32 x 32 tiles staged
-// in shared memory, as chunk_prefill.cu does, so it sits far from that
-// bound; tensor-core MMA on bf16 tiles is a later change.
-#include "common.cuh"
+// What bounds it on an H100: operations (7.0 GFLOP for C = 256 at offset
+// 1792 on qwen2-7b, 7.1 us at the bf16 tensor-core peak; 0.11 ms at the
+// f32 FMA rate) more than bytes (the slot's K/V pages, 4 MB in bf16, half
+// that in int8).
+//
+// Design, bf16: the tensor-core kernel and ordered split combine of
+// chunk_tc.cuh, the body chunk_prefill.cu runs on a contiguous cache, on
+// PagedKV: q is read in the model's layout, the rows split over blocks of
+// (128 chunk rows, one query head) whose key ranges are split as the
+// contiguous kernel's (famous_chunk_prefill_plan with Skv = n_p * ps),
+// and only the addressing differs: each 64-key tile's page ids reach
+// shared memory a tile ahead, one read a page, and each key's pool row is
+// then copied by the same 16-byte cp.async.  Keys past a block's causal
+// edge are never read, so the null page that pads a short table never adds
+// to an output.  int8 pools keep their values exact in the bf16 tiles and
+// apply the f32 row scales to the scores (K, after Q K^T) and to P's
+// columns (V, before P is rounded for P V); their rows are staged through
+// an int8 ring of cp.async copies (kServeInt8Stage).  The softmax is
+// chunk_tc.cuh's: f32 running max and sum in log2 units, -inf masks,
+// divide by max(l, 1e-30).  On identity pages over a contiguous cache the
+// fp kernel gives chunk_prefill's bits.
+//
+// f32 (q and out f32; f32 or int8 pools): the CUDA-core kernel of the
+// first port, kept as chunk_prefill.cu keeps its own (f32 at 2e-5 is the
+// parity of the paged and contiguous kernels): one block per (32 chunk
+// rows, query head), 32 x 32 tiles in shared memory, each key's row
+// resolved through the page table before its tile is loaded, an int8
+// element dequantized (int8 times its row's scale) before any product.
+#include "chunk_tc.cuh"
 
 namespace famous {
 
@@ -190,21 +200,30 @@ static cudaError_t launch_paged_chunk(const void* q, const void* k, const void* 
   return cudaGetLastError();
 }
 
-static bool paged_chunk_args_ok(int H, int KV, int dh, int ps, int n_p, int n_pages,
-                                int q_offset) {
+// The int8 staging of the serving kernel (chunk_tc.cuh, KVStage): at the
+// serving geometry the int8 ring is 1-2% faster than register staging
+// (PERF.md's sweep); registers win only with 64-row blocks, which lose to
+// 128-row blocks on both.
+constexpr KVStage kServeInt8Stage = KVStage::kRing8;
+
+static bool paged_chunk_args_ok(int dtype, int H, int KV, int dh, int ps, int n_p, int n_pages,
+                                int q_offset, int splits, const void* part) {
   return KV > 0 && H % KV == 0 && dh > 0 && dh <= kPcMaxDh && ps > 0 && n_p > 0 &&
-         n_pages > 0 && q_offset >= 0;
+         n_pages > 0 && q_offset >= 0 && splits >= 1 && splits <= kTcMaxSplits &&
+         (splits == 1 || (part != nullptr && dtype == kBF16));
 }
 
 }  // namespace famous
 
+// part: the split workspace of famous_chunk_prefill_plan (with Skv =
+// n_p * ps) when splits > 1, else null; f32 takes one split.
 extern "C" int famous_paged_chunk_prefill(int dtype, const void* q, const void* k,
                                           const void* v, const void* page_table, void* out,
-                                          int B, int C, int H, int KV, int dh, int ps, int n_p,
-                                          int n_pages, int q_offset, float scale,
-                                          void* stream) {
+                                          void* part, int splits, int B, int C, int H, int KV,
+                                          int dh, int ps, int n_p, int n_pages, int q_offset,
+                                          float scale, void* stream) {
   using namespace famous;
-  if (!paged_chunk_args_ok(H, KV, dh, ps, n_p, n_pages, q_offset))
+  if (!paged_chunk_args_ok(dtype, H, KV, dh, ps, n_p, n_pages, q_offset, splits, part))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || C <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -214,9 +233,12 @@ extern "C" int famous_paged_chunk_prefill(int dtype, const void* q, const void* 
     e = launch_paged_chunk<float, float>(q, k, v, nullptr, nullptr, pt, out, B, C, H, KV, dh, ps,
                                          n_p, n_pages, q_offset, scale, s);
   else if (dtype == kBF16)
-    e = launch_paged_chunk<__nv_bfloat16, __nv_bfloat16>(q, k, v, nullptr, nullptr, pt, out, B,
-                                                         C, H, KV, dh, ps, n_p, n_pages,
-                                                         q_offset, scale, s);
+    e = launch_chunk_serve(
+        static_cast<const bf16*>(q),
+        PagedKV<bf16, KVStage::kCopy>{static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                                      nullptr, nullptr, pt, ps, n_p, n_pages, n_p * ps},
+        static_cast<bf16*>(out), static_cast<float*>(part), splits, B, C, H, KV, dh, q_offset,
+        scale, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);
@@ -225,11 +247,12 @@ extern "C" int famous_paged_chunk_prefill(int dtype, const void* q, const void* 
 extern "C" int famous_paged_chunk_prefill_int8(int dtype, const void* q, const void* k,
                                                const void* v, const void* k_scale,
                                                const void* v_scale, const void* page_table,
-                                               void* out, int B, int C, int H, int KV, int dh,
-                                               int ps, int n_p, int n_pages, int q_offset,
-                                               float scale, void* stream) {
+                                               void* out, void* part, int splits, int B, int C,
+                                               int H, int KV, int dh, int ps, int n_p,
+                                               int n_pages, int q_offset, float scale,
+                                               void* stream) {
   using namespace famous;
-  if (!paged_chunk_args_ok(H, KV, dh, ps, n_p, n_pages, q_offset))
+  if (!paged_chunk_args_ok(dtype, H, KV, dh, ps, n_p, n_pages, q_offset, splits, part))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || C <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -241,8 +264,13 @@ extern "C" int famous_paged_chunk_prefill_int8(int dtype, const void* q, const v
     e = launch_paged_chunk<float, int8_t>(q, k, v, ks, vs, pt, out, B, C, H, KV, dh, ps, n_p,
                                           n_pages, q_offset, scale, s);
   else if (dtype == kBF16)
-    e = launch_paged_chunk<__nv_bfloat16, int8_t>(q, k, v, ks, vs, pt, out, B, C, H, KV, dh, ps,
-                                                  n_p, n_pages, q_offset, scale, s);
+    e = launch_chunk_serve(
+        static_cast<const bf16*>(q),
+        PagedKV<int8_t, kServeInt8Stage>{static_cast<const int8_t*>(k),
+                                         static_cast<const int8_t*>(v), ks, vs, pt, ps, n_p,
+                                         n_pages, n_p * ps},
+        static_cast<bf16*>(out), static_cast<float*>(part), splits, B, C, H, KV, dh, q_offset,
+        scale, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

@@ -3,24 +3,31 @@
 On CUDA tensors ``chunk_prefill`` launches the hand-written kernel of
 ``kernels/csrc/chunk_prefill.cu`` (the port of the Pallas
 ``_chunk_prefill_kernel`` in ``repro/kernels/decode/chunk_prefill.py``):
-in bf16, flash attention on tensor cores over blocks of (64 chunk rows,
-one query head), q and the slot's cache stripe read in place by strides,
-each block's key loop ending at run time at the last key its rows can see;
-f32 keeps the CUDA-core kernel.  ``q_offset`` is a plain integer argument
-of the launch, so one build serves every offset.  The bf16 kernel may
-split each block's key range over several blocks (:func:`plan`, from
-static shapes only); their f32 partials go to a workspace allocated here
-and the kernel's second pass combines them in a fixed order (one launch
-count per call, bit-identical relaunches).  On CPU tensors it runs the
-plain version in :mod:`repro_torch.kernels.decode.ref` (where
+in bf16, flash attention on tensor cores over blocks of (128 chunk rows,
+one query head; 64 at dh 256), q and the slot's cache stripe read in
+place by strides, each block's key loop ending at run time at the last
+key its rows can see; f32 keeps the CUDA-core kernel.  ``q_offset`` is a
+plain integer argument of the launch, so one build serves every offset.
+The bf16 kernel may split each block's key range over several blocks
+(:func:`plan`, from static shapes only); their f32 partials go to a
+workspace allocated here and the kernel's second pass combines them in a
+fixed order (one launch count per call, bit-identical relaunches).  On
+CPU tensors it runs the plain version in
+:mod:`repro_torch.kernels.decode.ref` (where
 ``chunk_prefill_tc_reference`` mirrors the tensor-core algebra for the
 tests).
 
 ``paged_chunk_prefill`` and ``paged_chunk_prefill_int8`` launch the
 kernels of ``kernels/csrc/paged_chunk_prefill.cu`` (the ports of the
-Pallas ``_paged_chunk_prefill_kernel`` and its int8 twin): the same
-design, reading each key through the slot's page table from a shared
-(n_pages, page_size, KV, dh) pool, f32/bf16 or int8 with f32 scales.
+Pallas ``_paged_chunk_prefill_kernel`` and its int8 twin), reading each
+key through the slot's page table from a shared (n_pages, page_size, KV,
+dh) pool, bf16/f32 or int8 with f32 scales.  In bf16 they run the
+contiguous kernel's tensor-core body (``kernels/csrc/chunk_tc.cuh``) with
+paged addressing, split as :func:`plan` splits a cache of n_p * page_size
+keys (int8 values exact in the bf16 tiles, the K scale on the scores, the
+V scale on P's columns); f32 keeps the CUDA-core kernel.  On CPU tensors
+they run the plain versions (``ref.paged_chunk_prefill_tc_reference``
+and its int8 twin mirror the tensor-core algebra for the tests).
 """
 from __future__ import annotations
 
@@ -138,13 +145,18 @@ def _launch_paged(name, q, k_pages, v_pages, k_scale, v_scale, page_table,
     if not q.is_contiguous():
         raise ValueError(f"{name}: q must be contiguous")
     out = torch.empty_like(q)
+    # split as the contiguous kernel splits a cache of the table's keys
+    splits, n_ws = plan(code, B, C, H, KV, dh, n_p * ps,
+                        lib.sm_count(q.device))
+    ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
     so = lib.load()
     ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()]
     if int8:
         ptrs += [k_scale.data_ptr(), v_scale.data_ptr()]
     err = getattr(so, f"famous_{name}")(
-        code, *ptrs, page_table.data_ptr(), out.data_ptr(), B, C, H, KV, dh,
-        ps, n_p, n_pages, q_offset, float(scale), lib.stream_of(q))
+        code, *ptrs, page_table.data_ptr(), out.data_ptr(),
+        ws.data_ptr() if n_ws else None, splits, B, C, H, KV, dh, ps, n_p,
+        n_pages, q_offset, float(scale), lib.stream_of(q))
     lib.check(name, err)
     lib.STATS.launches[name] += 1
     return out

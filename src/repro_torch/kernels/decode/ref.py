@@ -183,14 +183,27 @@ def chunk_prefill_tc_reference(q, k_cache, v_cache, q_offset: int, *,
     m); the result is O / max(l, 1e-30).  Used by the tests and
     ``chip_smoke.py`` only, never on the serving path."""
     _count("chunk_prefill", q)
+
+    def keys(k0, k1):
+        return (k_cache[:, k0:k1].to(torch.float32),
+                v_cache[:, k0:k1].to(torch.float32), None, None)
+
+    return _chunk_tc(q, keys, k_cache.shape[1], k_cache.shape[2], q_offset,
+                     scale, splits, block_rows, tile_keys)
+
+
+def _chunk_tc(q, keys, Skv, KV, q_offset, scale, splits, block_rows,
+              tile_keys):
+    """The tensor-core chunk algebra (see :func:`chunk_prefill_tc_reference`)
+    over a key source: ``keys(k0, k1)`` gives keys [k0, k1) as f32 K and V
+    rows (B, k1 - k0, KV, dh) and, for int8 pools, their f32 K and V scales
+    (B, k1 - k0, KV), else None: the K scale multiplies the scores after
+    Q K^T, the V scale P's columns before P is rounded for P V."""
     B, C, H, dh = q.shape
-    Skv, KV = k_cache.shape[1], k_cache.shape[2]
     g = H // KV
     rnd = q.dtype == torch.bfloat16
     sl = scale * 1.4426950408889634
     qf = q.to(torch.float32).reshape(B, C, KV, g, dh).permute(0, 2, 3, 1, 4)
-    kf = k_cache.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]
-    vf = v_cache.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]
     out = torch.empty_like(qf)                            # (B, KV, g, C, dh)
     for c0 in range(0, C, block_rows):
         c1 = min(C, c0 + block_rows)
@@ -206,8 +219,11 @@ def chunk_prefill_tc_reference(q, k_cache, v_cache, q_offset: int, *,
             t_lo = min(nt, z * tps)
             for t in range(t_lo, min(nt, t_lo + tps)):
                 k0, k1 = t * tile_keys, min(kend, (t + 1) * tile_keys)
-                s = (qf[..., c0:c1, :] @ kf[..., k0:k1, :].transpose(-1, -2)
-                     * sl)
+                k, v, ks, vs = keys(k0, k1)
+                s = qf[..., c0:c1, :] @ k.permute(0, 2, 3, 1)[:, :, None]
+                if ks is not None:
+                    s = s * ks.permute(0, 2, 1)[:, :, None, None]
+                s = s * sl
                 ok = (torch.arange(k0, k1, device=q.device)[None, :]
                       <= lim[:, None])
                 s = torch.where(ok, s, -1e30)
@@ -215,9 +231,12 @@ def chunk_prefill_tc_reference(q, k_cache, v_cache, q_offset: int, *,
                 corr = torch.exp2(m - mx)
                 p = torch.where(ok, torch.exp2(s - mx[..., None]), 0.0)
                 l = l * corr + p.sum(-1)
+                if vs is not None:
+                    p = p * vs.permute(0, 2, 1)[:, :, None, None]
                 if rnd:
                     p = p.to(torch.bfloat16).to(torch.float32)
-                o = o * corr[..., None] + p @ vf[..., k0:k1, :]
+                o = (o * corr[..., None]
+                     + p @ v.permute(0, 2, 1, 3)[:, :, None])
                 m = mx
             parts.append((m, l, o))
         M = torch.stack([m for m, _, _ in parts]).amax(0)
@@ -294,3 +313,55 @@ def paged_chunk_prefill_reference_int8(q, k_pages, v_pages, k_scale,
     return _chunk(q, gather_pages_int8(k_pages, k_scale, page_table),
                   gather_pages_int8(v_pages, v_scale, page_table),
                   q_offset, scale)
+
+
+def paged_chunk_prefill_tc_reference(q, k_pages, v_pages, page_table,
+                                     q_offset: int, *, scale: float,
+                                     splits: int = 1, block_rows: int = 128,
+                                     tile_keys: int = 64):
+    """The bf16 paged chunk kernel's algebra, in f32: the algebra of
+    :func:`chunk_prefill_tc_reference` over the n_p * page_size keys of
+    each slot's row of ``page_table`` ((B, n_p) page ids into (n_pages,
+    page_size, KV, dh) pools), as the kernel reads them: key pos is row
+    pos % page_size of page page_table[b, pos // page_size], an id outside
+    [0, n_pages) reads the null page 0.  Used by the tests and
+    ``chip_smoke.py`` only, never on the serving path."""
+    _count("paged_chunk_prefill", q)
+    return _paged_chunk_tc(q, k_pages, v_pages, None, None, page_table,
+                           q_offset, scale, splits, block_rows, tile_keys)
+
+
+def paged_chunk_prefill_tc_reference_int8(q, k_pages, v_pages, k_scale,
+                                          v_scale, page_table, q_offset: int,
+                                          *, scale: float, splits: int = 1,
+                                          block_rows: int = 128,
+                                          tile_keys: int = 64):
+    """:func:`paged_chunk_prefill_tc_reference` on int8 pools with f32
+    (n_pages, page_size, KV) scale pools, as the int8 kernel applies the
+    scales: the int8 values enter Q K^T and P V exactly, each key's K scale
+    multiplies its score column after Q K^T (before the softmax scale),
+    and its V scale multiplies P's column before P is rounded to bf16 for
+    P V; l sums the unscaled P."""
+    _count("paged_chunk_prefill_int8", q)
+    return _paged_chunk_tc(q, k_pages, v_pages, k_scale, v_scale, page_table,
+                           q_offset, scale, splits, block_rows, tile_keys)
+
+
+def _paged_chunk_tc(q, k_pages, v_pages, k_scale, v_scale, page_table,
+                    q_offset, scale, splits, block_rows, tile_keys):
+    n_pages, ps = k_pages.shape[:2]
+    pt = page_table.to(device=q.device, dtype=torch.long)
+    pt = torch.where((pt >= 0) & (pt < n_pages), pt, 0)
+
+    def keys(k0, k1):
+        pos = torch.arange(k0, k1, device=q.device)
+        ids, off = pt[:, pos // ps], pos % ps                 # (B, n)
+
+        def scales(sc):
+            return None if sc is None else sc[ids, off].to(torch.float32)
+        return (k_pages[ids, off].to(torch.float32),
+                v_pages[ids, off].to(torch.float32), scales(k_scale),
+                scales(v_scale))
+
+    return _chunk_tc(q, keys, pt.shape[1] * ps, k_pages.shape[2], q_offset,
+                     scale, splits, block_rows, tile_keys)

@@ -175,13 +175,14 @@ _SIGNATURES = {
     # rows, H, KV, dh, n_p * page_size, pool element bytes, SM count,
     # [out] workspace elements -> keys per range
     "famous_paged_decode_attention_plan": [_I, _I, _I, _I, _I, _I, _I, _PLL],
-    # dtype, q, k, v, [k_scale, v_scale,] page_table, out,
-    # B, C, H, KV, dh, page_size, n_p, n_pages, q_offset, scale, stream
-    "famous_paged_chunk_prefill": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                   _I, _I, _I, _I, _I, _F, _P],
-    "famous_paged_chunk_prefill_int8": [_I, _P, _P, _P, _P, _P, _P, _P, _I,
-                                        _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                                        _P],
+    # dtype, q, k, v, [k_scale, v_scale,] page_table, out, split
+    # workspace (or null), splits, B, C, H, KV, dh, page_size, n_p,
+    # n_pages, q_offset, scale, stream
+    "famous_paged_chunk_prefill": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "famous_paged_chunk_prefill_int8": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                        _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                        _I, _F, _P],
     # dtype, a, b, out, B, S, R, stream
     "famous_rglru_scan": [_I, _P, _P, _P, _I, _I, _I, _P],
     # dtype (r, k, v), logw dtype, r, k, v, logw, u, s0 (or null), out,
@@ -225,7 +226,7 @@ def check(name: str, err: int) -> None:
 @functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device (the plans of
-    ``matmul_tiled``, ``chunk_prefill`` and the decode kernels size their
+    ``matmul_tiled``, the chunk kernels and the decode kernels size their
     grids by it)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
