@@ -123,6 +123,18 @@ ATTN_TOL = {"f32": 2e-5, "bf16": 2e-2}
 DECODE_NEW_TOL = {"f32": ATTN_TOL["f32"], "bf16": 2e-3}
 L2_BYTES = 50 * 2**20
 BWD_TOL = {"f32": 1e-4, "bf16": 1e-4}          # f32 math on the same inputs
+# the bf16 dk/dv kernel against the plain mirror of its tensor-core
+# algebra (the same hi + lo products; the f32 summation order and
+# ex2.approx differ): BWD_TOL, since the order alone moves qwen2-7b's dk by
+# 4.4e-5 (the f32 kernel against the plain version, PERF.md)
+BWD_MIRROR_TOL = BWD_TOL["bf16"]
+# the bf16 forward against its mirror: the output on the rows that see at
+# least 256 keys, the LSE on every row.  Kernel and mirror round P to bf16
+# from f32 values an ulp or two apart (ex2.approx against exp2), and a
+# flipped rounding moves a row's output by up to 2^-8 p |v| / l: with
+# unit-variance scores l is about 6 at 64 keys (where qwen2-7b's rows used
+# 0.85 of 2e-3 on an H100) and about 16 at 256
+MIRROR_MIN_KEYS = 256
 SERVING_KERNELS = ("matmul_tiled", "decode_attention", "chunk_prefill")
 PAGED_KERNELS = {"fp": ("paged_decode_attention", "paged_chunk_prefill"),
                  "int8": ("paged_decode_attention_int8",
@@ -168,6 +180,16 @@ SERVING_PROJ = tuple((T, 3584, 4608) for T in (4, 256, 1, 17, 100)) + (
 # name, B, S, H, KV, dh, causal
 TRAIN_ATTN = (("famous-bert", 8, 512, 8, 8, 96, False),
               ("qwen2-7b", 1, 2048, 28, 4, 128, True))
+# the masks of the bf16 tensor-core bodies on qwen2-7b's heads: name, B,
+# Sq, Skv, H, KV, dh, causal, window, q_offset.  A 512-key window; the
+# last 128 rows of a 4096-token sequence (few row blocks, so the forward
+# splits its key range and its combine writes the LSE); and a window
+# whose rows 27-63 see no key (their output must be exactly 0 and their
+# LSE finite, near -1e30)
+MASK_ATTN = (("qwen2-7b window=512", 1, 2048, 2048, 28, 4, 128, True, 512, 0),
+             ("qwen2-7b q_offset=3968", 1, 128, 4096, 28, 4, 128, True, 0,
+              3968),
+             ("qwen2-7b empty rows", 1, 64, 64, 28, 4, 128, True, 64, 100))
 # the QKV projection's VJP at the same two training shapes: T = B*S, D, F
 TRAIN_PROJ = (("famous-bert", 8 * 512, 768, 3 * 768),
               ("qwen2-7b", 2048, 3584, 3584 + 2 * 512))
@@ -263,6 +285,16 @@ def bound(nbytes: float, flops: float, dt: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def tol_share(torch, out, ref, tol):
+    """The largest |out - ref| / (tol + tol |ref|): how much of its
+    tolerance a check used (at most 1 where it passed)."""
+    if isinstance(out, (tuple, list)):
+        return max(tol_share(torch, o, r, tol) for o, r in zip(out, ref))
+    out, ref = out.float(), ref.float()
+    share = (out - ref).abs() / (tol + tol * ref.abs())
+    return float(share.max()) if share.numel() else 0.0
+
+
 def compare(torch, out, ref, tol):
     """Max |out - ref| and whether every element is within
     tol + tol * |ref| and finite; tuples compare element by element."""
@@ -273,7 +305,7 @@ def compare(torch, out, ref, tol):
     err = (out - ref).abs()
     ok = bool(torch.all(err <= tol + tol * ref.abs())) and bool(
         torch.isfinite(out).all())
-    return float(err.max()), ok
+    return (float(err.max()) if err.numel() else 0.0), ok
 
 
 # ---------------------------------------------------------------------------
@@ -306,7 +338,10 @@ def kernel_phase(torch, iters, seed):
         """One kernel row.  ``again``: a second launch's output on the
         same inputs, which must equal ``out`` bit for bit."""
         err, ok = compare(torch, out, ref, tol)
-        identical = None if again is None else bool(torch.equal(out, again))
+        share = tol_share(torch, out, ref, tol)
+        identical = None if again is None else all(
+            torch.equal(a, b) for a, b in (
+                zip(out, again) if isinstance(out, tuple) else [(out, again)]))
         ok = ok and identical is not False
         lib_sets = lib_sets or sets
         ms = time_ms(torch, fn, sets, n_iter)
@@ -323,16 +358,16 @@ def kernel_phase(torch, iters, seed):
         plain_ms = time_ms(torch, plain, sets, max(3, n_iter // 4))
         b_ms, b_by = bound(nbytes, flops, ops_dt or dt)
         row = dict(name=name, shape=shape, dtype=dt, max_abs_err=err, tol=tol,
-                   ok=ok, ms=ms, timed_by=timed_by, plain_ms=plain_ms,
-                   library_ms=library_ms, device_ms=dev_ms,
+                   tol_share=share, ok=ok, ms=ms, timed_by=timed_by,
+                   plain_ms=plain_ms, library_ms=library_ms, device_ms=dev_ms,
                    bit_identical=identical,
                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
         rows.append(row)
         same = "" if identical is None else \
             f" relaunch {'bit-identical' if identical else 'DIFFERS'}"
         print(f"kernel {name:17s} {shape:34s} {dt:4s} max_abs_err={err:.3e} "
-              f"(tol {tol:g}) kernel_ms={ms:.4f} ({timed_by}) "
-              f"plain_ms={plain_ms:.4f} "
+              f"(tol {tol:g}, {share:.2f} of it) kernel_ms={ms:.4f} "
+              f"({timed_by}) plain_ms={plain_ms:.4f} "
               f"library_ms={library_ms if library_ms is None else round(library_ms, 4)} "
               f"bound_ms={b_ms:.4f} ({b_by}){same} {'ok' if ok else 'FAIL'}",
               flush=True)
@@ -829,81 +864,19 @@ def training_kernel_rows(torch, F, dts, randn, record, iters):
     backward kernels (library: that call's backward, timed as
     ``torch.autograd.grad(out, (q, k, v), dout, retain_graph=True)``, the
     same number for both), and the QKV projection's VJP products dX and dW
-    on their transposed contiguous operands (library: ``torch.matmul``)."""
-    from repro_torch.kernels.attention import mha as mha_k
-    from repro_torch.kernels.attention import ref as mha_ref
+    on their transposed contiguous operands (library: ``torch.matmul``).
+    The forward and dk/dv are relaunched on the same inputs (the bits must
+    agree) and, in bf16, held to the plain mirrors of their tensor-core
+    algebra; MASK_ATTN's rows run every mask of those bodies."""
     from repro_torch.kernels.qkv import qkv_proj
     from repro_torch.kernels.qkv import ref as qkv_ref
 
     slow = max(5, iters // 5)
     for label, B, S, H, KV, dh, causal in TRAIN_ATTN:
-        kw = dict(causal=causal, window=0, scale=dh ** -0.5, q_offset=0)
-        shape = (f"{label} B={B} S={S} H={H} KV={KV} dh={dh} "
-                 f"{'causal' if causal else 'full'}")
-        # (query, key) pairs this run's mask leaves visible
-        pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
-        rows_bytes = B * H * S * 4                     # one f32 (BH, S) row
-        for dt, dtype in dts.items():
-            e = torch.tensor([], dtype=dtype).element_size()
-            qn, kn = B * H * S * dh, B * KV * S * dh
-            sets = [(randn((B * H, S, dh), dtype), randn((B * KV, S, dh), dtype),
-                     randn((B * KV, S, dh), dtype))
-                    for _ in range(n_sets((2 * qn + 2 * kn) * e))]
-
-            def kern_f(q, k, v):
-                return mha_k.mha_forward(q, k, v, return_lse=True, **kw)
-
-            def plain_f(q, k, v):
-                return mha_ref.mha_forward_reference(q, k, v, **kw)
-
-            def lib_f(q, k, v):
-                return F.scaled_dot_product_attention(
-                    q.view(B, H, S, dh), k.view(B, KV, S, dh),
-                    v.view(B, KV, S, dh), is_causal=causal,
-                    scale=kw["scale"], enable_gqa=True)
-
-            q, k, v = sets[0]
-            out, ref = kern_f(q, k, v), plain_f(q, k, v)
-            lib_err, _ = compare(torch, lib_f(q, k, v).reshape(out[0].shape),
-                                 ref[0], ATTN_TOL[dt])
-            print(f"  (library vs plain max_abs_err {lib_err:.3e})")
-            record("mha_forward", shape, dt, out, ref, ATTN_TOL[dt], kern_f,
-                   plain_f, lib_f, sets, (2 * qn + 2 * kn) * e + rows_bytes,
-                   4.0 * dh * pairs, n_iter=slow)
-
-            # backward inputs: the plain forward's residuals and a cotangent
-            bsets, lsets = [], []
-            for q, k, v in sets:
-                o, lse = plain_f(q, k, v)
-                do = randn((B * H, S, dh), dtype)
-                delta = (do.float() * o.float()).sum(-1)
-                bsets.append((q, k, v, do, lse, delta))
-                lq, lk, lv = (t.detach().clone().requires_grad_()
-                              for t in (q, k, v))
-                lo = lib_f(lq, lk, lv)
-                lsets.append((lo, (lq, lk, lv), do.view(lo.shape)))
-            del sets
-
-            def lib_b(lo, leaves, g):
-                return torch.autograd.grad(lo, leaves, g, retain_graph=True)
-
-            in_bytes = (2 * qn + 2 * kn) * e + 2 * rows_bytes
-            for name, kern, plain, nbytes, flops in (
-                    ("mha_bwd_dq", mha_k.mha_bwd_dq, mha_ref.mha_bwd_dq_reference,
-                     in_bytes + qn * 4, 6.0 * dh * pairs),
-                    ("mha_bwd_dkv", mha_k.mha_bwd_dkv,
-                     mha_ref.mha_bwd_dkv_reference, in_bytes + 2 * kn * 4,
-                     8.0 * dh * pairs)):
-                def kfn(*a, kern=kern):
-                    return kern(*a, **kw)
-
-                def pfn(*a, plain=plain):
-                    return plain(*a, **kw)
-
-                out, ref = kfn(*bsets[0]), pfn(*bsets[0])
-                record(name, shape, dt, out, ref, BWD_TOL[dt], kfn, pfn, lib_b,
-                       bsets, nbytes, flops, n_iter=slow, lib_sets=lsets)
-            del bsets, lsets
+        attention_rows(torch, F, dts, randn, record, slow, label, B, S, S, H,
+                       KV, dh, causal, 0, 0)
+    for args in MASK_ATTN:
+        attention_rows(torch, F, dts, randn, record, slow, *args)
 
     for label, T, D, Fo in TRAIN_PROJ:
         for dt, dtype in dts.items():
@@ -919,6 +892,143 @@ def training_kernel_rows(torch, F, dts, randn, record, iters):
                        qkv_proj.matmul_tiled, qkv_ref.matmul_reference,
                        torch.matmul, sets, (m * kd + kd * n + m * n) * e,
                        2.0 * m * kd * n, n_iter=slow)
+
+
+def attention_rows(torch, F, dts, randn, record, n_iter, label, B, Sq, Skv, H,
+                   KV, dh, causal, window, q_offset):
+    """``mha_forward``, ``mha_bwd_dq`` and ``mha_bwd_dkv`` at one shape and
+    mask (see :func:`training_kernel_rows`)."""
+    from repro_torch.kernels import lib
+    from repro_torch.kernels.attention import mha as mha_k
+    from repro_torch.kernels.attention import ref as mha_ref
+
+    kw = dict(causal=causal, window=window, scale=dh ** -0.5,
+              q_offset=q_offset)
+    shape = (f"{label} B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} dh={dh} "
+             f"{'causal' if causal else 'full'}")
+    dev = torch.device("cuda")
+    ok_mask = mha_ref.visible(Sq, Skv, causal=causal, window=window,
+                              q_offset=q_offset, device=dev)
+    # (query, key) pairs this run's mask leaves visible
+    pairs = B * H * int(ok_mask.sum())
+    rows_bytes = B * H * Sq * 4                    # one f32 (BH, Sq) row
+    empty = ~ok_mask.any(-1)                       # rows that see no key
+    for dt, dtype in dts.items():
+        e = torch.tensor([], dtype=dtype).element_size()
+        code = lib.DTYPE_CODE[dtype]
+        qn, kn = B * H * Sq * dh, B * KV * Skv * dh
+        sets = [(randn((B * H, Sq, dh), dtype),
+                 randn((B * KV, Skv, dh), dtype),
+                 randn((B * KV, Skv, dh), dtype))
+                for _ in range(n_sets((2 * qn + 2 * kn) * e))]
+
+        def kern_f(q, k, v):
+            return mha_k.mha_forward(q, k, v, return_lse=True, **kw)
+
+        def plain_f(q, k, v):
+            return mha_ref.mha_forward_reference(q, k, v, **kw)
+
+        def lib_f(q, k, v):
+            return F.scaled_dot_product_attention(
+                q.view(B, H, Sq, dh), k.view(B, KV, Skv, dh),
+                v.view(B, KV, Skv, dh), is_causal=causal and not window
+                and not q_offset, attn_mask=ok_mask if window or q_offset
+                else None, scale=kw["scale"], enable_gqa=True)
+
+        q, k, v = sets[0]
+        out, ref = kern_f(q, k, v), plain_f(q, k, v)
+        full = ~empty   # SDPA gives NaN on a row that sees no key
+        lib_err, _ = compare(torch, lib_f(q, k, v).reshape(out[0].shape)[
+            :, full], ref[0][:, full], ATTN_TOL[dt])
+        print(f"  (library vs plain max_abs_err {lib_err:.3e})")
+        record("mha_forward", shape, dt, out, ref, ATTN_TOL[dt], kern_f,
+               plain_f, lib_f, sets, (2 * qn + 2 * kn) * e + rows_bytes,
+               4.0 * dh * pairs, n_iter=n_iter, again=kern_f(q, k, v))
+        if bool(empty.any()):
+            zero = bool(torch.all(out[0][:, empty] == 0))
+            lse_e = out[1][:, empty]
+            lse_ok = bool(torch.isfinite(lse_e).all()) and bool(
+                torch.all(lse_e <= -1e29))
+            print(f"  (mha_forward {dt}: {int(empty.sum())} rows see no key: "
+                  f"output {'exactly 0' if zero else 'NOT 0'}, LSE "
+                  f"{'finite, near -1e30' if lse_ok else 'WRONG'} "
+                  f"[{float(lse_e.min()):.3e}, {float(lse_e.max()):.3e}]) "
+                  f"{'ok' if zero and lse_ok else 'FAIL'}", flush=True)
+            check(zero and lse_ok, f"mha_forward {dt} {shape}: empty rows "
+                  f"zero {zero}, LSE ok {lse_ok}")
+        if dt == "bf16":
+            splits, _ = mha_k.forward_plan(code, B * H, B * KV, Sq, Skv, dh,
+                                           lib.sm_count(dev))
+            # against the mirror's f32 output, which the kernel rounds once
+            mirror = mha_ref.mha_forward_tc_reference(
+                q, k, v, splits=splits, round_out=False, **kw)
+            many = ok_mask.sum(-1) >= MIRROR_MIN_KEYS
+            m_err, m_ok = compare(
+                torch, (out[0][:, many], out[1]), (mirror[0][:, many],
+                                                   mirror[1]),
+                DECODE_NEW_TOL[dt])
+            few = float((out[0][:, ~many].float() - mirror[0][:, ~many])
+                        .abs().max()) if bool((~many).any()) else 0.0
+            print(f"  (rows that see under {MIRROR_MIN_KEYS} keys: "
+                  f"{int((~many).sum())}, output vs the mirror max_abs_err "
+                  f"{few:.3e}, held to the plain version at "
+                  f"{ATTN_TOL[dt]:g})")
+            mirror_check("mha_forward", dt, shape, splits, m_err, m_ok,
+                         DECODE_NEW_TOL[dt], tol_share(
+                             torch, (out[0][:, many], out[1]),
+                             (mirror[0][:, many], mirror[1]),
+                             DECODE_NEW_TOL[dt]))
+
+        # backward inputs: the plain forward's residuals and a cotangent
+        bsets, lsets = [], []
+        for q, k, v in sets:
+            o, lse = plain_f(q, k, v)
+            do = randn((B * H, Sq, dh), dtype)
+            delta = (do.float() * o.float()).sum(-1)
+            bsets.append((q, k, v, do, lse, delta))
+            lq, lk, lv = (t.detach().clone().requires_grad_()
+                          for t in (q, k, v))
+            lo = lib_f(lq, lk, lv)
+            lsets.append((lo, (lq, lk, lv), do.view(lo.shape)))
+        del sets
+
+        def lib_b(lo, leaves, g):
+            return torch.autograd.grad(lo, leaves, g, retain_graph=True)
+
+        in_bytes = (2 * qn + 2 * kn) * e + 2 * rows_bytes
+        for name, kern, plain, nbytes, flops in (
+                ("mha_bwd_dq", mha_k.mha_bwd_dq, mha_ref.mha_bwd_dq_reference,
+                 in_bytes + qn * 4, 6.0 * dh * pairs),
+                ("mha_bwd_dkv", mha_k.mha_bwd_dkv,
+                 mha_ref.mha_bwd_dkv_reference, in_bytes + 2 * kn * 4,
+                 8.0 * dh * pairs)):
+            def kfn(*a, kern=kern):
+                return kern(*a, **kw)
+
+            def pfn(*a, plain=plain):
+                return plain(*a, **kw)
+
+            out, ref = kfn(*bsets[0]), pfn(*bsets[0])
+            record(name, shape, dt, out, ref, BWD_TOL[dt], kfn, pfn, lib_b,
+                   bsets, nbytes, flops, n_iter=n_iter, lib_sets=lsets,
+                   again=kfn(*bsets[0]) if name == "mha_bwd_dkv" else None)
+            if name == "mha_bwd_dkv" and dt == "bf16":
+                splits, _ = mha_k.dkv_plan(code, B * H, B * KV, Sq, Skv, dh,
+                                           lib.sm_count(dev))
+                mirror = mha_ref.mha_bwd_dkv_tc_reference(
+                    *bsets[0], splits=splits, **kw)
+                m_err, m_ok = compare(torch, out, mirror, BWD_MIRROR_TOL)
+                mirror_check(name, dt, shape, splits, m_err, m_ok,
+                             BWD_MIRROR_TOL, tol_share(torch, out, mirror,
+                                                       BWD_MIRROR_TOL))
+        del bsets, lsets
+
+
+def mirror_check(name, dt, shape, splits, err, ok, tol, share):
+    print(f"  ({name} {dt} {shape}: vs the tensor-core mirror ({splits} "
+          f"splits) max_abs_err {err:.3e} (tol {tol:g}, {share:.2f} of it)) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, f"{name} {dt} {shape}: mirror error {err}")
 
 
 def scan_kernel_rows(torch, dts, randn, record, iters):
@@ -1007,7 +1117,8 @@ def scan_kernel_rows(torch, dts, randn, record, iters):
 
 def table_one_phase(torch, seed):
     """examples/quickstart.py on the card: SL=64, d_model=768, h=8, f32,
-    non-causal; the xla and pallas impls against the reference."""
+    non-causal; the xla and pallas impls against the reference; then the
+    pallas impl in bf16 against the reference on the same inputs."""
     from repro_torch.core import famous
 
     dev = torch.device("cuda")
@@ -1034,6 +1145,21 @@ def table_one_phase(torch, seed):
           f"{errs['pallas']:.2e} (limit 1e-4) {'ok' if ok else 'FAIL'}",
           flush=True)
     check(ok, f"Table I impls disagree: {errs}")
+
+    # bf16: the pallas impl (the tensor-core forward, dh = 96) against the
+    # reference on the same bf16 inputs, at the kernels' bf16 tolerance
+    tiles = dict(tile_d=64, tile_q=64, tile_k=64)
+    bq, bk, bv = (t.to(torch.bfloat16) for t in famous.qkv_projection(
+        x, *ws, cfg=famous.FamousConfig(impl="reference", **tiles)))
+    outs_bf16 = {impl: famous.attention(
+        bq, bk, bv, causal=False, cfg=famous.FamousConfig(impl=impl, **tiles))
+        for impl in ("reference", "pallas")}
+    b_err, b_ok = compare(torch, outs_bf16["pallas"], outs_bf16["reference"],
+                          ATTN_TOL["bf16"])
+    print(f"table I bf16: max|pallas - reference| = {b_err:.2e} (tol "
+          f"{ATTN_TOL['bf16']:g}) {'ok' if b_ok else 'FAIL'}", flush=True)
+    check(b_ok, f"Table I bf16 impls disagree: {b_err}")
+    errs["bf16_pallas"] = b_err
 
     # the paper's 8-bit projection: the int8 kernel (pallas) against plain
     # torch ops (xla: int8_einsum), exactly on the projection; mha_block
@@ -2069,11 +2195,14 @@ def kernel_group(key, names):
     source: ``PagedRows`` for the paged decode kernels and ``PagedKV`` for
     the paged chunk kernels (an int8 instantiation reads ``signed char``
     pools), ``ContigRows`` for ``decode_attention`` and ``ContigKV`` for
-    ``chunk_prefill``; the f32 paged chunk kernel by its symbol and pool
+    ``chunk_prefill``, except on its ``FlatQ`` query side, which is the
+    bf16 ``mha_forward``; the f32 paged chunk kernel by its symbol and pool
     type likewise; the int8 projection's symbol is ``matmul_int8_kernel``;
     the others by their name."""
     if "matmul_int8_kernel" in key:
         return "matmul_tiled_int8"
+    if "FlatQ" in key:
+        return "mha_forward"
     for sym, name in (("PagedRows", "paged_decode_attention"),
                       ("PagedKV", "paged_chunk_prefill"),
                       ("paged_chunk_prefill_kernel", "paged_chunk_prefill")):

@@ -28,7 +28,16 @@ card:
   the int8 pools' two stagings (``chunk_tc.cuh``'s KVStage: an int8
   cp.async ring, or registers) and 128- and 64-row blocks, each at split
   counts 1-4, against ``chunk_prefill`` on a contiguous cache of the same
-  shape through its own entry point.
+  shape through its own entry point;
+- ``mha_forward`` and ``mha_bwd_dkv`` bf16 at the two training shapes
+  (famous-bert B=8 S=512 8 heads of 96, full; qwen2-7b B=1 S=2048 28 / 4
+  heads of 128, causal): the forward at 128- and 64-row blocks, dh 96
+  native against padded to 128, longest-first row blocks against natural
+  order; dk/dv at 64 and 128 keys a block, 64- and 32-row query items, dh
+  96 native against padded, split counts 1 / 2 / 4 / 7, and its hi + lo
+  products against a one-pass variant that rounds P^T and dS^T to bf16
+  once (timing only: it fails the 1e-4 gate and is not shipped); each
+  against SDPA's forward or its whole backward on the same clock.
 
 Each variant is built from the committed sources (a generated file that
 includes the kernel's ``.cu`` and instantiates the variant; the paged L
@@ -89,6 +98,21 @@ DEC_SHAPES = [("table", 4, 28, 4, 128, [1, 37, 1000, 2048]),
               ("recurrentgemma-2b step", 4, 10, 1, 256, [1025] * 4)]
 DEC_SKV = 2048
 DEC_L = [16, 32, 64, 128, 256]
+# mha_forward variants (chunk_tc.cuh's TcTiles warps, 16-row m-tiles a
+# warp) x padded head dims; the first tiling at the smallest DP is the
+# kernel's own
+MHA_FWD_TILES = [(4, 2), (4, 1)]
+MHA_DPS = [96, 128]
+# mha_bwd_dkv variants (mha_bwd_dkv.cu's DkvTiles: keys a block, query
+# rows an item, hi + lo products); the first is the kernel's own
+MHA_DKV_TILES = [(64, 64, True), (128, 64, True), (64, 32, True),
+                 (64, 64, False)]
+MHA_DKV_SPLITS = [1, 2, 4, 7]
+# mha_bwd_dkv.cu's kDkvRunItems: the longest run its plan allows
+DKV_RUN_ITEMS = 64
+# (label, B, S, H, KV, dh, causal): chip_smoke.py's TRAIN_ATTN
+MHA_SHAPES = [("famous-bert", 8, 512, 8, 8, 96, False),
+              ("qwen2-7b", 1, 2048, 28, 4, 128, True)]
 
 
 def sweep_sources() -> dict[str, str]:
@@ -180,8 +204,66 @@ extern "C" int sweep_paged_chunk(int cfg, const void* q, const void* k,
   return static_cast<int>(e);
 }}
 """
+    fwd_cases = "\n".join(
+        f"    case {i * len(MHA_DPS) + j}: e = launch_fwd_tc<{dp}, "
+        f"TcTiles<{w}, {mt}, 64, 2, false>>(qb, kb, vb, ob, lse, "
+        "static_cast<float*>(part), splits, BKV, group, Sq, Skv, dh, causal, "
+        "window, q_offset, scale, reverse, s); break;"
+        for i, (w, mt) in enumerate(MHA_FWD_TILES)
+        for j, dp in enumerate(MHA_DPS))
+    fwd = f"""#include "{csrc / 'mha_forward.cu'}"
+
+extern "C" int sweep_mha_fwd(int cfg, const void* q, const void* k,
+                             const void* v, void* out, float* lse,
+                             void* part, int splits, int BKV, int group,
+                             int Sq, int Skv, int dh, int causal, int window,
+                             int q_offset, float scale, int reverse,
+                             void* stream) {{
+  using namespace famous;
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  bf16* ob = static_cast<bf16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaErrorInvalidValue;
+  switch (cfg) {{
+{fwd_cases}
+  }}
+  return static_cast<int>(e);
+}}
+"""
+    dkv_cases = "\n".join(
+        f"    case {i * len(MHA_DPS) + j}: e = launch_dkv_tc<DkvTiles<{dp}, "
+        f"{bk}, {bq}, {str(hilo).lower()}>>(qb, kb, vb, ob, lse, delta, dk, "
+        "dv, static_cast<float*>(part), splits, BKV, group, Sq, Skv, dh, "
+        "causal, window, q_offset, scale, s); break;"
+        for i, (bk, bq, hilo) in enumerate(MHA_DKV_TILES)
+        for j, dp in enumerate(MHA_DPS))
+    dkv = f"""#include "{csrc / 'mha_bwd_dkv.cu'}"
+
+extern "C" int sweep_mha_dkv(int cfg, const void* q, const void* k,
+                             const void* v, const void* dout,
+                             const float* lse, const float* delta, float* dk,
+                             float* dv, void* part, int splits, int BKV,
+                             int group, int Sq, int Skv, int dh, int causal,
+                             int window, int q_offset, float scale,
+                             void* stream) {{
+  using namespace famous;
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  const bf16* ob = static_cast<const bf16*>(dout);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaErrorInvalidValue;
+  switch (cfg) {{
+{dkv_cases}
+  }}
+  return static_cast<int>(e);
+}}
+"""
     return {"sweep_mm.cu": mm, "sweep_decode.cu": dec, "sweep_chunk.cu": cp,
-            "sweep_paged_chunk.cu": pc}
+            "sweep_paged_chunk.cu": pc, "sweep_mha_fwd.cu": fwd,
+            "sweep_mha_dkv.cu": dkv}
 
 
 def build(out_dir: Path) -> ctypes.CDLL:
@@ -210,11 +292,16 @@ def build(out_dir: Path) -> ctypes.CDLL:
                                    PLL, PLL, ctypes.c_float, P]
     so_lib.sweep_paged_chunk.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I,
                                          I, I, I, I, I, I, ctypes.c_float, P]
+    so_lib.sweep_mha_fwd.argtypes = [I, P, P, P, P, P, P, I, I, I, I, I, I,
+                                     I, I, I, ctypes.c_float, I, P]
+    so_lib.sweep_mha_dkv.argtypes = [I, P, P, P, P, P, P, P, P, P, I, I, I,
+                                     I, I, I, I, I, I, ctypes.c_float, P]
     for name in ("famous_matmul_tiled", "famous_decode_attention"):
         getattr(so_lib, name).argtypes = lib._SIGNATURES[name]
     for fn in (so_lib.sweep_mm, so_lib.famous_matmul_tiled,
                so_lib.famous_decode_attention, so_lib.sweep_chunk,
-               so_lib.sweep_paged_chunk):
+               so_lib.sweep_paged_chunk, so_lib.sweep_mha_fwd,
+               so_lib.sweep_mha_dkv):
         fn.restype = I
     return so_lib
 
@@ -222,7 +309,8 @@ def build(out_dir: Path) -> ctypes.CDLL:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=30)
-    ap.add_argument("--parts", default="matmul,decode,paged,chunk,pagedchunk",
+    ap.add_argument("--parts",
+                    default="matmul,decode,paged,chunk,pagedchunk,mha",
                     help="comma-separated sweeps to run")
     args = ap.parse_args(argv)
     import torch
@@ -248,7 +336,8 @@ def main(argv=None) -> int:
     print(f"card: {smi}", flush=True)
     result = {"card": smi, "matmul_tiles": [], "matmul_splits": [],
               "decode_L": [], "paged_decode_L": [], "chunk_prefill": [],
-              "paged_chunk_prefill": []}
+              "paged_chunk_prefill": [], "mha_forward": [],
+              "mha_bwd_dkv": []}
 
     def randn(shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev)
@@ -372,15 +461,18 @@ def main(argv=None) -> int:
         chunk_sweep(torch, Fn, lib, so, randn, dev_ms, result, sms)
     if "pagedchunk" in parts:
         paged_chunk_sweep(torch, lib, so, randn, dev_ms, result, sms)
+    if "mha" in parts:
+        mha_sweep(torch, Fn, lib, so, randn, dev_ms, result, sms)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "kernel_sweep.json").write_text(json.dumps(result, indent=1))
     bad = [k for sec in ("matmul_tiles", "matmul_splits", "decode_L",
                          "paged_decode_L", "chunk_prefill",
-                         "paged_chunk_prefill")
+                         "paged_chunk_prefill", "mha_forward", "mha_bwd_dkv")
            for row in result[sec] for k, v in row.items()
-           if isinstance(v, dict) and v.get("ok") is False]
+           if isinstance(v, dict) and v.get("ok") is False
+           and not v.get("expected_miss")]
     print(json.dumps({"ok": not bad, "wrong": bad}))
     return 1 if bad else 0
 
@@ -393,7 +485,10 @@ def ms_text(ms):
 
 def row_text(row):
     return " | ".join(
-        f"{k} {ms_text(v['ms'])}{'' if v.get('ok', True) else ' WRONG'}"
+        f"{k} {ms_text(v['ms'])}" + (
+            "" if v.get("ok", True) else
+            f" (misses the gate: {v['expected_miss']})"
+            if v.get("expected_miss") else " WRONG")
         for k, v in row.items() if isinstance(v, dict))
 
 
@@ -595,6 +690,130 @@ def paged_chunk_sweep(torch, lib, so, randn, dev_ms, result, sms):
                   f"{ms_text(row['chunk_prefill_ms'])} ms | " + row_text(row),
                   flush=True)
         del pools
+
+
+def mha_sweep(torch, Fn, lib, so, randn, dev_ms, result, sms):
+    """The bf16 ``mha_forward`` and ``mha_bwd_dkv`` at the two training
+    shapes: each variant of MHA_FWD_TILES x MHA_DPS (x row-block order
+    under the causal mask) and MHA_DKV_TILES x MHA_DPS x split counts,
+    checked against the plain versions (ATTN_TOL, BWD_TOL; the one-pass
+    dk/dv variant, and runs longer than the plan allows (kDkvRunItems),
+    may miss BWD_TOL: recorded, not failed), against the kernels' own
+    plans and SDPA's forward or whole backward on the same clock."""
+    import chip_smoke as cs
+    from repro_torch.kernels.attention import mha as mha_k
+    from repro_torch.kernels.attention import ref as mha_ref
+
+    dev = torch.device("cuda")
+    code = lib.DTYPE_CODE[torch.bfloat16]
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, B, S, H, KV, dh, causal in MHA_SHAPES:
+        kw = dict(causal=causal, window=0, scale=dh ** -0.5, q_offset=0)
+        BH, BKV = B * H, B * KV
+        per = 2 * (2 * BH + 2 * BKV) * S * dh
+        sets = [(randn((BH, S, dh)), randn((BKV, S, dh)), randn((BKV, S, dh)))
+                for _ in range(cs.n_sets(per))]
+        bsets, lsets = [], []
+        for q, k, v in sets:
+            o, lse = mha_ref.mha_forward_reference(q, k, v, **kw)
+            do = randn((BH, S, dh))
+            bsets.append((q, k, v, do, lse, (do.float() * o.float()).sum(-1)))
+            leaves = tuple(t.detach().clone().requires_grad_()
+                           for t in (q, k, v))
+            lo = Fn.scaled_dot_product_attention(
+                *(t.view(B, -1, S, dh) for t in leaves), is_causal=causal,
+                scale=kw["scale"], enable_gqa=True)
+            lsets.append((lo, leaves, do.view(lo.shape)))
+        ref_f = mha_ref.mha_forward_reference(*sets[0], **kw)
+        ref_b = mha_ref.mha_bwd_dkv_reference(*bsets[0], **kw)
+
+        def sdpa(q, k, v):
+            return Fn.scaled_dot_product_attention(
+                *(t.view(B, -1, S, dh) for t in (q, k, v)), is_causal=causal,
+                scale=kw["scale"], enable_gqa=True)
+
+        def sdpa_b(lo, leaves, g):
+            return torch.autograd.grad(lo, leaves, g, retain_graph=True)
+
+        # the forward
+        f_splits, _ = mha_k.forward_plan(code, BH, BKV, S, S, dh, sms)
+        row = {"shape": label, "plan_splits": f_splits,
+               "library_ms": dev_ms(sdpa, sets),
+               "kernel_ms": dev_ms(lambda q, k, v: mha_k.mha_forward(
+                   q, k, v, **kw), sets)}
+        for i, (w, mt) in enumerate(MHA_FWD_TILES):
+            for j, dp in enumerate(MHA_DPS):
+                if dp < dh:
+                    continue
+                for rev in ((1, 0) if causal else (0,)):
+                    def kern(q, k, v, cfg=i * len(MHA_DPS) + j, rev=rev):
+                        out = torch.empty_like(q)
+                        lse = torch.empty((BH, S), dtype=torch.float32,
+                                          device=dev)
+                        lib.check("sweep_mha_fwd", so.sweep_mha_fwd(
+                            cfg, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            out.data_ptr(), lse.data_ptr(), None, 1, BKV,
+                            H // KV, S, S, dh, int(causal), 0, 0,
+                            kw["scale"], rev, stream))
+                        return out, lse
+                    err, ok = cs.compare(torch, kern(*sets[0]), ref_f,
+                                         cs.ATTN_TOL["bf16"])
+                    name = (f"{16 * mt * w} rows dh {dp}"
+                            + (f" {'longest first' if rev else 'natural'}"
+                               if causal else ""))
+                    row[name] = {"ms": dev_ms(kern, sets), "max_abs_err": err,
+                                 "ok": ok}
+        result["mha_forward"].append(row)
+        print(f"mha_forward {label} (plan: {f_splits} splits): kernel "
+              f"{ms_text(row['kernel_ms'])} ms, SDPA "
+              f"{ms_text(row['library_ms'])} ms | " + row_text(row),
+              flush=True)
+        del sets
+
+        # dk/dv
+        b_splits, _ = mha_k.dkv_plan(code, BH, BKV, S, S, dh, sms)
+        row = {"shape": label, "plan_splits": b_splits,
+               "library_ms": dev_ms(sdpa_b, lsets),
+               "kernel_ms": dev_ms(lambda *a: mha_k.mha_bwd_dkv(*a, **kw),
+                                   bsets)}
+        for i, (bk, bq, hilo) in enumerate(MHA_DKV_TILES):
+            for j, dp in enumerate(MHA_DPS):
+                if dp < dh:
+                    continue
+                for n in sorted(set(MHA_DKV_SPLITS + [b_splits])):
+                    part = torch.empty(2 * n * BKV * S * dh,
+                                       dtype=torch.float32, device=dev)
+
+                    def kern(q, k, v, do, lse, delta, n=n, part=part,
+                             cfg=i * len(MHA_DPS) + j):
+                        dk = torch.empty(k.shape, dtype=torch.float32,
+                                         device=dev)
+                        dv = torch.empty_like(dk)
+                        lib.check("sweep_mha_dkv", so.sweep_mha_dkv(
+                            cfg, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                            dk.data_ptr(), dv.data_ptr(), part.data_ptr(), n,
+                            BKV, H // KV, S, S, dh, int(causal), 0, 0,
+                            kw["scale"], stream))
+                        return dk, dv
+                    err, ok = cs.compare(torch, kern(*bsets[0]), ref_b,
+                                         cs.BWD_TOL["bf16"])
+                    name = (f"{bk} keys {bq} rows dh {dp}"
+                            f"{'' if hilo else ' one-pass'} splits={n}")
+                    # the longest run: the first key block's items
+                    items = (H // KV) * -(-S // bq)
+                    run = -(-items // n)
+                    miss = ("one pass" if not hilo else
+                            f"runs of {run} items" if run > DKV_RUN_ITEMS
+                            else None)
+                    row[name] = {"ms": dev_ms(kern, bsets), "max_abs_err": err,
+                                 "ok": ok, "expected_miss": miss}
+        result["mha_bwd_dkv"].append(row)
+        print(f"mha_bwd_dkv {label} (plan: {b_splits} splits): kernel "
+              f"{ms_text(row['kernel_ms'])} ms, SDPA backward (dq, dk, dv) "
+              f"{ms_text(row['library_ms'])} ms | " + row_text(row),
+              flush=True)
+        del bsets, lsets
 
 
 if __name__ == "__main__":

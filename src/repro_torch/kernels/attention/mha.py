@@ -10,12 +10,19 @@ which launch ``kernels/csrc/mha_bwd_dq.cu`` and
 ``_mha_bwd_dkv_kernel``).  Each block
 walks its own key (or query) tiles, so the block sizes need not divide the
 sequence lengths, and the dk/dv kernel sums over the GQA group itself.
-``causal``, ``window`` and ``q_offset`` are plain launch arguments.  On CPU
-tensors both run the plain versions in
+``causal``, ``window`` and ``q_offset`` are plain launch arguments.  In
+bf16 the forward and the dk/dv kernel run on tensor cores
+(:func:`ref.mha_forward_tc_reference` and
+:func:`ref.mha_bwd_dkv_tc_reference` state their algebra); the forward
+may split a block's key range and the dk/dv kernel a key block's work, as
+their C plans (:func:`forward_plan`, :func:`dkv_plan`) say from static
+shapes and the SM count, into an f32 workspace allocated here.  On CPU
+tensors all three run the plain versions in
 :mod:`repro_torch.kernels.attention.ref`.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -103,15 +110,39 @@ def _check(name, q, k, v, *rows):
     return code, BH, BKV, Sq, Skv, dh
 
 
+@functools.lru_cache(maxsize=None)
+def forward_plan(code: int, BH: int, BKV: int, Sq: int, Skv: int, dh: int,
+                 sms: int) -> tuple[int, int]:
+    """Key-range splits of the bf16 forward for a static shape
+    (``lib.DTYPE_CODE`` dtype code, query and kv rows, lengths, head dim,
+    SM count) and the f32 elements of its workspace (0 for one split;
+    always 1 split in f32)."""
+    return lib.plan("famous_mha_forward_plan", code, BH, BKV, Sq, Skv, dh,
+                    sms)
+
+
+@functools.lru_cache(maxsize=None)
+def dkv_plan(code: int, BH: int, BKV: int, Sq: int, Skv: int, dh: int,
+             sms: int) -> tuple[int, int]:
+    """Splits of the bf16 dk/dv kernel (each key block's work items cut
+    into that many runs, whose f32 partials are summed in order) and the
+    f32 elements of their workspace (0 for one split; always 1 in f32)."""
+    return lib.plan("famous_mha_bwd_dkv_plan", code, BH, BKV, Sq, Skv, dh,
+                    sms)
+
+
 def _launch_forward(q, k, v, *, causal, window, scale, q_offset):
     name = "mha_forward"
     code, BH, BKV, Sq, Skv, dh = _check(name, q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
+    splits, n_ws = forward_plan(code, BH, BKV, Sq, Skv, dh,
+                                lib.sm_count(q.device))
+    ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
     err = lib.load().famous_mha_forward(
         code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), BH, BKV, Sq, Skv, dh, int(causal), window, q_offset,
-        scale, lib.stream_of(q))
+        lse.data_ptr(), ws.data_ptr() if n_ws else None, splits, BH, BKV, Sq,
+        Skv, dh, int(causal), window, q_offset, scale, lib.stream_of(q))
     lib.check(name, err)
     lib.STATS.launches[name] += 1
     return out, lse
@@ -151,11 +182,14 @@ def _launch_dkv(q, k, v, dout, lse, delta, *, causal, window, scale,
     code, BH, BKV, Sq, Skv, dh = _check_bwd(name, q, k, v, dout, lse, delta)
     dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+    splits, n_ws = dkv_plan(code, BH, BKV, Sq, Skv, dh,
+                            lib.sm_count(q.device))
+    ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
     err = lib.load().famous_mha_bwd_dkv(
         code, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH,
-        BKV, Sq, Skv, dh, int(causal), window, q_offset, scale,
-        lib.stream_of(q))
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        ws.data_ptr() if n_ws else None, splits, BH, BKV, Sq, Skv, dh,
+        int(causal), window, q_offset, scale, lib.stream_of(q))
     lib.check(name, err)
     lib.STATS.launches[name] += 1
     return dk, dv

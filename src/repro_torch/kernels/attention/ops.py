@@ -57,8 +57,11 @@ def mha(q, k, v, *, causal=True, window=0, scale=None, q_offset=0,
 
     Differentiable through the flash backward kernels, the GQA group sum
     of dk/dv taken inside the dk/dv kernel.  ``block_q``/``block_k`` are
-    the Pallas tile sizes; the CUDA kernels use fixed 32-row tiles and
-    mask ragged edges, so results do not depend on them."""
+    the Pallas tile sizes and are ignored: the CUDA kernels fix their own
+    tiles and mask ragged edges.  In bf16 the forward runs 128-row query
+    blocks over 64-key tiles and the dk/dv kernel 64-key blocks over
+    64-row query tiles, on tensor cores; in f32 all three kernels, and dq
+    in bf16 too, run 32 x 32 tiles on the CUDA cores."""
     del block_q, block_k
     B, Sq, H, dh = q.shape
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(dh)

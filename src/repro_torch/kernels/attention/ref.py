@@ -10,16 +10,23 @@ backward's probabilities recomputed from the saved LSE, with the scale
 placed where the TPU kernels place it.  The kernel wrappers run them for
 tensors on the CPU; ``chip_smoke.py`` holds the CUDA kernels against them
 on the card.  The training path never calls them on CUDA tensors
-(``lib.STATS.plain_on_cuda`` counts any such call)."""
+(``lib.STATS.plain_on_cuda`` counts any such call).
+
+:func:`mha_forward_tc_reference` and :func:`mha_bwd_dkv_tc_reference`
+restate the same two functions as the bf16 tensor-core kernels compute
+them (blocks, tiles, splits and the roundings to bf16), for the tests and
+``chip_smoke.py`` only."""
 from __future__ import annotations
 
 import math
 
 import torch
 
+from repro_torch.kernels.decode import ref as dec_ref
 from repro_torch.kernels.lib import STATS
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
 
 
 def visible(Sq: int, Skv: int, *, causal: bool, window: int, q_offset: int,
@@ -114,3 +121,115 @@ def mha_bwd_dkv_reference(q, k, v, dout, lse, delta, *, causal: bool,
     dk = (ds.transpose(1, 2) @ q.to(torch.float32)) * scale
     return (dk.reshape(BKV, group, Skv, dh).sum(1),
             dv.reshape(BKV, group, Skv, dh).sum(1))
+
+
+def mha_forward_tc_reference(q, k, v, *, causal: bool, window: int,
+                             scale: float, q_offset: int, splits: int = 1,
+                             block_rows: int = 128, tile_keys: int = 64,
+                             round_out: bool = True):
+    """The bf16 tensor-core forward's algebra, in f32: the chunk kernels'
+    mirror (``decode/ref.chunk_prefill_tc_reference``) on the flat query
+    side, as ``chunk_tc.cuh`` runs the same body.  Each query head's rows
+    go in blocks of ``block_rows``; a block's keys start at its first row's
+    window tile and end at its last row's diagonal (causal; else at Skv),
+    cut into tiles of ``tile_keys`` shared by ``splits`` blocks; per tile
+    the scale after Q K^T, masks at -1e30, the online update in log2 units
+    with an f32 l and, for bf16 inputs, P rounded to bf16 for P V; splits
+    combine in order.  Returns (O / max(l, 1e-30) in q's dtype, or in f32
+    without ``round_out`` (the value the kernel rounds once on the way
+    out), and the f32 LSE max m ln 2 + log(l), or -1e30 where l = 0)."""
+    if q.is_cuda:
+        STATS.plain_on_cuda["mha_forward"] += 1
+    BH, Sq, dh = q.shape
+    BKV, Skv, _ = k.shape
+    g = BH // BKV
+
+    def keys(k0, k1):
+        return (k[:, k0:k1, None].to(torch.float32),
+                v[:, k0:k1, None].to(torch.float32), None, None)
+
+    # the flat rows (BKV, g, Sq) as the chunk layout (B, C, H) over one kv
+    # head each
+    out, lse = dec_ref._chunk_tc(
+        q.reshape(BKV, g, Sq, dh).transpose(1, 2), keys, Skv, 1, q_offset,
+        scale, splits, block_rows, tile_keys, causal=causal, window=window,
+        round_out=round_out)
+    return (out.transpose(1, 2).reshape(BH, Sq, dh),
+            lse.transpose(1, 2).reshape(BH, Sq))
+
+
+def _hi_lo(x):
+    """x as the sum of two bf16 values (hi = bf16(x), lo = bf16(x - hi)),
+    each back in f32."""
+    hi = x.to(torch.bfloat16).to(torch.float32)
+    return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def mha_bwd_dkv_tc_reference(q, k, v, dout, lse, delta, *, causal: bool,
+                             window: int, scale: float, q_offset: int,
+                             splits: int = 1, block_keys: int = 64,
+                             block_q: int = 64):
+    """The bf16 tensor-core dk/dv kernel's algebra, in f32:
+    :func:`mha_bwd_dkv_reference` computed as that kernel computes it.
+    Keys go in blocks of ``block_keys``; a key block's work items are the
+    (query head of its group, query tile of ``block_q`` rows) pairs whose
+    rows can see one of its keys, head-major, and ``splits`` runs share
+    them (items [z * ips, (z + 1) * ips), ips = ceil(items / splits)).  Per
+    item: P^T = 2^(scale log2(e) S^T - log2(e) lse) on the mask (0 off it)
+    with S^T = K Q^T, and dS^T = P^T (V dO^T - delta); for bf16 inputs each
+    of P^T and dS^T enters its product as hi + lo (:func:`_hi_lo`), so dV
+    += hi(P^T) dO + lo(P^T) dO and dK += hi(dS^T) Q + lo(dS^T) Q.  The runs'
+    partials are summed in order, then dk is scaled.  Returns f32 (dk,
+    dv), each (BKV, Skv, dh)."""
+    if q.is_cuda:
+        STATS.plain_on_cuda["mha_bwd_dkv"] += 1
+    BH, Sq, dh = q.shape
+    BKV, Skv, _ = k.shape
+    group = BH // BKV
+    split = _hi_lo if q.dtype == torch.bfloat16 else (
+        lambda x: (x, torch.zeros_like(x)))
+    sl = scale * LOG2E
+    f = torch.float32
+    qf = q.to(f).reshape(BKV, group, Sq, dh)
+    of = dout.to(f).reshape(BKV, group, Sq, dh)
+    lse2 = (lse.to(f) * LOG2E).reshape(BKV, group, Sq)
+    dl = delta.to(f).reshape(BKV, group, Sq)
+    kf, vf = k.to(f), v.to(f)
+    ok_all = visible(Sq, Skv, causal=causal, window=window,
+                     q_offset=q_offset, device=q.device)
+    dk = torch.empty_like(kf)
+    dv = torch.empty_like(vf)
+    for kb0 in range(0, Skv, block_keys):
+        kb1 = min(Skv, kb0 + block_keys)
+        qbeg = max(0, kb0 - q_offset) if causal else 0
+        qend = min(Sq, kb1 - 1 + window - q_offset) if window > 0 else Sq
+        qt_lo = qbeg // block_q
+        nqt = max(0, -(-qend // block_q) - qt_lo) if qend > 0 else 0
+        items = group * nqt
+        ips = -(-items // splits)
+        kt, vt = kf[:, kb0:kb1], vf[:, kb0:kb1]
+        acc_k = torch.zeros((BKV, kb1 - kb0, dh), device=q.device)
+        acc_v = torch.zeros_like(acc_k)
+        for z in range(splits):
+            pk = torch.zeros_like(acc_k)
+            pv = torch.zeros_like(acc_k)
+            i_lo = min(items, z * ips)
+            for it in range(i_lo, min(items, i_lo + ips)):
+                hg = it // nqt
+                q0 = (qt_lo + it % nqt) * block_q
+                q1 = min(Sq, q0 + block_q)
+                qt, ot = qf[:, hg, q0:q1], of[:, hg, q0:q1]
+                st = (kt @ qt.transpose(1, 2)) * sl      # (BKV, keys, rows)
+                ok = ok_all[q0:q1, kb0:kb1].transpose(0, 1)
+                p = torch.where(ok, torch.exp2(st - lse2[:, hg, None, q0:q1]),
+                                0.0)
+                ds = p * (vt @ ot.transpose(1, 2) - dl[:, hg, None, q0:q1])
+                ph, plo = split(p)
+                dh_, dlo = split(ds)
+                pv = pv + (ph @ ot + plo @ ot)
+                pk = pk + (dh_ @ qt + dlo @ qt)
+            acc_k = acc_k + pk
+            acc_v = acc_v + pv
+        dk[:, kb0:kb1] = acc_k * scale
+        dv[:, kb0:kb1] = acc_v
+    return dk, dv

@@ -1,18 +1,27 @@
-// The bf16 tensor-core chunk kernel and its combine pass, shared by
-// chunk_prefill.cu (a contiguous cache) and paged_chunk_prefill.cu (a
-// shared page pool, bf16 or int8).  The two differ only in where a key's
-// K/V row lives and how it reaches the bf16 tile, so the kernel is a
-// template on a row source:
+// The bf16 tensor-core flash-attention kernel and its combine pass, shared
+// by chunk_prefill.cu (a contiguous cache), paged_chunk_prefill.cu (a
+// shared page pool, bf16 or int8) and mha_forward.cu (the training
+// forward).  The sources differ only in where a key's K/V row lives and how
+// it reaches the bf16 tile, so the kernel is a template on a row source:
 //   ContigKV          a cache (B, Skv, KV, dh) read in place by strides;
 //   PagedKV<E, S>     a pool (n_pages, ps, KV, dh) read through the
 //                     slot's (B, n_p) page-table row; E = int8_t adds each
-//                     row's f32 scale, S says how int8 rows are staged.
-//
-//   q      (B, C, H, dh)   contiguous (the model's layout)
-//   out    (B, C, H, dh)
-//
-// Key position j is visible to chunk row c iff j <= q_offset + c (and j <
-// Skv: a row past the cache, the padding of a last chunk, sees all Skv).
+//                     row's f32 scale, S says how int8 rows are staged;
+// and on a query side (QM):
+//   ChunkQ   q and out (B, C, H, dh) contiguous (the model's layout); key
+//            j is visible to chunk row c iff j <= q_offset + c (and j <
+//            Skv: a row past the cache, the padding of a last chunk, sees
+//            all Skv);
+//   FlatQ    mha_forward's flat layout: q and out (B, H, C, dh) with B the
+//            kv rows, H the group and KV = 1 (query row bh reads kv row bh
+//            / group); key j visible to row c as key_visible() says
+//            (causal or full attention with q_offset, a sliding window);
+//            also the f32 row LSE (B, H, C), natural log, m + log(l), and
+//            kNegInf for a row that sees no key (its output is 0).  A
+//            block's keys start at its first row's window edge; the
+//            window's lower edge is masked like the causal one, only on
+//            the tiles that cross it.  Under the causal mask the row
+//            blocks launch longest (last) first.
 //
 // Design: flash attention on tensor cores, mma.sync m16n8k16 (bf16 x bf16
 // -> f32).  A block owns 128 chunk rows of one query head (64 at dh 256);
@@ -38,9 +47,11 @@
 //     next tile loads while one is used; one __syncthreads a tile), rows
 //     padded by 16 bytes for conflict-free ldmatrix; a dh that is not a
 //     multiple of 16 (<= 256) is zero-filled in shared memory up to 64, 128
-//     or 256.  The causal mask runs only on the tiles that cross the
-//     block's first row's diagonal.  104 KB of shared memory and 254
-//     registers a thread: two blocks an SM.
+//     or 256 (mha_forward.cu: 96 too, whose 208-byte rows are still
+//     conflict-free; the products stop at dh either way).  The causal
+//     mask runs only on the tiles that cross the block's first row's
+//     diagonal.  104 KB of shared memory and 254 registers a thread: two
+//     blocks an SM.
 //   - At C = 256 on qwen2-7b there are 2 x 28 = 56 such blocks for 132
 //     SMs, so chunk_tc_plan splits each block's key range over up to 4
 //     blocks (from static shapes and the SM count only; 4 here): each
@@ -88,13 +99,17 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kTcMaxSplits = 4;
 
-// 2^x by the MUFU unit (ex2.approx.ftz: relative error about 2^-22;
-// -inf gives 0, a denormal result flushes to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
+// The query side of a launch (see the header): ChunkQ, or FlatQ with
+// mha_forward's masks, LSE output and block order (reverse: the last row
+// block first).
+struct ChunkQ {
+  static constexpr bool kFlat = false;
+};
+struct FlatQ {
+  static constexpr bool kFlat = true;
+  int causal, window, reverse;
+  float* lse;
+};
 
 // A tile geometry: WARPS warps of MT x 16 chunk rows a block, K/V tiles of
 // BK keys in a ring of STAGES, and whether a block's rows are (chunk row,
@@ -195,13 +210,6 @@ struct TcSmem {
   static constexpr size_t bytes = Q + KV + PIDS + SCALES + I8;
 };
 
-// 4-byte asynchronous copy global -> shared (cp.async.ca); src_bytes 0
-// zero-fills
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(smem)), "l"(gmem),
-               "r"(src_bytes));
-}
-
 // Four int8 values (one word) widened exactly to two bf16x2 words, on the
 // integer and f32 pipes rather than the slower conversion unit: w ^ 0x80
 // turns each byte into x + 128, 0x4B0000uu is the f32 2^23 + x + 128, so
@@ -228,16 +236,17 @@ __device__ __forceinline__ void widen16(const uint4& x, bf16* dst) {
   *reinterpret_cast<uint4*>(dst + 8) = hi;
 }
 
-// Block (x, y, b * splits + z).  part == nullptr: the block owns its whole
-// key range and writes bf16 out; else it owns split z of the range's tiles
-// and writes its f32 partial: O to part[(z * RT + row) * dh + d], m (log2
+// Block (x, y, b * splits + z) (FlatQ: ((b * splits + z) * H + y, x)).
+// part == nullptr: the block owns its whole key range and writes bf16 out
+// (FlatQ: and the LSE); else it owns split z of the range's tiles and
+// writes its f32 partial: O to part[(z * RT + row) * dh + d], m (log2
 // units) to part[splits * RT * dh + z * RT + row], l after those, RT =
-// B * C * H rows (b, c, h).
-template <int DP, typename G, typename Rows>
+// B * C * H rows in out's order.
+template <int DP, typename G, typename Rows, typename QM>
 __global__ void __launch_bounds__(G::NT)
-chunk_prefill_tc_kernel(const bf16* __restrict__ q, const Rows src, bf16* __restrict__ out,
-                        float* __restrict__ part, int B, int C, int H, int KV, int dh,
-                        int q_offset, float scale, int splits, int vec) {
+chunk_prefill_tc_kernel(const bf16* __restrict__ q, const Rows src, const QM qm,
+                        bf16* __restrict__ out, float* __restrict__ part, int B, int C, int H,
+                        int KV, int dh, int q_offset, float scale, int splits, int vec) {
   using E = typename Rows::Elem;
   using SM = TcSmem<DP, G, Rows>;
   constexpr int BQ = G::BQ, MT = G::MT, NT = G::NT, BK = G::BK, ST = G::STAGES, LD = DP + 8;
@@ -250,9 +259,13 @@ chunk_prefill_tc_kernel(const bf16* __restrict__ q, const Rows src, bf16* __rest
   constexpr bool kRegs8 = Rows::kStage == KVStage::kRegs8;
   constexpr int CPR8 = DP / 16, RPP8 = NT / CPR8;  // the same for int8 rows
   constexpr int NR8 = kRegs8 ? 2 * BK / RPP8 : 1;  // int8 chunks a thread holds (K, V)
-  static_assert(BQ % RPP == 0 && BK % RPP == 0 && NS % 2 == 0, "tile shape");
-  static_assert(!Rows::kPaged || (ST == 2 && NT >= 2 * BK && BK % RPP8 == 0),
-                "paged rows: a 2-stage ring, a thread per key scale");
+  // whole rows a pass of 16-byte chunks (else threads from RPP * CPR on
+  // idle, as at a padded dh of 96: 12 chunks a row, 10 rows of 128 threads)
+  constexpr bool kExact = NT % CPR == 0 && BQ % RPP == 0 && BK % RPP == 0;
+  static_assert(NS % 2 == 0, "tile shape");
+  static_assert(!Rows::kPaged || (ST == 2 && NT >= 2 * BK && kExact && BK % RPP8 == 0),
+                "paged rows: whole rows a pass, a 2-stage ring, a thread per key scale");
+  static_assert(!QM::kFlat || (!Rows::kPaged && !G::PACK), "FlatQ: a contiguous source");
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* q_s = reinterpret_cast<bf16*>(tc_smem);
   bf16* kv_s = q_s + BQ * LD;  // stage s: K at kv_s + 2 s T, V at + T
@@ -263,23 +276,47 @@ chunk_prefill_tc_kernel(const bf16* __restrict__ q, const Rows src, bf16* __rest
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tq = lane & 3;  // mma group id, thread in group
   const int group = H / KV;
-  const int b = blockIdx.z / splits, z = blockIdx.z % splits;
-  const ChunkRows<BQ, G::PACK> rows{(int)blockIdx.x, (int)blockIdx.y, C, group};
-  const int hk = G::PACK ? blockIdx.y : blockIdx.y / group;
+  int bx = blockIdx.x, by = blockIdx.y, bz = blockIdx.z;
+  if constexpr (QM::kFlat) {
+    by = blockIdx.x % H, bz = blockIdx.x / H;
+    bx = qm.reverse ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  }
+  const int b = bz / splits, z = bz % splits;
+  const ChunkRows<BQ, G::PACK> rows{bx, by, C, group};
+  const int hk = G::PACK ? by : by / group;
+  const bool causal = [&] {
+    if constexpr (QM::kFlat) return qm.causal != 0;
+    else return true;
+  }();
+  const int window = [&] {
+    if constexpr (QM::kFlat) return qm.window;
+    else return 0;
+  }();
 
-  // the block's keys end at its last row's diagonal; split z owns tiles
+  // the block's keys [kbeg, kend) end at its last row's diagonal (causal)
+  // and start at its first row's window edge (tile tb); split z owns tiles
   // [t_lo, t_hi) of them
   const int Skv = src.Skv;
-  const int kend = min(Skv, q_offset + rows.last_row() + 1);
-  const int nt = (kend + BK - 1) / BK;
-  const int tps = (nt + splits - 1) / splits;
-  const int t_lo = min(nt, z * tps), t_hi = min(nt, t_lo + tps);
-  // tiles past it need the mask
-  const int diag_from = min(q_offset + rows.chunk_row(0), Skv - 1);
+  const int kend = causal ? min(Skv, q_offset + rows.last_row() + 1) : Skv;
+  int t_lo, t_hi;
+  if constexpr (QM::kFlat) {
+    const int tb = window > 0 ? max(0, q_offset + rows.chunk_row(0) - window + 1) / BK : 0;
+    const int nt = max(tb, (kend + BK - 1) / BK);
+    const int tps = (nt - tb + splits - 1) / splits;
+    t_lo = min(nt, tb + z * tps), t_hi = min(nt, t_lo + tps);
+  } else {
+    const int nt = (kend + BK - 1) / BK;
+    const int tps = (nt + splits - 1) / splits;
+    t_lo = min(nt, z * tps), t_hi = min(nt, t_lo + tps);
+  }
+  // tiles past the first row's last key, or before the last row's first
+  // key, need the mask
+  const int diag_from = causal ? min(q_offset + rows.chunk_row(0), Skv - 1) : Skv - 1;
+  const int lo_to = window > 0 ? q_offset + rows.last_row() - window + 1 : 0;
 
   // 16-byte chunk (tid % CPR) of rows tid / CPR + RPP i: the vec path's
   // share of a tile; columns past dh and rows past the end are zero-filled
-  const int lc = (tid % CPR) * 8, lr = tid / CPR;
+  const int lc = (tid % CPR) * 8, lr = kExact || tid < RPP * CPR ? tid / CPR : BQ + BK;
   const bool lc_ok = lc < dh;
   const int lc8 = (tid % CPR8) * 16, lr8 = tid / CPR8;  // int8 rows
   const bool lc8_ok = lc8 < dh;
@@ -330,8 +367,9 @@ chunk_prefill_tc_kernel(const bf16* __restrict__ q, const Rows src, bf16* __rest
       const bf16* vb = src.v + b * src.v_sb + hk * src.v_sh;
       if (vec) {
 #pragma unroll
-        for (int i = 0; i < BK / RPP; ++i) {
+        for (int i = 0; i < (BK + RPP - 1) / RPP; ++i) {
           const int r = lr + i * RPP;
+          if (!kExact && r >= BK) break;
           const bool ok = lc_ok && k0 + r < kend;
           cp_async16(kt + r * LD + lc, ok ? kb + (k0 + r) * src.k_ss + lc : kb, ok ? 16 : 0);
           cp_async16(vt + r * LD + lc, ok ? vb + (k0 + r) * src.v_ss + lc : vb, ok ? 16 : 0);
@@ -428,9 +466,12 @@ chunk_prefill_tc_kernel(const bf16* __restrict__ q, const Rows src, bf16* __rest
       }
     }
   };
-  auto q_row = [&](int i) {
-    return q + (((long long)b * C + rows.chunk_row(i)) * H + rows.head(i)) * dh;
+  // block row i's row of q and out: (b, c, h), FlatQ (b, h, c)
+  auto out_row = [&](int i) -> long long {
+    if constexpr (QM::kFlat) return ((long long)b * H + rows.head(i)) * C + rows.chunk_row(i);
+    else return ((long long)b * C + rows.chunk_row(i)) * H + rows.head(i);
   };
+  auto q_row = [&](int i) { return q + out_row(i) * dh; };
 
   // Paged: the first tile's page ids, read before anything is copied
   if constexpr (Rows::kPaged) {
@@ -445,8 +486,9 @@ chunk_prefill_tc_kernel(const bf16* __restrict__ q, const Rows src, bf16* __rest
   // Q and the first STAGES - 1 tiles, one commit group each (Q with the first)
   if (vec) {
 #pragma unroll
-    for (int i = 0; i < BQ / RPP; ++i) {
+    for (int i = 0; i < (BQ + RPP - 1) / RPP; ++i) {
       const int r = lr + i * RPP;
+      if (!kExact && r >= BQ) break;
       const bool ok = lc_ok && rows.valid(r);
       cp_async16(q_s + r * LD + lc, ok ? q_row(r) + lc : q, ok ? 16 : 0);
     }
@@ -464,14 +506,18 @@ chunk_prefill_tc_kernel(const bf16* __restrict__ q, const Rows src, bf16* __rest
   if (t_lo < t_hi) store_regs(0);
 
   // this lane's rows: (m-tile mt, h) is block row warp * 16 MT + 16 mt + g + 8 h
+  // and its visible keys [lo, lim] (FlatQ: lo from the window)
   const int w0 = warp * 16 * MT;
-  int lim[MT][2];
+  int lim[MT][2], lo[QM::kFlat ? MT : 1][2];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-      lim[mt][h] = min(q_offset + rows.chunk_row(w0 + 16 * mt + g + 8 * h), Skv - 1);
-  const float sl = scale * 1.4426950408889634f;  // scores in log2 units
+    for (int h = 0; h < 2; ++h) {
+      const int qp = q_offset + rows.chunk_row(w0 + 16 * mt + g + 8 * h);
+      lim[mt][h] = causal ? min(qp, Skv - 1) : Skv - 1;
+      if constexpr (QM::kFlat) lo[mt][h] = window > 0 ? qp - window + 1 : 0;
+    }
+  const float sl = scale * kLog2e;  // scores in log2 units
   float o[MT][ND][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
@@ -561,7 +607,7 @@ chunk_prefill_tc_kernel(const bf16* __restrict__ q, const Rows src, bf16* __rest
     // masked score is -inf, so its probability is exactly 0 even while its
     // row has seen no key (m stays at the finite -1e30)
     const int k0 = t * BK;
-    const bool diag = k0 + BK - 1 > diag_from;
+    const bool diag = k0 + BK - 1 > diag_from || (QM::kFlat && k0 < lo_to);
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       float mx[2] = {-INFINITY, -INFINITY};
@@ -569,7 +615,12 @@ chunk_prefill_tc_kernel(const bf16* __restrict__ q, const Rows src, bf16* __rest
       for (int j = 0; j < NS; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          if (diag && k0 + 8 * j + 2 * tq + (e & 1) > lim[mt][e >> 1]) s[mt][j][e] = -INFINITY;
+          if (diag) {
+            const int kp = k0 + 8 * j + 2 * tq + (e & 1);
+            bool off = kp > lim[mt][e >> 1];
+            if constexpr (QM::kFlat) off = off || kp < lo[mt][e >> 1];
+            if (off) s[mt][j][e] = -INFINITY;
+          }
           mx[e >> 1] = fmaxf(mx[e >> 1], s[mt][j][e]);
         }
 #pragma unroll
@@ -650,7 +701,7 @@ chunk_prefill_tc_kernel(const bf16* __restrict__ q, const Rows src, bf16* __rest
       lh += __shfl_xor_sync(0xffffffffu, lh, 2);
       const int i = w0 + 16 * mt + g + 8 * h;
       if (!rows.valid(i)) continue;
-      const long long row = ((long long)b * C + rows.chunk_row(i)) * H + rows.head(i);
+      const long long row = out_row(i);
       // columns col and col + 1 of each 8-column tile; pairs go as one
       // store where dh is even (so the pair is aligned)
       if (part) {
@@ -671,6 +722,8 @@ chunk_prefill_tc_kernel(const bf16* __restrict__ q, const Rows src, bf16* __rest
           part[splits * RT * (dh + 1) + z * RT + row] = lh;
         }
       } else {
+        if constexpr (QM::kFlat)
+          if (tq == 0) qm.lse[row] = lh > 0.f ? m[mt][h] * kLn2 + logf(lh) : kNegInf;
         const float inv = 1.f / fmaxf(lh, 1e-30f);
         bf16* po = out + row * dh;
 #pragma unroll
@@ -690,16 +743,17 @@ chunk_prefill_tc_kernel(const bf16* __restrict__ q, const Rows src, bf16* __rest
 
 // The second pass of a split launch: out = sum_z w_z O_z / max(sum_z w_z
 // l_z, 1e-30), w_z = 2^(m_z - max m), the splits summed in order z = 0,
-// 1, ... (fixed, so deterministic).  A warp per row: every lane forms the
-// row's weights, then the lanes stride over its dh columns.  Rows only
-// names the instantiation, so a profile tells the contiguous and paged
-// passes apart.
+// 1, ... (fixed, so deterministic); with lse (FlatQ) also the row's LSE,
+// max m ln 2 + log(l) (kNegInf where l = 0).  A warp per row: every lane
+// forms the row's weights, then the lanes stride over its dh columns.
+// Rows and QM only name the instantiation, so a profile tells the
+// contiguous, paged and flat passes apart.
 constexpr int kCombineWarps = 8;
 
-template <typename Rows>
+template <typename Rows, typename QM>
 __global__ void __launch_bounds__(32 * kCombineWarps)
 chunk_prefill_combine_kernel(const float* __restrict__ part, bf16* __restrict__ out,
-                             long long RT, int dh, int splits) {
+                             float* __restrict__ lse, long long RT, int dh, int splits) {
   const long long row = (long long)blockIdx.x * kCombineWarps + (threadIdx.x >> 5);
   if (row >= RT) return;
   const int lane = threadIdx.x & 31;
@@ -715,6 +769,7 @@ chunk_prefill_combine_kernel(const float* __restrict__ part, bf16* __restrict__ 
     w[z] = z < splits ? exp2f(ms[z * RT + row] - M) : 0.f;
     if (z < splits) l += w[z] * ls[z * RT + row];
   }
+  if (lse != nullptr && lane == 0) lse[row] = l > 0.f ? M * kLn2 + logf(l) : kNegInf;
   const float inv = 1.f / fmaxf(l, 1e-30f);
   for (int d = lane; d < dh; d += 32) {
     float a = 0.f;
@@ -725,30 +780,43 @@ chunk_prefill_combine_kernel(const float* __restrict__ part, bf16* __restrict__ 
   }
 }
 
-// A tile geometry's launch on a row source, both passes (the second when
-// splits > 1).  vec: q 16-byte aligned with dh % 8 == 0 and the source's
-// rows whole 16-byte chunks (src.vec_ok).
-template <int DP, typename G, typename Rows>
-static cudaError_t launch_chunk_tc(const bf16* q, const Rows& src, bf16* out, float* part,
-                                   int splits, int B, int C, int H, int KV, int dh, int q_offset,
-                                   float scale, cudaStream_t stream) {
+// A tile geometry's launch on a row source and query side, both passes
+// (the second when splits > 1).  vec: q 16-byte aligned with dh % 8 == 0
+// and the source's rows whole 16-byte chunks (src.vec_ok).
+template <int DP, typename G, typename Rows, typename QM>
+static cudaError_t launch_tc(const bf16* q, const Rows& src, const QM& qm, bf16* out,
+                             float* part, int splits, int B, int C, int H, int KV, int dh,
+                             int q_offset, float scale, cudaStream_t stream) {
   constexpr size_t smem = TcSmem<DP, G, Rows>::bytes;
-  auto kernel = chunk_prefill_tc_kernel<DP, G, Rows>;
+  auto kernel = chunk_prefill_tc_kernel<DP, G, Rows, QM>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   const int vec = dh % 8 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 && src.vec_ok(dh);
   const int rows = G::PACK ? C * (H / KV) : C;
-  const dim3 grid((rows + G::BQ - 1) / G::BQ, G::PACK ? KV : H, B * splits);
-  kernel<<<grid, G::NT, smem, stream>>>(q, src, out, splits > 1 ? part : nullptr, B, C, H, KV,
-                                        dh, q_offset, scale, splits, vec);
+  const int nx = (rows + G::BQ - 1) / G::BQ;
+  const dim3 grid = QM::kFlat ? dim3(H * B * splits, nx)
+                              : dim3(nx, G::PACK ? KV : H, B * splits);
+  kernel<<<grid, G::NT, smem, stream>>>(q, src, qm, out, splits > 1 ? part : nullptr, B, C, H,
+                                        KV, dh, q_offset, scale, splits, vec);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
   const long long RT = (long long)B * C * H;
   const long long blocks = (RT + kCombineWarps - 1) / kCombineWarps;
-  chunk_prefill_combine_kernel<Rows>
-      <<<static_cast<unsigned>(blocks), 32 * kCombineWarps, 0, stream>>>(part, out, RT, dh,
-                                                                         splits);
+  float* lse = nullptr;
+  if constexpr (QM::kFlat) lse = qm.lse;
+  chunk_prefill_combine_kernel<Rows, QM>
+      <<<static_cast<unsigned>(blocks), 32 * kCombineWarps, 0, stream>>>(part, out, lse, RT,
+                                                                         dh, splits);
   return cudaGetLastError();
+}
+
+// The chunk kernels' launch (ChunkQ)
+template <int DP, typename G, typename Rows>
+static cudaError_t launch_chunk_tc(const bf16* q, const Rows& src, bf16* out, float* part,
+                                   int splits, int B, int C, int H, int KV, int dh, int q_offset,
+                                   float scale, cudaStream_t stream) {
+  return launch_tc<DP, G, Rows, ChunkQ>(q, src, ChunkQ{}, out, part, splits, B, C, H, KV, dh,
+                                        q_offset, scale, stream);
 }
 
 // The serving geometry at the padded head dim 64, 128 or 256

@@ -125,6 +125,37 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&h);
 }
 
+// Two f32 values as a hi + lo pair of bf16x2 operands: hi = bf16(x), lo =
+// bf16(x - hi), so two products carry about 16 significant bits of x where
+// one carries 8 (mha_bwd_dkv.cu's P^T and dS^T).
+__device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+}
+
+// 2^x by the MUFU unit (ex2.approx.ftz: relative error about 2^-22;
+// -inf gives 0, a denormal result flushes to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+
+// 4-byte asynchronous copy global -> shared (cp.async.ca); src_bytes 0
+// zero-fills
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(smem)), "l"(gmem),
+               "r"(src_bytes));
+}
+
+// The padded head dim of the bf16 MHA kernels (mha_forward.cu,
+// mha_bwd_dkv.cu): 64 or 128, and 96 (famous-bert's) natively, which
+// scripts/torch_kernel_sweep.py timed faster than padding it to 128.
+inline int mha_tc_dp(int dh) { return dh <= 64 ? 64 : dh <= 96 ? 96 : 128; }
+
 // Raise the dynamic shared-memory cap of `kernel` when a launch needs more
 // than the default 48 KB.
 template <typename K>

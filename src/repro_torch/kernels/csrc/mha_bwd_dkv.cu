@@ -15,24 +15,61 @@
 // pallas_call (the Pallas kernel _mha_bwd_dkv_kernel).  There the grid is
 // (BH, Skv/block_k, Sq/block_q) with the query axis sequential, carrying
 // dk/dv accumulators in VMEM; the kernel writes per-query-head f32 dk/dv
-// of shape (BH, Skv, dh) and the wrapper sums them over the group.  Here
-// one block owns 32 keys of one kv head and loops over the group's query
-// heads and over the query tiles that can see those keys (the causal edge
-// starts the loop, the window ends it), with both accumulators in
-// registers.  That is the same sum with no atomics, in a fixed order (so
-// the result is deterministic), and without the group-times-larger
-// intermediate.  The arithmetic is the TPU kernel's: the product is
-// scaled, P is recomputed as 0 off the mask, and dk is scaled once on the
-// way out.
+// of shape (BH, Skv, dh) and the wrapper sums them over the group.  Here a
+// block owns a tile of keys of one kv head and loops over the group's
+// query heads and over the query tiles that can see those keys (the causal
+// edge starts the loop, the window ends it), with both accumulators in
+// registers: the same sum without the group-times-larger intermediate.
+// The arithmetic is the TPU kernel's: the product is scaled, P is
+// recomputed as 0 off the mask, and dk is scaled once on the way out.
 //
 // What bounds it on an H100: operations (8 * BH * Sq * Skv * dh FLOP,
 // halved when causal: 60 GFLOP for qwen2-7b at S=2048, 61 us at the bf16
-// tensor-core peak) far more than bytes.  This first version runs f32 FMAs
-// on the CUDA cores from staged Q, dO, K and V tiles; the K/V tile stays
-// in shared memory for the block's whole loop.  wgmma on bf16 tiles, and
-// more blocks per kv head where BKV * Skv / 32 leaves SMs idle (256 blocks
-// for qwen2-7b at S=2048), are the later changes.
+// tensor-core peak; 91 us counting the two extra products of the hi/lo
+// split below) far more than bytes.
+//
+// Design, bf16: FlashAttention-2's dK/dV loop on tensor cores (mma.sync
+// m16n8k16, bf16 x bf16 -> f32).  A block owns 64 keys of one kv head,
+// 16 a warp; their K and V tiles stay in shared memory for the whole loop.
+// The group's (query head, 64-row query tile) work items stream through a
+// 2-stage ring of 16-byte cp.async copies: Q, dO and their lse and delta
+// rows, the next item loading while one is used.  Per item each warp
+// computes S^T = K Q^T and dP^T = V dO^T (K and V fragments by ldmatrix,
+// Q and dO as B fragments by ldmatrix), then P^T = 2^(scale log2(e) S^T -
+// log2(e) lse) and dS^T = P^T (dP^T - delta) in the accumulator layout,
+// keys as rows, where they become A fragments in registers with no trip
+// through shared memory; then dV += P^T dO and dK += dS^T Q, with dO and Q
+// as B fragments by ldmatrix.trans.  The mask runs only on items whose
+// tile crosses an edge (causal, window, Sq, Skv).
+//
+// Precision: the gate is f32 math on the same bf16 inputs at 1e-4.  Q, K,
+// V and dO are exact in bf16, so S^T and dP^T take one product each; P^T
+// and dS^T are f32 values, and rounding them to bf16 once misses the gate
+// by up to 107x at qwen2-7b's shape (PERF.md).  So each goes in as a hi +
+// lo pair of bf16 operands (hi = bf16(x), lo = bf16(x - hi); split_bf16 in
+// common.cuh) and takes two products into the same f32 accumulator: six
+// tensor-core products an item where a plain bf16 design takes four.
+//
+// Work split: 64-key blocks give qwen2-7b only 4 x 32 = 128 blocks for
+// 132 SMs, and under the causal mask the block holding key 0 has 32 times
+// the items of the last; and a long run of items loses accuracy in the
+// tensor cores' f32 accumulator (dkv_tc_plan).  So
+// famous_mha_bwd_dkv_plan splits each key block's items (head-major, then
+// query tiles) into `splits` consecutive runs, from static shapes and the
+// SM count only; each run writes its f32 (dk, dv) partial to a workspace
+// the wrapper allocates, and a second pass sums them in run order and
+// scales dk.  No sum crosses blocks in any
+// other way, so a relaunch is bit-identical.  Key blocks launch in order,
+// the longest (first, under the causal mask) first.  The geometry, the
+// split rule and the hi/lo products were chosen by
+// scripts/torch_kernel_sweep.py (PERF.md).
+//
+// f32: the CUDA-core kernel of the first port, in full f32 FMAs (no TF32):
+// 32 keys a block, staged Q, dO, K and V tiles, the group's heads looped
+// inside the block.
 #include "common.cuh"
+
+#include <algorithm>
 
 namespace famous {
 
@@ -169,15 +206,354 @@ static cudaError_t launch_dkv(const void* q, const void* k, const void* v, const
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kDkvMaxSplits = 8;
+
+// A geometry: BK keys a block (16 a warp), BQ query rows an item, head
+// dim padded to DP, P^T and dS^T as hi + lo pairs (HILO) or rounded once
+// (the sweep's timing variant, which fails the gate).  Shared memory: K
+// and V resident, then 2 stages of (Q, dO) tiles and (lse, delta) rows;
+// rows of DP + 8 elements for conflict-free ldmatrix.
+template <int DP_, int BK_, int BQ_, bool HILO_>
+struct DkvTiles {
+  static constexpr int DP = DP_, BK = BK_, BQ = BQ_, NT = 2 * BK, LD = DP + 8;
+  static constexpr bool HILO = HILO_;
+  static constexpr size_t KV = 2 * (size_t)BK * LD * sizeof(bf16);
+  static constexpr size_t QO = 2 * 2 * (size_t)BQ * LD * sizeof(bf16);
+  static constexpr size_t bytes = KV + QO + 2 * 2 * (size_t)BQ * sizeof(float);
+};
+
+// Block (bkv * splits + z, key block y).  part == nullptr: one run, dk
+// and dv written scaled; else run z's f32 partials go to part[z * N + i]
+// (dk) and part[(splits + z) * N + i] (dv), N = BKV * Skv * dh.
+template <typename G>
+__global__ void __launch_bounds__(G::NT, G::NT == 128 ? 2 : 1)
+mha_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ part,
+                      int BKV, int group, int Sq, int Skv, int dh, int causal, int window,
+                      int q_offset, float scale, int splits, int vec) {
+  constexpr int DP = G::DP, BK = G::BK, BQ = G::BQ, NT = G::NT, LD = G::LD;
+  constexpr int NQ = BQ / 8;   // 8-query tiles of S^T and dP^T
+  constexpr int ND = DP / 8;   // 8-column tiles of dK and dV
+  constexpr int CPR = DP / 8;  // 16-byte chunks of a row
+  static_assert((BK * CPR) % NT == 0 && (BQ * CPR) % NT == 0 && NQ % 2 == 0 && ND % 2 == 0,
+                "tile shape");
+  static_assert(2 * BQ <= NT, "a thread per lse or delta value");
+  extern __shared__ __align__(16) unsigned char dkv_smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(dkv_smem);
+  bf16* v_s = k_s + BK * LD;
+  bf16* ring = v_s + BK * LD;  // stage s: Q at ring + 2 s BQ LD, dO after it
+  float* rows_s = reinterpret_cast<float*>(dkv_smem + G::KV + G::QO);  // stage s: lse, delta
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;  // mma group id, thread in group
+  const int bkv = blockIdx.x / splits, z = blockIdx.x % splits;
+  const int kb0 = blockIdx.y * BK, w0 = warp * 16;
+  const long long kvrow = (long long)bkv * Skv;
+
+  // the query rows that see one of the block's keys, [qbeg, qend), in
+  // tiles [qt_lo, qt_lo + nqt) of each of the group's heads; items (head,
+  // tile) head-major, run z owning [i_lo, i_hi)
+  const int kmax = min(Skv, kb0 + BK) - 1;
+  const int qbeg = causal ? max(0, kb0 - q_offset) : 0;
+  const int qend = window > 0 ? min(Sq, kmax + window - q_offset) : Sq;
+  const int qt_lo = qbeg / BQ, nqt = max(0, (qend + BQ - 1) / BQ - qt_lo);
+  const int items = group * nqt, ips = (items + splits - 1) / splits;
+  const int i_lo = min(items, z * ips), i_hi = min(items, i_lo + ips);
+
+  // R rows of a (rows, dh) bf16 tensor from row `row0` into a shared tile,
+  // rows from `valid` on and columns past dh zero-filled
+  auto load_tile = [&](bf16* dst, const bf16* src, long long row0, int R, int valid) {
+    if (vec) {
+      for (int c = tid; c < R * CPR; c += NT) {
+        const int r = c / CPR, col = (c % CPR) * 8;
+        const bool ok = col < dh && r < valid;
+        cp_async16(dst + r * LD + col, ok ? src + (row0 + r) * dh + col : src, ok ? 16 : 0);
+      }
+    } else {
+      for (int i = tid; i < R * DP; i += NT) {
+        const int r = i / DP, c = i % DP;
+        dst[r * LD + c] = c < dh && r < valid ? src[(row0 + r) * dh + c] : __float2bfloat16(0.f);
+      }
+    }
+  };
+  auto q0_of = [&](int it) { return (qt_lo + it % nqt) * BQ; };
+  auto load_item = [&](int stage, int it) {
+    const int q0 = q0_of(it);
+    const long long row0 = (long long)(bkv * group + it / nqt) * Sq + q0;
+    bf16* qt = ring + stage * 2 * BQ * LD;
+    load_tile(qt, q, row0, BQ, Sq - q0);
+    load_tile(qt + BQ * LD, dout, row0, BQ, Sq - q0);
+    if (tid < 2 * BQ) {
+      const int j = tid % BQ;
+      const float* src = tid < BQ ? lse : delta;
+      const bool ok = q0 + j < Sq;
+      cp_async4(rows_s + stage * 2 * BQ + tid, ok ? src + row0 + j : src, ok ? 4 : 0);
+    }
+  };
+
+  // K, V and the first item: one commit group
+  load_tile(k_s, k, kvrow + kb0, BK, Skv - kb0);
+  load_tile(v_s, v, kvrow + kb0, BK, Skv - kb0);
+  if (i_lo < i_hi) load_item(0, i_lo);
+  cp_async_commit();
+
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  const float sl = scale * kLog2e;  // scores in log2 units
+  const int kr0 = kb0 + w0 + g;     // this lane's keys: kr0, kr0 + 8
+
+  for (int it = i_lo; it < i_hi; ++it) {
+    const int st = (it - i_lo) & 1;
+    cp_async_wait<0>();  // item it (and K, V) have landed
+    __syncthreads();     // ... for every warp; item it - 1's stage is free
+    if (it + 1 < i_hi) load_item(st ^ 1, it + 1);
+    cp_async_commit();
+    const bf16* qt = ring + st * 2 * BQ * LD;
+    const bf16* ot = qt + BQ * LD;
+    const float* lt = rows_s + st * 2 * BQ;
+    const float* dt = lt + BQ;
+    const int q0 = q0_of(it);
+
+    // S^T = K Q^T and dP^T = V dO^T over the 16-deep slices of dh that
+    // hold data: the warp's 16 keys against the item's BQ query rows
+    float sa[NQ][4], pa[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sa[j][e] = pa[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks) {
+      if (ks * 16 >= dh) break;
+      unsigned ak[4], av[4];
+      ldmatrix_x4(ak, k_s + (w0 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
+      ldmatrix_x4(av, v_s + (w0 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < NQ; j += 2) {
+        // matrices: (rows 8j.., d 0-7), (8j.., d 8-15), (8j+8.., d 0-7),
+        // (8j+8.., d 8-15): the b0 / b1 of query tiles j and j + 1
+        const int off = (j * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD + ks * 16 +
+                        ((lane >> 3) & 1) * 8;
+        unsigned r[4];
+        ldmatrix_x4(r, qt + off);
+        mma_bf16(sa[j], ak, r[0], r[1]);
+        mma_bf16(sa[j + 1], ak, r[2], r[3]);
+        ldmatrix_x4(r, ot + off);
+        mma_bf16(pa[j], av, r[0], r[1]);
+        mma_bf16(pa[j + 1], av, r[2], r[3]);
+      }
+    }
+
+    // P^T and dS^T in place; element e of query tile j is key kr0 (+8 for
+    // e >= 2), query q0 + 8j + 2tq (+1 for odd e).  Off the mask P is 0
+    // (an empty row's lse of -1e30 never reaches a visible key).
+    const bool edge = q0 + BQ > Sq || kb0 + BK > Skv || (causal && kb0 + BK - 1 > q_offset + q0) ||
+                      (window > 0 && kb0 <= q_offset + q0 + BQ - 1 - window);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const int qc = 8 * j + 2 * tq;
+      const float2 l2 = *reinterpret_cast<const float2*>(lt + qc);
+      const float2 d2 = *reinterpret_cast<const float2*>(dt + qc);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lv = (e & 1) ? l2.y : l2.x, dl = (e & 1) ? d2.y : d2.x;
+        float p = ex2(fmaf(sa[j][e], sl, -lv * kLog2e));
+        if (edge) {
+          const int kp = kr0 + 8 * (e >> 1), qi = q0 + qc + (e & 1);
+          if (qi >= Sq || kp >= Skv || !key_visible(q_offset + qi, kp, causal, window)) p = 0.f;
+        }
+        sa[j][e] = p;
+        pa[j][e] = p * (pa[j][e] - dl);
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q: A fragments from the accumulators
+    // (16 queries = query tiles 2kk, 2kk + 1), each a hi + lo pair; B
+    // fragments of dO and Q by ldmatrix.trans, each feeding both halves
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      unsigned ph[4], pl[4], dh_[4], dl_[4];
+      split_bf16(sa[2 * kk][0], sa[2 * kk][1], ph[0], pl[0]);
+      split_bf16(sa[2 * kk][2], sa[2 * kk][3], ph[1], pl[1]);
+      split_bf16(sa[2 * kk + 1][0], sa[2 * kk + 1][1], ph[2], pl[2]);
+      split_bf16(sa[2 * kk + 1][2], sa[2 * kk + 1][3], ph[3], pl[3]);
+      split_bf16(pa[2 * kk][0], pa[2 * kk][1], dh_[0], dl_[0]);
+      split_bf16(pa[2 * kk][2], pa[2 * kk][3], dh_[1], dl_[1]);
+      split_bf16(pa[2 * kk + 1][0], pa[2 * kk + 1][1], dh_[2], dl_[2]);
+      split_bf16(pa[2 * kk + 1][2], pa[2 * kk + 1][3], dh_[3], dl_[3]);
+#pragma unroll
+      for (int n = 0; n < ND; n += 2) {
+        if (n * 8 >= dh) break;
+        const int off = (kk * 16 + (lane & 15)) * LD + n * 8 + (lane >> 4) * 8;
+        unsigned r[4];
+        ldmatrix_x4_trans(r, ot + off);
+        mma_bf16(dva[n], ph, r[0], r[1]);
+        mma_bf16(dva[n + 1], ph, r[2], r[3]);
+        if constexpr (G::HILO) {
+          mma_bf16(dva[n], pl, r[0], r[1]);
+          mma_bf16(dva[n + 1], pl, r[2], r[3]);
+        }
+        ldmatrix_x4_trans(r, qt + off);
+        mma_bf16(dka[n], dh_, r[0], r[1]);
+        mma_bf16(dka[n + 1], dh_, r[2], r[3]);
+        if constexpr (G::HILO) {
+          mma_bf16(dka[n], dl_, r[0], r[1]);
+          mma_bf16(dka[n + 1], dl_, r[2], r[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // rows kr0 (+8), columns 8n + 2tq (+1); pairs as one store where dh is
+  // even (so the pair is aligned)
+  const long long N = (long long)BKV * Skv * dh;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = kr0 + 8 * h;
+    if (key >= Skv) continue;
+    const long long at = (kvrow + key) * dh;
+    float* pk = part ? part + z * N + at : dk + at;
+    float* pv = part ? part + (splits + z) * N + at : dv + at;
+    const float sk = part ? 1.f : scale;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      const int col = n * 8 + 2 * tq;
+      const float k0 = dka[n][2 * h] * sk, k1 = dka[n][2 * h + 1] * sk;
+      const float v0 = dva[n][2 * h], v1 = dva[n][2 * h + 1];
+      if (col + 1 < dh && dh % 2 == 0) {
+        *reinterpret_cast<float2*>(pk + col) = make_float2(k0, k1);
+        *reinterpret_cast<float2*>(pv + col) = make_float2(v0, v1);
+      } else {
+        if (col < dh) pk[col] = k0, pv[col] = v0;
+        if (col + 1 < dh) pk[col + 1] = k1, pv[col + 1] = v1;
+      }
+    }
+  }
+}
+
+// The second pass of a split launch: dk = scale * sum_z dk_z, dv = sum_z
+// dv_z, the runs summed in order z = 0, 1, ... (fixed, so deterministic).
+__global__ void __launch_bounds__(256)
+mha_bwd_dkv_combine_kernel(const float* __restrict__ part, float* __restrict__ dk,
+                           float* __restrict__ dv, long long N, int splits, float scale) {
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < N; i += 256LL * gridDim.x) {
+    float a = 0.f, b = 0.f;
+    for (int z = 0; z < splits; ++z) {
+      a += part[z * N + i];
+      b += part[(splits + z) * N + i];
+    }
+    dk[i] = a * scale;
+    dv[i] = b;
+  }
+}
+
+// One geometry's launch, both passes (the second when splits > 1)
+template <typename G>
+static cudaError_t launch_dkv_tc(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+                                 const float* lse, const float* delta, float* dk, float* dv,
+                                 float* part, int splits, int BKV, int group, int Sq, int Skv,
+                                 int dh, int causal, int window, int q_offset, float scale,
+                                 cudaStream_t stream) {
+  auto kernel = mha_bwd_dkv_tc_kernel<G>;
+  cudaError_t e = allow_smem(kernel, G::bytes);
+  if (e != cudaSuccess) return e;
+  const auto al = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const int vec = dh % 8 == 0 && al(q) && al(k) && al(v) && al(dout);
+  const dim3 grid(BKV * splits, (Skv + G::BK - 1) / G::BK);
+  kernel<<<grid, G::NT, G::bytes, stream>>>(q, k, v, dout, lse, delta, dk, dv,
+                                            splits > 1 ? part : nullptr, BKV, group, Sq, Skv, dh,
+                                            causal, window, q_offset, scale, splits, vec);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  const long long N = (long long)BKV * Skv * dh;
+  const long long blocks = std::min<long long>((N + 255) / 256, 8192);
+  mha_bwd_dkv_combine_kernel<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(part, dk, dv, N,
+                                                                               splits, scale);
+  return cudaGetLastError();
+}
+
+// The geometry at the padded head dim: 64 keys a block, 64-row items
+template <int DP>
+using DkvServe = DkvTiles<DP, 64, 64, true>;
+
+static cudaError_t launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+                                   const float* lse, const float* delta, float* dk, float* dv,
+                                   float* part, int splits, int BKV, int group, int Sq, int Skv,
+                                   int dh, int causal, int window, int q_offset, float scale,
+                                   cudaStream_t s) {
+  switch (mha_tc_dp(dh)) {
+    case 64:
+      return launch_dkv_tc<DkvServe<64>>(q, k, v, dout, lse, delta, dk, dv, part, splits, BKV,
+                                         group, Sq, Skv, dh, causal, window, q_offset, scale, s);
+    case 96:
+      return launch_dkv_tc<DkvServe<96>>(q, k, v, dout, lse, delta, dk, dv, part, splits, BKV,
+                                         group, Sq, Skv, dh, causal, window, q_offset, scale, s);
+    default:
+      return launch_dkv_tc<DkvServe<128>>(q, k, v, dout, lse, delta, dk, dv, part, splits, BKV,
+                                          group, Sq, Skv, dh, causal, window, q_offset, scale, s);
+  }
+}
+
+// The split count of the bf16 kernel, from static shapes and the SM count
+// only: the larger of two needs, at most 8.
+//  - Occupancy: where the key blocks (BKV x Skv / 64) number fewer than
+//    four an SM (two waves of two), as many splits as bring them to about
+//    four an SM.
+//  - Accuracy: runs of at most 64 items.  The tensor cores' f32
+//    accumulation loses more than an IEEE f32 sum (truncated adds), so a
+//    run's error grows with its length: at qwen2-7b's shape one run of 224
+//    items missed the 1e-4 gate (4.9e-4), two runs gave 2.3e-4 and four
+//    1.3e-4 of absolute error (PERF.md); the second pass sums the runs in
+//    IEEE f32.
+// *ws_elems: the f32 workspace of the partials (2 x splits x BKV x Skv x
+// dh; 0 for one split).
+constexpr int kDkvRunItems = 64;
+
+inline int dkv_tc_plan(int BKV, int group, int Sq, int Skv, int dh, int sms,
+                       long long* ws_elems) {
+  const long long blocks = (long long)BKV * ((Skv + 63) / 64);
+  const int items = group * ((Sq + 63) / 64);  // of the key block that sees every query
+  long long splits = (items + kDkvRunItems - 1) / kDkvRunItems;
+  if (blocks < 4LL * sms) splits = std::max(splits, (4LL * sms) / blocks);
+  splits = std::max(1LL, std::min<long long>({splits, kDkvMaxSplits, items}));
+  *ws_elems = splits > 1 ? 2LL * splits * BKV * Skv * dh : 0;
+  return static_cast<int>(splits);
+}
+
 }  // namespace famous
 
+// The split count of the bf16 kernel (dkv_tc_plan), 1 for f32.
+// *ws_elems: the f32 workspace of the partials (0 for one split), which
+// the wrapper allocates.
+extern "C" int famous_mha_bwd_dkv_plan(int dtype, int BH, int BKV, int Sq, int Skv, int dh,
+                                       int sms, long long* ws_elems) {
+  using namespace famous;
+  *ws_elems = 0;
+  if (dtype != kBF16 || BKV <= 0 || BH % BKV != 0 || Skv <= 0) return 1;
+  return dkv_tc_plan(BKV, BH / BKV, Sq, Skv, dh, sms, ws_elems);
+}
+
+// part: the workspace of famous_mha_bwd_dkv_plan when splits > 1, else
+// null.
 extern "C" int famous_mha_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
                                   const void* dout, const float* lse, const float* delta,
-                                  float* dk, float* dv, int BH, int BKV, int Sq, int Skv,
-                                  int dh, int causal, int window, int q_offset, float scale,
-                                  void* stream) {
+                                  float* dk, float* dv, void* part, int splits, int BH, int BKV,
+                                  int Sq, int Skv, int dh, int causal, int window, int q_offset,
+                                  float scale, void* stream) {
   using namespace famous;
-  if (BKV <= 0 || BH % BKV != 0 || BKV > 65535 || dh <= 0 || dh > kKvMaxDh)
+  if (BKV <= 0 || BH % BKV != 0 || BKV > 65535 || dh <= 0 || dh > kKvMaxDh || splits < 1 ||
+      splits > kDkvMaxSplits || (splits > 1 && (part == nullptr || dtype != kBF16)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (Skv <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -187,8 +563,10 @@ extern "C" int famous_mha_bwd_dkv(int dtype, const void* q, const void* k, const
     e = launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, BKV, group, Sq, Skv, dh, causal,
                           window, q_offset, scale, s);
   else if (dtype == kBF16)
-    e = launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, BKV, group, Sq, Skv, dh,
-                                  causal, window, q_offset, scale, s);
+    e = launch_dkv_bf16(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
+                        dk, dv, static_cast<float*>(part), splits, BKV, group, Sq, Skv, dh,
+                        causal, window, q_offset, scale, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

@@ -4,7 +4,8 @@
 //   q      (BH, Sq, dh)     contiguous, BH = BKV * group
 //   k, v   (BKV, Skv, dh)   contiguous; query row bh reads kv row bh / group
 //   out    (BH, Sq, dh)     in q's dtype
-//   lse    (BH, Sq)         f32, m + log(max(l, 1e-30))
+//   lse    (BH, Sq)         f32, m + log(max(l, 1e-30)); kNegInf for a row
+//                           that sees no key
 //
 // Query position q_offset + i sees key j when key_visible() says so
 // (causal and/or sliding window; neither is the encoder's full attention).
@@ -13,23 +14,39 @@
 // kernel _mha_kernel).  There the grid is (BH, Sq/block_q, Skv/block_k)
 // and the last axis is sequential, carrying the f32 accumulator and the
 // running max/sum in VMEM from one key tile to the next; the block sizes
-// must divide the sequence lengths.  Here one block owns 32 query rows of
-// one head and walks its key tiles itself, with the accumulator in
+// must divide the sequence lengths.  Here a block owns a tile of query
+// rows of one head and walks its key tiles itself, with the accumulator in
 // registers; the loop runs only over the keys its rows can see (it ends at
 // the causal edge and starts at the window's), and ragged edges are
-// masked.  The arithmetic is the TPU kernel's: q is scaled before the
-// product, masked scores are -1e30, P is 0 off the mask, and the output is
-// divided by max(l, 1e-30), so a row with no visible key gives 0 and an
-// LSE of about -1e30.
+// masked.  Masked keys get probability 0 and the output is divided by
+// max(l, 1e-30), so a row with no visible key gives 0, as on the TPU.
 //
 // What bounds it on an H100: operations (4 * BH * Sq * Skv * dh FLOP,
 // halved when causal: 6.4 GFLOP for a famous-bert layer at B=8, S=512,
-// about 6.5 us at the bf16 tensor-core peak) far more than bytes (q, k,
-// v, out once each: 6.3 MB in bf16, 1.9 us).  This first version runs f32
-// FMAs on the CUDA cores from 32 x 32 tiles of Q, K and V staged in shared
-// memory, so it sits far from that bound; wgmma on bf16 tiles with TMA
-// loads is the later change.
-#include "common.cuh"
+// 6.5 us at the bf16 tensor-core peak; 30 us for qwen2-7b at S=2048) far
+// more than bytes (q, k, v, out once each: 6.3 MB in bf16, 1.9 us).
+//
+// Design, bf16: the tensor-core flash-attention body of chunk_tc.cuh (its
+// header says how a block works: mma.sync m16n8k16, Q and K by ldmatrix,
+// V by ldmatrix.trans, P from the score accumulators in registers, the
+// online softmax on the fragments in log2 units with the scale after
+// Q K^T, an f32 l of the unrounded P, P rounded to bf16 only for P V, a
+// 2-stage cp.async ring of 64-key tiles), run on its FlatQ query side:
+// ContigKV reads kv row b of (BKV, Skv, dh) for the group's query heads,
+// the masks are key_visible()'s (full, causal with q_offset, a window's
+// lower edge masked like the diagonal, only on the tiles that cross an
+// edge), the LSE leaves in natural log, and under the causal mask the row
+// blocks launch longest (last) first.  128-row blocks of 4 warps; dh 96
+// (famous-bert) runs natively (six k16 steps, 208-byte padded rows, still
+// conflict-free for ldmatrix), as scripts/torch_kernel_sweep.py chose
+// (PERF.md).  famous-bert has 256 blocks and qwen2-7b 448, so the key
+// range is split (famous_mha_forward_plan: chunk_tc_plan's rule) only at
+// shapes with few rows; the ordered combine then also emits the LSE.
+//
+// f32: the CUDA-core kernel of the first port, in full f32 FMAs (no TF32):
+// 32 x 32 tiles of Q, K and V staged in shared memory, q scaled before
+// the product as the TPU kernel does, 8 threads a row in P V.
+#include "chunk_tc.cuh"
 
 namespace famous {
 
@@ -175,25 +192,79 @@ static cudaError_t launch_fwd(const void* q, const void* k, const void* v, void*
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16: chunk_tc.cuh's tensor-core body on the flat layout
+// ---------------------------------------------------------------------------
+
+// One geometry G at padded head dim DP: B = BKV kv rows of H = group query
+// heads over one kv head each (KV = 1).
+template <int DP, typename G>
+static cudaError_t launch_fwd_tc(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+                                 float* lse, float* part, int splits, int BKV, int group, int Sq,
+                                 int Skv, int dh, int causal, int window, int q_offset,
+                                 float scale, int reverse, cudaStream_t stream) {
+  const long long rs = (long long)Skv * dh;
+  const ContigKV src{k, v, rs, dh, 0, rs, dh, 0, Skv};
+  return launch_tc<DP, G, ContigKV, FlatQ>(q, src, FlatQ{causal, window, reverse, lse}, out,
+                                           part, splits, BKV, Sq, group, 1, dh, q_offset, scale,
+                                           stream);
+}
+
+static cudaError_t launch_fwd_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+                                   float* lse, float* part, int splits, int BKV, int group,
+                                   int Sq, int Skv, int dh, int causal, int window, int q_offset,
+                                   float scale, cudaStream_t stream) {
+  switch (mha_tc_dp(dh)) {
+    case 64:
+      return launch_fwd_tc<64, ServeTiles<64>>(q, k, v, out, lse, part, splits, BKV, group, Sq,
+                                               Skv, dh, causal, window, q_offset, scale, causal,
+                                               stream);
+    case 96:
+      return launch_fwd_tc<96, ServeTiles<96>>(q, k, v, out, lse, part, splits, BKV, group, Sq,
+                                               Skv, dh, causal, window, q_offset, scale, causal,
+                                               stream);
+    default:
+      return launch_fwd_tc<128, ServeTiles<128>>(q, k, v, out, lse, part, splits, BKV, group, Sq,
+                                                 Skv, dh, causal, window, q_offset, scale,
+                                                 causal, stream);
+  }
+}
+
 }  // namespace famous
 
-extern "C" int famous_mha_forward(int dtype, const void* q, const void* k, const void* v,
-                                  void* out, float* lse, int BH, int BKV, int Sq, int Skv,
-                                  int dh, int causal, int window, int q_offset, float scale,
-                                  void* stream) {
+// The key-range split count of the bf16 kernel (chunk_tc_plan on the flat
+// shape: B = BKV, C = Sq, H = group), 1 for f32.  *ws_elems: the f32
+// workspace of the split partials (0 for one split), which the wrapper
+// allocates.
+extern "C" int famous_mha_forward_plan(int dtype, int BH, int BKV, int Sq, int Skv, int dh,
+                                       int sms, long long* ws_elems) {
   using namespace famous;
-  if (BKV <= 0 || BH % BKV != 0 || BH > 65535 || dh <= 0 || dh > kMhaMaxDh)
+  *ws_elems = 0;
+  if (dtype != kBF16 || BKV <= 0 || BH % BKV != 0 || Sq <= 0) return 1;
+  return chunk_tc_plan(BKV, Sq, BH / BKV, dh, Skv, sms, ws_elems);
+}
+
+// part: the workspace of famous_mha_forward_plan when splits > 1, else null.
+extern "C" int famous_mha_forward(int dtype, const void* q, const void* k, const void* v,
+                                  void* out, float* lse, void* part, int splits, int BH, int BKV,
+                                  int Sq, int Skv, int dh, int causal, int window, int q_offset,
+                                  float scale, void* stream) {
+  using namespace famous;
+  if (BKV <= 0 || BH % BKV != 0 || BH > 65535 || dh <= 0 || dh > kMhaMaxDh || splits < 1 ||
+      splits > kTcMaxSplits || (splits > 1 && (part == nullptr || dtype != kBF16)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (Sq <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int group = BH / BKV;
   cudaError_t e;
   if (dtype == kF32)
-    e = launch_fwd<float>(q, k, v, out, lse, BH, group, Sq, Skv, dh, causal, window,
-                          q_offset, scale, s);
+    e = launch_fwd<float>(q, k, v, out, lse, BH, group, Sq, Skv, dh, causal, window, q_offset,
+                          scale, s);
   else if (dtype == kBF16)
-    e = launch_fwd<__nv_bfloat16>(q, k, v, out, lse, BH, group, Sq, Skv, dh, causal, window,
-                                  q_offset, scale, s);
+    e = launch_fwd_bf16(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                        static_cast<const bf16*>(v), static_cast<bf16*>(out), lse,
+                        static_cast<float*>(part), splits, BKV, group, Sq, Skv, dh, causal,
+                        window, q_offset, scale, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

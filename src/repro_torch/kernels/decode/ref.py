@@ -189,34 +189,43 @@ def chunk_prefill_tc_reference(q, k_cache, v_cache, q_offset: int, *,
                 v_cache[:, k0:k1].to(torch.float32), None, None)
 
     return _chunk_tc(q, keys, k_cache.shape[1], k_cache.shape[2], q_offset,
-                     scale, splits, block_rows, tile_keys)
+                     scale, splits, block_rows, tile_keys)[0]
 
 
 def _chunk_tc(q, keys, Skv, KV, q_offset, scale, splits, block_rows,
-              tile_keys):
+              tile_keys, *, causal=True, window=0, round_out=True):
     """The tensor-core chunk algebra (see :func:`chunk_prefill_tc_reference`)
     over a key source: ``keys(k0, k1)`` gives keys [k0, k1) as f32 K and V
     rows (B, k1 - k0, KV, dh) and, for int8 pools, their f32 K and V scales
     (B, k1 - k0, KV), else None: the K scale multiplies the scores after
-    Q K^T, the V scale P's columns before P is rounded for P V."""
+    Q K^T, the V scale P's columns before P is rounded for P V.  The flat
+    query side of the MHA forward (``attention/ref.py``) adds full
+    attention (``causal=False``, keys to Skv) and a sliding ``window``
+    (key j visible to position p iff j > p - window; a block's tiles start
+    at its first row's window tile).  Returns the output in q's dtype (f32
+    without ``round_out``) and the f32 LSE (B, C, H), max m ln 2 + log(l),
+    -1e30 where l = 0."""
     B, C, H, dh = q.shape
     g = H // KV
     rnd = q.dtype == torch.bfloat16
     sl = scale * 1.4426950408889634
     qf = q.to(torch.float32).reshape(B, C, KV, g, dh).permute(0, 2, 3, 1, 4)
     out = torch.empty_like(qf)                            # (B, KV, g, C, dh)
+    lse = torch.empty(qf.shape[:4], device=q.device)
     for c0 in range(0, C, block_rows):
         c1 = min(C, c0 + block_rows)
-        kend = min(Skv, q_offset + c1)
-        nt = -(-kend // tile_keys)
-        tps = -(-nt // splits)
-        lim = q_offset + torch.arange(c0, c1, device=q.device)
+        kend = min(Skv, q_offset + c1) if causal else Skv
+        tb = max(0, q_offset + c0 - window + 1) // tile_keys if window > 0 \
+            else 0
+        nt = max(tb, -(-kend // tile_keys))
+        tps = -(-(nt - tb) // splits)
+        qpos = q_offset + torch.arange(c0, c1, device=q.device)[:, None]
         parts = []
         for z in range(splits):
             m = torch.full(qf.shape[:3] + (c1 - c0,), -1e30, device=q.device)
             l = torch.zeros_like(m)
             o = torch.zeros(m.shape + (dh,), device=q.device)
-            t_lo = min(nt, z * tps)
+            t_lo = min(nt, tb + z * tps)
             for t in range(t_lo, min(nt, t_lo + tps)):
                 k0, k1 = t * tile_keys, min(kend, (t + 1) * tile_keys)
                 k, v, ks, vs = keys(k0, k1)
@@ -224,8 +233,10 @@ def _chunk_tc(q, keys, Skv, KV, q_offset, scale, splits, block_rows,
                 if ks is not None:
                     s = s * ks.permute(0, 2, 1)[:, :, None, None]
                 s = s * sl
-                ok = (torch.arange(k0, k1, device=q.device)[None, :]
-                      <= lim[:, None])
+                kpos = torch.arange(k0, k1, device=q.device)[None, :]
+                ok = kpos <= qpos if causal else torch.ones_like(kpos > qpos)
+                if window > 0:
+                    ok = ok & (kpos > qpos - window)
                 s = torch.where(ok, s, -1e30)
                 mx = torch.maximum(m, s.amax(-1))
                 corr = torch.exp2(m - mx)
@@ -247,7 +258,12 @@ def _chunk_tc(q, keys, Skv, KV, q_offset, scale, splits, block_rows,
             l = l + w * lz
             acc = acc + w[..., None] * oz
         out[..., c0:c1, :] = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, C, H, dh).to(q.dtype)
+        lse[..., c0:c1] = torch.where(
+            l > 0, M * 0.6931471805599453 + torch.log(torch.clamp(
+                l, min=1e-30)), -1e30)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, C, H, dh)
+    return (out.to(q.dtype) if round_out else out,
+            lse.permute(0, 3, 1, 2).reshape(B, C, H))
 
 
 # ---------------------------------------------------------------------------
@@ -364,4 +380,4 @@ def _paged_chunk_tc(q, k_pages, v_pages, k_scale, v_scale, page_table,
                 scales(v_scale))
 
     return _chunk_tc(q, keys, pt.shape[1] * ps, k_pages.shape[2], q_offset,
-                     scale, splits, block_rows, tile_keys)
+                     scale, splits, block_rows, tile_keys)[0]

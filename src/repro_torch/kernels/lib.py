@@ -158,12 +158,21 @@ _SIGNATURES = {
     # dtype, B, C, H, KV, dh, Skv, SM count, [out] workspace elements ->
     # key-range splits
     "famous_chunk_prefill_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _PLL],
-    "famous_mha_forward": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _F, _P],
+    # dtype, q, k, v, out, lse, split workspace (or null), splits, BH, BKV,
+    # Sq, Skv, dh, causal, window, q_offset, scale, stream
+    "famous_mha_forward": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _F, _P],
+    # dtype, BH, BKV, Sq, Skv, dh, SM count, [out] workspace elements ->
+    # splits of the key range (mha_forward) or of a key block's work
+    # (mha_bwd_dkv)
+    "famous_mha_forward_plan": [_I, _I, _I, _I, _I, _I, _I, _PLL],
+    "famous_mha_bwd_dkv_plan": [_I, _I, _I, _I, _I, _I, _I, _PLL],
     "famous_mha_bwd_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _I, _F, _P],
-    "famous_mha_bwd_dkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _I, _I, _I, _F, _P],
+    # dtype, q, k, v, dout, lse, delta, dk, dv, split workspace (or null),
+    # splits, BH, BKV, Sq, Skv, dh, causal, window, q_offset, scale, stream
+    "famous_mha_bwd_dkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _I, _F, _P],
     # dtype, q, k, v, [k_scale, v_scale,] page_table, lens, out,
     # workspace, rows, H, KV, dh, page_size, n_p, n_pages, rows_per_slot,
     # keys per range, scale, stream
@@ -226,8 +235,8 @@ def check(name: str, err: int) -> None:
 @functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device (the plans of
-    ``matmul_tiled``, the chunk kernels and the decode kernels size their
-    grids by it)."""
+    ``matmul_tiled``, the chunk, decode and MHA kernels size their grids by
+    it)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
