@@ -38,7 +38,10 @@ Phases, in order; any failure exits non-zero before the result line:
      famous-bert (B=8, S=512, 8 heads, dh=96, non-causal) and qwen2-7b
      (B=1, S=2048, 28/4 heads, dh=128, causal) for ``mha_forward``,
      ``mha_bwd_dq``, ``mha_bwd_dkv`` and ``matmul_tiled`` in its dX / dW
-     roles; and the two linear-recurrence kernels at their serving shapes
+     roles (the attention kernels also at MASK_ATTN's masks, one of them
+     8192 causal tokens on one kv head; each relaunched for bit identity,
+     in bf16 held to the mirror of its tensor-core algebra, the backward
+     plans' longest runs within their caps); and the two linear-recurrence kernels at their serving shapes
      (``rglru_scan``: recurrentgemma-2b's 256-token chunk, B=1, R=2560;
      ``wkv6_scan``: rwkv6-1.6b's, B·H=32, dh=64, chunk 64, without and
      with a carried state, out and final state checked);
@@ -123,10 +126,10 @@ ATTN_TOL = {"f32": 2e-5, "bf16": 2e-2}
 DECODE_NEW_TOL = {"f32": ATTN_TOL["f32"], "bf16": 2e-3}
 L2_BYTES = 50 * 2**20
 BWD_TOL = {"f32": 1e-4, "bf16": 1e-4}          # f32 math on the same inputs
-# the bf16 dk/dv kernel against the plain mirror of its tensor-core
-# algebra (the same hi + lo products; the f32 summation order and
-# ex2.approx differ): BWD_TOL, since the order alone moves qwen2-7b's dk by
-# 4.4e-5 (the f32 kernel against the plain version, PERF.md)
+# the bf16 dq and dk/dv kernels against the plain mirrors of their
+# tensor-core algebra (the same hi + lo products; the f32 summation order
+# and ex2.approx differ): BWD_TOL, since the order alone moves qwen2-7b's
+# dk by 4.4e-5 (the f32 kernel against the plain version, PERF.md)
 BWD_MIRROR_TOL = BWD_TOL["bf16"]
 # the bf16 forward against its mirror: the output on the rows that see at
 # least 256 keys, the LSE on every row.  Kernel and mirror round P to bf16
@@ -183,13 +186,19 @@ TRAIN_ATTN = (("famous-bert", 8, 512, 8, 8, 96, False),
 # the masks of the bf16 tensor-core bodies on qwen2-7b's heads: name, B,
 # Sq, Skv, H, KV, dh, causal, window, q_offset.  A 512-key window; the
 # last 128 rows of a 4096-token sequence (few row blocks, so the forward
-# splits its key range and its combine writes the LSE); and a window
-# whose rows 27-63 see no key (their output must be exactly 0 and their
-# LSE finite, near -1e30)
+# splits its key range and its combine writes the LSE, and dq splits its
+# rows' keys for occupancy); a window whose rows 27-63 see no key (their
+# output and dq must be exactly 0 and their LSE finite, near -1e30); and
+# one kv head's 7 query heads over 8192 causal tokens, where the backward
+# plans need their run caps most: dk/dv 14 runs of a key block's 896
+# items, dq 2 runs of a row's 8192 keys (the plain version's (7, 8192,
+# 8192) f32 tensors come to about 8 GB)
 MASK_ATTN = (("qwen2-7b window=512", 1, 2048, 2048, 28, 4, 128, True, 512, 0),
              ("qwen2-7b q_offset=3968", 1, 128, 4096, 28, 4, 128, True, 0,
               3968),
-             ("qwen2-7b empty rows", 1, 64, 64, 28, 4, 128, True, 64, 100))
+             ("qwen2-7b empty rows", 1, 64, 64, 28, 4, 128, True, 64, 100),
+             ("qwen2-7b 1 kv head S=8192", 1, 8192, 8192, 7, 1, 128, True, 0,
+              0))
 # the QKV projection's VJP at the same two training shapes: T = B*S, D, F
 TRAIN_PROJ = (("famous-bert", 8 * 512, 768, 3 * 768),
               ("qwen2-7b", 2048, 3584, 3584 + 2 * 512))
@@ -580,7 +589,8 @@ def int8_kernel_rows(torch, gen, record, iters):
     X is quantized per token and W per column by ``core.quant``; the kernel
     takes W transposed (F, D), the plain version (D, F).  The kernel must
     equal the plain version exactly (integer sums, the same two f32
-    multiplies).  Library: ``torch._int_mm`` (cuBLASLt's int8 GEMM) plus the
+    multiplies; at T <= 32 over the int32 partials of its split-K plan),
+    and a relaunch its own bits.  Library: ``torch._int_mm`` (cuBLASLt's int8 GEMM) plus the
     same dequantize, where it takes the shape (T > 16 and a multiple of
     8: T = 256 only)."""
     from repro_torch.core import quant
@@ -616,7 +626,8 @@ def int8_kernel_rows(torch, gen, record, iters):
             lib_fn = library
         record("matmul_tiled_int8", f"T={T} D={D} F={Fo}", "int8", out, ref,
                0.0, kern, plain, lib_fn, sets,
-               T * D + D * Fo + 4 * (T + Fo) + 4 * T * Fo, 2.0 * T * D * Fo)
+               T * D + D * Fo + 4 * (T + Fo) + 4 * T * Fo, 2.0 * T * D * Fo,
+               again=kern(*sets[0]))
         check(torch.equal(out, ref),
               f"matmul_tiled_int8 T={T} differs from its plain version")
         del sets
@@ -865,9 +876,10 @@ def training_kernel_rows(torch, F, dts, randn, record, iters):
     ``torch.autograd.grad(out, (q, k, v), dout, retain_graph=True)``, the
     same number for both), and the QKV projection's VJP products dX and dW
     on their transposed contiguous operands (library: ``torch.matmul``).
-    The forward and dk/dv are relaunched on the same inputs (the bits must
-    agree) and, in bf16, held to the plain mirrors of their tensor-core
-    algebra; MASK_ATTN's rows run every mask of those bodies."""
+    All three are relaunched on the same inputs (the bits must agree) and,
+    in bf16, held to the plain mirrors of their tensor-core algebra, with
+    the backward plans' longest runs within their caps; MASK_ATTN's rows
+    run every mask of those bodies."""
     from repro_torch.kernels.qkv import qkv_proj
     from repro_torch.kernels.qkv import ref as qkv_ref
 
@@ -996,12 +1008,14 @@ def attention_rows(torch, F, dts, randn, record, n_iter, label, B, Sq, Skv, H,
             return torch.autograd.grad(lo, leaves, g, retain_graph=True)
 
         in_bytes = (2 * qn + 2 * kn) * e + 2 * rows_bytes
-        for name, kern, plain, nbytes, flops in (
+        for name, kern, plain, nbytes, flops, plan, mirror_fn in (
                 ("mha_bwd_dq", mha_k.mha_bwd_dq, mha_ref.mha_bwd_dq_reference,
-                 in_bytes + qn * 4, 6.0 * dh * pairs),
+                 in_bytes + qn * 4, 6.0 * dh * pairs, mha_k.dq_plan,
+                 mha_ref.mha_bwd_dq_tc_reference),
                 ("mha_bwd_dkv", mha_k.mha_bwd_dkv,
                  mha_ref.mha_bwd_dkv_reference, in_bytes + 2 * kn * 4,
-                 8.0 * dh * pairs)):
+                 8.0 * dh * pairs, mha_k.dkv_plan,
+                 mha_ref.mha_bwd_dkv_tc_reference)):
             def kfn(*a, kern=kern):
                 return kern(*a, **kw)
 
@@ -1011,17 +1025,47 @@ def attention_rows(torch, F, dts, randn, record, n_iter, label, B, Sq, Skv, H,
             out, ref = kfn(*bsets[0]), pfn(*bsets[0])
             record(name, shape, dt, out, ref, BWD_TOL[dt], kfn, pfn, lib_b,
                    bsets, nbytes, flops, n_iter=n_iter, lib_sets=lsets,
-                   again=kfn(*bsets[0]) if name == "mha_bwd_dkv" else None)
-            if name == "mha_bwd_dkv" and dt == "bf16":
-                splits, _ = mha_k.dkv_plan(code, B * H, B * KV, Sq, Skv, dh,
-                                           lib.sm_count(dev))
-                mirror = mha_ref.mha_bwd_dkv_tc_reference(
-                    *bsets[0], splits=splits, **kw)
+                   again=kfn(*bsets[0]))
+            if name == "mha_bwd_dq" and bool(empty.any()):
+                zero = bool(torch.all(out[:, empty] == 0))
+                print(f"  (mha_bwd_dq {dt}: rows that see no key: dq "
+                      f"{'exactly 0' if zero else 'NOT 0'}) "
+                      f"{'ok' if zero else 'FAIL'}", flush=True)
+                check(zero, f"mha_bwd_dq {dt} {shape}: empty rows not 0")
+            if dt == "bf16":
+                splits, _ = plan(code, B * H, B * KV, Sq, Skv, dh,
+                                 lib.sm_count(dev))
+                run_cap_check(mha_ref, name, shape, splits, Sq, Skv, H // KV,
+                              kw)
+                mirror = mirror_fn(*bsets[0], splits=splits, **kw)
                 m_err, m_ok = compare(torch, out, mirror, BWD_MIRROR_TOL)
                 mirror_check(name, dt, shape, splits, m_err, m_ok,
                              BWD_MIRROR_TOL, tol_share(torch, out, mirror,
                                                        BWD_MIRROR_TOL))
+                del mirror
+            del out, ref
         del bsets, lsets
+
+
+def run_cap_check(mha_ref, name, shape, splits, Sq, Skv, group, kw):
+    """The backward plans' run caps: the longest run that ``splits`` gives
+    the kernel's geometry (64-row blocks of 64-key tiles for dq, 64-key
+    blocks of 64-row items for dk/dv; the mirrors' run enumerations) stays
+    within ``ref.DQ_RUN_KEYS`` keys or ``ref.DKV_RUN_ITEMS`` items."""
+    mask = dict(causal=kw["causal"], window=kw["window"],
+                q_offset=kw["q_offset"], splits=splits)
+    if name == "mha_bwd_dq":
+        longest = max((hi - lo for _, _, runs in mha_ref.dq_runs(Sq, Skv, **mask)
+                       for lo, hi in runs), default=0)
+        cap, unit = mha_ref.DQ_RUN_KEYS, "keys"
+    else:
+        longest = max((hi - lo for *_, runs in mha_ref.dkv_runs(
+            Sq, Skv, group, **mask) for lo, hi in runs), default=0)
+        cap, unit = mha_ref.DKV_RUN_ITEMS, "items"
+    ok = longest <= cap
+    print(f"  ({name} {shape}: {splits} splits, longest run {longest} {unit}"
+          f" (cap {cap})) {'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, f"{name} {shape}: a run of {longest} {unit} past the cap {cap}")
 
 
 def mirror_check(name, dt, shape, splits, err, ok, tol, share):

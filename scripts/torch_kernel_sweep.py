@@ -36,11 +36,21 @@ card:
   order; dk/dv at 64 and 128 keys a block, 64- and 32-row query items, dh
   96 native against padded, split counts 1 / 2 / 4 / 7, and its hi + lo
   products against a one-pass variant that rounds P^T and dS^T to bf16
-  once (timing only: it fails the 1e-4 gate and is not shipped); each
-  against SDPA's forward or its whole backward on the same clock.
+  once (timing only: it fails the 1e-4 gate and is not shipped); dq at 64
+  and 128 rows a block, 64- and 32-key tiles, dh 96 native against
+  padded, split counts 1 / 2 / 4, hi + lo against one pass; each against
+  SDPA's forward or its whole backward on the same clock (``dq``: the
+  dq sweep alone);
+- ``matmul_tiled_int8`` (``int8``) at qwen2-7b's D = 3584, F = 4608:
+  output-tile shapes (rows, W-stripe columns, D step, warps, ring stages)
+  times split-K counts at decode (T = 4), verify (T = 20) and a chunk
+  (T = 256), against the plan's choice and, at T = 256, ``torch._int_mm``
+  plus the same dequantize (it takes no T <= 16, nor one off a multiple
+  of 8).
 
 Each variant is built from the committed sources (a generated file that
-includes the kernel's ``.cu`` and instantiates the variant; the paged L
+includes the kernel's ``.cu`` and instantiates the variant, one ``nvcc``
+a file for the parts asked for, all started together; the paged L
 through the port's own entry points, L being a launch argument), checked
 against ``torch.matmul`` or the kernel's plain version, and timed by the
 profiler's device time of the whole call, inputs rotated past the L2 as
@@ -110,9 +120,49 @@ MHA_DKV_TILES = [(64, 64, True), (128, 64, True), (64, 32, True),
 MHA_DKV_SPLITS = [1, 2, 4, 7]
 # mha_bwd_dkv.cu's kDkvRunItems: the longest run its plan allows
 DKV_RUN_ITEMS = 64
+# mha_bwd_dq variants (mha_bwd_dq.cu's DqTiles: query rows a block, keys
+# a tile, hi + lo products); the first is the kernel's own
+MHA_DQ_TILES = [(64, 64, True), (128, 64, True), (64, 32, True),
+                (64, 64, False)]
+MHA_DQ_SPLITS = [1, 2, 4]
+# matmul_tiled_int8 variants (matmul_tiled_int8.cu's I8Tiles: BM, BN, BK,
+# warps along M and N, ring stages) by regime; the first of each is the
+# kernel's own
+I8_TILES = {
+    "decode": [(16, 128, 128, 1, 4, 3), (16, 64, 128, 1, 4, 3),
+               (16, 128, 64, 1, 4, 4), (16, 64, 256, 1, 4, 3),
+               (16, 32, 256, 1, 2, 3)],
+    "verify": [(32, 128, 128, 1, 4, 3), (32, 64, 128, 1, 4, 3),
+               (32, 128, 64, 2, 4, 4)],
+    "chunk": [(64, 96, 128, 2, 3, 3), (128, 128, 64, 2, 4, 4),
+              (64, 64, 64, 2, 2, 3),
+              (128, 64, 64, 2, 2, 4), (64, 128, 64, 2, 2, 4),
+              (128, 128, 128, 2, 4, 3), (256, 64, 64, 4, 2, 3),
+              (128, 128, 64, 4, 2, 4), (64, 144, 64, 2, 3, 4),
+              (64, 144, 128, 2, 3, 3), (32, 144, 64, 1, 3, 4),
+              (64, 128, 128, 2, 2, 3), (64, 64, 128, 2, 2, 3), (64, 96, 128, 2, 3, 4),
+              (64, 96, 256, 2, 3, 2), (32, 96, 128, 1, 3, 3),
+              (64, 48, 128, 2, 3, 3), (128, 96, 128, 4, 3, 3),
+              (64, 96, 64, 2, 3, 4)],
+}
+# (regime, T) at qwen2-7b's fused QKV (D, F), and the split counts swept
+I8_SHAPES = [("decode", 4), ("verify", 20), ("chunk", 256)]
+I8_D, I8_F = 3584, 4608
+I8_SPLITS = {"decode": [1, 2, 4, 7, 14], "verify": [1, 2, 4, 7, 14],
+             "chunk": [1, 2, 3]}
 # (label, B, S, H, KV, dh, causal): chip_smoke.py's TRAIN_ATTN
 MHA_SHAPES = [("famous-bert", 8, 512, 8, 8, 96, False),
               ("qwen2-7b", 1, 2048, 28, 4, 128, True)]
+
+
+# the generated files each sweep part needs
+PART_SOURCES = {"matmul": ["sweep_mm.cu"], "decode": ["sweep_decode.cu"],
+                "paged": ["sweep_decode.cu"], "chunk": ["sweep_chunk.cu"],
+                "pagedchunk": ["sweep_paged_chunk.cu"],
+                "mha": ["sweep_mha_fwd.cu", "sweep_mha_dkv.cu",
+                        "sweep_mha_dq.cu"],
+                "dq": ["sweep_mha_dq.cu"],
+                "int8": ["sweep_int8.cu"]}
 
 
 def sweep_sources() -> dict[str, str]:
@@ -261,48 +311,130 @@ extern "C" int sweep_mha_dkv(int cfg, const void* q, const void* k,
   return static_cast<int>(e);
 }}
 """
+    dq_cases = "\n".join(
+        f"    case {i * len(MHA_DPS) + j}: e = launch_dq_tc<DqTiles<{dp}, "
+        f"{bq}, {bk}, {str(hilo).lower()}>>(qb, kb, vb, ob, lse, delta, dq, "
+        "static_cast<float*>(part), splits, BH, group, Sq, Skv, dh, causal, "
+        "window, q_offset, scale, s); break;"
+        for i, (bq, bk, hilo) in enumerate(MHA_DQ_TILES)
+        for j, dp in enumerate(MHA_DPS))
+    dq = f"""#include "{csrc / 'mha_bwd_dq.cu'}"
+
+extern "C" int sweep_mha_dq(int cfg, const void* q, const void* k,
+                            const void* v, const void* dout,
+                            const float* lse, const float* delta, float* dq,
+                            void* part, int splits, int BH, int group,
+                            int Sq, int Skv, int dh, int causal, int window,
+                            int q_offset, float scale, void* stream) {{
+  using namespace famous;
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  const bf16* ob = static_cast<const bf16*>(dout);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaErrorInvalidValue;
+  switch (cfg) {{
+{dq_cases}
+  }}
+  return static_cast<int>(e);
+}}
+"""
+    i8_cases = "\n".join(
+        f"    case {i}: e = launch_int8<I8Tiles<{bm}, {bn}, {bk}, {wm}, {wn}, "
+        f"{st}>>(x, w, a, b, o, p, splits, T, D, F, vec, s); break;"
+        for i, (bm, bn, bk, wm, wn, st) in enumerate(i8_tile_list()))
+    i8 = f"""#include "{csrc / 'matmul_tiled_int8.cu'}"
+
+extern "C" int sweep_int8(int cfg, const void* xq, const void* wqt,
+                          const float* a, const float* b, float* o,
+                          int* p, int splits, int T, int D, int F,
+                          void* stream) {{
+  using namespace famous;
+  const int8_t* x = static_cast<const int8_t*>(xq);
+  const int8_t* w = static_cast<const int8_t*>(wqt);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int vec = D % 16 == 0;
+  cudaError_t e = cudaErrorInvalidValue;
+  switch (cfg) {{
+{i8_cases}
+  }}
+  return static_cast<int>(e);
+}}
+"""
     return {"sweep_mm.cu": mm, "sweep_decode.cu": dec, "sweep_chunk.cu": cp,
             "sweep_paged_chunk.cu": pc, "sweep_mha_fwd.cu": fwd,
-            "sweep_mha_dkv.cu": dkv}
+            "sweep_mha_dkv.cu": dkv, "sweep_mha_dq.cu": dq,
+            "sweep_int8.cu": i8}
 
 
-def build(out_dir: Path) -> ctypes.CDLL:
+def i8_tile_list():
+    """Every int8 tile shape, regimes in I8_TILES' order (the sweep's cfg
+    index)."""
+    return [t for tiles in I8_TILES.values() for t in tiles]
+
+
+def build(out_dir: Path, parts) -> ctypes.CDLL:
+    """Compile the generated files the parts need (one nvcc each, in
+    parallel) and link them with the error strings into one library."""
     from repro_torch.kernels import lib
 
     out_dir.mkdir(parents=True, exist_ok=True)
-    srcs = []
-    for name, text in sweep_sources().items():
-        (out_dir / name).write_text(text)
-        srcs.append(str(out_dir / name))
+    names = sorted({f for p in parts for f in PART_SOURCES[p]})
+    texts = sweep_sources()
+    procs = []
+    for name in names:
+        (out_dir / name).write_text(texts[name])
+        obj = out_dir / (name + ".o")
+        procs.append((obj, subprocess.Popen(
+            [lib.nvcc_path(), *lib.ARCH_FLAGS, *lib.NVCC_FLAGS, "-c",
+             str(out_dir / name), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for obj, proc in procs:
+        text, _ = proc.communicate()
+        logs.append(f"== {obj.name} (rc {proc.returncode})\n{text}")
+        if proc.returncode != 0:
+            failed.append(obj.name)
     so = out_dir / "libsweep.so"
-    run = subprocess.run(
-        [lib.nvcc_path(), *lib.ARCH_FLAGS, *lib.NVCC_FLAGS, "-shared",
-         "-o", str(so), *srcs, str(lib.CSRC / "errors.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    (out_dir / "build.log").write_text(run.stdout)
-    if run.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{run.stdout}")
+    if not failed:
+        run = subprocess.run(
+            [lib.nvcc_path(), *lib.ARCH_FLAGS, *lib.NVCC_FLAGS, "-shared",
+             "-o", str(so), *(str(o) for o, _ in procs),
+             str(lib.CSRC / "errors.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append(f"== link (rc {run.returncode})\n{run.stdout}")
+        if run.returncode != 0:
+            failed.append("link")
+    (out_dir / "build.log").write_text("\n".join(logs))
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
     so_lib = ctypes.CDLL(str(so))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    so_lib.sweep_mm.argtypes = [I, P, P, P, I, I, I, P]
-    so_lib.sweep_decode_ws.argtypes = [I, I, I, I, I]
-    so_lib.sweep_decode_ws.restype = ctypes.c_longlong
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     PLL = ctypes.POINTER(ctypes.c_longlong)
-    so_lib.sweep_chunk.argtypes = [I, P, P, P, P, P, I, I, I, I, I, I, I,
-                                   PLL, PLL, ctypes.c_float, P]
-    so_lib.sweep_paged_chunk.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I,
-                                         I, I, I, I, I, I, ctypes.c_float, P]
-    so_lib.sweep_mha_fwd.argtypes = [I, P, P, P, P, P, P, I, I, I, I, I, I,
-                                     I, I, I, ctypes.c_float, I, P]
-    so_lib.sweep_mha_dkv.argtypes = [I, P, P, P, P, P, P, P, P, P, I, I, I,
-                                     I, I, I, I, I, I, ctypes.c_float, P]
-    for name in ("famous_matmul_tiled", "famous_decode_attention"):
-        getattr(so_lib, name).argtypes = lib._SIGNATURES[name]
-    for fn in (so_lib.sweep_mm, so_lib.famous_matmul_tiled,
-               so_lib.famous_decode_attention, so_lib.sweep_chunk,
-               so_lib.sweep_paged_chunk, so_lib.sweep_mha_fwd,
-               so_lib.sweep_mha_dkv):
-        fn.restype = I
+    sigs = {
+        "sweep_mm": [I, P, P, P, I, I, I, P],
+        "sweep_chunk": [I, P, P, P, P, P, I, I, I, I, I, I, I, PLL, PLL, F,
+                        P],
+        "sweep_paged_chunk": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                              I, I, F, P],
+        "sweep_mha_fwd": [I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F,
+                          I, P],
+        "sweep_mha_dkv": [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                          I, I, F, P],
+        "sweep_mha_dq": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
+                         I, F, P],
+        "sweep_int8": [I, P, P, P, P, P, P, I, I, I, I, P],
+        "famous_matmul_tiled": lib._SIGNATURES["famous_matmul_tiled"],
+        "famous_decode_attention":
+            lib._SIGNATURES["famous_decode_attention"],
+    }
+    for name, argtypes in sigs.items():
+        fn = getattr(so_lib, name, None)
+        if fn is not None:
+            fn.argtypes, fn.restype = argtypes, I
+    if hasattr(so_lib, "sweep_decode_ws"):
+        so_lib.sweep_decode_ws.argtypes = [I, I, I, I, I]
+        so_lib.sweep_decode_ws.restype = ctypes.c_longlong
     return so_lib
 
 
@@ -310,7 +442,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=30)
     ap.add_argument("--parts",
-                    default="matmul,decode,paged,chunk,pagedchunk,mha",
+                    default="matmul,decode,paged,chunk,pagedchunk,mha,int8",
                     help="comma-separated sweeps to run")
     args = ap.parse_args(argv)
     import torch
@@ -325,9 +457,15 @@ def main(argv=None) -> int:
     from repro_torch.kernels.decode import ref as dec_ref
     from repro_torch.kernels.qkv import qkv_proj
 
+    parts = set(args.parts.split(","))
+    unknown = parts - set(PART_SOURCES)
+    if unknown:
+        print(f"kernel_sweep: unknown parts {sorted(unknown)}",
+              file=sys.stderr)
+        return 2
     dev = torch.device("cuda")
     lib.load()   # the port's library: the plans and error strings
-    so = build(ROOT / "build" / "sweep")
+    so = build(ROOT / "build" / "sweep", parts)
     gen = torch.Generator(device=dev).manual_seed(0)
     sms = lib.sm_count(dev)
     code = lib.DTYPE_CODE[torch.bfloat16]
@@ -337,7 +475,7 @@ def main(argv=None) -> int:
     result = {"card": smi, "matmul_tiles": [], "matmul_splits": [],
               "decode_L": [], "paged_decode_L": [], "chunk_prefill": [],
               "paged_chunk_prefill": [], "mha_forward": [],
-              "mha_bwd_dkv": []}
+              "mha_bwd_dkv": [], "mha_bwd_dq": [], "matmul_tiled_int8": []}
 
     def randn(shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev)
@@ -349,7 +487,6 @@ def main(argv=None) -> int:
     def dev_ms(fn, sets):
         return cs.device_ms(torch, fn, sets, it)
 
-    parts = set(args.parts.split(","))
     # matmul_tiled above T = 32: output-tile shapes
     for T, D, F in MM_SHAPES if "matmul" in parts else ():
         sets = [(randn((T, D)), randn((D, F), D ** -0.5))
@@ -463,13 +600,18 @@ def main(argv=None) -> int:
         paged_chunk_sweep(torch, lib, so, randn, dev_ms, result, sms)
     if "mha" in parts:
         mha_sweep(torch, Fn, lib, so, randn, dev_ms, result, sms)
+    elif "dq" in parts:
+        mha_sweep(torch, Fn, lib, so, randn, dev_ms, result, sms, ("dq",))
+    if "int8" in parts:
+        int8_sweep(torch, lib, so, gen, dev_ms, result, sms)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "kernel_sweep.json").write_text(json.dumps(result, indent=1))
     bad = [k for sec in ("matmul_tiles", "matmul_splits", "decode_L",
                          "paged_decode_L", "chunk_prefill",
-                         "paged_chunk_prefill", "mha_forward", "mha_bwd_dkv")
+                         "paged_chunk_prefill", "mha_forward", "mha_bwd_dkv",
+                         "mha_bwd_dq", "matmul_tiled_int8")
            for row in result[sec] for k, v in row.items()
            if isinstance(v, dict) and v.get("ok") is False
            and not v.get("expected_miss")]
@@ -692,14 +834,18 @@ def paged_chunk_sweep(torch, lib, so, randn, dev_ms, result, sms):
         del pools
 
 
-def mha_sweep(torch, Fn, lib, so, randn, dev_ms, result, sms):
-    """The bf16 ``mha_forward`` and ``mha_bwd_dkv`` at the two training
-    shapes: each variant of MHA_FWD_TILES x MHA_DPS (x row-block order
-    under the causal mask) and MHA_DKV_TILES x MHA_DPS x split counts,
-    checked against the plain versions (ATTN_TOL, BWD_TOL; the one-pass
-    dk/dv variant, and runs longer than the plan allows (kDkvRunItems),
-    may miss BWD_TOL: recorded, not failed), against the kernels' own
-    plans and SDPA's forward or whole backward on the same clock."""
+def mha_sweep(torch, Fn, lib, so, randn, dev_ms, result, sms,
+              kernels=("fwd", "dkv", "dq")):
+    """The bf16 ``mha_forward``, ``mha_bwd_dkv`` and ``mha_bwd_dq`` at the
+    two training shapes: each variant of MHA_FWD_TILES x MHA_DPS (x
+    row-block order under the causal mask), MHA_DKV_TILES x MHA_DPS x
+    split counts and MHA_DQ_TILES x MHA_DPS x split counts, checked
+    against the plain versions (ATTN_TOL, BWD_TOL, with the share of the
+    tolerance used; the one-pass backward variants, and dk/dv runs longer
+    than the plan allows (kDkvRunItems), may miss BWD_TOL: recorded, not
+    failed), against the kernels' own plans and SDPA's forward or whole
+    backward on the same clock.  ``kernels`` names which of the three to
+    sweep."""
     import chip_smoke as cs
     from repro_torch.kernels.attention import mha as mha_k
     from repro_torch.kernels.attention import ref as mha_ref
@@ -735,85 +881,191 @@ def mha_sweep(torch, Fn, lib, so, randn, dev_ms, result, sms):
         def sdpa_b(lo, leaves, g):
             return torch.autograd.grad(lo, leaves, g, retain_graph=True)
 
-        # the forward
-        f_splits, _ = mha_k.forward_plan(code, BH, BKV, S, S, dh, sms)
-        row = {"shape": label, "plan_splits": f_splits,
-               "library_ms": dev_ms(sdpa, sets),
-               "kernel_ms": dev_ms(lambda q, k, v: mha_k.mha_forward(
-                   q, k, v, **kw), sets)}
-        for i, (w, mt) in enumerate(MHA_FWD_TILES):
-            for j, dp in enumerate(MHA_DPS):
-                if dp < dh:
-                    continue
-                for rev in ((1, 0) if causal else (0,)):
-                    def kern(q, k, v, cfg=i * len(MHA_DPS) + j, rev=rev):
-                        out = torch.empty_like(q)
-                        lse = torch.empty((BH, S), dtype=torch.float32,
-                                          device=dev)
-                        lib.check("sweep_mha_fwd", so.sweep_mha_fwd(
-                            cfg, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            out.data_ptr(), lse.data_ptr(), None, 1, BKV,
-                            H // KV, S, S, dh, int(causal), 0, 0,
-                            kw["scale"], rev, stream))
-                        return out, lse
-                    err, ok = cs.compare(torch, kern(*sets[0]), ref_f,
-                                         cs.ATTN_TOL["bf16"])
-                    name = (f"{16 * mt * w} rows dh {dp}"
-                            + (f" {'longest first' if rev else 'natural'}"
-                               if causal else ""))
-                    row[name] = {"ms": dev_ms(kern, sets), "max_abs_err": err,
-                                 "ok": ok}
-        result["mha_forward"].append(row)
-        print(f"mha_forward {label} (plan: {f_splits} splits): kernel "
-              f"{ms_text(row['kernel_ms'])} ms, SDPA "
-              f"{ms_text(row['library_ms'])} ms | " + row_text(row),
-              flush=True)
-        del sets
+        lib_b_ms = dev_ms(sdpa_b, lsets)
+        if "fwd" in kernels:
+            # the forward
+            f_splits, _ = mha_k.forward_plan(code, BH, BKV, S, S, dh, sms)
+            row = {"shape": label, "plan_splits": f_splits,
+                   "library_ms": dev_ms(sdpa, sets),
+                   "kernel_ms": dev_ms(lambda q, k, v: mha_k.mha_forward(
+                       q, k, v, **kw), sets)}
+            for i, (w, mt) in enumerate(MHA_FWD_TILES):
+                for j, dp in enumerate(MHA_DPS):
+                    if dp < dh:
+                        continue
+                    for rev in ((1, 0) if causal else (0,)):
+                        def kern(q, k, v, cfg=i * len(MHA_DPS) + j, rev=rev):
+                            out = torch.empty_like(q)
+                            lse = torch.empty((BH, S), dtype=torch.float32,
+                                              device=dev)
+                            lib.check("sweep_mha_fwd", so.sweep_mha_fwd(
+                                cfg, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                out.data_ptr(), lse.data_ptr(), None, 1, BKV,
+                                H // KV, S, S, dh, int(causal), 0, 0,
+                                kw["scale"], rev, stream))
+                            return out, lse
+                        err, ok = cs.compare(torch, kern(*sets[0]), ref_f,
+                                             cs.ATTN_TOL["bf16"])
+                        name = (f"{16 * mt * w} rows dh {dp}"
+                                + (f" {'longest first' if rev else 'natural'}"
+                                   if causal else ""))
+                        row[name] = {"ms": dev_ms(kern, sets), "max_abs_err": err,
+                                     "ok": ok}
+            result["mha_forward"].append(row)
+            print(f"mha_forward {label} (plan: {f_splits} splits): kernel "
+                  f"{ms_text(row['kernel_ms'])} ms, SDPA "
+                  f"{ms_text(row['library_ms'])} ms | " + row_text(row),
+                  flush=True)
+            del sets
 
-        # dk/dv
-        b_splits, _ = mha_k.dkv_plan(code, BH, BKV, S, S, dh, sms)
-        row = {"shape": label, "plan_splits": b_splits,
-               "library_ms": dev_ms(sdpa_b, lsets),
-               "kernel_ms": dev_ms(lambda *a: mha_k.mha_bwd_dkv(*a, **kw),
-                                   bsets)}
-        for i, (bk, bq, hilo) in enumerate(MHA_DKV_TILES):
-            for j, dp in enumerate(MHA_DPS):
-                if dp < dh:
-                    continue
-                for n in sorted(set(MHA_DKV_SPLITS + [b_splits])):
-                    part = torch.empty(2 * n * BKV * S * dh,
-                                       dtype=torch.float32, device=dev)
+        if "dkv" in kernels:
+            # dk/dv
+            b_splits, _ = mha_k.dkv_plan(code, BH, BKV, S, S, dh, sms)
+            row = {"shape": label, "plan_splits": b_splits,
+                   "library_ms": lib_b_ms,
+                   "kernel_ms": dev_ms(lambda *a: mha_k.mha_bwd_dkv(*a, **kw),
+                                       bsets)}
+            for i, (bk, bq, hilo) in enumerate(MHA_DKV_TILES):
+                for j, dp in enumerate(MHA_DPS):
+                    if dp < dh:
+                        continue
+                    for n in sorted(set(MHA_DKV_SPLITS + [b_splits])):
+                        part = torch.empty(2 * n * BKV * S * dh,
+                                           dtype=torch.float32, device=dev)
 
-                    def kern(q, k, v, do, lse, delta, n=n, part=part,
-                             cfg=i * len(MHA_DPS) + j):
-                        dk = torch.empty(k.shape, dtype=torch.float32,
-                                         device=dev)
-                        dv = torch.empty_like(dk)
-                        lib.check("sweep_mha_dkv", so.sweep_mha_dkv(
-                            cfg, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                            dk.data_ptr(), dv.data_ptr(), part.data_ptr(), n,
-                            BKV, H // KV, S, S, dh, int(causal), 0, 0,
-                            kw["scale"], stream))
-                        return dk, dv
-                    err, ok = cs.compare(torch, kern(*bsets[0]), ref_b,
-                                         cs.BWD_TOL["bf16"])
-                    name = (f"{bk} keys {bq} rows dh {dp}"
-                            f"{'' if hilo else ' one-pass'} splits={n}")
-                    # the longest run: the first key block's items
-                    items = (H // KV) * -(-S // bq)
-                    run = -(-items // n)
-                    miss = ("one pass" if not hilo else
-                            f"runs of {run} items" if run > DKV_RUN_ITEMS
-                            else None)
-                    row[name] = {"ms": dev_ms(kern, bsets), "max_abs_err": err,
-                                 "ok": ok, "expected_miss": miss}
-        result["mha_bwd_dkv"].append(row)
-        print(f"mha_bwd_dkv {label} (plan: {b_splits} splits): kernel "
-              f"{ms_text(row['kernel_ms'])} ms, SDPA backward (dq, dk, dv) "
-              f"{ms_text(row['library_ms'])} ms | " + row_text(row),
-              flush=True)
+                        def kern(q, k, v, do, lse, delta, n=n, part=part,
+                                 cfg=i * len(MHA_DPS) + j):
+                            dk = torch.empty(k.shape, dtype=torch.float32,
+                                             device=dev)
+                            dv = torch.empty_like(dk)
+                            lib.check("sweep_mha_dkv", so.sweep_mha_dkv(
+                                cfg, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                                dk.data_ptr(), dv.data_ptr(), part.data_ptr(), n,
+                                BKV, H // KV, S, S, dh, int(causal), 0, 0,
+                                kw["scale"], stream))
+                            return dk, dv
+                        err, ok = cs.compare(torch, kern(*bsets[0]), ref_b,
+                                             cs.BWD_TOL["bf16"])
+                        name = (f"{bk} keys {bq} rows dh {dp}"
+                                f"{'' if hilo else ' one-pass'} splits={n}")
+                        # the longest run: the first key block's items
+                        items = (H // KV) * -(-S // bq)
+                        run = -(-items // n)
+                        miss = ("one pass" if not hilo else
+                                f"runs of {run} items" if run > DKV_RUN_ITEMS
+                                else None)
+                        row[name] = {"ms": dev_ms(kern, bsets), "max_abs_err": err,
+                                     "ok": ok, "expected_miss": miss}
+            result["mha_bwd_dkv"].append(row)
+            print(f"mha_bwd_dkv {label} (plan: {b_splits} splits): kernel "
+                  f"{ms_text(row['kernel_ms'])} ms, SDPA backward (dq, dk, dv) "
+                  f"{ms_text(row['library_ms'])} ms | " + row_text(row),
+                  flush=True)
+
+        if "dq" in kernels:
+            # dq
+            ref_q = mha_ref.mha_bwd_dq_reference(*bsets[0], **kw)
+            q_splits, _ = mha_k.dq_plan(code, BH, BKV, S, S, dh, sms)
+            row = {"shape": label, "plan_splits": q_splits,
+                   "library_ms": lib_b_ms,
+                   "kernel_ms": dev_ms(lambda *a: mha_k.mha_bwd_dq(*a, **kw),
+                                       bsets)}
+            for i, (bq, bk, hilo) in enumerate(MHA_DQ_TILES):
+                for j, dp in enumerate(MHA_DPS):
+                    if dp < dh:
+                        continue
+                    for n in sorted(set(MHA_DQ_SPLITS + [q_splits])):
+                        part = torch.empty(n * BH * S * dh, dtype=torch.float32,
+                                           device=dev)
+
+                        def kern(q, k, v, do, lse, delta, n=n, part=part,
+                                 cfg=i * len(MHA_DPS) + j):
+                            dq = torch.empty(q.shape, dtype=torch.float32,
+                                             device=dev)
+                            lib.check("sweep_mha_dq", so.sweep_mha_dq(
+                                cfg, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                                dq.data_ptr(), part.data_ptr(), n, BH, H // KV, S,
+                                S, dh, int(causal), 0, 0, kw["scale"], stream))
+                            return dq
+                        got = kern(*bsets[0])
+                        err, ok = cs.compare(torch, got, ref_q,
+                                             cs.BWD_TOL["bf16"])
+                        name = (f"{bq} rows {bk} keys dh {dp}"
+                                f"{'' if hilo else ' one-pass'} splits={n}")
+                        row[name] = {"ms": dev_ms(kern, bsets), "max_abs_err": err,
+                                     "ok": ok, "tol_share": cs.tol_share(
+                                         torch, got, ref_q, cs.BWD_TOL["bf16"]),
+                                     "expected_miss": None if hilo else
+                                     "one pass"}
+            result["mha_bwd_dq"].append(row)
+            print(f"mha_bwd_dq {label} (plan: {q_splits} splits): kernel "
+                  f"{ms_text(row['kernel_ms'])} ms, SDPA backward (dq, dk, dv) "
+                  f"{ms_text(row['library_ms'])} ms | " + row_text(row),
+                  flush=True)
         del bsets, lsets
+
+
+def int8_sweep(torch, lib, so, gen, dev_ms, result, sms):
+    """``matmul_tiled_int8`` at qwen2-7b's fused QKV: each regime's tile
+    shapes (I8_TILES) times its split counts (I8_SPLITS), which must equal
+    the plain version exactly, against the kernel's own entry at the
+    plan's split count and, where it takes the shape, ``torch._int_mm`` +
+    the same dequantize on the same clock."""
+    import chip_smoke as cs
+    from repro_torch.core import quant
+    from repro_torch.kernels.qkv import qkv_proj
+    from repro_torch.kernels.qkv import ref as qkv_ref
+
+    dev = torch.device("cuda")
+    D, F = I8_D, I8_F
+    stream = torch.cuda.current_stream().cuda_stream
+    tiles = i8_tile_list()
+
+    def operands(T):
+        x = torch.randn((T, D), generator=gen, device=dev)
+        w = torch.randn((D, F), generator=gen, device=dev) * D ** -0.5
+        (xq, sx), (wq, sw) = quant.quantize(x, 1), quant.quantize(w, 0)
+        return xq, wq.t().contiguous(), sx, sw, wq
+
+    for regime, T in I8_SHAPES:
+        sets = [operands(T)
+                for _ in range(cs.n_sets(T * D + 2 * D * F))]
+        ref = qkv_ref.matmul_int8_reference(sets[0][0], sets[0][4],
+                                            sets[0][2], sets[0][3])
+        chosen, _ = qkv_proj._plan_int8(T, D, F, sms)
+        row = {"regime": regime, "T": T, "D": D, "F": F,
+               "plan_splits": chosen,
+               "kernel_ms": dev_ms(lambda xq, wqt, sx, sw, wq:
+                                   qkv_proj.matmul_tiled_int8(xq, wqt, sx, sw),
+                                   sets),
+               "library_ms": dev_ms(
+                   lambda xq, wqt, sx, sw, wq: torch._int_mm(xq, wq).to(
+                       torch.float32) * sx * sw, sets)
+               if T > 16 and T % 8 == 0 else None}
+        for tile in I8_TILES[regime]:
+            cfg = tiles.index(tile)
+            for n in I8_SPLITS[regime]:
+                part = torch.empty(n * T * F, dtype=torch.int32, device=dev)
+
+                def kern(xq, wqt, sx, sw, wq, n=n, part=part, cfg=cfg):
+                    out = torch.empty((T, F), dtype=torch.float32, device=dev)
+                    lib.check("sweep_int8", so.sweep_int8(
+                        cfg, xq.data_ptr(), wqt.data_ptr(), sx.data_ptr(),
+                        sw.data_ptr(), out.data_ptr(), part.data_ptr(), n, T,
+                        D, F, stream))
+                    return out
+                got = kern(*sets[0])
+                name = "{}x{}x{} w{}x{} s{}".format(*tile) + f" splits={n}"
+                row[name] = {"ms": dev_ms(kern, sets),
+                             "ok": bool(torch.equal(got, ref))}
+        result["matmul_tiled_int8"].append(row)
+        print(f"matmul_tiled_int8 T={T} D={D} F={F} (plan: {chosen} "
+              f"splits): kernel {ms_text(row['kernel_ms'])} ms, _int_mm + "
+              f"dequantize {ms_text(row['library_ms'])} ms | "
+              + row_text(row), flush=True)
+        del sets
 
 
 if __name__ == "__main__":

@@ -11,12 +11,13 @@ which launch ``kernels/csrc/mha_bwd_dq.cu`` and
 walks its own key (or query) tiles, so the block sizes need not divide the
 sequence lengths, and the dk/dv kernel sums over the GQA group itself.
 ``causal``, ``window`` and ``q_offset`` are plain launch arguments.  In
-bf16 the forward and the dk/dv kernel run on tensor cores
-(:func:`ref.mha_forward_tc_reference` and
+bf16 all three run on tensor cores (:func:`ref.mha_forward_tc_reference`,
+:func:`ref.mha_bwd_dq_tc_reference` and
 :func:`ref.mha_bwd_dkv_tc_reference` state their algebra); the forward
-may split a block's key range and the dk/dv kernel a key block's work, as
-their C plans (:func:`forward_plan`, :func:`dkv_plan`) say from static
-shapes and the SM count, into an f32 workspace allocated here.  On CPU
+and the dq kernel may split a block's key range and the dk/dv kernel a
+key block's work, as their C plans (:func:`forward_plan`,
+:func:`dq_plan`, :func:`dkv_plan`) say from static shapes and the SM
+count, into an f32 workspace allocated here.  On CPU
 tensors all three run the plain versions in
 :mod:`repro_torch.kernels.attention.ref`.
 """
@@ -122,6 +123,16 @@ def forward_plan(code: int, BH: int, BKV: int, Sq: int, Skv: int, dh: int,
 
 
 @functools.lru_cache(maxsize=None)
+def dq_plan(code: int, BH: int, BKV: int, Sq: int, Skv: int, dh: int,
+            sms: int) -> tuple[int, int]:
+    """Splits of the bf16 dq kernel (each row block's key tiles cut into
+    that many runs, whose f32 partials are summed in order) and the f32
+    elements of their workspace (0 for one split; always 1 in f32)."""
+    return lib.plan("famous_mha_bwd_dq_plan", code, BH, BKV, Sq, Skv, dh,
+                    sms)
+
+
+@functools.lru_cache(maxsize=None)
 def dkv_plan(code: int, BH: int, BKV: int, Sq: int, Skv: int, dh: int,
              sms: int) -> tuple[int, int]:
     """Splits of the bf16 dk/dv kernel (each key block's work items cut
@@ -167,10 +178,13 @@ def _launch_dq(q, k, v, dout, lse, delta, *, causal, window, scale,
     name = "mha_bwd_dq"
     code, BH, BKV, Sq, Skv, dh = _check_bwd(name, q, k, v, dout, lse, delta)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    splits, n_ws = dq_plan(code, BH, BKV, Sq, Skv, dh, lib.sm_count(q.device))
+    ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
     err = lib.load().famous_mha_bwd_dq(
         code, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, BKV, Sq, Skv,
-        dh, int(causal), window, q_offset, scale, lib.stream_of(q))
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        ws.data_ptr() if n_ws else None, splits, BH, BKV, Sq, Skv, dh,
+        int(causal), window, q_offset, scale, lib.stream_of(q))
     lib.check(name, err)
     lib.STATS.launches[name] += 1
     return dq

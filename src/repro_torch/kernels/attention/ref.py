@@ -12,10 +12,13 @@ tensors on the CPU; ``chip_smoke.py`` holds the CUDA kernels against them
 on the card.  The training path never calls them on CUDA tensors
 (``lib.STATS.plain_on_cuda`` counts any such call).
 
-:func:`mha_forward_tc_reference` and :func:`mha_bwd_dkv_tc_reference`
-restate the same two functions as the bf16 tensor-core kernels compute
-them (blocks, tiles, splits and the roundings to bf16), for the tests and
-``chip_smoke.py`` only."""
+:func:`mha_forward_tc_reference`, :func:`mha_bwd_dq_tc_reference` and
+:func:`mha_bwd_dkv_tc_reference` restate the same three functions as the
+bf16 tensor-core kernels compute them (blocks, tiles, splits and the
+roundings to bf16), for the tests and ``chip_smoke.py`` only;
+:func:`dq_runs` and :func:`dkv_runs` enumerate the runs the two backward
+kernels cut their sums into, whose lengths their plans cap at
+:data:`DQ_RUN_KEYS` keys and :data:`DKV_RUN_ITEMS` items."""
 from __future__ import annotations
 
 import math
@@ -27,6 +30,11 @@ from repro_torch.kernels.lib import STATS
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
+# the longest run of the tensor-core backward kernels' plans: keys a dq run
+# (mha_bwd_dq.cu's kDqRunKeys), work items a dk/dv run (mha_bwd_dkv.cu's
+# kDkvRunItems)
+DQ_RUN_KEYS = 4096
+DKV_RUN_ITEMS = 64
 
 
 def visible(Sq: int, Skv: int, *, causal: bool, window: int, q_offset: int,
@@ -165,6 +173,31 @@ def _hi_lo(x):
     return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
 
 
+def dkv_runs(Sq: int, Skv: int, group: int, *, causal: bool, window: int,
+             q_offset: int, splits: int, block_keys: int = 64,
+             block_q: int = 64):
+    """The bf16 dk/dv kernel's work: for each key block ``(kb0, kb1, qt_lo,
+    nqt, runs)``, where the block's work items are the (query head of its
+    group, query tile of ``block_q`` rows) pairs whose rows can see one of
+    its keys, head-major (item ``it`` is head ``it // nqt``, tile ``qt_lo +
+    it % nqt``), and run z owns items ``runs[z] = (i_lo, i_hi)``."""
+    out = []
+    for kb0 in range(0, Skv, block_keys):
+        kb1 = min(Skv, kb0 + block_keys)
+        qbeg = max(0, kb0 - q_offset) if causal else 0
+        qend = min(Sq, kb1 - 1 + window - q_offset) if window > 0 else Sq
+        qt_lo = qbeg // block_q
+        nqt = max(0, -(-qend // block_q) - qt_lo) if qend > 0 else 0
+        items = group * nqt
+        ips = -(-items // splits)
+        runs = []
+        for z in range(splits):
+            i_lo = min(items, z * ips)
+            runs.append((i_lo, min(items, i_lo + ips)))
+        out.append((kb0, kb1, qt_lo, nqt, runs))
+    return out
+
+
 def mha_bwd_dkv_tc_reference(q, k, v, dout, lse, delta, *, causal: bool,
                              window: int, scale: float, q_offset: int,
                              splits: int = 1, block_keys: int = 64,
@@ -174,7 +207,8 @@ def mha_bwd_dkv_tc_reference(q, k, v, dout, lse, delta, *, causal: bool,
     Keys go in blocks of ``block_keys``; a key block's work items are the
     (query head of its group, query tile of ``block_q`` rows) pairs whose
     rows can see one of its keys, head-major, and ``splits`` runs share
-    them (items [z * ips, (z + 1) * ips), ips = ceil(items / splits)).  Per
+    them (items [z * ips, (z + 1) * ips), ips = ceil(items / splits);
+    :func:`dkv_runs`).  Per
     item: P^T = 2^(scale log2(e) S^T - log2(e) lse) on the mask (0 off it)
     with S^T = K Q^T, and dS^T = P^T (V dO^T - delta); for bf16 inputs each
     of P^T and dS^T enters its product as hi + lo (:func:`_hi_lo`), so dV
@@ -199,22 +233,16 @@ def mha_bwd_dkv_tc_reference(q, k, v, dout, lse, delta, *, causal: bool,
                      q_offset=q_offset, device=q.device)
     dk = torch.empty_like(kf)
     dv = torch.empty_like(vf)
-    for kb0 in range(0, Skv, block_keys):
-        kb1 = min(Skv, kb0 + block_keys)
-        qbeg = max(0, kb0 - q_offset) if causal else 0
-        qend = min(Sq, kb1 - 1 + window - q_offset) if window > 0 else Sq
-        qt_lo = qbeg // block_q
-        nqt = max(0, -(-qend // block_q) - qt_lo) if qend > 0 else 0
-        items = group * nqt
-        ips = -(-items // splits)
+    for kb0, kb1, qt_lo, nqt, runs in dkv_runs(
+            Sq, Skv, group, causal=causal, window=window, q_offset=q_offset,
+            splits=splits, block_keys=block_keys, block_q=block_q):
         kt, vt = kf[:, kb0:kb1], vf[:, kb0:kb1]
         acc_k = torch.zeros((BKV, kb1 - kb0, dh), device=q.device)
         acc_v = torch.zeros_like(acc_k)
-        for z in range(splits):
+        for i_lo, i_hi in runs:
             pk = torch.zeros_like(acc_k)
             pv = torch.zeros_like(acc_k)
-            i_lo = min(items, z * ips)
-            for it in range(i_lo, min(items, i_lo + ips)):
+            for it in range(i_lo, i_hi):
                 hg = it // nqt
                 q0 = (qt_lo + it % nqt) * block_q
                 q1 = min(Sq, q0 + block_q)
@@ -233,3 +261,76 @@ def mha_bwd_dkv_tc_reference(q, k, v, dout, lse, delta, *, causal: bool,
         dk[:, kb0:kb1] = acc_k * scale
         dv[:, kb0:kb1] = acc_v
     return dk, dv
+
+
+def dq_runs(Sq: int, Skv: int, *, causal: bool, window: int, q_offset: int,
+            splits: int, block_q: int = 64, tile_keys: int = 64):
+    """The bf16 dq kernel's work: for each row block of ``block_q`` rows
+    ``(q0, q1, runs)``, where the block's keys [kbeg, kend) end at its last
+    row's diagonal (causal; else at Skv) and start at the tile of its first
+    row's window edge, cut into tiles of ``tile_keys``, and run z owns the
+    keys ``runs[z] = (k_lo, k_hi)`` of tiles [t_lo, t_hi) (t_lo = tb + z *
+    tps, tps = ceil(tiles / splits)), clipped to kend."""
+    out = []
+    for q0 in range(0, Sq, block_q):
+        q1 = min(Sq, q0 + block_q)
+        kend = min(Skv, q_offset + q1) if causal else Skv
+        tb = (max(0, q_offset + q0 - window + 1) // tile_keys
+              if window > 0 else 0)
+        nt = max(tb, -(-kend // tile_keys))
+        tps = -(-(nt - tb) // splits)
+        runs = []
+        for z in range(splits):
+            t_lo = min(nt, tb + z * tps)
+            t_hi = min(nt, t_lo + tps)
+            runs.append((t_lo * tile_keys, min(kend, t_hi * tile_keys)))
+        out.append((q0, q1, runs))
+    return out
+
+
+def mha_bwd_dq_tc_reference(q, k, v, dout, lse, delta, *, causal: bool,
+                            window: int, scale: float, q_offset: int,
+                            splits: int = 1, block_q: int = 64,
+                            tile_keys: int = 64):
+    """The bf16 tensor-core dq kernel's algebra, in f32:
+    :func:`mha_bwd_dq_reference` computed as that kernel computes it.  Each
+    query head's rows go in blocks of ``block_q``; a block's key tiles are
+    cut into ``splits`` ordered runs (:func:`dq_runs`).  Per run: P = 2^(
+    scale log2(e) S - log2(e) lse) on the mask (0 off it) with S = Q K^T,
+    dS = P (dO V^T - delta); for bf16 inputs dS enters dS K as hi + lo
+    (:func:`_hi_lo`), so the run's partial is hi(dS) K + lo(dS) K.  The
+    runs' partials are summed in order, then scaled.  Returns f32 dq (BH,
+    Sq, dh)."""
+    if q.is_cuda:
+        STATS.plain_on_cuda["mha_bwd_dq"] += 1
+    BH, Sq, dh = q.shape
+    Skv = k.shape[1]
+    group = BH // k.shape[0]
+    split = _hi_lo if q.dtype == torch.bfloat16 else (
+        lambda x: (x, torch.zeros_like(x)))
+    sl = scale * LOG2E
+    f = torch.float32
+    qf, of = q.to(f), dout.to(f)
+    kf, vf = _expand(k, group), _expand(v, group)
+    lse2 = lse.to(f) * LOG2E
+    dl = delta.to(f)
+    ok_all = visible(Sq, Skv, causal=causal, window=window,
+                     q_offset=q_offset, device=q.device)
+    dq = torch.empty_like(qf)
+    for q0, q1, runs in dq_runs(Sq, Skv, causal=causal, window=window,
+                                q_offset=q_offset, splits=splits,
+                                block_q=block_q, tile_keys=tile_keys):
+        qt, ot = qf[:, q0:q1], of[:, q0:q1]
+        acc = torch.zeros((BH, q1 - q0, dh), device=q.device)
+        for k0, k1 in runs:
+            if k1 <= k0:
+                continue    # an empty run's partial is 0
+            kt, vt = kf[:, k0:k1], vf[:, k0:k1]
+            st = (qt @ kt.transpose(1, 2)) * sl          # (BH, rows, keys)
+            p = torch.where(ok_all[q0:q1, k0:k1],
+                            torch.exp2(st - lse2[:, q0:q1, None]), 0.0)
+            ds = p * (ot @ vt.transpose(1, 2) - dl[:, q0:q1, None])
+            hi, lo = split(ds)
+            acc = acc + (hi @ kt + lo @ kt)
+        dq[:, q0:q1] = acc * scale
+    return dq

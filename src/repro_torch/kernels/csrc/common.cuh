@@ -151,6 +151,30 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_
                "r"(src_bytes));
 }
 
+// R rows of a (rows, dh) bf16 tensor from row `row0` into a shared tile of
+// row stride LD, rows from `valid` on and columns from dh to DP
+// zero-filled, the NT threads of the block sharing the copy: by 16-byte
+// cp.async copies where vec (dh % 8 == 0 and 16-byte aligned bases), else
+// element by element (mha_bwd_dq.cu, mha_bwd_dkv.cu).
+template <int DP, int LD, int NT>
+__device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                               long long row0, int R, int valid, int dh,
+                                               int vec) {
+  if (vec) {
+    constexpr int CPR = DP / 8;  // 16-byte chunks of a row
+    for (int c = threadIdx.x; c < R * CPR; c += NT) {
+      const int r = c / CPR, col = (c % CPR) * 8;
+      const bool ok = col < dh && r < valid;
+      cp_async16(dst + r * LD + col, ok ? src + (row0 + r) * dh + col : src, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < R * DP; i += NT) {
+      const int r = i / DP, c = i % DP;
+      dst[r * LD + c] = c < dh && r < valid ? src[(row0 + r) * dh + c] : __float2bfloat16(0.f);
+    }
+  }
+}
+
 // The padded head dim of the bf16 MHA kernels (mha_forward.cu,
 // mha_bwd_dkv.cu): 64 or 128, and 96 (famous-bert's) natively, which
 // scripts/torch_kernel_sweep.py timed faster than padding it to 128.

@@ -212,8 +212,6 @@ static cudaError_t launch_dkv(const void* q, const void* k, const void* v, const
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kDkvMaxSplits = 8;
-
 // A geometry: BK keys a block (16 a warp), BQ query rows an item, head
 // dim padded to DP, P^T and dS^T as hi + lo pairs (HILO) or rounded once
 // (the sweep's timing variant, which fails the gate).  Shared memory: K
@@ -268,21 +266,8 @@ mha_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int items = group * nqt, ips = (items + splits - 1) / splits;
   const int i_lo = min(items, z * ips), i_hi = min(items, i_lo + ips);
 
-  // R rows of a (rows, dh) bf16 tensor from row `row0` into a shared tile,
-  // rows from `valid` on and columns past dh zero-filled
   auto load_tile = [&](bf16* dst, const bf16* src, long long row0, int R, int valid) {
-    if (vec) {
-      for (int c = tid; c < R * CPR; c += NT) {
-        const int r = c / CPR, col = (c % CPR) * 8;
-        const bool ok = col < dh && r < valid;
-        cp_async16(dst + r * LD + col, ok ? src + (row0 + r) * dh + col : src, ok ? 16 : 0);
-      }
-    } else {
-      for (int i = tid; i < R * DP; i += NT) {
-        const int r = i / DP, c = i % DP;
-        dst[r * LD + c] = c < dh && r < valid ? src[(row0 + r) * dh + c] : __float2bfloat16(0.f);
-      }
-    }
+    load_rows_bf16<DP, LD, NT>(dst, src, row0, R, valid, dh, vec);
   };
   auto q0_of = [&](int it) { return (qt_lo + it % nqt) * BQ; };
   auto load_item = [&](int stage, int it) {
@@ -506,27 +491,30 @@ static cudaError_t launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v, 
 }
 
 // The split count of the bf16 kernel, from static shapes and the SM count
-// only: the larger of two needs, at most 8.
+// only: the larger of two needs.
+//  - Accuracy: runs of at most kDkvRunItems items, at every shape.  The
+//    tensor cores' f32 accumulation loses more than an IEEE f32 sum
+//    (truncated adds), so a run's error grows with its length: at
+//    qwen2-7b's shape one run of 224 items missed the 1e-4 gate (4.9e-4),
+//    two runs gave 2.3e-4 and four 1.3e-4 of absolute error (PERF.md);
+//    the second pass sums the runs in IEEE f32.  A key block's items are
+//    at most group x ceil(Sq / 64) (the block that every query sees), so
+//    that many over the cap bounds every block's runs.
 //  - Occupancy: where the key blocks (BKV x Skv / 64) number fewer than
 //    four an SM (two waves of two), as many splits as bring them to about
-//    four an SM.
-//  - Accuracy: runs of at most 64 items.  The tensor cores' f32
-//    accumulation loses more than an IEEE f32 sum (truncated adds), so a
-//    run's error grows with its length: at qwen2-7b's shape one run of 224
-//    items missed the 1e-4 gate (4.9e-4), two runs gave 2.3e-4 and four
-//    1.3e-4 of absolute error (PERF.md); the second pass sums the runs in
-//    IEEE f32.
+//    four an SM, at most kDkvOccupancySplits.
 // *ws_elems: the f32 workspace of the partials (2 x splits x BKV x Skv x
 // dh; 0 for one split).
-constexpr int kDkvRunItems = 64;
+constexpr int kDkvRunItems = 64, kDkvOccupancySplits = 8;
 
 inline int dkv_tc_plan(int BKV, int group, int Sq, int Skv, int dh, int sms,
                        long long* ws_elems) {
   const long long blocks = (long long)BKV * ((Skv + 63) / 64);
-  const int items = group * ((Sq + 63) / 64);  // of the key block that sees every query
+  const long long items = (long long)group * ((Sq + 63) / 64);
   long long splits = (items + kDkvRunItems - 1) / kDkvRunItems;
-  if (blocks < 4LL * sms) splits = std::max(splits, (4LL * sms) / blocks);
-  splits = std::max(1LL, std::min<long long>({splits, kDkvMaxSplits, items}));
+  if (blocks < 4LL * sms)
+    splits = std::max(splits, std::min<long long>(kDkvOccupancySplits, (4LL * sms) / blocks));
+  splits = std::max(1LL, std::min<long long>(splits, items));
   *ws_elems = splits > 1 ? 2LL * splits * BKV * Skv * dh : 0;
   return static_cast<int>(splits);
 }
@@ -553,7 +541,8 @@ extern "C" int famous_mha_bwd_dkv(int dtype, const void* q, const void* k, const
                                   float scale, void* stream) {
   using namespace famous;
   if (BKV <= 0 || BH % BKV != 0 || BKV > 65535 || dh <= 0 || dh > kKvMaxDh || splits < 1 ||
-      splits > kDkvMaxSplits || (splits > 1 && (part == nullptr || dtype != kBF16)))
+      (long long)BKV * splits > 0x7fffffffLL ||
+      (splits > 1 && (part == nullptr || dtype != kBF16)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (Skv <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -139,8 +139,11 @@ _SIGNATURES = {
     "famous_matmul_tiled": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # dtype, T, D, F, SM count, [out] workspace elements -> splits
     "famous_matmul_tiled_plan": [_I, _I, _I, _I, _I, _PLL],
-    # xq, wqt, sx, sw, out, T, D, F, stream
-    "famous_matmul_tiled_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # xq, wqt, sx, sw, out, int32 split-K workspace (or null), splits, T,
+    # D, F, stream
+    "famous_matmul_tiled_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # T, D, F, SM count, [out] int32 workspace elements -> splits
+    "famous_matmul_tiled_int8_plan": [_I, _I, _I, _I, _PLL],
     # dtype, q, k, v, lens, out, workspace, rows, H, KV, dh, Skv,
     # rows_per_slot, keys per range, k strides (slot, pos, head), v
     # strides, scale, stream
@@ -163,12 +166,15 @@ _SIGNATURES = {
     "famous_mha_forward": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _I, _I, _F, _P],
     # dtype, BH, BKV, Sq, Skv, dh, SM count, [out] workspace elements ->
-    # splits of the key range (mha_forward) or of a key block's work
-    # (mha_bwd_dkv)
+    # splits of the key range (mha_forward, or a row block's key tiles in
+    # mha_bwd_dq) or of a key block's work (mha_bwd_dkv)
     "famous_mha_forward_plan": [_I, _I, _I, _I, _I, _I, _I, _PLL],
+    "famous_mha_bwd_dq_plan": [_I, _I, _I, _I, _I, _I, _I, _PLL],
     "famous_mha_bwd_dkv_plan": [_I, _I, _I, _I, _I, _I, _I, _PLL],
-    "famous_mha_bwd_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _F, _P],
+    # dtype, q, k, v, dout, lse, delta, dq, split workspace (or null),
+    # splits, BH, BKV, Sq, Skv, dh, causal, window, q_offset, scale, stream
+    "famous_mha_bwd_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _F, _P],
     # dtype, q, k, v, dout, lse, delta, dk, dv, split workspace (or null),
     # splits, BH, BKV, Sq, Skv, dh, causal, window, q_offset, scale, stream
     "famous_mha_bwd_dkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -234,9 +240,9 @@ def check(name: str, err: int) -> None:
 
 @functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of a CUDA device (the plans of
-    ``matmul_tiled``, the chunk, decode and MHA kernels size their grids by
-    it)."""
+    """Streaming multiprocessors of a CUDA device (the plans of the two
+    projection kernels, the chunk, decode and MHA kernels size their grids
+    by it)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 

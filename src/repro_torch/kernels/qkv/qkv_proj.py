@@ -27,7 +27,10 @@ gradient (the serving path) launches the kernel directly.
 exact integer accumulator and the per-token x per-column dequantize on
 flush, f32 out.  On CUDA tensors it launches
 ``kernels/csrc/matmul_tiled_int8.cu`` (the port of the Pallas
-``_proj_kernel_int8``), which takes W **transposed**, as (F, D): the model
+``_proj_kernel_int8``), which at T <= 32 splits D across blocks as its C
+plan says (:func:`_plan_int8`), with int32 partials in a workspace
+allocated here and added exactly by the kernel's second pass.  It takes W
+**transposed**, as (F, D): the model
 quantizes the fused W once at load and stores it so (see
 ``models/attention.quantize_qkv``).  On CPU tensors it runs the plain
 version, which keeps JAX's (D, F) signature.  No gradient: the JAX kernel
@@ -106,6 +109,13 @@ def _plan(code: int, T: int, D: int, F: int, sms: int) -> tuple[int, int]:
     return lib.plan("famous_matmul_tiled_plan", code, T, D, F, sms)
 
 
+@functools.lru_cache(maxsize=None)
+def _plan_int8(T: int, D: int, F: int, sms: int) -> tuple[int, int]:
+    """The int8 kernel's split-K count for a static shape (1: no split)
+    and the int32 elements of its partials' workspace (0: none)."""
+    return lib.plan("famous_matmul_tiled_int8_plan", T, D, F, sms)
+
+
 def matmul_tiled_int8(xq: torch.Tensor, wqt: torch.Tensor, sx: torch.Tensor,
                       sw: torch.Tensor) -> torch.Tensor:
     """xq: (T, D) int8; wqt: (F, D) int8, the quantized W transposed; sx:
@@ -134,11 +144,14 @@ def _launch_int8(xq, wqt, sx, sw):
     if not all(t.is_contiguous() for t in (xq, wqt, sx, sw)):
         raise ValueError(f"{NAME_INT8}: contiguous operands required")
     out = torch.empty((T, F), dtype=torch.float32, device=xq.device)
-    so = lib.load()
-    err = so.famous_matmul_tiled_int8(xq.data_ptr(), wqt.data_ptr(),
-                                      sx.data_ptr(), sw.data_ptr(),
-                                      out.data_ptr(), T, D, F,
-                                      lib.stream_of(xq))
+    splits, n_ws = _plan_int8(T, D, F, lib.sm_count(xq.device))
+    # split-K int32 partials, added in order by the kernel's second pass
+    part = (torch.empty(n_ws, dtype=torch.int32, device=xq.device)
+            if n_ws else None)
+    err = lib.load().famous_matmul_tiled_int8(
+        xq.data_ptr(), wqt.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+        out.data_ptr(), None if part is None else part.data_ptr(), splits,
+        T, D, F, lib.stream_of(xq))
     lib.check(NAME_INT8, err)
     lib.STATS.launches[NAME_INT8] += 1
     return out

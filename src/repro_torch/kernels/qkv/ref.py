@@ -31,3 +31,26 @@ def matmul_int8_reference(xq: torch.Tensor, wq: torch.Tensor,
         STATS.plain_on_cuda["matmul_tiled_int8"] += 1
     acc = xq.to(torch.float64) @ wq.to(torch.float64)
     return (acc.to(torch.float32) * sx * sw).to(out_dtype)
+
+
+def matmul_int8_split_reference(xq: torch.Tensor, wq: torch.Tensor,
+                                sx: torch.Tensor, sw: torch.Tensor, *,
+                                splits: int, block_k: int = 128,
+                                out_dtype=torch.float32) -> torch.Tensor:
+    """The split-K int8 kernel's algebra (``matmul_tiled_int8.cu`` at T <=
+    32): D cut into steps of ``block_k``, split z owning steps [z * kps,
+    (z + 1) * kps) with kps = ceil(steps / splits); each split's exact
+    int32 partial, the partials added in split order, then the flush's
+    ``acc.f32 * sx * sw``.  For tests and ``chip_smoke.py`` only."""
+    if xq.is_cuda:
+        STATS.plain_on_cuda["matmul_tiled_int8"] += 1
+    D = xq.shape[1]
+    steps = -(-D // block_k)
+    kps = -(-steps // splits) * block_k     # D values a split
+    acc = torch.zeros((xq.shape[0], wq.shape[1]), dtype=torch.int64,
+                      device=xq.device)
+    for d0 in range(0, D, kps):
+        part = (xq[:, d0:d0 + kps].to(torch.float64)
+                @ wq[d0:d0 + kps].to(torch.float64))
+        acc = acc + part.to(torch.int64)
+    return (acc.to(torch.float32) * sx * sw).to(out_dtype)

@@ -114,6 +114,26 @@ def test_int8_matmul_plain_version_matches_jax_kernel(T, D, F):
     _same_bits(got, want)
 
 
+@pytest.mark.parametrize("splits", [1, 2, 3, 5])
+@pytest.mark.parametrize("T,D,F,block_k", [(4, 200, 24, 32), (20, 256, 40, 64),
+                                           (7, 77, 16, 16), (33, 512, 24, 128)])
+def test_int8_split_mirror_matches_jax_kernel(T, D, F, block_k, splits):
+    """The split-K algebra of the CUDA kernel (int32 partials over D
+    ranges of whole ``block_k`` steps, added in split order, then the two
+    f32 multiplies) equals the plain version and the Pallas kernel in
+    interpret mode bit for bit, at any split count, with a last split
+    shorter than the others or empty, and at a D off every tile (200, 77)."""
+    xq, wq, sx, sw = _int8_operands(np.random.default_rng(T + D + splits),
+                                    T, D, F)
+    want = jqkv_proj.matmul_tiled_int8(xq, wq, sx, sw, interpret=True)
+    got = qkv_ref.matmul_int8_split_reference(
+        _t(xq), _t(wq), _t(sx), _t(sw), splits=splits, block_k=block_k)
+    assert got.dtype == torch.float32
+    _same_bits(got, want)
+    assert torch.equal(got, qkv_ref.matmul_int8_reference(
+        _t(xq), _t(wq), _t(sx), _t(sw)))
+
+
 def _proj_inputs(seed, dtype=np.float32, D=64, H=4, KV=2, dh=16, S=5, B=2):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((B, S, D)).astype(dtype)

@@ -5,17 +5,20 @@
 flat layout: row blocks, key tiles from the window's edge to the causal
 one, per-tile online updates with the scale after Q K^T, an f32 running
 sum, P rounded to bf16 before P V, split key ranges combined in order, the
-row LSE), and ``ref.mha_bwd_dkv_tc_reference`` what
+row LSE), ``ref.mha_bwd_dkv_tc_reference`` what
 ``kernels/csrc/mha_bwd_dkv.cu`` computes (key blocks, the group's
 (head, query tile) items split into runs summed in order, P^T and dS^T as
-hi + lo bf16 pairs).  Here both are held against the JAX package's
-``mha_forward`` / ``mha_backward`` in Pallas interpret mode, as the JAX
-suite runs them on the CPU: group 1 and 7, head dims 32, 96 and ones that
-are not multiples of 16, full, causal, windowed and ``q_offset > 0``
-attention, lengths on either side of the mirrors' (small) tile and block
-boundaries, and rows that see no key.  Tolerances: forward f32 1e-5, bf16
-2e-2; dk/dv 1e-4 on bf16 inputs against JAX's f32 math; in f32 every split
-count and tiling gives the plain version's result at 1e-5."""
+hi + lo bf16 pairs), and ``ref.mha_bwd_dq_tc_reference`` what
+``kernels/csrc/mha_bwd_dq.cu`` computes (row blocks, their key tiles
+split into runs summed in order, dS as a hi + lo bf16 pair).  Here all
+three are held against the JAX package's ``mha_forward`` /
+``mha_backward`` in Pallas interpret mode, as the JAX suite runs them on
+the CPU: group 1 and 7, head dims 32, 96 and ones that are not multiples
+of 16, full, causal, windowed and ``q_offset > 0`` attention, lengths on
+either side of the mirrors' (small) tile and block boundaries, and rows
+that see no key.  Tolerances: forward f32 1e-5, bf16 2e-2; dq and dk/dv
+1e-4 on bf16 inputs against JAX's f32 math; in f32 every split count and
+tiling gives the plain version's result at 1e-5."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,6 +36,7 @@ DTYPES = {"f32": (torch.float32, jnp.float32),
 # small blocks and tiles, so every case crosses several of each
 ROWS, TILE, SPLITS = 8, 16, 2          # forward: rows a block, keys a tile
 KEYS, QROWS = 16, 8                    # dk/dv: keys a block, rows an item
+DQROWS, DQKEYS = 8, 16                 # dq: rows a block, keys a tile
 # name: (BKV, group, Sq, Skv, dh, causal, window, q_offset)
 CASES = {
     "full-g1-dh32": (2, 1, 17, 17, 32, False, 0, 0),
@@ -102,6 +106,60 @@ def test_dkv_mirror_matches_jax_on_bf16_inputs(case):
                                    atol=DKV_TOL, rtol=DKV_TOL)
 
 
+@pytest.mark.parametrize("case", list(CASES))
+def test_dq_mirror_matches_jax_on_bf16_inputs(case):
+    """The dq kernel's hi + lo algebra on bf16 inputs, its rows' keys in 3
+    runs, against JAX's f32 math on the same inputs and the same forward
+    residuals, at the gate's 1e-4."""
+    (q, k, v, do), kw = _inputs(case, seed=5)
+    jq, jk, jv, jdo = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, do))
+    jout, jlse = _jax_forward(jq, jk, jv, kw)
+    jdq, _, _ = jmha.mha_backward(jq, jk, jv, jout, jlse, jdo,
+                                  block_q=q.shape[1], block_k=k.shape[1],
+                                  interpret=True, **kw)
+    tq, tk, tv, tdo = (torch.from_numpy(a).bfloat16() for a in (q, k, v, do))
+    out = torch.from_numpy(np.array(jout.astype(jnp.float32))).bfloat16()
+    lse = torch.from_numpy(np.array(jlse))
+    delta = (tdo.float() * out.float()).sum(-1)
+    dq = tref.mha_bwd_dq_tc_reference(tq, tk, tv, tdo, lse, delta, splits=3,
+                                      block_q=DQROWS, tile_keys=DQKEYS, **kw)
+    assert dq.dtype == torch.float32 and dq.shape == tq.shape
+    np.testing.assert_allclose(dq.numpy(), np.asarray(jdq), atol=DKV_TOL,
+                               rtol=DKV_TOL)
+
+
+@pytest.mark.parametrize("splits,rows,keys", [(1, 64, 64), (2, 5, 7),
+                                              (3, 3, 16)])
+@pytest.mark.parametrize("case", list(CASES))
+def test_dq_mirror_matches_plain_at_any_tiling(case, splits, rows, keys):
+    """f32 inputs (no hi/lo split): every split count and row and key tile,
+    odd ones included, gives the plain version's dq at 1e-5; and the runs
+    partition each row block's visible keys."""
+    (q, k, v, do), kw = _inputs(case, seed=6)
+    q, k, v, do = (torch.from_numpy(a) for a in (q, k, v, do))
+    out, lse = tref.mha_forward_reference(q, k, v, **kw)
+    delta = (do * out).sum(-1)
+    got = tref.mha_bwd_dq_tc_reference(q, k, v, do, lse, delta,
+                                       splits=splits, block_q=rows,
+                                       tile_keys=keys, **kw)
+    want = tref.mha_bwd_dq_reference(q, k, v, do, lse, delta, **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-5)
+    Sq, Skv = q.shape[1], k.shape[1]
+    ok = tref.visible(Sq, Skv, causal=kw["causal"], window=kw["window"],
+                      q_offset=kw["q_offset"], device="cpu")
+    blocks = tref.dq_runs(Sq, Skv, causal=kw["causal"], window=kw["window"],
+                          q_offset=kw["q_offset"], splits=splits,
+                          block_q=rows, tile_keys=keys)
+    for q0, q1, runs in blocks:
+        assert len(runs) == splits
+        covered = torch.zeros(Skv, dtype=torch.bool)
+        for k0, k1 in runs:
+            assert not covered[k0:k1].any()   # runs are disjoint
+            covered[k0:k1] = True
+        assert torch.all(covered[ok[q0:q1].any(0)])
+
+
 @pytest.mark.parametrize("splits,rows,tile", [(1, 128, 64), (3, 8, 16),
                                               (4, 16, 8)])
 @pytest.mark.parametrize("case", list(CASES))
@@ -160,6 +218,18 @@ def test_a_row_that_sees_no_key_gives_zero_and_a_finite_lse(dt):
         assert torch.all(lse[:, ~empty] > -1e3)
         np.testing.assert_allclose(lse[:, empty].numpy(),
                                    np.asarray(jlse)[:, empty.numpy()])
+    # dq: such a row's probabilities are all 0, so its gradient is exactly
+    # 0 in the wrapper's plain version and in the tensor-core mirror
+    out, lse = tmha.mha_forward(tq, tk, tv, return_lse=True, **kw)
+    tdo = torch.from_numpy(_inputs("empty-rows-g2-dh16")[0][3]).to(tdtype)
+    delta = (tdo.float() * out.float()).sum(-1)
+    for dq in (tmha.mha_bwd_dq(tq, tk, tv, tdo, lse, delta, **kw),
+               tref.mha_bwd_dq_tc_reference(tq, tk, tv, tdo, lse, delta,
+                                            splits=2, block_q=DQROWS,
+                                            tile_keys=DQKEYS, **kw)):
+        assert torch.all(dq[:, empty] == 0)
+        assert torch.isfinite(dq).all()
+        assert torch.any(dq[:, ~empty] != 0)
 
 
 def test_bf16_mirrors_round_where_the_kernels_do():
