@@ -39,12 +39,16 @@ Phases, in order; any failure exits non-zero before the result line:
      (B=1, S=2048, 28/4 heads, dh=128, causal) for ``mha_forward``,
      ``mha_bwd_dq``, ``mha_bwd_dkv`` and ``matmul_tiled`` in its dX / dW
      roles (the attention kernels also at MASK_ATTN's masks, one of them
-     8192 causal tokens on one kv head; each relaunched for bit identity,
-     in bf16 held to the mirror of its tensor-core algebra, the backward
-     plans' longest runs within their caps); and the two linear-recurrence kernels at their serving shapes
-     (``rglru_scan``: recurrentgemma-2b's 256-token chunk, B=1, R=2560;
-     ``wkv6_scan``: rwkv6-1.6b's, B·H=32, dh=64, chunk 64, without and
-     with a carried state, out and final state checked);
+     8192 causal tokens on one kv head, and at recurrentgemma-2b's local
+     attention, 10 / 1 heads of 256 over 4096 tokens in a 2048-token
+     window; each relaunched for bit identity, in bf16 held to the mirror
+     of its tensor-core algebra, the backward plans' longest runs within
+     their caps); and the two linear-recurrence kernels at their serving
+     shapes and at prompt length (``rglru_scan``: recurrentgemma-2b's
+     256-token chunk and a 4096-token prompt, B=1, R=2560, bit-equal to the
+     plain version; ``wkv6_scan``: rwkv6-1.6b's chunk and a 2048-token
+     prompt, B·H=32, dh=64, chunk 64, without and with a carried state, out
+     and final state checked; both relaunched for bit identity);
   4. Table I: the paper's topology (SL=64, d_model=768, h=8) through
      ``famous.qkv_projection`` + ``famous.attention`` with impl reference,
      xla and pallas; the three must agree; then ``mha_block`` with the
@@ -145,8 +149,11 @@ PAGED_KERNELS = {"fp": ("paged_decode_attention", "paged_chunk_prefill"),
 TRAINING_KERNELS = ("matmul_tiled", "mha_forward", "mha_bwd_dq",
                     "mha_bwd_dkv")
 # the RG-LRU scan against its plain version: one f32 add and multiply per
-# step on the same inputs, in the same order (bit-exact in practice)
+# step on the same inputs, in the same order; also held to be bit-equal
 RGLRU_TOL = {"f32": 1e-5, "bf16": 2e-2}
+# the scans' prompt-length rows: rglru 4096 tokens (recurrentgemma-2b's
+# max_seq), wkv6 2048 (rwkv6-1.6b's)
+SCAN_LONG = {"rglru_scan": 4096, "wkv6_scan": 2048}
 # a kernel whose profiled device time is under this is timed by it, and so
 # is its library call (each call's kernels summed): CUDA events over
 # back-to-back launches read the host's launch rate there
@@ -199,6 +206,13 @@ MASK_ATTN = (("qwen2-7b window=512", 1, 2048, 2048, 28, 4, 128, True, 512, 0),
              ("qwen2-7b empty rows", 1, 64, 64, 28, 4, 128, True, 64, 100),
              ("qwen2-7b 1 kv head S=8192", 1, 8192, 8192, 7, 1, 128, True, 0,
               0))
+# recurrentgemma-2b's local attention (configs/recurrentgemma_2b.py: 10
+# query heads over one kv head of 256, a 2048-token window) at its
+# max_seq, in the same row format: the MHA kernels above dh 128 (the bf16
+# forward's 64-row tensor-core blocks; dq and dk/dv on their CUDA-core
+# kernels in both dtypes, one split)
+LOCAL_ATTN = (("recurrentgemma-2b local", 1, 4096, 4096, 10, 1, 256, True,
+               2048, 0),)
 # the QKV projection's VJP at the same two training shapes: T = B*S, D, F
 TRAIN_PROJ = (("famous-bert", 8 * 512, 768, 3 * 768),
               ("qwen2-7b", 2048, 3584, 3584 + 2 * 512))
@@ -879,7 +893,9 @@ def training_kernel_rows(torch, F, dts, randn, record, iters):
     All three are relaunched on the same inputs (the bits must agree) and,
     in bf16, held to the plain mirrors of their tensor-core algebra, with
     the backward plans' longest runs within their caps; MASK_ATTN's rows
-    run every mask of those bodies."""
+    run every mask of those bodies, LOCAL_ATTN's the head dim of 256
+    (whose bf16 dq and dk/dv run the CUDA-core kernels, held to the plain
+    versions alone)."""
     from repro_torch.kernels.qkv import qkv_proj
     from repro_torch.kernels.qkv import ref as qkv_ref
 
@@ -887,8 +903,9 @@ def training_kernel_rows(torch, F, dts, randn, record, iters):
     for label, B, S, H, KV, dh, causal in TRAIN_ATTN:
         attention_rows(torch, F, dts, randn, record, slow, label, B, S, S, H,
                        KV, dh, causal, 0, 0)
-    for args in MASK_ATTN:
+    for args in MASK_ATTN + LOCAL_ATTN:
         attention_rows(torch, F, dts, randn, record, slow, *args)
+    local_attention_through_ops(torch, dts, randn)
 
     for label, T, D, Fo in TRAIN_PROJ:
         for dt, dtype in dts.items():
@@ -973,7 +990,8 @@ def attention_rows(torch, F, dts, randn, record, n_iter, label, B, Sq, Skv, H,
                                            lib.sm_count(dev))
             # against the mirror's f32 output, which the kernel rounds once
             mirror = mha_ref.mha_forward_tc_reference(
-                q, k, v, splits=splits, round_out=False, **kw)
+                q, k, v, splits=splits, round_out=False,
+                block_rows=mha_k.forward_block_rows(dh), **kw)
             many = ok_mask.sum(-1) >= MIRROR_MIN_KEYS
             m_err, m_ok = compare(
                 torch, (out[0][:, many], out[1]), (mirror[0][:, many],
@@ -1032,7 +1050,17 @@ def attention_rows(torch, F, dts, randn, record, n_iter, label, B, Sq, Skv, H,
                       f"{'exactly 0' if zero else 'NOT 0'}) "
                       f"{'ok' if zero else 'FAIL'}", flush=True)
                 check(zero, f"mha_bwd_dq {dt} {shape}: empty rows not 0")
-            if dt == "bf16":
+            if dt == "bf16" and dh > mha_k.TC_MAX_HEAD_DIM:
+                # the CUDA-core kernel: f32 FMAs on the bf16 values, one run
+                splits, _ = plan(code, B * H, B * KV, Sq, Skv, dh,
+                                 lib.sm_count(dev))
+                print(f"  ({name} {dt} {shape}: the CUDA-core route, "
+                      f"{splits} split, held to the plain version at "
+                      f"{BWD_TOL[dt]:g}) {'ok' if splits == 1 else 'FAIL'}",
+                      flush=True)
+                check(splits == 1, f"{name} {dt} {shape}: {splits} splits "
+                      f"on the CUDA-core route")
+            elif dt == "bf16":
                 splits, _ = plan(code, B * H, B * KV, Sq, Skv, dh,
                                  lib.sm_count(dev))
                 run_cap_check(mha_ref, name, shape, splits, Sq, Skv, H // KV,
@@ -1045,6 +1073,57 @@ def attention_rows(torch, F, dts, randn, record, n_iter, label, B, Sq, Skv, H,
                 del mirror
             del out, ref
         del bsets, lsets
+
+
+def local_attention_through_ops(torch, dts, randn):
+    """``ops.mha`` (the autograd function the models call) forward and
+    backward at LOCAL_ATTN's shape, f32 and bf16: the launch counters, set
+    to 0 just before, must show each of the three MHA kernels and no plain
+    version on the card; the output and the gradients must agree with the
+    plain versions' (forward at ATTN_TOL; gradients at BWD_TOL in f32 and
+    at TOL in bf16, where ``ops.mha`` rounds them to the inputs' dtype)."""
+    from repro_torch.kernels import lib
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention import ref as mha_ref
+
+    _, B, S, _, H, KV, dh, causal, window, _ = LOCAL_ATTN[0]
+    kw = dict(causal=causal, window=window, scale=dh ** -0.5, q_offset=0)
+    for dt, dtype in dts.items():
+        q = randn((B, S, H, dh), dtype).requires_grad_()
+        k = randn((B, S, KV, dh), dtype).requires_grad_()
+        v = randn((B, S, KV, dh), dtype).requires_grad_()
+        g = randn((B, S, H, dh), dtype)
+        lib.STATS.reset()
+        out = attn_ops.mha(q, k, v, **kw)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        torch.cuda.synchronize()
+        launches = {n: lib.STATS.launches[n] for n in TRAINING_KERNELS[1:]}
+        plain = sum(lib.STATS.plain_on_cuda.values())
+
+        def flat(x):
+            return x.detach().transpose(1, 2).reshape(-1, S, dh).contiguous()
+
+        fq, fk, fv, fg = flat(q), flat(k), flat(v), flat(g)
+        ref_o, lse = mha_ref.mha_forward_reference(fq, fk, fv, **kw)
+        delta = (fg.float() * ref_o.float()).sum(-1)
+        ref_dq = mha_ref.mha_bwd_dq_reference(fq, fk, fv, fg, lse, delta,
+                                              **kw)
+        ref_dk, ref_dv = mha_ref.mha_bwd_dkv_reference(fq, fk, fv, fg, lse,
+                                                       delta, **kw)
+        f_err, f_ok = compare(torch, flat(out), ref_o, ATTN_TOL[dt])
+        gtol = BWD_TOL[dt] if dt == "f32" else TOL[dt]
+        g_err, g_ok = compare(torch, (flat(dq), flat(dk), flat(dv)),
+                              (ref_dq, ref_dk, ref_dv), gtol)
+        ok = (f_ok and g_ok and plain == 0
+              and all(n == 1 for n in launches.values()))
+        print(f"  (ops.mha {dt} recurrentgemma-2b local B={B} S={S} H={H} "
+              f"KV={KV} dh={dh} window={window}: launches {launches}, plain "
+              f"on the card {plain}; out max_abs_err {f_err:.3e} (tol "
+              f"{ATTN_TOL[dt]:g}), dq/dk/dv {g_err:.3e} (tol {gtol:g})) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"ops.mha {dt} at dh {dh}: launches {launches}, plain "
+              f"{plain}, errors {f_err} / {g_err}")
+        del q, k, v, g, out, dq, dk, dv, ref_o, ref_dq, ref_dk, ref_dv
 
 
 def run_cap_check(mha_ref, name, shape, splits, Sq, Skv, group, kw):
@@ -1077,14 +1156,20 @@ def mirror_check(name, dt, shape, splits, err, ok, tol, share):
 
 def scan_kernel_rows(torch, dts, randn, record, iters):
     """The two linear-recurrence kernels at the serving shapes of their
-    models.  ``rglru_scan``: recurrentgemma-2b's 256-token chunk, B=1,
-    R=2560 (a = sigmoid of a normal draw, b normal x 0.1; f32 inputs on the
-    main path, bf16 inputs checked too).  ``wkv6_scan``: rwkv6-1.6b's
-    256-token chunk, B·H=32, dh=64, chunk 64, without and with a random
-    carried state s0 (the main path always carries one), out and s_final
-    both checked; r, k, v in f32 or bf16 and logw in f32, as the model
-    makes them.  Without s0 the kernel is also held to the sequential
-    recurrence (JAX's chunked-vs-sequential tolerance, 1e-4 / rtol 1e-3).
+    models and at prompt length (SCAN_LONG; monolithic prefill calls the
+    scans at a whole prompt).  ``rglru_scan``: recurrentgemma-2b's
+    256-token chunk and a 4096-token prompt, B=1, R=2560 (a = sigmoid of a
+    normal draw, b normal x 0.1; f32 inputs on the main path, bf16 inputs
+    checked too); the kernel runs every step in the plain version's order
+    and rounding, so it must equal it bit for bit.  ``wkv6_scan``:
+    rwkv6-1.6b's 256-token chunk and a 2048-token prompt (32 chunks),
+    B·H=32, dh=64, chunk 64, without and with a random carried state s0
+    (the main path always carries one), out and s_final both checked; r,
+    k, v in f32 or bf16 and logw in f32, as the model makes them; the C
+    plan's workspace equal to ``linear_scan.wkv6_workspace_elems``.
+    Without s0 the kernel is also held to the sequential recurrence (JAX's
+    chunked-vs-sequential tolerance, 1e-4 / rtol 1e-3; at prompt length
+    in f32 only).  Every launch is relaunched and must give the same bits.
     No single PyTorch call computes either scan, so they have no library
     time.  Both run every product on f32 FMA units, so their operation
     bound is at the f32 rate whatever the input type."""
@@ -1092,66 +1177,86 @@ def scan_kernel_rows(torch, dts, randn, record, iters):
     from repro_torch.kernels.scan import ref as scan_ref
 
     f32 = torch.float32
-    B, S, R = 1, 256, 2560
-    for dt, dtype in dts.items():
-        e = torch.tensor([], dtype=dtype).element_size()
-        sets = [(torch.sigmoid(randn((B, S, R), f32)).to(dtype),
-                 randn((B, S, R), dtype, 0.1))
-                for _ in range(n_sets(2 * B * S * R * e))]
-        a, b = sets[0]
-        record("rglru_scan", f"B={B} S={S} R={R}", dt,
-               linear_scan.rglru_scan(a, b), scan_ref.rglru_reference(a, b),
-               RGLRU_TOL[dt], linear_scan.rglru_scan,
-               scan_ref.rglru_reference, None, sets,
-               2 * B * S * R * e + 4 * B * S * R, 2.0 * B * S * R,
-               ops_dt="f32")
-        del sets
-
-    BH, S, dh, C = 32, 256, 64, 64
-    n_chunks = S // C
-    # multiply-adds the chunked form needs: inter and state 2 C dh^2 each,
-    # the strictly lower scores and their product with v C (C-1) dh each,
-    # the diagonal bonus and the elementwise decay terms
-    flops = float(n_chunks * BH * (4 * C * dh * dh + 2 * C * (C - 1) * dh
-                                   + 8 * C * dh + 2 * dh * dh))
-    for dt, dtype in dts.items():
-        e = torch.tensor([], dtype=dtype).element_size()
-        for carried in (False, True):
-            def operands():
-                r, k, v = (randn((BH, S, dh), dtype, 0.5) for _ in range(3))
-                logw = -torch.exp(torch.clamp(randn((BH, S, dh), f32), -20, 0))
-                u = randn((BH, dh), f32, 0.5)
-                s0 = randn((BH, dh, dh), f32) if carried else None
-                return r, k, v, logw, u, s0
-
-            per = 3 * BH * S * dh * e + 4 * BH * S * dh
-            sets = [operands() for _ in range(n_sets(per))]
-
-            def kern(r, k, v, logw, u, s0):
-                return linear_scan.wkv6_scan(r, k, v, logw, u, s0, chunk=C)
-
-            def plain(r, k, v, logw, u, s0):
-                return scan_ref.wkv6_chunked_reference(r, k, v, logw, u, s0,
-                                                       chunk=C)
-
-            out = kern(*sets[0])
-            state_bytes = 4 * BH * dh * dh * (2 if carried else 1)
-            record("wkv6_scan", f"BH={BH} S={S} dh={dh} chunk={C} "
-                   f"s0={'random' if carried else 'none'} (logw f32)", dt,
-                   out, plain(*sets[0]), TOL[dt], kern, plain, None, sets,
-                   per + 4 * BH * dh + 4 * BH * S * dh + state_bytes, flops,
-                   ops_dt="f32")
-            if not carried:
-                seq = scan_ref.wkv6_reference(*sets[0][:5])
-                err = float((out[0] - seq).abs().max())
-                ok = bool(torch.all((out[0] - seq).abs()
-                                    <= 1e-4 + 1e-3 * seq.abs()))
-                print(f"  (wkv6_scan {dt} vs the sequential recurrence: "
-                      f"max_abs_err {err:.3e}, limit 1e-4 + 1e-3 |ref| "
-                      f"{'ok' if ok else 'FAIL'})", flush=True)
-                check(ok, f"wkv6_scan {dt} differs from the sequential "
-                      f"recurrence by {err}")
+    for S in (256, SCAN_LONG["rglru_scan"]):
+        B, R = 1, 2560
+        for dt, dtype in dts.items():
+            e = torch.tensor([], dtype=dtype).element_size()
+            sets = [(torch.sigmoid(randn((B, S, R), f32)).to(dtype),
+                     randn((B, S, R), dtype, 0.1))
+                    for _ in range(n_sets(2 * B * S * R * e))]
+            a, b = sets[0]
+            out, ref = linear_scan.rglru_scan(a, b), \
+                scan_ref.rglru_reference(a, b)
+            equal = bool(torch.equal(out, ref))
+            row = record("rglru_scan", f"B={B} S={S} R={R}", dt, out, ref,
+                         RGLRU_TOL[dt], linear_scan.rglru_scan,
+                         scan_ref.rglru_reference, None, sets,
+                         2 * B * S * R * e + 4 * B * S * R, 2.0 * B * S * R,
+                         ops_dt="f32", again=linear_scan.rglru_scan(a, b))
+            row.update(bit_equal_plain=equal)
+            print(f"  (rglru_scan {dt} S={S}: "
+                  f"{'bit-equal to' if equal else 'DIFFERS from'} the plain "
+                  f"version) {'ok' if equal else 'FAIL'}", flush=True)
+            check(equal, f"rglru_scan {dt} S={S} is not bit-equal to its "
+                  f"plain version")
             del sets
+
+    BH, dh, C = 32, 64, 64
+    for S in (256, SCAN_LONG["wkv6_scan"]):
+        n_chunks = S // C
+        # multiply-adds the chunked form needs: inter and state 2 C dh^2
+        # each, the strictly lower scores and their product with v C (C-1)
+        # dh each, the diagonal bonus and the elementwise decay terms
+        flops = float(n_chunks * BH * (4 * C * dh * dh + 2 * C * (C - 1) * dh
+                                       + 8 * C * dh + 2 * dh * dh))
+        n_ws = linear_scan.wkv6_plan(BH, S, dh, C)[1]
+        want = linear_scan.wkv6_workspace_elems(BH, S, dh, C)
+        print(f"  (wkv6_scan S={S}: the C plan's workspace {n_ws} f32, the "
+              f"Python formula {want}) {'ok' if n_ws == want else 'FAIL'}",
+              flush=True)
+        check(n_ws == want, f"wkv6_scan S={S}: plan workspace {n_ws} != "
+              f"{want}")
+        for dt, dtype in dts.items():
+            e = torch.tensor([], dtype=dtype).element_size()
+            for carried in (False, True):
+                def operands():
+                    r, k, v = (randn((BH, S, dh), dtype, 0.5)
+                               for _ in range(3))
+                    logw = -torch.exp(torch.clamp(randn((BH, S, dh), f32),
+                                                  -20, 0))
+                    u = randn((BH, dh), f32, 0.5)
+                    s0 = randn((BH, dh, dh), f32) if carried else None
+                    return r, k, v, logw, u, s0
+
+                per = 3 * BH * S * dh * e + 4 * BH * S * dh
+                sets = [operands() for _ in range(n_sets(per))]
+
+                def kern(r, k, v, logw, u, s0):
+                    return linear_scan.wkv6_scan(r, k, v, logw, u, s0,
+                                                 chunk=C)
+
+                def plain(r, k, v, logw, u, s0):
+                    return scan_ref.wkv6_chunked_reference(r, k, v, logw, u,
+                                                           s0, chunk=C)
+
+                out = kern(*sets[0])
+                state_bytes = 4 * BH * dh * dh * (2 if carried else 1)
+                record("wkv6_scan", f"BH={BH} S={S} dh={dh} chunk={C} "
+                       f"s0={'random' if carried else 'none'} (logw f32)", dt,
+                       out, plain(*sets[0]), TOL[dt], kern, plain, None, sets,
+                       per + 4 * BH * dh + 4 * BH * S * dh + state_bytes,
+                       flops, ops_dt="f32", again=kern(*sets[0]))
+                if not carried and (S == 256 or dt == "f32"):
+                    seq = scan_ref.wkv6_reference(*sets[0][:5])
+                    err = float((out[0] - seq).abs().max())
+                    ok = bool(torch.all((out[0] - seq).abs()
+                                        <= 1e-4 + 1e-3 * seq.abs()))
+                    print(f"  (wkv6_scan {dt} S={S} vs the sequential "
+                          f"recurrence: max_abs_err {err:.3e}, limit 1e-4 + "
+                          f"1e-3 |ref| {'ok' if ok else 'FAIL'})", flush=True)
+                    check(ok, f"wkv6_scan {dt} S={S} differs from the "
+                          f"sequential recurrence by {err}")
+                del sets
 
 
 # ---------------------------------------------------------------------------
@@ -2242,9 +2347,12 @@ def kernel_group(key, names):
     ``chunk_prefill``, except on its ``FlatQ`` query side, which is the
     bf16 ``mha_forward``; the f32 paged chunk kernel by its symbol and pool
     type likewise; the int8 projection's symbol is ``matmul_int8_kernel``;
-    the others by their name."""
+    ``wkv6_scan``'s two passes are ``wkv6_chunk_kernel`` and
+    ``wkv6_state_kernel``; the others by their name."""
     if "matmul_int8_kernel" in key:
         return "matmul_tiled_int8"
+    if "wkv6_chunk_kernel" in key or "wkv6_state_kernel" in key:
+        return "wkv6_scan"
     if "FlatQ" in key:
         return "mha_forward"
     for sym, name in (("PagedRows", "paged_decode_attention"),

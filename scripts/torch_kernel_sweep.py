@@ -46,7 +46,18 @@ card:
   times split-K counts at decode (T = 4), verify (T = 20) and a chunk
   (T = 256), against the plan's choice and, at T = 256, ``torch._int_mm``
   plus the same dequantize (it takes no T <= 16, nor one off a multiple
-  of 8).
+  of 8);
+- ``wkv6_scan`` (``wkv6``) at rwkv6-1.6b's serving chunk (B·H = 32, S =
+  256, dh = 64, chunk 64) and a long prompt (S = 2048), bf16 r, k, v and
+  f32 logw with a carried state, as the model calls it: pass 1's row and
+  column splits, pass 2's column splits, both passes' threads, and qexp
+  read from the workspace against recomputed by pass 2, each with the two passes' device times
+  apart, against the first design (one block per batch·head,
+  ``scripts/scan_first_design.cuh``);
+- ``rglru_scan`` (``rglru``) at recurrentgemma-2b's chunk (B = 1, S = 256,
+  R = 2560) and a long prompt (S = 4096), f32 as the model calls it: the
+  block's features F, time segments P and steps a segment L, each bit-equal
+  to the plain version, against the first design (one thread per feature).
 
 Each variant is built from the committed sources (a generated file that
 includes the kernel's ``.cu`` and instantiates the variant, one ``nvcc``
@@ -150,6 +161,27 @@ I8_SHAPES = [("decode", 4), ("verify", 20), ("chunk", 256)]
 I8_D, I8_F = 3584, 4608
 I8_SPLITS = {"decode": [1, 2, 4, 7, 14], "verify": [1, 2, 4, 7, 14],
              "chunk": [1, 2, 3]}
+# wkv6_scan.cu variants (pass 1 row and column splits and threads, pass 2
+# column splits and threads, qexp in the workspace); the first is the
+# kernel's own
+WKV_VARIANTS = [(1, 1, 256, 8, 128, True), (1, 1, 256, 8, 64, True),
+                (1, 1, 256, 8, 256, True), (1, 1, 256, 4, 128, True),
+                (1, 1, 256, 4, 64, True), (1, 1, 256, 2, 128, True),
+                (1, 1, 256, 16, 128, True), (2, 1, 256, 8, 128, True),
+                (4, 1, 256, 8, 128, True), (1, 2, 256, 8, 128, True),
+                (1, 4, 256, 8, 128, True), (1, 1, 512, 8, 128, True),
+                (1, 1, 256, 8, 128, False)]
+# (label, BH, S, dh, chunk)
+WKV_SHAPES = [("rwkv6-1.6b chunk", 32, 256, 64, 64),
+              ("rwkv6-1.6b long prompt", 32, 2048, 64, 64)]
+# rglru_scan.cu variants (features a block F, time segments P, steps a
+# segment L); the first is the kernel's own
+RGLRU_VARIANTS = [(32, 16, 16), (32, 8, 32), (32, 4, 64), (32, 16, 8),
+                  (32, 32, 8), (32, 16, 32), (32, 32, 16), (16, 16, 16),
+                  (16, 32, 16), (64, 8, 16), (64, 16, 8)]
+# (label, B, S, R)
+RGLRU_SHAPES = [("recurrentgemma-2b chunk", 1, 256, 2560),
+                ("recurrentgemma-2b long prompt", 1, 4096, 2560)]
 # (label, B, S, H, KV, dh, causal): chip_smoke.py's TRAIN_ATTN
 MHA_SHAPES = [("famous-bert", 8, 512, 8, 8, 96, False),
               ("qwen2-7b", 1, 2048, 28, 4, 128, True)]
@@ -162,7 +194,8 @@ PART_SOURCES = {"matmul": ["sweep_mm.cu"], "decode": ["sweep_decode.cu"],
                 "mha": ["sweep_mha_fwd.cu", "sweep_mha_dkv.cu",
                         "sweep_mha_dq.cu"],
                 "dq": ["sweep_mha_dq.cu"],
-                "int8": ["sweep_int8.cu"]}
+                "int8": ["sweep_int8.cu"], "wkv6": ["sweep_wkv6.cu"],
+                "rglru": ["sweep_rglru.cu"]}
 
 
 def sweep_sources() -> dict[str, str]:
@@ -361,10 +394,56 @@ extern "C" int sweep_int8(int cfg, const void* xq, const void* wqt,
   return static_cast<int>(e);
 }}
 """
+    base = ROOT / "scripts" / "scan_first_design.cuh"
+    wkv_cases = "\n".join(
+        f"    case {i + 1}: e = launch_wkv6<bf, float, {rs}, {cs}, {nt}, {cs2}, "
+        f"{nt2}, {str(q).lower()}>(r, k, v, w, u, s0, out, sf, ws, BH, S, dh, C, "
+        "s); break;"
+        for i, (rs, cs, nt, cs2, nt2, q) in enumerate(WKV_VARIANTS))
+    wkv = f"""#include "{csrc / 'wkv6_scan.cu'}"
+#include "{base}"
+
+extern "C" int sweep_wkv6(int cfg, const void* r, const void* k,
+                          const void* v, const void* w, const float* u,
+                          const float* s0, float* out, float* sf, float* ws,
+                          int BH, int S, int dh, int C, void* stream) {{
+  using namespace famous;
+  using bf = __nv_bfloat16;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaErrorInvalidValue;
+  switch (cfg) {{
+    case 0: e = first_design::launch_wkv6<bf, float>(r, k, v, w, u, s0, out,
+                                                     sf, BH, S, dh, C, s);
+      break;
+{wkv_cases}
+  }}
+  return static_cast<int>(e);
+}}
+"""
+    rg_cases = "\n".join(
+        f"    case {i + 1}: e = launch_rglru<float, {f}, {p}, {l}>(a, b, out, "
+        "B, S, R, s); break;"
+        for i, (f, p, l) in enumerate(RGLRU_VARIANTS))
+    rg = f"""#include "{csrc / 'rglru_scan.cu'}"
+#include "{base}"
+
+extern "C" int sweep_rglru(int cfg, const void* a, const void* b, float* out,
+                           int B, int S, int R, void* stream) {{
+  using namespace famous;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaErrorInvalidValue;
+  switch (cfg) {{
+    case 0: e = first_design::launch_rglru<float>(a, b, out, B, S, R, s);
+      break;
+{rg_cases}
+  }}
+  return static_cast<int>(e);
+}}
+"""
     return {"sweep_mm.cu": mm, "sweep_decode.cu": dec, "sweep_chunk.cu": cp,
             "sweep_paged_chunk.cu": pc, "sweep_mha_fwd.cu": fwd,
             "sweep_mha_dkv.cu": dkv, "sweep_mha_dq.cu": dq,
-            "sweep_int8.cu": i8}
+            "sweep_int8.cu": i8, "sweep_wkv6.cu": wkv, "sweep_rglru.cu": rg}
 
 
 def i8_tile_list():
@@ -386,8 +465,8 @@ def build(out_dir: Path, parts) -> ctypes.CDLL:
         (out_dir / name).write_text(texts[name])
         obj = out_dir / (name + ".o")
         procs.append((obj, subprocess.Popen(
-            [lib.nvcc_path(), *lib.ARCH_FLAGS, *lib.NVCC_FLAGS, "-c",
-             str(out_dir / name), "-o", str(obj)],
+            [lib.nvcc_path(), *lib.ARCH_FLAGS, *lib.NVCC_FLAGS, "-I",
+             str(lib.CSRC), "-c", str(out_dir / name), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     logs, failed = [], []
     for obj, proc in procs:
@@ -424,6 +503,8 @@ def build(out_dir: Path, parts) -> ctypes.CDLL:
         "sweep_mha_dq": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
                          I, F, P],
         "sweep_int8": [I, P, P, P, P, P, P, I, I, I, I, P],
+        "sweep_wkv6": [I, P, P, P, P, P, P, P, P, P, I, I, I, I, P],
+        "sweep_rglru": [I, P, P, P, I, I, I, P],
         "famous_matmul_tiled": lib._SIGNATURES["famous_matmul_tiled"],
         "famous_decode_attention":
             lib._SIGNATURES["famous_decode_attention"],
@@ -442,7 +523,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=30)
     ap.add_argument("--parts",
-                    default="matmul,decode,paged,chunk,pagedchunk,mha,int8",
+                    default="matmul,decode,paged,chunk,pagedchunk,mha,int8,"
+                    "wkv6,rglru",
                     help="comma-separated sweeps to run")
     args = ap.parse_args(argv)
     import torch
@@ -475,7 +557,8 @@ def main(argv=None) -> int:
     result = {"card": smi, "matmul_tiles": [], "matmul_splits": [],
               "decode_L": [], "paged_decode_L": [], "chunk_prefill": [],
               "paged_chunk_prefill": [], "mha_forward": [],
-              "mha_bwd_dkv": [], "mha_bwd_dq": [], "matmul_tiled_int8": []}
+              "mha_bwd_dkv": [], "mha_bwd_dq": [], "matmul_tiled_int8": [],
+              "wkv6_scan": [], "rglru_scan": []}
 
     def randn(shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev)
@@ -604,6 +687,8 @@ def main(argv=None) -> int:
         mha_sweep(torch, Fn, lib, so, randn, dev_ms, result, sms, ("dq",))
     if "int8" in parts:
         int8_sweep(torch, lib, so, gen, dev_ms, result, sms)
+    if "wkv6" in parts or "rglru" in parts:
+        scan_sweep(torch, so, gen, it, result, parts)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -611,7 +696,8 @@ def main(argv=None) -> int:
     bad = [k for sec in ("matmul_tiles", "matmul_splits", "decode_L",
                          "paged_decode_L", "chunk_prefill",
                          "paged_chunk_prefill", "mha_forward", "mha_bwd_dkv",
-                         "mha_bwd_dq", "matmul_tiled_int8")
+                         "mha_bwd_dq", "matmul_tiled_int8", "wkv6_scan",
+                         "rglru_scan")
            for row in result[sec] for k, v in row.items()
            if isinstance(v, dict) and v.get("ok") is False
            and not v.get("expected_miss")]
@@ -1065,6 +1151,123 @@ def int8_sweep(torch, lib, so, gen, dev_ms, result, sms):
               f"splits): kernel {ms_text(row['kernel_ms'])} ms, _int_mm + "
               f"dequantize {ms_text(row['library_ms'])} ms | "
               + row_text(row), flush=True)
+        del sets
+
+
+
+def device_ms_by_kernel(torch, fn, sets, iters):
+    """Mean device ms per call of ``fn`` for each kernel it launches, by
+    the profiler (names shortened to the function name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for args in sets[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*sets[i % len(sets)])
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = (getattr(ev, "self_device_time_total", None)
+              or getattr(ev, "self_cuda_time_total", 0))
+        if us:
+            name = ev.key.split("(")[0].split("<")[0].split("::")[-1]
+            out[name] = out.get(name, 0.0) + us / 1e3 / iters
+    return out
+
+
+def scan_sweep(torch, so, gen, iters, result, parts):
+    """``wkv6_scan`` and ``rglru_scan`` variants (WKV_VARIANTS,
+    RGLRU_VARIANTS) at their shapes against the first design (cfg 0) and
+    the kernels' own entry points, by profiler device time, each pass of
+    wkv6 apart; wkv6 within the bf16 gate of the plain version, rglru bit
+    for bit."""
+    import chip_smoke as cs
+    from repro_torch.kernels.scan import linear_scan
+    from repro_torch.kernels.scan import ref as scan_ref
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    f32, bf = torch.float32, torch.bfloat16
+
+    def randn(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    for label, BH, S, dh, C in WKV_SHAPES if "wkv6" in parts else ():
+        def operands():
+            r, k, v = (randn((BH, S, dh), bf, 0.5) for _ in range(3))
+            logw = -torch.exp(torch.clamp(randn((BH, S, dh), f32), -20, 0))
+            return r, k, v, logw, randn((BH, dh), f32, 0.5), randn(
+                (BH, dh, dh), f32)
+        sets = [operands()
+                for _ in range(cs.n_sets(3 * BH * S * dh * 2 + 4 * BH * S * dh))]
+        ref = scan_ref.wkv6_chunked_reference(*sets[0], chunk=C)
+        own = device_ms_by_kernel(
+            torch, lambda *a: linear_scan.wkv6_scan(*a, chunk=C), sets, iters)
+        row = {"shape": label, "BH": BH, "S": S, "dh": dh, "chunk": C,
+               "kernel": {"ms": sum(own.values()), "passes": own}}
+        for cfg in range(len(WKV_VARIANTS) + 1):
+            qws = cfg == 0 or WKV_VARIANTS[cfg - 1][5]
+            n_ws = BH * (S // C) * (dh * dh + dh + (C * dh if qws else 0))
+            ws = torch.empty(n_ws, dtype=f32, device=dev)
+
+            def kern(r, k, v, logw, u, s0, cfg=cfg, ws=ws):
+                out = torch.empty((BH, S, dh), dtype=f32, device=dev)
+                sf = torch.empty((BH, dh, dh), dtype=f32, device=dev)
+                lib_check = so.sweep_wkv6(
+                    cfg, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    logw.data_ptr(), u.data_ptr(), s0.data_ptr(),
+                    out.data_ptr(), sf.data_ptr(), ws.data_ptr(), BH, S, dh,
+                    C, stream)
+                if lib_check:
+                    raise RuntimeError(f"sweep_wkv6 cfg {cfg}: {lib_check}")
+                return out, sf
+            err, ok = cs.compare(torch, kern(*sets[0]), ref, cs.TOL["bf16"])
+            passes = device_ms_by_kernel(torch, kern, sets, iters)
+            name = ("first design" if cfg == 0 else
+                    "rows {} cols {} threads {} | state cols {} threads {} "
+                    "{}".format(*WKV_VARIANTS[cfg - 1][:5],
+                        "qexp ws" if qws else "recompute"))
+            row[name] = {"ms": sum(passes.values()), "passes": passes,
+                         "max_abs_err": err, "ok": ok}
+        result["wkv6_scan"].append(row)
+        print(f"wkv6_scan {label} BH={BH} S={S} dh={dh} chunk={C}: kernel "
+              f"{ms_text(row['kernel']['ms'])} ms | " + " | ".join(
+                  f"{k} {ms_text(v['ms'])} ("
+                  + ", ".join(f"{n} {ms_text(t)}" for n, t in v["passes"].items())
+                  + ")" + ("" if v.get("ok", True) else " WRONG")
+                  for k, v in row.items()
+                  if isinstance(v, dict) and "passes" in v and k != "kernel"),
+              flush=True)
+        del sets
+
+    for label, B, S, R in RGLRU_SHAPES if "rglru" in parts else ():
+        sets = [(torch.sigmoid(randn((B, S, R), f32)), randn((B, S, R), f32,
+                                                             0.1))
+                for _ in range(cs.n_sets(2 * B * S * R * 4))]
+        ref = scan_ref.rglru_reference(*sets[0])
+        row = {"shape": label, "B": B, "S": S, "R": R,
+               "kernel": {"ms": cs.device_ms(torch, linear_scan.rglru_scan,
+                                             sets, iters)}}
+        for cfg in range(len(RGLRU_VARIANTS) + 1):
+            def kern(a, b, cfg=cfg):
+                out = torch.empty((B, S, R), dtype=f32, device=dev)
+                err = so.sweep_rglru(cfg, a.data_ptr(), b.data_ptr(),
+                                     out.data_ptr(), B, S, R, stream)
+                if err:
+                    raise RuntimeError(f"sweep_rglru cfg {cfg}: {err}")
+                return out
+            name = ("first design" if cfg == 0 else
+                    "F {} P {} L {}".format(*RGLRU_VARIANTS[cfg - 1]))
+            row[name] = {"ms": cs.device_ms(torch, kern, sets, iters),
+                         "ok": bool(torch.equal(kern(*sets[0]), ref))}
+        result["rglru_scan"].append(row)
+        print(f"rglru_scan {label} B={B} S={S} R={R}: kernel "
+              f"{ms_text(row['kernel']['ms'])} ms | " + row_text(
+                  {k: v for k, v in row.items() if k != "kernel"}),
+              flush=True)
         del sets
 
 

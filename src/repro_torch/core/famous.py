@@ -36,7 +36,15 @@ from repro_torch.core import quant as quant_lib
 
 @dataclasses.dataclass(frozen=True)
 class FamousConfig:
-    """Tiling + dispatch knobs (the TS analogue and runtime maxima)."""
+    """Tiling + dispatch knobs (the TS analogue and runtime maxima).
+
+    ``tile_d``, ``tile_q`` and ``tile_k`` are the JAX package's block
+    sizes: there they set the Pallas kernels' tiles (and ``tile_d`` the
+    reference projection's reduction steps).  Here ``tile_d`` steps the
+    reference projection and ``tile_k`` the plain flash attention of
+    ``impl="xla"``; the CUDA kernels of ``impl="pallas"`` ignore all three
+    and take their tiles and split counts from static shapes and the SM
+    count (``kernels/csrc``), so no kernel result depends on them."""
 
     tile_d: int = 512       # TS for the QKV_PM reduction dim (d_model)
     tile_q: int = 512       # query-tile rows held on-chip in QK/SV modules

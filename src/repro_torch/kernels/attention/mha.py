@@ -17,7 +17,11 @@ bf16 all three run on tensor cores (:func:`ref.mha_forward_tc_reference`,
 and the dq kernel may split a block's key range and the dk/dv kernel a
 key block's work, as their C plans (:func:`forward_plan`,
 :func:`dq_plan`, :func:`dkv_plan`) say from static shapes and the SM
-count, into an f32 workspace allocated here.  On CPU
+count, into an f32 workspace allocated here.  Head dims run up to
+:data:`MAX_HEAD_DIM`: above :data:`TC_MAX_HEAD_DIM` (recurrentgemma-2b's
+256) the bf16 forward runs 64-row blocks (:func:`forward_block_rows`) and
+dq and dk/dv run their CUDA-core kernels in both dtypes, in one split.
+On CPU
 tensors all three run the plain versions in
 :mod:`repro_torch.kernels.attention.ref`.
 """
@@ -31,7 +35,16 @@ import torch
 from repro_torch.kernels import lib
 from repro_torch.kernels.attention import ref
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
+# the largest head dim of the bf16 dq and dk/dv tensor-core geometries
+TC_MAX_HEAD_DIM = 128
+
+
+def forward_block_rows(dh: int) -> int:
+    """Query rows a block of the bf16 forward (``chunk_tc.cuh``'s
+    ServeTiles): 128, or 64 above :data:`TC_MAX_HEAD_DIM`, where a warp's
+    32 rows of f32 accumulators would not fit in registers."""
+    return 128 if dh <= TC_MAX_HEAD_DIM else 64
 
 
 def _scale(scale, dh):
@@ -92,10 +105,8 @@ def mha_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool = True,
 
 
 def _check(name, q, k, v, *rows):
-    """Device, dtype, shape and layout checks of the launch path; returns
+    """Shape, device, dtype and layout checks of the launch path; returns
     (dtype code, BH, BKV, Sq, Skv, dh)."""
-    lib.require_cuda(name, q, k, v, *rows)
-    code = lib.require_dtype(name, q, k, v, *rows[:1])
     if q.ndim != 3 or k.ndim != 3 or k.shape != v.shape:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
@@ -105,6 +116,8 @@ def _check(name, q, k, v, *rows):
         raise ValueError(f"{name}: q {tuple(q.shape)} against kv "
                          f"{tuple(k.shape)} (head dim at most "
                          f"{MAX_HEAD_DIM}, BH a multiple of BKV)")
+    lib.require_cuda(name, q, k, v, *rows)
+    code = lib.require_dtype(name, q, k, v, *rows[:1])
     for t in (q, k, v, *rows):
         if not t.is_contiguous():
             raise ValueError(f"{name}: contiguous operands required")
@@ -127,7 +140,8 @@ def dq_plan(code: int, BH: int, BKV: int, Sq: int, Skv: int, dh: int,
             sms: int) -> tuple[int, int]:
     """Splits of the bf16 dq kernel (each row block's key tiles cut into
     that many runs, whose f32 partials are summed in order) and the f32
-    elements of their workspace (0 for one split; always 1 in f32)."""
+    elements of their workspace (0 for one split; always 1 in f32 and on
+    the CUDA-core route above :data:`TC_MAX_HEAD_DIM`)."""
     return lib.plan("famous_mha_bwd_dq_plan", code, BH, BKV, Sq, Skv, dh,
                     sms)
 
@@ -137,7 +151,8 @@ def dkv_plan(code: int, BH: int, BKV: int, Sq: int, Skv: int, dh: int,
              sms: int) -> tuple[int, int]:
     """Splits of the bf16 dk/dv kernel (each key block's work items cut
     into that many runs, whose f32 partials are summed in order) and the
-    f32 elements of their workspace (0 for one split; always 1 in f32)."""
+    f32 elements of their workspace (0 for one split; always 1 in f32 and
+    on the CUDA-core route above :data:`TC_MAX_HEAD_DIM`)."""
     return lib.plan("famous_mha_bwd_dkv_plan", code, BH, BKV, Sq, Skv, dh,
                     sms)
 

@@ -57,11 +57,14 @@ def mha(q, k, v, *, causal=True, window=0, scale=None, q_offset=0,
 
     Differentiable through the flash backward kernels, the GQA group sum
     of dk/dv taken inside the dk/dv kernel.  ``block_q``/``block_k`` are
-    the Pallas tile sizes and are ignored: the CUDA kernels fix their own
-    tiles and mask ragged edges.  In bf16 the forward runs 128-row query
-    blocks over 64-key tiles and the dk/dv kernel 64-key blocks over
-    64-row query tiles, on tensor cores; in f32 all three kernels, and dq
-    in bf16 too, run 32 x 32 tiles on the CUDA cores."""
+    the Pallas tile sizes and are ignored: the CUDA kernels take their
+    tiles and split counts from static shapes and the SM count, and mask
+    ragged edges.  In bf16, on tensor cores, the forward runs 128-row
+    query blocks over 64-key tiles (64-row blocks above dh 128), dq 64-row
+    blocks over 64-key tiles and dk/dv 64-key blocks over 64-row query
+    tiles; in f32 all three kernels run 32 x 32 tiles on the CUDA cores,
+    and so do dq and dk/dv in bf16 above dh 128 (up to 256,
+    recurrentgemma-2b's local attention)."""
     del block_q, block_k
     B, Sq, H, dh = q.shape
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(dh)

@@ -175,9 +175,18 @@ __device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* dst, const __nv_bf
   }
 }
 
-// The padded head dim of the bf16 MHA kernels (mha_forward.cu,
-// mha_bwd_dkv.cu): 64 or 128, and 96 (famous-bert's) natively, which
-// scripts/torch_kernel_sweep.py timed faster than padding it to 128.
+// The head dims of the MHA kernels (mha_forward.cu, mha_bwd_dq.cu,
+// mha_bwd_dkv.cu): any dh up to kMhaMaxDh (recurrentgemma-2b's 256).  The
+// bf16 tensor-core geometries of dq and dk/dv hold dh <= kMhaTcMaxDh; above
+// it both dtypes run their CUDA-core kernels' kMhaMaxDh instantiation (the
+// bf16 forward runs chunk_tc.cuh's DP = 256 geometry).  The CUDA-core
+// kernels are templated on their largest dh, so the dh <= kMhaTcMaxDh
+// instantiations keep their registers.
+constexpr int kMhaTcMaxDh = 128, kMhaMaxDh = 256;
+
+// The padded head dim of the bf16 MHA kernels at dh <= kMhaTcMaxDh: 64 or
+// 128, and 96 (famous-bert's) natively, which scripts/torch_kernel_sweep.py
+// timed faster than padding it to 128.
 inline int mha_tc_dp(int dh) { return dh <= 64 ? 64 : dh <= 96 ? 96 : 128; }
 
 // Raise the dynamic shared-memory cap of `kernel` when a launch needs more

@@ -66,7 +66,9 @@
 //
 // f32: the CUDA-core kernel of the first port, in full f32 FMAs (no TF32):
 // 32 keys a block, staged Q, dO, K and V tiles, the group's heads looped
-// inside the block.
+// inside the block.  Above dh 128 (recurrentgemma-2b's 256) bf16 runs it
+// too, in one run (no split): its instantiation for dh <= 256 takes 140 KB
+// of shared memory at 256, so one block an SM.
 #include "common.cuh"
 
 #include <algorithm>
@@ -76,9 +78,7 @@ namespace famous {
 constexpr int kKvBQ = 32;       // query rows per tile
 constexpr int kKvBK = 32;       // keys per block
 constexpr int kKvThreads = 256;
-constexpr int kKvMaxDh = 128;
 constexpr int kKvLanesPerRow = kKvThreads / kKvBK;   // 8 threads per key row
-constexpr int kKvDPT = kKvMaxDh / kKvLanesPerRow;    // head-dim entries per thread
 
 __host__ __device__ inline size_t dkv_smem_floats(int dh) {
   return 2 * (size_t)kKvBK * (dh + 1)      // K and V tiles (padded rows)
@@ -87,16 +87,21 @@ __host__ __device__ inline size_t dkv_smem_floats(int dh) {
          + 2 * (size_t)kKvBQ;              // lse, delta
 }
 
-// Two blocks per SM (shared memory allows three) leave 128 registers a
-// thread: the two accumulators and the unrolled P/dS reads fit without
-// spilling, where the default allocation capped at 64 and spilled.
-template <typename T>
-__global__ void __launch_bounds__(kKvThreads, 2)
+// MaxDh: the largest head dim of the instantiation (kMhaTcMaxDh, or
+// kMhaMaxDh above it); each thread holds MaxDh / 8 columns of dk and dv.
+// At MaxDh 128 two blocks per SM (shared memory allows three) leave 128
+// registers a thread: the two accumulators and the unrolled P/dS reads fit
+// without spilling, where the default allocation capped at 64 and spilled.
+// At 256 shared memory allows one block, and the 64 accumulators get up to
+// 255 registers.
+template <typename T, int MaxDh>
+__global__ void __launch_bounds__(kKvThreads, MaxDh <= kMhaTcMaxDh ? 2 : 1)
 mha_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const T* __restrict__ dout, const float* __restrict__ lse,
                    const float* __restrict__ delta, float* __restrict__ dk,
                    float* __restrict__ dv, int Sq, int Skv, int dh, int group, int causal,
                    int window, int q_offset, float scale) {
+  constexpr int kKvDPT = MaxDh / kKvLanesPerRow;  // head-dim entries per thread
   extern __shared__ float smem[];
   const int k0 = blockIdx.x * kKvBK, bkv = blockIdx.y;
   float* k_s = smem;
@@ -190,16 +195,16 @@ mha_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   }
 }
 
-template <typename T>
+template <typename T, int MaxDh>
 static cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                               const float* lse, const float* delta, float* dk, float* dv,
                               int BKV, int group, int Sq, int Skv, int dh, int causal,
                               int window, int q_offset, float scale, cudaStream_t stream) {
   const size_t smem = dkv_smem_floats(dh) * sizeof(float);
-  cudaError_t e = allow_smem(mha_bwd_dkv_kernel<T>, smem);
+  cudaError_t e = allow_smem(mha_bwd_dkv_kernel<T, MaxDh>, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((Skv + kKvBK - 1) / kKvBK, BKV);
-  mha_bwd_dkv_kernel<T><<<grid, kKvThreads, smem, stream>>>(
+  mha_bwd_dkv_kernel<T, MaxDh><<<grid, kKvThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, dk, dv, Sq, Skv, dh, group, causal, window,
       q_offset, scale);
@@ -521,14 +526,15 @@ inline int dkv_tc_plan(int BKV, int group, int Sq, int Skv, int dh, int sms,
 
 }  // namespace famous
 
-// The split count of the bf16 kernel (dkv_tc_plan), 1 for f32.
+// The split count of the bf16 kernel (dkv_tc_plan), 1 for f32 and for the
+// CUDA-core route above dh 128.
 // *ws_elems: the f32 workspace of the partials (0 for one split), which
 // the wrapper allocates.
 extern "C" int famous_mha_bwd_dkv_plan(int dtype, int BH, int BKV, int Sq, int Skv, int dh,
                                        int sms, long long* ws_elems) {
   using namespace famous;
   *ws_elems = 0;
-  if (dtype != kBF16 || BKV <= 0 || BH % BKV != 0 || Skv <= 0) return 1;
+  if (dtype != kBF16 || dh > kMhaTcMaxDh || BKV <= 0 || BH % BKV != 0 || Skv <= 0) return 1;
   return dkv_tc_plan(BKV, BH / BKV, Sq, Skv, dh, sms, ws_elems);
 }
 
@@ -540,17 +546,23 @@ extern "C" int famous_mha_bwd_dkv(int dtype, const void* q, const void* k, const
                                   int Sq, int Skv, int dh, int causal, int window, int q_offset,
                                   float scale, void* stream) {
   using namespace famous;
-  if (BKV <= 0 || BH % BKV != 0 || BKV > 65535 || dh <= 0 || dh > kKvMaxDh || splits < 1 ||
+  if (BKV <= 0 || BH % BKV != 0 || BKV > 65535 || dh <= 0 || dh > kMhaMaxDh || splits < 1 ||
       (long long)BKV * splits > 0x7fffffffLL ||
-      (splits > 1 && (part == nullptr || dtype != kBF16)))
+      (splits > 1 && (part == nullptr || dtype != kBF16 || dh > kMhaTcMaxDh)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (Skv <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int group = BH / BKV;
   cudaError_t e;
-  if (dtype == kF32)
-    e = launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, BKV, group, Sq, Skv, dh, causal,
-                          window, q_offset, scale, s);
+  if (dtype == kF32 && dh <= kMhaTcMaxDh)
+    e = launch_dkv<float, kMhaTcMaxDh>(q, k, v, dout, lse, delta, dk, dv, BKV, group, Sq, Skv,
+                                       dh, causal, window, q_offset, scale, s);
+  else if (dtype == kF32)
+    e = launch_dkv<float, kMhaMaxDh>(q, k, v, dout, lse, delta, dk, dv, BKV, group, Sq, Skv, dh,
+                                     causal, window, q_offset, scale, s);
+  else if (dtype == kBF16 && dh > kMhaTcMaxDh)
+    e = launch_dkv<bf16, kMhaMaxDh>(q, k, v, dout, lse, delta, dk, dv, BKV, group, Sq, Skv, dh,
+                                    causal, window, q_offset, scale, s);
   else if (dtype == kBF16)
     e = launch_dkv_bf16(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                         static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,

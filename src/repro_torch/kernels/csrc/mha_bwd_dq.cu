@@ -64,6 +64,10 @@
 //
 // f32: the CUDA-core kernel of the first port, in full f32 FMAs (no TF32):
 // 32 rows a block, 32-key tiles of Q, dO, K and V staged in shared memory.
+// Above dh 128 (recurrentgemma-2b's 256) bf16 runs it too, in one run (no
+// split): its instantiation for dh <= 256 (136 KB of shared memory at 256,
+// one block an SM).  Its products are f32 FMAs on the bf16 values, so no
+// run cap applies.
 #include "common.cuh"
 
 #include <algorithm>
@@ -73,9 +77,7 @@ namespace famous {
 constexpr int kDqBQ = 32;       // query rows per block
 constexpr int kDqBK = 32;       // keys per tile
 constexpr int kDqThreads = 256;
-constexpr int kDqMaxDh = 128;
 constexpr int kDqLanesPerRow = kDqThreads / kDqBQ;   // 8 threads per row in dS @ K
-constexpr int kDqDPT = kDqMaxDh / kDqLanesPerRow;    // head-dim entries per thread
 
 __host__ __device__ inline size_t dq_smem_floats(int dh) {
   return 2 * (size_t)kDqBQ * dh            // Q and dO tiles
@@ -84,12 +86,15 @@ __host__ __device__ inline size_t dq_smem_floats(int dh) {
          + 2 * (size_t)kDqBQ;              // lse, delta
 }
 
-template <typename T>
+// MaxDh: the largest head dim of the instantiation (kMhaTcMaxDh, or
+// kMhaMaxDh above it); each thread holds MaxDh / 8 dq columns.
+template <typename T, int MaxDh>
 __global__ void __launch_bounds__(kDqThreads)
 mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   const T* __restrict__ dout, const float* __restrict__ lse,
                   const float* __restrict__ delta, float* __restrict__ dq, int Sq, int Skv,
                   int dh, int group, int causal, int window, int q_offset, float scale) {
+  constexpr int kDqDPT = MaxDh / kDqLanesPerRow;  // head-dim entries per thread
   extern __shared__ float smem[];
   const int q0 = blockIdx.x * kDqBQ, bh = blockIdx.y;
   const int bkv = bh / group;
@@ -181,16 +186,17 @@ mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   }
 }
 
-template <typename T>
+template <typename T, int MaxDh>
 static cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                              const float* lse, const float* delta, float* dq, int BH,
                              int group, int Sq, int Skv, int dh, int causal, int window,
                              int q_offset, float scale, cudaStream_t stream) {
   const size_t smem = dq_smem_floats(dh) * sizeof(float);
-  cudaError_t e = allow_smem(mha_bwd_dq_kernel<T>, smem);
+  cudaError_t e = allow_smem(mha_bwd_dq_kernel<T, MaxDh>, smem);
   if (e != cudaSuccess) return e;
+  if (BH > 65535) return cudaErrorInvalidValue;
   dim3 grid((Sq + kDqBQ - 1) / kDqBQ, BH);
-  mha_bwd_dq_kernel<T><<<grid, kDqThreads, smem, stream>>>(
+  mha_bwd_dq_kernel<T, MaxDh><<<grid, kDqThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, dq, Sq, Skv, dh, group, causal, window,
       q_offset, scale);
@@ -487,14 +493,16 @@ inline int dq_tc_plan(int BH, int Sq, int Skv, int dh, int sms, long long* ws_el
 
 }  // namespace famous
 
-// The split count of the bf16 kernel (dq_tc_plan), 1 for f32.  *ws_elems:
+// The split count of the bf16 kernel (dq_tc_plan), 1 for f32 and for the
+// CUDA-core route above dh 128.  *ws_elems:
 // the f32 workspace of the partials (0 for one split), which the wrapper
 // allocates.
 extern "C" int famous_mha_bwd_dq_plan(int dtype, int BH, int BKV, int Sq, int Skv, int dh,
                                       int sms, long long* ws_elems) {
   using namespace famous;
   *ws_elems = 0;
-  if (dtype != kBF16 || BKV <= 0 || BH % BKV != 0 || Sq <= 0 || Skv <= 0) return 1;
+  if (dtype != kBF16 || dh > kMhaTcMaxDh || BKV <= 0 || BH % BKV != 0 || Sq <= 0 || Skv <= 0)
+    return 1;
   return dq_tc_plan(BH, Sq, Skv, dh, sms, ws_elems);
 }
 
@@ -505,17 +513,23 @@ extern "C" int famous_mha_bwd_dq(int dtype, const void* q, const void* k, const 
                                  int Skv, int dh, int causal, int window, int q_offset,
                                  float scale, void* stream) {
   using namespace famous;
-  if (BKV <= 0 || BH % BKV != 0 || dh <= 0 || dh > kDqMaxDh || splits < 1 ||
-      (long long)BH * splits > 0x7fffffffLL || (splits > 1 && (part == nullptr || dtype != kBF16)))
+  if (BKV <= 0 || BH % BKV != 0 || dh <= 0 || dh > kMhaMaxDh || splits < 1 ||
+      (long long)BH * splits > 0x7fffffffLL ||
+      (splits > 1 && (part == nullptr || dtype != kBF16 || dh > kMhaTcMaxDh)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (Sq <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int group = BH / BKV;
   cudaError_t e;
-  if (dtype == kF32) {
-    if (BH > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    e = launch_dq<float>(q, k, v, dout, lse, delta, dq, BH, group, Sq, Skv, dh, causal, window,
-                         q_offset, scale, s);
+  if (dtype == kF32 && dh <= kMhaTcMaxDh) {
+    e = launch_dq<float, kMhaTcMaxDh>(q, k, v, dout, lse, delta, dq, BH, group, Sq, Skv, dh,
+                                      causal, window, q_offset, scale, s);
+  } else if (dtype == kF32) {
+    e = launch_dq<float, kMhaMaxDh>(q, k, v, dout, lse, delta, dq, BH, group, Sq, Skv, dh,
+                                    causal, window, q_offset, scale, s);
+  } else if (dtype == kBF16 && dh > kMhaTcMaxDh) {
+    e = launch_dq<bf16, kMhaMaxDh>(q, k, v, dout, lse, delta, dq, BH, group, Sq, Skv, dh, causal,
+                                   window, q_offset, scale, s);
   } else if (dtype == kBF16) {
     e = launch_dq_bf16(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,

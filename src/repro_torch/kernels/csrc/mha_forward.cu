@@ -39,13 +39,16 @@
 // blocks launch longest (last) first.  128-row blocks of 4 warps; dh 96
 // (famous-bert) runs natively (six k16 steps, 208-byte padded rows, still
 // conflict-free for ldmatrix), as scripts/torch_kernel_sweep.py chose
-// (PERF.md).  famous-bert has 256 blocks and qwen2-7b 448, so the key
+// (PERF.md).  A dh above 128 (recurrentgemma-2b's 256) runs the body's
+// DP = 256 geometry, ServeTiles<256>: 64-row blocks, 16 rows a warp.
+// famous-bert has 256 blocks and qwen2-7b 448, so the key
 // range is split (famous_mha_forward_plan: chunk_tc_plan's rule) only at
 // shapes with few rows; the ordered combine then also emits the LSE.
 //
 // f32: the CUDA-core kernel of the first port, in full f32 FMAs (no TF32):
 // 32 x 32 tiles of Q, K and V staged in shared memory, q scaled before
-// the product as the TPU kernel does, 8 threads a row in P V.
+// the product as the TPU kernel does, 8 threads a row in P V; one
+// instantiation for dh <= 128 and one for dh <= 256.
 #include "chunk_tc.cuh"
 
 namespace famous {
@@ -54,9 +57,7 @@ constexpr int kFwBQ = 32;       // query rows per block
 constexpr int kFwBK = 32;       // keys per tile (= warp size: lane = key)
 constexpr int kFwThreads = 256;
 constexpr int kFwWarps = kFwThreads / 32;
-constexpr int kMhaMaxDh = 128;
 constexpr int kFwLanesPerRow = kFwThreads / kFwBQ;        // 8 threads per row in P @ V
-constexpr int kFwDPT = kMhaMaxDh / kFwLanesPerRow;        // head-dim entries per thread
 
 __host__ __device__ inline size_t fwd_smem_floats(int dh) {
   return (size_t)kFwBQ * dh               // Q tile (pre-scaled)
@@ -66,12 +67,15 @@ __host__ __device__ inline size_t fwd_smem_floats(int dh) {
          + 3 * (size_t)kFwBQ;             // running max, sum, correction
 }
 
-template <typename T>
+// MaxDh: the largest head dim of the instantiation (kMhaTcMaxDh, or
+// kMhaMaxDh above it); each thread holds MaxDh / 8 output columns.
+template <typename T, int MaxDh>
 __global__ void __launch_bounds__(kFwThreads)
 mha_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
                    int Sq, int Skv, int dh, int group, int causal, int window, int q_offset,
                    float scale) {
+  constexpr int kFwDPT = MaxDh / kFwLanesPerRow;  // head-dim entries per thread
   extern __shared__ float smem[];
   const int q0 = blockIdx.x * kFwBQ, bh = blockIdx.y;
   const int bkv = bh / group;
@@ -177,16 +181,16 @@ mha_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, int MaxDh>
 static cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
                               float* lse, int BH, int group, int Sq, int Skv, int dh,
                               int causal, int window, int q_offset, float scale,
                               cudaStream_t stream) {
   const size_t smem = fwd_smem_floats(dh) * sizeof(float);
-  cudaError_t e = allow_smem(mha_forward_kernel<T>, smem);
+  cudaError_t e = allow_smem(mha_forward_kernel<T, MaxDh>, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((Sq + kFwBQ - 1) / kFwBQ, BH);
-  mha_forward_kernel<T><<<grid, kFwThreads, smem, stream>>>(
+  mha_forward_kernel<T, MaxDh><<<grid, kFwThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), lse, Sq, Skv, dh, group, causal, window, q_offset, scale);
   return cudaGetLastError();
@@ -214,6 +218,10 @@ static cudaError_t launch_fwd_bf16(const bf16* q, const bf16* k, const bf16* v, 
                                    float* lse, float* part, int splits, int BKV, int group,
                                    int Sq, int Skv, int dh, int causal, int window, int q_offset,
                                    float scale, cudaStream_t stream) {
+  if (dh > kMhaTcMaxDh)
+    return launch_fwd_tc<256, ServeTiles<256>>(q, k, v, out, lse, part, splits, BKV, group, Sq,
+                                               Skv, dh, causal, window, q_offset, scale, causal,
+                                               stream);
   switch (mha_tc_dp(dh)) {
     case 64:
       return launch_fwd_tc<64, ServeTiles<64>>(q, k, v, out, lse, part, splits, BKV, group, Sq,
@@ -257,9 +265,12 @@ extern "C" int famous_mha_forward(int dtype, const void* q, const void* k, const
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int group = BH / BKV;
   cudaError_t e;
-  if (dtype == kF32)
-    e = launch_fwd<float>(q, k, v, out, lse, BH, group, Sq, Skv, dh, causal, window, q_offset,
-                          scale, s);
+  if (dtype == kF32 && dh <= kMhaTcMaxDh)
+    e = launch_fwd<float, kMhaTcMaxDh>(q, k, v, out, lse, BH, group, Sq, Skv, dh, causal, window,
+                                       q_offset, scale, s);
+  else if (dtype == kF32)
+    e = launch_fwd<float, kMhaMaxDh>(q, k, v, out, lse, BH, group, Sq, Skv, dh, causal, window,
+                                     q_offset, scale, s);
   else if (dtype == kBF16)
     e = launch_fwd_bf16(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                         static_cast<const bf16*>(v), static_cast<bf16*>(out), lse,

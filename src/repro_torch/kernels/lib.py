@@ -201,9 +201,11 @@ _SIGNATURES = {
     # dtype, a, b, out, B, S, R, stream
     "famous_rglru_scan": [_I, _P, _P, _P, _I, _I, _I, _P],
     # dtype (r, k, v), logw dtype, r, k, v, logw, u, s0 (or null), out,
-    # s_final, BH, S, dh, chunk, stream
-    "famous_wkv6_scan": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                         _I, _P],
+    # s_final, workspace, BH, S, dh, chunk, stream
+    "famous_wkv6_scan": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                         _I, _I, _P],
+    # BH, S, dh, chunk, [out] workspace elements -> chunks a batch·head
+    "famous_wkv6_scan_plan": [_I, _I, _I, _I, _PLL],
 }
 
 

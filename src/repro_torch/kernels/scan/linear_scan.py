@@ -3,20 +3,26 @@
 ``rglru_scan`` computes h_t = a_t ⊙ h_{t-1} + b_t over (B, S, R) from a
 zero state.  On CUDA tensors it launches the hand-written kernel of
 ``kernels/csrc/rglru_scan.cu`` (the port of the Pallas ``_rglru_kernel`` in
-``repro/kernels/scan/linear_scan.py``): one thread per (batch, feature)
-walking time in order, loads and stores coalesced across features.
+``repro/kernels/scan/linear_scan.py``): blocks of features by time
+segments, every segment's loads in flight at once, the segments running
+the recurrence in order, bit-equal to the plain version.
 
 ``wkv6_scan`` computes the RWKV-6 wkv recurrence in chunked form over
 (BH, S, dh), from an optional carried state ``s0``, and returns the output
 and the final state.  On CUDA tensors it launches
 ``kernels/csrc/wkv6_scan.cu`` (the port of the Pallas ``_wkv6_kernel``):
-one block per (batch, head) looping over its chunks in order, the
-(dh, dh) state in shared memory, every product an exact f32 multiply-add.
+a first pass over every (batch·head, chunk) does the state-free work of
+each chunk into an f32 workspace allocated here (sized by the kernel's C
+plan, :func:`wkv6_plan`), and a second pass per (batch·head, value
+columns) walks the chunks in order through the state; every product an
+exact f32 multiply-add.
 
 On CPU tensors both run their plain versions in
 :mod:`repro_torch.kernels.scan.ref`.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -26,6 +32,21 @@ from repro_torch.kernels.scan import ref
 RGLRU = "rglru_scan"
 WKV6 = "wkv6_scan"
 WKV6_MAX = 64   # the kernel's largest chunk and head dim
+
+
+def wkv6_workspace_elems(BH: int, S: int, dh: int, chunk: int) -> int:
+    """The f32 workspace of one ``wkv6_scan`` launch, as its C plan sizes
+    it: per (batch·head, chunk) the chunk's state increment (dh x dh), its
+    decay exp(cw_C) (dh) and qexp transposed (dh x chunk), which the
+    first pass writes and the second reads."""
+    return BH * (S // chunk) * (dh * dh + dh + chunk * dh)
+
+
+@functools.lru_cache(maxsize=None)
+def wkv6_plan(BH: int, S: int, dh: int, chunk: int) -> tuple[int, int]:
+    """The kernel's plan for a static shape: (chunks a batch·head, f32
+    workspace elements)."""
+    return lib.plan("famous_wkv6_scan_plan", BH, S, dh, chunk)
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -80,11 +101,14 @@ def wkv6_scan(r, k, v, logw, u, s0=None, *, chunk: int = 64):
         raise ValueError(f"{WKV6}: contiguous operands required")
     out = torch.empty((BH, S, dh), dtype=torch.float32, device=r.device)
     s_final = torch.empty((BH, dh, dh), dtype=torch.float32, device=r.device)
+    _, n_ws = wkv6_plan(BH, S, dh, chunk)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=r.device)
     err = lib.load().famous_wkv6_scan(
         code, wcode, r.data_ptr(), k.data_ptr(), v.data_ptr(),
         logw.data_ptr(), u.data_ptr(),
         None if s0 is None else s0.data_ptr(), out.data_ptr(),
-        s_final.data_ptr(), BH, S, dh, chunk, lib.stream_of(r))
+        s_final.data_ptr(), ws.data_ptr(), BH, S, dh, chunk,
+        lib.stream_of(r))
     lib.check(WKV6, err)
     lib.STATS.launches[WKV6] += 1
     return out, s_final

@@ -123,6 +123,21 @@ def test_wkv6_carried_state_matches_wkv6_chunked(B, H, S, dh, chunk):
                                rtol=1e-3)
 
 
+@pytest.mark.parametrize("BH,S,dh,chunk,elems", [
+    (32, 256, 64, 64, 1056768),      # rwkv6-1.6b's 256-token chunk
+    (32, 2048, 64, 64, 8454144),     # a 2048-token prompt
+    (3, 60, 40, 20, 21960),
+])
+def test_wkv6_workspace_formula(BH, S, dh, chunk, elems):
+    """The kernel's first pass writes, per (batch·head, chunk), the chunk's
+    state increment (dh x dh), its decay exp(cw_C) (dh) and qexp (chunk x
+    dh) for the second pass; the wrapper sizes its f32 workspace by the C
+    plan, which ``chip_smoke.py`` holds to this formula on the card."""
+    n_chunks = S // chunk
+    assert linear_scan.wkv6_workspace_elems(BH, S, dh, chunk) == elems
+    assert elems == BH * n_chunks * (dh * dh + dh + chunk * dh)
+
+
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
 @pytest.mark.parametrize("S,n_valid,carry", [(8, 8, True), (8, 5, True),
                                              (16, 3, False)])
