@@ -60,9 +60,10 @@ Phases, in order; any failure exits non-zero before the result line:
      the same weights, on contiguous caches, on paged pools and (bf16) on
      int8 pools, and with the int8 projection; the logits must agree, and
      at f32 the paged kernels' logits must agree with the contiguous
-     kernels'; then ``verify_step`` (5 tokens a slot) must give the logits
-     of 5 sequential ``decode_step`` calls at f32 on contiguous, paged and
-     int8 pools;
+     kernels'; then ``verify_step`` (5 tokens a slot, run under
+     ``set_sync_debug_mode("error")``: no device->host copy) must give the
+     logits of 5 sequential ``decode_step`` calls at f32 on contiguous,
+     paged and int8 pools;
   6. training parity: the same 2-layer cut, one ``make_train_step``
      gradient through ``impl="pallas"`` and ``impl="xla"`` on one state
      and batch, in f32 and bf16 compute; loss, global gradient norm and
@@ -82,7 +83,17 @@ Phases, in order; any failure exits non-zero before the result line:
      prefix traffic speculatively (``draft_k=4``) on the paged pool with
      the prefix cache, with the fp and the int8 projection; and a 2-layer
      full-width f32 run whose drafter proposes the plain run's own tokens
-     (every draft accepted; the tokens must equal the plain run's);
+     (every draft accepted; the tokens must equal the plain run's).
+     Every run but the last is a graph parity pair: it runs once under
+     ``graphs.disable_capture()`` (every step eager) and once with the
+     decode or verify step and its sampler replayed as CUDA graphs (the
+     main path); the tokens and the kernel launch counts (replays
+     included) must be identical, the graph engine must have captured its
+     step, its census must show at most 3 per kind, and, warmed, it must
+     serve 4 fresh requests inside ``retrace_guard`` without a new
+     capture.  Warm-up and capture run under ``torch.cuda.
+     set_sync_debug_mode("error")`` (checked to raise on a device->host
+     copy), so a step that syncs fails there;
   9. recurrent slice parity: one (RG-LRU, RG-LRU, local attention) unit
      of recurrentgemma-2b and two RWKV-6 layers of rwkv6-1.6b at full
      width through ``prefill_chunk`` + ``decode_step``, kernels against
@@ -92,7 +103,12 @@ Phases, in order; any failure exits non-zero before the result line:
  10. recurrent serving: recurrentgemma-2b (max_seq 4096, prompts of
      88-3600 tokens, three past the window) and rwkv6-1.6b (max_seq 2048)
      at full depth in bf16, 8 greedy requests each, with launch counts
-     checked per chunk and decode step.
+     checked per chunk and decode step, each a graph parity pair as in 8.
+
+``step_breakdown`` times one decode step and one prefill chunk of a
+serving engine's model eagerly, and the decode step again as a CUDA graph
+(a speculative engine also its verify step, eager and as a graph): CUDA
+events against profiled device time.
 
 The launch counters are set to 0 before each run of phases 7, 8 and 10 and
 read after it: every kernel must have launched on those paths and no plain
@@ -106,6 +122,7 @@ repository's ``src/repro_torch`` beside this file, it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -1479,6 +1496,7 @@ def verify_parity(torch, cfg, params, prompt, pt, n, C, ps, n_pages, W=5):
     order: the projection and MLP see 20 rows instead of 4)."""
     from repro_torch.core.famous import FamousConfig
     from repro_torch.models import transformer
+    from repro_torch.serve import graphs
 
     dev = torch.device("cuda")
     fcfg = FamousConfig(impl="pallas")
@@ -1502,8 +1520,9 @@ def verify_parity(torch, cfg, params, prompt, pt, n, C, ps, n_pages, W=5):
                                       caches, 1, start, min(C, n - start),
                                       cfg, fcfg, **kw)
         seq = [{k: v.clone() for k, v in c.items()} for c in caches]
-        vlog, _ = transformer.verify_step(params, toks, caches, clen, cfg,
-                                          fcfg, **kw)
+        with graphs.no_host_sync(dev):
+            vlog, _ = transformer.verify_step(params, toks, caches, clen,
+                                              cfg, fcfg, **kw)
         slog = torch.stack([transformer.decode_step(
             params, toks[:, j], seq, clen + j, cfg, fcfg, **kw)[0]
             for j in range(W)], dim=1)
@@ -1694,12 +1713,153 @@ def training_phase(torch, seed):
 # ---------------------------------------------------------------------------
 
 
+def sync_mode_check(torch):
+    """``graphs.no_host_sync`` (``set_sync_debug_mode("error")``, under
+    which every warm-up and capture runs) must raise on a device->host
+    copy: otherwise the executables' no-sync gate would hold vacuously."""
+    from repro_torch.serve import graphs
+
+    x = torch.ones(2, device="cuda")
+    try:
+        with graphs.no_host_sync(x.device):
+            x.cpu()
+    except RuntimeError:
+        print("graphs: set_sync_debug_mode('error') raises on a device->host "
+              "copy (warm-up and capture run under it)", flush=True)
+        return
+    check(False, "set_sync_debug_mode('error') let a device->host copy "
+          "through")
+
+
+class _PhaseClock:
+    """An engine observer's wrapper that adds up the host seconds of each
+    engine phase: ``prefill_chunk`` spans are a chunk's dispatch, and
+    ``decode`` / ``verify`` spans end in the step's device->host sync.
+    Everything else goes to the wrapped observer."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.host_s = {}
+
+    @contextlib.contextmanager
+    def phase(self, name, **args):
+        t = time.perf_counter()
+        with self.inner.phase(name, **args):
+            yield
+        self.host_s[name] = (self.host_s.get(name, 0.0)
+                             + time.perf_counter() - t)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def serve_once(torch, make_engine, reqs, eager):
+    """``make_engine()`` serves ``reqs`` to the end, every step eager when
+    ``eager`` (``graphs.disable_capture()``), else with the steps'
+    graphs, its phases timed by :class:`_PhaseClock`.  Returns (requests
+    by rid, engine, launches, plain-on-CUDA counts, wall seconds)."""
+    from repro_torch.kernels import lib
+    from repro_torch.serve import graphs
+
+    engine = make_engine()
+    engine.obs = _PhaseClock(engine.obs)
+    torch.cuda.synchronize()
+    lib.STATS.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with graphs.disable_capture() if eager else contextlib.nullcontext():
+        done = sorted(engine.run(reqs), key=lambda r: r.rid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (done, engine, dict(engine.kernel_launches),
+            dict(lib.STATS.plain_on_cuda), wall)
+
+
+def graph_pair(torch, label, make_engine, make_reqs):
+    """One serving configuration on two fresh engines: eager first, then
+    with graphs (the main path).  Gates: the same tokens, the same kernel
+    launch counts (replays counted) and plain-version counts, the graph
+    engine's step kind (decode, or verify when speculative) captured once,
+    no kind above 3.  Returns the graph run (requests, engine, launches,
+    plain counts, wall seconds) and the pair's record: tok/s and TTFT of
+    both runs, the census, replays, capture seconds and the graph pool's
+    bytes."""
+    import numpy as np
+
+    e_done, e_eng, e_launch, e_plain, e_wall = serve_once(
+        torch, make_engine, make_reqs(), eager=True)
+    e_census, e_clock = e_eng.compilations, e_eng.obs
+    del e_eng
+    torch.cuda.empty_cache()
+    run = serve_once(torch, make_engine, make_reqs(), eager=False)
+    done, engine, launches, plain, wall = run
+    kind = "verify" if engine.speculative_active else "decode"
+    census = engine.compilations
+    stats = engine.graph_stats
+
+    def summary(reqs, seconds, clock):
+        toks = sum(len(r.out) for r in reqs)
+        ttft = [r.t_first - r.t_submit for r in reqs]
+        host = dict(clock.host_s)
+        host["rest"] = seconds - sum(host.values())
+        return dict(tokens=toks, wall_s=seconds, tok_per_s=toks / seconds,
+                    ttft_p50_s=float(np.median(ttft)), host_s=host)
+
+    pair = dict(eager=summary(e_done, e_wall, e_clock),
+                graph=summary(done, wall, engine.obs),
+                census=census, eager_census=e_census,
+                replays=stats["replays"], graph_keys=stats["keys"],
+                capture_s=stats["capture_s"], pool_bytes=stats["pool_bytes"],
+                tokens_equal=[r.out for r in done] == [r.out for r in e_done],
+                launches_equal=launches == e_launch)
+    g, e = pair["graph"], pair["eager"]
+    print(f"graph parity {label}: tokens identical {pair['tokens_equal']}, "
+          f"launches identical {pair['launches_equal']}; eager "
+          f"{e['tok_per_s']:.1f} tok/s, TTFT p50 {e['ttft_p50_s'] * 1e3:.0f} "
+          f"ms; graphs {g['tok_per_s']:.1f} tok/s, TTFT p50 "
+          f"{g['ttft_p50_s'] * 1e3:.0f} ms; census {census}, "
+          f"{stats['replays'][kind]} {kind} replays, graphs "
+          f"{stats['keys'][kind]}, capture {stats['capture_s']:.2f} s, pool "
+          f"{stats['pool_bytes'] / 2**20:.1f} MiB; host s by phase: eager "
+          f"{ {k: round(v, 3) for k, v in e['host_s'].items()} }, graphs "
+          f"{ {k: round(v, 3) for k, v in g['host_s'].items()} }",
+          flush=True)
+    check(pair["tokens_equal"], f"{label}: graph tokens differ from eager")
+    check(pair["launches_equal"] and plain == e_plain,
+          f"{label}: launches with graphs {launches} / {plain}, eager "
+          f"{e_launch} / {e_plain}")
+    check(census[kind] == 1 and stats["replays"][kind] > 0
+          and max(census.values()) <= 3 and not any(e_census.values()),
+          f"{label}: census {census} (eager {e_census}), replays "
+          f"{stats['replays']}")
+    return run, pair
+
+
+def guard_warm(torch, label, engine, prompts):
+    """The warmed graph engine serves 4 fresh requests (the first 512
+    tokens of 4 prompts, 8 new tokens each) inside ``retrace_guard``: a
+    warm region must capture nothing."""
+    from repro_torch.analysis.retrace_guard import retrace_guard
+    from repro_torch.serve.engine import Request
+
+    before = engine.compilations
+    reqs = [Request(rid=1000 + i, tokens=list(p[:512]), max_new=8)
+            for i, p in enumerate(prompts[:4])]
+    with retrace_guard(engine, label=label):
+        done = engine.run(reqs)
+    torch.cuda.synchronize()
+    check(all(r.error is None and len(r.out) == 8 for r in done),
+          f"{label}: guarded batch {[(r.rid, r.error) for r in done]}")
+    print(f"retrace guard {label}: 4 fresh requests, census {before} -> "
+          f"{engine.compilations}", flush=True)
+    return engine.compilations
+
+
 def serving_phase(torch, seed):
     import numpy as np
 
     from repro_torch.configs.base import get_config
     from repro_torch.core.famous import FamousConfig
-    from repro_torch.kernels import lib
     from repro_torch.serve.engine import Request, ServingEngine
 
     cfg = get_config("qwen2-7b")
@@ -1708,22 +1868,24 @@ def serving_phase(torch, seed):
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     n_params = cfg.param_count()
-    engine = ServingEngine(params, cfg, FamousConfig(impl="pallas"),
-                           n_slots=4, max_seq=2048, dtype=torch.bfloat16,
-                           chunk=256, device="cuda")
+    sync_mode_check(torch)
     rng = np.random.default_rng(seed)
     lens = [int(x) for x in rng.integers(64, 1537, size=8)]
-    reqs = [Request(rid=i, tokens=[int(t) for t in
-                                   rng.integers(0, cfg.vocab_size, size=n)],
-                    max_new=32) for i, n in enumerate(lens)]
-    lib.STATS.reset()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    done = engine.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(lib.STATS.launches)
-    plain = dict(lib.STATS.plain_on_cuda)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, size=n)]
+               for n in lens]
+
+    def make_engine():
+        return ServingEngine(params, cfg, FamousConfig(impl="pallas"),
+                             n_slots=4, max_seq=2048, dtype=torch.bfloat16,
+                             chunk=256, device="cuda")
+
+    def make_reqs():
+        return [Request(rid=i, tokens=list(p), max_new=32)
+                for i, p in enumerate(prompts)]
+
+    (done, engine, launches, plain, wall), pair = graph_pair(
+        torch, "qwen2-7b", make_engine, make_reqs)
+    reqs = make_reqs()
     check(len(done) == len(reqs), f"{len(done)} of {len(reqs)} came back")
     errors = [(r.rid, r.error) for r in done if r.error is not None]
     check(not errors, f"requests failed: {errors}")
@@ -1748,12 +1910,13 @@ def serving_phase(torch, seed):
           f"{res['ttft_p50_s'] * 1e3:.0f} ms, peak memory "
           f"{res['peak_mem_gb']:.1f} GB", flush=True)
     print("kernels " + json.dumps(launches), flush=True)
+    res["graph_pair"] = pair
+    res["guard_census"] = guard_warm(torch, "qwen2-7b", engine, prompts)
     res["steps"] = step_breakdown(torch, engine)
     del engine
     torch.cuda.empty_cache()
     res["int8_projection"] = int8_projection_run(
-        torch, cfg, params, [list(r.tokens) for r in reqs],
-        [r.out for r in sorted(done, key=lambda r: r.rid)])
+        torch, cfg, params, prompts, [r.out for r in done])
     res["shared_prefix"] = shared_prefix_runs(torch, cfg, params, seed)
     del params
     torch.cuda.empty_cache()
@@ -1772,23 +1935,20 @@ def int8_projection_run(torch, cfg, params, prompts, fp_tokens):
     import numpy as np
 
     from repro_torch.core.famous import FamousConfig
-    from repro_torch.kernels import lib
     from repro_torch.serve.engine import Request, ServingEngine
 
-    engine = ServingEngine(params, cfg,
-                           FamousConfig(impl="pallas", quant="int8"),
-                           n_slots=4, max_seq=2048, dtype=torch.bfloat16,
-                           chunk=256, device="cuda")
-    reqs = [Request(rid=i, tokens=list(p), max_new=32)
-            for i, p in enumerate(prompts)]
-    torch.cuda.synchronize()
-    lib.STATS.reset()
-    t0 = time.perf_counter()
-    done = sorted(engine.run(reqs), key=lambda r: r.rid)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(lib.STATS.launches)
-    plain = dict(lib.STATS.plain_on_cuda)
+    def make_engine():
+        return ServingEngine(params, cfg,
+                             FamousConfig(impl="pallas", quant="int8"),
+                             n_slots=4, max_seq=2048, dtype=torch.bfloat16,
+                             chunk=256, device="cuda")
+
+    def make_reqs():
+        return [Request(rid=i, tokens=list(p), max_new=32)
+                for i, p in enumerate(prompts)]
+
+    (done, engine, launches, plain, wall), pair = graph_pair(
+        torch, "qwen2-7b int8 projection", make_engine, make_reqs)
     check(len(done) == 8 and all(r.error is None and len(r.out) == 32
                                  for r in done),
           f"int8 projection: {[(r.rid, r.error, len(r.out)) for r in done]}")
@@ -1822,6 +1982,9 @@ def int8_projection_run(torch, cfg, params, prompts, fp_tokens):
           f"matmul_tiled {launches['matmul_tiled']}; tokens equal to the fp "
           f"run {same:.3f}", flush=True)
     print("kernels " + json.dumps(launches), flush=True)
+    res["graph_pair"] = pair
+    res["guard_census"] = guard_warm(torch, "qwen2-7b int8 projection",
+                                     engine, prompts)
     res["steps"] = step_breakdown(torch, engine)
     del engine
     torch.cuda.empty_cache()
@@ -1939,7 +2102,6 @@ def shared_prefix_runs(torch, cfg, params, seed):
     import numpy as np
 
     from repro_torch.core.famous import FamousConfig
-    from repro_torch.kernels import lib
     from repro_torch.obs.runtime import NullObserver
     from repro_torch.serve.engine import Request, ServingEngine
 
@@ -1959,25 +2121,26 @@ def shared_prefix_runs(torch, cfg, params, seed):
                                                       size=n)]
                for n in suffixes]
     out, ref_tokens = {}, None
+
+    def make_reqs():
+        return [Request(rid=i, tokens=list(p), max_new=32)
+                for i, p in enumerate(prompts)]
+
     for label, kw in SHARED_PREFIX_RUNS:
         kw = dict(kw)
         quant = kw.pop("quant", "none")
-        hits = PrefixHits()
-        engine = ServingEngine(params, cfg,
-                               FamousConfig(impl="pallas", quant=quant),
-                               n_slots=4, max_seq=2048, dtype=torch.bfloat16,
-                               chunk=256, page_size=16, observer=hits,
-                               device="cuda", **kw)
-        reqs = [Request(rid=i, tokens=list(p), max_new=32)
-                for i, p in enumerate(prompts)]
-        torch.cuda.synchronize()
-        lib.STATS.reset()
-        t0 = time.perf_counter()
-        done = sorted(engine.run(reqs), key=lambda r: r.rid)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(lib.STATS.launches)
-        plain = dict(lib.STATS.plain_on_cuda)
+
+        def make_engine():
+            return ServingEngine(params, cfg,
+                                 FamousConfig(impl="pallas", quant=quant),
+                                 n_slots=4, max_seq=2048,
+                                 dtype=torch.bfloat16, chunk=256,
+                                 page_size=16, observer=PrefixHits(),
+                                 device="cuda", **kw)
+
+        (done, engine, launches, plain, wall), pair = graph_pair(
+            torch, f"shared prefix {label}", make_engine, make_reqs)
+        hits = engine.obs
         check(len(done) == 8 and all(r.error is None for r in done),
               f"{label}: {[(r.rid, r.error) for r in done]}")
         for r in done:
@@ -2043,7 +2206,10 @@ def shared_prefix_runs(torch, cfg, params, seed):
               f"bytes {res['pool_bytes']}, tokens equal to the contiguous "
               f"run {same:.3f}{spec}", flush=True)
         print("kernels " + json.dumps(launches), flush=True)
-        if label in ("paged", "paged int8"):
+        res["graph_pair"] = pair
+        res["guard_census"] = guard_warm(torch, f"shared prefix {label}",
+                                         engine, prompts)
+        if label in ("paged", "paged int8", "paged speculative"):
             res["steps"] = step_breakdown(torch, engine)
         out[label] = res
         del engine
@@ -2183,7 +2349,6 @@ def recurrent_serving_phase(torch, seed):
 
     from repro_torch.configs.base import get_config
     from repro_torch.core.famous import FamousConfig
-    from repro_torch.kernels import lib
     from repro_torch.models import transformer
     from repro_torch.serve.engine import Request, ServingEngine
 
@@ -2205,22 +2370,19 @@ def recurrent_serving_phase(torch, seed):
         params = random_params(torch, cfg, torch.bfloat16, seed)
         torch.cuda.synchronize()
         t_init = time.perf_counter() - t0
-        counter = _StepCounter()
-        engine = ServingEngine(params, cfg, FamousConfig(impl="pallas"),
-                               n_slots=4, max_seq=max_seq,
-                               dtype=torch.bfloat16, chunk=256,
-                               observer=counter, device="cuda")
-        reqs = [Request(rid=i, tokens=list(p), max_new=32)
-                for i, p in enumerate(prompts)]
-        torch.cuda.synchronize()
-        lib.STATS.reset()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        done = sorted(engine.run(reqs), key=lambda r: r.rid)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(lib.STATS.launches)
-        plain = dict(lib.STATS.plain_on_cuda)
+        def make_engine():
+            return ServingEngine(params, cfg, FamousConfig(impl="pallas"),
+                                 n_slots=4, max_seq=max_seq,
+                                 dtype=torch.bfloat16, chunk=256,
+                                 observer=_StepCounter(), device="cuda")
+
+        def make_reqs():
+            return [Request(rid=i, tokens=list(p), max_new=32)
+                    for i, p in enumerate(prompts)]
+
+        (done, engine, launches, plain, wall), pair = graph_pair(
+            torch, arch, make_engine, make_reqs)
+        counter = engine.obs
         chunks = counter.phases.get("prefill_chunk", 0)
         steps = counter.phases.get("decode", 0)
         check(len(done) == 8 and all(r.error is None and len(r.out) == 32
@@ -2263,6 +2425,8 @@ def recurrent_serving_phase(torch, seed):
               f"{res['cache_bytes']}, peak memory {res['peak_mem_gb']:.1f} GB",
               flush=True)
         print("kernels " + json.dumps(launches), flush=True)
+        res["graph_pair"] = pair
+        res["guard_census"] = guard_warm(torch, arch, engine, prompts)
         res["steps"] = step_breakdown(torch, engine)
         out[arch] = res
         del engine, params
@@ -2275,8 +2439,13 @@ def step_breakdown(torch, engine):
     one 256-token prefill chunk (offset 1024) of the serving engine's model:
     the step's time from CUDA events, and its kernels' device time by
     group from ``torch.profiler``.  A paged engine gets a page table with
-    80 private pages per slot (1280 tokens)."""
+    80 private pages per slot (1280 tokens).  A speculative engine adds
+    its verify step (``draft_k + 1`` tokens a slot at the same lengths).
+    Then the decode step (and the verify step) again as a CUDA graph of
+    the same function on the same inputs (``graphs.Executable``: warmed,
+    captured, then replayed), with its capture seconds and pool bytes."""
     from repro_torch.models import transformer
+    from repro_torch.serve import graphs
 
     dev = torch.device("cuda")
     p, cfg, fcfg, caches = engine.params, engine.cfg, engine.fcfg, engine.caches
@@ -2297,13 +2466,38 @@ def step_breakdown(torch, engine):
         "prefill_chunk": lambda: transformer.prefill_chunk(
             p, chunk, caches, 0, 1024, engine.chunk, cfg, fcfg, **kw),
     }
+    graphed = ["decode_step"]
+    if engine.speculative_active:
+        vtok = torch.ones((engine.n_slots, engine.draft_k + 1),
+                          dtype=torch.long, device=dev)
+        steps["verify_step"] = lambda: transformer.verify_step(
+            p, vtok, caches, clen, cfg, fcfg, **kw)
+        graphed.append("verify_step")
+    pool = graphs.GraphPool(dev)
+    costs = {}                            # graph row -> capture s, bytes
+    for name in graphed:
+        ex = graphs.Executable(lambda key, fn=steps[name]: fn(), pool)
+        before = (pool.capture_s, pool.bytes)
+        ex(name)                          # the eager warm-up
+        ex(name)                          # capture, then one replay
+        row = f"{name} (graph)"
+        steps[row] = lambda ex=ex, key=name: ex(key)
+        costs[row] = dict(capture_s=pool.capture_s - before[0],
+                          pool_bytes=pool.bytes - before[1])
     out = {}
     for name, fn in steps.items():
         step_ms = time_ms(torch, lambda: fn(), [()], 5)
-        out[name] = dict(step_ms=step_ms, **profile_groups(torch, fn))
+        out[name] = dict(step_ms=step_ms, **profile_groups(torch, fn),
+                         **costs.get(name, {}))
+        extra = ""
+        if name in costs:
+            extra = (f"; capture {costs[name]['capture_s']:.3f} s, pool "
+                     f"{costs[name]['pool_bytes'] / 2**20:.1f} MiB")
+        device = out[name]["device_ms"]
         print(f"step {name}: {step_ms:.3f} ms (CUDA events); profiled "
-              f"device time {out[name]['device_ms']:.3f} ms: "
-              f"{group_text(out[name]['by_group_ms'])}", flush=True)
+              f"device time "
+              f"{f'{device:.3f} ms' if device else 'not measured'}: "
+              f"{group_text(out[name]['by_group_ms'])}{extra}", flush=True)
     return out
 
 

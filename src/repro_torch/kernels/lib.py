@@ -14,7 +14,10 @@ that lie on the CPU.
 :data:`STATS` holds the launch counters: each kernel wrapper adds one to
 ``STATS.launches[name]`` where it launches its kernel, and each plain
 version adds one to ``STATS.plain_on_cuda[name]`` when it is handed CUDA
-tensors (which the serving and training paths never do).
+tensors (which the serving and training paths never do).  A CUDA graph
+replay runs none of that Python: ``serve/graphs.py`` takes the counts a
+capture made out of :data:`STATS` (:meth:`KernelStats.take_since`) and
+adds them back on every replay (:meth:`KernelStats.add`).
 """
 from __future__ import annotations
 
@@ -55,6 +58,30 @@ class KernelStats:
         for d in (self.launches, self.plain_on_cuda):
             for k in d:
                 d[k] = 0
+
+    def snapshot(self) -> dict:
+        """A copy of both counters."""
+        return {"launches": dict(self.launches),
+                "plain_on_cuda": dict(self.plain_on_cuda)}
+
+    def take_since(self, snap: dict) -> dict:
+        """Remove the counts added since ``snap`` and return them (in
+        :meth:`snapshot`'s layout): what a graph capture counted, which
+        launched nothing yet."""
+        taken = {}
+        for name, counts in (("launches", self.launches),
+                             ("plain_on_cuda", self.plain_on_cuda)):
+            taken[name] = {k: counts[k] - snap[name].get(k, 0)
+                           for k in counts}
+            counts.update(snap[name])
+        return taken
+
+    def add(self, counts: dict) -> None:
+        """Add counts in :meth:`snapshot`'s layout (one graph replay)."""
+        for name, d in (("launches", self.launches),
+                        ("plain_on_cuda", self.plain_on_cuda)):
+            for k, n in counts[name].items():
+                d[k] += n
 
 
 STATS = KernelStats()

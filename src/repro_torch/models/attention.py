@@ -304,21 +304,30 @@ def apply_attn_decode_paged(p: dict, x: torch.Tensor, cache: dict,
 
 
 def verify_writes(cache_len: torch.Tensor, W: int, max_seq: int):
-    """Where the W verify tokens of each slot go in a contiguous cache:
-    (slot, position, row) index tensors of the tokens at positions below
-    ``max_seq``, ``row`` indexing the flattened (B * W) tokens.  Positions
-    past ``max_seq`` (pad rows of a slot near capacity) are dropped, as
-    JAX's ``.at[].set(mode="drop")`` drops them: torch indexing has no drop
-    mode, and a clamped write would corrupt a live entry.  Computed from a
-    host copy of ``cache_len`` (one sync, which :func:`transformer.
-    verify_step` makes once for all layers)."""
-    cl = cache_len.detach().to("cpu", torch.int64)
-    pos = cl[:, None] + torch.arange(W)
-    keep = (pos < max_seq).reshape(-1)
-    rows = torch.arange(cl.shape[0] * W)[keep]
+    """Where the W verify tokens of each slot go in a contiguous cache, as
+    fixed-shape (B, W) index tensors computed on the device (no host
+    sync, so the verify step can be captured in a CUDA graph).
+
+    Slot b writes the W rows ``start + i`` with ``start = min(cache_len,
+    max_seq - W)``: a window that always lies inside the stripe, so no
+    index is clamped and no two of a slot's indices are equal.  Row ``p``
+    takes verify token ``j = p - cache_len`` where ``j >= 0`` (``fresh``);
+    the rows of the window before ``cache_len`` (only when the slot is
+    within W of ``max_seq``) get their own contents back.  So tokens at
+    positions past ``max_seq`` are dropped, as JAX's ``.at[].set(mode=
+    "drop")`` drops them, and no live row changes.  Returns (slot,
+    position, token, fresh), ``token`` clamped into [0, W)."""
+    if W > max_seq:
+        raise ValueError(f"verify width {W} exceeds the cache's {max_seq} "
+                         "rows")
+    B = cache_len.shape[0]
     dev = cache_len.device
-    return (torch.div(rows, W, rounding_mode="floor").to(dev),
-            pos.reshape(-1)[keep].to(dev), rows.to(dev))
+    cl = cache_len.to(torch.int64)
+    start = cl.clamp(max=max_seq - W)
+    pos = start[:, None] + torch.arange(W, device=dev)
+    j = pos - cl[:, None]
+    b_idx = torch.arange(B, device=dev)[:, None].expand(B, W)
+    return b_idx, pos, j.clamp(0, W - 1), j >= 0
 
 
 def apply_attn_verify(p: dict, x: torch.Tensor, cache: dict,
@@ -328,18 +337,20 @@ def apply_attn_verify(p: dict, x: torch.Tensor, cache: dict,
     at absolute positions ``cache_len[b] + j``; cache_len: (B,) int32 valid
     entries BEFORE the first verify token, on the device.  The tokens' K/V
     are written in place at their positions (``writes``: the indices of
-    :func:`verify_writes`, which leave out positions past ``max_seq``).  Rejected draft positions need no rollback: their
-    K/V stay as junk past the accepted ``cache_len``, masked by every later
-    read and overwritten before they become visible.  Returns (out, cache).
+    :func:`verify_writes`, which drop positions past ``max_seq``).
+    Rejected draft positions need no rollback: their K/V stay as junk past
+    the accepted ``cache_len``, masked by every later read and overwritten
+    before they become visible.  Returns (out, cache).
     """
     B, W = x.shape[:2]
     positions = cache_len[:, None] + torch.arange(W, device=x.device)
     q, k, v = _project(p, x, cfg, fcfg, positions)
-    b_idx, pos, rows = writes
-    kd = k.reshape(B * W, *k.shape[2:])
-    vd = v.reshape(B * W, *v.shape[2:])
-    cache["k"][b_idx, pos] = kd[rows].to(cache["k"].dtype)
-    cache["v"][b_idx, pos] = vd[rows].to(cache["v"].dtype)
+    b_idx, pos, tok, fresh = writes
+    keep = fresh[..., None, None]
+    for name, new in (("k", k), ("v", v)):
+        buf = cache[name]
+        buf[b_idx, pos] = torch.where(keep, new[b_idx, tok].to(buf.dtype),
+                                      buf[b_idx, pos])
     out = famous.verify_attention(q, cache["k"], cache["v"], cache_len,
                                   cfg=fcfg)
     return _out_proj(out, p["wo"]), cache

@@ -167,8 +167,9 @@ def quantize_qkv(params: dict) -> dict:
 def _not_ported_forward(kind: str):
     return NotImplementedError(
         f"the full-sequence {kind} block (forward, training) is not ported "
-        "yet: it comes with slice 7 (ROADMAP Queue 1); the port serves "
-        "recurrent blocks through prefill_chunk and decode_step")
+        "yet: it comes with ROADMAP.md Queue 1 item 3 (the old slice 7); "
+        "the port serves recurrent blocks through prefill_chunk and "
+        "decode_step")
 
 
 def apply_block(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -428,7 +429,7 @@ def verify_step(params, tokens, caches, cache_len, cfg: ModelConfig,
                          f"layers, got {sorted(kinds)}")
     x = layers.embed_lookup(params["embed"], tokens, _compute_dtype(params))
     writes = None
-    if page_table is None:   # one host sync for every layer's write indices
+    if page_table is None:   # every layer's write indices, made once
         writes = attention.verify_writes(cache_len, tokens.shape[1],
                                          caches[0]["k"].shape[1])
     for p, cache in zip(params["layers"], caches):

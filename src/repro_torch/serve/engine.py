@@ -30,15 +30,25 @@ the paged kernels dequantize in their tiles.  ``FamousConfig(impl=
 "pallas", quant="int8")`` runs every QKV projection through the int8
 kernel on weights quantized once here.  ``mesh`` and
 ``prefill_mode="monolithic"`` raise ``NotImplementedError`` naming the
-ROADMAP slice that brings them.
+ROADMAP Queue 1 item that brings them.
 
-PyTorch runs eagerly, so there is no executable cache: ``compilations``
-reports zero executables of each kind (the kernels are built once, into one
-shared library), and ``kernel_launches`` reads the kernel wrappers' launch
-counters.  Per-slot sequence state lives on the host as numpy arrays and is
-copied to the device once per launch (the page table only when the
-allocator changed it); each decode step makes exactly one device->host
-sync, to read the sampled tokens.
+The executables (``serve/graphs.py``): on a CUDA device the decode step and
+the verify step each run as a captured CUDA graph, with the greedy argmax
+in the same graph, and the sampler of each as graphs keyed
+``(kind, k_cap)``, as JAX's ``_sample`` is keyed by its static ``k_cap``.
+``compilations`` counts the captured ``decode`` and ``verify`` graphs (at
+most one each: the engine has one static shape of each); ``prefill`` and
+``clear`` stay 0, because prefill chunks and ``clear_slot`` run eagerly,
+and the sampler graphs are not counted, as JAX does not count
+``_sample``.  On the CPU, or inside ``graphs.disable_capture()``, every
+step runs eagerly on the same static buffers and the census stays all
+zeros.  ``kernel_launches`` reads the kernel wrappers' launch counters,
+replays included.  Per-slot sequence state lives on the host as numpy
+arrays and is copied, from pinned staging buffers without blocking, into
+the steps' static input buffers once per step (the page table only when
+the allocator changed it); caches and params are never reallocated, so
+the graphs' addresses stay valid.  Each decode step makes exactly one
+device->host sync, to read the sampled tokens.
 
 Observability is one injectable seam: pass
 ``observer=repro_torch.obs.Observer(...)``.
@@ -46,6 +56,7 @@ Observability is one injectable seam: pass
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -58,7 +69,7 @@ from repro_torch.kernels import lib
 from repro_torch.models import transformer
 from repro_torch.obs.runtime import NULL_OBSERVER
 from repro_torch.obs.trace import now as _clock
-from repro_torch.serve import sampling
+from repro_torch.serve import graphs, sampling
 from repro_torch.serve.draft import PromptLookupDrafter
 from repro_torch.serve.paged import (PageAllocator, PagedCacheConfig,
                                      PagePoolExhausted, block_hashes)
@@ -84,10 +95,10 @@ class Request:
     t_done: Optional[float] = None
 
 
-def _not_ported(what: str, slice_name: str):
+def _not_ported(what: str, item: str):
     return NotImplementedError(
-        f"{what} is not ported yet: it comes with {slice_name} "
-        "(ROADMAP.md, Queue 1)")
+        f"{what} is not ported yet: it comes with ROADMAP.md Queue 1 "
+        f"{item}")
 
 
 def resolve_device(device) -> torch.device:
@@ -126,10 +137,11 @@ class ServingEngine:
         if fcfg.quant not in ("none", "int8"):
             raise ValueError(f"quant {fcfg.quant!r}")
         if mesh is not None:
-            raise _not_ported("mesh", "slice 10 (tensor-parallel serving)")
+            raise _not_ported("mesh", "item 7 (tensor-parallel serving; "
+                              "the old slice 10)")
         if prefill_mode == "monolithic":
             raise _not_ported("prefill_mode='monolithic'",
-                              "slice 7 (monolithic prefill)")
+                              "item 3 (monolithic prefill; the old slice 7)")
         if cache_kind not in ("contiguous", "paged"):
             raise ValueError(f"cache_kind {cache_kind!r}")
         if prefill_mode != "chunked":
@@ -206,16 +218,51 @@ class ServingEngine:
         self.last_token = np.zeros((n_slots,), np.int32)
         self._slot_seq: list[Optional[list]] = [None] * n_slots
         self._failed: list[Request] = []
-        self._pt_version = -1          # device page-table cache key
-        self._pt_device = None
+        self._pt_version = -1          # page-table version on the device
+        # -- the executables: static inputs, staged from pinned host copies
+        def static(shape, dtype):
+            return graphs.StaticInput(shape, dtype, self.device)
+
+        W = draft_k + 1
+        self._in = {
+            "tokens": static((n_slots, W) if self.speculative_active
+                             else (n_slots,), torch.int64),
+            "cache_len": static((n_slots,), torch.int32),
+            "active": static((n_slots,), torch.bool),
+            "temperature": static((n_slots,), torch.float32),
+            "top_k": static((n_slots,), torch.int64),
+            "seed": static((n_slots,), torch.int64),
+            "index": static((n_slots,), torch.int64),
+        }
+        if self.paged:
+            self._in["page_table"] = static(self.alloc.page_table.shape,
+                                            torch.int32)
+        self._pool = graphs.GraphPool(self.device)
+        self._exec = {kind: graphs.Executable(
+            functools.partial(self._step_fn, kind), self._pool)
+            for kind in ("decode", "verify")}
         self.obs.register_census(lambda: self.compilations)
 
     @property
     def compilations(self) -> dict:
-        """Executable census.  Eager PyTorch compiles nothing per shape:
-        every kind reports 0 (the kernels are one shared library, built
-        once per process)."""
-        return {"prefill": 0, "decode": 0, "verify": 0, "clear": 0}
+        """Executable census: captured CUDA graphs of each step kind (the
+        samplers' graphs are not counted; prefill chunks and clear_slot run
+        eagerly and count 0)."""
+        return {"prefill": 0,
+                "decode": self._exec["decode"].graph_keys.count("decode"),
+                "verify": self._exec["verify"].graph_keys.count("verify"),
+                "clear": 0}
+
+    @property
+    def graph_stats(self) -> dict:
+        """What the executables cost and did: captured keys, replays, the
+        seconds spent capturing and the device memory their pool
+        reserved."""
+        return {"keys": {k: [str(x) for x in e.graph_keys]
+                         for k, e in self._exec.items()},
+                "replays": {k: e.replays for k, e in self._exec.items()},
+                "capture_s": self._pool.capture_s,
+                "pool_bytes": self._pool.bytes}
 
     @property
     def acceptance_rate(self) -> float:
@@ -241,13 +288,51 @@ class ServingEngine:
                    for cache in self.caches for buf in cache.values())
 
     def _page_table(self):
-        """Device copy of the page table, re-uploaded only when the
+        """The static device page table, copied into only when the
         allocator mutated it (steady-state decode reuses it)."""
         if self._pt_version != self.alloc.version:
-            self._pt_device = torch.from_numpy(self.alloc.page_table).to(
-                self.device)
+            self._in["page_table"].put(self.alloc.page_table)
             self._pt_version = self.alloc.version
-        return self._pt_device
+        return self._in["page_table"].tensor
+
+    # -- the step functions (graphs.Executable bodies) ------------------------
+    def _step_fn(self, kind: str, key):
+        """The ``kind`` executable's body.  Key ``kind``: the decode step
+        over every slot (``"decode"``) or the verify step of width
+        ``draft_k + 1`` (``"verify"``) on the static inputs, and its greedy
+        tokens.  Key ``(kind, k_cap)``: the sampler on that step's
+        logits."""
+        if key == kind:
+            kw = {"page_table": self._in["page_table"].tensor} \
+                if self.paged else {}
+            if kind == "decode":
+                step, kw["active"] = (transformer.decode_step,
+                                      self._in["active"].tensor)
+            else:
+                step = transformer.verify_step
+            logits, _ = step(self.params, self._in["tokens"].tensor,
+                             self.caches, self._in["cache_len"].tensor,
+                             self.cfg, self.fcfg, **kw)
+            return logits, torch.argmax(logits, dim=-1)
+        sample = sampling.sample_tokens if kind == "decode" \
+            else sampling.verify_tokens
+        return sample(self._exec[kind].outputs[kind][0],
+                      *(self._in[n].tensor for n in
+                        ("temperature", "top_k", "seed", "index")),
+                      k_cap=key[1])
+
+    def _run_step(self, kind: str, active: list):
+        """Run the ``kind`` step on the staged inputs, then its sampler
+        where a request samples.  Returns the tokens (device)."""
+        _, greedy = self._exec[kind](kind)
+        temps, topks, seeds, idxs = self._sampling_operands(active)
+        if not temps.any():              # an all-greedy step (the default)
+            return greedy
+        for name, v in (("temperature", temps), ("top_k", topks),
+                        ("seed", seeds), ("index", idxs)):
+            self._in[name].put(v)
+        k_cap = next_pow2(max(int(topks.max()), 1))
+        return self._exec[kind]((kind, k_cap))
 
     # -- admission ------------------------------------------------------------
     def _prefix_hashes(self, req: Request, n: int):
@@ -403,9 +488,9 @@ class ServingEngine:
     def _sampling_operands(self, active):
         """Per-slot sampling operands (host numpy)."""
         temps = np.zeros((self.n_slots,), np.float32)
-        topks = np.zeros((self.n_slots,), np.int32)
-        seeds = np.zeros((self.n_slots,), np.uint32)
-        idxs = np.zeros((self.n_slots,), np.int32)
+        topks = np.zeros((self.n_slots,), np.int64)
+        seeds = np.zeros((self.n_slots,), np.int64)
+        idxs = np.zeros((self.n_slots,), np.int64)
         for i in active:
             r = self.sched.slots[i].req
             temps[i] = r.temperature
@@ -444,25 +529,15 @@ class ServingEngine:
             return
         act = np.zeros((self.n_slots,), bool)
         act[active] = True
-        kw = {"page_table": self._page_table()} if self.paged else {}
-        # the observer phase wraps dispatch AND the step's one device->host
-        # sync, so the span is the host-observed decode latency
+        # the observer phase wraps staging, dispatch or replay AND the
+        # step's one device->host sync: the host-observed decode latency
         with self.obs.phase("decode", slots=len(active)):
-            logits, self.caches = transformer.decode_step(
-                self.params,
-                torch.from_numpy(self.last_token.astype(np.int64)).to(
-                    self.device),
-                self.caches,
-                torch.from_numpy(self.cache_len).to(self.device),
-                self.cfg, self.fcfg,
-                active=torch.from_numpy(act).to(self.device), **kw)
-            temps, topks, seeds, idxs = self._sampling_operands(active)
-            if temps.any():
-                k_cap = next_pow2(max(int(topks.max()), 1))
-                next_tok = sampling.sample_tokens(logits, temps, topks, seeds,
-                                                  idxs, k_cap=k_cap)
-            else:  # all-greedy step (the default)
-                next_tok = torch.argmax(logits, dim=-1)
+            if self.paged:
+                self._page_table()
+            self._in["tokens"].put(self.last_token)
+            self._in["cache_len"].put(self.cache_len)
+            self._in["active"].put(act)
+            next_tok = self._run_step("decode", active)
             toks = next_tok.cpu().numpy()   # the step's ONE device->host sync
         self.cache_len[act] += 1
         self.last_token[act] = toks[act]
@@ -529,20 +604,13 @@ class ServingEngine:
             d = drafts.get(i, [])
             if d:
                 toks[i, 1:1 + len(d)] = d
-        kw = {"page_table": self._page_table()} if self.paged else {}
         with self.obs.phase("verify", slots=len(active),
                             drafted=sum(len(d) for d in drafts.values())):
-            logits, self.caches = transformer.verify_step(
-                self.params, torch.from_numpy(toks).to(self.device),
-                self.caches, torch.from_numpy(self.cache_len).to(self.device),
-                self.cfg, self.fcfg, **kw)
-            temps, topks, seeds, idxs = self._sampling_operands(active)
-            if temps.any():
-                k_cap = next_pow2(max(int(topks.max()), 1))
-                cand = sampling.verify_tokens(logits, temps, topks, seeds,
-                                              idxs, k_cap=k_cap)
-            else:
-                cand = torch.argmax(logits, dim=-1)
+            if self.paged:
+                self._page_table()
+            self._in["tokens"].put(toks)
+            self._in["cache_len"].put(self.cache_len)
+            cand = self._run_step("verify", active)
             cand = cand.cpu().numpy()    # (n_slots, W); the ONE host sync
         now = _clock()
         self.spec_steps += 1
