@@ -296,6 +296,26 @@ def time_ms(torch, fn, sets, iters):
     return start.elapsed_time(end) / iters
 
 
+def median_call_ms(torch, fn, iters):
+    """Median ms of one ``fn()`` by CUDA events recorded just before and
+    after each of ``iters`` calls (after one untimed call): a host pause
+    between calls, such as a collection of the Python heap, lands outside
+    every pair, where over a few back-to-back calls it would add to their
+    mean.  For a graph replay this is its device time plus the gaps
+    inside the graph."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in pairs:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    times = sorted(start.elapsed_time(end) for start, end in pairs)
+    return times[len(times) // 2]
+
+
 def device_ms(torch, fn, sets, iters):
     """Mean device ms per call of ``fn`` over ``iters`` calls cycling
     through ``sets``: the profiler's device time of every kernel the call
@@ -552,10 +572,13 @@ def kernel_phase(torch, iters, seed):
         del q, k, v
 
     # chunk_prefill: one slot of the batched cache, C = 256 at offsets 0,
-    # 1792 and 1000 (off the 64-key tiles); every launch relaunched for
-    # bit identity, and in bf16 at 1000 the kernel held to the plain mirror
-    # of its tensor-core algebra (split count from its plan)
+    # 1792 and 1000 (off the 64-key tiles), read as the main path reads it:
+    # the whole cache, the slot and the offset as int32 scalars in device
+    # memory; every launch relaunched for bit identity, and in bf16 at
+    # 1000 the kernel held to the plain mirror of its tensor-core algebra
+    # (split count from its plan)
     C, slot = 256, 2
+    slot_t = torch.tensor([slot], dtype=torch.int32, device=dev)
     for dt, dtype in dts.items():
         e = torch.tensor([], dtype=dtype).element_size()
         for off in (0, 1792, 1000):
@@ -563,14 +586,15 @@ def kernel_phase(torch, iters, seed):
             per = (C * H * dh + 2 * (off + C) * KV * dh) * e
             cmask = (torch.arange(Skv, device=dev)[None, :]
                      <= off + torch.arange(C, device=dev)[:, None])
+            off_t = torch.tensor([off], dtype=torch.int32, device=dev)
 
-            def kern(q, k, v, off=off):
-                return chunk_prefill.chunk_prefill(
-                    q, k[slot:slot + 1], v[slot:slot + 1], off, scale=scale)
+            def kern(q, k, v, off_t=off_t):
+                return chunk_prefill.chunk_prefill(q, k, v, off_t,
+                                                   scale=scale, slot=slot_t)
 
-            def plain(q, k, v, off=off):
+            def plain(q, k, v, off_t=off_t):
                 return dec_ref.chunk_prefill_reference(
-                    q, k[slot:slot + 1], v[slot:slot + 1], off, scale=scale)
+                    q, k, v, off_t, scale=scale, slot=slot_t)
 
             def library(q, k, v, cmask=cmask):
                 return F.scaled_dot_product_attention(
@@ -605,6 +629,7 @@ def kernel_phase(torch, iters, seed):
                 check(m_ok, f"chunk_prefill {dt} offset {off}: mirror "
                       f"error {m_err}")
     paged_kernel_rows(torch, dts, randn, record, iters, gen)
+    chunk_graph_checks(torch, dts, randn, gen)
     training_kernel_rows(torch, F, dts, randn, record, iters)
     scan_kernel_rows(torch, dts, randn, record, iters)
     torch.cuda.synchronize()
@@ -689,6 +714,9 @@ def paged_kernel_rows(torch, dts, randn, record, iters, gen):
     n_p, scale = 2048 // ps, dh ** -0.5
     pt = (torch.randperm(n_pages - 1, generator=gen, device=dev)[:B * n_p]
           + 1).to(torch.int32).reshape(B, n_p).contiguous()
+    # the chunk rows read slot 2's row of the whole table, as the main
+    # path does (slot and offset int32 scalars in device memory)
+    slot_t = torch.tensor([2], dtype=torch.int32, device=dev)
     lens_list = [1, 37, 1000, 2048]
     lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
     live = sum(lens_list)
@@ -740,12 +768,13 @@ def paged_kernel_rows(torch, dts, randn, record, iters, gen):
             # held to the plain mirror of the tensor-core algebra
             for c_off in (off, 1000) if dt == "bf16" else (off,):
                 c_vis = sum(c_off + c + 1 for c in range(C))
+                off_t = torch.tensor([c_off], dtype=torch.int32, device=dev)
 
-                def ckern(q, *pool, fn=ch_k, c_off=c_off):
-                    return fn(q, *pool, pt[2:3], c_off, scale=scale)
+                def ckern(q, *pool, fn=ch_k, off_t=off_t):
+                    return fn(q, *pool, pt, off_t, scale=scale, slot=slot_t)
 
-                def cplain(q, *pool, fn=ch_p, c_off=c_off):
-                    return fn(q, *pool, pt[2:3], c_off, scale=scale)
+                def cplain(q, *pool, fn=ch_p, off_t=off_t):
+                    return fn(q, *pool, pt, off_t, scale=scale, slot=slot_t)
 
                 c0 = csets[0]
                 out = ckern(*c0)
@@ -763,6 +792,71 @@ def paged_kernel_rows(torch, dts, randn, record, iters, gen):
                 paged_chunk_identity_check(torch, randn, dtype, C, H, KV, dh,
                                            ps, scale)
             del sets, csets
+
+
+def chunk_graph_checks(torch, dts, randn, gen):
+    """The three chunk kernels as the engine's chunk graph runs them: one
+    CUDA graph of each launch (``graphs.Executable``: warmed and captured
+    with the slot and q_offset staged at (1, 512) in a device buffer),
+    replayed after restaging them to (0, 0), (2, 1000) and (1, 1792), in
+    f32 and bf16, on qwen2-7b's heads: a (4, 2048) contiguous cache, and
+    fp and int8 pools of 16-token pages (a seeded permutation of 512
+    pages).  Each replay must equal a fresh launch at those values bit
+    for bit, and its plain version at the kernel rows' tolerance."""
+    from repro_torch.core import quant
+    from repro_torch.kernels.decode import chunk_prefill
+    from repro_torch.kernels.decode import ref as dec_ref
+    from repro_torch.serve import graphs
+
+    dev = torch.device("cuda")
+    B, C, H, KV, dh, Skv, ps = 4, 256, 28, 4, 128, 2048, 16
+    n_p, scale = Skv // ps, dh ** -0.5
+    n_pages = 1 + B * n_p
+    pt = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1).to(
+        torch.int32).reshape(B, n_p).contiguous()
+    for dt, dtype in dts.items():
+        q = randn((1, C, H, dh), dtype)
+        k, v = randn((B, Skv, KV, dh), dtype), randn((B, Skv, KV, dh), dtype)
+        fp = tuple(randn((n_pages, ps, KV, dh), dtype) for _ in range(2))
+        (kq, ksc), (vq, vsc) = (quant.quantize(x, -1) for x in fp)
+        i8 = (kq, vq, ksc[..., 0].contiguous(), vsc[..., 0].contiguous())
+        cases = (
+            ("chunk_prefill", chunk_prefill.chunk_prefill,
+             dec_ref.chunk_prefill_reference, (k, v)),
+            ("paged_chunk_prefill", chunk_prefill.paged_chunk_prefill,
+             dec_ref.paged_chunk_prefill_reference, fp + (pt,)),
+            ("paged_chunk_prefill_int8",
+             chunk_prefill.paged_chunk_prefill_int8,
+             dec_ref.paged_chunk_prefill_reference_int8, i8 + (pt,)))
+        for name, kern, plain, operands in cases:
+            staged = graphs.StaticInput((2,), torch.int32, dev)
+
+            def body(key, kern=kern, operands=operands, t=staged.tensor):
+                return kern(q, *operands, t[1:2], scale=scale, slot=t[0:1])
+
+            # a pool of its own: a pool whose graphs were all freed takes
+            # no new capture
+            ex = graphs.Executable(body, graphs.GraphPool(dev))
+            staged.put((1, 512))
+            ex("chunk")                     # eager warm-up
+            ex("chunk")                     # capture, then one replay
+            check(ex.graph_keys == ["chunk"], f"{name}: no graph captured")
+            for slot, off in ((0, 0), (2, 1000), (1, 1792)):
+                staged.put((slot, off))
+                out = ex("chunk")
+                fresh = kern(q, *operands, off, scale=scale, slot=slot)
+                ref = plain(q, *operands, off, scale=scale, slot=slot)
+                torch.cuda.synchronize()
+                same = torch.equal(out, fresh)
+                err, ok = compare(torch, out, ref, ATTN_TOL[dt])
+                print(f"  ({name} {dt} graph replayed at slot {slot} offset "
+                      f"{off}: {'equal to' if same else 'DIFFERS from'} a "
+                      f"fresh launch, vs the plain version max_abs_err "
+                      f"{err:.3e} (tol {ATTN_TOL[dt]:g})) "
+                      f"{'ok' if same and ok else 'FAIL'}", flush=True)
+                check(same and ok, f"{name} {dt} graph at slot {slot} offset "
+                      f"{off}: bit-equal {same}, plain error {err}")
+        del k, v, fp, i8
 
 
 def paged_chunk_mirror_check(torch, kind, inputs, pt, off, scale, out):
@@ -1733,9 +1827,11 @@ def sync_mode_check(torch):
 
 class _PhaseClock:
     """An engine observer's wrapper that adds up the host seconds of each
-    engine phase: ``prefill_chunk`` spans are a chunk's dispatch, and
-    ``decode`` / ``verify`` spans end in the step's device->host sync.
-    Everything else goes to the wrapped observer."""
+    engine phase: ``prefill_chunk`` spans are a chunk's staging and
+    dispatch (eager kernels, or with graphs one replay, whose device time
+    lands in the next sync), and ``decode`` / ``verify`` spans end in the
+    step's device->host sync.  Everything else goes to the wrapped
+    observer."""
 
     def __init__(self, inner):
         self.inner = inner
@@ -1779,11 +1875,12 @@ def graph_pair(torch, label, make_engine, make_reqs):
     """One serving configuration on two fresh engines: eager first, then
     with graphs (the main path).  Gates: the same tokens, the same kernel
     launch counts (replays counted) and plain-version counts, the graph
-    engine's step kind (decode, or verify when speculative) captured once,
-    no kind above 3.  Returns the graph run (requests, engine, launches,
-    plain counts, wall seconds) and the pair's record: tok/s and TTFT of
-    both runs, the census, replays, capture seconds and the graph pool's
-    bytes."""
+    engine's step kind (decode, or verify when speculative) and its
+    prefill chunk captured once each and replayed, ``clear`` at most
+    once, no kind above 3.  Returns the graph run (requests, engine,
+    launches, plain counts, wall seconds) and the pair's record: tok/s and
+    TTFT of both runs, the census, replays, capture seconds, the graph
+    pools' bytes and the chunk inputs' staging stalls."""
     import numpy as np
 
     e_done, e_eng, e_launch, e_plain, e_wall = serve_once(
@@ -1810,17 +1907,23 @@ def graph_pair(torch, label, make_engine, make_reqs):
                 census=census, eager_census=e_census,
                 replays=stats["replays"], graph_keys=stats["keys"],
                 capture_s=stats["capture_s"], pool_bytes=stats["pool_bytes"],
+                pools=stats["pools"], chunk_stalls=stats["chunk_stalls"],
+                chunk_stall_s=stats["chunk_stall_s"],
                 tokens_equal=[r.out for r in done] == [r.out for r in e_done],
                 launches_equal=launches == e_launch)
     g, e = pair["graph"], pair["eager"]
+    pool_mib = {k: round(v["bytes"] / 2**20, 1)
+                for k, v in stats["pools"].items()}
     print(f"graph parity {label}: tokens identical {pair['tokens_equal']}, "
           f"launches identical {pair['launches_equal']}; eager "
           f"{e['tok_per_s']:.1f} tok/s, TTFT p50 {e['ttft_p50_s'] * 1e3:.0f} "
           f"ms; graphs {g['tok_per_s']:.1f} tok/s, TTFT p50 "
           f"{g['ttft_p50_s'] * 1e3:.0f} ms; census {census}, "
-          f"{stats['replays'][kind]} {kind} replays, graphs "
-          f"{stats['keys'][kind]}, capture {stats['capture_s']:.2f} s, pool "
-          f"{stats['pool_bytes'] / 2**20:.1f} MiB; host s by phase: eager "
+          f"{stats['replays'][kind]} {kind} and "
+          f"{stats['replays']['prefill']} prefill replays, graphs "
+          f"{stats['keys'][kind]}, capture {stats['capture_s']:.2f} s, pools "
+          f"{pool_mib} MiB, chunk staging stalls {stats['chunk_stalls']} "
+          f"({stats['chunk_stall_s'] * 1e3:.1f} ms); host s by phase: eager "
           f"{ {k: round(v, 3) for k, v in e['host_s'].items()} }, graphs "
           f"{ {k: round(v, 3) for k, v in g['host_s'].items()} }",
           flush=True)
@@ -1829,6 +1932,8 @@ def graph_pair(torch, label, make_engine, make_reqs):
           f"{label}: launches with graphs {launches} / {plain}, eager "
           f"{e_launch} / {e_plain}")
     check(census[kind] == 1 and stats["replays"][kind] > 0
+          and census["prefill"] == 1 and stats["replays"]["prefill"] > 0
+          and census["clear"] <= 1
           and max(census.values()) <= 3 and not any(e_census.values()),
           f"{label}: census {census} (eager {e_census}), replays "
           f"{stats['replays']}")
@@ -2443,7 +2548,11 @@ def step_breakdown(torch, engine):
     its verify step (``draft_k + 1`` tokens a slot at the same lengths).
     Then the decode step (and the verify step) again as a CUDA graph of
     the same function on the same inputs (``graphs.Executable``: warmed,
-    captured, then replayed), with its capture seconds and pool bytes."""
+    captured, then replayed), with its capture seconds and pool bytes, and
+    the chunk as the engine's chunk graph runs it: its slot, offset and
+    valid count staged in a device buffer, warmed and captured at slot 1,
+    offset 512, then timed after restaging slot 0, offset 1024 (the eager
+    row's), so the one graph serves both."""
     from repro_torch.models import transformer
     from repro_torch.serve import graphs
 
@@ -2466,7 +2575,11 @@ def step_breakdown(torch, engine):
         "prefill_chunk": lambda: transformer.prefill_chunk(
             p, chunk, caches, 0, 1024, engine.chunk, cfg, fcfg, **kw),
     }
-    graphed = ["decode_step"]
+    staged = graphs.StaticInput((3,), torch.int32, dev)
+    sc = staged.tensor
+    steps["prefill_chunk (graph)"] = lambda: transformer.prefill_chunk(
+        p, chunk, caches, sc[0:1], sc[1:2], sc[2:3], cfg, fcfg, **kw)
+    graphed = ["decode_step", "prefill_chunk (graph)"]
     if engine.speculative_active:
         vtok = torch.ones((engine.n_slots, engine.draft_k + 1),
                           dtype=torch.long, device=dev)
@@ -2475,15 +2588,17 @@ def step_breakdown(torch, engine):
         graphed.append("verify_step")
     pool = graphs.GraphPool(dev)
     costs = {}                            # graph row -> capture s, bytes
+    staged.put((1, 512, engine.chunk))
     for name in graphed:
         ex = graphs.Executable(lambda key, fn=steps[name]: fn(), pool)
         before = (pool.capture_s, pool.bytes)
         ex(name)                          # the eager warm-up
         ex(name)                          # capture, then one replay
-        row = f"{name} (graph)"
+        row = name if name.endswith("(graph)") else f"{name} (graph)"
         steps[row] = lambda ex=ex, key=name: ex(key)
         costs[row] = dict(capture_s=pool.capture_s - before[0],
                           pool_bytes=pool.bytes - before[1])
+    staged.put((0, 1024, engine.chunk))
     out = {}
     for name, fn in steps.items():
         step_ms = time_ms(torch, lambda: fn(), [()], 5)
@@ -2491,11 +2606,17 @@ def step_breakdown(torch, engine):
                          **costs.get(name, {}))
         extra = ""
         if name in costs:
-            extra = (f"; capture {costs[name]['capture_s']:.3f} s, pool "
+            # a replay is ~10 ms of device time: a host pause before the
+            # first of 5 replays shows in their mean, not in the median
+            out[name]["median_ms"] = median_call_ms(torch, fn, 10)
+            extra = (f"; median of 10 replays "
+                     f"{out[name]['median_ms']:.3f} ms (CUDA events); "
+                     f"capture {costs[name]['capture_s']:.3f} s, pool "
                      f"{costs[name]['pool_bytes'] / 2**20:.1f} MiB")
-        device = out[name]["device_ms"]
-        print(f"step {name}: {step_ms:.3f} ms (CUDA events); profiled "
-              f"device time "
+        device, span = out[name]["device_ms"], out[name]["span_ms"]
+        print(f"step {name}: {step_ms:.3f} ms (CUDA events, mean of 5); "
+              f"profiled device span "
+              f"{f'{span:.3f} ms' if span else 'not measured'}, device time "
               f"{f'{device:.3f} ms' if device else 'not measured'}: "
               f"{group_text(out[name]['by_group_ms'])}{extra}", flush=True)
     return out
@@ -2503,7 +2624,11 @@ def step_breakdown(torch, engine):
 
 def profile_groups(torch, fn):
     """Device time of one call of ``fn`` from ``torch.profiler``, summed
-    by kernel group: each port kernel, library GEMMs, everything else."""
+    by kernel group: each port kernel, library GEMMs, everything else;
+    and the call's device span, from its first device event's start to
+    its last one's end, in the same trace (span less device time: the
+    device's idle time inside the call, which CUDA events taken in another
+    call cannot tell from a change of clock)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import lib
@@ -2528,8 +2653,12 @@ def profile_groups(torch, fn):
         groups[group] = groups.get(group, 0.0) + us / 1e3
     top = sorted(((getattr(ev, "self_device_time_total", 0) / 1e3, ev.key)
                   for ev in prof.key_averages()), reverse=True)
+    spans = [ev.time_range for ev in prof.events()
+             if str(ev.device_type).endswith("CUDA")]
+    span_ms = ((max(r.end for r in spans) - min(r.start for r in spans)) / 1e3
+               if spans else None)
     return dict(device_ms=sum(groups.values()), by_group_ms=groups,
-                top_kernels=top[:12])
+                span_ms=span_ms, top_kernels=top[:12])
 
 
 def kernel_group(key, names):

@@ -233,8 +233,8 @@ extern "C" long long sweep_decode_ws(int R, int H, int dh, int Skv, int L) {{
         f"    case {i}: e = launch_chunk_tc<128, "
         f"TcTiles<{w}, {mt}, {bk}, {st}, {str(pk).lower()}>>("
         "qb, ContigKV{kb, vb, ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], "
-        "Skv}, ob, static_cast<float*>(part), splits, 1, C, H, KV, dh, "
-        "off, scale, s); break;"
+        "Skv}, qm, ob, static_cast<float*>(part), splits, 1, C, H, KV, dh, "
+        "scale, s); break;"
         for i, (w, mt, bk, st, pk) in enumerate(CP_TILES))
     pc_cases = "\n".join(
         f"    case {i}: e = launch_chunk_tc<128, "
@@ -244,17 +244,19 @@ extern "C" long long sweep_decode_ws(int R, int H, int dh, int Skv, int L) {{
            if pool == "fp" else
            f"PagedKV<int8_t, KVStage::{stage}>{{static_cast<const int8_t*>"
            "(k), static_cast<const int8_t*>(v), ks, vs")
-        + ", pt, ps, n_p, n_pages, n_p * ps}, ob, static_cast<float*>(part), "
-        "splits, 1, C, H, KV, dh, off, scale, s); break;"
+        + ", pt, ps, n_p, n_pages, n_p * ps}, qm, ob, "
+        "static_cast<float*>(part), splits, 1, C, H, KV, dh, scale, s); "
+        "break;"
         for i, (pool, stage, (w, mt, bk, st)) in enumerate(PC_VARIANTS))
     cp = f"""#include "{csrc / 'chunk_prefill.cu'}"
 
 extern "C" int sweep_chunk(int cfg, const void* q, const void* k,
                            const void* v, void* out, void* part, int splits,
-                           int C, int H, int KV, int dh, int Skv, int off,
-                           const long long* ks, const long long* vs,
-                           float scale, void* stream) {{
+                           int C, int H, int KV, int dh, int Skv,
+                           const void* off, const long long* ks,
+                           const long long* vs, float scale, void* stream) {{
   using namespace famous;
+  const ChunkQ qm{{static_cast<const int*>(off), nullptr}};
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* kb = static_cast<const bf16*>(k);
   const bf16* vb = static_cast<const bf16*>(v);
@@ -274,9 +276,10 @@ extern "C" int sweep_paged_chunk(int cfg, const void* q, const void* k,
                                  const float* vs, const int* pt, void* out,
                                  void* part, int splits, int C, int H,
                                  int KV, int dh, int ps, int n_p,
-                                 int n_pages, int off, float scale,
+                                 int n_pages, const void* off, float scale,
                                  void* stream) {{
   using namespace famous;
+  const ChunkQ qm{{static_cast<const int*>(off), nullptr}};
   const bf16* qb = static_cast<const bf16*>(q);
   bf16* ob = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -492,10 +495,10 @@ def build(out_dir: Path, parts) -> ctypes.CDLL:
     PLL = ctypes.POINTER(ctypes.c_longlong)
     sigs = {
         "sweep_mm": [I, P, P, P, I, I, I, P],
-        "sweep_chunk": [I, P, P, P, P, P, I, I, I, I, I, I, I, PLL, PLL, F,
+        "sweep_chunk": [I, P, P, P, P, P, I, I, I, I, I, I, P, PLL, PLL, F,
                         P],
         "sweep_paged_chunk": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                              I, I, F, P],
+                              I, P, F, P],
         "sweep_mha_fwd": [I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F,
                           I, P],
         "sweep_mha_dkv": [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
@@ -811,6 +814,7 @@ def chunk_sweep(torch, Fn, lib, so, randn, dev_ms, result, sms):
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=cmask, scale=scale, enable_gqa=True)
         ref = dec_ref.chunk_prefill_reference(*sets[0], off, scale=scale)
+        off_t = torch.tensor([off], dtype=torch.int32, device=dev)
         row = {"C": C, "offset": off, "plan_splits": chosen,
                "library_ms": dev_ms(library, sets)}
         for i, (warps, mt, bk, st, pack) in enumerate(CP_TILES):
@@ -818,14 +822,14 @@ def chunk_sweep(torch, Fn, lib, so, randn, dev_ms, result, sms):
                 part = torch.empty(n * C * H * (dh + 2), dtype=torch.float32,
                                    device=dev)
 
-                def kern(q, k, v, i=i, n=n, part=part, off=off):
+                def kern(q, k, v, i=i, n=n, part=part, off_t=off_t):
                     out = torch.empty_like(q)
                     ks = (ctypes.c_longlong * 3)(*k.stride()[:3])
                     vs = (ctypes.c_longlong * 3)(*v.stride()[:3])
                     lib.check("sweep_chunk", so.sweep_chunk(
                         i, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), part.data_ptr(), n, C, H, KV, dh,
-                        Skv, off, ks, vs, scale, stream))
+                        Skv, off_t.data_ptr(), ks, vs, scale, stream))
                     return out
                 err, ok = cs.compare(torch, kern(*sets[0]), ref,
                                      cs.ATTN_TOL["bf16"])
@@ -881,6 +885,7 @@ def paged_chunk_sweep(torch, lib, so, randn, dev_ms, result, sms):
                     sets.append((q, k, v))
             pools[kind] = sets
         for off in PC_OFFSETS:
+            off_t = torch.tensor([off], dtype=torch.int32, device=dev)
             row = {"C": C, "offset": off, "page_size": ps,
                    "plan_splits": chosen,
                    "chunk_prefill_ms": dev_ms(
@@ -896,15 +901,15 @@ def paged_chunk_sweep(torch, lib, so, randn, dev_ms, result, sms):
                                        dtype=torch.float32, device=dev)
 
                     def kern(q, k, v, ks=None, vs=None, i=i, n=n, part=part,
-                             off=off):
+                             off_t=off_t):
                         out = torch.empty_like(q)
                         lib.check("sweep_paged_chunk", so.sweep_paged_chunk(
                             i, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             None if ks is None else ks.data_ptr(),
                             None if vs is None else vs.data_ptr(),
                             pt.data_ptr(), out.data_ptr(), part.data_ptr(),
-                            n, C, H, KV, dh, ps, n_p, n_pages, off, scale,
-                            stream))
+                            n, C, H, KV, dh, ps, n_p, n_pages,
+                            off_t.data_ptr(), scale, stream))
                         return out
                     err, ok = cs.compare(torch, kern(*pools[kind][0]),
                                          refs[kind], cs.ATTN_TOL["bf16"])

@@ -372,22 +372,29 @@ def attention_at_positions(q, k, v, q_pos, k_pos, *, window: int = 0,
     return _dense_masked(q, k, v, ok[None, None], scale)
 
 
-def chunked_prefill_attention(q, k_cache, v_cache, q_offset: int, *,
-                              scale=None, cfg: FamousConfig = FamousConfig()):
+def chunked_prefill_attention(q, k_cache, v_cache, q_offset, *,
+                              scale=None, cfg: FamousConfig = FamousConfig(),
+                              slot=None):
     """Chunked-prefill attention: a chunk of C query tokens at absolute
     positions ``[q_offset, q_offset + C)`` attends causally to the resident
     prefix plus its own chunk, both already written into the cache.
 
-    q: (B, C, H, dh); caches: (B, S_max, KV, dh); ``q_offset`` a host
-    integer — one kernel build serves every offset."""
+    q: (B, C, H, dh); caches: (B, S_max, KV, dh), or, given ``slot``, the
+    whole batched cache of which q (B = 1) reads stripe ``slot``.
+    ``q_offset`` and ``slot``: ints or one-element int tensors on the
+    device, which the kernel reads there, as the Pallas kernel reads its
+    offset from SMEM: one captured graph serves every slot and offset."""
     C, dh = q.shape[1], q.shape[-1]
     Skv = k_cache.shape[1]
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(dh)
     if cfg.impl == "pallas":
         from repro_torch.kernels.decode import ops as dec_ops
         return dec_ops.chunk_prefill_attention(q, k_cache, v_cache, q_offset,
-                                               scale=scale)
-    q_pos = q_offset + torch.arange(C, device=q.device)
+                                               scale=scale, slot=slot)
+    from repro_torch.kernels.decode import ref as dec_ref
+    k_cache = dec_ref.slot_rows(k_cache, slot)
+    v_cache = dec_ref.slot_rows(v_cache, slot)
+    q_pos = dec_ref.chunk_positions(q_offset, C, q.device)
     ok = torch.arange(Skv, device=q.device)[None, :] <= q_pos[:, None]
     return _dense_masked(q, k_cache, v_cache, ok[None, None], scale)
 
@@ -428,16 +435,20 @@ def _gather_pools(k_pages, v_pages, page_table, k_scale, v_scale):
 
 
 def paged_chunked_prefill_attention(q, k_pages, v_pages, page_table,
-                                    q_offset: int, *, scale=None,
+                                    q_offset, *, scale=None,
                                     k_scale=None, v_scale=None,
-                                    cfg: FamousConfig = FamousConfig()):
+                                    cfg: FamousConfig = FamousConfig(),
+                                    slot=None):
     """Chunked-prefill attention against a *paged* KV cache.
 
     q: (B, C, H, dh) at positions ``[q_offset, q_offset + C)``; pools:
-    (n_pages, page_size, KV, dh); page_table: (B, n_p) int32.  The chunk's
-    K/V must already be in the slot's pages.  impl="pallas" runs the paged
-    kernels; other impls gather the table into a contiguous view and run
-    the dense chunked path.  ``k_scale``/``v_scale`` select the int8 pools.
+    (n_pages, page_size, KV, dh); page_table: (B, n_p) int32, or, given
+    ``slot``, the whole (n_slots, n_p) table of which q (B = 1) reads row
+    ``slot``; ``q_offset`` and ``slot`` as in
+    :func:`chunked_prefill_attention`.  The chunk's K/V must already be in
+    the slot's pages.  impl="pallas" runs the paged kernels; other impls
+    gather the table into a contiguous view and run the dense chunked
+    path.  ``k_scale``/``v_scale`` select the int8 pools.
     """
     dh = q.shape[-1]
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(dh)
@@ -445,7 +456,9 @@ def paged_chunked_prefill_attention(q, k_pages, v_pages, page_table,
         from repro_torch.kernels.decode import ops as dec_ops
         return dec_ops.paged_chunk_prefill_attention(
             q, k_pages, v_pages, page_table, q_offset, k_scale=k_scale,
-            v_scale=v_scale, scale=scale)
+            v_scale=v_scale, scale=scale, slot=slot)
+    from repro_torch.kernels.decode import ref as dec_ref
+    page_table = dec_ref.slot_rows(page_table, slot)
     k, v = _gather_pools(k_pages, v_pages, page_table, k_scale, v_scale)
     return chunked_prefill_attention(q, k, v, q_offset, scale=scale, cfg=cfg)
 

@@ -2,11 +2,16 @@
 // [q_offset, q_offset + C) attends causally to the slot's resident prefix
 // plus its own chunk, both already written into the contiguous KV cache.
 //
-//   q      (B, C, H, dh)         contiguous (the model's layout)
-//   k, v   (B, Skv, KV, dh)      read by strides, dh contiguous
-//   out    (B, C, H, dh)
+//   q         (B, C, H, dh)          contiguous (the model's layout)
+//   k, v      (n_slots, Skv, KV, dh) the whole batched cache, read by
+//                                    strides, dh contiguous
+//   slot      int32 in device memory q's row b reads stripe slot + b (null:
+//                                    stripe b)
+//   q_offset  int32 in device memory the chunk's first position
+//   out       (B, C, H, dh)
 //
-// Key position j is visible to chunk row c iff j <= q_offset + c.
+// Key position j is visible to chunk row c iff j <= q_offset + c (and j <
+// Skv).
 //
 // Replaces: src/repro/kernels/decode/chunk_prefill.py, chunk_prefill (the
 // Pallas kernel _chunk_prefill_kernel).  On the TPU one block holds all
@@ -16,9 +21,11 @@
 // grid spans every key tile of Skv because a bound that depends on the
 // offset would cost one executable per offset.  Here q and the cache
 // stripe are read in place by strides, each block's key loop ends at run
-// time at the last key its rows can see, and q_offset is a plain launch
-// argument.  The softmax is the TPU kernel's: f32 running max and sum,
-// masked keys get probability 0, divide by max(l, 1e-30).
+// time at the last key its rows can see, and the slot and q_offset are
+// read from device memory, as the TPU kernel reads q_offset from SMEM:
+// one captured CUDA graph of the launch serves every slot and offset.
+// The softmax is the TPU kernel's: f32 running max and sum, masked keys
+// get probability 0, divide by max(l, 1e-30).
 //
 // What bounds it on an H100: operations (7.0 GFLOP for C = 256 at offset
 // 1792 on qwen2-7b, 7.1 us at the bf16 tensor-core peak) more than bytes
@@ -67,13 +74,16 @@ template <typename T>
 __global__ void __launch_bounds__(kCpThreads)
 chunk_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out, int C, int H, int KV,
-                     int dh, int Skv, int q_offset, long long k_sb, long long k_ss,
+                     int dh, int Skv, const int* __restrict__ slot,
+                     const int* __restrict__ q_off, long long k_sb, long long k_ss,
                      long long k_sh, long long v_sb, long long v_ss, long long v_sh,
                      float scale) {
   extern __shared__ float smem[];
   const int group = H / KV;
   const int c0 = blockIdx.x * kCpBQ, hq = blockIdx.y, b = blockIdx.z;
   const int hk = hq / group;
+  const int q_offset = __ldg(q_off);
+  const long long sb = b + (slot != nullptr ? __ldg(slot) : 0);  // the cache stripe
   float* q_s = smem;
   float* k_s = q_s + kCpBQ * dh;
   float* v_s = k_s + kCpBK * (dh + 1);
@@ -98,8 +108,8 @@ chunk_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // the block's last visible key is q_offset + (its last real row)
   const int kend = min(Skv, q_offset + min(C, c0 + kCpBQ));
-  const T* kb = k + b * k_sb + hk * k_sh;
-  const T* vb = v + b * v_sb + hk * v_sh;
+  const T* kb = k + sb * k_sb + hk * k_sh;
+  const T* vb = v + sb * v_sb + hk * v_sh;
   __syncthreads();
 
   for (int k0 = 0; k0 < kend; k0 += kCpBK) {
@@ -172,8 +182,9 @@ chunk_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 static cudaError_t launch_chunk_f32(const void* q, const void* k, const void* v, void* out,
-                                    int B, int C, int H, int KV, int dh, int Skv, int q_offset,
-                                    long long k_sb, long long k_ss, long long k_sh,
+                                    int B, int C, int H, int KV, int dh, int Skv,
+                                    const int* slot, const int* q_offset, long long k_sb,
+                                    long long k_ss, long long k_sh,
                                     long long v_sb, long long v_ss, long long v_sh, float scale,
                                     cudaStream_t stream) {
   const size_t smem = chunk_smem_floats(dh) * sizeof(float);
@@ -182,8 +193,8 @@ static cudaError_t launch_chunk_f32(const void* q, const void* k, const void* v,
   dim3 grid((C + kCpBQ - 1) / kCpBQ, H, B);
   chunk_prefill_kernel<float><<<grid, kCpThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), C, H, KV, dh, Skv, q_offset, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-      scale);
+      static_cast<float*>(out), C, H, KV, dh, Skv, slot, q_offset, k_sb, k_ss, k_sh, v_sb, v_ss,
+      v_sh, scale);
   return cudaGetLastError();
 }
 
@@ -202,28 +213,33 @@ extern "C" int famous_chunk_prefill_plan(int dtype, int B, int C, int H, int KV,
 }
 
 // part: the workspace of famous_chunk_prefill_plan when splits > 1, else
-// null.
+// null.  slot (may be null) and q_offset: int32 scalars in device memory;
+// the caller keeps q_offset >= 0 and slot + B within the cache.
 extern "C" int famous_chunk_prefill(int dtype, const void* q, const void* k, const void* v,
                                     void* out, void* part, int splits, int B, int C, int H,
-                                    int KV, int dh, int Skv, int q_offset, long long k_sb,
-                                    long long k_ss, long long k_sh, long long v_sb,
-                                    long long v_ss, long long v_sh, float scale, void* stream) {
+                                    int KV, int dh, int Skv, const void* slot,
+                                    const void* q_offset, long long k_sb, long long k_ss,
+                                    long long k_sh, long long v_sb, long long v_ss,
+                                    long long v_sh, float scale, void* stream) {
   using namespace famous;
-  if (KV <= 0 || H % KV != 0 || dh <= 0 || dh > kCpMaxDh || q_offset < 0 || splits < 1 ||
-      splits > kTcMaxSplits || (splits > 1 && (part == nullptr || dtype != kBF16)))
+  if (KV <= 0 || H % KV != 0 || dh <= 0 || dh > kCpMaxDh || q_offset == nullptr ||
+      splits < 1 || splits > kTcMaxSplits ||
+      (splits > 1 && (part == nullptr || dtype != kBF16)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || C <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* sl = static_cast<const int*>(slot);
+  const int* off = static_cast<const int*>(q_offset);
   cudaError_t e;
   if (dtype == kF32)
-    e = launch_chunk_f32(q, k, v, out, B, C, H, KV, dh, Skv, q_offset, k_sb, k_ss, k_sh, v_sb,
+    e = launch_chunk_f32(q, k, v, out, B, C, H, KV, dh, Skv, sl, off, k_sb, k_ss, k_sh, v_sb,
                          v_ss, v_sh, scale, s);
   else if (dtype == kBF16)
     e = launch_chunk_serve(static_cast<const bf16*>(q),
                            ContigKV{static_cast<const bf16*>(k), static_cast<const bf16*>(v), k_sb,
                                     k_ss, k_sh, v_sb, v_ss, v_sh, Skv},
-                           static_cast<bf16*>(out), static_cast<float*>(part), splits, B, C, H,
-                           KV, dh, q_offset, scale, s);
+                           ChunkQ{off, sl}, static_cast<bf16*>(out), static_cast<float*>(part),
+                           splits, B, C, H, KV, dh, scale, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

@@ -5,13 +5,18 @@
 // it reaches the bf16 tile, so the kernel is a template on a row source:
 //   ContigKV          a cache (B, Skv, KV, dh) read in place by strides;
 //   PagedKV<E, S>     a pool (n_pages, ps, KV, dh) read through the
-//                     slot's (B, n_p) page-table row; E = int8_t adds each
-//                     row's f32 scale, S says how int8 rows are staged;
+//                     slot's row of a (n_slots, n_p) page table; E =
+//                     int8_t adds each row's f32 scale, S says how int8
+//                     rows are staged;
 // and on a query side (QM):
 //   ChunkQ   q and out (B, C, H, dh) contiguous (the model's layout); key
 //            j is visible to chunk row c iff j <= q_offset + c (and j <
 //            Skv: a row past the cache, the padding of a last chunk, sees
-//            all Skv);
+//            all Skv).  q_offset and the slot are int32 scalars in device
+//            memory, read once by each block, so one captured CUDA graph
+//            serves every (slot, offset): q's batch row b reads the
+//            source's row slot + b (the cache stripe, or the page-table
+//            row);
 //   FlatQ    mha_forward's flat layout: q and out (B, H, C, dh) with B the
 //            kv rows, H the group and KV = 1 (query row bh reads kv row bh
 //            / group); key j visible to row c as key_visible() says
@@ -104,6 +109,8 @@ constexpr int kTcMaxSplits = 4;
 // block first).
 struct ChunkQ {
   static constexpr bool kFlat = false;
+  const int* q_offset;  // the chunk's first position
+  const int* slot;      // the source row of q's batch row 0; null: 0
 };
 struct FlatQ {
   static constexpr bool kFlat = true;
@@ -246,7 +253,8 @@ template <int DP, typename G, typename Rows, typename QM>
 __global__ void __launch_bounds__(G::NT)
 chunk_prefill_tc_kernel(const bf16* __restrict__ q, const Rows src, const QM qm,
                         bf16* __restrict__ out, float* __restrict__ part, int B, int C, int H,
-                        int KV, int dh, int q_offset, float scale, int splits, int vec) {
+                        int KV, int dh, int flat_q_offset, float scale, int splits,
+                        int vec) {
   using E = typename Rows::Elem;
   using SM = TcSmem<DP, G, Rows>;
   constexpr int BQ = G::BQ, MT = G::MT, NT = G::NT, BK = G::BK, ST = G::STAGES, LD = DP + 8;
@@ -282,6 +290,16 @@ chunk_prefill_tc_kernel(const bf16* __restrict__ q, const Rows src, const QM qm,
     bx = qm.reverse ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   }
   const int b = bz / splits, z = bz % splits;
+  // ChunkQ reads its offset and slot from device memory; sb: the source
+  // row (cache stripe or page-table row) of q's batch row b
+  const int q_offset = [&] {
+    if constexpr (QM::kFlat) return flat_q_offset;
+    else return __ldg(qm.q_offset);
+  }();
+  const int sb = [&] {
+    if constexpr (QM::kFlat) return b;
+    else return b + (qm.slot != nullptr ? __ldg(qm.slot) : 0);
+  }();
   const ChunkRows<BQ, G::PACK> rows{bx, by, C, group};
   const int hk = G::PACK ? by : by / group;
   const bool causal = [&] {
@@ -350,7 +368,7 @@ chunk_prefill_tc_kernel(const bf16* __restrict__ q, const Rows src, const QM qm,
     if constexpr (Rows::kPaged) {
       const int k0 = u * BK, first = page_of(k0);
       const int n = page_of(min(k0 + BK, kend) - 1) - first + 1;
-      const int* pt = src.page_table + (long long)b * src.n_p + first;
+      const int* pt = src.page_table + (long long)sb * src.n_p + first;
       if (tid < n) cp_async4(ids_s + slot * SM::IDS + tid, pt + tid, 4);
     }
   };
@@ -363,8 +381,8 @@ chunk_prefill_tc_kernel(const bf16* __restrict__ q, const Rows src, const QM qm,
     bf16* kt = kv_s + 2 * stage * T;
     bf16* vt = kt + T;
     if constexpr (!Rows::kPaged) {
-      const bf16* kb = src.k + b * src.k_sb + hk * src.k_sh;
-      const bf16* vb = src.v + b * src.v_sb + hk * src.v_sh;
+      const bf16* kb = src.k + sb * src.k_sb + hk * src.k_sh;
+      const bf16* vb = src.v + sb * src.v_sb + hk * src.v_sh;
       if (vec) {
 #pragma unroll
         for (int i = 0; i < (BK + RPP - 1) / RPP; ++i) {
@@ -478,7 +496,7 @@ chunk_prefill_tc_kernel(const bf16* __restrict__ q, const Rows src, const QM qm,
     if (t_lo < t_hi) {
       const int k0 = t_lo * BK, first = page_of(k0);
       const int n = page_of(min(k0 + BK, kend) - 1) - first + 1;
-      if (tid < n) ids_s[tid] = src.page_table[(long long)b * src.n_p + first + tid];
+      if (tid < n) ids_s[tid] = src.page_table[(long long)sb * src.n_p + first + tid];
     }
     __syncthreads();
   }
@@ -782,7 +800,8 @@ chunk_prefill_combine_kernel(const float* __restrict__ part, bf16* __restrict__ 
 
 // A tile geometry's launch on a row source and query side, both passes
 // (the second when splits > 1).  vec: q 16-byte aligned with dh % 8 == 0
-// and the source's rows whole 16-byte chunks (src.vec_ok).
+// and the source's rows whole 16-byte chunks (src.vec_ok).  q_offset is
+// FlatQ's; ChunkQ's is in device memory (qm.q_offset).
 template <int DP, typename G, typename Rows, typename QM>
 static cudaError_t launch_tc(const bf16* q, const Rows& src, const QM& qm, bf16* out,
                              float* part, int splits, int B, int C, int H, int KV, int dh,
@@ -810,28 +829,28 @@ static cudaError_t launch_tc(const bf16* q, const Rows& src, const QM& qm, bf16*
   return cudaGetLastError();
 }
 
-// The chunk kernels' launch (ChunkQ)
+// The chunk kernels' launch (ChunkQ: q_offset and slot in device memory)
 template <int DP, typename G, typename Rows>
-static cudaError_t launch_chunk_tc(const bf16* q, const Rows& src, bf16* out, float* part,
-                                   int splits, int B, int C, int H, int KV, int dh, int q_offset,
+static cudaError_t launch_chunk_tc(const bf16* q, const Rows& src, const ChunkQ& qm, bf16* out,
+                                   float* part, int splits, int B, int C, int H, int KV, int dh,
                                    float scale, cudaStream_t stream) {
-  return launch_tc<DP, G, Rows, ChunkQ>(q, src, ChunkQ{}, out, part, splits, B, C, H, KV, dh,
-                                        q_offset, scale, stream);
+  return launch_tc<DP, G, Rows, ChunkQ>(q, src, qm, out, part, splits, B, C, H, KV, dh, 0,
+                                        scale, stream);
 }
 
 // The serving geometry at the padded head dim 64, 128 or 256
 template <typename Rows>
-static cudaError_t launch_chunk_serve(const bf16* q, const Rows& src, bf16* out, float* part,
-                                      int splits, int B, int C, int H, int KV, int dh,
-                                      int q_offset, float scale, cudaStream_t stream) {
+static cudaError_t launch_chunk_serve(const bf16* q, const Rows& src, const ChunkQ& qm,
+                                      bf16* out, float* part, int splits, int B, int C, int H,
+                                      int KV, int dh, float scale, cudaStream_t stream) {
   if (chunk_dp(dh) == 64)
-    return launch_chunk_tc<64, ServeTiles<64>>(q, src, out, part, splits, B, C, H, KV, dh,
-                                               q_offset, scale, stream);
+    return launch_chunk_tc<64, ServeTiles<64>>(q, src, qm, out, part, splits, B, C, H, KV, dh,
+                                               scale, stream);
   if (chunk_dp(dh) == 128)
-    return launch_chunk_tc<128, ServeTiles<128>>(q, src, out, part, splits, B, C, H, KV, dh,
-                                                 q_offset, scale, stream);
-  return launch_chunk_tc<256, ServeTiles<256>>(q, src, out, part, splits, B, C, H, KV, dh,
-                                               q_offset, scale, stream);
+    return launch_chunk_tc<128, ServeTiles<128>>(q, src, qm, out, part, splits, B, C, H, KV,
+                                                 dh, scale, stream);
+  return launch_chunk_tc<256, ServeTiles<256>>(q, src, qm, out, part, splits, B, C, H, KV, dh,
+                                               scale, stream);
 }
 
 // The key-range split count of the serving geometry, from static shapes

@@ -6,11 +6,17 @@
 //   k, v        (n_pages, ps, KV, dh)   contiguous pools; f32/bf16, or int8
 //   k_scale,    (n_pages, ps, KV) f32   int8 pools only: one scale per row
 //   v_scale
-//   page_table  (B, n_p) int32          key pos of slot b lives in page
-//                                       page_table[b, pos / ps], row pos % ps
+//   page_table  (n_slots, n_p) int32    key pos of q's row b lives in page
+//                                       page_table[slot + b, pos / ps], row
+//                                       pos % ps
+//   slot        int32 in device memory  (null: 0)
+//   q_offset    int32 in device memory  the chunk's first position
 //   out         (B, C, H, dh)
 //
-// Key position j is visible to chunk row c iff j <= q_offset + c.
+// Key position j is visible to chunk row c iff j <= q_offset + c (and j <
+// n_p * ps).  The slot and q_offset are read by each block, as the TPU
+// kernel reads q_offset from SMEM, so one captured CUDA graph of the
+// launch serves every slot and offset.
 //
 // Replaces: src/repro/kernels/decode/chunk_prefill.py, paged_chunk_prefill
 // (Pallas _paged_chunk_prefill_kernel) and paged_chunk_prefill_int8
@@ -75,12 +81,15 @@ paged_chunk_prefill_kernel(const T* __restrict__ q, const E* __restrict__ k,
                            const E* __restrict__ v, const float* __restrict__ k_scale,
                            const float* __restrict__ v_scale, const int* __restrict__ page_table,
                            T* __restrict__ out, int C, int H, int KV, int dh, int ps, int n_p,
-                           int n_pages, int q_offset, float scale) {
+                           int n_pages, const int* __restrict__ slot,
+                           const int* __restrict__ q_off, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   long long* row_s = reinterpret_cast<long long*>(smem_raw);
   const int group = H / KV;
   const int c0 = blockIdx.x * kPcBQ, hq = blockIdx.y, b = blockIdx.z;
   const int hk = hq / group;
+  const int q_offset = __ldg(q_off);
+  const long long sb = b + (slot != nullptr ? __ldg(slot) : 0);  // the page-table row
   float* q_s = reinterpret_cast<float*>(row_s + kPcBK);
   float* k_s = q_s + kPcBQ * dh;
   float* v_s = k_s + kPcBK * (dh + 1);
@@ -105,7 +114,7 @@ paged_chunk_prefill_kernel(const T* __restrict__ q, const E* __restrict__ k,
 
   // the block's last visible key is q_offset + (its last real row)
   const int kend = min(n_p * ps, q_offset + min(C, c0 + kPcBQ));
-  const int* pt = page_table + (long long)b * n_p;
+  const int* pt = page_table + sb * n_p;
   __syncthreads();
 
   for (int k0 = 0; k0 < kend; k0 += kPcBK) {
@@ -187,15 +196,16 @@ template <typename T, typename E>
 static cudaError_t launch_paged_chunk(const void* q, const void* k, const void* v,
                                       const float* k_scale, const float* v_scale,
                                       const int* page_table, void* out, int B, int C, int H,
-                                      int KV, int dh, int ps, int n_p, int n_pages, int q_offset,
-                                      float scale, cudaStream_t stream) {
+                                      int KV, int dh, int ps, int n_p, int n_pages,
+                                      const int* slot, const int* q_offset, float scale,
+                                      cudaStream_t stream) {
   const size_t smem = paged_chunk_smem_bytes(dh);
   cudaError_t e = allow_smem(paged_chunk_prefill_kernel<T, E>, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((C + kPcBQ - 1) / kPcBQ, H, B);
   paged_chunk_prefill_kernel<T, E><<<grid, kPcThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const E*>(k), static_cast<const E*>(v), k_scale,
-      v_scale, page_table, static_cast<T*>(out), C, H, KV, dh, ps, n_p, n_pages, q_offset,
+      v_scale, page_table, static_cast<T*>(out), C, H, KV, dh, ps, n_p, n_pages, slot, q_offset,
       scale);
   return cudaGetLastError();
 }
@@ -207,38 +217,42 @@ static cudaError_t launch_paged_chunk(const void* q, const void* k, const void* 
 constexpr KVStage kServeInt8Stage = KVStage::kRing8;
 
 static bool paged_chunk_args_ok(int dtype, int H, int KV, int dh, int ps, int n_p, int n_pages,
-                                int q_offset, int splits, const void* part) {
+                                const void* q_offset, int splits, const void* part) {
   return KV > 0 && H % KV == 0 && dh > 0 && dh <= kPcMaxDh && ps > 0 && n_p > 0 &&
-         n_pages > 0 && q_offset >= 0 && splits >= 1 && splits <= kTcMaxSplits &&
+         n_pages > 0 && q_offset != nullptr && splits >= 1 && splits <= kTcMaxSplits &&
          (splits == 1 || (part != nullptr && dtype == kBF16));
 }
 
 }  // namespace famous
 
 // part: the split workspace of famous_chunk_prefill_plan (with Skv =
-// n_p * ps) when splits > 1, else null; f32 takes one split.
+// n_p * ps) when splits > 1, else null; f32 takes one split.  slot (may be
+// null) and q_offset: int32 scalars in device memory; the caller keeps
+// q_offset >= 0 and slot + B within the page table.
 extern "C" int famous_paged_chunk_prefill(int dtype, const void* q, const void* k,
                                           const void* v, const void* page_table, void* out,
                                           void* part, int splits, int B, int C, int H, int KV,
-                                          int dh, int ps, int n_p, int n_pages, int q_offset,
-                                          float scale, void* stream) {
+                                          int dh, int ps, int n_p, int n_pages, const void* slot,
+                                          const void* q_offset, float scale, void* stream) {
   using namespace famous;
   if (!paged_chunk_args_ok(dtype, H, KV, dh, ps, n_p, n_pages, q_offset, splits, part))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || C <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* pt = static_cast<const int*>(page_table);
+  const int* sl = static_cast<const int*>(slot);
+  const int* off = static_cast<const int*>(q_offset);
   cudaError_t e;
   if (dtype == kF32)
     e = launch_paged_chunk<float, float>(q, k, v, nullptr, nullptr, pt, out, B, C, H, KV, dh, ps,
-                                         n_p, n_pages, q_offset, scale, s);
+                                         n_p, n_pages, sl, off, scale, s);
   else if (dtype == kBF16)
     e = launch_chunk_serve(
         static_cast<const bf16*>(q),
         PagedKV<bf16, KVStage::kCopy>{static_cast<const bf16*>(k), static_cast<const bf16*>(v),
                                       nullptr, nullptr, pt, ps, n_p, n_pages, n_p * ps},
-        static_cast<bf16*>(out), static_cast<float*>(part), splits, B, C, H, KV, dh, q_offset,
-        scale, s);
+        ChunkQ{off, sl}, static_cast<bf16*>(out), static_cast<float*>(part), splits, B, C, H,
+        KV, dh, scale, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);
@@ -249,7 +263,8 @@ extern "C" int famous_paged_chunk_prefill_int8(int dtype, const void* q, const v
                                                const void* v_scale, const void* page_table,
                                                void* out, void* part, int splits, int B, int C,
                                                int H, int KV, int dh, int ps, int n_p,
-                                               int n_pages, int q_offset, float scale,
+                                               int n_pages, const void* slot,
+                                               const void* q_offset, float scale,
                                                void* stream) {
   using namespace famous;
   if (!paged_chunk_args_ok(dtype, H, KV, dh, ps, n_p, n_pages, q_offset, splits, part))
@@ -259,18 +274,20 @@ extern "C" int famous_paged_chunk_prefill_int8(int dtype, const void* q, const v
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
   const int* pt = static_cast<const int*>(page_table);
+  const int* sl = static_cast<const int*>(slot);
+  const int* off = static_cast<const int*>(q_offset);
   cudaError_t e;
   if (dtype == kF32)
     e = launch_paged_chunk<float, int8_t>(q, k, v, ks, vs, pt, out, B, C, H, KV, dh, ps, n_p,
-                                          n_pages, q_offset, scale, s);
+                                          n_pages, sl, off, scale, s);
   else if (dtype == kBF16)
     e = launch_chunk_serve(
         static_cast<const bf16*>(q),
         PagedKV<int8_t, kServeInt8Stage>{static_cast<const int8_t*>(k),
                                          static_cast<const int8_t*>(v), ks, vs, pt, ps, n_p,
                                          n_pages, n_p * ps},
-        static_cast<bf16*>(out), static_cast<float*>(part), splits, B, C, H, KV, dh, q_offset,
-        scale, s);
+        ChunkQ{off, sl}, static_cast<bf16*>(out), static_cast<float*>(part), splits, B, C, H,
+        KV, dh, scale, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

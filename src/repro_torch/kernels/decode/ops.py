@@ -73,15 +73,17 @@ def paged_verify_attention(q, k_pages, v_pages, page_table, cache_len, *,
     return out.reshape(B, W, H, dh)
 
 
-def chunk_prefill_attention(q, k_cache, v_cache, q_offset: int, *,
-                            scale=None):
+def chunk_prefill_attention(q, k_cache, v_cache, q_offset, *, scale=None,
+                            slot=None):
     """q: (B, C, H, dh) at positions [q_offset, q_offset+C); caches:
-    (B, Skv, KV, dh) with the chunk rows already written; q_offset: a host
-    integer.  Returns (B, C, H, dh)."""
+    (B, Skv, KV, dh) with the chunk rows already written, or, given
+    ``slot``, the whole batched cache of which q (B = 1) reads stripe
+    ``slot``.  ``q_offset`` and ``slot``: ints or one-element int tensors
+    on the device, which the kernel reads there.  Returns (B, C, H, dh)."""
     dh = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     return chunk_kernels.chunk_prefill(q.contiguous(), k_cache, v_cache,
-                                       int(q_offset), scale=scale)
+                                       q_offset, scale=scale, slot=slot)
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, cache_len, *,
@@ -109,18 +111,21 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, cache_len, *,
 
 
 def paged_chunk_prefill_attention(q, k_pages, v_pages, page_table,
-                                  q_offset: int, *, k_scale=None,
-                                  v_scale=None, scale=None):
+                                  q_offset, *, k_scale=None, v_scale=None,
+                                  scale=None, slot=None):
     """q: (B, C, H, dh) at positions [q_offset, q_offset + C); pools:
     (n_pages, page_size, KV, dh) with the chunk rows already written;
-    page_table: (B, n_p) int32; q_offset: a host integer.  ``k_scale``/
+    page_table: (B, n_p) int32, or, given ``slot``, the whole (n_slots,
+    n_p) table of which q (B = 1) reads row ``slot``.  ``q_offset`` and
+    ``slot`` as in :func:`chunk_prefill_attention`.  ``k_scale``/
     ``v_scale`` select the int8-pool kernel.  Returns (B, C, H, dh)."""
     dh = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     pt = page_table.to(device=k_pages.device, dtype=torch.int32).contiguous()
     if k_scale is not None:
         return chunk_kernels.paged_chunk_prefill_int8(
-            q.contiguous(), k_pages, v_pages, k_scale, v_scale, pt,
-            int(q_offset), scale=scale)
+            q.contiguous(), k_pages, v_pages, k_scale, v_scale, pt, q_offset,
+            scale=scale, slot=slot)
     return chunk_kernels.paged_chunk_prefill(q.contiguous(), k_pages, v_pages,
-                                             pt, int(q_offset), scale=scale)
+                                             pt, q_offset, scale=scale,
+                                             slot=slot)

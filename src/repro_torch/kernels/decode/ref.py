@@ -26,6 +26,24 @@ def _count(name: str, t: torch.Tensor) -> None:
         STATS.plain_on_cuda[name] += 1
 
 
+def slot_rows(x: torch.Tensor, slot) -> torch.Tensor:
+    """Row ``slot`` of ``x``'s leading axis, kept as a leading axis of 1
+    (a gather, never a host read of a tensor ``slot``), or ``x`` itself
+    when ``slot`` is None.  ``slot``: an int or a one-element int
+    tensor."""
+    if slot is None:
+        return x
+    idx = torch.as_tensor(slot, device=x.device).reshape(1).to(torch.int64)
+    return x.index_select(0, idx)
+
+
+def chunk_positions(q_offset, n: int, device) -> torch.Tensor:
+    """Positions [q_offset, q_offset + n): ``q_offset`` an int or a
+    one-element int tensor, added on the device."""
+    off = torch.as_tensor(q_offset, device=device).reshape(-1)
+    return off.to(torch.int64) + torch.arange(n, device=device)
+
+
 def decode_reference(q, k_cache, v_cache, cache_len, *, scale: float,
                      rows_per_slot: int = 1):
     """q: (R, H, dh); caches: (R / rows_per_slot, Skv, KV, dh); cache_len:
@@ -143,13 +161,17 @@ def _split_combine(q, keys, cache_len, Skv, L, scale):
     return out.reshape(R, H, dh).to(q.dtype)
 
 
-def chunk_prefill_reference(q, k_cache, v_cache, q_offset: int, *,
-                            scale: float):
+def chunk_prefill_reference(q, k_cache, v_cache, q_offset, *, scale: float,
+                            slot=None):
     """q: (B, C, H, dh) at positions [q_offset, q_offset + C); caches:
-    (B, Skv, KV, dh) with the chunk rows already written.  Row c sees cache
-    position j iff j <= q_offset + c.  Returns (B, C, H, dh)."""
+    (B, Skv, KV, dh) with the chunk rows already written, or, given
+    ``slot``, the whole (n_slots, Skv, KV, dh) cache of which q (B = 1)
+    reads stripe ``slot``.  ``q_offset`` and ``slot``: ints or one-element
+    int tensors (never read on the host).  Row c sees cache position j iff
+    j <= q_offset + c.  Returns (B, C, H, dh)."""
     _count("chunk_prefill", q)
-    return _chunk(q, k_cache, v_cache, q_offset, scale)
+    return _chunk(q, slot_rows(k_cache, slot), slot_rows(v_cache, slot),
+                  q_offset, scale)
 
 
 def _chunk(q, k_cache, v_cache, q_offset, scale):
@@ -162,7 +184,7 @@ def _chunk(q, k_cache, v_cache, q_offset, scale):
     vf = v_cache.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]
     s = qf @ kf                                               # (B, KV, g, C, Skv)
     ok = (torch.arange(Skv, device=q.device)[None, :]
-          <= (q_offset + torch.arange(C, device=q.device))[:, None])
+          <= chunk_positions(q_offset, C, q.device)[:, None])
     out = _softmax_pv(s, ok, vf)                              # (B, KV, g, C, dh)
     return out.permute(0, 3, 1, 2, 4).reshape(B, C, H, dh).to(q.dtype)
 
@@ -312,20 +334,24 @@ def paged_decode_reference_int8(q, k_pages, v_pages, k_scale, v_scale,
 
 
 def paged_chunk_prefill_reference(q, k_pages, v_pages, page_table,
-                                  q_offset: int, *, scale: float):
+                                  q_offset, *, scale: float, slot=None):
     """q: (B, C, H, dh) at positions [q_offset, q_offset + C); pools as
-    :func:`paged_decode_reference`, the chunk rows already written.
-    Returns (B, C, H, dh)."""
+    :func:`paged_decode_reference`, the chunk rows already written; q's
+    row b reads table row b, or, given ``slot``, q (B = 1) reads row
+    ``slot``.  ``q_offset`` and ``slot`` as in
+    :func:`chunk_prefill_reference`.  Returns (B, C, H, dh)."""
     _count("paged_chunk_prefill", q)
+    page_table = slot_rows(page_table, slot)
     return _chunk(q, gather_pages(k_pages, page_table),
                   gather_pages(v_pages, page_table), q_offset, scale)
 
 
 def paged_chunk_prefill_reference_int8(q, k_pages, v_pages, k_scale,
-                                       v_scale, page_table, q_offset: int,
-                                       *, scale: float):
+                                       v_scale, page_table, q_offset, *,
+                                       scale: float, slot=None):
     """:func:`paged_chunk_prefill_reference` on int8 pools."""
     _count("paged_chunk_prefill_int8", q)
+    page_table = slot_rows(page_table, slot)
     return _chunk(q, gather_pages_int8(k_pages, k_scale, page_table),
                   gather_pages_int8(v_pages, v_scale, page_table),
                   q_offset, scale)

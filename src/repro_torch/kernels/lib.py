@@ -24,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import operator
 import os
 import shutil
 import subprocess
@@ -181,10 +182,11 @@ _SIGNATURES = {
     # keys per range
     "famous_decode_attention_plan": [_I, _I, _I, _I, _I, _I, _I, _PLL],
     # dtype, q, k, v, out, split workspace (or null), splits, B, C, H, KV,
-    # dh, Skv, q_offset, k strides (slot, pos, head), v strides, scale,
-    # stream
+    # dh, Skv, slot (int32 on the device, or null), q_offset (int32 on the
+    # device), k strides (slot, pos, head), v strides, scale, stream
     "famous_chunk_prefill": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _LL, _LL, _LL, _LL, _LL, _LL, _F, _P],
+                             _I, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _F,
+                             _P],
     # dtype, B, C, H, KV, dh, Skv, SM count, [out] workspace elements ->
     # key-range splits
     "famous_chunk_prefill_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _PLL],
@@ -219,12 +221,13 @@ _SIGNATURES = {
     "famous_paged_decode_attention_plan": [_I, _I, _I, _I, _I, _I, _I, _PLL],
     # dtype, q, k, v, [k_scale, v_scale,] page_table, out, split
     # workspace (or null), splits, B, C, H, KV, dh, page_size, n_p,
-    # n_pages, q_offset, scale, stream
+    # n_pages, slot (int32 on the device, or null), q_offset (int32 on the
+    # device), scale, stream
     "famous_paged_chunk_prefill": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                   _I, _I, _I, _I, _I, _I, _I, _F, _P],
+                                   _I, _I, _I, _I, _I, _I, _P, _P, _F, _P],
     "famous_paged_chunk_prefill_int8": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                                         _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                        _I, _F, _P],
+                                        _P, _P, _F, _P],
     # dtype, a, b, out, B, S, R, stream
     "famous_rglru_scan": [_I, _P, _P, _P, _I, _I, _I, _P],
     # dtype (r, k, v), logw dtype, r, k, v, logw, u, s0 (or null), out,
@@ -304,6 +307,26 @@ def require_int32(name: str, *tensors: torch.Tensor) -> None:
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name}: index operands must be contiguous "
                              f"int32, got {t.dtype}")
+
+
+def device_scalar(name: str, x, device) -> torch.Tensor:
+    """A runtime scalar as the kernels read it: a one-element int32 tensor
+    on ``device``.  A Python int becomes one by ``torch.full`` (a fill
+    kernel, no host copy); a 0-d or one-element integer tensor on
+    ``device`` is passed as it is (converted to int32 on the device when
+    it is not), so a value staged for a CUDA graph is read at replay."""
+    if not isinstance(x, torch.Tensor):
+        return torch.full((1,), operator.index(x), dtype=torch.int32,
+                          device=device)
+    if (x.numel() != 1
+            or x.dtype.is_floating_point or x.dtype == torch.bool
+            or x.device != torch.device(device)):
+        raise ValueError(f"{name}: a runtime scalar must be an int or a "
+                         f"one-element integer tensor on {device}, got "
+                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    x = x.reshape(1)
+    return x if x.dtype == torch.int32 and x.is_contiguous() \
+        else x.to(torch.int32).contiguous()
 
 
 def require_pool(name: str, k_pages, v_pages, k_scale, v_scale, dh: int,

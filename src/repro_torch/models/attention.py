@@ -5,7 +5,9 @@ int8, by chunked prefill, decode or speculative verify (the port of
 ``repro.models.attention``).
 
 Cache writes are **in place**: ``apply_attn_chunk`` writes the chunk's K/V
-into ``cache["k"][slot, offset:offset+C]``, ``apply_attn_decode`` writes
+at ``(slot, offset + arange(C))`` (a fixed-shape ``index_put_`` whose
+indices are computed on the device from the runtime scalars, so a CUDA
+graph of the chunk serves every slot and offset), ``apply_attn_decode`` writes
 each slot's new K/V at its ``cache_len``, ``apply_attn_verify`` the W
 verify tokens at ``cache_len + j``, and the paged twins scatter rows into
 the pool pages their page table names, mutating the tensors the caller
@@ -19,6 +21,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import famous
 from repro_torch.core import quant as quant_lib
+from repro_torch.kernels import lib
 from repro_torch.kernels.qkv import ops as qkv_ops
 from repro_torch.models import layers
 from repro_torch.models.module import ParamSpec
@@ -181,51 +184,74 @@ def apply_attn(p: dict, x: torch.Tensor, cfg: ModelConfig,
     return _out_proj(out, p["wo"])
 
 
-def apply_attn_chunk(p: dict, x: torch.Tensor, cache: dict, slot: int,
-                     offset: int, n_valid: int, cfg: ModelConfig,
-                     fcfg: famous.FamousConfig, *, window: int = 0):
+def ring_write_source(ring: int, offset, n_valid, C: int):
+    """Which chunk position writes each ring row, on the device: for row
+    ``r`` the one position whose absolute position is ``r`` mod ``ring``
+    among the last ``min(n_valid, ring)`` real ones, ``c = lo + ((r -
+    offset - lo) mod ring)`` with ``lo = max(0, n_valid - ring)``, written
+    when ``c < n_valid``.  ``offset``, ``n_valid``: one-element int
+    tensors.  Returns (c clamped into [0, C) (ring,) int64, written (ring,)
+    bool): pad junk never lands, older positions never alias newer ones
+    (JAX redirects those writes out of bounds), and no index repeats, for
+    any ``C`` against ``ring``."""
+    r = torch.arange(ring, device=offset.device)
+    lo = torch.clamp(n_valid.to(torch.int64) - ring, min=0)
+    c = lo + torch.remainder(r - offset - lo, ring)
+    return c.clamp(max=C - 1), c < n_valid
+
+
+def apply_attn_chunk(p: dict, x: torch.Tensor, cache: dict, slot, offset,
+                     n_valid, cfg: ModelConfig, fcfg: famous.FamousConfig, *,
+                     window: int = 0):
     """Chunked prefill for one slot of the batched cache.
 
     x: (1, C, D) — the chunk at absolute positions [offset, offset+C), of
-    which the first ``n_valid`` are real; cache: {"k","v"} (n_slots,
-    S | ring, kv, dh).  Global attention (``window`` 0) writes the chunk's
-    K/V into the slot's stripe in place and attends against resident
-    prefix + own chunk, read from the stripe as a view (no copy); pad
-    positions at the chunk tail write junk K/V beyond the prompt, which is
-    never read.
+    which the first ``n_valid`` are real; ``slot``, ``offset``,
+    ``n_valid``: runtime scalars (``lib.device_scalar``: ints, or
+    one-element int tensors on x's device, which nothing here reads on the
+    host); cache: {"k","v"} (n_slots, S |
+    ring, kv, dh).  Global attention (``window`` 0) writes the chunk's K/V
+    into the slot's stripe in place and attends against resident prefix +
+    own chunk: the kernel reads the stripe of the whole cache at the
+    device ``slot`` (no copy); pad positions at the chunk tail write junk
+    K/V beyond the prompt, which is never read.
 
     A sliding-window layer keeps a ring (position p in row p % ring): the
     pre-chunk ring is gathered in position order (positions offset - ring
     .. offset - 1; negative, never-written positions are masked), the chunk
     attends over [ring ‖ chunk] through ``famous.attention_at_positions``,
-    and then only the last ``min(n_valid, ring)`` real positions are
-    written — pad junk must not clobber live rows, and older positions
-    would alias newer ones.  JAX redirects the other writes out of bounds
-    and drops them; ``n_valid`` is a host integer here, so the kept rows
-    are chosen on the host.  Returns (out (1, C, D), cache)."""
+    and then the ring is rewritten whole, as JAX rewrites ``row_k``: each
+    row takes the chunk position :func:`ring_write_source` names, or keeps
+    its contents.  Returns (out (1, C, D), cache)."""
     C = x.shape[1]
+    slot, offset, n_valid = (lib.device_scalar("apply_attn_chunk", t,
+                                               x.device)
+                             for t in (slot, offset, n_valid))
     positions = offset + torch.arange(C, device=x.device)
     q, k, v = _project(p, x, cfg, fcfg, positions)
     if not window:
-        cache["k"][slot, offset:offset + C] = k[0].to(cache["k"].dtype)
-        cache["v"][slot, offset:offset + C] = v[0].to(cache["v"].dtype)
-        out = famous.chunked_prefill_attention(
-            q, cache["k"][slot:slot + 1], cache["v"][slot:slot + 1], offset,
-            cfg=fcfg)
+        rows = (slot.expand(C), positions)
+        cache["k"].index_put_(rows, k[0].to(cache["k"].dtype))
+        cache["v"].index_put_(rows, v[0].to(cache["v"].dtype))
+        out = famous.chunked_prefill_attention(q, cache["k"], cache["v"],
+                                               offset, cfg=fcfg, slot=slot)
         return _out_proj(out, p["wo"]), cache
     ring = cache["k"].shape[1]
     prev_pos = offset - ring + torch.arange(ring, device=x.device)
     order = torch.remainder(prev_pos, ring)
-    keys = torch.cat([cache["k"][slot, order][None].to(k.dtype), k], dim=1)
-    vals = torch.cat([cache["v"][slot, order][None].to(v.dtype), v], dim=1)
+    row_k = cache["k"].index_select(0, slot)[0]            # (ring, kv, dh)
+    row_v = cache["v"].index_select(0, slot)[0]
+    keys = torch.cat([row_k[order][None].to(k.dtype), k], dim=1)
+    vals = torch.cat([row_v[order][None].to(v.dtype), v], dim=1)
     out = famous.attention_at_positions(q, keys, vals, positions,
                                         torch.cat([prev_pos, positions]),
                                         window=window)
-    lo = max(0, n_valid - ring)
-    rows = torch.remainder(torch.arange(offset + lo, offset + n_valid,
-                                        device=x.device), ring)
-    cache["k"][slot, rows] = k[0, lo:n_valid].to(cache["k"].dtype)
-    cache["v"][slot, rows] = v[0, lo:n_valid].to(cache["v"].dtype)
+    src, written = ring_write_source(ring, offset, n_valid, C)
+    keep = written[:, None, None]
+    for name, new, row in (("k", k, row_k), ("v", v, row_v)):
+        buf = cache[name]
+        buf.index_put_((slot,), torch.where(keep, new[0, src].to(buf.dtype),
+                                            row)[None])
     return _out_proj(out, p["wo"]), cache
 
 
@@ -258,25 +284,29 @@ def apply_attn_decode(p: dict, x: torch.Tensor, cache: dict,
 
 
 def apply_attn_chunk_paged(p: dict, x: torch.Tensor, cache: dict,
-                           page_table: torch.Tensor, slot: int, offset: int,
+                           page_table: torch.Tensor, slot, offset,
                            cfg: ModelConfig, fcfg: famous.FamousConfig):
     """Chunked prefill against the shared page pool.
 
-    x: (1, C, D) at absolute positions [offset, offset+C); cache: pools
+    x: (1, C, D) at absolute positions [offset, offset+C); ``slot``,
+    ``offset``: runtime scalars, as in :func:`apply_attn_chunk`; cache: pools
     (n_pages, page_size, kv, dh); page_table: (n_slots, n_p) int32 on the
     device.  The chunk's K/V go to page ``page_table[slot, p // ps]``, row
-    ``p % ps``; pad positions past the slot's pages land on the null page.
-    With a prefix-cache hit ``offset`` starts past the slot's shared pages,
-    so every write lands in a private page.  Returns (out, cache)."""
+    ``p % ps`` (the slot's table row gathered on the device); pad
+    positions past the slot's pages land on the null page.  With a
+    prefix-cache hit ``offset`` starts past the slot's shared pages, so
+    every write lands in a private page.  The kernel reads the whole table
+    at the device ``slot``.  Returns (out, cache)."""
     C = x.shape[1]
+    slot, offset = (lib.device_scalar("apply_attn_chunk_paged", t, x.device)
+                    for t in (slot, offset))
     positions = offset + torch.arange(C, device=x.device)
     q, k, v = _project(p, x, cfg, fcfg, positions)
     ps = cache["k"].shape[1]
-    pt_row = page_table[slot:slot + 1]                     # (1, n_p)
-    pids = _page_of(pt_row[0], positions, ps)
+    pids = _page_of(page_table.index_select(0, slot)[0], positions, ps)
     _paged_write(cache, pids, positions % ps, k[0], v[0])
     out = famous.paged_chunked_prefill_attention(
-        q, cache["k"], cache["v"], pt_row, offset, cfg=fcfg,
+        q, cache["k"], cache["v"], page_table, offset, cfg=fcfg, slot=slot,
         **_pool_scales(cache))
     return _out_proj(out, p["wo"]), cache
 

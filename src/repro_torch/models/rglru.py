@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.famous import FamousConfig
+from repro_torch.kernels import lib
 from repro_torch.kernels.scan import ops as scan_ops
 from repro_torch.models import layers
 from repro_torch.models.module import ParamSpec
@@ -64,7 +65,8 @@ def rglru_scan(p, xc, h0=None, n_valid=None,
     """xc: (B, S, R) conv output -> recurrence output (B, S, R) f32.
 
     h0: optional (B, R) carried state (chunked prefill), folded in as
-    ``h_1 = a_1 h0 + b_1``.  n_valid: optional host integer — positions
+    ``h_1 = a_1 h0 + b_1``.  n_valid: optional one-element int tensor (a
+    runtime scalar, compared on the device) — positions
     >= n_valid are pad, their update masked to the identity (a = 1, b = 0),
     so ``h[:, -1]`` is exactly the state after the last real token.  After
     those two steps the scan is the kernel's function of (a, b):
@@ -96,8 +98,9 @@ def rglru_step(p, xc_t, h_prev):
 def _conv1d(p, x, state=None, n_valid=None):
     """Causal depthwise temporal conv of width W. x: (B, S, R); state:
     (B, W-1, R) previous inputs.  Returns (y f32, new state): the W-1
-    inputs ending at the last real position (``n_valid``, a host integer;
-    the pad tail excluded) or at the end."""
+    inputs ending at the last real position (``n_valid``, a one-element int
+    tensor, gathered on the device; the pad tail excluded) or at the
+    end."""
     w = p["conv_w"].to(f32)  # (W, R)
     W = w.shape[0]
     S = x.shape[1]
@@ -115,7 +118,8 @@ def _conv1d(p, x, state=None, n_valid=None):
     if n_valid is None:
         new_state = xp[:, -(W - 1):]
     else:
-        new_state = xp[:, n_valid:n_valid + W - 1]
+        new_state = xp.index_select(
+            1, n_valid + torch.arange(W - 1, device=x.device))
     return y, new_state
 
 
@@ -137,12 +141,15 @@ def _out(p, gate, h, x):
 
 
 def apply_rglru_chunk(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                      cache: dict, n_valid: int,
+                      cache: dict, n_valid,
                       fcfg: FamousConfig = FamousConfig()):
     """Chunked prefill: carries the recurrent state across chunks (the
     caller zeroes it for a fresh sequence) and masks pad positions >=
-    ``n_valid`` so their updates are the identity.  x: (1, C, D); cache:
+    ``n_valid`` (an int or a one-element int tensor on x's device, a
+    runtime scalar never read on the host) so their updates are the
+    identity.  x: (1, C, D); cache:
     {"h", "conv"} of the slot.  Returns (out (1, C, D), new state)."""
+    n_valid = lib.device_scalar("apply_rglru_chunk", n_valid, x.device)
     xb = x @ p["w_x"].to(x.dtype)
     gate = x @ p["w_gate"].to(x.dtype)
     xc, conv_state = _conv1d(p, xb, cache["conv"], n_valid=n_valid)

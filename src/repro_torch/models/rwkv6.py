@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.famous import FamousConfig
+from repro_torch.kernels import lib
 from repro_torch.kernels.scan import ops as scan_ops
 from repro_torch.models import layers
 from repro_torch.models.module import ParamSpec
@@ -125,19 +126,29 @@ def _finish(p, out, g, x):
     return out @ p["w_o"].to(x.dtype)
 
 
-def apply_rwkv_time_mix_chunk(p, x, cache, cfg: ModelConfig, n_valid: int,
+def last_valid(x, n_valid):
+    """``x[:, n_valid - 1]`` for a one-element int tensor ``n_valid``, as a
+    gather on the device (an index by a tensor scalar would read it on the
+    host).  x: (B, S, ...) -> (B, ...)."""
+    return x.index_select(1, (n_valid - 1).reshape(1))[:, 0]
+
+
+def apply_rwkv_time_mix_chunk(p, x, cache, cfg: ModelConfig, n_valid,
                               chunk: int = 64,
                               fcfg: FamousConfig = FamousConfig()):
     """Chunked prefill: carry (s, x_tm) across fixed-shape chunks.
 
-    x: (1, C, D), only the first ``n_valid`` (a host integer) positions
-    real.  Pad positions cannot pollute the carried state: their k is
+    x: (1, C, D), only the first ``n_valid`` (an int or a one-element int
+    tensor on x's device, a runtime scalar never read on the host)
+    positions real.  Pad positions cannot pollute the carried state: their k is
     zeroed (no kv contribution) and their log-decay is zeroed (identity
     decay), so ``s_final`` is the state after the last real token; the
     token-shift state becomes ``x[:, n_valid - 1]``.  Pad outputs are junk,
     discarded upstream."""
     B, S, D = x.shape
     h, dh = D // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    n_valid = lib.device_scalar("apply_rwkv_time_mix_chunk", n_valid,
+                                x.device)
     x_prev = _token_shift(x, cache["x_tm"])
     r, k, v, g, logw = _time_mix_qkvwg(p, x, x_prev)
     valid = (torch.arange(S, device=x.device) < n_valid)[None, :, None]
@@ -148,7 +159,8 @@ def apply_rwkv_time_mix_chunk(p, x, cache, cfg: ModelConfig, n_valid: int,
     out, s_fin = scan_ops.wkv6(rh, kh, vh, wh, p["u"].to(f32), s0=cache["s"],
                                chunk=chunk, plain=fcfg.impl != "pallas")
     out = out.transpose(1, 2).reshape(B, S, D)
-    return _finish(p, out, g, x), {"s": s_fin, "x_tm": x[:, n_valid - 1]}
+    return _finish(p, out, g, x), {"s": s_fin,
+                                   "x_tm": last_valid(x, n_valid)}
 
 
 def apply_rwkv_time_mix_decode(p, x, cache, cfg: ModelConfig):

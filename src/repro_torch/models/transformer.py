@@ -35,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import (ATTN, LOCAL_ATTN, RGLRU, RWKV6,
                                       ModelConfig)
 from repro_torch.core.famous import FamousConfig
+from repro_torch.kernels import lib
 from repro_torch.models import attention, layers, rglru, rwkv6
 from repro_torch.models.module import ParamSpec, stack_specs
 
@@ -284,20 +285,23 @@ def make_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype,
             for kind in layer_kinds(cfg)]
 
 
-def _read_slot_state(cache: dict, slot: int, offset: int) -> dict:
-    """The slot's row of a per-slot state (a view), or zeros when
+def _read_slot_state(cache: dict, slot, offset) -> dict:
+    """The slot's row of a per-slot state (a gather), or zeros when
     ``offset == 0``, so a reused slot cannot leak the previous occupant's
     recurrent state into a fresh sequence (chunk 0 starts from zero state;
-    later chunks carry)."""
-    if offset > 0:
-        return {n: buf[slot:slot + 1] for n, buf in cache.items()}
-    return {n: torch.zeros_like(buf[slot:slot + 1])
-            for n, buf in cache.items()}
+    later chunks carry).  ``slot``, ``offset``: one-element int tensors,
+    never read on the host."""
+    def read(buf):
+        row = buf.index_select(0, slot)
+        return torch.where(offset.reshape((1,) * row.ndim) > 0, row,
+                           torch.zeros((), dtype=row.dtype,
+                                       device=row.device))
+    return {n: read(buf) for n, buf in cache.items()}
 
 
-def _write_slot_state(cache: dict, sub: dict, slot: int) -> None:
+def _write_slot_state(cache: dict, sub: dict, slot) -> None:
     for n, buf in cache.items():
-        buf[slot:slot + 1] = sub[n].to(buf.dtype)
+        buf.index_put_((slot,), sub[n].to(buf.dtype))
 
 
 def _commit_state(cache: dict, new: dict, active) -> None:
@@ -319,9 +323,9 @@ def _mlp(p, x, cfg: ModelConfig):
         p["ffn"], layers.apply_norm(p["ln2"], x, cfg.norm), cfg.act)
 
 
-def prefill_chunk(params, tokens, caches, slot: int, offset: int,
-                  n_valid: int, cfg: ModelConfig,
-                  fcfg: FamousConfig = FamousConfig(), page_table=None):
+def prefill_chunk(params, tokens, caches, slot, offset, n_valid,
+                  cfg: ModelConfig, fcfg: FamousConfig = FamousConfig(),
+                  page_table=None):
     """One fixed-shape prefill chunk for a single slot of the batched caches.
 
     tokens: (1, C) int at absolute positions [offset, offset+C); only the
@@ -331,10 +335,18 @@ def prefill_chunk(params, tokens, caches, slot: int, offset: int,
     contiguous stripe or ring, or, given ``page_table`` ((n_slots, n_p)
     int32 on the device), its pages of the pools — and carries its
     recurrent state across chunks (``offset == 0`` starts from zero
-    state).  ``slot``, ``offset`` and ``n_valid`` are host integers.
-    Returns the caches only: prefill logits are dead weight (generation
-    restarts by decoding the last prompt token), so the LM head is never
-    computed."""
+    state).  ``slot``, ``offset`` and ``n_valid`` are runtime scalars:
+    ints, or one-element int tensors on the device (as the engine stages
+    them for its CUDA graph).  They become device tensors here, once, and
+    nothing below reads them on the host, so ONE captured graph serves
+    every (slot, offset, n_valid), as one JAX executable does; the caller
+    keeps them in range (``0 <= slot < n_slots``, ``1 <= n_valid <= C``,
+    ``offset + C <= max_seq`` for contiguous stripes).  Returns the caches
+    only: prefill logits are dead weight (generation restarts by decoding
+    the last prompt token), so the LM head is never computed."""
+    dev = tokens.device
+    slot, offset, n_valid = (lib.device_scalar("prefill_chunk", v, dev)
+                             for v in (slot, offset, n_valid))
     x = layers.embed_lookup(params["embed"], tokens, _compute_dtype(params))
     for kind, p, cache in zip(layer_kinds(cfg), params["layers"], caches):
         h = layers.apply_norm(p["ln1"], x, cfg.norm)
@@ -362,7 +374,8 @@ def prefill_chunk(params, tokens, caches, slot: int, offset: int,
             y, _ = rwkv6.apply_channel_mix(p["cm"], h, cfg,
                                            cache_x=sub["x_cm"])
             x = x + y
-            _write_slot_state(cache, dict(tm, x_cm=h[:, n_valid - 1]), slot)
+            _write_slot_state(cache, dict(tm, x_cm=rwkv6.last_valid(
+                h, n_valid)), slot)
     return caches
 
 
@@ -448,17 +461,21 @@ def verify_step(params, tokens, caches, cache_len, cfg: ModelConfig,
     return logits_fn(params, x, cfg), caches
 
 
-def clear_slot(caches, slot: int, cfg: ModelConfig,
-               paged: bool = False) -> list:
+def clear_slot(caches, slot, cfg: ModelConfig, paged: bool = False) -> list:
     """Zero slot ``slot``'s per-slot cache rows in place — K/V stripes,
     rings and recurrent state (stale-state hygiene for length-1 admissions
-    that skip prefill).  Page pools (global attention, ``paged``) have no
-    slot axis (``buf[slot]`` would be page ``slot``, a live page) and are
-    left alone: the slot's pages were freed, and any stale content is
-    unreachable (its table row is null, reads are ``cache_len``-masked)."""
-    for kind, cache in zip(layer_kinds(cfg), caches):
-        if paged and kind == ATTN:
-            continue
-        for buf in cache.values():
-            buf[slot].zero_()
+    that skip prefill).  ``slot``: an int or a one-element int tensor on
+    the caches' device, never read on the host (``index_fill_``), so one
+    captured graph clears every slot.  Page pools (global attention,
+    ``paged``) have no slot axis (``buf[slot]`` would be page ``slot``, a
+    live page) and are left alone: the slot's pages were freed, and any
+    stale content is unreachable (its table row is null, reads are
+    ``cache_len``-masked)."""
+    bufs = [buf for kind, cache in zip(layer_kinds(cfg), caches)
+            if not (paged and kind == ATTN) for buf in cache.values()]
+    if bufs:
+        idx = lib.device_scalar("clear_slot", slot,
+                                bufs[0].device).to(torch.int64)
+        for buf in bufs:
+            buf.index_fill_(0, idx, 0)
     return caches

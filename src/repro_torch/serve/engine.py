@@ -32,23 +32,36 @@ kernel on weights quantized once here.  ``mesh`` and
 ``prefill_mode="monolithic"`` raise ``NotImplementedError`` naming the
 ROADMAP Queue 1 item that brings them.
 
-The executables (``serve/graphs.py``): on a CUDA device the decode step and
-the verify step each run as a captured CUDA graph, with the greedy argmax
-in the same graph, and the sampler of each as graphs keyed
-``(kind, k_cap)``, as JAX's ``_sample`` is keyed by its static ``k_cap``.
-``compilations`` counts the captured ``decode`` and ``verify`` graphs (at
-most one each: the engine has one static shape of each); ``prefill`` and
-``clear`` stay 0, because prefill chunks and ``clear_slot`` run eagerly,
-and the sampler graphs are not counted, as JAX does not count
+The executables (``serve/graphs.py``): on a CUDA device the prefill chunk,
+``clear_slot``, the decode step and the verify step each run as a
+captured CUDA graph, the steps with the greedy argmax in the same graph,
+and the sampler of each step as graphs keyed ``(kind, k_cap)``, as JAX's
+``_sample`` is keyed by its static ``k_cap``.  The chunk's ``slot``,
+``offset`` and ``n_valid`` and the cleared slot are runtime scalars
+staged into device buffers that the kernels and index ops read there,
+so one chunk graph serves every (slot, offset, n_valid) and one clear
+graph every slot, as JAX jits both once with traced scalars.
+``compilations`` counts the captured ``prefill``, ``decode``, ``verify``
+and ``clear`` graphs (at most one each: the engine has one static shape
+of each); the sampler graphs are not counted, as JAX does not count
 ``_sample``.  On the CPU, or inside ``graphs.disable_capture()``, every
 step runs eagerly on the same static buffers and the census stays all
 zeros.  ``kernel_launches`` reads the kernel wrappers' launch counters,
 replays included.  Per-slot sequence state lives on the host as numpy
 arrays and is copied, from pinned staging buffers without blocking, into
-the steps' static input buffers once per step (the page table only when
-the allocator changed it); caches and params are never reallocated, so
-the graphs' addresses stay valid.  Each decode step makes exactly one
-device->host sync, to read the sampled tokens.
+the executables' static input buffers before each call (the page table
+only when the allocator changed it; the chunk's inputs from a ring of
+host copies, so the chunks of one step never wait on each other's
+transfers); caches and params are never reallocated, so the graphs'
+addresses stay valid.  Each decode step makes exactly one device->host
+sync, to read the sampled tokens; a chunk makes none.
+
+The chunk and clear graphs have a memory pool of their own: they return
+nothing (the caches they update were allocated before any capture), but
+in a pool shared with the steps, whichever graph is captured second may
+place its live outputs in blocks the other uses as scratch, and which
+comes second depends on the traffic.  Apart, no replay can overwrite
+what another graph returned.
 
 Observability is one injectable seam: pass
 ``observer=repro_torch.obs.Observer(...)``.
@@ -220,8 +233,8 @@ class ServingEngine:
         self._failed: list[Request] = []
         self._pt_version = -1          # page-table version on the device
         # -- the executables: static inputs, staged from pinned host copies
-        def static(shape, dtype):
-            return graphs.StaticInput(shape, dtype, self.device)
+        def static(shape, dtype, depth=1):
+            return graphs.StaticInput(shape, dtype, self.device, depth)
 
         W = draft_k + 1
         self._in = {
@@ -234,35 +247,57 @@ class ServingEngine:
             "seed": static((n_slots,), torch.int64),
             "index": static((n_slots,), torch.int64),
         }
+        # the chunk's tokens and its (slot, offset, n_valid): a ring of
+        # host copies one deeper than a step's most chunks (the scheduler
+        # plans at most budget // chunk, and always one)
+        budget = self.sched.cfg.token_budget or (
+            n_slots * self.sched.cfg.decode_width + self.chunk)
+        depth = max(1, budget // self.chunk) + 1
+        self._in["chunk_tokens"] = static((1, self.chunk), torch.int64, depth)
+        self._in["chunk_scalars"] = static((3,), torch.int32, depth)
+        self._in["clear_slot"] = static((1,), torch.int32)
         if self.paged:
             self._in["page_table"] = static(self.alloc.page_table.shape,
                                             torch.int32)
+        # page pools have no slot axis: an all-global-attention paged stack
+        # holds no per-slot state for clear_slot to zero
+        self._has_slot_state = not (self.paged and all_attn)
         self._pool = graphs.GraphPool(self.device)
+        self._chunk_pool = graphs.GraphPool(self.device)
         self._exec = {kind: graphs.Executable(
             functools.partial(self._step_fn, kind), self._pool)
             for kind in ("decode", "verify")}
+        self._exec["prefill"] = graphs.Executable(self._prefill_fn,
+                                                  self._chunk_pool)
+        self._exec["clear"] = graphs.Executable(self._clear_fn,
+                                                self._chunk_pool)
         self.obs.register_census(lambda: self.compilations)
 
     @property
     def compilations(self) -> dict:
-        """Executable census: captured CUDA graphs of each step kind (the
-        samplers' graphs are not counted; prefill chunks and clear_slot run
-        eagerly and count 0)."""
-        return {"prefill": 0,
-                "decode": self._exec["decode"].graph_keys.count("decode"),
-                "verify": self._exec["verify"].graph_keys.count("verify"),
-                "clear": 0}
+        """Executable census: captured CUDA graphs of each kind (the
+        samplers' graphs are not counted)."""
+        return {kind: self._exec[kind].graph_keys.count(kind)
+                for kind in ("prefill", "decode", "verify", "clear")}
 
     @property
     def graph_stats(self) -> dict:
         """What the executables cost and did: captured keys, replays, the
-        seconds spent capturing and the device memory their pool
-        reserved."""
+        seconds spent capturing and the device memory their pools reserved
+        (in all, and for the steps' pool and the chunk's apart), and the
+        chunk inputs' staging stalls (puts that waited on a transfer still
+        pending, and their host seconds)."""
+        pools = {"step": self._pool, "prefill": self._chunk_pool}
+        staged = [self._in[n] for n in ("chunk_tokens", "chunk_scalars")]
         return {"keys": {k: [str(x) for x in e.graph_keys]
                          for k, e in self._exec.items()},
                 "replays": {k: e.replays for k, e in self._exec.items()},
-                "capture_s": self._pool.capture_s,
-                "pool_bytes": self._pool.bytes}
+                "capture_s": sum(p.capture_s for p in pools.values()),
+                "pool_bytes": sum(p.bytes for p in pools.values()),
+                "pools": {k: {"capture_s": p.capture_s, "bytes": p.bytes}
+                          for k, p in pools.items()},
+                "chunk_stalls": sum(x.stalls for x in staged),
+                "chunk_stall_s": sum(x.stall_s for x in staged)}
 
     @property
     def acceptance_rate(self) -> float:
@@ -296,6 +331,25 @@ class ServingEngine:
         return self._in["page_table"].tensor
 
     # -- the step functions (graphs.Executable bodies) ------------------------
+    def _prefill_fn(self, key):
+        """The ``"prefill"`` executable's body: one chunk of the staged
+        tokens at the staged (slot, offset, n_valid), read on the device.
+        Returns nothing: the caches are updated in place."""
+        sc = self._in["chunk_scalars"].tensor
+        kw = {"page_table": self._in["page_table"].tensor} \
+            if self.paged else {}
+        transformer.prefill_chunk(self.params, self._in["chunk_tokens"].tensor,
+                                  self.caches, sc[0:1], sc[1:2], sc[2:3],
+                                  self.cfg, self.fcfg, **kw)
+        return ()
+
+    def _clear_fn(self, key):
+        """The ``"clear"`` executable's body: ``clear_slot`` at the staged
+        slot."""
+        transformer.clear_slot(self.caches, self._in["clear_slot"].tensor,
+                               self.cfg, paged=self.paged)
+        return ()
+
     def _step_fn(self, kind: str, key):
         """The ``kind`` executable's body.  Key ``kind``: the decode step
         over every slot (``"decode"``) or the verify step of width
@@ -388,10 +442,11 @@ class ServingEngine:
         self._slot_seq[slot] = seq
         if req.t_submit is None:
             req.t_submit = _clock()
-        if state == DECODE and self.sched.slots[slot].target == 0:
+        if (state == DECODE and self.sched.slots[slot].target == 0
+                and self._has_slot_state):
             # nothing to prefill: clear any stale per-slot state
-            transformer.clear_slot(self.caches, slot, self.cfg,
-                                   paged=self.paged)
+            self._in["clear_slot"].put(slot)
+            self._exec["clear"]("clear")
         if state == DECODE:
             # generation restarts at the last prompt token: it is re-decoded
             # so its K/V entry lands at position n-1 (a private page, even
@@ -460,19 +515,19 @@ class ServingEngine:
             queue_depth=len(self.sched.resume) + len(self.sched.pending),
             occupied=len(self.sched.occupied()))
         plan = self.sched.plan()
-        kw = {"page_table": self._page_table()} \
-            if self.paged and plan.chunks else {}
+        if self.paged and plan.chunks:
+            self._page_table()
         for ch in plan.chunks:
+            self._check_chunk(ch.slot, ch.start, ch.n)
             seq = self._slot_seq[ch.slot]
             toks = np.zeros((1, self.chunk), np.int64)
             toks[0, :ch.n] = seq[ch.start:ch.start + ch.n]
             with self.obs.phase("prefill_chunk", slot=ch.slot,
                                 rid=self.sched.slots[ch.slot].req.rid,
                                 start=ch.start, n=ch.n):
-                transformer.prefill_chunk(
-                    self.params, torch.from_numpy(toks).to(self.device),
-                    self.caches, ch.slot, ch.start, ch.n, self.cfg, self.fcfg,
-                    **kw)
+                self._in["chunk_tokens"].put(toks)
+                self._in["chunk_scalars"].put((ch.slot, ch.start, ch.n))
+                self._exec["prefill"]("prefill")
             self.cache_len[ch.slot] = ch.start + ch.n
             if self.sched.on_chunk(ch.slot, ch.n):
                 # prefill complete: decode restarts at the last token,
@@ -484,6 +539,21 @@ class ServingEngine:
             self._decode_plain(list(plan.decode_slots), finished)
         self.sched.tick()
         return finished
+
+    def _check_chunk(self, slot: int, start: int, n: int) -> None:
+        """The chunk's runtime scalars, checked on the host before they are
+        staged (the kernels and index ops read them on the device, where
+        nothing can check them): a slot of the batch, 1..chunk real
+        tokens, and, for contiguous stripes, the chunk inside
+        ``max_seq`` (a paged chunk's pad rows past the table land on the
+        null page)."""
+        if not (0 <= slot < self.n_slots and 1 <= n <= self.chunk
+                and start >= 0
+                and (self.paged or start + self.chunk <= self.max_seq)):
+            raise ValueError(f"chunk of slot {slot} at {start} with {n} "
+                             f"tokens outside {self.n_slots} slots x "
+                             f"{self.max_seq} positions (chunk "
+                             f"{self.chunk})")
 
     def _sampling_operands(self, active):
         """Per-slot sampling operands (host numpy)."""

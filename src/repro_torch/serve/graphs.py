@@ -12,8 +12,9 @@ shape and static argument:
   cuBLAS's workspaces and the kernels' ``lru_cache``\\ d launch plans, none
   of which a capture may do for the first time;
 * the second call captures the function on a side stream, into the memory
-  pool that all graphs of one engine share (:class:`GraphPool`), then
-  replays it.  A capture executes nothing, so no step runs twice and no
+  pool of its :class:`GraphPool` (an engine gives its steps and samplers
+  one pool, its prefill chunk and ``clear_slot`` another), then replays
+  it.  A capture executes nothing, so no step runs twice and no
   K/V row or recurrent state is written twice;
 * every later call only replays, and returns the same output tensors.
 
@@ -77,28 +78,42 @@ def no_host_sync(device):
 
 
 class StaticInput:
-    """A step's input at a fixed device address, fed from a pinned host
-    copy with ``non_blocking=True``.  Before the host copy is overwritten,
-    the previous transfer's event is waited on (the step's own sync has
-    almost always passed it)."""
+    """A step's input at a fixed device address, fed from pinned host
+    copies with ``non_blocking=True``.  ``depth`` host copies take turns,
+    so the host may stage up to ``depth`` values ahead of the device (the
+    prefill chunks of one step: each is staged after the previous chunk's
+    replay was enqueued, and its transfer waits behind that replay).  The
+    device copy is ordered on the stream, so a replay always reads the
+    value staged just before it.  Before a host copy is overwritten, its
+    previous transfer's event is waited on: ``stalls`` counts the waits
+    that found it still pending and ``stall_s`` their host seconds."""
 
-    def __init__(self, shape, dtype, device):
+    def __init__(self, shape, dtype, device, depth: int = 1):
         self.device = torch.device(device)
         cuda = self.device.type == "cuda"
         self.tensor = torch.zeros(shape, dtype=dtype, device=self.device)
-        self._host = torch.zeros(shape, dtype=dtype, pin_memory=cuda)
-        self._view = self._host.numpy()
-        self._copied = torch.cuda.Event() if cuda else None
-        self._pending = False
+        self._hosts = [torch.zeros(shape, dtype=dtype, pin_memory=cuda)
+                       for _ in range(depth)]
+        self._copied = [torch.cuda.Event() if cuda else None
+                        for _ in range(depth)]
+        self._pending = [False] * depth
+        self._next = 0
+        self.stalls = 0
+        self.stall_s = 0.0
 
     def put(self, values) -> torch.Tensor:
-        if self._pending:
-            self._copied.synchronize()
-        self._view[...] = np.asarray(values)
-        self.tensor.copy_(self._host, non_blocking=True)
-        if self._copied is not None:
-            self._copied.record(torch.cuda.current_stream(self.device))
-            self._pending = True
+        i = self._next
+        self._next = (i + 1) % len(self._hosts)
+        if self._pending[i] and not self._copied[i].query():
+            t0 = time.perf_counter()
+            self._copied[i].synchronize()
+            self.stalls += 1
+            self.stall_s += time.perf_counter() - t0
+        self._hosts[i].numpy()[...] = np.asarray(values)
+        self.tensor.copy_(self._hosts[i], non_blocking=True)
+        if self._copied[i] is not None:
+            self._copied[i].record(torch.cuda.current_stream(self.device))
+            self._pending[i] = True
         return self.tensor
 
 

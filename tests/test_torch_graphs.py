@@ -12,7 +12,8 @@ the retrace guard (``analysis/retrace_guard.py``) on the CPU:
   stubbed (its bookkeeping is plain Python);
 * the engine with the capture stubbed by a graph that replays by calling
   the step again: its tokens equal the eager engine's on greedy, seeded,
-  speculative, paged and int8 KV and recurrent runs.
+  speculative, paged and int8 KV, recurrent and token-budgeted runs, with
+  the prefill chunk captured once beside the step.
 
 A real capture needs a CUDA device; ``chip_smoke.py`` holds graphs against
 eager runs there."""
@@ -157,7 +158,7 @@ def test_retrace_guard_engine_cold_vs_warm(stub_graphs):
             eng.run(reqs(0))
     with retrace_guard(eng, label="warm engine"):
         eng.run(reqs(10))
-    assert eng.compilations == {"prefill": 0, "decode": 1, "verify": 0,
+    assert eng.compilations == {"prefill": 1, "decode": 1, "verify": 0,
                                 "clear": 0}
     with retrace_guard(eng.obs, label="through the observer"):
         eng.run(reqs(20))
@@ -172,7 +173,8 @@ def test_cpu_engine_captures_nothing():
     eng.run([Request(rid=0, tokens=[1, 2, 3], max_new=4)])
     assert eng.compilations == {"prefill": 0, "decode": 0, "verify": 0,
                                 "clear": 0}
-    assert eng.graph_stats["replays"] == {"decode": 0, "verify": 0}
+    assert eng.graph_stats["replays"] == {"decode": 0, "verify": 0,
+                                          "prefill": 0, "clear": 0}
 
 
 def test_disable_capture_switches_capture_off_and_nests():
@@ -413,6 +415,8 @@ ENGINE_CASES = {
                           False),
     "recurrentgemma-2b": ("recurrentgemma-2b", {}, True),
     "rwkv6-1.6b": ("rwkv6-1.6b", {}, False),
+    # several chunks a step, each staged after the previous one's replay
+    "token budget": ("qwen2-7b", dict(token_budget=32), False),
 }
 
 
@@ -440,20 +444,23 @@ def test_stubbed_graphs_give_the_eager_engines_tokens(stub_graphs, case):
         reqs = [Request(rid=i, tokens=list(p), max_new=7,
                         **(_HOT[i % 3] if hot and i % 2 == 0 else {}))
                 for i, p in enumerate(prompts)]
+        lib.STATS.reset()
         done = sorted(eng.run(reqs), key=lambda r: r.rid)
         assert all(r.error is None and len(r.out) == 7 for r in done)
-        return [r.out for r in done], eng
+        return [r.out for r in done], eng, lib.STATS.snapshot()
 
     with graphs.disable_capture():
-        eager, eng_e = serve()
-    graphed, eng_g = serve()
-    assert graphed == eager
+        eager, eng_e, counts_e = serve()
+    graphed, eng_g, counts_g = serve()
+    assert graphed == eager and counts_g == counts_e
     kind = "verify" if eng_g.speculative_active else "decode"
-    assert eng_e.compilations[kind] == 0
-    assert eng_g.compilations == {"prefill": 0, "decode": kind == "decode",
-                                  "verify": kind == "verify", "clear": 0}
+    assert not any(eng_e.compilations.values())
+    census = eng_g.compilations
+    assert census.pop("clear") <= 1
+    assert census == {"prefill": 1, "decode": kind == "decode",
+                      "verify": kind == "verify"}
     stats = eng_g.graph_stats
-    assert stats["replays"][kind] > 0
+    assert stats["replays"][kind] > 0 and stats["replays"]["prefill"] > 0
     assert any(isinstance(k, str) and k.startswith(f"('{kind}'")
                for k in stats["keys"][kind]) == hot
     if kw.get("speculative"):
