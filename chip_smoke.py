@@ -103,15 +103,42 @@ Phases, in order; any failure exits non-zero before the result line:
  10. recurrent serving: recurrentgemma-2b (max_seq 4096, prompts of
      88-3600 tokens, three past the window) and rwkv6-1.6b (max_seq 2048)
      at full depth in bf16, 8 greedy requests each, with launch counts
-     checked per chunk and decode step, each a graph parity pair as in 8.
+     checked per chunk and decode step, each a graph parity pair as in 8;
+ 11. monolithic slice parity (f32, full width, cut depth): slot 1
+     prefilled by ``transformer.prefill`` + ``write_prefill_to_slot``,
+     then 2 decode steps, kernels against plain torch ops and against
+     ``prefill_chunk`` (qwen2-7b on contiguous, paged and int8 pools; a
+     recurrentgemma-2b unit past its ring; rwkv6-1.6b at 640 and 37
+     prefilled tokens), and the dense zoo's 2-layer cuts (qwen3-32b,
+     deepseek-7b, command-r-plus-104b) through ``prefill_chunk``, kernels
+     against plain, on contiguous caches and int8 pools;
+ 12. monolithic serving: a 1024-token qwen2-7b prefill against its 4
+     chunks (profiled), then graph parity pairs with
+     ``prefill_mode="monolithic"`` at full depth: qwen2-7b (two prompts
+     in each of 4 buckets; contiguous, paged, int8 pools), recurrentgemma-
+     2b and rwkv6-1.6b (4 exact lengths twice); the prefill census must
+     equal the 4 lengths served twice and each prefill launch
+     ``mha_forward`` / the scans once a layer; the same qwen2-7b prompts
+     chunked for this call's tok/s and TTFT beside;
+ 13. dense zoo serving, chunked graph parity pairs at full width:
+     deepseek-7b (30 layers), qwen3-32b (16 of 64 layers; also paged int8
+     with the prefix cache) and command-r-plus-104b (4 of 64 layers).
+
+The kernel phase also holds the serving kernels at the zoo's head layouts
+(qwen3-32b's 64 / 8 heads of 80, deepseek-7b's 32 / 32 and
+command-r-plus-104b's 96 / 8 of 128, bf16) and the MHA kernels at a
+ragged 1292 tokens of recurrentgemma-2b's local attention; training
+parity also a recurrentgemma-2b unit (S=3072) and 2 qwen3-32b layers;
+the training runs also recurrentgemma-2b (2 units) and rwkv6-1.6b (2
+layers) at B=1, S=2048.
 
 ``step_breakdown`` times one decode step and one prefill chunk of a
 serving engine's model eagerly, and the decode step again as a CUDA graph
 (a speculative engine also its verify step, eager and as a graph): CUDA
 events against profiled device time.
 
-The launch counters are set to 0 before each run of phases 7, 8 and 10 and
-read after it: every kernel must have launched on those paths and no plain
+The launch counters are set to 0 before each run of phases 7, 8, 10, 12
+and 13 and read after it: every kernel must have launched on those paths and no plain
 version may have run on the card.  Each phase prints its seconds.  The
 last three lines of output are the per-kernel JSON record
 (``{"kernels": [...]}``), the ``nvidia-smi`` name and power limit, and
@@ -229,7 +256,16 @@ MASK_ATTN = (("qwen2-7b window=512", 1, 2048, 2048, 28, 4, 128, True, 512, 0),
 # forward's 64-row tensor-core blocks; dq and dk/dv on their CUDA-core
 # kernels in both dtypes, one split)
 LOCAL_ATTN = (("recurrentgemma-2b local", 1, 4096, 4096, 10, 1, 256, True,
-               2048, 0),)
+               2048, 0),
+              # a ragged length, as an exact-length monolithic prefill of
+              # a recurrentgemma-2b prompt hands the forward
+              ("recurrentgemma-2b local ragged", 1, 1292, 1292, 10, 1, 256,
+               True, 2048, 0))
+# the serving head layouts new with qwen3-32b (dh 80), deepseek-7b (one
+# query head a kv head) and command-r-plus-104b (12 a kv head): name, H,
+# KV, dh
+NEW_LAYOUTS = (("qwen3-32b", 64, 8, 80), ("deepseek-7b", 32, 32, 128),
+               ("command-r-plus-104b", 96, 8, 128))
 # the QKV projection's VJP at the same two training shapes: T = B*S, D, F
 TRAIN_PROJ = (("famous-bert", 8 * 512, 768, 3 * 768),
               ("qwen2-7b", 2048, 3584, 3584 + 2 * 512))
@@ -629,6 +665,8 @@ def kernel_phase(torch, iters, seed):
                 check(m_ok, f"chunk_prefill {dt} offset {off}: mirror "
                       f"error {m_err}")
     paged_kernel_rows(torch, dts, randn, record, iters, gen)
+    layout_kernel_rows(torch, F, randn, record, decode_row, gen,
+                       max(10, iters // 2))
     chunk_graph_checks(torch, dts, randn, gen)
     training_kernel_rows(torch, F, dts, randn, record, iters)
     scan_kernel_rows(torch, dts, randn, record, iters)
@@ -792,6 +830,116 @@ def paged_kernel_rows(torch, dts, randn, record, iters, gen):
                 paged_chunk_identity_check(torch, randn, dtype, C, H, KV, dh,
                                            ps, scale)
             del sets, csets
+
+
+def layout_kernel_rows(torch, F, randn, record, decode_row, gen, iters):
+    """The serving kernels at NEW_LAYOUTS' head layouts, bf16 (the serving
+    dtype; the f32 kernels meet them in the dense-zoo slice): the
+    contiguous decode kernel (B=4, lens 1/37/1000/2048), ``chunk_prefill``
+    (C=256 at offset 1792 in slot 2 of a 4-slot cache), and the paged
+    decode and chunk kernels on fp and int8 pools (a 513-page pool of
+    16-token pages, page ids a seeded permutation), each held to its plain
+    version, relaunched for bit identity and timed beside the library call
+    (SDPA with GQA; none for the paged kernels) and its bound."""
+    from repro_torch.core import quant
+    from repro_torch.kernels.decode import chunk_prefill, decode_attn
+    from repro_torch.kernels.decode import ref as dec_ref
+
+    dev = torch.device("cuda")
+    dt, dtype, e = "bf16", torch.bfloat16, 2
+    B, Skv, C, off, ps, n_pages = 4, 2048, 256, 1792, 16, 513
+    n_p, lens_list = Skv // ps, [1, 37, 1000, 2048]
+    lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+    live = sum(lens_list)
+    live_pages = sum(-(-n // ps) for n in lens_list)
+    visible = sum(off + c + 1 for c in range(C))
+    slot_t = torch.tensor([2], dtype=torch.int32, device=dev)
+    off_t = torch.tensor([off], dtype=torch.int32, device=dev)
+    pt = (torch.randperm(n_pages - 1, generator=gen, device=dev)[:B * n_p]
+          + 1).to(torch.int32).reshape(B, n_p).contiguous()
+    cmask = (torch.arange(Skv, device=dev)[None, :]
+             <= off + torch.arange(C, device=dev)[:, None])
+    for label, H, KV, dh in NEW_LAYOUTS:
+        scale = dh ** -0.5
+        decode_row(dt, dtype, H, KV, dh, lens_list, f" {label}")
+
+        def kern(q, k, v):
+            return chunk_prefill.chunk_prefill(q, k, v, off_t, scale=scale,
+                                               slot=slot_t)
+
+        def plain(q, k, v):
+            return dec_ref.chunk_prefill_reference(q, k, v, off_t,
+                                                   scale=scale, slot=slot_t)
+
+        def library(q, k, v):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k[2:3].transpose(1, 2),
+                v[2:3].transpose(1, 2), attn_mask=cmask, scale=scale,
+                enable_gqa=True)
+
+        per = (C * H * dh + 2 * (off + C) * KV * dh) * e
+        sets = [(randn((1, C, H, dh), dtype), randn((B, Skv, KV, dh), dtype),
+                 randn((B, Skv, KV, dh), dtype))
+                for _ in range(min(4, n_sets(per)))]
+        record("chunk_prefill", f"{label} C={C} offset={off} H={H} KV={KV} "
+               f"dh={dh} Skv={Skv}", dt, kern(*sets[0]), plain(*sets[0]),
+               ATTN_TOL[dt], kern, plain, library, sets,
+               2 * C * H * dh * e + (off + C) * KV * dh * 2 * e,
+               4.0 * H * dh * visible, n_iter=iters, again=kern(*sets[0]))
+        del sets
+        shape = (n_pages, ps, KV, dh)
+        for kind in ("fp", "int8"):
+            sfx = "" if kind == "fp" else "_int8"
+            row = dh * e if kind == "fp" else dh + 4
+
+            def pools():
+                k, v = randn(shape, dtype), randn(shape, dtype)
+                if kind == "fp":
+                    return (k, v)
+                (kq, ks), (vq, vs) = (quant.quantize(k, -1),
+                                      quant.quantize(v, -1))
+                return (kq, vq, ks[..., 0].contiguous(),
+                        vs[..., 0].contiguous())
+
+            sets = [(randn((B, H, dh), dtype), *pools())
+                    for _ in range(min(4, n_sets(2 * n_pages * ps * KV
+                                                 * row)))]
+            dec_k = getattr(decode_attn, "paged_decode_attention" + sfx)
+            dec_p = getattr(dec_ref, "paged_decode_reference" + sfx)
+            ch_k = getattr(chunk_prefill, "paged_chunk_prefill" + sfx)
+            ch_p = getattr(dec_ref, "paged_chunk_prefill_reference" + sfx)
+
+            def dkern(q, *pool, fn=dec_k):
+                return fn(q, *pool, pt, lens, scale=scale)
+
+            def dplain(q, *pool, fn=dec_p):
+                return fn(q, *pool, pt, lens, scale=scale)
+
+            def ckern(q, *pool, fn=ch_k):
+                return fn(q, *pool, pt, off_t, scale=scale, slot=slot_t)
+
+            def cplain(q, *pool, fn=ch_p):
+                return fn(q, *pool, pt, off_t, scale=scale, slot=slot_t)
+
+            s0 = sets[0]
+            record("paged_decode_attention" + sfx,
+                   f"{label} B={B} H={H} KV={KV} dh={dh} page={ps} "
+                   f"pool={n_pages} lens={lens_list}", dt, dkern(*s0),
+                   dplain(*s0), ATTN_TOL[dt], dkern, dplain, None, sets,
+                   2 * B * H * dh * e + live * KV * row * 2
+                   + 4 * (live_pages + B), 4.0 * H * dh * live,
+                   n_iter=iters, again=dkern(*s0))
+            csets = [(randn((1, C, H, dh), dtype), *st[1:]) for st in sets]
+            c0 = csets[0]
+            record("paged_chunk_prefill" + sfx,
+                   f"{label} C={C} offset={off} H={H} KV={KV} dh={dh} "
+                   f"page={ps} pool={n_pages}", dt, ckern(*c0), cplain(*c0),
+                   ATTN_TOL[dt], ckern, cplain, None, csets,
+                   2 * C * H * dh * e + (off + C) * KV * row * 2
+                   + 4 * ((off + C) // ps), 4.0 * H * dh * visible,
+                   n_iter=iters, again=ckern(*c0))
+            del sets, csets
+        torch.cuda.empty_cache()
 
 
 def chunk_graph_checks(torch, dts, randn, gen):
@@ -1644,11 +1792,26 @@ def verify_parity(torch, cfg, params, prompt, pt, n, C, ps, n_pages, W=5):
 TRAIN_TOL = {"f32": (1e-5, 1e-4, 1e-3), "bf16": (5e-3, 2e-2, 5e-2)}
 
 
+# the training parity cuts at full width: arch, layers, S.
+# recurrentgemma-2b's one (RG-LRU, RG-LRU, local attention) unit over 3072
+# tokens, past its 2048-token window (the MHA kernels at dh 256; the
+# RG-LRU differentiated through the models' associative scan on both
+# impls); qwen3-32b's 2 layers (qk-norm, dh 80)
+TRAIN_PARITY = (("qwen2-7b", 2, 2048), ("recurrentgemma-2b", 3, 3072),
+                ("qwen3-32b", 2, 2048))
+
+
 def train_parity_phase(torch, seed):
-    """A 2-layer cut of qwen2-7b at full width: the gradient of one
+    return {f"{arch} {layers}": train_parity(torch, seed, arch, layers, S)
+            for arch, layers, S in TRAIN_PARITY}
+
+
+def train_parity(torch, seed, arch, layers, S):
+    """A ``layers``-layer cut of ``arch`` at full width: the gradient of one
     ``make_train_step`` (its ``grads_of``) on one f32 state and one
-    B=1, S=2048 batch, through the kernels (``impl="pallas"``) and through
-    plain torch ops (``impl="xla"``), in f32 and in bf16 compute."""
+    B=1 batch of S tokens, through the kernels (``impl="pallas"``) and
+    through plain torch ops (``impl="xla"``), in f32 and in bf16
+    compute."""
     from repro_torch.configs.base import ShapeConfig, get_config
     from repro_torch.core.famous import FamousConfig
     from repro_torch.data import pipeline
@@ -1656,14 +1819,14 @@ def train_parity_phase(torch, seed):
     from repro_torch.optim import adamw
     from repro_torch.train import step as step_lib
 
-    cfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=2)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     state = step_lib.init_state(cfg, step_lib.TrainConfig(), gen, dev)
     params = state.pop("params")
     del state
     batch = pipeline.device_batch(
-        cfg, ShapeConfig("parity", 2048, 1, "train"), seed, 0, dev)
+        cfg, ShapeConfig("parity", S, 1, "train"), seed, 0, dev)
     results = {}
     for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         tcfg = step_lib.TrainConfig(compute_dtype=dtype)
@@ -1682,13 +1845,13 @@ def train_parity_phase(torch, seed):
         ok = all(e <= t for e, t in zip(errs, tol)) and math.isfinite(lp)
         results[dt] = dict(loss_pallas=lp, loss_xla=lx, gnorm_pallas=np_,
                            gnorm_xla=nx, rel_errs=errs, tol=tol)
-        print(f"train parity {dt}: 2-layer qwen2-7b at full width, B=1 "
-              f"S=2048: loss {lp:.6f} vs {lx:.6f} (rel {errs[0]:.2e}, tol "
+        print(f"train parity {dt}: {layers}-layer {arch} at full width, B=1 "
+              f"S={S}: loss {lp:.6f} vs {lx:.6f} (rel {errs[0]:.2e}, tol "
               f"{tol[0]:g}), grad norm {np_:.6f} vs {nx:.6f} (rel "
               f"{errs[1]:.2e}, tol {tol[1]:g}), worst leaf ||pallas - "
               f"xla||/||xla|| {errs[2]:.2e} (tol {tol[2]:g}) over "
               f"{len(gp)} leaves {'ok' if ok else 'FAIL'}", flush=True)
-        check(ok, f"training parity {dt} failed: {results[dt]}")
+        check(ok, f"training parity {arch} {dt} failed: {results[dt]}")
         del got, gp, gx
         torch.cuda.empty_cache()
     del params
@@ -1702,9 +1865,10 @@ def train_parity_phase(torch, seed):
 
 
 def training_run(torch, label, arch, shape, steps, seed, ckpt_every,
-                 num_layers=None):
+                 num_layers=None, kernels=TRAINING_KERNELS):
     """``launch.train.build`` + ``Trainer`` on the card with bf16 compute
-    and a 5-step warmup; the launch counters cover exactly this run."""
+    and a 5-step warmup; the launch counters cover exactly this run, and
+    each of ``kernels`` (the path's) must have launched."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import lib
     from repro_torch.launch import train as train_launch
@@ -1772,7 +1936,7 @@ def training_run(torch, label, arch, shape, steps, seed, ckpt_every,
     print(f"  profiled step: {prof_wall_ms:.1f} ms wall, device "
           f"{prof['device_ms']:.1f} ms: {group_text(prof['by_group_ms'])}",
           flush=True)
-    check(all(launches[k] > 0 for k in TRAINING_KERNELS),
+    check(all(launches[k] > 0 for k in kernels),
           f"{label}: a kernel never launched on the training path: "
           f"{launches}")
     check(len(log) == steps and tr.restarts == 0,
@@ -1799,7 +1963,18 @@ def training_phase(torch, seed):
     qwen = training_run(torch, "qwen2-7b 2 layers", "qwen2-7b",
                         ShapeConfig("qwen_2048", 2048, 1, "train"), 5, seed,
                         ckpt_every=0, num_layers=2)
-    return {"famous-bert": bert, "qwen2-7b-2layer": qwen}
+    # the recurrent families at full width, cut depth: recurrentgemma-2b's
+    # local attention trains through the MHA kernels at dh 256, its RG-LRU
+    # and all of rwkv6-1.6b through the models' torch scans (no kernel of
+    # this repo runs on rwkv6-1.6b's training path)
+    shape = ShapeConfig("recurrent_2048", 2048, 1, "train")
+    rg = training_run(torch, "recurrentgemma-2b 2 units",
+                      "recurrentgemma-2b", shape, 5, seed, ckpt_every=0,
+                      num_layers=6)
+    rw = training_run(torch, "rwkv6-1.6b 2 layers", "rwkv6-1.6b", shape, 5,
+                      seed, ckpt_every=0, num_layers=2, kernels=())
+    return {"famous-bert": bert, "qwen2-7b-2layer": qwen,
+            "recurrentgemma-2b-2unit": rg, "rwkv6-1.6b-2layer": rw}
 
 
 # ---------------------------------------------------------------------------
@@ -1877,9 +2052,10 @@ def graph_pair(torch, label, make_engine, make_reqs):
     launch counts (replays counted) and plain-version counts, the graph
     engine's step kind (decode, or verify when speculative) and its
     prefill chunk captured once each and replayed, ``clear`` at most
-    once, no kind above 3.  Returns the graph run (requests, engine,
-    launches, plain counts, wall seconds) and the pair's record: tok/s and
-    TTFT of both runs, the census, replays, capture seconds, the graph
+    once, no kind above 3; a monolithic engine's prefill graphs at most
+    one per length served, each replayed.  Returns the graph run
+    (requests, engine, launches, plain counts, wall seconds) and the
+    pair's record: tok/s and TTFT of both runs, the census, replays, capture seconds, the graph
     pools' bytes and the chunk inputs' staging stalls."""
     import numpy as np
 
@@ -1931,24 +2107,33 @@ def graph_pair(torch, label, make_engine, make_reqs):
     check(pair["launches_equal"] and plain == e_plain,
           f"{label}: launches with graphs {launches} / {plain}, eager "
           f"{e_launch} / {e_plain}")
-    check(census[kind] == 1 and stats["replays"][kind] > 0
-          and census["prefill"] == 1 and stats["replays"]["prefill"] > 0
-          and census["clear"] <= 1
-          and max(census.values()) <= 3 and not any(e_census.values()),
+    if engine.chunked:
+        prefill_ok = (census["prefill"] == 1
+                      and stats["replays"]["prefill"] > 0)
+    else:   # one graph per length used twice, at most one per length
+        prefill_ok = census["prefill"] <= len(engine.prefill_keys) and (
+            stats["replays"]["prefill"] >= census["prefill"])
+    others = [v for k, v in census.items() if k != "prefill"]
+    check(census[kind] == 1 and stats["replays"][kind] > 0 and prefill_ok
+          and census["clear"] <= 1 and max(others) <= 3
+          and (census["prefill"] <= 3 or not engine.chunked)
+          and not any(e_census.values()),
           f"{label}: census {census} (eager {e_census}), replays "
           f"{stats['replays']}")
     return run, pair
 
 
-def guard_warm(torch, label, engine, prompts):
-    """The warmed graph engine serves 4 fresh requests (the first 512
-    tokens of 4 prompts, 8 new tokens each) inside ``retrace_guard``: a
-    warm region must capture nothing."""
+def guard_warm(torch, label, engine, prompts, cut=512):
+    """The warmed graph engine serves 4 fresh requests (the first ``cut``
+    tokens of 4 prompts, or whole prompts when ``cut`` is None; 8 new
+    tokens each) inside ``retrace_guard``: a warm region must capture
+    nothing (a monolithic engine is given prompts whose lengths it has
+    captured)."""
     from repro_torch.analysis.retrace_guard import retrace_guard
     from repro_torch.serve.engine import Request
 
     before = engine.compilations
-    reqs = [Request(rid=1000 + i, tokens=list(p[:512]), max_new=8)
+    reqs = [Request(rid=1000 + i, tokens=list(p[:cut]), max_new=8)
             for i, p in enumerate(prompts[:4])]
     with retrace_guard(engine, label=label):
         done = engine.run(reqs)
@@ -2696,6 +2881,438 @@ def group_text(groups):
         or "not measured"
 
 
+# ---------------------------------------------------------------------------
+# phases 11-12: monolithic prefill and the dense zoo
+# ---------------------------------------------------------------------------
+
+
+def slot_logits(torch, cfg, params, fcfg, prompt, n, mode, dtype, max_seq,
+                kind="contiguous", pt=None, ps=16, n_pages=513, C=256):
+    """Slot 1 of a 4-slot cache takes ``prompt[0, :n]`` as the engine
+    does: its first n - 1 tokens prefilled (``mode`` "monolithic":
+    ``transformer.prefill`` into a batch-1 scratch cache, then
+    ``write_prefill_to_slot``, paged through slot 1's table row;
+    "chunked": ``prefill_chunk`` over C-token chunks), then two
+    ``decode_step`` calls from token n - 1.  Returns slot 1's logits (2,
+    vocab) f32."""
+    from repro_torch.models import transformer
+
+    dev = torch.device("cuda")
+    kw, paged = {}, kind != "contiguous"
+    if paged:
+        caches = transformer.make_caches(
+            cfg, 4, max_seq, dtype, dev, cache_kind="paged", page_size=ps,
+            n_pages=n_pages, kv_dtype="int8" if kind == "int8" else "fp")
+        kw = {"page_table": pt}
+    else:
+        caches = transformer.make_caches(cfg, 4, max_seq, dtype, dev)
+    m = n - 1
+    if mode == "monolithic":
+        one = transformer.make_caches(cfg, 1, max_seq, dtype, dev)
+        transformer.prefill(params, prompt[:, :m], one, cfg, fcfg)
+        transformer.write_prefill_to_slot(caches, one, 1, cfg,
+                                          page_ids=pt[1] if paged else None)
+        del one
+    else:
+        padded = torch.zeros((1, -(-m // C) * C), dtype=torch.long,
+                             device=dev)
+        padded[:, :m] = prompt[:, :m]
+        for start in range(0, m, C):
+            transformer.prefill_chunk(params, padded[:, start:start + C],
+                                      caches, 1, start, min(C, m - start),
+                                      cfg, fcfg, **kw)
+    last = torch.tensor([5, int(prompt[0, m]), 9, 11], device=dev)
+    clen = torch.tensor([0, m, 0, 0], dtype=torch.int32, device=dev)
+    active = torch.tensor([False, True, False, False], device=dev)
+    outs = []
+    for j in range(2):
+        lg, _ = transformer.decode_step(params, last, caches, clen, cfg,
+                                        fcfg, active=active, **kw)
+        outs.append(lg[1])
+        last = torch.tensor([5, int(prompt[0, m + 1 + j]), 9, 11],
+                            device=dev)
+        clen = clen + torch.tensor([0, 1, 0, 0], dtype=torch.int32,
+                                   device=dev)
+    del caches
+    return torch.stack(outs)
+
+
+def parity_check(torch, results, key, got, ref, tol, what):
+    err = float((got - ref).abs().max())
+    limit = tol * float(ref.abs().max())
+    finite = bool(torch.isfinite(got).all())
+    results[key] = dict(max_abs_err=err, limit=limit,
+                        max_abs_logit=float(ref.abs().max()))
+    print(f"{key}: {what}, max|diff| = {err:.3e} (limit {limit:.3e} = "
+          f"{tol:g} * max|logit|) "
+          f"{'ok' if finite and err <= limit else 'FAIL'}",
+          flush=True)
+    check(finite and err <= limit, f"{key}: {results[key]}")
+
+
+# monolithic slices at full width: arch, layers, prompt tokens (n - 1 are
+# prefilled: recurrentgemma-2b's 2299 wrap its 2048-token ring, rwkv6's
+# 640 are ten 64-step chunks and its 37 one chunk of 37), max_seq
+MONO_SLICES = (("qwen2-7b", 2, 400, 2048),
+               ("recurrentgemma-2b", 3, 2300, 4096),
+               ("rwkv6-1.6b", 2, 641, 2048), ("rwkv6-1.6b", 2, 38, 2048))
+# the dense zoo's 2-layer cuts at full width
+ZOO_SLICE_ARCHS = ("qwen3-32b", "deepseek-7b", "command-r-plus-104b")
+
+
+def monolithic_slice_phase(torch, seed):
+    """Monolithic prefill at full width, cut depth, f32: slot 1 prefilled
+    by ``transformer.prefill`` + ``write_prefill_to_slot`` then two decode
+    steps, through the kernels (``impl="pallas"``: ``mha_forward``, the
+    scan kernels) against plain torch ops (``impl="xla"``), and against
+    the same prompt through ``prefill_chunk`` + ``decode_step`` (kernels),
+    on qwen2-7b's contiguous caches, paged and int8 pools, one
+    recurrentgemma-2b unit and two rwkv6-1.6b layers.  Then the dense
+    zoo's 2-layer cuts through ``prefill_chunk`` + ``decode_step``, kernels
+    against plain torch ops, on contiguous caches and int8 pools.  Limit
+    1e-4 x max|logit| (sums in another order), and 5e-2 where int8 pools
+    are written from the two paths' own K/V, whose last bits differ (a
+    value on a rounding edge takes the next int8 step), as the bf16
+    slice's int8 limit."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.famous import FamousConfig
+
+    dev = torch.device("cuda")
+    dtype = torch.float32
+    pallas, xla = FamousConfig(impl="pallas"), FamousConfig(impl="xla")
+    results = {}
+    for arch, depth, n, max_seq in MONO_SLICES:
+        cfg = dataclasses.replace(get_config(arch), num_layers=depth)
+        gen = torch.Generator(device=dev).manual_seed(seed + 7)
+        prompt = torch.randint(0, cfg.vocab_size, (1, n + 2), generator=gen,
+                               device=dev)
+        params = random_params(torch, cfg, dtype, seed)
+        ps, n_pages = 16, 4 * max_seq // 16 + 1
+        pt = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1).to(
+            torch.int32).reshape(4, max_seq // ps).contiguous()
+        kinds = (("contiguous", "paged", "int8") if arch == "qwen2-7b"
+                 else ("contiguous",))
+        for kind in kinds:
+            args = (prompt, n)
+            kw = dict(max_seq=max_seq, kind=kind, pt=pt, ps=ps,
+                      n_pages=n_pages)
+            mono = slot_logits(torch, cfg, params, pallas, *args,
+                               "monolithic", dtype, **kw)
+            tol = 5e-2 if kind == "int8" else 1e-4
+            label = f"monolithic {arch} {depth} layers n={n} {kind}"
+            what = (f"a {n - 1}-token prefill then 2 decode steps, logits "
+                    f"{tuple(mono.shape)}")
+            parity_check(torch, results, f"{label} kernels vs plain",
+                         mono, slot_logits(torch, cfg, params, xla, *args,
+                                           "monolithic", dtype, **kw),
+                         tol, what)
+            parity_check(torch, results, f"{label} vs chunked (kernels)",
+                         mono, slot_logits(torch, cfg, params, pallas, *args,
+                                           "chunked", dtype, **kw),
+                         tol, what)
+        del params
+        torch.cuda.empty_cache()
+    for arch in ZOO_SLICE_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), num_layers=2)
+        gen = torch.Generator(device=dev).manual_seed(seed + 8)
+        prompt = torch.randint(0, cfg.vocab_size, (1, 402), generator=gen,
+                               device=dev)
+        params = random_params(torch, cfg, dtype, seed)
+        pt = (torch.randperm(512, generator=gen, device=dev) + 1).to(
+            torch.int32).reshape(4, 128).contiguous()
+        for kind in ("contiguous", "int8"):
+            kw = dict(max_seq=2048, kind=kind, pt=pt)
+            got = slot_logits(torch, cfg, params, pallas, prompt, 400,
+                              "chunked", dtype, **kw)
+            ref = slot_logits(torch, cfg, params, xla, prompt, 400,
+                              "chunked", dtype, **kw)
+            parity_check(torch, results, f"zoo {arch} 2 layers {kind} "
+                         f"kernels vs plain", got, ref,
+                         5e-2 if kind == "int8" else 1e-4,
+                         f"{cfg.num_heads} / {cfg.num_kv_heads} heads of "
+                         f"{cfg.head_dim}, a 399-token prefill in 256-token "
+                         f"chunks then 2 decode steps")
+        del params
+        torch.cuda.empty_cache()
+    return results
+
+
+def serving_run(torch, label, arch, layers, prompts, max_seq, seed, kw,
+                max_new=16, want=None, guard=None, params=None):
+    """One serving configuration as a graph parity pair (``graph_pair``) at
+    full width, ``layers`` deep, bf16, random weights from ``seed``: every
+    request must finish with in-range tokens, no plain version may run on
+    the card, and ``want(launches, engine)`` returns the launch counts the
+    path must show.  Then the warm engine serves 4 fresh requests under
+    ``retrace_guard`` (``guard``: whole prompts whose lengths a monolithic
+    engine captured; default the first 512 tokens of 4 prompts)."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.famous import FamousConfig
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    t0 = time.perf_counter()
+    if params is None:
+        params = random_params(torch, cfg, torch.bfloat16, seed)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+
+    def make_engine():
+        return ServingEngine(params, cfg, FamousConfig(impl="pallas"),
+                             n_slots=4, max_seq=max_seq, dtype=torch.bfloat16,
+                             chunk=256, observer=_StepCounter(),
+                             device="cuda", **kw)
+
+    def make_reqs():
+        return [Request(rid=i, tokens=list(p), max_new=max_new)
+                for i, p in enumerate(prompts)]
+
+    (done, engine, launches, plain, wall), pair = graph_pair(
+        torch, label, make_engine, make_reqs)
+    check(len(done) == len(prompts)
+          and all(r.error is None and len(r.out) == max_new for r in done),
+          f"{label}: {[(r.rid, r.error, len(r.out)) for r in done]}")
+    check(all(0 <= t < cfg.vocab_size for r in done for t in r.out),
+          f"{label}: token out of range")
+    check(not any(plain.values()),
+          f"{label}: a plain version ran on CUDA tensors: {plain}")
+    phases = engine.obs.phases
+    if want is not None:
+        expect = want(phases, engine)
+        got = {k: launches[k] for k in expect}
+        check(got == expect, f"{label}: launches {got}, want {expect} for "
+              f"phases {phases}")
+    toks = sum(len(r.out) for r in done)
+    ttft = sorted(r.t_first - r.t_submit for r in done)
+    res = dict(arch=arch, layers=cfg.num_layers, params=cfg.param_count(),
+               prompt_lens=[len(p) for p in prompts], max_seq=max_seq,
+               tokens=toks, wall_s=wall, tok_per_s=toks / wall,
+               ttft_p50_s=float(np.median(ttft)), phases=phases,
+               launches=launches, prefill_keys=engine.prefill_keys,
+               prefix_hit_tokens=engine.prefix_hit_tokens,
+               cache_bytes=engine.cache_bytes_per_device(), init_s=t_init,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               graph_pair=pair)
+    print(f"serving {label}: {cfg.num_layers} layers bf16 "
+          f"({res['params'] / 1e9:.2f}B params), {len(prompts)} requests "
+          f"(prompts {res['prompt_lens']}), {toks} tokens in {wall:.2f}s = "
+          f"{toks / wall:.1f} tok/s, TTFT p50 {res['ttft_p50_s'] * 1e3:.0f} "
+          f"ms, phases {phases}, prefill keys {engine.prefill_keys}, prefix "
+          f"hit tokens {engine.prefix_hit_tokens}, peak memory "
+          f"{res['peak_mem_gb']:.1f} GB, init {t_init:.1f} s", flush=True)
+    print("kernels " + json.dumps(launches), flush=True)
+    res["guard_census"] = guard_warm(torch, label, engine, guard or prompts,
+                                     cut=None if guard else 512)
+    del engine, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def _prompts(rng, vocab, lens):
+    return [[int(t) for t in rng.integers(0, vocab, size=n)] for n in lens]
+
+
+def prefill_breakdown(torch, cfg, params, n=1024, C=256):
+    """Device time of one ``n``-token monolithic prefill of the model
+    (``transformer.prefill`` into a batch-1 cache) against the ``n // C``
+    chunks that ``prefill_chunk`` takes for the same tokens (slot 0 of a
+    4-slot cache), each warmed once, then profiled by kernel group."""
+    from repro_torch.core.famous import FamousConfig
+    from repro_torch.models import transformer
+
+    dev = torch.device("cuda")
+    fcfg = FamousConfig(impl="pallas")
+    toks = torch.randint(0, cfg.vocab_size, (1, n), device=dev)
+    one = transformer.make_caches(cfg, 1, 2048, torch.bfloat16, dev)
+    four = transformer.make_caches(cfg, 4, 2048, torch.bfloat16, dev)
+
+    def mono():
+        transformer.prefill(params, toks, one, cfg, fcfg)
+
+    def chunks():
+        for start in range(0, n, C):
+            transformer.prefill_chunk(params, toks[:, start:start + C], four,
+                                      0, start, C, cfg, fcfg)
+
+    res = {}
+    for label, fn in (("monolithic", mono), ("chunks", chunks)):
+        fn()
+        res[label] = profile_groups(torch, fn)
+        print(f"prefill breakdown {cfg.name} {n} tokens, {label}: device "
+              f"{res[label]['device_ms']:.3f} ms, span "
+              f"{res[label]['span_ms']:.3f} ms: "
+              f"{group_text(res[label]['by_group_ms'])}", flush=True)
+    del one, four
+    torch.cuda.empty_cache()
+    return res
+
+
+def monolithic_serving_phase(torch, seed):
+    """``prefill_mode="monolithic"`` at full depth, bf16, 4 slots, 16 new
+    tokens a request: qwen2-7b (28 layers) on 8 prompts of 88-1316 tokens,
+    two in each power-of-two bucket (128-2048), on contiguous KV, paged KV
+    and paged int8 KV; recurrentgemma-2b on 1293-3581 tokens and
+    rwkv6-1.6b on prefills of 64-1536 tokens (multiples of 64), four exact
+    lengths twice each.  Each is a graph parity pair whose prefill graphs
+    are exactly the lengths served twice, each replayed once; per
+    prefill, ``mha_forward`` launches once per attention layer,
+    ``rglru_scan`` / ``wkv6_scan`` once per recurrent layer, and no chunk
+    kernel runs.  The same qwen2-7b prompts chunked (graphs only) give the
+    chunked tok/s and TTFT of this call beside."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer
+
+    rng = np.random.default_rng(seed + 11)
+    out = {}
+    cfg = get_config("qwen2-7b")
+    lens = [88, 300, 600, 1316, 100, 400, 700, 1200]
+    prompts = _prompts(rng, cfg.vocab_size, lens)
+    params = random_params(torch, cfg, torch.bfloat16, seed)
+    out["prefill vs chunks"] = prefill_breakdown(torch, cfg, params)
+
+    def qwen_want(kind):
+        def want(phases, engine):
+            n, steps = phases.get("prefill", 0), phases.get("decode", 0)
+            dec = ("paged_decode_attention" + ("_int8" if kind == "int8"
+                                               else "")
+                   if kind != "contiguous" else "decode_attention")
+            return {"mha_forward": 28 * n, "chunk_prefill": 0,
+                    "paged_chunk_prefill": 0, "paged_chunk_prefill_int8": 0,
+                    "matmul_tiled": 28 * (n + steps), dec: 28 * steps}
+        return want
+
+    for kind, kw in (("contiguous", {}),
+                     ("paged", dict(cache_kind="paged", page_size=16)),
+                     ("int8", dict(cache_kind="paged", page_size=16,
+                                   kv_dtype="int8"))):
+        res = serving_run(torch, f"qwen2-7b monolithic {kind}", "qwen2-7b",
+                          None, prompts, 2048, seed,
+                          dict(kw, prefill_mode="monolithic"),
+                          want=qwen_want(kind), guard=prompts[:4],
+                          params=params)
+        census = res["graph_pair"]["census"]["prefill"]
+        check(census == 4 and res["graph_pair"]["replays"]["prefill"] == 4
+              and sorted(res["prefill_keys"]) == [128, 512, 1024, 2048],
+              f"qwen2-7b monolithic {kind}: census {census}, keys "
+              f"{res['prefill_keys']}")
+        out[f"qwen2-7b {kind}"] = res
+    # the same prompts chunked, for this call's chunked tok/s and TTFT
+    from repro_torch.core.famous import FamousConfig
+    from repro_torch.serve.engine import Request, ServingEngine
+    done, eng, _, _, wall = serve_once(
+        torch, lambda: ServingEngine(params, cfg, FamousConfig(impl="pallas"),
+                                     n_slots=4, max_seq=2048,
+                                     dtype=torch.bfloat16, chunk=256,
+                                     device="cuda"),
+        [Request(rid=i, tokens=list(p), max_new=16)
+         for i, p in enumerate(prompts)], eager=False)
+    toks = sum(len(r.out) for r in done)
+    ttft = float(np.median([r.t_first - r.t_submit for r in done]))
+    out["qwen2-7b chunked (same prompts)"] = dict(tokens=toks, wall_s=wall,
+                                                  tok_per_s=toks / wall,
+                                                  ttft_p50_s=ttft)
+    mono = out["qwen2-7b contiguous"]
+    print(f"monolithic vs chunked, qwen2-7b contiguous, same prompts, graphs "
+          f"(information, not gated): monolithic {mono['tok_per_s']:.1f} "
+          f"tok/s, TTFT p50 {mono['ttft_p50_s'] * 1e3:.0f} ms; chunked "
+          f"{toks / wall:.1f} tok/s, TTFT p50 {ttft * 1e3:.0f} ms",
+          flush=True)
+    del eng, params
+    torch.cuda.empty_cache()
+
+    for arch, max_seq, base in (("recurrentgemma-2b", 4096,
+                                 [1293, 2100, 2900, 3581]),
+                                ("rwkv6-1.6b", 2048, [65, 641, 1025, 1537])):
+        cfg = get_config(arch)
+        kinds = transformer.layer_kinds(cfg)
+        per = {k: kinds.count(k) for k in set(kinds)}
+        prompts = _prompts(rng, cfg.vocab_size, base * 2)
+
+        def want(phases, engine, per=per):
+            n, steps = phases.get("prefill", 0), phases.get("decode", 0)
+            local = per.get("local_attn", 0)
+            return {"rglru_scan": per.get("rglru", 0) * n,
+                    "wkv6_scan": per.get("rwkv6", 0) * n,
+                    "mha_forward": local * n, "chunk_prefill": 0,
+                    "decode_attention": local * steps,
+                    "matmul_tiled": local * (n + steps)}
+
+        res = serving_run(torch, f"{arch} monolithic", arch, None, prompts,
+                          max_seq, seed, dict(prefill_mode="monolithic"),
+                          want=want, guard=prompts[:4])
+        census = res["graph_pair"]["census"]["prefill"]
+        check(census == 4 and sorted(res["prefill_keys"])
+              == [n - 1 for n in base],
+              f"{arch} monolithic: census {census}, keys "
+              f"{res['prefill_keys']}")
+        out[arch] = res
+    return out
+
+
+def zoo_serving_phase(torch, seed):
+    """The dense zoo served chunked (chunk 256, 4 slots, max_seq 2048, 16
+    new tokens), graph parity pairs at full width, bf16: deepseek-7b at
+    full depth (30 layers) on contiguous KV; qwen3-32b cut to 16 of 64
+    layers (its 65.5 GB of bf16 weights would not leave room on the card)
+    on contiguous KV, and on paged int8 KV with the prefix cache behind a
+    shared 512-token system prompt (later requests must hit it);
+    command-r-plus-104b cut to 4 of 64 layers (each holds 1.57B
+    parameters, and the tied 256000 x 12288 head adds its f32 copy).  8
+    prompts of 88-1316 tokens; per chunk the projection and
+    ``chunk_prefill`` (or its paged int8 twin) launch once per layer, per
+    decode step the projection and the decode kernel."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+
+    rng = np.random.default_rng(seed + 12)
+    out = {}
+    for arch, layers, cases in (
+            ("deepseek-7b", None, ("contiguous",)),
+            ("qwen3-32b", 16, ("contiguous", "int8 prefix")),
+            ("command-r-plus-104b", 4, ("contiguous",))):
+        cfg = get_config(arch)
+        L = layers or cfg.num_layers
+        lens = [int(x) for x in rng.integers(88, 1317, size=8)]
+        params = random_params(torch, dataclasses.replace(
+            cfg, num_layers=L), torch.bfloat16, seed)
+        for case in cases:
+            if case == "contiguous":
+                prompts, kw = _prompts(rng, cfg.vocab_size, lens), {}
+                names = ("chunk_prefill", "decode_attention")
+            else:
+                system = _prompts(rng, cfg.vocab_size, [512])[0]
+                prompts = [system + p for p in _prompts(
+                    rng, cfg.vocab_size, [int(x) for x in
+                                          rng.integers(64, 513, size=8)])]
+                kw = dict(cache_kind="paged", page_size=16, kv_dtype="int8",
+                          prefix_cache=True)
+                names = ("paged_chunk_prefill_int8",
+                         "paged_decode_attention_int8")
+
+            def want(phases, engine, names=names):
+                n, steps = (phases.get("prefill_chunk", 0),
+                            phases.get("decode", 0))
+                return {"matmul_tiled": L * (n + steps), names[0]: L * n,
+                        names[1]: L * steps, "mha_forward": 0}
+
+            res = serving_run(torch, f"{arch} {case}", arch, L, prompts,
+                              2048, seed, kw, want=want, params=params)
+            if kw:
+                check(res["prefix_hit_tokens"] > 0,
+                      f"{arch} {case}: no prefix-cache hit")
+            out[f"{arch} {case}"] = res
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2746,12 +3363,20 @@ def main(argv=None) -> int:
                        args.seed)
     rec_serving = phase("recurrent serving", recurrent_serving_phase,
                         args.seed)
+    mono_parity = phase("monolithic slice parity", monolithic_slice_phase,
+                        args.seed)
+    mono_serving = phase("monolithic serving", monolithic_serving_phase,
+                         args.seed)
+    zoo_serving = phase("dense zoo serving", zoo_serving_phase, args.seed)
 
     paths = [r["launches"] for r in training.values()] + [serving["launches"]]
     paths += [r["launches"] for r in serving["shared_prefix"].values()]
     paths += [serving["int8_projection"]["launches"],
               serving["oracle_speculative"]["launches"]]
     paths += [r["launches"] for r in rec_serving.values()]
+    paths += [r["launches"] for r in mono_serving.values()
+              if "launches" in r]
+    paths += [r["launches"] for r in zoo_serving.values()]
     launches = {k: sum(p[k] for p in paths) for k in lib.KERNELS}
     check(all(v > 0 for v in launches.values()),
           f"a kernel never launched on the training and serving paths: "
@@ -2792,6 +3417,9 @@ def main(argv=None) -> int:
                                    training=training, serving=serving,
                                    recurrent_slice_parity=rec_parity,
                                    recurrent_serving=rec_serving,
+                                   monolithic_slice_parity=mono_parity,
+                                   monolithic_serving=mono_serving,
+                                   zoo_serving=zoo_serving,
                                    phase_s=phase_s),
                               indent=1))
     print(json.dumps({"kernels": entries}))

@@ -67,6 +67,15 @@ class ModelConfig:
         return not self.causal
 
     @property
+    def is_attention_free(self) -> bool:
+        return all(k in (RGLRU, RWKV6) for k in self.pattern_unit)
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """True if no *global* dense attention layer exists (long_500k ok)."""
+        return all(k != ATTN for k in self.pattern_unit)
+
+    @property
     def num_units(self) -> int:
         return self.num_layers // len(self.pattern_unit)
 
@@ -125,8 +134,26 @@ def list_configs() -> list[str]:
 
 def _ensure_loaded():
     # import the config modules for their registration side effects
-    from repro_torch.configs import (famous_bert, qwen2_7b,  # noqa: F401
-                                     recurrentgemma_2b, rwkv6_1b6)
+    from repro_torch.configs import (  # noqa: F401
+        command_r_plus_104b,
+        deepseek_7b,
+        famous_bert,
+        qwen2_7b,
+        qwen3_32b,
+        recurrentgemma_2b,
+        rwkv6_1b6,
+    )
+
+
+def supported_cells(arch: str) -> list[str]:
+    """Which of the four assigned shapes are well-defined for this arch."""
+    cfg = get_config(arch)
+    cells = ["train_4k", "prefill_32k"]
+    if not cfg.is_encoder_only:
+        cells.append("decode_32k")
+        if cfg.is_subquadratic:
+            cells.append("long_500k")
+    return cells
 
 
 def shrink(cfg: ModelConfig, **over) -> ModelConfig:

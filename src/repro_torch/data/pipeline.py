@@ -49,8 +49,8 @@ def host_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int, step: int,
     numpy ``inputs`` and ``targets``)."""
     if cfg.frontend:
         raise NotImplementedError(
-            "stub frontends (audio / vlm embeddings) come with the model-zoo "
-            "slice of the port (ROADMAP Queue 1, slice 7)")
+            "stub frontends (audio / vlm embeddings) come with MoE and "
+            "frontends in the port (ROADMAP.md Queue 1 item 5)")
     hi = shape.global_batch if hi is None else hi
     toks = _tokens_for(cfg, seed, step, lo, hi, shape.seq_len)
     return {"targets": toks[:, 1:], "inputs": toks[:, :-1]}

@@ -1,5 +1,11 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch qwen2-7b``
-(or ``--arch recurrentgemma-2b``, ``--arch rwkv6-1.6b``).
+(or any registered ``--arch``: recurrentgemma-2b, rwkv6-1.6b, qwen3-32b,
+deepseek-7b, command-r-plus-104b, famous-bert).
+
+``--prefill-mode monolithic`` prefills each prompt whole at admission
+(JAX's comparison path); an RWKV-6 stack then takes prompts whose
+prefilled length is at most 64 or a multiple of 64, so the synthetic
+prompts are cut to that rule.
 
 Drives the Scheduler/Runtime continuous-batching engine over a synthetic
 request stream on the GPU, at the config's full width and depth with random
@@ -14,7 +20,7 @@ import argparse
 import numpy as np
 import torch
 
-from repro_torch.configs.base import get_config, list_configs, shrink
+from repro_torch.configs.base import RWKV6, get_config, list_configs, shrink
 from repro_torch.core.famous import FamousConfig
 from repro_torch.models import module, transformer
 from repro_torch.obs.runtime import Observer
@@ -37,6 +43,12 @@ def main(argv=None):
     ap.add_argument("--max-seq", type=int, default=2048)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--prefill-mode", choices=("chunked", "monolithic"),
+                    default="chunked",
+                    help="chunked: fixed-shape prefill chunks interleaved "
+                         "with decode under the token budget; monolithic: "
+                         "whole-prompt prefill at admission (comparison "
+                         "path)")
     ap.add_argument("--chunk", type=int, default=256,
                     help="prefill chunk length (must divide max-seq)")
     ap.add_argument("--token-budget", type=int, default=0,
@@ -91,7 +103,8 @@ def main(argv=None):
         cfg)
     engine = ServingEngine(params, cfg, FamousConfig(impl="pallas"),
                            n_slots=args.slots, max_seq=args.max_seq,
-                           dtype=dtype, chunk=args.chunk,
+                           dtype=dtype, prefill_mode=args.prefill_mode,
+                           chunk=args.chunk,
                            token_budget=args.token_budget,
                            cache_kind=args.cache_kind,
                            page_size=args.page_size,
@@ -106,12 +119,15 @@ def main(argv=None):
     # (64..1536 at the default 2048), leaving room for max_new tokens
     hi = max(1, min(args.max_seq * 3 // 4, args.max_seq - args.max_new))
     lo = max(1, min(args.max_seq // 32, hi))
+    lens = [int(rng.integers(lo, hi + 1)) for _ in range(args.requests)]
+    if (args.prefill_mode == "monolithic"
+            and RWKV6 in transformer.layer_kinds(cfg)):
+        lens = [n if n <= 65 else (n - 1) // 64 * 64 + 1 for n in lens]
     reqs = [Request(rid=i,
-                    tokens=list(rng.integers(0, cfg.vocab_size,
-                                             size=int(rng.integers(lo, hi + 1)))),
+                    tokens=list(rng.integers(0, cfg.vocab_size, size=n)),
                     max_new=args.max_new, temperature=args.temperature,
                     top_k=args.top_k, seed=args.seed + i)
-            for i in range(args.requests)]
+            for i, n in enumerate(lens)]
     t0 = now()
     done = engine.run(reqs)
     if device.type == "cuda":

@@ -5,8 +5,11 @@ deterministic data pipeline -> train step -> fault-tolerant Trainer with
 async checkpointing and SIGTERM-preemption handling.  It trains through
 ``FamousConfig(impl="pallas")``: on the GPU the hand-written kernels
 (attention forward, dq and dk/dv, and the QKV projection with its VJP);
-with ``--device cpu`` their plain PyTorch versions.  Without a GPU it
-raises unless ``--device cpu`` is given.  ``--smoke`` (the default, as in
+with ``--device cpu`` their plain PyTorch versions.  Every registered
+config trains (``--arch``): the recurrent families recurrentgemma-2b and
+rwkv6-1.6b through the models' differentiable torch scans, as JAX
+differentiates its own.  Without a GPU it raises unless ``--device cpu``
+is given.  ``--smoke`` (the default, as in
 the JAX launcher) shrinks the config; ``--full`` trains it at full size.
 """
 from __future__ import annotations

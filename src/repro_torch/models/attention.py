@@ -1,10 +1,12 @@
-"""Attention block: GQA dense MHA built on the FAMOUS core — full-sequence
+"""Attention block: GQA dense MHA built on the FAMOUS core, with qwen3's
+per-head qk RMSNorm where the config asks for it — full-sequence
 attention for training and encoders, and for serving a contiguous
 per-slot KV cache, a sliding-window ring, or a shared page pool, fp or
-int8, by chunked prefill, decode or speculative verify (the port of
-``repro.models.attention``).
+int8, by monolithic or chunked prefill, decode or speculative verify
+(the port of ``repro.models.attention``).
 
-Cache writes are **in place**: ``apply_attn_chunk`` writes the chunk's K/V
+Cache writes are **in place**: ``apply_attn_prefill`` writes a whole
+prompt's K/V rows (or its ring), ``apply_attn_chunk`` writes the chunk's K/V
 at ``(slot, offset + arange(C))`` (a fixed-shape ``index_put_`` whose
 indices are computed on the device from the runtime scalars, so a CUDA
 graph of the chunk serves every slot and offset), ``apply_attn_decode`` writes
@@ -157,9 +159,8 @@ def _project(p, x, cfg: ModelConfig, fcfg: famous.FamousConfig, positions):
         x, p["wq"], p["wk"], p["wv"], p.get("bq"), p.get("bk"), p.get("bv"),
         cfg=fcfg, w_qkv=p.get("w_qkv"), w_int8=w_int8)
     if cfg.qk_norm:
-        raise NotImplementedError(
-            "qk_norm comes with the model-forward slice of the port "
-            "(ROADMAP Queue 1)")
+        q = layers.rms_head_norm(q, p["q_norm"])
+        k = layers.rms_head_norm(k, p["k_norm"])
     if cfg.rope:
         q = layers.rope(q, positions, cfg.rope_theta)
         k = layers.rope(k, positions, cfg.rope_theta)
@@ -182,6 +183,31 @@ def apply_attn(p: dict, x: torch.Tensor, cfg: ModelConfig,
     out = famous.attention(q, k, v, causal=cfg.causal, window=window,
                            q_offset=q_offset, cfg=fcfg)
     return _out_proj(out, p["wo"])
+
+
+def apply_attn_prefill(p: dict, x: torch.Tensor, cache: dict,
+                       cfg: ModelConfig, fcfg: famous.FamousConfig, *,
+                       window: int = 0):
+    """Monolithic prefill: full-sequence attention over x (B, S, D) at
+    positions [0, S) (``impl="pallas"``: the ``mha_forward`` kernel), and
+    the K/V written into ``cache`` {"k", "v"} (B, rows, kv, dh) in place:
+    rows [0, S) when the cache holds S rows, else, in a sliding-window
+    ring, the last ``rows`` positions, position p in row p % rows (the
+    layout the chunk and decode paths read).  Returns (out, cache)."""
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)
+    q, k, v = _project(p, x, cfg, fcfg, positions)
+    out = famous.attention(q, k, v, causal=cfg.causal, window=window,
+                           cfg=fcfg)
+    rows = cache["k"].shape[1]
+    for name, new in (("k", k), ("v", v)):
+        buf = cache[name]
+        if rows >= S:
+            buf[:, :S] = new.to(buf.dtype)
+        else:
+            buf[:, positions[S - rows:] % rows] = new[:, S - rows:].to(
+                buf.dtype)
+    return _out_proj(out, p["wo"]), cache
 
 
 def ring_write_source(ring: int, offset, n_valid, C: int):

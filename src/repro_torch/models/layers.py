@@ -36,6 +36,15 @@ def apply_norm(p: dict, x: torch.Tensor, kind: str = "rmsnorm",
     return y * p["scale"].to(dt) + p["bias"].to(dt)
 
 
+def rms_head_norm(x: torch.Tensor, scale: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """Per-head RMSNorm over head_dim (qwen3's qk-norm), x: (..., H, dh):
+    statistics and scale in f32, the result in x's dtype."""
+    xf = x.to(torch.float32)
+    y = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+    return (y * scale.to(torch.float32)).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # rotary position embedding
 # ---------------------------------------------------------------------------

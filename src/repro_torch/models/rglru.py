@@ -1,13 +1,22 @@
 """Griffin/RecurrentGemma recurrent block: temporal conv + RG-LRU (the port
-of ``repro.models.rglru``, serving half).
+of ``repro.models.rglru``).
 
-Chunked prefill runs the recurrence h_t = a_t h_{t-1} + b_t over the chunk
-through ``kernels/scan`` (``impl="pallas"``: the ``rglru_scan`` kernel on
-CUDA tensors) or its plain sequential version (other impls), carrying the
-slot's state across chunks; decode carries (h, conv window) state one
-token at a time in torch ops.  The block takes ``fcfg`` only to choose
-between the kernel and its plain version, as the attention ops do.  The
-full-sequence ``apply_rglru`` without a cache (training) is not ported.
+The recurrence h_t = a_t h_{t-1} + b_t runs three ways:
+
+  * training and ``forward`` (:func:`apply_rglru` without a cache)
+    differentiate through :func:`associative_scan`, the torch port of
+    JAX's ``jax.lax.associative_scan`` with its ``combine``, in log-depth
+    steps, as JAX differentiates its own;
+  * monolithic prefill (:func:`apply_rglru` with a cache) and chunked
+    prefill run it through ``kernels/scan`` with ``impl="pallas"`` (the
+    ``rglru_scan`` kernel on CUDA tensors); monolithic prefill on other
+    impls runs :func:`associative_scan`, chunked prefill the kernel's
+    plain sequential version, carrying the slot's state across chunks;
+  * decode carries (h, conv window) state one token at a time in torch
+    ops.
+
+The block takes ``fcfg`` only to choose between the kernel and the plain
+versions, as the attention ops do.
 """
 from __future__ import annotations
 
@@ -60,6 +69,67 @@ def _decay(p, rg):
     return a, torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
 
 
+def _combine(left, right):
+    """JAX's combine of two (a, b) scan elements: ``h -> a_r (a_l h + b_l)
+    + b_r``."""
+    al, bl = left
+    ar, br = right
+    return al * ar, ar * bl + br
+
+
+def _interleave(a, b, axis: int):
+    """[a0, b0, a1, b1, ...] along ``axis``; ``a`` has as many elements
+    as ``b`` or one more."""
+    n = b.shape[axis]
+    pairs = torch.stack([a.narrow(axis, 0, n), b], dim=axis + 1)
+    out = pairs.flatten(axis, axis + 1)
+    if a.shape[axis] > n:
+        out = torch.cat([out, a.narrow(axis, n, 1)], dim=axis)
+    return out
+
+
+def associative_scan(a, b, axis: int = 1):
+    """Inclusive scan of (a, b) under :func:`_combine` along ``axis``: the
+    port of ``jax.lax.associative_scan`` (its odd/even recursion, so the
+    same products in the same order), ``ceil(log2 S)`` levels deep and
+    differentiable.  Returns (prod a, h) with h_t = a_t h_{t-1} + b_t from
+    h = 0."""
+    n = a.shape[axis]
+    if n < 2:
+        return a, b
+
+    def sl(x, start, stop=None, step=1):
+        idx = [slice(None)] * x.ndim
+        idx[axis] = slice(start, stop, step)
+        return x[tuple(idx)]
+
+    reduced = _combine((sl(a, 0, -1, 2), sl(b, 0, -1, 2)),
+                       (sl(a, 1, None, 2), sl(b, 1, None, 2)))
+    odd = associative_scan(*reduced, axis=axis)
+    if n % 2 == 0:
+        even = _combine((sl(odd[0], 0, -1), sl(odd[1], 0, -1)),
+                        (sl(a, 2, None, 2), sl(b, 2, None, 2)))
+    else:
+        even = _combine(odd, (sl(a, 2, None, 2), sl(b, 2, None, 2)))
+    even = [torch.cat([sl(x, 0, 1), e], dim=axis)
+            for x, e in zip((a, b), even)]
+    return tuple(_interleave(e, o, axis) for e, o in zip(even, odd))
+
+
+def _scan_operands(p, xc):
+    """The recurrence's (a, b), f32: h_t = a_t h_{t-1} + b_t."""
+    rg, ig = _gates(p, xc)
+    a, gain = _decay(p, rg)
+    return a, gain * (ig * xc.to(f32))
+
+
+def rglru_scan_full(p, xc):
+    """The full-sequence recurrence of JAX's ``rglru_scan`` (no carried
+    state, no pad): xc (B, S, R) -> h (B, S, R) f32 through
+    :func:`associative_scan`."""
+    return associative_scan(*_scan_operands(p, xc), axis=1)[1]
+
+
 def rglru_scan(p, xc, h0=None, n_valid=None,
                fcfg: FamousConfig = FamousConfig()):
     """xc: (B, S, R) conv output -> recurrence output (B, S, R) f32.
@@ -72,9 +142,7 @@ def rglru_scan(p, xc, h0=None, n_valid=None,
     those two steps the scan is the kernel's function of (a, b):
     ``impl="pallas"`` runs ``scan_ops.rglru``, other impls its plain
     sequential version."""
-    rg, ig = _gates(p, xc)
-    a, gain = _decay(p, rg)
-    b = gain * (ig * xc.to(f32))
+    a, b = _scan_operands(p, xc)
     if n_valid is not None:
         valid = (torch.arange(xc.shape[1], device=xc.device)
                  < n_valid)[None, :, None]
@@ -88,10 +156,7 @@ def rglru_scan(p, xc, h0=None, n_valid=None,
 
 def rglru_step(p, xc_t, h_prev):
     """One decode step. xc_t: (B, R); h_prev: (B, R) f32 -> h_t."""
-    xc = xc_t[:, None, :]
-    rg, ig = _gates(p, xc)
-    a, gain = _decay(p, rg)
-    b = gain * (ig * xc.to(f32))
+    a, b = _scan_operands(p, xc_t[:, None, :])
     return a[:, 0] * h_prev + b[:, 0]
 
 
@@ -138,6 +203,28 @@ def make_rglru_cache(cfg: ModelConfig, batch: int, dtype,
 def _out(p, gate, h, x):
     y = layers.act_fn("gelu")(gate.to(f32)) * h
     return y.to(x.dtype) @ p["w_out"].to(x.dtype)
+
+
+def apply_rglru(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                cache: dict | None = None,
+                fcfg: FamousConfig = FamousConfig()):
+    """x: (B, S, D) -> (B, S, D).  Without a cache (training, ``forward``)
+    the recurrence is :func:`associative_scan`, differentiable.  With one
+    (monolithic prefill from a fresh state; its ``conv`` window feeds the
+    conv) it is the ``rglru_scan`` kernel under ``impl="pallas"`` and the
+    associative scan otherwise, and the result is (out, new state {"h",
+    "conv"})."""
+    xb = x @ p["w_x"].to(x.dtype)
+    gate = x @ p["w_gate"].to(x.dtype)
+    xc, conv_state = _conv1d(p, xb, None if cache is None else cache["conv"])
+    if cache is not None and fcfg.impl == "pallas":
+        h = rglru_scan(p, xc, fcfg=fcfg)
+    else:
+        h = rglru_scan_full(p, xc)
+    out = _out(p, gate, h, x)
+    if cache is None:
+        return out
+    return out, {"h": h[:, -1], "conv": conv_state}
 
 
 def apply_rglru_chunk(p: dict, x: torch.Tensor, cfg: ModelConfig,

@@ -1,17 +1,22 @@
 """RWKV-6 "Finch" block: data-dependent-decay linear attention + channel mix
-(the port of ``repro.models.rwkv6``, serving half).
+(the port of ``repro.models.rwkv6``).
 
 wkv6 recurrence per head (state S of dk x dv):
 
     out_t = r_t · (S_{t-1} + diag(u) k_t v_tᵀ)
     S_t   = diag(w_t) S_{t-1} + k_t v_tᵀ,       w_t = exp(-exp(ŵ_t)) ∈ (0,1)
 
-Chunked prefill runs the chunked parallel form through ``kernels/scan``
-(``impl="pallas"``: the ``wkv6_scan`` kernel on CUDA tensors; other impls:
-its plain torch version, the JAX ``wkv6_chunked``), carrying the state
-across engine chunks; decode runs one step in torch ops, as JAX does.  The
-time-mix block takes ``fcfg`` only to choose between the kernel and its
-plain version.  The full-sequence blocks (training) are not ported.
+The full sequence runs the chunked parallel form: training and
+``forward`` (:func:`apply_rwkv_time_mix` without a cache) differentiate
+through :func:`wkv6_chunked`, the torch port of JAX's; monolithic prefill
+(with a cache, from its state) and chunked prefill run it through
+``kernels/scan`` with ``impl="pallas"`` (the ``wkv6_scan`` kernel on CUDA
+tensors), and otherwise monolithic prefill runs :func:`wkv6_chunked` and
+chunked prefill the kernel's plain version, carrying the state across
+engine chunks.  Decode runs one step in torch ops, as JAX does.  The
+time-mix block takes ``fcfg`` only to choose between the kernel and the
+plain versions.  As in JAX, a sequence of S tokens is cut into chunks of
+``min(64, S)``, which must divide S.
 """
 from __future__ import annotations
 
@@ -61,6 +66,53 @@ def channel_mix_spec(cfg: ModelConfig) -> dict:
         "w_v": ParamSpec((f, d), ("mlp", "embed")),
         "w_r": ParamSpec((d, d), ("embed", None)),
     }
+
+
+def wkv6_chunk_len(S: int, chunk: int = 64) -> int:
+    """The chunk of a wkv6 over S steps, ``min(chunk, S)``; raises
+    ``ValueError`` unless it divides S (JAX asserts it)."""
+    c = min(chunk, S)
+    if c < 1 or S % c:
+        raise ValueError(f"wkv6: S={S} is not a multiple of chunk={c}: "
+                         f"the chunked form takes S <= {chunk} or a "
+                         f"multiple of {chunk}")
+    return c
+
+
+def wkv6_chunked(r, k, v, logw, u, s0=None, chunk: int = 64):
+    """r, k, v, logw: (B, H, S, dh), logw <= 0; u: (H, dh); s0: optional
+    (B, H, dh, dh) carried state.  Returns (out (B, H, S, dh) f32,
+    s_final (B, H, dh, dh) f32), differentiable.  Within a chunk the
+    decays become cumulative log-decay masks (every ratio <= 1) and the
+    work dense products; the state crosses chunks in order."""
+    B, H, S, dh = r.shape
+    chunk = wkv6_chunk_len(S, chunk)
+    r, k, v, logw = (x.to(f32) for x in (r, k, v, logw))
+    s = (torch.zeros((B, H, dh, dh), dtype=f32, device=r.device)
+         if s0 is None else s0.to(f32))
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=f32, device=r.device),
+                     diagonal=-1)                          # strict lower
+    u = u.to(f32)[None, :, None, :]
+    outs = []
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        rb, kb, vb, wb = r[:, :, sl], k[:, :, sl], v[:, :, sl], logw[:, :, sl]
+        cw = torch.cumsum(wb, dim=2)                       # logW_t inclusive
+        cw_prev = cw - wb                                  # logW_{t-1}
+        # inter-chunk: r_t ⊙ W_{t-1} applied to the incoming state
+        qexp = rb * torch.exp(cw_prev)
+        inter = qexp @ s
+        # intra-chunk: A[t, s] = Σ_d r[t,d] exp(cw_prev[t,d] - cw[s,d]) k[s,d]
+        kexp = kb * torch.exp(-cw)
+        att = (qexp @ kexp.transpose(-1, -2)) * tri
+        diag = (rb * u * kb).sum(-1)
+        intra = att @ vb + diag[..., None] * vb
+        # S' = diag(W_C) S + Σ_t diag(W_C / W_t) k_t v_tᵀ
+        k_dec = kb * torch.exp(cw[:, :, -1:] - cw)
+        s = (torch.exp(cw[:, :, -1])[..., None] * s
+             + k_dec.transpose(-1, -2) @ vb)
+        outs.append(inter + intra)
+    return torch.cat(outs, dim=2), s
 
 
 def wkv6_step(r, k, v, logw, u, s):
@@ -131,6 +183,32 @@ def last_valid(x, n_valid):
     gather on the device (an index by a tensor scalar would read it on the
     host).  x: (B, S, ...) -> (B, ...)."""
     return x.index_select(1, (n_valid - 1).reshape(1))[:, 0]
+
+
+def apply_rwkv_time_mix(p, x, cfg: ModelConfig, cache=None, chunk: int = 64,
+                        fcfg: FamousConfig = FamousConfig()):
+    """The time mix over a whole sequence, x: (B, S, D).  Without a cache
+    (training, ``forward``) it returns y through :func:`wkv6_chunked`,
+    differentiable.  With one (monolithic prefill: {"s", "x_tm"}, the
+    carried state and token shift) the wkv runs from ``cache["s"]`` on the
+    ``wkv6_scan`` kernel under ``impl="pallas"`` and on
+    :func:`wkv6_chunked` otherwise, and the result is (y, {"s", "x_tm"}).
+    S must be at most ``chunk`` or a multiple of it (``ValueError``)."""
+    B, S, D = x.shape
+    h, dh = D // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    x_prev = _token_shift(x, None if cache is None else cache["x_tm"])
+    r, k, v, g, logw = _time_mix_qkvwg(p, x, x_prev)
+    rh, kh, vh, wh = (_heads(t, h, dh) for t in (r, k, v, logw))
+    s0 = None if cache is None else cache["s"]
+    if cache is not None and fcfg.impl == "pallas":
+        out, s_fin = scan_ops.wkv6(rh, kh, vh, wh, p["u"].to(f32), s0=s0,
+                                   chunk=chunk)
+    else:
+        out, s_fin = wkv6_chunked(rh, kh, vh, wh, p["u"], s0=s0, chunk=chunk)
+    y = _finish(p, out.transpose(1, 2).reshape(B, S, D), g, x)
+    if cache is None:
+        return y
+    return y, {"s": s_fin, "x_tm": x[:, -1]}
 
 
 def apply_rwkv_time_mix_chunk(p, x, cache, cfg: ModelConfig, n_valid,

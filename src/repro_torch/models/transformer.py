@@ -47,14 +47,15 @@ from repro_torch.models.module import ParamSpec, stack_specs
 def _check_supported(cfg: ModelConfig) -> None:
     kinds = set(layer_kinds(cfg))
     if (not kinds <= {ATTN, LOCAL_ATTN, RGLRU, RWKV6} or cfg.num_experts
-            or cfg.qk_norm or cfg.frontend
+            or cfg.frontend
             or cfg.norm not in ("rmsnorm", "layernorm")
             or cfg.act not in ("silu", "gelu", "relu_sq")):
         raise NotImplementedError(
             f"{cfg.name}: the port runs global-attention, sliding-window, "
-            "RG-LRU and RWKV-6 stacks with RMSNorm or LayerNorm and a dense "
-            "SiLU/GELU/relu² FFN; MoE, qk_norm and frontends come with "
-            "later slices (ROADMAP Queue 1)")
+            "RG-LRU and RWKV-6 stacks with RMSNorm or LayerNorm, optional "
+            "qk-norm and a dense SiLU/GELU/relu² FFN; MoE and frontends "
+            "come with ROADMAP.md Queue 1 item 5, their sharding axes with "
+            "item 7")
 
 
 def layer_kinds(cfg: ModelConfig) -> tuple[str, ...]:
@@ -165,27 +166,29 @@ def quantize_qkv(params: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _not_ported_forward(kind: str):
-    return NotImplementedError(
-        f"the full-sequence {kind} block (forward, training) is not ported "
-        "yet: it comes with ROADMAP.md Queue 1 item 3 (the old slice 7); "
-        "the port serves recurrent blocks through prefill_chunk and "
-        "decode_step")
-
-
 def apply_block(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
                 fcfg: FamousConfig, q_offset: int = 0) -> torch.Tensor:
-    """One attention block on the full sequence, x: (B, S, D), global or
-    sliding-window.  (The JAX block's ``constrain_residual`` sharding hints
-    have no meaning on one device and are dropped.)"""
-    if kind not in (ATTN, LOCAL_ATTN):
-        raise _not_ported_forward(kind)
-    window = cfg.window if kind == LOCAL_ATTN else 0
-    x = x + attention.apply_attn(p["attn"],
-                                 layers.apply_norm(p["ln1"], x, cfg.norm),
-                                 cfg, fcfg, window=window, q_offset=q_offset)
-    h = layers.apply_norm(p["ln2"], x, cfg.norm)
-    return x + layers.apply_mlp(p["ffn"], h, cfg.act)
+    """One block on the full sequence, x: (B, S, D): global or
+    sliding-window attention, RG-LRU or RWKV-6, each with its FFN (the
+    channel mix for RWKV-6).  The recurrences are the differentiable torch
+    scans of ``models/{rglru,rwkv6}.py``.  (The JAX block's
+    ``constrain_residual`` sharding hints have no meaning on one device
+    and are dropped.)"""
+    if kind in (ATTN, LOCAL_ATTN):
+        window = cfg.window if kind == LOCAL_ATTN else 0
+        x = x + attention.apply_attn(
+            p["attn"], layers.apply_norm(p["ln1"], x, cfg.norm), cfg, fcfg,
+            window=window, q_offset=q_offset)
+        return _mlp(p, x, cfg)
+    if kind == RGLRU:
+        x = x + rglru.apply_rglru(
+            p["rec"], layers.apply_norm(p["ln1"], x, cfg.norm), cfg)
+        return _mlp(p, x, cfg)
+    x = x + rwkv6.apply_rwkv_time_mix(
+        p["tm"], layers.apply_norm(p["ln1"], x, cfg.norm), cfg)
+    y, _ = rwkv6.apply_channel_mix(
+        p["cm"], layers.apply_norm(p["ln2"], x, cfg.norm), cfg)
+    return x + y
 
 
 def forward(params: dict, inputs: torch.Tensor, cfg: ModelConfig,
@@ -321,6 +324,41 @@ def _commit_state(cache: dict, new: dict, active) -> None:
 def _mlp(p, x, cfg: ModelConfig):
     return x + layers.apply_mlp(
         p["ffn"], layers.apply_norm(p["ln2"], x, cfg.norm), cfg.act)
+
+
+def prefill(params, tokens, caches, cfg: ModelConfig,
+            fcfg: FamousConfig = FamousConfig()):
+    """Monolithic prefill: the whole prompt ``tokens`` (B, S) int at
+    positions [0, S) in one forward, on the serving layout, filling
+    ``caches`` (contiguous: K/V stripes of at least S rows or rings, and
+    recurrent state, which it starts from) in place.  Attention runs
+    ``famous.attention`` (``impl="pallas"``: the ``mha_forward`` kernel),
+    the recurrences the scan kernels under ``impl="pallas"`` (the
+    models' torch scans otherwise).  An RWKV-6 stack takes S up to 64 or a
+    multiple of 64 (``ValueError`` otherwise, before its wkv runs).
+    Returns (last-position logits (B, vocab) f32, caches)."""
+    x = layers.embed_lookup(params["embed"], tokens, _compute_dtype(params))
+    for kind, p, cache in zip(layer_kinds(cfg), params["layers"], caches):
+        h = layers.apply_norm(p["ln1"], x, cfg.norm)
+        if kind in (ATTN, LOCAL_ATTN):
+            a, _ = attention.apply_attn_prefill(
+                p["attn"], h, cache, cfg, fcfg,
+                window=cfg.window if kind == LOCAL_ATTN else 0)
+            x = _mlp(p, x + a, cfg)
+        elif kind == RGLRU:
+            a, new = rglru.apply_rglru(p["rec"], h, cfg, cache, fcfg)
+            x = _mlp(p, x + a, cfg)
+            _commit_state(cache, new, None)
+        else:
+            a, tm = rwkv6.apply_rwkv_time_mix(p["tm"], h, cfg, cache,
+                                              fcfg=fcfg)
+            x = x + a
+            h = layers.apply_norm(p["ln2"], x, cfg.norm)
+            y, _ = rwkv6.apply_channel_mix(p["cm"], h, cfg)
+            x = x + y
+            _commit_state(cache, dict(tm, x_cm=h[:, -1]), None)
+    x = layers.apply_norm(params["final_norm"], x[:, -1:], cfg.norm)
+    return logits_fn(params, x, cfg)[:, 0], caches
 
 
 def prefill_chunk(params, tokens, caches, slot, offset, n_valid,
@@ -478,4 +516,55 @@ def clear_slot(caches, slot, cfg: ModelConfig, paged: bool = False) -> list:
                                 bufs[0].device).to(torch.int64)
         for buf in bufs:
             buf.index_fill_(0, idx, 0)
+    return caches
+
+
+def _scatter_pages(pool, kv_seq, page_ids):
+    """Write a contiguous (max_seq, ...) stripe into pool pages in place:
+    pool (n_pages, page_size, ...); page_ids (n_p,) int on the device,
+    NULL-padded past the slot's live pages (the null page absorbs the
+    padded stretch); max_seq == n_p * page_size."""
+    n_p, ps = page_ids.shape[0], pool.shape[1]
+    pool[page_ids] = kv_seq.reshape((n_p, ps) + kv_seq.shape[1:]).to(
+        pool.dtype)
+    return pool
+
+
+def _scatter_paged_kv(dst: dict, src_k, src_v, page_ids) -> dict:
+    """A slot's contiguous K/V stripes (max_seq, kv, dh) into a paged
+    global-attention pool, quantized at write time when the pool is int8
+    (scale pools present); the scale rows go to the same page ids as
+    their int8 rows."""
+    if "k_scale" in dst:
+        kq, ks = attention._kv_quantize(src_k)
+        vq, vs = attention._kv_quantize(src_v)
+        for name, val in (("k", kq), ("v", vq), ("k_scale", ks),
+                          ("v_scale", vs)):
+            _scatter_pages(dst[name], val, page_ids)
+    else:
+        _scatter_pages(dst["k"], src_k, page_ids)
+        _scatter_pages(dst["v"], src_v, page_ids)
+    return dst
+
+
+def write_prefill_to_slot(caches, one, slot, cfg: ModelConfig,
+                          page_ids=None) -> list:
+    """Write a single-sequence prefill cache ``one`` (batch 1, contiguous,
+    as :func:`prefill` fills it) into slot ``slot`` of the batched
+    ``caches``, in place.  ``slot``: an int or a one-element int tensor on
+    the caches' device, never read on the host.  Every per-slot leaf
+    takes its slot row (``index_copy_``); with ``page_ids`` ((n_p,) int on
+    the device, the slot's page-table row, NULL-padded) the
+    global-attention K/V stripes are cut into pages and scattered to the
+    slot's pages instead (:func:`_scatter_paged_kv`)."""
+    idx = None
+    for kind, dst, src in zip(layer_kinds(cfg), caches, one):
+        if page_ids is not None and kind == ATTN:
+            _scatter_paged_kv(dst, src["k"][0], src["v"][0], page_ids)
+            continue
+        for n, buf in dst.items():
+            if idx is None:
+                idx = lib.device_scalar("write_prefill_to_slot", slot,
+                                        buf.device).to(torch.int64)
+            buf.index_copy_(0, idx, src[n].to(buf.dtype))
     return caches

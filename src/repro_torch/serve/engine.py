@@ -8,6 +8,12 @@ prefill chunks first (``transformer.prefill_chunk``: ``chunk`` tokens of
 one slot at a runtime offset, written straight into the slot's cache
 rows), then one batched decode across all slots
 (``transformer.decode_step``), then greedy or seeded sampling.  With
+``prefill_mode="monolithic"`` (JAX's comparison path) admission instead
+prefills the whole prompt at once (``transformer.prefill`` into a batch-1
+contiguous scratch cache, then ``transformer.write_prefill_to_slot``):
+zero-padded to a power-of-two bucket for stacks of global and local
+attention only (``bucketed``), at its exact length for recurrent stacks,
+whose state would absorb the pad.  With
 ``speculative=True`` the decode is replaced by one verify step
 (``transformer.verify_step``, width ``draft_k + 1``): a host-side
 prompt-lookup drafter proposes tokens, the verify forward scores all of
@@ -28,11 +34,11 @@ token; retirement publishes the prompt's blocks onto the cached-free
 LRU).  ``kv_dtype="int8"`` (paged only) quantizes K/V at write time and
 the paged kernels dequantize in their tiles.  ``FamousConfig(impl=
 "pallas", quant="int8")`` runs every QKV projection through the int8
-kernel on weights quantized once here.  ``mesh`` and
-``prefill_mode="monolithic"`` raise ``NotImplementedError`` naming the
-ROADMAP Queue 1 item that brings them.
+kernel on weights quantized once here.  ``mesh`` raises
+``NotImplementedError`` naming the ROADMAP Queue 1 item that brings it.
 
-The executables (``serve/graphs.py``): on a CUDA device the prefill chunk,
+The executables (``serve/graphs.py``): on a CUDA device the prefill chunk
+(or, monolithic, the prefill of each padded length, one graph a length),
 ``clear_slot``, the decode step and the verify step each run as a
 captured CUDA graph, the steps with the greedy argmax in the same graph,
 and the sampler of each step as graphs keyed ``(kind, k_cap)``, as JAX's
@@ -42,9 +48,10 @@ staged into device buffers that the kernels and index ops read there,
 so one chunk graph serves every (slot, offset, n_valid) and one clear
 graph every slot, as JAX jits both once with traced scalars.
 ``compilations`` counts the captured ``prefill``, ``decode``, ``verify``
-and ``clear`` graphs (at most one each: the engine has one static shape
-of each); the sampler graphs are not counted, as JAX does not count
-``_sample``.  On the CPU, or inside ``graphs.disable_capture()``, every
+and ``clear`` graphs (at most one each when prefill is chunked: the
+engine has one static shape of each; a monolithic engine one ``prefill``
+graph per length used twice); the sampler graphs are not counted, as JAX
+does not count ``_sample``.  On the CPU, or inside ``graphs.disable_capture()``, every
 step runs eagerly on the same static buffers and the census stays all
 zeros.  ``kernel_launches`` reads the kernel wrappers' launch counters,
 replays included.  Per-slot sequence state lives on the host as numpy
@@ -56,7 +63,7 @@ transfers); caches and params are never reallocated, so the graphs'
 addresses stay valid.  Each decode step makes exactly one device->host
 sync, to read the sampled tokens; a chunk makes none.
 
-The chunk and clear graphs have a memory pool of their own: they return
+The prefill and clear graphs have a memory pool of their own: they return
 nothing (the caches they update were allocated before any capture), but
 in a pool shared with the steps, whichever graph is captured second may
 place its live outputs in blocks the other uses as scratch, and which
@@ -75,18 +82,19 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.configs.base import ATTN, LOCAL_ATTN, RWKV6, ModelConfig
 from repro_torch.core.famous import FamousConfig
 from repro_torch.core.flexible import next_pow2
 from repro_torch.kernels import lib
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer
 from repro_torch.obs.runtime import NULL_OBSERVER
 from repro_torch.obs.trace import now as _clock
 from repro_torch.serve import graphs, sampling
 from repro_torch.serve.draft import PromptLookupDrafter
 from repro_torch.serve.paged import (PageAllocator, PagedCacheConfig,
                                      PagePoolExhausted, block_hashes)
-from repro_torch.serve.scheduler import DECODE, Scheduler, SchedulerConfig
+from repro_torch.serve.scheduler import (DECODE, PREFILL, Scheduler,
+                                         SchedulerConfig)
 
 
 @dataclasses.dataclass
@@ -152,18 +160,16 @@ class ServingEngine:
         if mesh is not None:
             raise _not_ported("mesh", "item 7 (tensor-parallel serving; "
                               "the old slice 10)")
-        if prefill_mode == "monolithic":
-            raise _not_ported("prefill_mode='monolithic'",
-                              "item 3 (monolithic prefill; the old slice 7)")
         if cache_kind not in ("contiguous", "paged"):
             raise ValueError(f"cache_kind {cache_kind!r}")
-        if prefill_mode != "chunked":
+        if prefill_mode not in ("chunked", "monolithic"):
             raise ValueError(f"prefill_mode {prefill_mode!r}")
         if kv_dtype not in ("fp", "int8"):
             raise ValueError(f"kv_dtype {kv_dtype!r}")
         if kv_dtype == "int8" and cache_kind != "paged":
             raise ValueError("kv_dtype='int8' requires cache_kind='paged'")
-        if prefix_cache and cache_kind != "paged":
+        if prefix_cache and (cache_kind != "paged"
+                             or prefill_mode != "chunked"):
             raise ValueError("prefix_cache requires cache_kind='paged' and "
                              "chunked prefill")
         self.device = resolve_device(device)
@@ -178,10 +184,16 @@ class ServingEngine:
         self.max_seq = max_seq
         self.dtype = dtype
         self.paged = cache_kind == "paged"
+        self.chunked = prefill_mode == "chunked"
         self.chunk = min(chunk, max_seq)
-        # pads stay inside the cache (positions < ceil(target/C)*C <= max_seq)
-        assert max_seq % self.chunk == 0, (max_seq, self.chunk)
-        assert self.chunk <= 64 or self.chunk % 64 == 0, self.chunk
+        if self.chunked:
+            # pads stay inside the cache (positions < ceil(target/C)*C <=
+            # max_seq) and the wkv6 chunked form needs S % min(64, S) == 0
+            assert max_seq % self.chunk == 0, (max_seq, self.chunk)
+            assert self.chunk <= 64 or self.chunk % 64 == 0, self.chunk
+        # recurrent state cannot absorb junk pad tokens, so the monolithic
+        # path prefills those stacks at exact length (chunks mask pads)
+        self.bucketed = all(k in (ATTN, LOCAL_ATTN) for k in cfg.pattern_unit)
         # -- speculative decoding -------------------------------------------
         # The verify step writes K/V at [cache_len, cache_len + W) and rolls
         # back by bookkeeping only: rejected positions hold junk that is
@@ -262,13 +274,22 @@ class ServingEngine:
         # page pools have no slot axis: an all-global-attention paged stack
         # holds no per-slot state for clear_slot to zero
         self._has_slot_state = not (self.paged and all_attn)
+        if not self.chunked:
+            # the monolithic prefill's inputs: the slot, and a token
+            # buffer per padded length (made at its first use); the
+            # prompt is prefilled into one batch-1 contiguous scratch cache
+            self._in["prefill_slot"] = static((1,), torch.int32, 2)
+            self._prefill_tokens: dict[int, graphs.StaticInput] = {}
+            self._scratch = transformer.make_caches(cfg, 1, max_seq, dtype,
+                                                    self.device)
         self._pool = graphs.GraphPool(self.device)
         self._chunk_pool = graphs.GraphPool(self.device)
         self._exec = {kind: graphs.Executable(
             functools.partial(self._step_fn, kind), self._pool)
             for kind in ("decode", "verify")}
-        self._exec["prefill"] = graphs.Executable(self._prefill_fn,
-                                                  self._chunk_pool)
+        self._exec["prefill"] = graphs.Executable(
+            self._prefill_chunk_fn if self.chunked else self._prefill_fn,
+            self._chunk_pool)
         self._exec["clear"] = graphs.Executable(self._clear_fn,
                                                 self._chunk_pool)
         self.obs.register_census(lambda: self.compilations)
@@ -276,9 +297,25 @@ class ServingEngine:
     @property
     def compilations(self) -> dict:
         """Executable census: captured CUDA graphs of each kind (the
-        samplers' graphs are not counted)."""
-        return {kind: self._exec[kind].graph_keys.count(kind)
+        samplers' graphs, keyed ``(kind, k_cap)``, are not counted)."""
+        return {kind: sum(not isinstance(k, tuple)
+                          for k in self._exec[kind].graph_keys)
                 for kind in ("prefill", "decode", "verify", "clear")}
+
+    @property
+    def prefill_compilations(self) -> int:
+        """Captured prefill graphs: at most one chunked, one per padded
+        length used twice or more monolithic (JAX counts the executables
+        it compiled, one per length; :attr:`prefill_keys` is that
+        count's counterpart on every device)."""
+        return self.compilations["prefill"]
+
+    @property
+    def prefill_keys(self) -> list:
+        """The keys the prefill executable has run under: ``"prefill"``
+        for the chunk, the padded lengths when monolithic (JAX's
+        ``_prefill_exec`` keys)."""
+        return self._exec["prefill"].keys
 
     @property
     def graph_stats(self) -> dict:
@@ -331,10 +368,11 @@ class ServingEngine:
         return self._in["page_table"].tensor
 
     # -- the step functions (graphs.Executable bodies) ------------------------
-    def _prefill_fn(self, key):
-        """The ``"prefill"`` executable's body: one chunk of the staged
-        tokens at the staged (slot, offset, n_valid), read on the device.
-        Returns nothing: the caches are updated in place."""
+    def _prefill_chunk_fn(self, key):
+        """The chunked ``"prefill"`` executable's body (JAX's
+        ``_prefill_chunk_exec``): one chunk of the staged tokens at the
+        staged (slot, offset, n_valid), read on the device.  Returns
+        nothing: the caches are updated in place."""
         sc = self._in["chunk_scalars"].tensor
         kw = {"page_table": self._in["page_table"].tensor} \
             if self.paged else {}
@@ -342,6 +380,44 @@ class ServingEngine:
                                   self.caches, sc[0:1], sc[1:2], sc[2:3],
                                   self.cfg, self.fcfg, **kw)
         return ()
+
+    def _prefill_fn(self, length: int):
+        """The monolithic ``"prefill"`` executable's body for one padded
+        ``length`` (JAX's ``_prefill_fn``): the staged prompt prefilled
+        from a zeroed batch-1 scratch cache, then written into the staged
+        slot (its stripes, or, paged, its pages through its page-table
+        row, gathered on the device).  Returns nothing."""
+        for cache in self._scratch:
+            for buf in cache.values():
+                buf.zero_()
+        transformer.prefill(self.params, self._prefill_tokens[length].tensor,
+                            self._scratch, self.cfg, self.fcfg)
+        slot = self._in["prefill_slot"].tensor
+        page_ids = (self._in["page_table"].tensor.index_select(0, slot)[0]
+                    if self.paged else None)
+        transformer.write_prefill_to_slot(self.caches, self._scratch, slot,
+                                          self.cfg, page_ids=page_ids)
+        return ()
+
+    def _prefill_monolithic(self, slot: int, seq: list) -> None:
+        """Prefill ``seq[:-1]`` into ``slot`` in one call: zero-padded to
+        its power-of-two bucket (at most ``max_seq``) when ``bucketed``,
+        else at its exact length."""
+        m = len(seq) - 1
+        plen = min(next_pow2(m), self.max_seq) if self.bucketed else m
+        if plen not in self._prefill_tokens:
+            self._prefill_tokens[plen] = graphs.StaticInput(
+                (1, plen), torch.int64, self.device, 2)
+        toks = np.zeros((1, plen), np.int64)
+        toks[0, :m] = seq[:m]
+        with self.obs.phase("prefill", slot=slot,
+                            rid=self.sched.slots[slot].req.rid, n=m,
+                            length=plen):
+            if self.paged:
+                self._page_table()
+            self._prefill_tokens[plen].put(toks)
+            self._in["prefill_slot"].put((slot,))
+            self._exec["prefill"](plen)
 
     def _clear_fn(self, key):
         """The ``"clear"`` executable's body: ``clear_slot`` at the staged
@@ -405,8 +481,11 @@ class ServingEngine:
         return hashes, min(len(hashes), (n - 1) // ps)
 
     def add_request(self, req: Request) -> int:
-        """Admit a request into a free slot.  No prefill happens here: the
-        scheduler doles the prompt out as chunks inside :meth:`step`.  Paged
+        """Admit a request into a free slot.  Chunked, no prefill happens
+        here: the scheduler doles the prompt out as chunks inside
+        :meth:`step`; monolithic, the whole prompt is prefilled now (an
+        RWKV-6 stack takes prefill lengths up to 64 or multiples of 64, and
+        raises ``ValueError`` for others before any state changes).  Paged
         mode reserves the sequence's pages first; on
         :class:`PagePoolExhausted` the engine state is untouched.  With the
         prefix cache, every full prompt block that hits the index is
@@ -418,6 +497,11 @@ class ServingEngine:
         seq = list(req.tokens) + list(req.out)
         n = len(seq)
         assert 1 <= n <= self.max_seq
+        if not self.chunked and n > 1 and not self.bucketed and \
+                RWKV6 in transformer.layer_kinds(self.cfg):
+            # the chunked wkv6 form's length rule, checked before any
+            # state changes (JAX asserts it inside the prefill)
+            rwkv6.wkv6_chunk_len(n - 1)
         n_cached = 0
         if self.paged:
             if self.prefix_cache_active:
@@ -442,6 +526,10 @@ class ServingEngine:
         self._slot_seq[slot] = seq
         if req.t_submit is None:
             req.t_submit = _clock()
+        if not self.chunked and state == PREFILL:
+            self._prefill_monolithic(slot, seq)
+            self.sched.mark_prefilled(slot)
+            state = DECODE
         if (state == DECODE and self.sched.slots[slot].target == 0
                 and self._has_slot_state):
             # nothing to prefill: clear any stale per-slot state

@@ -176,6 +176,12 @@ class Executable:
         """The keys captured so far, in capture order."""
         return list(self._graphs)
 
+    @property
+    def keys(self) -> list:
+        """Every key called so far, captured or not, in first-call
+        order."""
+        return list(self.outputs)
+
     def __call__(self, key: Hashable):
         if not capture_enabled(self.pool.device):
             out = self.outputs[key] = self.fn(key)

@@ -58,7 +58,7 @@ def make_train_step(cfg: ModelConfig, fcfg: FamousConfig, tcfg: TrainConfig):
     if tcfg.grad_compression:
         raise NotImplementedError(
             "grad_compression=True comes with the mesh / gradient-"
-            "compression slice of the port (ROADMAP Queue 1, slice 8)")
+            "compression work of the port (ROADMAP.md Queue 1 item 6)")
     if fcfg.quant != "none":
         raise ValueError(
             f"quant={fcfg.quant!r} cannot be trained: the int8 projection "

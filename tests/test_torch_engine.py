@@ -151,7 +151,6 @@ def test_seeded_tokens_match_jax_engine(timpl):
 @pytest.mark.parametrize("kw,exc,needle", [
     (dict(speculative=True, draft_k=0), ValueError,
      "draft_k must be at least 1"),
-    (dict(prefill_mode="monolithic"), NotImplementedError, "slice 7"),
     (dict(mesh=object()), NotImplementedError, "slice 10"),
     (dict(kv_dtype="int8"), ValueError, "int8' requires cache_kind='paged'"),
     (dict(prefix_cache=True), ValueError,
@@ -160,8 +159,8 @@ def test_seeded_tokens_match_jax_engine(timpl):
 def test_unported_options_raise(kw, exc, needle):
     """Options of later slices raise naming the slice; int8 KV and the
     prefix cache need the paged cache (and the prefix cache chunked
-    prefill, the only prefill mode ported); a speculative engine needs a
-    draft of at least one token (JAX asserts it)."""
+    prefill); a speculative engine needs a draft of at least one token
+    (JAX asserts it)."""
     cfg, _ = _cfgs()
     with pytest.raises(exc, match=needle):
         ServingEngine({}, cfg, FamousConfig(), device="cpu", **kw)
@@ -251,7 +250,9 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.kernels.scan.ops', 'repro_torch.kernels.scan.ref', "
         "'repro_torch.models.rglru', 'repro_torch.models.rwkv6', "
         "'repro_torch.configs.recurrentgemma_2b', "
-        "'repro_torch.configs.rwkv6_1b6'}\n"
+        "'repro_torch.configs.rwkv6_1b6', "
+        "'repro_torch.configs.qwen3_32b', 'repro_torch.configs.deepseek_7b', "
+        "'repro_torch.configs.command_r_plus_104b'}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -287,28 +288,11 @@ def test_recurrent_archs_build_an_engine(arch):
 
 @pytest.mark.parametrize("arch,over", [
     ("qwen2-7b", dict(num_experts=4, experts_per_token=2)),
-    ("qwen2-7b", dict(qk_norm=True)),
     ("recurrentgemma-2b", dict(num_experts=4, experts_per_token=2)),
-    ("rwkv6-1.6b", dict(qk_norm=True)),
 ])
-def test_moe_and_qk_norm_still_raise(arch, over):
+def test_moe_still_raises(arch, over):
     cfg = shrink(get_config(arch), **over)
-    with pytest.raises(NotImplementedError, match="MoE, qk_norm"):
+    with pytest.raises(NotImplementedError, match="MoE and frontends"):
         transformer.model_spec(cfg)
-    with pytest.raises(NotImplementedError, match="MoE, qk_norm"):
+    with pytest.raises(NotImplementedError, match="MoE and frontends"):
         ServingEngine({}, cfg, FamousConfig(), device="cpu")
-
-
-@pytest.mark.parametrize("arch,kind", [("recurrentgemma-2b", "rglru"),
-                                       ("rwkv6-1.6b", "rwkv6")])
-def test_forward_on_a_recurrent_kind_raises(arch, kind):
-    cfg = shrink(get_config(arch))
-    params = module.init_params(transformer.model_spec(cfg),
-                                torch.Generator().manual_seed(0),
-                                torch.float32, "cpu")
-    toks = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match=f"{kind} block.*slice 7"):
-        transformer.forward(params, toks, cfg)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        transformer.apply_block(kind, {}, torch.zeros((1, 8, 64)), cfg,
-                                FamousConfig())
