@@ -122,12 +122,39 @@ Phases, in order; any failure exits non-zero before the result line:
      chunked for this call's tok/s and TTFT beside;
  13. dense zoo serving, chunked graph parity pairs at full width:
      deepseek-7b (30 layers), qwen3-32b (16 of 64 layers; also paged int8
-     with the prefix cache) and command-r-plus-104b (4 of 64 layers).
+     with the prefix cache) and command-r-plus-104b (4 of 64 layers);
+ 14. runtime programmability: one ``FlexibleAttention`` at the demo's
+     maxima (8 heads, 128 tokens, dh 96) per dtype runs
+     ``examples/flexible_serving.py``'s eight topologies on one captured
+     graph (``compilations == 1``; a ninth inside ``retrace_guard``), each
+     against the plain ``attention_reference`` at its exact shape (2e-5
+     f32, 2e-2 bf16), with each topology's replay time beside one
+     exact-shape plain call; a ``BucketCache`` over the demo's lengths
+     misses once per distinct bucket;
+ 15. MoE and vlm slice parity at full width, kernels against plain torch
+     ops through ``prefill_chunk`` + ``decode_step``: grok-1-314b (2
+     layers) and llava-next-34b (2 layers) at f32, kimi-k2-1t-a32b (1
+     layer) in bf16 and with f32 compute on its bf16 expert stacks;
+     tokens whose routing differs between the two runs are counted (under
+     1% with f32 compute, reported in bf16) and the logits they do not
+     reach held at the slice tolerance;
+ 16. MoE and vlm serving, chunked graph parity pairs at full width, bf16:
+     grok-1-314b (4 of 64 layers; contiguous, then paged int8 KV with the
+     prefix cache), kimi-k2-1t-a32b (1 of 61 layers) and llava-next-34b's
+     backbone (30 of 60 layers), each with its peak memory;
+ 17. training on the stub frontends' embeddings through
+     ``launch.train.build`` + ``Trainer``: hubert-xlarge at full size (48
+     layers, B=8, S=512, 10 steps; the loss must fall) and llava-next-34b
+     (2 layers, B=1, S=2048, 5 steps); then one grok-1-314b layer's
+     train-step loss and gradient (S=2048, f32), kernels against plain.
 
 The kernel phase also holds the serving kernels at the zoo's head layouts
 (qwen3-32b's 64 / 8 heads of 80, deepseek-7b's 32 / 32 and
-command-r-plus-104b's 96 / 8 of 128, bf16) and the MHA kernels at a
-ragged 1292 tokens of recurrentgemma-2b's local attention; training
+command-r-plus-104b's 96 / 8 of 128, bf16) and the MoE / vlm configs'
+(kimi-k2-1t-a32b's 64 / 8 of 112, grok-1-314b's 48 / 8 and
+llava-next-34b's 56 / 8 of 128), the MHA kernels at a ragged 1292 tokens
+of recurrentgemma-2b's local attention and at hubert-xlarge's training
+shape (B=8, S=512, 16 / 16 heads of 80, non-causal); training
 parity also a recurrentgemma-2b unit (S=3072) and 2 qwen3-32b layers;
 the training runs also recurrentgemma-2b (2 units) and rwkv6-1.6b (2
 layers) at B=1, S=2048.
@@ -137,8 +164,8 @@ serving engine's model eagerly, and the decode step again as a CUDA graph
 (a speculative engine also its verify step, eager and as a graph): CUDA
 events against profiled device time.
 
-The launch counters are set to 0 before each run of phases 7, 8, 10, 12
-and 13 and read after it: every kernel must have launched on those paths and no plain
+The launch counters are set to 0 before each run of phases 7, 8, 10, 12,
+13, 16 and 17 and read after it: every kernel must have launched on those paths and no plain
 version may have run on the card.  Each phase prints its seconds.  The
 last three lines of output are the per-kernel JSON record
 (``{"kernels": [...]}``), the ``nvidia-smi`` name and power limit, and
@@ -151,6 +178,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import shutil
@@ -233,7 +261,9 @@ SERVING_PROJ = tuple((T, 3584, 4608) for T in (4, 256, 1, 17, 100)) + (
 # the training shapes of the attention kernels:
 # name, B, S, H, KV, dh, causal
 TRAIN_ATTN = (("famous-bert", 8, 512, 8, 8, 96, False),
-              ("qwen2-7b", 1, 2048, 28, 4, 128, True))
+              ("qwen2-7b", 1, 2048, 28, 4, 128, True),
+              # hubert-xlarge's encoder: 16 / 16 heads of 80, bidirectional
+              ("hubert-xlarge", 8, 512, 16, 16, 80, False))
 # the masks of the bf16 tensor-core bodies on qwen2-7b's heads: name, B,
 # Sq, Skv, H, KV, dh, causal, window, q_offset.  A 512-key window; the
 # last 128 rows of a 4096-token sequence (few row blocks, so the forward
@@ -266,6 +296,13 @@ LOCAL_ATTN = (("recurrentgemma-2b local", 1, 4096, 4096, 10, 1, 256, True,
 # KV, dh
 NEW_LAYOUTS = (("qwen3-32b", 64, 8, 80), ("deepseek-7b", 32, 32, 128),
                ("command-r-plus-104b", 96, 8, 128))
+# and those new with the MoE and vlm configs: kimi-k2-1t-a32b's dh 112
+# (64 / 8 heads; chunk_tc.cuh pads it to DP 128, as dh 80, and the padded
+# columns of q and k hold the next head's values in memory, so a load past
+# dh would show in the error), grok-1-314b's group of 6 (48 / 8 of 128)
+# and llava-next-34b's group of 7 (56 / 8 of 128)
+MOE_LAYOUTS = (("kimi-k2-1t-a32b", 64, 8, 112), ("grok-1-314b", 48, 8, 128),
+               ("llava-next-34b", 56, 8, 128))
 # the QKV projection's VJP at the same two training shapes: T = B*S, D, F
 TRAIN_PROJ = (("famous-bert", 8 * 512, 768, 3 * 768),
               ("qwen2-7b", 2048, 3584, 3584 + 2 * 512))
@@ -833,7 +870,8 @@ def paged_kernel_rows(torch, dts, randn, record, iters, gen):
 
 
 def layout_kernel_rows(torch, F, randn, record, decode_row, gen, iters):
-    """The serving kernels at NEW_LAYOUTS' head layouts, bf16 (the serving
+    """The serving kernels at NEW_LAYOUTS' and MOE_LAYOUTS' head layouts,
+    bf16 (the serving
     dtype; the f32 kernels meet them in the dense-zoo slice): the
     contiguous decode kernel (B=4, lens 1/37/1000/2048), ``chunk_prefill``
     (C=256 at offset 1792 in slot 2 of a 4-slot cache), and the paged
@@ -859,7 +897,7 @@ def layout_kernel_rows(torch, F, randn, record, decode_row, gen, iters):
           + 1).to(torch.int32).reshape(B, n_p).contiguous()
     cmask = (torch.arange(Skv, device=dev)[None, :]
              <= off + torch.arange(C, device=dev)[:, None])
-    for label, H, KV, dh in NEW_LAYOUTS:
+    for label, H, KV, dh in NEW_LAYOUTS + MOE_LAYOUTS:
         scale = dh ** -0.5
         decode_row(dt, dtype, H, KV, dh, lens_list, f" {label}")
 
@@ -1607,6 +1645,12 @@ def table_one_phase(torch, seed):
 # ---------------------------------------------------------------------------
 
 
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def random_params(torch, cfg, dtype, seed):
     """Random weights on the card; biases and norm scales drawn too, so a
     bias or scale fault shows in the logits."""
@@ -1614,7 +1658,25 @@ def random_params(torch, cfg, dtype, seed):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    tree = module.init_params(transformer.model_spec(cfg), gen, dtype, dev)
+    spec = transformer.model_spec(cfg)
+    # an MoE config's expert stacks are drawn last, one at a time, with the
+    # cache emptied before each: a stack's f32 draw (22.5 GB for kimi-k2)
+    # then takes a segment that no lasting tensor shares, and is released
+    blocks = [("blocks", k) for k in spec["blocks"]] + [
+        (k,) for k in spec if k.startswith("tail")]
+    held = [(path, name, _at(spec, path)["ffn"].pop(name))
+            for path in blocks if cfg.num_experts
+            and "ffn" in _at(spec, path)
+            for name in ("w_in", "w_gate", "w_out")]
+    tree = module.init_params(spec, gen, dtype, dev)
+    for path, name, leaf in held:
+        gc.collect()
+        torch.cuda.empty_cache()
+        _at(tree, path)["ffn"][name] = module.init_params(leaf, gen, dtype,
+                                                          dev)
+    if held:
+        gc.collect()
+        torch.cuda.empty_cache()
 
     def fill(path_tree):
         for name, leaf in path_tree.items():
@@ -3038,14 +3100,16 @@ def monolithic_slice_phase(torch, seed):
 
 
 def serving_run(torch, label, arch, layers, prompts, max_seq, seed, kw,
-                max_new=16, want=None, guard=None, params=None):
+                max_new=16, want=None, guard=None, params=None,
+                breakdown=False):
     """One serving configuration as a graph parity pair (``graph_pair``) at
     full width, ``layers`` deep, bf16, random weights from ``seed``: every
     request must finish with in-range tokens, no plain version may run on
     the card, and ``want(launches, engine)`` returns the launch counts the
     path must show.  Then the warm engine serves 4 fresh requests under
     ``retrace_guard`` (``guard``: whole prompts whose lengths a monolithic
-    engine captured; default the first 512 tokens of 4 prompts)."""
+    engine captured; default the first 512 tokens of 4 prompts), and, with
+    ``breakdown``, times its decode step and chunk (``step_breakdown``)."""
     import numpy as np
 
     from repro_torch.configs.base import get_config
@@ -3107,6 +3171,8 @@ def serving_run(torch, label, arch, layers, prompts, max_seq, seed, kw,
     print("kernels " + json.dumps(launches), flush=True)
     res["guard_census"] = guard_warm(torch, label, engine, guard or prompts,
                                      cut=None if guard else 512)
+    if breakdown:
+        res["steps"] = step_breakdown(torch, engine)
     del engine, params
     torch.cuda.empty_cache()
     return res
@@ -3256,32 +3322,359 @@ def monolithic_serving_phase(torch, seed):
 
 
 def zoo_serving_phase(torch, seed):
-    """The dense zoo served chunked (chunk 256, 4 slots, max_seq 2048, 16
-    new tokens), graph parity pairs at full width, bf16: deepseek-7b at
+    """The dense zoo served chunked (``layered_serving``): deepseek-7b at
     full depth (30 layers) on contiguous KV; qwen3-32b cut to 16 of 64
     layers (its 65.5 GB of bf16 weights would not leave room on the card)
-    on contiguous KV, and on paged int8 KV with the prefix cache behind a
-    shared 512-token system prompt (later requests must hit it);
+    on contiguous KV and on paged int8 KV with the prefix cache;
     command-r-plus-104b cut to 4 of 64 layers (each holds 1.57B
-    parameters, and the tied 256000 x 12288 head adds its f32 copy).  8
-    prompts of 88-1316 tokens; per chunk the projection and
-    ``chunk_prefill`` (or its paged int8 twin) launch once per layer, per
-    decode step the projection and the decode kernel."""
+    parameters, and the tied 256000 x 12288 head adds its f32 copy)."""
     import numpy as np
 
+    return layered_serving(torch, seed, np.random.default_rng(seed + 12),
+                           ZOO_SERVING)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: runtime programmability (core/flexible.py)
+# ---------------------------------------------------------------------------
+
+# examples/flexible_serving.py's maxima, its eight Table I topologies (h,
+# SL, dh: tests 1-3 vary h, 4-5 d_head, 6-8 SL), a ninth topology that no
+# earlier call used, and the bucket demo's lengths
+FLEX_MAXIMA = dict(max_heads=8, max_seq=128, max_head_dim=96)
+FLEX_TOPOLOGIES = ((8, 64, 96), (4, 64, 96), (2, 64, 96), (8, 64, 64),
+                   (8, 64, 32), (8, 128, 96), (8, 32, 96), (8, 16, 96))
+FLEX_NINTH = (5, 100, 48)
+BUCKET_SEQS = (10, 17, 33, 60, 100, 120)
+
+
+def flexible_phase(torch, seed):
+    """One ``FlexibleAttention`` at the demo's maxima per dtype serves the
+    eight topologies on the card: each output against the plain
+    ``famous.attention_reference`` at its exact shape (2e-5 f32, as JAX's
+    test; 2e-2 bf16), one padded program built (its first call the eager
+    warm-up, its second the capture, both under ``no_host_sync``; then
+    replays), a ninth topology inside ``retrace_guard``.  Then each
+    topology's time: the whole call (padding, replay, slice) and the
+    graph's replay alone, beside one exact-shape call of the plain
+    function: the padding's cost.  A ``BucketCache`` over the demo's
+    lengths must miss once per distinct bucket; each bucket's executable,
+    called twice, captures once and gives ``tanh``'s bits."""
+    from repro_torch.analysis.retrace_guard import retrace_guard
+    from repro_torch.core import famous
+    from repro_torch.core.flexible import (BucketCache, FlexibleAttention,
+                                           next_pow2)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    res = {}
+    for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        tol = ATTN_TOL[dt]
+        fa = FlexibleAttention(**FLEX_MAXIMA, causal=True, device=dev)
+        rows = []
+        inputs = {}
+        for H, SL, dh in FLEX_TOPOLOGIES + (FLEX_NINTH,):
+            q, k, v = ((torch.randn((2, SL, H, dh), generator=gen,
+                                    device=dev) * 0.5).to(dtype)
+                       for _ in range(3))
+            inputs[(H, SL, dh)] = (q, k, v)
+            if (H, SL, dh) == FLEX_NINTH:
+                with retrace_guard(fa, label=f"flexible {dt} ninth"):
+                    out = fa(q, k, v)
+            else:
+                out = fa(q, k, v)
+            ref = famous.attention_reference(q, k, v, causal=True)
+            err, ok = compare(torch, out, ref, tol)
+            ok = ok and out.shape == ref.shape
+            rows.append(dict(topology=[H, SL, dh], max_abs_err=err, ok=ok,
+                             compilations=fa.compilations))
+            check(ok, f"flexible {dt} topology {(H, SL, dh)}: error {err} "
+                  f"(tol {tol})")
+        check(fa.compilations == 1 and rows[len(FLEX_TOPOLOGIES) - 1][
+            "compilations"] == 1, f"flexible {dt}: compilations "
+              f"{[r['compilations'] for r in rows]}")
+        key = (2, dtype)
+        for row in rows:
+            q, k, v = inputs[tuple(row["topology"])]
+            row["call_ms"] = median_call_ms(torch, lambda: fa(q, k, v), 20)
+            fa(q, k, v)   # stage this topology, then time the replay alone
+            row["replay_ms"] = median_call_ms(
+                torch, lambda: fa._exec(key), 20)
+            row["plain_exact_ms"] = median_call_ms(
+                torch, lambda: famous.attention_reference(q, k, v,
+                                                          causal=True), 20)
+            print(f"flexible {dt} (h={row['topology'][0]}, SL="
+                  f"{row['topology'][1]:3d}, dh={row['topology'][2]:2d}): "
+                  f"max_abs_err {row['max_abs_err']:.3e} (tol {tol:g}), "
+                  f"call {row['call_ms']:.4f} ms, replay "
+                  f"{row['replay_ms']:.4f} ms, exact-shape plain "
+                  f"{row['plain_exact_ms']:.4f} ms", flush=True)
+        print(f"flexible {dt}: {len(rows)} topologies on one padded program "
+              f"at {FLEX_MAXIMA}, compilations {fa.compilations}, replays "
+              f"{fa._exec.replays}", flush=True)
+        res[dt] = dict(rows=rows, compilations=fa.compilations,
+                       replays=fa._exec.replays)
+        del fa, inputs
+
+    cache = BucketCache(lambda x, bucket: torch.tanh(x))
+    fns = {}
+    for n in BUCKET_SEQS:
+        fn, b = cache.get(n)
+        fns[b] = fn
+        x = torch.randn((b,), generator=gen, device=dev)
+        y1, y2 = fn(x), fn(x)
+        check(torch.equal(y1, torch.tanh(x)) and torch.equal(y2, y1),
+              f"bucket {b}: the executable differs from tanh")
+    buckets = sorted(fns)
+    distinct = len({next_pow2(n) for n in BUCKET_SEQS})
+    captured = sum(fn.compilations for fn in fns.values())
+    print(f"bucket cache: seqs {list(BUCKET_SEQS)} -> buckets {buckets}, "
+          f"misses {cache.misses} (distinct buckets {distinct}), hits "
+          f"{cache.hits}, executables {len(cache)}, captured {captured}",
+          flush=True)
+    check(cache.misses == len(cache) == distinct == captured,
+          f"bucket cache: misses {cache.misses}, len {len(cache)}, distinct "
+          f"{distinct}, captured {captured}")
+    res["bucket_cache"] = dict(buckets=buckets, misses=cache.misses,
+                               distinct=distinct, captured=captured)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 15: MoE and vlm slice parity
+# ---------------------------------------------------------------------------
+
+# arch, layers, runs: grok-1-314b at f32 is 2 x 19.7 GB of experts plus
+# its 3.2 GB embedding and head; kimi-k2-1t-a32b's one layer of experts is
+# 384 x 3 x 7168 x 2048 = 16.9B parameters (67.6 GB at f32), so it runs
+# in bf16, and again with f32 compute on those bf16 expert stacks (each
+# cast to f32 inside its einsum, one at a time: 22.5 GB)
+MOE_SLICES = (("grok-1-314b", 2, ("f32",)), ("llava-next-34b", 2, ("f32",)),
+              ("kimi-k2-1t-a32b", 1, ("bf16", "f32 on bf16 experts")))
+# tokens whose routing may differ between the kernels and plain torch ops,
+# held on every run with f32 compute.  In bf16 the two paths round the
+# residual stream at different places, and a top-8-of-384 router whose
+# top-k margins lie below that rounding changes experts for a few percent
+# of tokens (5.1% in kimi-k2's bf16 slice on the H100): there the count is
+# reported and the logits the changed tokens reach are left out
+ROUTING_FLIP_SHARE = 0.01
+
+
+def _routing_recorder(moe, record):
+    """A ``moe.router_dispatch`` that also records, per call, each token's
+    top-k experts (sorted), which experts kept it (``dispatch`` summed
+    over the capacity slots) and its top-k margin (its K-th softcapped
+    logit less its (K+1)-th)."""
+    dispatch_fn = moe.router_dispatch
+
+    def recording(logits, K, capacity_factor, softcap=0.0):
+        out = dispatch_fn(logits, K, capacity_factor, softcap)
+        lg = softcap * (logits / softcap).tanh() if softcap else logits
+        E = logits.shape[-1]
+        top = lg.topk(min(K + 1, E), dim=-1)
+        margin = (top.values[..., K - 1] - top.values[..., K]) if K < E \
+            else top.values[..., 0]
+        record.append((top.indices[..., :K].sort(-1).values.reshape(-1, K),
+                       out[0].sum(-1).gt(0).reshape(-1, E),
+                       margin.reshape(-1)))
+        return out
+
+    return dispatch_fn, recording
+
+
+def _f32_but_experts(torch, params):
+    """The serving layout with every leaf in f32 except the MoE expert
+    stacks (``w_in`` / ``w_gate`` / ``w_out`` of rank 3), which stay as
+    they are and are shared."""
+    def conv(tree):
+        return {k: conv(v) if isinstance(v, dict) else (
+            v if k in ("w_in", "w_gate", "w_out") and v.ndim == 3
+            else v.float()) for k, v in tree.items()}
+
+    return dict(params, layers=[conv(p) for p in params["layers"]],
+                embed=conv(params["embed"]),
+                final_norm=conv(params["final_norm"]))
+
+
+def moe_slice_phase(torch, seed):
+    """MOE_SLICES at full width through ``prefill_chunk`` (a 512-token
+    prompt in slot 1, two 256-token chunks) + 4 ``decode_step`` calls over
+    4 slots (inputs fixed, so both runs see the same tokens), contiguous
+    caches, the kernels (``impl="pallas"``) against plain torch ops
+    (``impl="xla"``) on the same weights.  Routing is discontinuous: a
+    token whose kept experts differ between the two runs in any layer is
+    counted (under 1% of the routed tokens where compute is f32), beside
+    the tokens whose top-k choice differs and the smallest top-k margin,
+    and the logits are held at the slice tolerance (f32 1e-4, bf16 5e-2,
+    times max|logit|) on the decode rows that no such token reaches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe
+
+    results = {}
+    for arch, layers, runs in MOE_SLICES:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        torch.cuda.reset_peak_memory_stats()
+        params = random_params(torch, cfg, torch.bfloat16
+                               if runs[0] == "bf16" else torch.float32, seed)
+        for run in runs:
+            # hand the cached blocks back (the f32 draws of the expert
+            # stacks' segments among them) before other tensors can land
+            # in them: one f32 copy of a kimi-k2 expert stack needs 22.5 GB
+            # in one block
+            gc.collect()
+            torch.cuda.empty_cache()
+            if run == "f32 on bf16 experts":
+                params = _f32_but_experts(torch, params)
+                gc.collect()
+                torch.cuda.empty_cache()
+            print(f"moe slice {arch} {run}: "
+                  f"{torch.cuda.memory_allocated() / 1e9:.1f} GB "
+                  f"allocated, {torch.cuda.memory_reserved() / 1e9:.1f} GB "
+                  f"reserved before the run", flush=True)
+            res = moe_slice_run(torch, seed, moe, cfg, params, run)
+            results[f"{arch} {run}"] = res
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results
+
+
+def moe_slice_run(torch, seed, moe, cfg, params, run, n_slots=4,
+                  max_seq=1024, C=256, n=512, steps=4):
+    from repro_torch.core.famous import FamousConfig
+    from repro_torch.models import transformer
+
+    dev = torch.device("cuda")
+    dtype = transformer._compute_dtype(params)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    gen = torch.Generator(device=dev).manual_seed(seed + 15)
+    prompt = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                           device=dev)
+    dec = torch.randint(0, cfg.vocab_size, (steps, n_slots), generator=gen,
+                        device=dev)
+    got = {}
+    for impl in ("pallas", "xla"):
+        fcfg = FamousConfig(impl=impl)
+        record = []
+        original, recording = _routing_recorder(moe, record)
+        moe.router_dispatch = recording
+        try:
+            caches = transformer.make_caches(cfg, n_slots, max_seq, dtype,
+                                             dev)
+            for start in range(0, n, C):
+                transformer.prefill_chunk(
+                    params, prompt[:, start:start + C], caches, 1, start, C,
+                    cfg, fcfg)
+            clen = torch.tensor([0, n, 0, 0], dtype=torch.int32, device=dev)
+            logits = []
+            for s in range(steps):
+                lg, _ = transformer.decode_step(params, dec[s], caches, clen,
+                                                cfg, fcfg)
+                logits.append(lg)
+                clen = clen + 1
+        finally:
+            moe.router_dispatch = original
+        torch.cuda.synchronize()
+        got[impl] = (torch.stack(logits), record)
+        del caches
+    (lp, rp), (lx, rx) = got["pallas"], got["xla"]
+    L = cfg.num_layers
+    # token keys of each router call: the prefill chunks' rows in layer
+    # order, then the decode steps' slots
+    keys = [("p", j * C + t) for j in range(n // C) for _ in range(L)
+            for t in range(C)]
+    keys += [("d", s, b) for s in range(steps) for _ in range(L)
+             for b in range(n_slots)]
+    changed, chose, margins, k = set(), set(), [], 0
+    for (tp, kp, mp), (tx, kx, mx) in zip(rp, rx):
+        for i, (kept, top) in enumerate(zip((kp != kx).any(-1).tolist(),
+                                            (tp != tx).any(-1).tolist())):
+            if kept:
+                changed.add(keys[k + i])
+            if top:
+                chose.add(keys[k + i])
+        k += kp.shape[0]
+        margins += [float(mp.min()), float(mx.min())]
+    want_rows = len(keys) if cfg.num_experts else 0
+    check(k == want_rows, f"{cfg.name}: {k} routed rows, {want_rows} "
+          f"expected")
+    routed = n + steps * n_slots if cfg.num_experts else 0
+    prompt_changed = any(key[0] == "p" for key in changed)
+    keep = torch.ones((steps, n_slots), dtype=torch.bool, device=dev)
+    for s in range(steps):
+        for b in range(n_slots):
+            reached = any(("d", s2, b) in changed for s2 in range(s + 1))
+            keep[s, b] = not (reached or (b == 1 and prompt_changed))
+    err = float((lp - lx).abs()[keep].max()) if bool(keep.any()) else 0.0
+    limit = tol * float(lx.abs().max())
+    finite = bool(torch.isfinite(lp).all())
+    share = len(changed) / routed if routed else 0.0
+    gated = dtype == torch.float32
+    res = dict(layers=L, run=run, max_abs_err=err, limit=limit,
+               max_abs_logit=float(lx.abs().max()), routed_tokens=routed,
+               routing_changed=len(changed), topk_changed=len(chose),
+               changed_share=share, share_gated=gated,
+               min_topk_margin=min(margins) if margins else None,
+               rows_held=int(keep.sum()),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    ok = finite and err <= limit and (share < ROUTING_FLIP_SHARE
+                                      or not gated)
+    print(f"moe slice {cfg.name} {L} layer(s) {run} at full width: kept "
+          f"experts differ on {len(changed)} of {routed} routed tokens "
+          f"({share:.4%}; {'limit ' + format(ROUTING_FLIP_SHARE, '.0%') if gated else 'reported'}), "
+          f"top-k choice on {len(chose)}, smallest top-k margin "
+          f"{res['min_topk_margin']}, logits on {res['rows_held']} of "
+          f"{steps * n_slots} decode rows max|diff| = {err:.3e} (limit "
+          f"{limit:.3e} = {tol:g} * max|logit|), peak memory "
+          f"{res['peak_mem_gb']:.1f} GB {'ok' if ok else 'FAIL'}",
+          flush=True)
+    check(ok, f"moe slice {cfg.name} {run}: {res}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 16: MoE and vlm serving
+# ---------------------------------------------------------------------------
+
+# the dense zoo's and the MoE / vlm configs' chunked serving runs: arch,
+# layers (None: all), cases
+ZOO_SERVING = (("deepseek-7b", None, ("contiguous",)),
+               ("qwen3-32b", 16, ("contiguous", "int8 prefix")),
+               ("command-r-plus-104b", 4, ("contiguous",)))
+# grok-1-314b: 4 of 64 layers (9.7 GB of bf16 experts each); kimi-k2:
+# 1 of 61 (33.8 GB of experts); llava-next-34b's backbone: 30 of 60
+MOE_SERVING = (("grok-1-314b", 4, ("contiguous", "int8 prefix")),
+               ("kimi-k2-1t-a32b", 1, ("contiguous",)),
+               ("llava-next-34b", 30, ("contiguous",)))
+
+
+def layered_serving(torch, seed, rng, table):
+    """``table``'s configs served chunked (chunk 256, 4 slots, max_seq
+    2048, 16 new tokens), graph parity pairs at full width, bf16: 8
+    prompts of 88-1316 tokens on contiguous KV, and, for "int8 prefix", 8
+    behind a shared 512-token system prompt on paged int8 KV with the
+    prefix cache (later requests must hit it).  Per chunk the projection
+    and ``chunk_prefill`` (or its paged int8 twin) launch once per layer,
+    per decode step the projection and the decode kernel.  An MoE
+    config's contiguous engine then times its decode step and chunk
+    (``step_breakdown``).  Each run
+    prints its peak memory, and that of making its weights (each leaf is
+    drawn in f32 before the cast)."""
     from repro_torch.configs.base import get_config
 
-    rng = np.random.default_rng(seed + 12)
     out = {}
-    for arch, layers, cases in (
-            ("deepseek-7b", None, ("contiguous",)),
-            ("qwen3-32b", 16, ("contiguous", "int8 prefix")),
-            ("command-r-plus-104b", 4, ("contiguous",))):
+    for arch, layers, cases in table:
         cfg = get_config(arch)
         L = layers or cfg.num_layers
         lens = [int(x) for x in rng.integers(88, 1317, size=8)]
+        torch.cuda.reset_peak_memory_stats()
         params = random_params(torch, dataclasses.replace(
             cfg, num_layers=L), torch.bfloat16, seed)
+        init_peak = torch.cuda.max_memory_allocated() / 1e9
+        print(f"serving weights {arch} {L} layers: peak memory "
+              f"{init_peak:.1f} GB while drawing them, "
+              f"{torch.cuda.memory_allocated() / 1e9:.1f} GB held",
+              flush=True)
         for case in cases:
             if case == "contiguous":
                 prompts, kw = _prompts(rng, cfg.vocab_size, lens), {}
@@ -3302,15 +3695,117 @@ def zoo_serving_phase(torch, seed):
                 return {"matmul_tiled": L * (n + steps), names[0]: L * n,
                         names[1]: L * steps, "mha_forward": 0}
 
+            # the MoE engines' decode step and chunk, timed alone
             res = serving_run(torch, f"{arch} {case}", arch, L, prompts,
-                              2048, seed, kw, want=want, params=params)
+                              2048, seed, kw, want=want, params=params,
+                              breakdown=bool(cfg.num_experts and not kw))
+            res["init_peak_mem_gb"] = init_peak
             if kw:
                 check(res["prefix_hit_tokens"] > 0,
                       f"{arch} {case}: no prefix-cache hit")
             out[f"{arch} {case}"] = res
+        # the engines sit in reference cycles: collect them before the
+        # next config's weights are drawn
         del params
+        gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+def moe_serving_phase(torch, seed):
+    import numpy as np
+
+    return layered_serving(torch, seed, np.random.default_rng(seed + 16),
+                           MOE_SERVING)
+
+
+# ---------------------------------------------------------------------------
+# phase 17: training on the stub frontends, and grok-1's gradient parity
+# ---------------------------------------------------------------------------
+
+
+def frontend_training_phase(torch, seed):
+    """``launch.train.build`` + ``Trainer`` fed by the frontend pipeline's
+    f32 embeddings: hubert-xlarge at full size (48 layers, B=8, S=512,
+    about 10 s of 20 ms audio frames, bf16, 10 steps; the loss must fall)
+    and llava-next-34b cut to 2 layers (B=1, S=2048, 5 steps); then one
+    grok-1-314b layer's train-step gradient, kernels against plain."""
+    from repro_torch.configs.base import ShapeConfig
+
+    hubert = training_run(torch, "hubert-xlarge --full", "hubert-xlarge",
+                          ShapeConfig("hubert_512", 512, 8, "train"), 10,
+                          seed, ckpt_every=0)
+    losses = hubert["losses"]
+    check(sum(losses[-5:]) / 5 < losses[0],
+          f"hubert-xlarge: the loss did not fall over 10 steps: {losses}")
+    llava = training_run(torch, "llava-next-34b 2 layers", "llava-next-34b",
+                         ShapeConfig("llava_2048", 2048, 1, "train"), 5,
+                         seed, ckpt_every=0, num_layers=2)
+    return {"hubert-xlarge": hubert, "llava-next-34b-2layer": llava,
+            "grok-1-314b parity": moe_train_parity(torch, seed)}
+
+
+def moe_train_parity(torch, seed, S=2048):
+    """One grok-1-314b layer at full width: the loss and gradient of the
+    train step (its ``grads_of``; no optimizer state) on one f32 state and
+    one B=1 batch of S tokens, through the kernels and through plain torch
+    ops, f32 compute, held as ``train_parity`` holds them.  The parameters
+    are 26 GB at f32 and each gradient as much, so the kernels' gradient
+    waits in host memory while the plain one is taken."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.core.famous import FamousConfig
+    from repro_torch.data import pipeline
+    from repro_torch.models import module, transformer
+    from repro_torch.models.module import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_lib
+
+    cfg = dataclasses.replace(get_config("grok-1-314b"), num_layers=1)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    torch.cuda.reset_peak_memory_stats()
+    params = module.init_params(transformer.model_spec(cfg), gen,
+                                torch.float32, dev)
+    tree_map(lambda p: p.requires_grad_(True), params)
+    batch = pipeline.device_batch(
+        cfg, ShapeConfig("parity", S, 1, "train"), seed, 0, dev)
+    tcfg = step_lib.TrainConfig(compute_dtype=torch.float32)
+    got = {}
+    for impl in ("pallas", "xla"):
+        step = step_lib.make_train_step(cfg, FamousConfig(impl=impl), tcfg)
+        t0 = time.perf_counter()
+        loss, grads = step.grads_of(params, batch)
+        gnorm = float(adamw.global_norm(grads))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        leaves = tree_leaves(grads)
+        if impl == "pallas":    # to pinned host memory, and back below
+            leaves = [torch.empty(g.shape, dtype=g.dtype,
+                                  pin_memory=True).copy_(g)
+                      for g in leaves]
+        got[impl] = (float(loss), gnorm, leaves, seconds)
+        del grads
+    (lp, np_, gp, tp), (lx, nx, gx, tx) = got["pallas"], got["xla"]
+    leaf_err = max(float(torch.linalg.vector_norm(
+        a.to(dev, non_blocking=True) - b) / torch.linalg.vector_norm(b))
+        for a, b in zip(gp, gx))
+    errs = (abs(lp - lx) / abs(lx), abs(np_ - nx) / nx, leaf_err)
+    tol = TRAIN_TOL["f32"]
+    ok = all(e <= t for e, t in zip(errs, tol)) and math.isfinite(lp)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    res = dict(loss_pallas=lp, loss_xla=lx, gnorm_pallas=np_, gnorm_xla=nx,
+               rel_errs=errs, tol=tol, leaves=len(gx), s_pallas=tp,
+               s_xla=tx, peak_mem_gb=peak)
+    print(f"train parity f32: 1-layer grok-1-314b at full width, B=1 S={S}: "
+          f"loss {lp:.6f} vs {lx:.6f} (rel {errs[0]:.2e}, tol {tol[0]:g}), "
+          f"grad norm {np_:.6f} vs {nx:.6f} (rel {errs[1]:.2e}, tol "
+          f"{tol[1]:g}), worst leaf ||pallas - xla||/||xla|| {errs[2]:.2e} "
+          f"(tol {tol[2]:g}) over {len(gx)} leaves; {tp:.1f} / {tx:.1f} s, "
+          f"peak memory {peak:.1f} GB {'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, f"training parity grok-1-314b failed: {res}")
+    del params, got, gp, gx
+    torch.cuda.empty_cache()
+    return res
 
 
 def main(argv=None) -> int:
@@ -3368,6 +3863,11 @@ def main(argv=None) -> int:
     mono_serving = phase("monolithic serving", monolithic_serving_phase,
                          args.seed)
     zoo_serving = phase("dense zoo serving", zoo_serving_phase, args.seed)
+    flexible = phase("flexible", flexible_phase, args.seed)
+    moe_parity = phase("moe slice parity", moe_slice_phase, args.seed)
+    moe_serving = phase("moe serving", moe_serving_phase, args.seed)
+    frontend_training = phase("frontend training", frontend_training_phase,
+                              args.seed)
 
     paths = [r["launches"] for r in training.values()] + [serving["launches"]]
     paths += [r["launches"] for r in serving["shared_prefix"].values()]
@@ -3377,6 +3877,9 @@ def main(argv=None) -> int:
     paths += [r["launches"] for r in mono_serving.values()
               if "launches" in r]
     paths += [r["launches"] for r in zoo_serving.values()]
+    paths += [r["launches"] for r in moe_serving.values()]
+    paths += [r["launches"] for r in frontend_training.values()
+              if "launches" in r]
     launches = {k: sum(p[k] for p in paths) for k in lib.KERNELS}
     check(all(v > 0 for v in launches.values()),
           f"a kernel never launched on the training and serving paths: "
@@ -3420,6 +3923,10 @@ def main(argv=None) -> int:
                                    monolithic_slice_parity=mono_parity,
                                    monolithic_serving=mono_serving,
                                    zoo_serving=zoo_serving,
+                                   flexible=flexible,
+                                   moe_slice_parity=moe_parity,
+                                   moe_serving=moe_serving,
+                                   frontend_training=frontend_training,
                                    phase_s=phase_s),
                               indent=1))
     print(json.dumps({"kernels": entries}))

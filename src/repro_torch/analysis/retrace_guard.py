@@ -12,7 +12,8 @@ capture**:
         engine.run(requests)             # steady-state: zero new captures
 
 Any subject with a ``compilations`` attribute works: the engine (census
-dict), an int counter, or a zero-arg callable returning either.  An
+dict), :class:`repro_torch.core.flexible.FlexibleAttention` (int counter:
+its captured padded programs), or a zero-arg callable returning either.  An
 :class:`repro_torch.obs.runtime.Observer` (which exports the engine census
 through its ``census()`` method) and a flat metrics-registry snapshot
 (``Observer.snapshot()`` — the ``repro_engine_compilations{exec="..."}``

@@ -2,8 +2,8 @@
 
 Every architecture is a :class:`ModelConfig` registered under its id
 (``--arch <id>``); a :class:`ShapeConfig` names a sequence length and
-global batch (``--shape <name>``).  The registry holds the configs the
-port has been brought up on.
+global batch (``--shape <name>``).  The registry holds the same configs
+as the JAX package's.
 """
 from __future__ import annotations
 
@@ -91,6 +91,16 @@ class ModelConfig:
 
         return count_params(model_spec(self))
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed experts count)."""
+        total = self.param_count()
+        if self.num_experts == 0:
+            return total
+        d_ff, e, k = self.d_ff, self.num_experts, self.experts_per_token
+        per_expert = 3 * self.d_model * d_ff
+        inactive = self.num_layers * per_expert * (e - k)  # every block is MoE
+        return total - inactive
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:
@@ -138,6 +148,10 @@ def _ensure_loaded():
         command_r_plus_104b,
         deepseek_7b,
         famous_bert,
+        grok_1_314b,
+        hubert_xlarge,
+        kimi_k2_1t_a32b,
+        llava_next_34b,
         qwen2_7b,
         qwen3_32b,
         recurrentgemma_2b,

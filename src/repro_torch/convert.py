@@ -42,9 +42,11 @@ def tree_from_jax(tree: dict, device="cuda") -> dict:
 def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     """The JAX parameter tree (``init_params(model_spec(cfg), ...)``,
     stacked leaves included; LayerNorm biases and ungated MLPs too) as the
-    port's serving-layout params: every leaf crosses once (recurrent
-    blocks' ``rec``/``tm``/``cm`` leaves too), then ``[Wq|Wk|Wv]`` is fused
-    in each attention layer at load time (``transformer.prepare_params``)."""
+    port's serving-layout params: every leaf crosses once in its own dtype
+    (recurrent blocks' ``rec``/``tm``/``cm`` leaves too, and an MoE FFN's
+    f32 ``router`` and its ``(E, d, f)`` / ``(E, f, d)`` expert stacks,
+    which stay unfused), then ``[Wq|Wk|Wv]`` is fused in each attention
+    layer at load time (``transformer.prepare_params``)."""
     return transformer.prepare_params(tree_from_jax(tree, device), cfg)
 
 

@@ -6,7 +6,9 @@ from its own numpy Philox stream, the generation copied as is from the JAX
 package, so the port's batches are bit-identical to JAX's.  On one device
 the JAX package's sharded ``make_global_batch`` becomes a transfer of the
 host batch to the device (:func:`device_batch`).  Tokens cross as int64,
-the index type torch's embedding lookup and gather take.
+the index type torch's embedding lookup and gather take; a stub
+frontend's embeddings (audio frames, vlm patches: numpy Philox streams of
+their own, as in JAX) as f32.
 """
 from __future__ import annotations
 
@@ -45,22 +47,32 @@ def _tokens_for(cfg: ModelConfig, seed: int, step: int, lo: int, hi: int,
 
 def host_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int, step: int,
                lo: int = 0, hi: Optional[int] = None) -> dict:
-    """Build rows [lo, hi) of step's global batch on this host (int32
-    numpy ``inputs`` and ``targets``)."""
-    if cfg.frontend:
-        raise NotImplementedError(
-            "stub frontends (audio / vlm embeddings) come with MoE and "
-            "frontends in the port (ROADMAP.md Queue 1 item 5)")
+    """Build rows [lo, hi) of step's global batch on this host: int32
+    numpy ``targets``, and int32 ``inputs`` or, for a stub frontend, f32
+    embeddings (B, S, d_model)."""
     hi = shape.global_batch if hi is None else hi
     toks = _tokens_for(cfg, seed, step, lo, hi, shape.seq_len)
-    return {"targets": toks[:, 1:], "inputs": toks[:, :-1]}
+    batch = {"targets": toks[:, 1:]}
+    if cfg.frontend:
+        emb = np.empty((hi - lo, shape.seq_len, cfg.d_model), np.float32)
+        for i, row in enumerate(range(lo, hi)):
+            rng = np.random.Generator(np.random.Philox(
+                key=[(seed << 32) ^ step ^ 0x5EED, row]))
+            emb[i] = 0.02 * rng.standard_normal(
+                (shape.seq_len, cfg.d_model)).astype(np.float32)
+        batch["inputs"] = emb
+    else:
+        batch["inputs"] = toks[:, :-1]
+    return batch
 
 
 def device_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int, step: int,
                  device) -> dict:
-    """Step's global batch as int64 tensors on ``device``."""
+    """Step's global batch on ``device``: tokens as int64, embeddings as
+    f32."""
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
-                device=device, dtype=torch.int64)
+                device=device,
+                dtype=torch.float32 if v.dtype == np.float32 else torch.int64)
             for k, v in host_batch(cfg, shape, seed, step).items()}
 
 

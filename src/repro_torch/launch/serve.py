@@ -1,6 +1,9 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch qwen2-7b``
-(or any registered ``--arch``: recurrentgemma-2b, rwkv6-1.6b, qwen3-32b,
-deepseek-7b, command-r-plus-104b, famous-bert).
+(or any registered decoder: recurrentgemma-2b, rwkv6-1.6b, qwen3-32b,
+deepseek-7b, command-r-plus-104b, the MoE grok-1-314b and kimi-k2-1t-a32b,
+and llava-next-34b's backbone, which is served tokens as JAX's engine
+serves it).  Encoder-only configs (famous-bert, hubert-xlarge) have no
+decode and exit, as JAX's launcher does.
 
 ``--prefill-mode monolithic`` prefills each prompt whole at admission
 (JAX's comparison path); an RWKV-6 stack then takes prompts whose
@@ -31,9 +34,11 @@ from repro_torch.serve.engine import Request, ServingEngine, resolve_device
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-7b", choices=list_configs(),
-                    help="a registered config: the dense qwen2-7b, the "
-                         "hybrid recurrentgemma-2b (RG-LRU + sliding-window "
-                         "attention) or the attention-free rwkv6-1.6b")
+                    help="a registered decoder config: the dense "
+                         "qwen2-7b, the hybrid recurrentgemma-2b (RG-LRU + "
+                         "sliding-window attention), the attention-free "
+                         "rwkv6-1.6b, the MoE grok-1-314b, ...; "
+                         "encoder-only configs exit")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda without a GPU raises")
     ap.add_argument("--smoke", action="store_true",
@@ -90,10 +95,12 @@ def main(argv=None):
                     help="write Chrome/Perfetto trace_event JSON to PATH")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = shrink(cfg)
+    if cfg.is_encoder_only:
+        raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
+    device = resolve_device(args.device)
     dtype = torch.bfloat16
     obs = (Observer(trace=bool(args.trace_out))
            if args.metrics or args.trace_out else None)

@@ -8,7 +8,9 @@ async checkpointing and SIGTERM-preemption handling.  It trains through
 with ``--device cpu`` their plain PyTorch versions.  Every registered
 config trains (``--arch``): the recurrent families recurrentgemma-2b and
 rwkv6-1.6b through the models' differentiable torch scans, as JAX
-differentiates its own.  Without a GPU it raises unless ``--device cpu``
+differentiates its own; the MoE configs through ``models/moe.py``'s
+einsums; hubert-xlarge and llava-next-34b on their stub frontends'
+embeddings, which the data pipeline makes.  Without a GPU it raises unless ``--device cpu``
 is given.  ``--smoke`` (the default, as in
 the JAX launcher) shrinks the config; ``--full`` trains it at full size.
 """

@@ -115,21 +115,44 @@ def _kv_quantize(x):
     return q, s[..., 0]
 
 
+def _last_writer(pids, offs, page_size: int) -> torch.Tensor:
+    """For each of the N rows of (pid, off) pairs, flattened, the index of
+    the last row that names the same pool row (itself when it is alone):
+    an (N, N) compare on the device, N at most a chunk."""
+    dest = (pids * page_size + offs).reshape(-1)
+    idx = torch.arange(dest.numel(), device=dest.device)
+    return torch.where(dest[:, None] == dest[None, :], idx[None, :],
+                       -1).amax(1)
+
+
 def _paged_write(cache: dict, pids, offs, k, v) -> dict:
     """Write per-token K/V rows (..., kv, dh) into the pool at page
     ``pids``, row ``offs`` in place, quantizing when the pool is int8
     (``k_scale`` present).  Duplicate (pid, off) pairs only ever name the
-    null page, which nothing reads as valid."""
+    null page (pad rows of a chunk past the slot's pages, free slots in a
+    decode step), which no real row reads; but a chunk's pad rows attend
+    to it, and in an MoE layer their routing takes capacity from the real
+    rows.  So every duplicate writes the last such row's values (the
+    sequential order's result, as on the CPU and in JAX), and the pool's
+    bits never depend on the order in which the device applies the
+    writes."""
+    last = _last_writer(pids, offs, cache["k"].shape[1])
+    lead = pids.ndim
+
+    def rows(x):
+        flat = x.reshape((-1,) + x.shape[lead:])
+        return flat.index_select(0, last).reshape(x.shape)
+
     if "k_scale" in cache:
         kq, ks = _kv_quantize(k)
         vq, vs = _kv_quantize(v)
-        cache["k"][pids, offs] = kq
-        cache["v"][pids, offs] = vq
-        cache["k_scale"][pids, offs] = ks
-        cache["v_scale"][pids, offs] = vs
+        cache["k"][pids, offs] = rows(kq)
+        cache["v"][pids, offs] = rows(vq)
+        cache["k_scale"][pids, offs] = rows(ks)
+        cache["v_scale"][pids, offs] = rows(vs)
     else:
-        cache["k"][pids, offs] = k.to(cache["k"].dtype)
-        cache["v"][pids, offs] = v.to(cache["v"].dtype)
+        cache["k"][pids, offs] = rows(k.to(cache["k"].dtype))
+        cache["v"][pids, offs] = rows(v.to(cache["v"].dtype))
     return cache
 
 

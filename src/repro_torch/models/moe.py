@@ -1,0 +1,127 @@
+"""Token-choice top-k Mixture-of-Experts FFN (grok-1, kimi-k2): the port
+of ``repro.models.moe``.
+
+GShard-style *grouped dense dispatch*: tokens are split into G groups;
+each group dispatches into a per-group expert buffer of capacity C via a
+(G, S_g, E, C) one-hot einsum, and every product is a dense einsum (no
+scatter, no gather, no shape taken from the data), so a serving step
+holding it captures as one CUDA graph.  Capacity is bounded per group:
+C = min(max(4, ceil(cf · S_g · K / E)), S_g).  Tokens beyond an expert's
+capacity within their group are dropped (GShard semantics); priority is
+earlier-rank choice first, then sequence order.
+
+The arithmetic is JAX's, step for step: the softcap before both the
+softmax and the top-k, per-choice priority by cumsum, a bf16 ``dispatch``
+and an f32 ``combine`` cast to ``x.dtype``.  The JAX module's sharding
+hints (``constrain``) and remat names (``checkpoint_name``) do nothing
+without a mesh and are dropped; no Pallas kernel is involved there, and
+the grouped products here are ``torch.einsum`` as JAX's are XLA einsums.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers
+from repro_torch.models.module import ParamSpec
+
+
+def moe_spec(cfg: ModelConfig) -> dict:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    return {
+        # the router stays f32 whatever the model's dtype
+        "router": ParamSpec((d, e), ("embed", None), scale=0.02,
+                            dtype=torch.float32),
+        "w_in": ParamSpec((e, d, f), ("experts", None, "expert_ff")),
+        "w_gate": ParamSpec((e, d, f), ("experts", None, "expert_ff")),
+        "w_out": ParamSpec((e, f, d), ("experts", "expert_ff", None)),
+    }
+
+
+def _group_shape(T: int, target_group: int = 256) -> tuple[int, int]:
+    """Split T tokens into (G, S_g) with T = G*S_g and S_g ~ target."""
+    sg = min(target_group, T)
+    while T % sg:
+        sg -= 1
+    return T // sg, sg
+
+
+def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """``jax.nn.one_hot``: an index outside [0, n) gives a zero row.  A
+    comparison against ``arange``, so it never reads ``idx`` on the host."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def router_dispatch(logits: torch.Tensor, K: int, capacity_factor: float,
+                    softcap: float = 0.0):
+    """logits: (G, S, E) f32.  Returns (dispatch (G,S,E,C) bf16,
+    combine (G,S,E,C) f32, aux load-balance loss (0-dim f32))."""
+    G, S, E = logits.shape
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    C = max(4, int(-(-capacity_factor * S * K // E)))
+    C = min(C, S)
+    gates = torch.softmax(logits, dim=-1)                 # (G,S,E)
+    topw, topi = torch.topk(logits, K, dim=-1)            # (G,S,K)
+    topw = torch.softmax(topw, dim=-1)
+
+    dev = logits.device
+    running = torch.zeros((G, 1, E), dtype=torch.int32, device=dev)
+    dispatch = torch.zeros((G, S, E, C), dtype=torch.bfloat16, device=dev)
+    combine = torch.zeros((G, S, E, C), dtype=torch.float32, device=dev)
+    for k in range(K):
+        mask_k = _one_hot(topi[..., k], E, torch.int32)   # (G,S,E)
+        pos_k = (running + torch.cumsum(mask_k, dim=1, dtype=torch.int32)
+                 - mask_k)                                 # (G,S,E)
+        keep = (pos_k < C) & (mask_k > 0)
+        oh = _one_hot(torch.where(keep, pos_k, C), C + 1,
+                      torch.bfloat16)[..., :C]             # (G,S,E,C)
+        oh = oh * mask_k[..., None].to(torch.bfloat16)
+        dispatch = dispatch + oh
+        combine = combine + oh.to(torch.float32) * topw[..., k, None, None]
+        running = running + torch.sum(mask_k, dim=1, keepdim=True,
+                                      dtype=torch.int32)
+    frac = torch.mean(_one_hot(topi, E, torch.float32), dim=(0, 1, 2))
+    aux = E * torch.sum(frac * gates.mean(dim=(0, 1)))    # load-balance loss
+    return dispatch, combine, aux
+
+
+def _router_logits(p: dict, xg: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("gsd,de->gse", xg.to(torch.float32),
+                        p["router"].to(torch.float32))
+
+
+def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              return_aux: bool = False):
+    """x: (B, S, D) -> (B, S, D).  Grouped dense top-k routing."""
+    B, S, D = x.shape
+    K = cfg.experts_per_token
+    G, Sg = _group_shape(B * S)
+    xg = x.reshape(G, Sg, D)
+
+    dispatch, combine, aux = router_dispatch(
+        _router_logits(p, xg), K, cfg.capacity_factor, cfg.logit_softcap)
+
+    dt = x.dtype
+    buf = torch.einsum("gsec,gsd->gecd", dispatch.to(dt), xg)
+    h_in = torch.einsum("gecd,edf->gecf", buf, p["w_in"].to(dt))
+    h_gate = torch.einsum("gecd,edf->gecf", buf, p["w_gate"].to(dt))
+    h = layers.act_fn(cfg.act)(h_gate) * h_in
+    out_buf = torch.einsum("gecf,efd->gecd", h, p["w_out"].to(dt))
+
+    y = torch.einsum("gsec,gecd->gsd", combine.to(dt), out_buf)
+    y = y.reshape(B, S, D)
+    if return_aux:
+        return y, aux
+    return y
+
+
+def aux_load_balance_loss(p: dict, x: torch.Tensor,
+                          cfg: ModelConfig) -> torch.Tensor:
+    """Switch-style load-balancing auxiliary loss (mean fraction * prob)."""
+    B, S, D = x.shape
+    G, Sg = _group_shape(B * S)
+    _, _, aux = router_dispatch(_router_logits(p, x.reshape(G, Sg, D)),
+                                cfg.experts_per_token, cfg.capacity_factor,
+                                cfg.logit_softcap)
+    return aux

@@ -1,8 +1,11 @@
 """Block-stack model (the port of ``repro.models.transformer``): stacks
 of global attention, sliding-window attention (a per-slot ring buffer),
-RG-LRU and RWKV-6 blocks with a dense FFN — decoders such as qwen2-7b,
-the hybrid recurrentgemma-2b, the attention-free rwkv6-1.6b, and the
-famous-bert encoder.
+RG-LRU and RWKV-6 blocks with a dense or a token-choice MoE FFN
+(``models/moe.py``) — decoders such as qwen2-7b and the MoE grok-1 and
+kimi-k2, the hybrid recurrentgemma-2b, the attention-free rwkv6-1.6b, and
+the famous-bert and hubert-xlarge encoders.  Every entry point takes int
+tokens or, for the stub frontends of the audio and vlm configs
+(``models/frontends.py``), float embeddings (B, S, d_model).
 
 Parameters come in two layouts:
 
@@ -36,7 +39,7 @@ from repro_torch.configs.base import (ATTN, LOCAL_ATTN, RGLRU, RWKV6,
                                       ModelConfig)
 from repro_torch.core.famous import FamousConfig
 from repro_torch.kernels import lib
-from repro_torch.models import attention, layers, rglru, rwkv6
+from repro_torch.models import attention, layers, moe, rglru, rwkv6
 from repro_torch.models.module import ParamSpec, stack_specs
 
 # ---------------------------------------------------------------------------
@@ -46,16 +49,14 @@ from repro_torch.models.module import ParamSpec, stack_specs
 
 def _check_supported(cfg: ModelConfig) -> None:
     kinds = set(layer_kinds(cfg))
-    if (not kinds <= {ATTN, LOCAL_ATTN, RGLRU, RWKV6} or cfg.num_experts
-            or cfg.frontend
+    if (not kinds <= {ATTN, LOCAL_ATTN, RGLRU, RWKV6}
             or cfg.norm not in ("rmsnorm", "layernorm")
             or cfg.act not in ("silu", "gelu", "relu_sq")):
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs global-attention, sliding-window, "
-            "RG-LRU and RWKV-6 stacks with RMSNorm or LayerNorm, optional "
-            "qk-norm and a dense SiLU/GELU/relu² FFN; MoE and frontends "
-            "come with ROADMAP.md Queue 1 item 5, their sharding axes with "
-            "item 7")
+        raise ValueError(
+            f"{cfg.name}: block kinds {sorted(kinds)}, norm {cfg.norm!r} "
+            f"or act {cfg.act!r} unknown: the model runs global-attention, "
+            "sliding-window, RG-LRU and RWKV-6 blocks, RMSNorm or "
+            "LayerNorm, SiLU, GELU or relu²")
 
 
 def layer_kinds(cfg: ModelConfig) -> tuple[str, ...]:
@@ -65,6 +66,8 @@ def layer_kinds(cfg: ModelConfig) -> tuple[str, ...]:
 
 
 def _ffn_spec(cfg: ModelConfig):
+    if cfg.num_experts:
+        return moe.moe_spec(cfg)
     gated = cfg.act in ("silu", "gelu") and cfg.norm == "rmsnorm"
     return layers.mlp_spec(cfg.d_model, cfg.d_ff, cfg.act, gated=gated)
 
@@ -92,7 +95,7 @@ def block_spec(kind: str, cfg: ModelConfig) -> dict:
             "ln2": layers.norm_spec(d, cfg.norm),
             "cm": rwkv6.channel_mix_spec(cfg),
         }
-    raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    raise ValueError(kind)
 
 
 def model_spec(cfg: ModelConfig) -> dict:
@@ -166,6 +169,26 @@ def quantize_qkv(params: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _apply_ffn(p, x, cfg: ModelConfig):
+    if cfg.num_experts:
+        return moe.apply_moe(p, x, cfg)
+    return layers.apply_mlp(p, x, cfg.act)
+
+
+def _ffn_residual(p, x, cfg: ModelConfig):
+    """``x + FFN(ln2(x))``: the second half of an attention or RG-LRU
+    block, on every path (full sequence, prefill, chunk, decode,
+    verify)."""
+    return x + _apply_ffn(p["ffn"], layers.apply_norm(p["ln2"], x, cfg.norm),
+                          cfg)
+
+
+def _embed_inputs(params, inputs, dtype):
+    if not inputs.is_floating_point():
+        return layers.embed_lookup(params["embed"], inputs, dtype)
+    return inputs.to(dtype)  # frontend stub: precomputed embeddings
+
+
 def apply_block(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
                 fcfg: FamousConfig, q_offset: int = 0) -> torch.Tensor:
     """One block on the full sequence, x: (B, S, D): global or
@@ -179,11 +202,11 @@ def apply_block(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
         x = x + attention.apply_attn(
             p["attn"], layers.apply_norm(p["ln1"], x, cfg.norm), cfg, fcfg,
             window=window, q_offset=q_offset)
-        return _mlp(p, x, cfg)
+        return _ffn_residual(p, x, cfg)
     if kind == RGLRU:
         x = x + rglru.apply_rglru(
             p["rec"], layers.apply_norm(p["ln1"], x, cfg.norm), cfg)
-        return _mlp(p, x, cfg)
+        return _ffn_residual(p, x, cfg)
     x = x + rwkv6.apply_rwkv_time_mix(
         p["tm"], layers.apply_norm(p["ln1"], x, cfg.norm), cfg)
     y, _ = rwkv6.apply_channel_mix(
@@ -194,7 +217,8 @@ def apply_block(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
 def forward(params: dict, inputs: torch.Tensor, cfg: ModelConfig,
             fcfg: FamousConfig = FamousConfig(), *, remat: bool = True,
             return_hidden: bool = False, compute_dtype=None) -> torch.Tensor:
-    """inputs: int tokens (B, S), on the spec tree.  Returns f32 logits
+    """inputs: int tokens (B, S), or float embeddings (B, S, D) for the
+    stub frontends, on the spec tree.  Returns f32 logits
     (B, S, vocab), or the final hidden states (B, S, D) when
     ``return_hidden`` (the chunked loss computes logits chunk by chunk).
 
@@ -203,9 +227,8 @@ def forward(params: dict, inputs: torch.Tensor, cfg: ModelConfig,
     backward (``torch.utils.checkpoint``, non-reentrant), as
     ``jax.checkpoint`` does."""
     _check_supported(cfg)
-    x = layers.embed_lookup(
-        params["embed"], inputs,
-        compute_dtype or params["final_norm"]["scale"].dtype)
+    x = _embed_inputs(params, inputs,
+                      compute_dtype or params["final_norm"]["scale"].dtype)
 
     def unit_body(x, u):
         unit = _index_tree(params["blocks"], u)
@@ -321,15 +344,11 @@ def _commit_state(cache: dict, new: dict, active) -> None:
         buf.copy_(val)
 
 
-def _mlp(p, x, cfg: ModelConfig):
-    return x + layers.apply_mlp(
-        p["ffn"], layers.apply_norm(p["ln2"], x, cfg.norm), cfg.act)
-
-
 def prefill(params, tokens, caches, cfg: ModelConfig,
             fcfg: FamousConfig = FamousConfig()):
-    """Monolithic prefill: the whole prompt ``tokens`` (B, S) int at
-    positions [0, S) in one forward, on the serving layout, filling
+    """Monolithic prefill: the whole prompt ``tokens`` (B, S) int (or
+    (B, S, D) embeddings) at positions [0, S) in one forward, on the
+    serving layout, filling
     ``caches`` (contiguous: K/V stripes of at least S rows or rings, and
     recurrent state, which it starts from) in place.  Attention runs
     ``famous.attention`` (``impl="pallas"``: the ``mha_forward`` kernel),
@@ -337,17 +356,17 @@ def prefill(params, tokens, caches, cfg: ModelConfig,
     models' torch scans otherwise).  An RWKV-6 stack takes S up to 64 or a
     multiple of 64 (``ValueError`` otherwise, before its wkv runs).
     Returns (last-position logits (B, vocab) f32, caches)."""
-    x = layers.embed_lookup(params["embed"], tokens, _compute_dtype(params))
+    x = _embed_inputs(params, tokens, _compute_dtype(params))
     for kind, p, cache in zip(layer_kinds(cfg), params["layers"], caches):
         h = layers.apply_norm(p["ln1"], x, cfg.norm)
         if kind in (ATTN, LOCAL_ATTN):
             a, _ = attention.apply_attn_prefill(
                 p["attn"], h, cache, cfg, fcfg,
                 window=cfg.window if kind == LOCAL_ATTN else 0)
-            x = _mlp(p, x + a, cfg)
+            x = _ffn_residual(p, x + a, cfg)
         elif kind == RGLRU:
             a, new = rglru.apply_rglru(p["rec"], h, cfg, cache, fcfg)
-            x = _mlp(p, x + a, cfg)
+            x = _ffn_residual(p, x + a, cfg)
             _commit_state(cache, new, None)
         else:
             a, tm = rwkv6.apply_rwkv_time_mix(p["tm"], h, cfg, cache,
@@ -366,10 +385,11 @@ def prefill_chunk(params, tokens, caches, slot, offset, n_valid,
                   page_table=None):
     """One fixed-shape prefill chunk for a single slot of the batched caches.
 
-    tokens: (1, C) int at absolute positions [offset, offset+C); only the
-    first ``n_valid`` are real: the pad tail's junk K/V is never read (a
-    ring keeps only real positions), and its recurrent updates are masked
-    to the identity.  Writes the slot's K/V into the caches in place — its
+    tokens: (1, C) int (or (1, C, D) embeddings) at absolute positions
+    [offset, offset+C); only the first ``n_valid`` are real: the pad
+    tail's junk K/V is never read (a ring keeps only real positions), and
+    its recurrent updates are masked to the identity (an MoE layer routes
+    the pad rows too, as JAX's does).  Writes the slot's K/V into the caches in place — its
     contiguous stripe or ring, or, given ``page_table`` ((n_slots, n_p)
     int32 on the device), its pages of the pools — and carries its
     recurrent state across chunks (``offset == 0`` starts from zero
@@ -385,23 +405,23 @@ def prefill_chunk(params, tokens, caches, slot, offset, n_valid,
     dev = tokens.device
     slot, offset, n_valid = (lib.device_scalar("prefill_chunk", v, dev)
                              for v in (slot, offset, n_valid))
-    x = layers.embed_lookup(params["embed"], tokens, _compute_dtype(params))
+    x = _embed_inputs(params, tokens, _compute_dtype(params))
     for kind, p, cache in zip(layer_kinds(cfg), params["layers"], caches):
         h = layers.apply_norm(p["ln1"], x, cfg.norm)
         if kind == ATTN and page_table is not None:
             a, _ = attention.apply_attn_chunk_paged(
                 p["attn"], h, cache, page_table, slot, offset, cfg, fcfg)
-            x = _mlp(p, x + a, cfg)
+            x = _ffn_residual(p, x + a, cfg)
         elif kind in (ATTN, LOCAL_ATTN):
             a, _ = attention.apply_attn_chunk(
                 p["attn"], h, cache, slot, offset, n_valid, cfg, fcfg,
                 window=cfg.window if kind == LOCAL_ATTN else 0)
-            x = _mlp(p, x + a, cfg)
+            x = _ffn_residual(p, x + a, cfg)
         elif kind == RGLRU:
             sub = _read_slot_state(cache, slot, offset)
             a, sub = rglru.apply_rglru_chunk(p["rec"], h, cfg, sub, n_valid,
                                              fcfg)
-            x = _mlp(p, x + a, cfg)
+            x = _ffn_residual(p, x + a, cfg)
             _write_slot_state(cache, sub, slot)
         else:
             sub = _read_slot_state(cache, slot, offset)
@@ -420,31 +440,31 @@ def prefill_chunk(params, tokens, caches, slot, offset, n_valid,
 def decode_step(params, tokens, caches, cache_len, cfg: ModelConfig,
                 fcfg: FamousConfig = FamousConfig(), page_table=None,
                 active=None):
-    """tokens: (B,) int; cache_len: (B,) int32 on the device; page_table:
-    optional (B, n_p) int32 on the device, given when the global-attention
-    caches are page pools; active: optional (B,) bool on the device.  Runs
+    """tokens: (B,) int (or (B, D) embeddings); cache_len: (B,) int32 on
+    the device; page_table: optional (B, n_p) int32 on the device, given
+    when the global-attention caches are page pools; active: optional (B,) bool on the device.  Runs
     over every slot (fixed batch).  Attention caches need no mask: the junk
     K/V of inactive slots is masked by ``cache_len`` and overwritten by the
     next chunk (or lands on the null page, or outside every later window).
     Recurrent state is read unconditionally and carried across prefill
     chunks, so it commits only where ``active`` (everywhere when None).
     Returns (logits (B, vocab) f32, caches)."""
-    x = layers.embed_lookup(params["embed"], tokens[:, None],
-                            _compute_dtype(params))
+    inputs = tokens[:, None] if tokens.ndim == 1 else tokens[:, None, :]
+    x = _embed_inputs(params, inputs, _compute_dtype(params))
     for kind, p, cache in zip(layer_kinds(cfg), params["layers"], caches):
         h = layers.apply_norm(p["ln1"], x, cfg.norm)
         if kind == ATTN and page_table is not None:
             a, _ = attention.apply_attn_decode_paged(
                 p["attn"], h, cache, page_table, cache_len, cfg, fcfg)
-            x = _mlp(p, x + a, cfg)
+            x = _ffn_residual(p, x + a, cfg)
         elif kind in (ATTN, LOCAL_ATTN):
             a, _ = attention.apply_attn_decode(
                 p["attn"], h, cache, cache_len, cfg, fcfg,
                 window=cfg.window if kind == LOCAL_ATTN else 0)
-            x = _mlp(p, x + a, cfg)
+            x = _ffn_residual(p, x + a, cfg)
         elif kind == RGLRU:
             a, new = rglru.apply_rglru_decode(p["rec"], h, cache, cfg)
-            x = _mlp(p, x + a, cfg)
+            x = _ffn_residual(p, x + a, cfg)
             _commit_state(cache, new, active)
         else:
             a, tm = rwkv6.apply_rwkv_time_mix_decode(p["tm"], h, cache, cfg)
@@ -478,7 +498,7 @@ def verify_step(params, tokens, caches, cache_len, cfg: ModelConfig,
     if kinds != {ATTN}:
         raise ValueError(f"verify_step only supports global-attention "
                          f"layers, got {sorted(kinds)}")
-    x = layers.embed_lookup(params["embed"], tokens, _compute_dtype(params))
+    x = _embed_inputs(params, tokens, _compute_dtype(params))
     writes = None
     if page_table is None:   # every layer's write indices, made once
         writes = attention.verify_writes(cache_len, tokens.shape[1],
@@ -492,9 +512,7 @@ def verify_step(params, tokens, caches, cache_len, cfg: ModelConfig,
             a, _ = attention.apply_attn_verify(p["attn"], h, cache,
                                                cache_len, cfg, fcfg,
                                                writes=writes)
-        x = x + a
-        x = x + layers.apply_mlp(
-            p["ffn"], layers.apply_norm(p["ln2"], x, cfg.norm), cfg.act)
+        x = _ffn_residual(p, x + a, cfg)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     return logits_fn(params, x, cfg), caches
 

@@ -53,7 +53,9 @@ def init_state(cfg: ModelConfig, tcfg: TrainConfig, gen: torch.Generator,
 
 def make_train_step(cfg: ModelConfig, fcfg: FamousConfig, tcfg: TrainConfig):
     """Returns train_step(state, batch) -> (state, metrics); batch holds
-    int ``inputs`` and ``targets`` (B, S) on the parameters' device.
+    int ``targets`` (B, S) and ``inputs``, int tokens (B, S) or a stub
+    frontend's float embeddings (B, S, D), on the parameters' device.  As
+    in JAX, the loss is the LM loss alone: no MoE load-balance term.
     ``train_step.grads_of(params, batch)`` is its (loss, grads) half."""
     if tcfg.grad_compression:
         raise NotImplementedError(
@@ -73,8 +75,12 @@ def make_train_step(cfg: ModelConfig, fcfg: FamousConfig, tcfg: TrainConfig):
     def grad_fn(params, batch):
         leaves = tree_leaves(params)
         loss = loss_fn(params, batch)
-        grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), _unflatten(params, list(grads))
+        # a leaf the loss never reads (the token embedding of a stub
+        # frontend fed embeddings) gets a zero gradient, as under jax.grad
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        return loss.detach(), _unflatten(params, grads)
 
     def grads_of(params, batch):
         if tcfg.microbatches <= 1:

@@ -5,10 +5,9 @@ with their head layouts kept, against the JAX package on the same
 weights: ``transformer.forward`` logits, engine tokens (chunked on
 contiguous KV, and on paged int8 KV with the prefix cache) and one
 training gradient on qwen3-32b; the weights' ``q_norm``/``k_norm``
-crossing ``convert`` and kept by ``fuse_qkv``; and, over every config the
-port registers, ``supported_cells`` and ``param_count`` equal to JAX's and
-the registry equal to JAX's less the MoE and frontend configs still to
-come.  Tolerance at f32: 1e-4 on logits and gradients (relative to a
+crossing ``convert`` and kept by ``fuse_qkv``; and, over every config,
+``supported_cells`` and ``param_count`` equal to JAX's and the registry
+equal to JAX's.  Tolerance at f32: 1e-4 on logits and gradients (relative to a
 leaf's largest entry), tokens identical."""
 import dataclasses
 import functools
@@ -52,20 +51,19 @@ def _weights(arch, seed=3):
 
 
 def test_registry_is_jax_less_the_configs_to_come():
-    """Every JAX config but the MoE and frontend ones (ROADMAP Queue 1 item
-    5), each a field-for-field copy."""
-    later = {n for n in jbase.list_configs()
-             if jget_config(n).num_experts or jget_config(n).frontend}
-    assert later == {"grok-1-314b", "kimi-k2-1t-a32b", "hubert-xlarge",
-                     "llava-next-34b"}
-    assert base.list_configs() == sorted(set(jbase.list_configs()) - later)
+    """Every JAX config, the MoE and frontend ones included, each a
+    field-for-field copy."""
+    moe_or_frontend = {n for n in jbase.list_configs()
+                       if jget_config(n).num_experts or jget_config(n).frontend}
+    assert moe_or_frontend == {"grok-1-314b", "kimi-k2-1t-a32b",
+                               "hubert-xlarge", "llava-next-34b"}
+    assert base.list_configs() == jbase.list_configs()
     for name in base.list_configs():
         assert dataclasses.asdict(get_config(name)) == \
             dataclasses.asdict(jget_config(name))
 
 
-@pytest.mark.parametrize("arch", sorted(set(jbase.list_configs()) - {
-    "grok-1-314b", "kimi-k2-1t-a32b", "hubert-xlarge", "llava-next-34b"}))
+@pytest.mark.parametrize("arch", jbase.list_configs())
 def test_cells_and_param_count_match_jax(arch):
     cfg, jcfg = get_config(arch), jget_config(arch)
     assert base.supported_cells(arch) == jbase.supported_cells(arch)

@@ -8,6 +8,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,7 @@ from torch_port_helpers import random_jax_params, tokens
 from repro.configs.base import get_config as jget_config
 from repro.configs.base import shrink as jshrink
 from repro.core.famous import FamousConfig as JFamousConfig
+from repro.models import transformer as jtransformer
 from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServingEngine as JServingEngine
 from repro_torch import convert
@@ -291,8 +294,32 @@ def test_recurrent_archs_build_an_engine(arch):
     ("recurrentgemma-2b", dict(num_experts=4, experts_per_token=2)),
 ])
 def test_moe_still_raises(arch, over):
+    """Experts on a dense or hybrid stack build: ``model_spec`` equals
+    JAX's leaf for leaf in shape and dtype (the router f32), and an engine
+    serves from it."""
     cfg = shrink(get_config(arch), **over)
-    with pytest.raises(NotImplementedError, match="MoE and frontends"):
-        transformer.model_spec(cfg)
-    with pytest.raises(NotImplementedError, match="MoE and frontends"):
-        ServingEngine({}, cfg, FamousConfig(), device="cpu")
+    spec = transformer.model_spec(cfg)
+    jspec = jtransformer.model_spec(jshrink(jget_config(arch), **over))
+    leaves = module.tree_leaves(spec)
+    jleaves = jax.tree_util.tree_leaves(
+        jspec, is_leaf=lambda s: hasattr(s, "shape"))
+    assert [s.shape for s in leaves] == [s.shape for s in jleaves]
+    assert [s.dtype == torch.float32 for s in leaves] == \
+        [s.dtype == jnp.float32 for s in jleaves]
+    assert any(s.dtype == torch.float32 for s in leaves)
+    params = module.init_params(spec, torch.Generator().manual_seed(0),
+                                torch.float32, "cpu")
+    eng = ServingEngine(params, cfg, FamousConfig(impl="pallas"), n_slots=2,
+                        max_seq=32, chunk=8, device="cpu")
+    done = eng.run([Request(rid=0, tokens=[3, 5, 7], max_new=3)])
+    assert len(done[0].out) == 3
+
+
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "famous-bert"])
+def test_serve_launcher_refuses_encoder_only_as_jax(arch):
+    """``launch.serve`` of an encoder-only config exits with JAX's
+    message (it has no decode step), before it asks for a device."""
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit, match=f"{arch}-smoke is encoder-only: "
+                                         "no decode serving"):
+        serve.main(["--arch", arch, "--smoke"])

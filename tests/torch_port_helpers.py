@@ -39,6 +39,9 @@ def random_jax_params(cfg, seed: int = 0, dtype=jnp.float32):
             x = z
         elif name == "wo":
             x = z / math.sqrt(shape[0] * shape[1])
+        elif name in ("w_in", "w_gate", "w_out") and len(shape) == 3:
+            # an MoE expert stack (E, fan_in, fan_out)
+            x = z / math.sqrt(shape[1])
         else:
             x = z / math.sqrt(shape[0])
         return jnp.asarray(x, dtype)
