@@ -146,7 +146,26 @@ Phases, in order; any failure exits non-zero before the result line:
      ``launch.train.build`` + ``Trainer``: hubert-xlarge at full size (48
      layers, B=8, S=512, 10 steps; the loss must fall) and llava-next-34b
      (2 layers, B=1, S=2048, 5 steps); then one grok-1-314b layer's
-     train-step loss and gradient (S=2048, f32), kernels against plain.
+     train-step loss and gradient (S=2048, f32), kernels against plain;
+ 18. tensor-parallel serving (``ServingEngine(mesh=...)``): 18a, the full
+     28-layer qwen2-7b in bf16 on phase 8's prompts with
+     ``mesh=make_serving_mesh(tp=1)`` over a process group of one rank,
+     a graph parity pair whose tokens, final caches (bit for bit),
+     census, kernel launches and cache bytes must equal the ``mesh=None``
+     engine's on the same weights, then its ``step_breakdown``; 18b,
+     2-layer qwen2-7b (contiguous, then paged) and one recurrentgemma-2b
+     unit at full width in f32, served on a mesh of one rank here and on
+     TP=2 and TP=4 meshes of spawned ranks sharing the card over gloo,
+     eagerly (a gloo sum cannot be captured): every rank's tokens must
+     equal TP=1's, every serving kernel of the slice must launch on every
+     rank with no plain version run, and qwen2-7b's cache bytes a rank
+     times TP must equal TP=1's; each rank's peak memory and each spawn's
+     seconds are printed;
+ 19. duplicate page ids in monolithic paged prefill: 20 scatters of a
+     stripe whose page-table row names the null page 126 times must leave
+     every page its last stretch, and a shrunk grok-1-314b served
+     monolithic on a paged pool must give the same tokens eager and as
+     graphs.
 
 The kernel phase also holds the serving kernels at the zoo's head layouts
 (qwen3-32b's 64 / 8 heads of 80, deepseek-7b's 32 / 32 and
@@ -154,7 +173,10 @@ command-r-plus-104b's 96 / 8 of 128, bf16) and the MoE / vlm configs'
 (kimi-k2-1t-a32b's 64 / 8 of 112, grok-1-314b's 48 / 8 and
 llava-next-34b's 56 / 8 of 128), the MHA kernels at a ragged 1292 tokens
 of recurrentgemma-2b's local attention and at hubert-xlarge's training
-shape (B=8, S=512, 16 / 16 heads of 80, non-causal); training
+shape (B=8, S=512, 16 / 16 heads of 80, non-causal), and a
+tensor-parallel rank's shapes (phase 18): ``matmul_tiled`` at qwen2-7b's
+fused widths 2304 (TP=2) and 1152 (TP=4), the serving kernels at its 14 /
+2 and 7 / 1 heads of 128, ``rglru_scan`` at R=1280; training
 parity also a recurrentgemma-2b unit (S=3072) and 2 qwen3-32b layers;
 the training runs also recurrentgemma-2b (2 units) and rwkv6-1.6b (2
 layers) at B=1, S=2048.
@@ -165,7 +187,7 @@ serving engine's model eagerly, and the decode step again as a CUDA graph
 events against profiled device time.
 
 The launch counters are set to 0 before each run of phases 7, 8, 10, 12,
-13, 16 and 17 and read after it: every kernel must have launched on those paths and no plain
+13, 16, 17, 18 and 19 and read after it: every kernel must have launched on those paths and no plain
 version may have run on the card.  Each phase prints its seconds.  The
 last three lines of output are the per-kernel JSON record
 (``{"kernels": [...]}``), the ``nvidia-smi`` name and power limit, and
@@ -258,6 +280,10 @@ SOURCES = {name: "src/repro_torch/kernels/csrc/" + (
 # multiples of 8 (the kernel's element-by-element tile loads)
 SERVING_PROJ = tuple((T, 3584, 4608) for T in (4, 256, 1, 17, 100)) + (
     (4, 2560, 3072), (256, 2560, 3072), (4, 3581, 4603), (100, 3581, 4603))
+# the fused projection's per-rank widths under tensor parallelism:
+# qwen2-7b's 14 + 2 x 2 heads of 128 a rank at TP=2, 7 + 2 x 1 at TP=4,
+# at decode (T=4) and a chunk (256)
+TP_PROJ = tuple((T, 3584, F) for F in (2304, 1152) for T in (4, 256))
 # the training shapes of the attention kernels:
 # name, B, S, H, KV, dh, causal
 TRAIN_ATTN = (("famous-bert", 8, 512, 8, 8, 96, False),
@@ -303,6 +329,9 @@ NEW_LAYOUTS = (("qwen3-32b", 64, 8, 80), ("deepseek-7b", 32, 32, 128),
 # and llava-next-34b's group of 7 (56 / 8 of 128)
 MOE_LAYOUTS = (("kimi-k2-1t-a32b", 64, 8, 112), ("grok-1-314b", 48, 8, 128),
                ("llava-next-34b", 56, 8, 128))
+# and a rank's heads under tensor parallelism (phase 18): qwen2-7b's 28 / 4
+# at TP=2 and TP=4
+TP_LAYOUTS = (("qwen2-7b TP=2", 14, 2, 128), ("qwen2-7b TP=4", 7, 1, 128))
 # the QKV projection's VJP at the same two training shapes: T = B*S, D, F
 TRAIN_PROJ = (("famous-bert", 8 * 512, 768, 3 * 768),
               ("qwen2-7b", 2048, 3584, 3584 + 2 * 512))
@@ -452,8 +481,6 @@ def kernel_phase(torch, iters, seed):
     from repro_torch.kernels import lib
     from repro_torch.kernels.decode import chunk_prefill, decode_attn
     from repro_torch.kernels.decode import ref as dec_ref
-    from repro_torch.kernels.qkv import qkv_proj
-    from repro_torch.kernels.qkv import ref as qkv_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -507,20 +534,7 @@ def kernel_phase(torch, iters, seed):
         return row
 
     # matmul_tiled: the fused QKV projection (see SERVING_PROJ)
-    for dt, dtype in dts.items():
-        e = torch.tensor([], dtype=dtype).element_size()
-        for T, D, Fo in SERVING_PROJ:
-            per = (T * D + D * Fo) * e
-            sets = [(randn((T, D), dtype), randn((D, Fo), dtype, D ** -0.5))
-                    for _ in range(n_sets(per))]
-            x, w = sets[0]
-            out = qkv_proj.matmul_tiled(x, w)
-            ref = qkv_ref.matmul_reference(x, w)
-            record("matmul_tiled", f"T={T} D={D} F={Fo}", dt, out, ref,
-                   TOL[dt], qkv_proj.matmul_tiled, qkv_ref.matmul_reference,
-                   torch.matmul, sets, (T * D + D * Fo + T * Fo) * e,
-                   2.0 * T * D * Fo, again=qkv_proj.matmul_tiled(x, w))
-            del sets
+    matmul_rows(torch, dts, randn, record, SERVING_PROJ)
 
     int8_kernel_rows(torch, gen, record, iters)
 
@@ -707,10 +721,47 @@ def kernel_phase(torch, iters, seed):
     chunk_graph_checks(torch, dts, randn, gen)
     training_kernel_rows(torch, F, dts, randn, record, iters)
     scan_kernel_rows(torch, dts, randn, record, iters)
+    tp_kernel_rows(torch, F, dts, randn, record, decode_row, gen, iters)
     torch.cuda.synchronize()
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
     return rows
+
+
+def matmul_rows(torch, dts, randn, record, shapes):
+    """``matmul_tiled`` at each (T, D, F) of ``shapes``, f32 and bf16,
+    against its plain version and ``torch.matmul``, relaunched for bit
+    identity."""
+    from repro_torch.kernels.qkv import qkv_proj
+    from repro_torch.kernels.qkv import ref as qkv_ref
+
+    for dt, dtype in dts.items():
+        e = torch.tensor([], dtype=dtype).element_size()
+        for T, D, Fo in shapes:
+            per = (T * D + D * Fo) * e
+            sets = [(randn((T, D), dtype), randn((D, Fo), dtype, D ** -0.5))
+                    for _ in range(n_sets(per))]
+            x, w = sets[0]
+            out = qkv_proj.matmul_tiled(x, w)
+            ref = qkv_ref.matmul_reference(x, w)
+            record("matmul_tiled", f"T={T} D={D} F={Fo}", dt, out, ref,
+                   TOL[dt], qkv_proj.matmul_tiled, qkv_ref.matmul_reference,
+                   torch.matmul, sets, (T * D + D * Fo + T * Fo) * e,
+                   2.0 * T * D * Fo, again=qkv_proj.matmul_tiled(x, w))
+            del sets
+
+
+def tp_kernel_rows(torch, F, dts, randn, record, decode_row, gen, iters):
+    """A tensor-parallel rank's kernel shapes (phase 18), drawn after every
+    other row so that the earlier rows keep their inputs: ``matmul_tiled``
+    at TP_PROJ's fused widths (f32 and bf16), the serving kernels at
+    TP_LAYOUTS' heads (bf16, as ``layout_kernel_rows``), and
+    ``rglru_scan`` on a TP=2 rank's R=1280 channels of the 256-token
+    chunk."""
+    matmul_rows(torch, dts, randn, record, TP_PROJ)
+    layout_kernel_rows(torch, F, randn, record, decode_row, gen,
+                       max(10, iters // 2), layouts=TP_LAYOUTS)
+    rglru_rows(torch, dts, randn, record, 256, 1280)
 
 
 def int8_kernel_rows(torch, gen, record, iters):
@@ -869,9 +920,10 @@ def paged_kernel_rows(torch, dts, randn, record, iters, gen):
             del sets, csets
 
 
-def layout_kernel_rows(torch, F, randn, record, decode_row, gen, iters):
-    """The serving kernels at NEW_LAYOUTS' and MOE_LAYOUTS' head layouts,
-    bf16 (the serving
+def layout_kernel_rows(torch, F, randn, record, decode_row, gen, iters,
+                       layouts=NEW_LAYOUTS + MOE_LAYOUTS):
+    """The serving kernels at ``layouts`` (NEW_LAYOUTS' and MOE_LAYOUTS'
+    head layouts; TP_LAYOUTS' from ``tp_kernel_rows``), bf16 (the serving
     dtype; the f32 kernels meet them in the dense-zoo slice): the
     contiguous decode kernel (B=4, lens 1/37/1000/2048), ``chunk_prefill``
     (C=256 at offset 1792 in slot 2 of a 4-slot cache), and the paged
@@ -897,7 +949,7 @@ def layout_kernel_rows(torch, F, randn, record, decode_row, gen, iters):
           + 1).to(torch.int32).reshape(B, n_p).contiguous()
     cmask = (torch.arange(Skv, device=dev)[None, :]
              <= off + torch.arange(C, device=dev)[:, None])
-    for label, H, KV, dh in NEW_LAYOUTS + MOE_LAYOUTS:
+    for label, H, KV, dh in layouts:
         scale = dh ** -0.5
         decode_row(dt, dtype, H, KV, dh, lens_list, f" {label}")
 
@@ -1455,7 +1507,8 @@ def scan_kernel_rows(torch, dts, randn, record, iters):
     """The two linear-recurrence kernels at the serving shapes of their
     models and at prompt length (SCAN_LONG; monolithic prefill calls the
     scans at a whole prompt).  ``rglru_scan``: recurrentgemma-2b's
-    256-token chunk and a 4096-token prompt, B=1, R=2560 (a = sigmoid of a
+    256-token chunk and a 4096-token prompt, B=1, R=2560, and the chunk at
+    a TP=2 rank's R=1280 (a = sigmoid of a
     normal draw, b normal x 0.1; f32 inputs on the main path, bf16 inputs
     checked too); the kernel runs every step in the plain version's order
     and rounding, so it must equal it bit for bit.  ``wkv6_scan``:
@@ -1475,28 +1528,7 @@ def scan_kernel_rows(torch, dts, randn, record, iters):
 
     f32 = torch.float32
     for S in (256, SCAN_LONG["rglru_scan"]):
-        B, R = 1, 2560
-        for dt, dtype in dts.items():
-            e = torch.tensor([], dtype=dtype).element_size()
-            sets = [(torch.sigmoid(randn((B, S, R), f32)).to(dtype),
-                     randn((B, S, R), dtype, 0.1))
-                    for _ in range(n_sets(2 * B * S * R * e))]
-            a, b = sets[0]
-            out, ref = linear_scan.rglru_scan(a, b), \
-                scan_ref.rglru_reference(a, b)
-            equal = bool(torch.equal(out, ref))
-            row = record("rglru_scan", f"B={B} S={S} R={R}", dt, out, ref,
-                         RGLRU_TOL[dt], linear_scan.rglru_scan,
-                         scan_ref.rglru_reference, None, sets,
-                         2 * B * S * R * e + 4 * B * S * R, 2.0 * B * S * R,
-                         ops_dt="f32", again=linear_scan.rglru_scan(a, b))
-            row.update(bit_equal_plain=equal)
-            print(f"  (rglru_scan {dt} S={S}: "
-                  f"{'bit-equal to' if equal else 'DIFFERS from'} the plain "
-                  f"version) {'ok' if equal else 'FAIL'}", flush=True)
-            check(equal, f"rglru_scan {dt} S={S} is not bit-equal to its "
-                  f"plain version")
-            del sets
+        rglru_rows(torch, dts, randn, record, S, 2560)
 
     BH, dh, C = 32, 64, 64
     for S in (256, SCAN_LONG["wkv6_scan"]):
@@ -1554,6 +1586,37 @@ def scan_kernel_rows(torch, dts, randn, record, iters):
                     check(ok, f"wkv6_scan {dt} S={S} differs from the "
                           f"sequential recurrence by {err}")
                 del sets
+
+
+def rglru_rows(torch, dts, randn, record, S, R, B=1):
+    """``rglru_scan`` at (B, S, R), f32 and bf16 inputs (a = sigmoid of a
+    normal draw, b normal x 0.1): bit-equal to its plain version and
+    relaunched for bit identity; no library call computes it."""
+    from repro_torch.kernels.scan import linear_scan
+    from repro_torch.kernels.scan import ref as scan_ref
+
+    f32 = torch.float32
+    for dt, dtype in dts.items():
+        e = torch.tensor([], dtype=dtype).element_size()
+        sets = [(torch.sigmoid(randn((B, S, R), f32)).to(dtype),
+                 randn((B, S, R), dtype, 0.1))
+                for _ in range(n_sets(2 * B * S * R * e))]
+        a, b = sets[0]
+        out, ref = linear_scan.rglru_scan(a, b), \
+            scan_ref.rglru_reference(a, b)
+        equal = bool(torch.equal(out, ref))
+        row = record("rglru_scan", f"B={B} S={S} R={R}", dt, out, ref,
+                     RGLRU_TOL[dt], linear_scan.rglru_scan,
+                     scan_ref.rglru_reference, None, sets,
+                     2 * B * S * R * e + 4 * B * S * R, 2.0 * B * S * R,
+                     ops_dt="f32", again=linear_scan.rglru_scan(a, b))
+        row.update(bit_equal_plain=equal)
+        print(f"  (rglru_scan {dt} S={S} R={R}: "
+              f"{'bit-equal to' if equal else 'DIFFERS from'} the plain "
+              f"version) {'ok' if equal else 'FAIL'}", flush=True)
+        check(equal, f"rglru_scan {dt} S={S} R={R} is not bit-equal "
+              f"to its plain version")
+        del sets
 
 
 # ---------------------------------------------------------------------------
@@ -1651,9 +1714,10 @@ def _at(tree, path):
     return tree
 
 
-def random_params(torch, cfg, dtype, seed):
+def random_params(torch, cfg, dtype, seed, prepare=True):
     """Random weights on the card; biases and norm scales drawn too, so a
-    bias or scale fault shows in the logits."""
+    bias or scale fault shows in the logits.  The serving layout, or with
+    ``prepare=False`` the spec tree (which a mesh engine shards)."""
     from repro_torch.models import module, transformer
 
     dev = torch.device("cuda")
@@ -1690,7 +1754,7 @@ def random_params(torch, cfg, dtype, seed):
                                                  device=dev))
 
     fill(tree)
-    return transformer.prepare_params(tree, cfg)
+    return transformer.prepare_params(tree, cfg) if prepare else tree
 
 
 def slice_phase(torch, seed):
@@ -3808,6 +3872,335 @@ def moe_train_parity(torch, seed, S=2048):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 19: duplicate page ids in monolithic paged prefill
+# ---------------------------------------------------------------------------
+
+
+def paged_prefill_writes_phase(torch, seed):
+    """``transformer._scatter_pages`` names the null page once for every
+    page past a slot's live ones; each duplicate must write the last
+    stretch that names it (its device writes land in no fixed order).
+    20 draws of a 2048-token bf16 stripe into 128 pages of which 126 are
+    the null page: every named page must hold its last stretch.  Then a
+    shrunk grok-1-314b (an MoE, where pad rows take expert capacity)
+    served with ``prefill_mode="monolithic"`` on a paged pool as a graph
+    parity pair: the same tokens eager and as graphs."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config, shrink
+    from repro_torch.core.famous import FamousConfig
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    n_p, ps, kv, dh = 128, 16, 8, 128
+    ids = torch.tensor([3, 1] + [0] * (n_p - 2), dtype=torch.int32,
+                       device=dev)
+    bad = 0
+    for _ in range(20):
+        seq = torch.randn((n_p * ps, kv, dh), generator=gen,
+                          device=dev).to(torch.bfloat16)
+        pool = torch.zeros((4, ps, kv, dh), dtype=torch.bfloat16, device=dev)
+        transformer._scatter_pages(pool, seq, ids)
+        stretch = seq.reshape(n_p, ps, kv, dh)
+        bad += not (torch.equal(pool[0], stretch[-1])
+                    and torch.equal(pool[3], stretch[0])
+                    and torch.equal(pool[1], stretch[1]))
+    print(f"paged prefill writes: 20 scatters of 128 pages, 126 of them "
+          f"the null page: {20 - bad} of 20 leave every page its last "
+          f"stretch {'ok' if not bad else 'FAIL'}", flush=True)
+    check(not bad, f"_scatter_pages: {bad} of 20 scatters left a page "
+          f"other than its last stretch")
+
+    cfg = shrink(get_config("grok-1-314b"))
+    params = random_params(torch, cfg, torch.float32, seed + 19)
+    rng = np.random.default_rng(seed + 19)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, size=n)]
+               for n in rng.integers(5, 120, size=8)]
+
+    def make_engine():
+        return ServingEngine(params, cfg, FamousConfig(impl="pallas"),
+                             n_slots=4, max_seq=256, cache_kind="paged",
+                             page_size=16, prefill_mode="monolithic",
+                             device="cuda")
+
+    def make_reqs():
+        return [Request(rid=i, tokens=list(p), max_new=8)
+                for i, p in enumerate(prompts)]
+
+    (done, engine, launches, plain, wall), pair = graph_pair(
+        torch, "grok-1-314b shrunk monolithic paged", make_engine, make_reqs)
+    check(all(r.error is None for r in done),
+          f"grok-1 shrunk: {[(r.rid, r.error) for r in done]}")
+    del engine, params
+    torch.cuda.empty_cache()
+    return dict(scatter_bad=bad, pair=pair, launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 18: tensor-parallel serving (parallel/sharding.py, launch/mesh.py)
+# ---------------------------------------------------------------------------
+
+# phase 18b's slices at full width: arch, layers, cache kind, and the
+# serving kernels the slice launches.  qwen2-7b's
+# 28 / 4 heads run 14 / 2 a rank at TP=2 and 7 / 1 at TP=4; one
+# recurrentgemma-2b unit (RG-LRU, RG-LRU, local attention) runs 5 / 1
+# heads of its 10 / 1 and LRU width 1280 at TP=2, and at TP=4 keeps its
+# heads whole (10 does not divide by 4) while the FFN and LRU hidden
+# shard (its local attention's chunk runs torch ops, its decode the
+# decode kernel)
+TP_SLICES = (("qwen2-7b", 2, "contiguous", SERVING_KERNELS),
+             ("qwen2-7b", 2, "paged", ("matmul_tiled",) + PAGED_KERNELS["fp"]),
+             ("recurrentgemma-2b", 3, "contiguous",
+              ("matmul_tiled", "decode_attention", "rglru_scan")))
+TP_JOIN_S = 300
+
+
+def mesh_phase(torch, seed):
+    """Phase 18: 18a, the engine on a mesh of one rank against the engine
+    without one; 18b, TP=2 and TP=4 over gloo ranks sharing the card."""
+    import torch.distributed as dist
+
+    try:
+        out = {"tp1": tp1_phase(torch, seed)}
+        out["tp_ranks"] = tp_ranks_phase(torch, seed)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return out
+
+
+def tp1_phase(torch, seed):
+    """Phase 18a: full-depth qwen2-7b in bf16 (phase 8's prompts, the same
+    random weights as its spec tree) served by ``mesh=None`` and by
+    ``mesh=make_serving_mesh(tp=1)`` over a process group of one rank,
+    each as a graph parity pair.  Over a "model" axis of size 1 nothing is
+    cut and no collective runs, so tokens, final caches (bit for bit),
+    census, kernel launch counts and cache bytes must all be equal.  Then
+    the mesh engine's step times (``step_breakdown``)."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.famous import FamousConfig
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    cfg = get_config("qwen2-7b")
+    tree = random_params(torch, cfg, torch.bfloat16, seed, prepare=False)
+    mesh = make_serving_mesh(tp=1)
+    rng = np.random.default_rng(seed)
+    lens = [int(x) for x in rng.integers(64, 1537, size=8)]
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, size=n)]
+               for n in lens]
+
+    def make_reqs():
+        return [Request(rid=i, tokens=list(p), max_new=32)
+                for i, p in enumerate(prompts)]
+
+    runs, res = {}, {}
+    for label, m in (("mesh=None", None), ("TP=1 mesh", mesh)):
+        def make_engine(m=m):
+            return ServingEngine(tree, cfg, FamousConfig(impl="pallas"),
+                                 n_slots=4, max_seq=2048,
+                                 dtype=torch.bfloat16, chunk=256, mesh=m,
+                                 device="cuda")
+
+        (done, engine, launches, plain, wall), pair = graph_pair(
+            torch, f"qwen2-7b {label}", make_engine, make_reqs)
+        check(not any(plain.values()), f"{label}: a plain version ran on "
+              f"CUDA tensors: {plain}")
+        runs[label] = dict(
+            tokens=[r.out for r in done], launches=launches,
+            census=engine.compilations, bytes=engine.cache_bytes_per_device(),
+            caches=[{n: b.clone() for n, b in c.items()}
+                    for c in engine.caches])
+        res[label] = dict(pair=pair, launches=launches,
+                          census=runs[label]["census"],
+                          cache_bytes=runs[label]["bytes"])
+        if m is not None:
+            res["steps"] = step_breakdown(torch, engine)
+        del engine
+        torch.cuda.empty_cache()
+    a, b = runs["mesh=None"], runs["TP=1 mesh"]
+    same_caches = all(torch.equal(x[n], y[n]) for x, y in
+                      zip(a["caches"], b["caches"]) for n in x)
+    same = dict(tokens=a["tokens"] == b["tokens"], caches=same_caches,
+                census=a["census"] == b["census"],
+                launches=a["launches"] == b["launches"],
+                cache_bytes=a["bytes"] == b["bytes"])
+    res["equal"] = same
+    res["launches"] = b["launches"]
+    print(f"tensor parallel 18a: qwen2-7b bf16 28 layers, TP=1 mesh "
+          f"{mesh} against mesh=None: {same}; graph tok/s "
+          f"{res['TP=1 mesh']['pair']['graph']['tok_per_s']:.1f} against "
+          f"{res['mesh=None']['pair']['graph']['tok_per_s']:.1f}, eager "
+          f"{res['TP=1 mesh']['pair']['eager']['tok_per_s']:.1f} against "
+          f"{res['mesh=None']['pair']['eager']['tok_per_s']:.1f} "
+          f"{'ok' if all(same.values()) else 'FAIL'}", flush=True)
+    check(all(same.values()), f"the TP=1 mesh engine differs from "
+          f"mesh=None: {same}")
+    del tree, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_slices(torch, mesh, seed):
+    """TP_SLICES served on ``mesh`` in f32, eagerly (a gloo group's sum
+    cannot be captured): 4 requests of 40-300 tokens, 8 new each, 4 slots,
+    max_seq 512, chunk 128.  Per slice: tokens, kernel launches and plain
+    versions run on CUDA tensors, cache bytes, seconds.  Every process
+    draws the same weights from ``seed``."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.famous import FamousConfig
+    from repro_torch.kernels import lib
+    from repro_torch.serve import graphs
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    out = {}
+    for arch, layers, kind, kernels in TP_SLICES:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        tree = random_params(torch, cfg, torch.float32, seed + 18,
+                             prepare=False)
+        rng = np.random.default_rng(seed + 18)
+        prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, size=n)]
+                   for n in (40, 129, 300, 77)]
+        engine = ServingEngine(tree, cfg, FamousConfig(impl="pallas"),
+                               n_slots=4, max_seq=512, chunk=128,
+                               cache_kind=kind, page_size=16, mesh=mesh,
+                               device="cuda")
+        del tree
+        torch.cuda.synchronize()
+        lib.STATS.reset()
+        t0 = time.perf_counter()
+        with graphs.disable_capture():
+            done = sorted(engine.run([Request(rid=i, tokens=p, max_new=8)
+                                      for i, p in enumerate(prompts)]),
+                          key=lambda r: r.rid)
+        torch.cuda.synchronize()
+        out[f"{arch} {layers} layers {kind}"] = dict(
+            tokens=[r.out for r in done],
+            errors=[r.error for r in done if r.error],
+            launches=dict(lib.STATS.launches),
+            plain_on_cuda=dict(lib.STATS.plain_on_cuda),
+            cache_bytes=engine.cache_bytes_per_device(),
+            kernels=kernels,
+            seconds=time.perf_counter() - t0)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(rank, world, tmp, seed):
+    """One rank of phase 18b (a spawned process): joins the gloo group over
+    ``tmp``'s FileStore, serves ``tp_slices`` on the TP=``world`` mesh and
+    writes them, with its peak memory, to ``tmp/rank{rank}.json``."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(Path(tmp) / "store"), world),
+        rank=rank, world_size=world)
+    try:
+        from repro_torch.launch.mesh import make_serving_mesh
+        torch.cuda.reset_peak_memory_stats()
+        res = dict(slices=tp_slices(torch, make_serving_mesh(tp=world),
+                                    seed),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    except Exception:
+        res = dict(error=traceback.format_exc())
+    finally:
+        dist.destroy_process_group()
+    (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def tp_ranks_phase(torch, seed):
+    """Phase 18b: TP_SLICES on a mesh of one rank in this process, then on
+    TP=2 and TP=4 meshes of spawned ranks sharing the card over gloo,
+    eagerly.  Every rank's tokens must equal the TP=1 engine's; every
+    serving kernel of a slice must launch on every rank and no plain
+    version run on CUDA tensors; qwen2-7b's cache bytes times TP must equal
+    TP=1's.  Each rank's peak memory and each spawn's seconds are
+    printed; every join has a deadline, and a rank still running at it is
+    killed."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    base = tp_slices(torch, make_serving_mesh(tp=1), seed)
+    out = {"tp1": base}
+    for world in (2, 4):
+        tmp = tempfile.mkdtemp(prefix=f"tp{world}-")
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(tp_rank, args=(world, tmp, seed),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + TP_JOIN_S
+        try:
+            while not ctx.join(timeout=max(1.0,
+                                           deadline - time.monotonic())):
+                check(time.monotonic() < deadline,
+                      f"TP={world}: the ranks did not finish in {TP_JOIN_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        seconds = time.perf_counter() - t0
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(world)]
+        shutil.rmtree(tmp, ignore_errors=True)
+        for r, got in enumerate(ranks):
+            check("error" not in got, f"TP={world} rank {r}: "
+                  f"{got.get('error')}")
+        res = dict(seconds=seconds,
+                   peak_mem_gb=[got["peak_mem_gb"] for got in ranks],
+                   slices={})
+        for name, want in base.items():
+            got = [rk["slices"][name] for rk in ranks]
+            tokens_ok = all(g["tokens"] == want["tokens"] and not g["errors"]
+                            for g in got)
+            launched = all(g["launches"][k] > 0 for g in got
+                           for k in g["kernels"])
+            plain_none = not any(v for g in got
+                                 for v in g["plain_on_cuda"].values())
+            bytes_ok = (not name.startswith("qwen2-7b")
+                        or all(g["cache_bytes"] * world == want["cache_bytes"]
+                               for g in got))
+            res["slices"][name] = dict(
+                tokens_equal=tokens_ok, kernels_launched=launched,
+                no_plain=plain_none, cache_bytes_ok=bytes_ok,
+                cache_bytes=[g["cache_bytes"] for g in got],
+                launches=[{k: g["launches"][k] for k in g["kernels"]}
+                          for g in got],
+                seconds=[g["seconds"] for g in got])
+            ok = tokens_ok and launched and plain_none and bytes_ok
+            print(f"tensor parallel 18b TP={world} {name}: tokens equal to "
+                  f"TP=1 on every rank {tokens_ok}, kernels launched on "
+                  f"every rank {launched} "
+                  f"{res['slices'][name]['launches'][0]}, no plain version "
+                  f"{plain_none}, cache bytes a rank "
+                  f"{res['slices'][name]['cache_bytes'][0]} against TP=1 "
+                  f"{want['cache_bytes']}; rank seconds "
+                  f"{[round(x, 2) for x in res['slices'][name]['seconds']]} "
+                  f"against TP=1 {want['seconds']:.2f} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"TP={world} {name}: {res['slices'][name]}")
+        print(f"tensor parallel 18b TP={world}: {seconds:.1f} s for the "
+              f"spawn, peak memory a rank "
+              f"{[round(x, 2) for x in res['peak_mem_gb']]} GB", flush=True)
+        out[f"tp{world}"] = res
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -3868,6 +4261,9 @@ def main(argv=None) -> int:
     moe_serving = phase("moe serving", moe_serving_phase, args.seed)
     frontend_training = phase("frontend training", frontend_training_phase,
                               args.seed)
+    mesh_serving = phase("tensor-parallel serving", mesh_phase, args.seed)
+    paged_writes = phase("paged prefill writes", paged_prefill_writes_phase,
+                         args.seed)
 
     paths = [r["launches"] for r in training.values()] + [serving["launches"]]
     paths += [r["launches"] for r in serving["shared_prefix"].values()]
@@ -3880,6 +4276,9 @@ def main(argv=None) -> int:
     paths += [r["launches"] for r in moe_serving.values()]
     paths += [r["launches"] for r in frontend_training.values()
               if "launches" in r]
+    paths += [mesh_serving["tp1"][k]["launches"]
+              for k in ("mesh=None", "TP=1 mesh")]
+    paths += [paged_writes["launches"]]
     launches = {k: sum(p[k] for p in paths) for k in lib.KERNELS}
     check(all(v > 0 for v in launches.values()),
           f"a kernel never launched on the training and serving paths: "
@@ -3927,6 +4326,8 @@ def main(argv=None) -> int:
                                    moe_slice_parity=moe_parity,
                                    moe_serving=moe_serving,
                                    frontend_training=frontend_training,
+                                   mesh_serving=mesh_serving,
+                                   paged_prefill_writes=paged_writes,
                                    phase_s=phase_s),
                               indent=1))
     print(json.dumps({"kernels": entries}))

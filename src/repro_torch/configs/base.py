@@ -2,7 +2,8 @@
 
 Every architecture is a :class:`ModelConfig` registered under its id
 (``--arch <id>``); a :class:`ShapeConfig` names a sequence length and
-global batch (``--shape <name>``).  The registry holds the same configs
+global batch (``--shape <name>``); a :class:`RunConfig` bundles (arch,
+shape, tensor and data parallelism).  The registry holds the same configs
 as the JAX package's.
 """
 from __future__ import annotations
@@ -168,6 +169,42 @@ def supported_cells(arch: str) -> list[str]:
         if cfg.is_subquadratic:
             cells.append("long_500k")
     return cells
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Bundle of (arch, shape, parallelism) for a serving launch.
+
+    ``tp`` is tensor parallelism on the "model" mesh axis (attention heads /
+    kv heads / FFN hidden — see ``parallel.sharding.SERVE_TP_RULES``), ``dp``
+    replica groups on "data".  ``tp == dp == 1`` means no mesh at all: the
+    engine runs its unsharded single-device baseline.
+    """
+    arch: str
+    shape: str = "smoke_decode"
+    tp: int = 1
+    dp: int = 1
+
+    def __post_init__(self):
+        assert self.tp >= 1 and self.dp >= 1, (self.tp, self.dp)
+
+    @property
+    def mesh_shape(self) -> tuple[int, int]:
+        return (self.dp, self.tp)
+
+    @property
+    def needs_mesh(self) -> bool:
+        return self.tp > 1 or self.dp > 1
+
+    def make_mesh(self, device_type: str = "cuda"):
+        """The (dp, tp) serving mesh over this process's group (one rank a
+        process, see ``launch.mesh.make_serving_mesh``), or None when
+        unsharded."""
+        if not self.needs_mesh:
+            return None
+        from repro_torch.launch.mesh import make_serving_mesh
+        return make_serving_mesh(tp=self.tp, dp=self.dp,
+                                 device_type=device_type)
 
 
 def shrink(cfg: ModelConfig, **over) -> ModelConfig:

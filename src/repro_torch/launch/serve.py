@@ -15,19 +15,30 @@ request stream on the GPU, at the config's full width and depth with random
 bf16 weights made on the card from ``--seed`` (``--smoke`` shrinks the
 config).  ``--device cpu`` runs the kernels' plain PyTorch versions on
 the CPU.
+
+``--tp N`` (or ``--mesh-shape D,T``) serves tensor-parallel, one process
+a rank: ``torchrun --nproc-per-node N -m repro_torch.launch.serve --tp
+N``.  Every rank draws the same weights from ``--seed`` and keeps its
+shard; rank 0 prints the mesh, its cache bytes and the run.  ``--tp 1``
+(the default) runs without a mesh.  NCCL serves where every rank has a
+card of its own, with CUDA graphs; ranks that share one card run over
+gloo, eagerly (``graphs.disable_capture()``).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import RWKV6, get_config, list_configs, shrink
+from repro_torch.configs.base import (RWKV6, RunConfig, get_config,
+                                      list_configs, shrink)
 from repro_torch.core.famous import FamousConfig
 from repro_torch.models import module, transformer
 from repro_torch.obs.runtime import Observer
 from repro_torch.obs.trace import now
+from repro_torch.serve import graphs
 from repro_torch.serve.engine import Request, ServingEngine, resolve_device
 
 
@@ -88,6 +99,15 @@ def main(argv=None):
     ap.add_argument("--draft-k", type=int, default=4,
                     help="max draft tokens per verify step (the verify "
                          "step's width is draft-k + 1)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor parallelism: shard attention heads / kv "
+                         "heads / FFN hidden over a 'model' mesh axis of "
+                         "this size, one process a rank (torchrun "
+                         "--nproc-per-node N). 1 = unsharded baseline")
+    ap.add_argument("--mesh-shape", default="",
+                    help="explicit 'data,model' mesh shape, e.g. '1,2' "
+                         "(overrides --tp; the data axis is reserved for "
+                         "engine replicas)")
     ap.add_argument("--metrics", action="store_true",
                     help="attach an Observer and print the Prometheus text "
                          "exposition after the run")
@@ -95,19 +115,24 @@ def main(argv=None):
                     help="write Chrome/Perfetto trace_event JSON to PATH")
     args = ap.parse_args(argv)
 
+    if args.mesh_shape:
+        dp, tp = (int(x) for x in args.mesh_shape.split(","))
+    else:
+        dp, tp = 1, args.tp
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = shrink(cfg)
     if cfg.is_encoder_only:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
     device = resolve_device(args.device)
+    mesh = RunConfig(arch=args.arch, tp=tp, dp=dp).make_mesh(device.type)
+    rank0 = mesh is None or torch.distributed.get_rank() == 0
     dtype = torch.bfloat16
     obs = (Observer(trace=bool(args.trace_out))
            if args.metrics or args.trace_out else None)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = transformer.prepare_params(
-        module.init_params(transformer.model_spec(cfg), gen, dtype, device),
-        cfg)
+    params = module.init_params(transformer.model_spec(cfg), gen, dtype,
+                                device)
     engine = ServingEngine(params, cfg, FamousConfig(impl="pallas"),
                            n_slots=args.slots, max_seq=args.max_seq,
                            dtype=dtype, prefill_mode=args.prefill_mode,
@@ -120,7 +145,12 @@ def main(argv=None):
                            prefix_cache=args.prefix_cache,
                            speculative=args.speculative,
                            draft_k=args.draft_k, observer=obs,
-                           device=device)
+                           mesh=mesh, device=device)
+    del params
+    if rank0 and mesh is not None:
+        print(f"mesh {mesh}: {torch.distributed.get_world_size()} ranks "
+              f"over {torch.distributed.get_backend()}; this rank's KV "
+              f"cache {engine.cache_bytes_per_device()} bytes")
     rng = np.random.default_rng(args.seed)
     # prompt lengths from max_seq / 32 to three quarters of max_seq
     # (64..1536 at the default 2048), leaving room for max_new tokens
@@ -135,11 +165,16 @@ def main(argv=None):
                     max_new=args.max_new, temperature=args.temperature,
                     top_k=args.top_k, seed=args.seed + i)
             for i, n in enumerate(lens)]
+    eager = (mesh is not None and device.type == "cuda"
+             and torch.distributed.get_backend() != "nccl")
     t0 = now()
-    done = engine.run(reqs)
+    with graphs.disable_capture() if eager else contextlib.nullcontext():
+        done = engine.run(reqs)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = now() - t0
+    if not rank0:
+        return done
     tok = sum(len(r.out) for r in done)
     print(f"served {len(done)} requests, {tok} tokens in {dt:.2f}s "
           f"({tok / dt:.1f} tok/s) on {device}; kernel launches "

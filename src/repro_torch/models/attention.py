@@ -88,6 +88,19 @@ def make_attn_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+# logical axes of the caches (``transformer.cache_axes``): contiguous
+# stripes and rings are per slot; page pools have no slot axis, so tensor
+# parallelism shards their kv-head dim (and the int8 scale pools' alike),
+# and the page table stays one host copy for every rank
+ATTN_CACHE_AXES = {"k": ("batch", None, "kv_heads", "head_dim"),
+                   "v": ("batch", None, "kv_heads", "head_dim")}
+PAGED_ATTN_CACHE_AXES = {"k": (None, None, "kv_heads", "head_dim"),
+                         "v": (None, None, "kv_heads", "head_dim")}
+PAGED_ATTN_CACHE_AXES_INT8 = {**PAGED_ATTN_CACHE_AXES,
+                              "k_scale": (None, None, "kv_heads"),
+                              "v_scale": (None, None, "kv_heads")}
+
+
 def make_paged_attn_cache(cfg: ModelConfig, n_pages: int, page_size: int,
                           dtype, kv_dtype: str = "fp", device="cuda") -> dict:
     """Shared page pool of one global-attention layer: every slot's K/V
@@ -187,13 +200,44 @@ def _project(p, x, cfg: ModelConfig, fcfg: famous.FamousConfig, positions):
     if cfg.rope:
         q = layers.rope(q, positions, cfg.rope_theta)
         k = layers.rope(k, positions, cfg.rope_theta)
+    if "kv_head" in p:
+        q = _spread_heads(q, p["kv_head"])
     return q, k, v
+
+
+def _spread_heads(q, kv_head):
+    """A tensor-parallel rank whose query heads are sharded while the kv
+    heads are replicated (``transformer.shard_params``: ``kv_head`` = (KV,
+    k), all of the rank's heads in kv head k's group): its q (..., Hl, dh)
+    placed in group k of a (..., KV * Hl, dh) layout, zeros elsewhere, so
+    the kernels' head map (q head j reads kv head ``j // (H / KV)``) pairs
+    every local head with kv head k of the replicated cache.  The zero
+    heads' outputs are dropped in :func:`_attn_out`."""
+    KV, k = kv_head
+    z = q.new_zeros(q.shape)
+    return torch.cat([z] * k + [q] + [z] * (KV - 1 - k), dim=-2)
 
 
 def _out_proj(out, wo):
     """einsum("bshe,hed->bsd") as one matmul."""
     B, S, H, dh = out.shape
     return out.reshape(B, S, H * dh) @ wo.to(out.dtype).reshape(H * dh, -1)
+
+
+def _attn_out(out, p):
+    """The attention output through ``wo``; under tensor parallelism the
+    rank's heads' partial product summed over the "model" group
+    (``tp_sum``, present only where the heads are sharded over more than
+    one rank), after dropping the zero heads :func:`_spread_heads`
+    added."""
+    if "kv_head" in p:
+        KV, k = p["kv_head"]
+        hl = out.shape[-2] // KV
+        out = out[..., k * hl:(k + 1) * hl, :]
+    y = _out_proj(out, p["wo"])
+    if "tp_sum" in p:
+        y = p["tp_sum"](y)
+    return y
 
 
 def apply_attn(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -205,7 +249,7 @@ def apply_attn(p: dict, x: torch.Tensor, cfg: ModelConfig,
     q, k, v = _project(p, x, cfg, fcfg, positions)
     out = famous.attention(q, k, v, causal=cfg.causal, window=window,
                            q_offset=q_offset, cfg=fcfg)
-    return _out_proj(out, p["wo"])
+    return _attn_out(out, p)
 
 
 def apply_attn_prefill(p: dict, x: torch.Tensor, cache: dict,
@@ -230,7 +274,7 @@ def apply_attn_prefill(p: dict, x: torch.Tensor, cache: dict,
         else:
             buf[:, positions[S - rows:] % rows] = new[:, S - rows:].to(
                 buf.dtype)
-    return _out_proj(out, p["wo"]), cache
+    return _attn_out(out, p), cache
 
 
 def ring_write_source(ring: int, offset, n_valid, C: int):
@@ -284,7 +328,7 @@ def apply_attn_chunk(p: dict, x: torch.Tensor, cache: dict, slot, offset,
         cache["v"].index_put_(rows, v[0].to(cache["v"].dtype))
         out = famous.chunked_prefill_attention(q, cache["k"], cache["v"],
                                                offset, cfg=fcfg, slot=slot)
-        return _out_proj(out, p["wo"]), cache
+        return _attn_out(out, p), cache
     ring = cache["k"].shape[1]
     prev_pos = offset - ring + torch.arange(ring, device=x.device)
     order = torch.remainder(prev_pos, ring)
@@ -301,7 +345,7 @@ def apply_attn_chunk(p: dict, x: torch.Tensor, cache: dict, slot, offset,
         buf = cache[name]
         buf.index_put_((slot,), torch.where(keep, new[0, src].to(buf.dtype),
                                             row)[None])
-    return _out_proj(out, p["wo"]), cache
+    return _attn_out(out, p), cache
 
 
 def apply_attn_decode(p: dict, x: torch.Tensor, cache: dict,
@@ -329,7 +373,7 @@ def apply_attn_decode(p: dict, x: torch.Tensor, cache: dict,
     cache["k"][rows, at] = k[:, 0].to(cache["k"].dtype)
     cache["v"][rows, at] = v[:, 0].to(cache["v"].dtype)
     out = famous.decode_attention(q, cache["k"], cache["v"], valid, cfg=fcfg)
-    return _out_proj(out, p["wo"]), cache
+    return _attn_out(out, p), cache
 
 
 def apply_attn_chunk_paged(p: dict, x: torch.Tensor, cache: dict,
@@ -357,7 +401,7 @@ def apply_attn_chunk_paged(p: dict, x: torch.Tensor, cache: dict,
     out = famous.paged_chunked_prefill_attention(
         q, cache["k"], cache["v"], page_table, offset, cfg=fcfg, slot=slot,
         **_pool_scales(cache))
-    return _out_proj(out, p["wo"]), cache
+    return _attn_out(out, p), cache
 
 
 def apply_attn_decode_paged(p: dict, x: torch.Tensor, cache: dict,
@@ -379,7 +423,7 @@ def apply_attn_decode_paged(p: dict, x: torch.Tensor, cache: dict,
     out = famous.paged_decode_attention(q, cache["k"], cache["v"], page_table,
                                         cache_len + 1, cfg=fcfg,
                                         **_pool_scales(cache))
-    return _out_proj(out, p["wo"]), cache
+    return _attn_out(out, p), cache
 
 
 def verify_writes(cache_len: torch.Tensor, W: int, max_seq: int):
@@ -432,7 +476,7 @@ def apply_attn_verify(p: dict, x: torch.Tensor, cache: dict,
                                       buf[b_idx, pos])
     out = famous.verify_attention(q, cache["k"], cache["v"], cache_len,
                                   cfg=fcfg)
-    return _out_proj(out, p["wo"]), cache
+    return _attn_out(out, p), cache
 
 
 def apply_attn_verify_paged(p: dict, x: torch.Tensor, cache: dict,
@@ -457,4 +501,4 @@ def apply_attn_verify_paged(p: dict, x: torch.Tensor, cache: dict,
     out = famous.paged_verify_attention(q, cache["k"], cache["v"],
                                         page_table, cache_len, cfg=fcfg,
                                         **_pool_scales(cache))
-    return _out_proj(out, p["wo"]), cache
+    return _attn_out(out, p), cache

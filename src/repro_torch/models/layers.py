@@ -96,13 +96,18 @@ def mlp_spec(d: int, d_ff: int, act: str = "silu", gated: bool = True) -> dict:
 
 def apply_mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     """act(x W_gate) * (x W_in) when gated, else act(x W_in); then
-    W_out."""
+    W_out.  Under tensor parallelism (the hidden dim sharded over more
+    than one rank) the rank's partial product is summed over the "model"
+    group (``tp_sum``)."""
     h = x @ p["w_in"].to(x.dtype)
     if "w_gate" in p:
         h = act_fn(act)(x @ p["w_gate"].to(x.dtype)) * h
     else:
         h = act_fn(act)(h)
-    return h @ p["w_out"].to(x.dtype)
+    y = h @ p["w_out"].to(x.dtype)
+    if "tp_sum" in p:
+        y = p["tp_sum"](y)
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,9 @@ logical axis names + initializer), then materialised with
 :func:`init_params`.  The trees have the same structure and leaf shapes as
 the JAX package's, stacked ``(num_units, ...)`` leaves included, so a JAX
 parameter tree carries over leaf for leaf (see ``repro_torch.convert``).
+:func:`logical_axes` gives the tree of axis names that
+``parallel.sharding`` resolves against a mesh, :func:`param_shapes` the
+shapes without allocating.
 """
 from __future__ import annotations
 
@@ -90,6 +93,28 @@ def init_params(spec_tree: Tree, gen: torch.Generator,
     where the two must agree."""
     return tree_map(lambda s: _materialise(s, gen, default_dtype, device),
                     spec_tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeDtype:
+    """A leaf's shape and dtype, allocating nothing (JAX's
+    ``ShapeDtypeStruct``)."""
+
+    shape: tuple[int, ...]
+    dtype: Any
+
+
+def param_shapes(spec_tree: Tree, default_dtype=torch.float32) -> Tree:
+    """:class:`ShapeDtype` tree of the parameters, same structure as the
+    spec tree (no allocation)."""
+    return tree_map(lambda s: ShapeDtype(tuple(s.shape),
+                                         s.dtype or default_dtype),
+                    spec_tree)
+
+
+def logical_axes(spec_tree: Tree) -> Tree:
+    """Tree of logical-axis tuples, same structure as the param tree."""
+    return tree_map(lambda s: tuple(s.axes), spec_tree)
 
 
 def count_params(spec_tree: Tree) -> int:

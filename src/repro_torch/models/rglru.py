@@ -52,18 +52,35 @@ def rglru_spec(cfg: ModelConfig) -> dict:
     }
 
 
+def _channels(p, name):
+    """A replicated (R,) parameter, cut to this rank's channels under
+    tensor parallelism (``tp_channels``)."""
+    if "tp_channels" in p:
+        lo, hi = p["tp_channels"]
+        return p[name][lo:hi]
+    return p[name]
+
+
 def _gates(p, xc):
-    """Recurrence gate r_t and input gate i_t from the conv output."""
-    rg = torch.sigmoid((xc @ p["w_a"].to(xc.dtype)).to(f32)
-                       + p["b_a"].to(f32))
-    ig = torch.sigmoid((xc @ p["w_i"].to(xc.dtype)).to(f32)
-                       + p["b_i"].to(f32))
+    """Recurrence gate r_t and input gate i_t from the conv output.  Under
+    tensor parallelism xc holds this rank's channels and ``w_a``/``w_i``
+    their rows: the partial products are summed over the "model" group
+    (``tp_sum``) and the gates cut back to the rank's channels."""
+    pre_a = xc @ p["w_a"].to(xc.dtype)
+    pre_i = xc @ p["w_i"].to(xc.dtype)
+    if "tp_sum" in p:
+        lo, hi = p["tp_channels"]
+        r = pre_a.shape[-1]
+        pre = p["tp_sum"](torch.cat([pre_a, pre_i], dim=-1))
+        pre_a, pre_i = pre[..., lo:hi], pre[..., r + lo:r + hi]
+    rg = torch.sigmoid(pre_a.to(f32) + _channels(p, "b_a").to(f32))
+    ig = torch.sigmoid(pre_i.to(f32) + _channels(p, "b_i").to(f32))
     return rg, ig
 
 
 def _decay(p, rg):
     # jax.nn.softplus is logaddexp(x, 0)
-    lam = p["lam"].to(f32)
+    lam = _channels(p, "lam").to(f32)
     log_a = -_C * torch.logaddexp(lam, torch.zeros_like(lam)) * rg
     a = torch.exp(log_a)
     return a, torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
@@ -200,9 +217,15 @@ def make_rglru_cache(cfg: ModelConfig, batch: int, dtype,
     }
 
 
+RGLRU_CACHE_AXES = {"h": ("batch", "mlp"), "conv": ("batch", None, "mlp")}
+
+
 def _out(p, gate, h, x):
     y = layers.act_fn("gelu")(gate.to(f32)) * h
-    return y.to(x.dtype) @ p["w_out"].to(x.dtype)
+    y = y.to(x.dtype) @ p["w_out"].to(x.dtype)
+    if "tp_sum" in p:
+        y = p["tp_sum"](y)
+    return y
 
 
 def apply_rglru(p: dict, x: torch.Tensor, cfg: ModelConfig,

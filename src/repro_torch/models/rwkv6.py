@@ -149,6 +149,10 @@ def make_rwkv_cache(cfg: ModelConfig, batch: int, dtype,
     }
 
 
+RWKV_CACHE_AXES = {"s": ("batch", "heads", None, None),
+                   "x_tm": ("batch", "embed"), "x_cm": ("batch", "embed")}
+
+
 def _time_mix_qkvwg(p, x, x_prev):
     dt = x.dtype
     xs = [_mix(x, x_prev, p["mu"][i]) for i in range(5)]

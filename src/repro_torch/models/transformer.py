@@ -27,6 +27,13 @@ int8) that global-attention layers address through a ``page_table``;
 ``{"h", "conv"}`` for RG-LRU and ``{"s", "x_tm", "x_cm"}`` for RWKV-6
 layers, per slot even when the attention is paged — written in place (see
 ``models/attention.py``).
+
+Tensor parallelism (``ServingEngine(mesh=)``): :func:`param_axes` and
+:func:`cache_axes` name every leaf's logical axes, as JAX's do;
+:func:`shard_params` cuts the spec tree to one rank's shards and marks
+the layers whose products need a sum over the "model" group, and
+``make_caches(mesh=)`` allocates the rank's cache shapes.  The step
+functions below run unchanged on a rank's layout.
 """
 from __future__ import annotations
 
@@ -39,8 +46,9 @@ from repro_torch.configs.base import (ATTN, LOCAL_ATTN, RGLRU, RWKV6,
                                       ModelConfig)
 from repro_torch.core.famous import FamousConfig
 from repro_torch.kernels import lib
-from repro_torch.models import attention, layers, moe, rglru, rwkv6
+from repro_torch.models import attention, layers, module, moe, rglru, rwkv6
 from repro_torch.models.module import ParamSpec, stack_specs
+from repro_torch.parallel import sharding as shd
 
 # ---------------------------------------------------------------------------
 # parameter spec
@@ -165,6 +173,150 @@ def quantize_qkv(params: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# logical axes and tensor parallelism
+# ---------------------------------------------------------------------------
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """Logical-axis tree matching the spec tree of :func:`model_spec`
+    (``stack_specs`` prepends "layers" to the stacked leaves)."""
+    return module.logical_axes(model_spec(cfg))
+
+
+def cache_axes(cfg: ModelConfig, cache_kind: str = "contiguous",
+               kv_dtype: str = "fp") -> list:
+    """Logical-axis tree matching :func:`make_caches` (one dict a layer):
+    contiguous attention caches ("batch", seq, "kv_heads", "head_dim");
+    page pools drop the slot axis and, int8, add the scale pools."""
+    def block_axes(kind):
+        if kind == ATTN and cache_kind == "paged":
+            return (attention.PAGED_ATTN_CACHE_AXES_INT8
+                    if kv_dtype == "int8"
+                    else attention.PAGED_ATTN_CACHE_AXES)
+        if kind in (ATTN, LOCAL_ATTN):
+            return attention.ATTN_CACHE_AXES
+        if kind == RGLRU:
+            return rglru.RGLRU_CACHE_AXES
+        return rwkv6.RWKV_CACHE_AXES
+
+    return [dict(block_axes(k)) for k in layer_kinds(cfg)]
+
+
+# the logical axes tensor-parallel serving splits; a rule that shards any
+# other axis of the model or its caches over more than one rank raises
+TP_AXES = ("heads", "kv_heads", "mlp")
+
+
+def _item_7b(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: it comes with ROADMAP.md Queue 1 item "
+        f"7b (what tensor-parallel serving, the old slice 10, leaves out)")
+
+
+def check_mesh(cfg: ModelConfig, mesh, rules) -> None:
+    """Raise ``NotImplementedError`` (ROADMAP Queue 1 item 7b) for what
+    the port's tensor-parallel serving does not split: replica groups
+    (a data or pod axis of size > 1), MoE experts, RWKV-6 heads, and a
+    rule set that shards any axis but heads, kv heads and the FFN or LRU
+    hidden over more than one rank (FSDP's "embed", "vocab", "batch")."""
+    if shd.dp_size(mesh) > 1:
+        raise _item_7b(f"a mesh with {shd.dp_size(mesh)} replica groups "
+                       f"(dp > 1)")
+    if cfg.num_experts:
+        raise _item_7b(f"{cfg.name}: MoE (experts over \"model\") under a "
+                       f"mesh")
+    if RWKV6 in layer_kinds(cfg):
+        raise _item_7b(f"{cfg.name}: RWKV-6 (\"heads_flat\") under a mesh")
+    trees = [param_axes(cfg)] + [cache_axes(cfg, k, d) for k, d in (
+        ("contiguous", "fp"), ("paged", "int8"))]
+    names = {a for t in trees for leaf in shd.axes_leaves(t) for a in leaf
+             if a is not None}
+    for name in sorted(names - set(TP_AXES)):
+        entry = shd.rule_axes(mesh, rules, name)
+        if shd.sharded_size(entry, mesh) > 1:
+            raise _item_7b(f"a rule sharding {name!r} over {entry!r}")
+
+
+def _layer_specs(specs: dict, cfg: ModelConfig) -> list:
+    """Per-layer spec trees, in the serving layout's order, from the spec
+    tree's (stacked leaves lose their "layers" entry)."""
+    out = []
+    for _ in range(cfg.num_units):
+        for i in range(len(cfg.pattern_unit)):
+            out.append(module.tree_map(lambda s: s[1:],
+                                       specs["blocks"][f"pos{i}"]))
+    for i in range(len(cfg.tail_layers)):
+        out.append(specs[f"tail{i}"])
+    return out
+
+
+def _tree_map2(fn, a, b):
+    if isinstance(a, dict):
+        return {k: _tree_map2(fn, a[k], b[k]) for k in a}
+    return fn(a, b)
+
+
+def shard_params(params: dict, cfg: ModelConfig, mesh, rules=None) -> dict:
+    """This rank's serving layout of the spec tree ``params`` on ``mesh``
+    (JAX places the same tree with ``tree_shardings``): every leaf cut to
+    (a copy of) the rank's shard of its resolved spec (``rules``, default
+    ``SERVE_TP_RULES``; a dim the rule's axes do not divide stays whole,
+    the replicate fallback), then :func:`prepare_params`, so each rank
+    fuses [Wq|Wk|Wv] from its own heads' slices.  Each layer whose product
+    contracts a dim sharded over more than one rank gets the sum over the
+    "model" group (``tp_sum``: after ``wo``, an MLP's ``w_out``, and an
+    RG-LRU's gates and ``w_out``; an RG-LRU also its channel range
+    ``tp_channels``); a layer whose query heads are sharded over kv heads
+    that stay whole gets ``kv_head`` = (KV, k), the one kv head its heads
+    read (``attention._spread_heads``).  Over a "model" axis of size 1
+    nothing is cut and nothing added: the result is
+    ``prepare_params(params, cfg)``."""
+    if "layers" in params:
+        raise ValueError("shard_params takes the spec tree (model_spec's "
+                         "structure), not the serving layout")
+    rules = rules or shd.SERVE_TP_RULES
+    check_mesh(cfg, mesh, rules)
+    coords = shd.mesh_coords(mesh)
+    specs = shd.tree_specs(mesh, param_axes(cfg), rules, params)
+
+    def own(t, spec):
+        # a cut leaf is copied, so the whole tensor can be freed
+        part = shd.local_shard(t, spec, mesh, coords)
+        return t if part is t else part.clone()
+
+    local = _tree_map2(own, params, specs)
+    out = prepare_params(local, cfg)
+    msum = shd.model_sum(mesh)
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+
+    def split(entry):
+        return shd.sharded_size(entry, mesh) > 1
+
+    for blk, spec in zip(out["layers"], _layer_specs(specs, cfg)):
+        if "attn" in blk:
+            a = spec["attn"]
+            if split(a["wo"][0]):
+                blk["attn"]["tp_sum"] = msum
+            lo, hi = shd.shard_range(a["wq"][1], H, mesh, coords)
+            if hi - lo < H and not split(a["wk"][1]) and KV > 1:
+                group = H // KV
+                if group % (hi - lo):
+                    raise _item_7b(
+                        f"{cfg.name}: {hi - lo} query heads a rank over "
+                        f"{KV} replicated kv heads of {group} query heads "
+                        f"each (a rank's heads span two kv heads)")
+                blk["attn"]["kv_head"] = (KV, lo // group)
+        if "ffn" in blk and split(spec["ffn"]["w_out"][0]):
+            blk["ffn"]["tp_sum"] = msum
+        if "rec" in blk and split(spec["rec"]["w_a"][0]):
+            blk["rec"]["tp_sum"] = msum
+            blk["rec"]["tp_channels"] = shd.shard_range(
+                spec["rec"]["w_a"][0], cfg.lru_width or cfg.d_model, mesh,
+                coords)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # block application (full sequence)
 # ---------------------------------------------------------------------------
 
@@ -195,8 +347,8 @@ def apply_block(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
     sliding-window attention, RG-LRU or RWKV-6, each with its FFN (the
     channel mix for RWKV-6).  The recurrences are the differentiable torch
     scans of ``models/{rglru,rwkv6}.py``.  (The JAX block's
-    ``constrain_residual`` sharding hints have no meaning on one device
-    and are dropped.)"""
+    ``constrain_residual`` sharding hints are identities in the port,
+    ``parallel/incontext.py``, and are left out.)"""
     if kind in (ATTN, LOCAL_ATTN):
         window = cfg.window if kind == LOCAL_ATTN else 0
         x = x + attention.apply_attn(
@@ -283,7 +435,7 @@ def _layer_cache(kind, cfg, batch, max_seq, dtype, device, cache_kind,
 def make_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype,
                 device="cuda", *, cache_kind: str = "contiguous",
                 page_size: int = 0, n_pages: int = 0,
-                kv_dtype: str = "fp") -> list:
+                kv_dtype: str = "fp", mesh=None, rules=None) -> list:
     """One cache per layer.
 
     cache_kind="contiguous": a ``(batch, max_seq, kv, dh)`` K/V pair per
@@ -295,8 +447,20 @@ def make_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype,
     with f32 per-token scale pools; writes quantize, the kernels dequantize
     in their tiles.  Sliding-window rings (``min(max_seq, window)`` rows)
     and recurrent state are O(window) or O(1) per slot and stay per slot
-    in both kinds."""
+    in both kinds.  Given a ``mesh``, each leaf has this rank's shape of
+    :func:`cache_axes` resolved under ``rules`` (default
+    ``SERVE_TP_RULES``), as JAX places the caches."""
     _check_supported(cfg)
+    if mesh is not None:
+        full = make_caches(cfg, batch, max_seq, dtype, "meta",
+                           cache_kind=cache_kind, page_size=page_size,
+                           n_pages=n_pages, kv_dtype=kv_dtype)
+        specs = shd.tree_specs(mesh, cache_axes(cfg, cache_kind, kv_dtype),
+                               rules or shd.SERVE_TP_RULES, full)
+        return [{n: torch.zeros(shd.local_shape(buf.shape, spec[n], mesh),
+                                dtype=buf.dtype, device=device)
+                 for n, buf in cache.items()}
+                for cache, spec in zip(full, specs)]
     if cache_kind not in ("contiguous", "paged"):
         raise ValueError(f"cache_kind {cache_kind!r}")
     if kv_dtype not in ("fp", "int8"):
@@ -541,10 +705,15 @@ def _scatter_pages(pool, kv_seq, page_ids):
     """Write a contiguous (max_seq, ...) stripe into pool pages in place:
     pool (n_pages, page_size, ...); page_ids (n_p,) int on the device,
     NULL-padded past the slot's live pages (the null page absorbs the
-    padded stretch); max_seq == n_p * page_size."""
+    padded stretch); max_seq == n_p * page_size.  The padding names the
+    null page many times, so every duplicate id writes the last stretch
+    that names it (``attention._last_writer`` at page granularity): the
+    sequential order's result, as on the CPU and in JAX, whatever order
+    the device applies the writes in."""
     n_p, ps = page_ids.shape[0], pool.shape[1]
-    pool[page_ids] = kv_seq.reshape((n_p, ps) + kv_seq.shape[1:]).to(
-        pool.dtype)
+    pages = kv_seq.reshape((n_p, ps) + kv_seq.shape[1:]).to(pool.dtype)
+    last = attention._last_writer(page_ids, torch.zeros_like(page_ids), 1)
+    pool[page_ids] = pages.index_select(0, last)
     return pool
 
 

@@ -34,8 +34,26 @@ token; retirement publishes the prompt's blocks onto the cached-free
 LRU).  ``kv_dtype="int8"`` (paged only) quantizes K/V at write time and
 the paged kernels dequantize in their tiles.  ``FamousConfig(impl=
 "pallas", quant="int8")`` runs every QKV projection through the int8
-kernel on weights quantized once here.  ``mesh`` raises
-``NotImplementedError`` naming the ROADMAP Queue 1 item that brings it.
+kernel on weights quantized once here.
+
+``mesh`` (``launch.mesh.make_serving_mesh(tp)``, a ``DeviceMesh`` over
+one process a rank): tensor parallelism over the "model" axis, as the
+JAX engine's ``mesh=`` places params and caches with ``NamedSharding``s.
+Every rank runs this whole engine — scheduler, allocator, drafter,
+sampler — on its own slice of the weights (``transformer.shard_params``:
+heads, kv heads and the FFN / LRU hidden under ``sharding_rules``,
+default ``SERVE_TP_RULES``) and of the caches (``make_caches(mesh=)``),
+and the row-parallel products sum over the "model" group.  The
+embedding and the LM head stay whole, so every rank computes the same
+logits, samples the same tokens and stays in lockstep with the others.
+Over a "model" axis of size 1 nothing is cut and no collective runs: the
+engine is bit-identical to ``mesh=None``.  Replica groups, MoE and
+RWKV-6 under a mesh, and rules that shard anything else raise
+``NotImplementedError`` (ROADMAP Queue 1 item 7b).  Graphs capture the
+collective in the step (the first, eager call makes the communicator);
+a backend whose collectives cannot be captured (gloo, as when several
+ranks share one card) raises at capture, so such a mesh serves inside
+``graphs.disable_capture()``.
 
 The executables (``serve/graphs.py``): on a CUDA device the prefill chunk
 (or, monolithic, the prefill of each padded length, one graph a length),
@@ -89,6 +107,7 @@ from repro_torch.kernels import lib
 from repro_torch.models import rwkv6, transformer
 from repro_torch.obs.runtime import NULL_OBSERVER
 from repro_torch.obs.trace import now as _clock
+from repro_torch.parallel import sharding as shd
 from repro_torch.serve import graphs, sampling
 from repro_torch.serve.draft import PromptLookupDrafter
 from repro_torch.serve.paged import (PageAllocator, PagedCacheConfig,
@@ -116,12 +135,6 @@ class Request:
     t_done: Optional[float] = None
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with ROADMAP.md Queue 1 "
-        f"{item}")
-
-
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on.  ``"cuda"`` (the default
     everywhere) without a CUDA device raises: the port never drops to the
@@ -144,7 +157,8 @@ class ServingEngine:
                  chunk: int = 32, token_budget: int = 0,
                  prefix_cache: bool = False, speculative: bool = False,
                  draft_k: int = 4, drafter=None, kv_dtype: str = "fp",
-                 mesh=None, observer=None, device="cuda"):
+                 mesh=None, sharding_rules=None, observer=None,
+                 device="cuda"):
         """``params``: the spec tree (``init_params(model_spec(cfg))`` or
         ``convert.params_from_jax``) or the serving layout of
         ``transformer.prepare_params``, on ``device``.  ``n_pages`` (paged
@@ -152,14 +166,13 @@ class ServingEngine:
         ``max_seq`` sequences, less oversubscribes the pool.
         ``speculative``: verify up to ``draft_k`` drafted tokens a step;
         ``drafter`` is any object with ``draft(seq, k) -> list`` (default
-        :class:`~repro_torch.serve.draft.PromptLookupDrafter`)."""
+        :class:`~repro_torch.serve.draft.PromptLookupDrafter`).
+        ``mesh``: a serving mesh (see the module docstring); ``params``
+        must then be the spec tree."""
         if draft_k < 1:
             raise ValueError(f"draft_k must be at least 1, got {draft_k}")
         if fcfg.quant not in ("none", "int8"):
             raise ValueError(f"quant {fcfg.quant!r}")
-        if mesh is not None:
-            raise _not_ported("mesh", "item 7 (tensor-parallel serving; "
-                              "the old slice 10)")
         if cache_kind not in ("contiguous", "paged"):
             raise ValueError(f"cache_kind {cache_kind!r}")
         if prefill_mode not in ("chunked", "monolithic"):
@@ -174,7 +187,12 @@ class ServingEngine:
                              "chunked prefill")
         self.device = resolve_device(device)
         self.obs = observer if observer is not None else NULL_OBSERVER
-        self.params = transformer.prepare_params(params, cfg)
+        self.mesh = mesh
+        rules = sharding_rules or shd.SERVE_TP_RULES
+        mesh_kw = {"mesh": mesh, "rules": rules} if mesh is not None else {}
+        self.params = (transformer.shard_params(params, cfg, mesh, rules)
+                       if mesh is not None
+                       else transformer.prepare_params(params, cfg))
         if fcfg.quant == "int8" and fcfg.impl == "pallas":
             # the int8 kernel's W, quantized once here (JAX: every call)
             self.params = transformer.quantize_qkv(self.params)
@@ -224,10 +242,12 @@ class ServingEngine:
                                        observer=self.obs)
             self.caches = transformer.make_caches(
                 cfg, n_slots, max_seq, dtype, self.device, cache_kind="paged",
-                page_size=page_size, n_pages=n_pages, kv_dtype=kv_dtype)
+                page_size=page_size, n_pages=n_pages, kv_dtype=kv_dtype,
+                **mesh_kw)
         else:
             self.caches = transformer.make_caches(cfg, n_slots, max_seq,
-                                                  dtype, self.device)
+                                                  dtype, self.device,
+                                                  **mesh_kw)
         # aliasing cached prompt blocks needs an architecture whose whole
         # prefix state lives in the page pool: rings and recurrent state are
         # per slot and not content-addressable, so hybrid and recurrent
@@ -281,9 +301,16 @@ class ServingEngine:
             self._in["prefill_slot"] = static((1,), torch.int32, 2)
             self._prefill_tokens: dict[int, graphs.StaticInput] = {}
             self._scratch = transformer.make_caches(cfg, 1, max_seq, dtype,
-                                                    self.device)
+                                                    self.device, **mesh_kw)
         self._pool = graphs.GraphPool(self.device)
         self._chunk_pool = graphs.GraphPool(self.device)
+        msum = shd.model_sum(mesh)
+        if msum is not None and msum.backend != "nccl":
+            # a gloo sum stages through the host: no graph can hold it
+            self._pool.blocker = self._chunk_pool.blocker = (
+                f"the {msum.backend} sum over this mesh's \"model\" group "
+                f"cannot be captured in a CUDA graph: serve it inside "
+                f"repro_torch.serve.graphs.disable_capture()")
         self._exec = {kind: graphs.Executable(
             functools.partial(self._step_fn, kind), self._pool)
             for kind in ("decode", "verify")}
@@ -354,8 +381,10 @@ class ServingEngine:
         return dict(lib.STATS.launches)
 
     def cache_bytes_per_device(self) -> int:
-        """KV cache bytes resident on the (one) device: the pools and, for
-        int8, their scale pools."""
+        """KV and state cache bytes resident on this rank's device: the
+        pools and, for int8, their scale pools; under a mesh this rank's
+        shards only (about 1/TP of the unsharded total where the kv-head
+        or hidden dims shard)."""
         return sum(buf.numel() * buf.element_size()
                    for cache in self.caches for buf in cache.values())
 

@@ -21,7 +21,9 @@ shape and static argument:
 Warm-up and capture run under ``torch.cuda.set_sync_debug_mode("error")``
 (:func:`no_host_sync`): a device->host copy inside a step, whose value a
 graph would freeze, raises there.  A capture or replay that fails raises;
-nothing falls back to eager.  :func:`disable_capture` is the one switch to
+nothing falls back to eager.  A pool whose steps cannot be captured at all
+(``GraphPool.blocker``: a tensor-parallel sum over a gloo group, which
+stages through the host) raises at its first call with capture enabled.  :func:`disable_capture` is the one switch to
 the eager path, the counterpart of ``jax.disable_jit()``; on the CPU
 nothing is captured.
 
@@ -128,6 +130,7 @@ class GraphPool:
         self.stream = None
         self.bytes = 0
         self.capture_s = 0.0
+        self.blocker: str | None = None   # why no step here can be captured
 
     def ensure(self) -> None:
         if self.handle is None:
@@ -187,6 +190,8 @@ class Executable:
             out = self.outputs[key] = self.fn(key)
             return out
         if key not in self._graphs:
+            if self.pool.blocker:
+                raise RuntimeError(self.pool.blocker)
             if key not in self._warm:
                 with no_host_sync(self.pool.device):
                     out = self.fn(key)

@@ -6,9 +6,8 @@ metrics)``.  The JAX step is a pure function; this one updates ``state``
 in place (parameters and moments through ``adamw.apply_updates``) and
 returns it.  The state tree is ``{"params", "opt": {"m", "v", "count"},
 "step"}`` with the parameters on the device (leaves that require grad)
-and ``count`` / ``step`` as 0-dim int32 host tensors.  The gradient
-compression of the JAX step (a shard_map over the pod axis) comes with the
-mesh slice of the port.
+and ``count`` / ``step`` as 0-dim int32 host tensors.
+``TrainConfig.grad_compression`` is accepted and, as in JAX, not read.
 """
 from __future__ import annotations
 
@@ -36,7 +35,9 @@ class TrainConfig:
     optimizer: adamw.AdamWConfig = adamw.AdamWConfig()
     schedule_warmup: int = 100
     schedule_total: int = 10000
-    grad_compression: bool = False   # int8 EF pod-axis reduction (not ported)
+    # int8 error-feedback pod-axis reduction: JAX's make_train_step never
+    # reads the flag, so a run with it on trains exactly as one with it off
+    grad_compression: bool = False
 
 
 def init_state(cfg: ModelConfig, tcfg: TrainConfig, gen: torch.Generator,
@@ -51,16 +52,20 @@ def init_state(cfg: ModelConfig, tcfg: TrainConfig, gen: torch.Generator,
             "step": torch.zeros((), dtype=torch.int32)}
 
 
+def state_logical_axes(cfg: ModelConfig) -> dict:
+    """Logical-axis tree of the train state: the parameters' axes for the
+    parameters and both moments, ``()`` for the scalars."""
+    axes = module.logical_axes(transformer.model_spec(cfg))
+    return {"params": axes, "opt": {"m": axes, "v": axes, "count": ()},
+            "step": ()}
+
+
 def make_train_step(cfg: ModelConfig, fcfg: FamousConfig, tcfg: TrainConfig):
     """Returns train_step(state, batch) -> (state, metrics); batch holds
     int ``targets`` (B, S) and ``inputs``, int tokens (B, S) or a stub
     frontend's float embeddings (B, S, D), on the parameters' device.  As
     in JAX, the loss is the LM loss alone: no MoE load-balance term.
     ``train_step.grads_of(params, batch)`` is its (loss, grads) half."""
-    if tcfg.grad_compression:
-        raise NotImplementedError(
-            "grad_compression=True comes with the mesh / gradient-"
-            "compression work of the port (ROADMAP.md Queue 1 item 6)")
     if fcfg.quant != "none":
         raise ValueError(
             f"quant={fcfg.quant!r} cannot be trained: the int8 projection "

@@ -27,6 +27,7 @@ from repro_torch.core.famous import FamousConfig
 from repro_torch.kernels import lib
 from repro_torch.kernels.decode import chunk_prefill, decode_attn
 from repro_torch.kernels.qkv import qkv_proj
+from repro_torch.launch.mesh import abstract_mesh
 from repro_torch.models import module, transformer
 from repro_torch.serve import sampling
 from repro_torch.serve.engine import Request, ServingEngine
@@ -154,7 +155,8 @@ def test_seeded_tokens_match_jax_engine(timpl):
 @pytest.mark.parametrize("kw,exc,needle", [
     (dict(speculative=True, draft_k=0), ValueError,
      "draft_k must be at least 1"),
-    (dict(mesh=object()), NotImplementedError, "slice 10"),
+    (dict(mesh=abstract_mesh((2, 1), ("data", "model"))),
+     NotImplementedError, "slice 10"),
     (dict(kv_dtype="int8"), ValueError, "int8' requires cache_kind='paged'"),
     (dict(prefix_cache=True), ValueError,
      "prefix_cache requires cache_kind='paged' and chunked"),
@@ -255,7 +257,9 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.configs.recurrentgemma_2b', "
         "'repro_torch.configs.rwkv6_1b6', "
         "'repro_torch.configs.qwen3_32b', 'repro_torch.configs.deepseek_7b', "
-        "'repro_torch.configs.command_r_plus_104b'}\n"
+        "'repro_torch.configs.command_r_plus_104b', "
+        "'repro_torch.parallel.sharding', 'repro_torch.parallel.incontext', "
+        "'repro_torch.launch.mesh'}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))

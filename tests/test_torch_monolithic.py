@@ -316,3 +316,28 @@ def test_stubbed_graphs_give_the_eager_engines_tokens(stub_graphs, arch, kw):
         sorted(str(k) for k in twice)
     assert eng_g.graph_stats["replays"]["prefill"] == \
         sum(keys.count(k) - 1 for k in twice)
+
+
+@pytest.mark.parametrize("ids", [[3, 1, 0, 0, 0, 0], [2, 0, 2, 0, 5, 0],
+                                 [4, 4, 4, 1, 0, 4]])
+def test_scatter_pages_takes_the_last_writer(ids):
+    """``transformer._scatter_pages`` with repeated page ids (null and
+    not): every named page holds the last stretch that names it, as the
+    sequential write leaves it; on the null-padded table it is JAX's
+    ``_scatter_pages``."""
+    rng = np.random.default_rng(11)
+    n_p, ps, kv, dh = len(ids), 4, 2, 8
+    pool = rng.standard_normal((8, ps, kv, dh)).astype(np.float32)
+    seq = rng.standard_normal((n_p * ps, kv, dh)).astype(np.float32)
+    got = transformer._scatter_pages(torch.from_numpy(pool.copy()),
+                                     torch.from_numpy(seq),
+                                     torch.tensor(ids))
+    want = pool.copy()
+    for i, pid in enumerate(ids):
+        want[pid] = seq[i * ps:(i + 1) * ps]
+    np.testing.assert_array_equal(got.numpy(), want)
+    if ids[0] != 0 and ids[ids.index(0):] == [0] * (n_p - ids.index(0)):
+        theirs = jtransformer._scatter_pages(
+            jnp.asarray(pool), jnp.asarray(seq),
+            jnp.asarray(ids, jnp.int32))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(theirs))

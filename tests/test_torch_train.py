@@ -163,11 +163,30 @@ def test_microbatch_grad_equivalence():
                                    atol=1e-5, rtol=1e-4)
 
 
-def test_grad_compression_names_its_slice():
+def test_grad_compression_trains_as_without():
+    """JAX's ``make_train_step`` never reads ``grad_compression``, so one
+    step with the flag on gives the state of one step with it off, bit
+    for bit."""
     cfg, _ = _cfgs("famous-bert")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        step_lib.make_train_step(cfg, FamousConfig(),
-                                 _tcfg(grad_compression=True))
+    fcfg = FamousConfig(impl="pallas")
+    b = _batch(cfg)
+    states = []
+    for flag in (False, True):
+        s = step_lib.init_state(cfg, _tcfg(),
+                                torch.Generator().manual_seed(0), "cpu")
+        s, m = step_lib.make_train_step(
+            cfg, fcfg, _tcfg(grad_compression=flag))(s, b)
+        states.append((s, m))
+    (s0, m0), (s1, m1) = states
+    assert torch.equal(m0["loss"], m1["loss"])
+    assert int(s0["step"]) == int(s1["step"]) == 1
+    for a, c in zip(module.tree_leaves(s0["params"]) +
+                    module.tree_leaves(s0["opt"]["m"]) +
+                    module.tree_leaves(s0["opt"]["v"]),
+                    module.tree_leaves(s1["params"]) +
+                    module.tree_leaves(s1["opt"]["m"]) +
+                    module.tree_leaves(s1["opt"]["v"])):
+        assert torch.equal(a.detach(), c.detach())
 
 
 @pytest.mark.parametrize("arch", ARCHS)
