@@ -165,7 +165,29 @@ Phases, in order; any failure exits non-zero before the result line:
      stripe whose page-table row names the null page 126 times must leave
      every page its last stretch, and a shrunk grok-1-314b served
      monolithic on a paged pool must give the same tokens eager and as
-     graphs.
+     graphs;
+ 20. sharded training (``make_train_step(mesh=)`` through
+     ``launch.train.build``): 20a, famous-bert at full size (B=8, S=512,
+     bf16, 5 steps) on a (data=1, model=1) mesh over a process group of
+     one rank against ``mesh=None``: equal losses, the final state bit
+     for bit and equal launch counts, both median steps printed; then
+     one-rank f32 references (famous-bert 3 steps; 2-layer qwen2-7b,
+     B=1, S=2048, 2 steps) and ranks spawned sharing the card over gloo:
+     famous-bert on (data=2), (model=2), (pod=2) and (data=2, model=2)
+     meshes under DEFAULT_RULES (20b), the data=2 run's step-2
+     checkpoint restored by ``elastic.reshard_restore`` on model=2 for
+     step 3, and qwen2-7b at TP=2 under TP_ONLY_RULES (20c).  On every
+     rank each step's loss within 1e-5 and grad norm within 1e-4 of the
+     reference (relative), the parameters gathered after the last step
+     within 1e-4 of each leaf's norm, every training kernel launched and
+     no plain version run; each rank's peak memory and each run's
+     seconds are printed.
+
+The bf16 rows of the decode kernels at recurrentgemma-2b's heads and at
+their range boundaries (contiguous and paged, against the plain version
+and the split mirrors) are gated per element in ulps (ULP_GATE); the
+tensor-core mirrors' rows are held at DECODE_NEW_TOL against the
+mirror's unrounded output, their ulps printed.
 
 The kernel phase also holds the serving kernels at the zoo's head layouts
 (qwen3-32b's 64 / 8 heads of 80, deepseek-7b's 32 / 32 and
@@ -176,7 +198,9 @@ of recurrentgemma-2b's local attention and at hubert-xlarge's training
 shape (B=8, S=512, 16 / 16 heads of 80, non-causal), and a
 tensor-parallel rank's shapes (phase 18): ``matmul_tiled`` at qwen2-7b's
 fused widths 2304 (TP=2) and 1152 (TP=4), the serving kernels at its 14 /
-2 and 7 / 1 heads of 128, ``rglru_scan`` at R=1280; training
+2 and 7 / 1 heads of 128, ``rglru_scan`` at R=1280; a TP=2 famous-bert
+training rank's (phase 20): the MHA kernels at 4 / 4 heads of 96 and
+``matmul_tiled`` with its VJP at T=4096, D=768, F=1152; training
 parity also a recurrentgemma-2b unit (S=3072) and 2 qwen3-32b layers;
 the training runs also recurrentgemma-2b (2 units) and rwkv6-1.6b (2
 layers) at B=1, S=2048.
@@ -187,7 +211,7 @@ serving engine's model eagerly, and the decode step again as a CUDA graph
 events against profiled device time.
 
 The launch counters are set to 0 before each run of phases 7, 8, 10, 12,
-13, 16, 17, 18 and 19 and read after it: every kernel must have launched on those paths and no plain
+13, 16, 17, 18, 19 and 20 and read after it: every kernel must have launched on those paths and no plain
 version may have run on the card.  Each phase prints its seconds.  The
 last three lines of output are the per-kernel JSON record
 (``{"kernels": [...]}``), the ``nvidia-smi`` name and power limit, and
@@ -222,6 +246,20 @@ ATTN_TOL = {"f32": 2e-5, "bf16": 2e-2}
 # range-boundary lengths, the split mirrors, contiguous and paged) and the
 # chunk kernel against its tensor-core mirror: bf16 at a tenth of ATTN_TOL
 DECODE_NEW_TOL = {"f32": ATTN_TOL["f32"], "bf16": 2e-3}
+# the bf16 gate of those rows whose kernels compute in f32 on the CUDA
+# cores (decode and paged decode, against the plain version and the split
+# mirror), per element in ulps (``lib.ulp_gate``): the kernel's bf16
+# output within half a bf16 ulp of the unrounded f32 output of the same
+# bf16 inputs, plus the f32 gate.  A kernel that rounds its f32 result
+# once always passes; one a whole ulp off does not.  The tensor-core
+# mirrors (chunk, paged chunk, MHA forward) keep DECODE_NEW_TOL["bf16"],
+# now against the mirror's unrounded output: the mirror rounds P to bf16
+# from exp2 where the kernel uses ex2.approx, so a correct kernel's f32
+# result can sit a flipped P rounding away from the mirror's (7.1e-4 on
+# an output near 0 at chunk offset 1000), past any f32 allowance; their
+# error past 2e-5 in ulps is printed beside, ungated
+ULP_GATE_ATOL = DECODE_NEW_TOL["f32"]
+ULP_GATE = f"0.5 ulp past {ULP_GATE_ATOL:g}"
 L2_BYTES = 50 * 2**20
 BWD_TOL = {"f32": 1e-4, "bf16": 1e-4}          # f32 math on the same inputs
 # the bf16 dq and dk/dv kernels against the plain mirrors of their
@@ -335,6 +373,10 @@ TP_LAYOUTS = (("qwen2-7b TP=2", 14, 2, 128), ("qwen2-7b TP=4", 7, 1, 128))
 # the QKV projection's VJP at the same two training shapes: T = B*S, D, F
 TRAIN_PROJ = (("famous-bert", 8 * 512, 768, 3 * 768),
               ("qwen2-7b", 2048, 3584, 3584 + 2 * 512))
+# a TP=2 famous-bert training rank (phase 20): 4 of the 8 heads of 96, the
+# fused projection's 3 x 4 x 96 columns
+TP_TRAIN_ATTN = (("famous-bert TP=2", 8, 512, 4, 4, 96, False),)
+TP_TRAIN_PROJ = (("famous-bert TP=2", 8 * 512, 768, 3 * 4 * 96),)
 
 
 class SmokeFailure(RuntimeError):
@@ -457,6 +499,24 @@ def tol_share(torch, out, ref, tol):
     return float(share.max()) if share.numel() else 0.0
 
 
+def ulp_check(out, ref32):
+    """(max_abs_err, worst ulps past ULP_GATE_ATOL, ok) of the ulp
+    gate."""
+    from repro_torch.kernels import lib
+    return lib.ulp_gate(out, ref32, ULP_GATE_ATOL)
+
+
+def tc_mirror_check(torch, out, mirror32):
+    """A bf16 tensor-core kernel's output against its mirror's unrounded
+    f32 output at DECODE_NEW_TOL["bf16"]: (max_abs_err, ok, the text
+    printed, with the worst error past ULP_GATE_ATOL in ulps,
+    ungated)."""
+    err, ok = compare(torch, out, mirror32, DECODE_NEW_TOL["bf16"])
+    _, ulps, _ = ulp_check(out, mirror32)
+    return err, ok, (f"tol {DECODE_NEW_TOL['bf16']:g}; {ulps:.2f} ulp past "
+                     f"{ULP_GATE_ATOL:g}, ungated")
+
+
 def compare(torch, out, ref, tol):
     """Max |out - ref| and whether every element is within
     tol + tol * |ref| and finite; tuples compare element by element."""
@@ -494,11 +554,21 @@ def kernel_phase(torch, iters, seed):
 
     def record(name, shape, dt, out, ref, tol, fn, plain, lib_fn, sets,
                nbytes, flops, n_iter=iters, lib_sets=None, ops_dt=None,
-               again=None):
+               again=None, ulp_ref=None):
         """One kernel row.  ``again``: a second launch's output on the
-        same inputs, which must equal ``out`` bit for bit."""
-        err, ok = compare(torch, out, ref, tol)
-        share = tol_share(torch, out, ref, tol)
+        same inputs, which must equal ``out`` bit for bit.  ``ulp_ref``:
+        a bf16 row gated in ulps, the plain version's unrounded f32
+        output on the same inputs, to which ``out`` is held by the ulp
+        gate in place of ``tol``."""
+        ulps = None
+        if ulp_ref is None:
+            err, ok = compare(torch, out, ref, tol)
+            share = tol_share(torch, out, ref, tol)
+            tol_text = f"{tol:g}"
+        else:
+            err, ulps, ok = ulp_check(out, ulp_ref)
+            share = ulps / 0.5
+            tol, tol_text = ULP_GATE, ULP_GATE
         identical = None if again is None else all(
             torch.equal(a, b) for a, b in (
                 zip(out, again) if isinstance(out, tuple) else [(out, again)]))
@@ -518,15 +588,19 @@ def kernel_phase(torch, iters, seed):
         plain_ms = time_ms(torch, plain, sets, max(3, n_iter // 4))
         b_ms, b_by = bound(nbytes, flops, ops_dt or dt)
         row = dict(name=name, shape=shape, dtype=dt, max_abs_err=err, tol=tol,
-                   tol_share=share, ok=ok, ms=ms, timed_by=timed_by,
+                   max_ulps=ulps, tol_share=share, ok=ok, ms=ms,
+                   timed_by=timed_by,
                    plain_ms=plain_ms, library_ms=library_ms, device_ms=dev_ms,
                    bit_identical=identical,
                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
         rows.append(row)
         same = "" if identical is None else \
             f" relaunch {'bit-identical' if identical else 'DIFFERS'}"
-        print(f"kernel {name:17s} {shape:34s} {dt:4s} max_abs_err={err:.3e} "
-              f"(tol {tol:g}, {share:.2f} of it) kernel_ms={ms:.4f} "
+        in_ulps = "" if ulps is None else f" ({ulps:.2f} ulp past " \
+            f"{ULP_GATE_ATOL:g})"
+        print(f"kernel {name:17s} {shape:34s} {dt:4s} max_abs_err={err:.3e}"
+              f"{in_ulps} (tol {tol_text}, {share:.2f} of it) "
+              f"kernel_ms={ms:.4f} "
               f"({timed_by}) plain_ms={plain_ms:.4f} "
               f"library_ms={library_ms if library_ms is None else round(library_ms, 4)} "
               f"bound_ms={b_ms:.4f} ({b_by}){same} {'ok' if ok else 'FAIL'}",
@@ -543,10 +617,12 @@ def kernel_phase(torch, iters, seed):
     lens_list = [1, 37, 1000, 2048]
     scale = dh ** -0.5
 
-    def decode_row(dt, dtype, H, KV, dh, lens_list, extra="", tol=None):
+    def decode_row(dt, dtype, H, KV, dh, lens_list, extra="", tol=None,
+                   ulp=False):
         """One ``decode_attention`` row at B = len(lens_list), Skv; library:
-        SDPA with GQA and a length mask.  Returns the first input set, the
-        kernel's output and the plain version's."""
+        SDPA with GQA and a length mask; ``ulp``: a bf16 row held by the
+        ulp gate.  Returns the first input set, the kernel's output and the
+        plain version's."""
         tol = tol or ATTN_TOL[dt]
         e = torch.tensor([], dtype=dtype).element_size()
         scale, live = dh ** -0.5, sum(lens_list)
@@ -575,11 +651,13 @@ def kernel_phase(torch, iters, seed):
         lib_out = library(q, k, v, ln)[:, :, 0]
         lib_err, _ = compare(torch, lib_out[nonempty], ref[nonempty], tol)
         print(f"  (library vs plain max_abs_err {lib_err:.3e})")
+        ulp_ref = (plain(q.float(), k, v, ln) if ulp and dt == "bf16"
+                   else None)
         record("decode_attention", f"B={B} H={H} KV={KV} dh={dh} "
                f"Skv={Skv} lens={lens_list}{extra}", dt, out, ref,
                tol, kern, plain, library, sets,
                2 * B * H * dh * e + live * KV * dh * 2 * e + 4 * B,
-               4.0 * H * dh * live, again=kern(q, k, v, ln))
+               4.0 * H * dh * live, again=kern(q, k, v, ln), ulp_ref=ulp_ref)
         del sets
         return (q, k, v, ln), out, ref
 
@@ -635,7 +713,7 @@ def kernel_phase(torch, iters, seed):
         # recurrentgemma-2b's layout: 10 query heads over one kv head of
         # 256, 1025 keys a slot (a decode step at 1024 cached tokens)
         decode_row(dt, dtype, 10, 1, 256, [1025] * B,
-                   tol=DECODE_NEW_TOL[dt])
+                   tol=DECODE_NEW_TOL[dt], ulp=True)
         # lengths at the kernel's range boundaries, an empty row first:
         # that row must be exactly 0, and the kernel must also match the
         # plain mirror of its split-and-combine algebra
@@ -644,14 +722,19 @@ def kernel_phase(torch, iters, seed):
         edge = [0, L - 1, L, L + 1]
         tol = DECODE_NEW_TOL[dt]
         (q, k, v, ln), out, _ = decode_row(dt, dtype, H, KV, dh, edge,
-                                           f" (L={L})", tol=tol)
-        split = dec_ref.decode_split_reference(q, k, v, ln, scale=scale,
-                                               keys_per_split=L)
+                                           f" (L={L})", tol=tol, ulp=True)
+        split = dec_ref.decode_split_reference(
+            q.float() if dt == "bf16" else q, k, v, ln, scale=scale,
+            keys_per_split=L)
         s_err, s_ok = compare(torch, out, split, tol)
+        s_gate = f"tol {tol:g}"
+        if dt == "bf16":
+            s_err, s_ulps, s_ok = ulp_check(out, split)
+            s_gate = f"{s_ulps:.2f} ulp past {ULP_GATE_ATOL:g}; {ULP_GATE}"
         zero = bool(torch.all(out[0] == 0))
         rows[-1].update(split_mirror_err=s_err, empty_row_zero=zero)
         print(f"  (decode_attention {dt} lens {edge}: vs the split mirror "
-              f"max_abs_err {s_err:.3e} (tol {tol:g}), empty row "
+              f"max_abs_err {s_err:.3e} ({s_gate}), empty row "
               f"{'exactly 0' if zero else 'NOT 0'}) "
               f"{'ok' if s_ok and zero else 'FAIL'}", flush=True)
         check(s_ok and zero, f"decode_attention {dt} at lens {edge}: mirror "
@@ -706,12 +789,12 @@ def kernel_phase(torch, iters, seed):
                     lib.sm_count(dev))
                 mirror = dec_ref.chunk_prefill_tc_reference(
                     q, k[slot:slot + 1], v[slot:slot + 1], off, scale=scale,
-                    splits=splits)
-                m_err, m_ok = compare(torch, out, mirror, DECODE_NEW_TOL[dt])
+                    splits=splits, round_out=False)
+                m_err, m_ok, m_text = tc_mirror_check(torch, out, mirror)
                 rows[-1].update(tc_mirror_err=m_err)
                 print(f"  (chunk_prefill {dt} offset {off}: vs the "
                       f"tensor-core mirror ({splits} splits) max_abs_err "
-                      f"{m_err:.3e} (tol {DECODE_NEW_TOL[dt]:g})) "
+                      f"{m_err:.3e} ({m_text})) "
                       f"{'ok' if m_ok else 'FAIL'}", flush=True)
                 check(m_ok, f"chunk_prefill {dt} offset {off}: mirror "
                       f"error {m_err}")
@@ -757,11 +840,22 @@ def tp_kernel_rows(torch, F, dts, randn, record, decode_row, gen, iters):
     at TP_PROJ's fused widths (f32 and bf16), the serving kernels at
     TP_LAYOUTS' heads (bf16, as ``layout_kernel_rows``), and
     ``rglru_scan`` on a TP=2 rank's R=1280 channels of the 256-token
-    chunk."""
+    chunk; and a TP=2 famous-bert training rank's (phase 20): the MHA
+    kernels at TP_TRAIN_ATTN, ``matmul_tiled`` and its VJP at
+    TP_TRAIN_PROJ."""
     matmul_rows(torch, dts, randn, record, TP_PROJ)
     layout_kernel_rows(torch, F, randn, record, decode_row, gen,
                        max(10, iters // 2), layouts=TP_LAYOUTS)
     rglru_rows(torch, dts, randn, record, 256, 1280)
+    # a TP=2 famous-bert training rank (phase 20): 4 of 8 heads of 96,
+    # the fused projection's 1152 columns and its VJP
+    slow = max(5, iters // 5)
+    for label, B, S, H, KV, dh, causal in TP_TRAIN_ATTN:
+        attention_rows(torch, F, dts, randn, record, slow, label, B, S, S, H,
+                       KV, dh, causal, 0, 0)
+    matmul_rows(torch, dts, randn, record,
+                [(T, D, Fo) for _, T, D, Fo in TP_TRAIN_PROJ])
+    proj_vjp_rows(torch, dts, randn, record, slow, TP_TRAIN_PROJ)
 
 
 def int8_kernel_rows(torch, gen, record, iters):
@@ -1100,8 +1194,8 @@ def chunk_graph_checks(torch, dts, randn, gen):
 def paged_chunk_mirror_check(torch, kind, inputs, pt, off, scale, out):
     """A bf16 paged chunk kernel's output ``out`` on ``inputs`` (q, pools)
     against the plain mirror of its tensor-core algebra (split count from
-    the kernel's plan over the table's n_p * page_size keys) at
-    DECODE_NEW_TOL.  Returns the max error."""
+    the kernel's plan over the table's n_p * page_size keys), unrounded,
+    at DECODE_NEW_TOL (``tc_mirror_check``).  Returns the max error."""
     from repro_torch.kernels import lib
     from repro_torch.kernels.decode import chunk_prefill
     from repro_torch.kernels.decode import ref as dec_ref
@@ -1113,13 +1207,13 @@ def paged_chunk_mirror_check(torch, kind, inputs, pt, off, scale, out):
                                    pt.shape[1] * ps, lib.sm_count(q.device))
     fn = (dec_ref.paged_chunk_prefill_tc_reference if kind == "fp" else
           dec_ref.paged_chunk_prefill_tc_reference_int8)
-    mirror = fn(q, *pools, pt, off, scale=scale, splits=splits)
-    tol = DECODE_NEW_TOL["bf16"]
-    err, ok = compare(torch, out, mirror, tol)
+    mirror = fn(q, *pools, pt, off, scale=scale, splits=splits,
+                round_out=False)
+    err, ok, text = tc_mirror_check(torch, out, mirror)
     sfx = "" if kind == "fp" else "_int8"
     print(f"  (paged_chunk_prefill{sfx} bf16 offset {off}: vs the "
           f"tensor-core mirror ({splits} splits) max_abs_err {err:.3e} "
-          f"(tol {tol:g})) {'ok' if ok else 'FAIL'}", flush=True)
+          f"({text})) {'ok' if ok else 'FAIL'}", flush=True)
     check(ok, f"paged_chunk_prefill{sfx} bf16 offset {off}: mirror error "
           f"{err}")
     return err
@@ -1188,18 +1282,27 @@ def paged_decode_extra_rows(torch, dt, kind, sets, pt, record, randn, scale):
     out = kern(*sets[0])
     live = sum(edge)
     pages = sum(-(-n // ps) for n in edge)
+    bf16 = dt == "bf16"
+    # a bf16 row is held by the ulp gate to the f32 outputs of the same
+    # bf16 inputs
+    q32 = q0.float() if bf16 else q0
     record("paged_decode_attention" + sfx, f"edge B={B} {shape} lens={edge} "
            f"(L={L})", dt, out, plain(*sets[0]), tol, kern, plain, None, sets,
            2 * B * H * dh * e + live * KV * row * 2 + 4 * (pages + B),
-           4.0 * H * dh * live, again=kern(*sets[0]))
+           4.0 * H * dh * live, again=kern(*sets[0]),
+           ulp_ref=plain(q32, *pool) if bf16 else None)
     mirror = dec_ref.paged_decode_split_reference(
-        q0, pool[0], pool[1], pt, lens, scale=scale, keys_per_split=L,
+        q32, pool[0], pool[1], pt, lens, scale=scale, keys_per_split=L,
         k_scale=pool[2] if kind == "int8" else None,
         v_scale=pool[3] if kind == "int8" else None)
     s_err, s_ok = compare(torch, out, mirror, tol)
+    s_gate = f"tol {tol:g}"
+    if bf16:
+        s_err, s_ulps, s_ok = ulp_check(out, mirror)
+        s_gate = f"{s_ulps:.2f} ulp past {ULP_GATE_ATOL:g}; {ULP_GATE}"
     zero = bool(torch.all(out[0] == 0))
     print(f"  (paged_decode_attention{sfx} {dt} lens {edge}: vs the split "
-          f"mirror max_abs_err {s_err:.3e} (tol {tol:g}), empty row "
+          f"mirror max_abs_err {s_err:.3e} ({s_gate}), empty row "
           f"{'exactly 0' if zero else 'NOT 0'}) "
           f"{'ok' if s_ok and zero else 'FAIL'}", flush=True)
     check(s_ok and zero, f"paged_decode_attention{sfx} {dt} at lens {edge}: "
@@ -1245,9 +1348,6 @@ def training_kernel_rows(torch, F, dts, randn, record, iters):
     run every mask of those bodies, LOCAL_ATTN's the head dim of 256
     (whose bf16 dq and dk/dv run the CUDA-core kernels, held to the plain
     versions alone)."""
-    from repro_torch.kernels.qkv import qkv_proj
-    from repro_torch.kernels.qkv import ref as qkv_ref
-
     slow = max(5, iters // 5)
     for label, B, S, H, KV, dh, causal in TRAIN_ATTN:
         attention_rows(torch, F, dts, randn, record, slow, label, B, S, S, H,
@@ -1256,7 +1356,17 @@ def training_kernel_rows(torch, F, dts, randn, record, iters):
         attention_rows(torch, F, dts, randn, record, slow, *args)
     local_attention_through_ops(torch, dts, randn)
 
-    for label, T, D, Fo in TRAIN_PROJ:
+    proj_vjp_rows(torch, dts, randn, record, slow, TRAIN_PROJ)
+
+
+def proj_vjp_rows(torch, dts, randn, record, n_iter, shapes):
+    """The QKV projection's VJP products at each (label, T, D, F) of
+    ``shapes``: dX and dW on their transposed contiguous operands, f32 and
+    bf16 (library: ``torch.matmul``)."""
+    from repro_torch.kernels.qkv import qkv_proj
+    from repro_torch.kernels.qkv import ref as qkv_ref
+
+    for label, T, D, Fo in shapes:
         for dt, dtype in dts.items():
             e = torch.tensor([], dtype=dtype).element_size()
             # dX = g (T, F) @ W^T (F, D);  dW = X^T (D, T) @ g (T, F)
@@ -1269,7 +1379,7 @@ def training_kernel_rows(torch, F, dts, randn, record, iters):
                        qkv_ref.matmul_reference(x, w), TOL[dt],
                        qkv_proj.matmul_tiled, qkv_ref.matmul_reference,
                        torch.matmul, sets, (m * kd + kd * n + m * n) * e,
-                       2.0 * m * kd * n, n_iter=slow)
+                       2.0 * m * kd * n, n_iter=n_iter)
 
 
 def attention_rows(torch, F, dts, randn, record, n_iter, label, B, Sq, Skv, H,
@@ -1342,21 +1452,27 @@ def attention_rows(torch, F, dts, randn, record, n_iter, label, B, Sq, Skv, H,
                 q, k, v, splits=splits, round_out=False,
                 block_rows=mha_k.forward_block_rows(dh), **kw)
             many = ok_mask.sum(-1) >= MIRROR_MIN_KEYS
-            m_err, m_ok = compare(
-                torch, (out[0][:, many], out[1]), (mirror[0][:, many],
-                                                   mirror[1]),
-                DECODE_NEW_TOL[dt])
+            # against the mirror's unrounded output (tc_mirror_check) and
+            # its f32 LSE, at DECODE_NEW_TOL
+            o_err, o_ok, o_text = tc_mirror_check(torch, out[0][:, many],
+                                                  mirror[0][:, many])
+            o_share = tol_share(torch, out[0][:, many], mirror[0][:, many],
+                                DECODE_NEW_TOL[dt])
+            l_err, l_ok = compare(torch, out[1], mirror[1],
+                                  DECODE_NEW_TOL[dt])
             few = float((out[0][:, ~many].float() - mirror[0][:, ~many])
                         .abs().max()) if bool((~many).any()) else 0.0
             print(f"  (rows that see under {MIRROR_MIN_KEYS} keys: "
                   f"{int((~many).sum())}, output vs the mirror max_abs_err "
                   f"{few:.3e}, held to the plain version at "
                   f"{ATTN_TOL[dt]:g})")
-            mirror_check("mha_forward", dt, shape, splits, m_err, m_ok,
-                         DECODE_NEW_TOL[dt], tol_share(
-                             torch, (out[0][:, many], out[1]),
-                             (mirror[0][:, many], mirror[1]),
-                             DECODE_NEW_TOL[dt]))
+            print(f"  (mha_forward {dt} {shape}: LSE vs the mirror "
+                  f"max_abs_err {l_err:.3e} (tol {DECODE_NEW_TOL[dt]:g})) "
+                  f"{'ok' if l_ok else 'FAIL'}", flush=True)
+            check(l_ok, f"mha_forward {dt} {shape}: mirror LSE error "
+                  f"{l_err}")
+            mirror_check("mha_forward", dt, shape, splits, o_err, o_ok,
+                         o_text, o_share)
 
         # backward inputs: the plain forward's residuals and a cotangent
         bsets, lsets = [], []
@@ -1497,8 +1613,10 @@ def run_cap_check(mha_ref, name, shape, splits, Sq, Skv, group, kw):
 
 
 def mirror_check(name, dt, shape, splits, err, ok, tol, share):
+    """``tol``: the gate, a number or its text."""
+    tol = tol if isinstance(tol, str) else f"tol {tol:g}"
     print(f"  ({name} {dt} {shape}: vs the tensor-core mirror ({splits} "
-          f"splits) max_abs_err {err:.3e} (tol {tol:g}, {share:.2f} of it)) "
+          f"splits) max_abs_err {err:.3e} ({tol}, {share:.2f} of it)) "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     check(ok, f"{name} {dt} {shape}: mirror error {err}")
 
@@ -4201,6 +4319,361 @@ def tp_ranks_phase(torch, seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: sharded training
+# ---------------------------------------------------------------------------
+
+# 20b's meshes over famous-bert at full size (B=8, S=512, f32 compute, 3
+# steps, DEFAULT_RULES): name, shape; the ranks of a world size share the
+# card over gloo
+SHARDED_MESHES = (("data=2", (2, 1)), ("model=2", (1, 2)),
+                  ("pod=2", (2, 1, 1)), ("data=2 model=2", (2, 2)))
+# the one-rank references: key, arch, layers (None: all), S, B, steps
+SHARDED_REFS = (("famous-bert", "famous-bert", None, 512, 8, 3),
+                ("qwen2-7b TP=2", "qwen2-7b", 2, 2048, 1, 2))
+SHARDED_STEP_AT_SAVE = 2
+SHARDED_JOIN_S = 480
+
+
+def sharded_training_phase(torch, seed):
+    """Phase 20: 20a, famous-bert at full size through ``launch.train.
+    build`` on a (data=1, model=1) mesh against ``mesh=None``; 20b and
+    20c and the resize on meshes of spawned ranks sharing the card over
+    gloo, against one-rank runs here."""
+    import torch.distributed as dist
+
+    try:
+        out = {"20a": one_rank_mesh_training(torch, seed)}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    out.update(sharded_rank_phase(torch, seed))
+    return out
+
+
+def _sharded_tcfg(torch, dtype):
+    from repro_torch.train import step as step_lib
+    return step_lib.TrainConfig(compute_dtype=dtype, schedule_warmup=5)
+
+
+def _shape_cfg(arch, layers, S, B):
+    from repro_torch.configs.base import ShapeConfig, get_config
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return cfg, ShapeConfig(f"{arch}_{S}", S, B, "train")
+
+
+def one_rank_mesh_training(torch, seed):
+    """20a: famous-bert at full size (12 layers, d 768, 8 heads), B=8,
+    S=512, bf16 compute, 5 steps through ``launch.train.build`` with
+    ``mesh=None`` and on a (data=1, model=1) mesh (a process group of one
+    rank): nothing is cut and no collective runs, so the losses, the
+    final state (bit for bit) and the kernel launch counts must be
+    equal.  Both median step times are printed."""
+    from repro_torch.kernels import lib
+    from repro_torch.launch import train as train_launch
+    from repro_torch.launch.mesh import make_training_mesh
+    from repro_torch.models.module import tree_leaves
+
+    cfg, shape = _shape_cfg("famous-bert", None, 512, 8)
+    mesh = make_training_mesh((1, 1))
+    runs = {}
+    for label, m in (("mesh=None", None), ("(1, 1) mesh", mesh)):
+        _, state, ts, batch_fn = train_launch.build(
+            "famous-bert", shape, smoke=False,
+            tcfg=_sharded_tcfg(torch, torch.bfloat16), seed=seed + 20,
+            device="cuda", cfg=cfg, mesh=m)
+        batches = [batch_fn(i) for i in range(5)]
+        torch.cuda.synchronize()
+        lib.STATS.reset()
+        losses, times = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            state, met = ts(state, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(met["loss"]))
+        runs[label] = dict(
+            losses=losses, launches=dict(lib.STATS.launches),
+            plain=dict(lib.STATS.plain_on_cuda),
+            step_ms_median=sorted(times[1:])[len(times[1:]) // 2] * 1e3,
+            leaves=[t.detach() for t in tree_leaves(state)
+                    if isinstance(t, torch.Tensor)])
+        del state, ts, batches
+    a, b = runs["mesh=None"], runs["(1, 1) mesh"]
+    same = dict(losses=a["losses"] == b["losses"],
+                state=all(torch.equal(x, y) for x, y in
+                          zip(a["leaves"], b["leaves"])),
+                launches=a["launches"] == b["launches"])
+    launched = all(b["launches"][k] > 0 for k in TRAINING_KERNELS)
+    plain_none = not any(v for r in runs.values() for v in r["plain"].values())
+    ratio = b["step_ms_median"] / a["step_ms_median"]
+    ok = all(same.values()) and launched and plain_none
+    print(f"sharded training 20a: famous-bert 12 layers B=8 S=512 bf16, 5 "
+          f"steps, (1, 1) mesh against mesh=None: {same}; step "
+          f"{b['step_ms_median']:.1f} ms median against "
+          f"{a['step_ms_median']:.1f} ms ({ratio:.3f}x); launches "
+          f"{json.dumps({k: b['launches'][k] for k in TRAINING_KERNELS})} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, f"20a: the (1, 1) mesh run differs from mesh=None: {same}, "
+          f"launched {launched}, no plain version {plain_none}")
+    res = {label: {k: v for k, v in r.items() if k != "leaves"}
+           for label, r in runs.items()}
+    res.update(equal=same, step_ratio=ratio)
+    del runs
+    torch.cuda.empty_cache()
+    return res
+
+
+def one_rank_reference(torch, seed, arch, layers, S, B, steps, path):
+    """A one-rank (``mesh=None``) f32-compute run of ``steps`` steps:
+    its losses and gradient norms, its parameters after the last step
+    saved to ``path`` (``torch.save``, a list in ``tree_leaves`` order),
+    and its seconds."""
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models.module import tree_leaves
+
+    cfg, shape = _shape_cfg(arch, layers, S, B)
+    _, state, ts, batch_fn = train_launch.build(
+        arch, shape, smoke=False, tcfg=_sharded_tcfg(torch, torch.float32),
+        seed=seed + 20, device="cuda", cfg=cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, gnorms = [], []
+    for i in range(steps):
+        state, met = ts(state, batch_fn(i))
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+    seconds = time.perf_counter() - t0
+    torch.save([p.detach().cpu() for p in tree_leaves(state["params"])],
+               path)
+    del state, ts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, grad_norms=gnorms, seconds=seconds)
+
+
+def sharded_run(torch, key, mesh, rules, ref_path, seed, steps,
+                state=None, start=0, save=None):
+    """SHARDED_REFS' run ``key`` on ``mesh`` under ``rules`` through
+    ``launch.train.build`` (f32 compute), steps [start, steps) from
+    ``state`` (default: the build's, this rank's shards of the full
+    draw); ``save``: a directory to checkpoint into after step
+    SHARDED_STEP_AT_SAVE.  Returns this rank's losses and gradient norms,
+    the worst ||gathered - reference|| / ||reference|| over the parameter
+    leaves against ``ref_path``, the launch counts of the steps, the plain
+    versions run on CUDA tensors, seconds and peak memory."""
+    from repro_torch.kernels import lib
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    _, arch, layers, S, B, _ = next(r for r in SHARDED_REFS if r[0] == key)
+    cfg, shape = _shape_cfg(arch, layers, S, B)
+    torch.cuda.reset_peak_memory_stats()
+    _, built, ts, batch_fn = train_launch.build(
+        arch, shape, smoke=False, tcfg=_sharded_tcfg(torch, torch.float32),
+        seed=seed + 20, device="cuda", cfg=cfg, mesh=mesh, rules=rules)
+    state = state or built
+    del built
+    torch.cuda.synchronize()
+    lib.STATS.reset()
+    t0 = time.perf_counter()
+    losses, gnorms = [], []
+    for i in range(start, steps):
+        state, met = ts(state, batch_fn(i))
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+        if save and i + 1 == SHARDED_STEP_AT_SAVE:
+            ckpt_lib.save_checkpoint(save, i + 1, state,
+                                     specs=ts.state_specs, mesh=mesh)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(lib.STATS.launches)
+    plain = dict(lib.STATS.plain_on_cuda)
+    comm = ts.layout.comm
+    ref = torch.load(ref_path, mmap=True)
+    worst = 0.0
+    for leaf, spec, want in zip(tree_leaves(state["params"]),
+                                tree_leaves(ts.state_specs["params"]), ref):
+        whole = comm.gather(leaf.detach(), spec)
+        want = want.to(whole.device)
+        worst = max(worst, float(torch.linalg.vector_norm(whole - want)
+                                 / torch.linalg.vector_norm(want)))
+        del whole, want
+    res = dict(losses=losses, grad_norms=gnorms, worst_param_rel=worst,
+               launches=launches, plain_on_cuda=plain, seconds=seconds,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del state, ts, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def sharded_rank(rank, world, tmp, ref_dir, seed):
+    """One rank of phase 20 (a spawned process): joins the gloo group over
+    ``tmp``'s FileStore and runs its world size's meshes of
+    SHARDED_MESHES; the world of 2 also saves its data=2 run at step 2,
+    resumes it on model=2 (``elastic.reshard_restore``) and runs 20c.
+    Writes the results to ``tmp/rank{rank}.json``."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(Path(tmp) / "store"), world),
+        rank=rank, world_size=world)
+    try:
+        res = sharded_rank_runs(torch, world, tmp, ref_dir, seed)
+    except Exception:
+        res = dict(error=traceback.format_exc())
+    finally:
+        dist.destroy_process_group()
+    (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def sharded_rank_runs(torch, world, tmp, ref_dir, seed):
+    from repro_torch.launch import train as train_launch
+    from repro_torch.launch.mesh import make_training_mesh
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import elastic
+    from repro_torch.train import step as step_lib
+
+    bert_ref = str(Path(ref_dir) / "famous-bert.pt")
+    ckpt = str(Path(tmp) / "ckpt")
+    meshes = {name: make_training_mesh(shape) for name, shape in
+              SHARDED_MESHES if math.prod(shape) == world}
+    out = {}
+    for name, mesh in meshes.items():
+        out[name] = sharded_run(
+            torch, "famous-bert", mesh, shd.DEFAULT_RULES, bert_ref, seed, 3,
+            save=ckpt if name == "data=2" else None)
+    if world != 2:
+        return out
+    # resize: the data=2 run's step-2 checkpoint onto model=2, step 3
+    cfg, shape = _shape_cfg("famous-bert", None, 512, 8)
+    _, like, _, _ = train_launch.build(
+        "famous-bert", shape, smoke=False,
+        tcfg=_sharded_tcfg(torch, torch.float32), seed=seed, device="cuda",
+        cfg=cfg, mesh=meshes["model=2"])
+    state, step = elastic.reshard_restore(
+        ckpt, like, meshes["model=2"], step_lib.state_logical_axes(cfg))
+    del like
+    out["resize data=2 -> model=2"] = dict(
+        sharded_run(torch, "famous-bert", meshes["model=2"],
+                    shd.DEFAULT_RULES, bert_ref, seed, 3, state=state,
+                    start=step), restored_step=step)
+    del state
+    out["qwen2-7b TP=2"] = sharded_run(
+        torch, "qwen2-7b TP=2", meshes["model=2"], shd.TP_ONLY_RULES,
+        str(Path(ref_dir) / "qwen2-7b TP=2.pt"), seed, 2)
+    return out
+
+
+def sharded_rank_phase(torch, seed):
+    """20b, 20c and the resize.  The one-rank references (SHARDED_REFS)
+    run here first; then the ranks of world 2 and of world 4 are spawned
+    at once, sharing the card over gloo.  On every rank of every run: each
+    step's loss within TRAIN_TOL["f32"][0] relative and grad norm within
+    [1] of the reference's, the parameters gathered after the last step
+    within 1e-4 relative (each leaf's norm) of the reference's, every
+    kernel of TRAINING_KERNELS launched and no plain version run.  Each
+    rank's peak memory and each run's seconds are printed; every join has
+    a deadline, and a rank still running at it is killed."""
+    import torch.multiprocessing as mp
+
+    ref_dir = tempfile.mkdtemp(prefix="sharded-ref-")
+    tmps = {w: tempfile.mkdtemp(prefix=f"sharded{w}-") for w in (2, 4)}
+    try:
+        refs = {}
+        for key, arch, layers, S, B, steps in SHARDED_REFS:
+            refs[key] = one_rank_reference(torch, seed, arch, layers, S, B,
+                                           steps,
+                                           str(Path(ref_dir) / f"{key}.pt"))
+            print(f"sharded training reference {key}: {B}x{S}, {steps} "
+                  f"f32 steps on one rank, losses {refs[key]['losses']}, "
+                  f"grad norms {refs[key]['grad_norms']}, "
+                  f"{refs[key]['seconds']:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        ctxs = {w: mp.start_processes(sharded_rank,
+                                      args=(w, tmps[w], ref_dir, seed),
+                                      nprocs=w, join=False,
+                                      start_method="spawn")
+                for w in tmps}
+        deadline = time.monotonic() + SHARDED_JOIN_S
+        seconds = {}
+        try:
+            for w, ctx in ctxs.items():
+                while not ctx.join(timeout=max(
+                        1.0, deadline - time.monotonic())):
+                    check(time.monotonic() < deadline,
+                          f"sharded training: the {w} ranks did not finish "
+                          f"in {SHARDED_JOIN_S} s")
+                seconds[w] = time.perf_counter() - t0
+        finally:
+            for ctx in ctxs.values():
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+        ranks = {w: [json.loads((Path(tmps[w]) / f"rank{r}.json")
+                                .read_text()) for r in range(w)]
+                 for w in tmps}
+    finally:
+        for d in [ref_dir, *tmps.values()]:
+            shutil.rmtree(d, ignore_errors=True)
+    out = {"references": refs, "spawn_seconds": seconds}
+    for w, got in ranks.items():
+        for r, res in enumerate(got):
+            check("error" not in res, f"sharded training world {w} rank "
+                  f"{r}: {res.get('error')}")
+        for name in got[0]:
+            key = ("qwen2-7b TP=2" if name.startswith("qwen")
+                   else "famous-bert")
+            ref = refs[key]
+            first = SHARDED_STEP_AT_SAVE if name.startswith("resize") else 0
+            loss_tol, norm_tol = TRAIN_TOL["f32"][:2]
+            per = []
+            for r, res in enumerate(got):
+                run = res[name]
+                loss_err = max(abs(a - b) / abs(b) for a, b in zip(
+                    run["losses"], ref["losses"][first:]))
+                norm_err = max(abs(a - b) / b for a, b in zip(
+                    run["grad_norms"], ref["grad_norms"][first:]))
+                launched = all(run["launches"][k] > 0
+                               for k in TRAINING_KERNELS)
+                plain_none = not any(run["plain_on_cuda"].values())
+                ok = (loss_err <= loss_tol and norm_err <= norm_tol
+                      and run["worst_param_rel"] <= 1e-4 and launched
+                      and plain_none
+                      and len(run["losses"]) == len(ref["losses"]) - first)
+                per.append(dict(rank=r, loss_rel=loss_err,
+                                grad_norm_rel=norm_err,
+                                param_rel=run["worst_param_rel"],
+                                launched=launched, no_plain=plain_none,
+                                ok=ok, seconds=run["seconds"],
+                                peak_mem_gb=run["peak_mem_gb"],
+                                launches={k: run["launches"][k]
+                                          for k in TRAINING_KERNELS}))
+                print(f"sharded training {name} (world {w}) rank {r}: "
+                      f"losses {['%.6f' % x for x in run['losses']]}, loss "
+                      f"rel {loss_err:.2e} (tol {loss_tol:g}), grad norm "
+                      f"rel {norm_err:.2e} (tol {norm_tol:g}), gathered "
+                      f"params rel {run['worst_param_rel']:.2e} (tol 1e-4), "
+                      f"launches {per[-1]['launches']}, no plain "
+                      f"{plain_none}, {run['seconds']:.1f} s, peak memory "
+                      f"{run['peak_mem_gb']:.2f} GB "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                check(ok, f"sharded training {name} rank {r}: {per[-1]}")
+            out[name] = per
+    print(f"sharded training: the ranks took {seconds} s (world: seconds "
+          f"from the spawn)", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -4264,6 +4737,7 @@ def main(argv=None) -> int:
     mesh_serving = phase("tensor-parallel serving", mesh_phase, args.seed)
     paged_writes = phase("paged prefill writes", paged_prefill_writes_phase,
                          args.seed)
+    sharded = phase("sharded training", sharded_training_phase, args.seed)
 
     paths = [r["launches"] for r in training.values()] + [serving["launches"]]
     paths += [r["launches"] for r in serving["shared_prefix"].values()]
@@ -4279,6 +4753,8 @@ def main(argv=None) -> int:
     paths += [mesh_serving["tp1"][k]["launches"]
               for k in ("mesh=None", "TP=1 mesh")]
     paths += [paged_writes["launches"]]
+    paths += [sharded["20a"][k]["launches"] for k in ("mesh=None",
+                                                      "(1, 1) mesh")]
     launches = {k: sum(p[k] for p in paths) for k in lib.KERNELS}
     check(all(v > 0 for v in launches.values()),
           f"a kernel never launched on the training and serving paths: "
@@ -4328,6 +4804,7 @@ def main(argv=None) -> int:
                                    frontend_training=frontend_training,
                                    mesh_serving=mesh_serving,
                                    paged_prefill_writes=paged_writes,
+                                   sharded_training=sharded,
                                    phase_s=phase_s),
                               indent=1))
     print(json.dumps({"kernels": entries}))

@@ -191,7 +191,8 @@ def _chunk(q, k_cache, v_cache, q_offset, scale):
 
 def chunk_prefill_tc_reference(q, k_cache, v_cache, q_offset: int, *,
                                scale: float, splits: int = 1,
-                               block_rows: int = 128, tile_keys: int = 64):
+                               block_rows: int = 128, tile_keys: int = 64,
+                               round_out: bool = True):
     """The bf16 tensor-core chunk kernel's algebra, in f32:
     :func:`chunk_prefill_reference` computed as that kernel computes it.
     Chunk rows go in blocks of ``block_rows``; a block's keys end at its
@@ -202,8 +203,9 @@ def chunk_prefill_tc_reference(q, k_cache, v_cache, q_offset: int, *,
     m' = max(m, max S), l = l 2^(m - m') + sum P, O = O 2^(m - m') + P V
     with P = 2^(S - m') (0 where masked) in f32 for l and, for bf16 inputs,
     rounded to bf16 for P V.  Splits combine in order, w_z = 2^(m_z - max
-    m); the result is O / max(l, 1e-30).  Used by the tests and
-    ``chip_smoke.py`` only, never on the serving path."""
+    m); the result is O / max(l, 1e-30), in q's dtype (f32, unrounded,
+    without ``round_out``).  Used by the tests and ``chip_smoke.py`` only,
+    never on the serving path."""
     _count("chunk_prefill", q)
 
     def keys(k0, k1):
@@ -211,7 +213,8 @@ def chunk_prefill_tc_reference(q, k_cache, v_cache, q_offset: int, *,
                 v_cache[:, k0:k1].to(torch.float32), None, None)
 
     return _chunk_tc(q, keys, k_cache.shape[1], k_cache.shape[2], q_offset,
-                     scale, splits, block_rows, tile_keys)[0]
+                     scale, splits, block_rows, tile_keys,
+                     round_out=round_out)[0]
 
 
 def _chunk_tc(q, keys, Skv, KV, q_offset, scale, splits, block_rows,
@@ -360,24 +363,28 @@ def paged_chunk_prefill_reference_int8(q, k_pages, v_pages, k_scale,
 def paged_chunk_prefill_tc_reference(q, k_pages, v_pages, page_table,
                                      q_offset: int, *, scale: float,
                                      splits: int = 1, block_rows: int = 128,
-                                     tile_keys: int = 64):
+                                     tile_keys: int = 64,
+                                     round_out: bool = True):
     """The bf16 paged chunk kernel's algebra, in f32: the algebra of
     :func:`chunk_prefill_tc_reference` over the n_p * page_size keys of
     each slot's row of ``page_table`` ((B, n_p) page ids into (n_pages,
     page_size, KV, dh) pools), as the kernel reads them: key pos is row
     pos % page_size of page page_table[b, pos // page_size], an id outside
-    [0, n_pages) reads the null page 0.  Used by the tests and
-    ``chip_smoke.py`` only, never on the serving path."""
+    [0, n_pages) reads the null page 0; f32, unrounded, without
+    ``round_out``.  Used by the tests and ``chip_smoke.py`` only, never on
+    the serving path."""
     _count("paged_chunk_prefill", q)
     return _paged_chunk_tc(q, k_pages, v_pages, None, None, page_table,
-                           q_offset, scale, splits, block_rows, tile_keys)
+                           q_offset, scale, splits, block_rows, tile_keys,
+                           round_out)
 
 
 def paged_chunk_prefill_tc_reference_int8(q, k_pages, v_pages, k_scale,
                                           v_scale, page_table, q_offset: int,
                                           *, scale: float, splits: int = 1,
                                           block_rows: int = 128,
-                                          tile_keys: int = 64):
+                                          tile_keys: int = 64,
+                                          round_out: bool = True):
     """:func:`paged_chunk_prefill_tc_reference` on int8 pools with f32
     (n_pages, page_size, KV) scale pools, as the int8 kernel applies the
     scales: the int8 values enter Q K^T and P V exactly, each key's K scale
@@ -386,11 +393,13 @@ def paged_chunk_prefill_tc_reference_int8(q, k_pages, v_pages, k_scale,
     P V; l sums the unscaled P."""
     _count("paged_chunk_prefill_int8", q)
     return _paged_chunk_tc(q, k_pages, v_pages, k_scale, v_scale, page_table,
-                           q_offset, scale, splits, block_rows, tile_keys)
+                           q_offset, scale, splits, block_rows, tile_keys,
+                           round_out)
 
 
 def _paged_chunk_tc(q, k_pages, v_pages, k_scale, v_scale, page_table,
-                    q_offset, scale, splits, block_rows, tile_keys):
+                    q_offset, scale, splits, block_rows, tile_keys,
+                    round_out):
     n_pages, ps = k_pages.shape[:2]
     pt = page_table.to(device=q.device, dtype=torch.long)
     pt = torch.where((pt >= 0) & (pt < n_pages), pt, 0)
@@ -406,4 +415,5 @@ def _paged_chunk_tc(q, k_pages, v_pages, k_scale, v_scale, page_table,
                 scales(v_scale))
 
     return _chunk_tc(q, keys, pt.shape[1] * ps, k_pages.shape[2], q_offset,
-                     scale, splits, block_rows, tile_keys)[0]
+                     scale, splits, block_rows, tile_keys,
+                     round_out=round_out)[0]

@@ -351,3 +351,33 @@ def require_pool(name: str, k_pages, v_pages, k_scale, v_scale, dh: int,
             raise ValueError(f"{name}: scale pools must be contiguous f32 "
                              f"{tuple(k_pages.shape[:3])}, got "
                              f"{s.dtype} {tuple(s.shape)}")
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each element of ``x`` (f32): 2^(floor(log2|x|) - 7),
+    0 where ``x`` is 0."""
+    _, e = torch.frexp(x.abs())        # |x| = m 2^e, m in [0.5, 1)
+    ulp = torch.ldexp(torch.ones_like(x), e - 8)
+    return torch.where(x == 0, torch.zeros_like(x), ulp)
+
+
+def ulp_gate(out: torch.Tensor, ref: torch.Tensor, atol: float):
+    """A bf16 kernel output against the unrounded f32 ``ref`` of the same
+    bf16 inputs: every element within half a bf16 ulp of ``ref`` plus
+    ``atol`` (the f32 gate of the same computation), ``|out - ref| <= 0.5
+    ulp_bf16(ref) + atol``.  A kernel that rounds its f32 result once,
+    with that result within ``atol`` of ``ref``, always passes; one off by
+    a whole ulp does not.  Returns (the largest absolute error, the
+    largest error past ``atol`` in ulps of ``ref``, which the gate holds
+    to 0.5, whether every element passed and ``out`` is finite)."""
+    out, ref = out.float(), ref.float()
+    if not out.numel():
+        return 0.0, 0.0, True
+    err = (out - ref).abs()
+    ulp = bf16_ulp(ref)
+    past = torch.clamp(err - atol, min=0.0)
+    ulps = torch.where(ulp > 0, past / torch.where(ulp > 0, ulp, 1.0),
+                       torch.where(past > 0, float("inf"), 0.0))
+    worst = float(ulps.max())
+    return (float(err.max()), worst,
+            worst <= 0.5 and bool(torch.isfinite(out).all()))

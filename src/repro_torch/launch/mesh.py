@@ -4,7 +4,8 @@ JAX serves a mesh from one process; the port runs one process a rank over
 ``torch.distributed``, and a mesh is a ``DeviceMesh`` named ("data",
 "model") (or ("pod", "data", "model")) over the default process group,
 one rank a device.  The group comes from ``torchrun``'s environment
-(``torchrun --nproc-per-node N -m repro_torch.launch.serve --tp N``), from
+(``torchrun --nproc-per-node N -m repro_torch.launch.serve --tp N``, or
+``... -m repro_torch.launch.train --mesh-shape data,model``), from
 a caller that set it up already (the tests spawn gloo ranks over a
 ``FileStore``), or, for one rank, from a ``FileStore`` in a temporary
 directory: nothing beyond loopback.
@@ -104,6 +105,21 @@ def make_smoke_mesh(data: int = 1, model: int = 1, pod: int = 0,
         return make_mesh((pod, data, model), ("pod", "data", "model"),
                          device_type)
     return make_mesh((data, model), ("data", "model"), device_type)
+
+
+TRAIN_AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
+
+
+def make_training_mesh(shape, device_type: str = "cuda"):
+    """The mesh of the sharded train step (``launch/train.py
+    --mesh-shape``): a 2-long ``shape`` names ("data", "model"), a 3-long
+    one ("pod", "data", "model"), as JAX's production meshes do; one rank
+    a device."""
+    shape = tuple(int(n) for n in shape)
+    if len(shape) not in TRAIN_AXES:
+        raise ValueError(f"mesh shape {shape}: give data,model or "
+                         f"pod,data,model")
+    return make_mesh(shape, TRAIN_AXES[len(shape)], device_type)
 
 
 def make_serving_mesh(tp: int = 1, dp: int = 1, device_type: str = "cuda"):

@@ -243,7 +243,12 @@ def _attn_out(out, p):
 def apply_attn(p: dict, x: torch.Tensor, cfg: ModelConfig,
                fcfg: famous.FamousConfig, *, window: int = 0,
                q_offset: int = 0) -> torch.Tensor:
-    """Full-sequence attention (training / encoder). x: (B, S, D)."""
+    """Full-sequence attention (training / encoder). x: (B, S, D).  Head
+    counts come from the weights, so a tensor-parallel rank runs its own
+    heads; ``tp_in`` (sharded training's Megatron f) takes the input of
+    its column-parallel projections."""
+    if "tp_in" in p:
+        x = p["tp_in"](x)
     S = x.shape[1]
     positions = q_offset + torch.arange(S, device=x.device)
     q, k, v = _project(p, x, cfg, fcfg, positions)

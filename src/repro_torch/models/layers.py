@@ -98,7 +98,10 @@ def apply_mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     """act(x W_gate) * (x W_in) when gated, else act(x W_in); then
     W_out.  Under tensor parallelism (the hidden dim sharded over more
     than one rank) the rank's partial product is summed over the "model"
-    group (``tp_sum``)."""
+    group (``tp_sum``); in sharded training ``tp_in`` (Megatron's f) takes
+    the input first."""
+    if "tp_in" in p:
+        x = p["tp_in"](x)
     h = x @ p["w_in"].to(x.dtype)
     if "w_gate" in p:
         h = act_fn(act)(x @ p["w_gate"].to(x.dtype)) * h

@@ -51,6 +51,14 @@ def tree_map(fn: Callable, tree: Tree) -> Tree:
     return fn(tree)
 
 
+def tree_map2(fn: Callable, a: Tree, b: Tree) -> Tree:
+    """Apply ``fn`` to the leaves of two trees of one structure (``a``'s
+    dict keys), pairwise."""
+    if isinstance(a, dict):
+        return {k: tree_map2(fn, a[k], b[k]) for k in a}
+    return fn(a, b)
+
+
 def tree_leaves(tree: Tree) -> list:
     """Leaves of a nested dict, in sorted-key order."""
     if isinstance(tree, dict):

@@ -91,12 +91,28 @@ def _router_logits(p: dict, xg: torch.Tensor) -> torch.Tensor:
                         p["router"].to(torch.float32))
 
 
+def _rank_groups(p: dict, T: int) -> tuple[int, int]:
+    """(G, S_g) of a rank's ``T`` tokens.  In sharded training
+    (``batch_ranks`` in ``p``, set by ``transformer.TrainLayout``) the
+    groups are the global batch's: S_g from the ``batch_ranks * T`` global
+    tokens, which must split into whole groups a rank, so routing and
+    capacity are the unsharded step's."""
+    n = p.get("batch_ranks", 1)
+    Sg = _group_shape(n * T)[1]
+    if T % Sg:
+        raise ValueError(
+            f"a batch rank's {T} tokens do not hold whole MoE groups of "
+            f"{Sg} (the global batch's {n * T} tokens): give each rank a "
+            f"multiple of {Sg} tokens")
+    return T // Sg, Sg
+
+
 def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
               return_aux: bool = False):
     """x: (B, S, D) -> (B, S, D).  Grouped dense top-k routing."""
     B, S, D = x.shape
     K = cfg.experts_per_token
-    G, Sg = _group_shape(B * S)
+    G, Sg = _rank_groups(p, B * S)
     xg = x.reshape(G, Sg, D)
 
     dispatch, combine, aux = router_dispatch(

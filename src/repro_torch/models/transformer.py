@@ -34,6 +34,11 @@ Tensor parallelism (``ServingEngine(mesh=)``): :func:`param_axes` and
 the layers whose products need a sum over the "model" group, and
 ``make_caches(mesh=)`` allocates the rank's cache shapes.  The step
 functions below run unchanged on a rank's layout.
+
+Sharded training (``make_train_step(mesh=)``): :class:`TrainLayout`
+resolves the spec tree under a training rule set, and :func:`forward`
+gathers each unit's leaves inside the unit and runs the tensor-parallel
+blocks with Megatron's f and g.
 """
 from __future__ import annotations
 
@@ -237,6 +242,121 @@ def check_mesh(cfg: ModelConfig, mesh, rules) -> None:
             raise _item_7b(f"a rule sharding {name!r} over {entry!r}")
 
 
+def check_train_mesh(cfg: ModelConfig, mesh, rules) -> None:
+    """Raise for what the sharded train step does not split: a "model"
+    axis of size > 1 under MoE, RWKV-6 or RG-LRU blocks
+    (``NotImplementedError``, ROADMAP Queue 1 item 7b), and a rule set
+    that gives "batch" to "model" (``ValueError``: tensor parallelism
+    needs the "model" ranks to see the same rows).  Any data or pod axis
+    and every rule set of ``parallel/sharding.py`` train every config."""
+    if "model" in shd.entry_axes(shd.rule_axes(mesh, rules, "batch")):
+        raise ValueError("a rule set that shards \"batch\" over \"model\" "
+                         "cannot train: the model ranks must see the same "
+                         "rows")
+    if shd.axis_sizes(mesh).get("model", 1) == 1:
+        return
+    kinds = set(layer_kinds(cfg))
+    if cfg.num_experts:
+        raise _item_7b(f"{cfg.name}: MoE training on a \"model\" axis > 1")
+    for kind, name in ((RWKV6, "RWKV-6"), (RGLRU, "RG-LRU")):
+        if kind in kinds:
+            raise _item_7b(f"{cfg.name}: {name} training on a \"model\" "
+                           f"axis > 1")
+
+
+class TrainLayout:
+    """One rank's side of the sharded train step (``make_train_step(
+    mesh=)``): the spec of every leaf of the spec tree under ``rules``
+    (default ``DEFAULT_RULES``) on ``mesh``, and the collectives
+    (``comm``, a :class:`~repro_torch.parallel.sharding.MeshComm`).
+
+    Each rank holds every leaf as its ``local_shard``.  A leaf whose heads,
+    kv heads or FFN hidden are sharded over "model" stays split for
+    compute (true tensor parallelism): the block gets ``tp_in`` (Megatron's
+    f) before its column-parallel products and ``tp_sum`` (g) after its
+    row-parallel one.  Every other sharded dim — "embed" over "data"
+    (FSDP), "vocab" over "model", ZERO_SEQ's "embed" over every axis — is
+    gathered to whole inside the unit that uses it, so remat gathers
+    again; the gather's backward sums over the batch axes and keeps the
+    rank's slice.  A rank whose query heads are sharded while its kv heads
+    stay whole raises the item-7b ``NotImplementedError``."""
+
+    def __init__(self, cfg: ModelConfig, mesh, rules=None):
+        rules = rules or shd.DEFAULT_RULES
+        check_train_mesh(cfg, mesh, rules)
+        self.cfg = cfg
+        self.comm = shd.MeshComm(mesh, rules)
+        spec_tree = model_spec(cfg)
+        axes = module.logical_axes(spec_tree)
+        self.specs = shd.tree_specs(mesh, axes, rules,
+                                    module.param_shapes(spec_tree))
+        sizes = self.comm.sizes
+
+        def split(entry, name):
+            return (name in TP_AXES and entry == "model"
+                    and sizes.get("model", 1) > 1)
+
+        def gather_spec(spec, names):
+            return tuple(None if split(e, n) else e
+                         for e, n in zip(spec, names))
+
+        gspecs = module.tree_map2(gather_spec, self.specs, axes)
+        tp = module.tree_map2(
+            lambda spec, names: [split(e, n) for e, n in zip(spec, names)],
+            self.specs, axes)
+        # per block (stacked units' leaves lose their "layers" entry): the
+        # gather specs and which parts run tensor-parallel
+        self.blocks = {}
+        names = [f"pos{i}" for i in range(len(cfg.pattern_unit))]
+        names += [f"tail{i}" for i in range(len(cfg.tail_layers))]
+        for name in names:
+            stacked = name.startswith("pos")
+            g = gspecs["blocks"][name] if stacked else gspecs[name]
+            t = tp["blocks"][name] if stacked else tp[name]
+            if stacked:
+                g = module.tree_map(lambda s: s[1:], g)
+                t = module.tree_map(lambda s: s[1:], t)
+            marks = []
+            if "attn" in t:
+                q, kv = t["attn"]["wq"][1], t["attn"]["wk"][1]
+                if q and not kv:
+                    raise _item_7b(f"{cfg.name}: query heads sharded over "
+                                   f"\"model\" while the kv heads stay "
+                                   f"whole, in training")
+                if q:
+                    marks.append("attn")
+            if "ffn" in t and not cfg.num_experts and t["ffn"]["w_in"][1]:
+                marks.append("ffn")
+            self.blocks[name] = (g, tuple(marks))
+        self.outer_specs = {k: gspecs[k] for k in
+                            ("embed", "final_norm", "lm_head") if k in gspecs}
+
+    def _gather(self, tree, gspecs):
+        return module.tree_map2(self.comm.gather_grad, tree, gspecs)
+
+    def block(self, p: dict, name: str) -> dict:
+        """Block ``name`` ("pos<i>" of a unit, "tail<i>") from the rank's
+        shards: gathered, and marked where it runs tensor-parallel."""
+        gspecs, marks = self.blocks[name]
+        p = self._gather(p, gspecs)
+        for part in marks:
+            p[part] = dict(p[part], tp_in=self.comm.copy_to_model,
+                           tp_sum=self.comm.reduce_from_model)
+        if self.cfg.num_experts and "ffn" in p and self.comm.dp > 1:
+            p["ffn"] = dict(p["ffn"], batch_ranks=self.comm.dp)
+        return p
+
+    def outer(self, params: dict, tokens: bool = True) -> dict:
+        """``params`` with the leaves outside the units gathered whole:
+        the final norm, the LM head, and the embedding when ``tokens`` (a
+        stub frontend's embeddings never read it)."""
+        out = dict(params)
+        for k, gspecs in self.outer_specs.items():
+            if k != "embed" or tokens:
+                out[k] = self._gather(params[k], gspecs)
+        return out
+
+
 def _layer_specs(specs: dict, cfg: ModelConfig) -> list:
     """Per-layer spec trees, in the serving layout's order, from the spec
     tree's (stacked leaves lose their "layers" entry)."""
@@ -248,12 +368,6 @@ def _layer_specs(specs: dict, cfg: ModelConfig) -> list:
     for i in range(len(cfg.tail_layers)):
         out.append(specs[f"tail{i}"])
     return out
-
-
-def _tree_map2(fn, a, b):
-    if isinstance(a, dict):
-        return {k: _tree_map2(fn, a[k], b[k]) for k in a}
-    return fn(a, b)
 
 
 def shard_params(params: dict, cfg: ModelConfig, mesh, rules=None) -> dict:
@@ -284,7 +398,7 @@ def shard_params(params: dict, cfg: ModelConfig, mesh, rules=None) -> dict:
         part = shd.local_shard(t, spec, mesh, coords)
         return t if part is t else part.clone()
 
-    local = _tree_map2(own, params, specs)
+    local = module.tree_map2(own, params, specs)
     out = prepare_params(local, cfg)
     msum = shd.model_sum(mesh)
     H, KV = cfg.num_heads, cfg.num_kv_heads
@@ -368,7 +482,8 @@ def apply_block(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def forward(params: dict, inputs: torch.Tensor, cfg: ModelConfig,
             fcfg: FamousConfig = FamousConfig(), *, remat: bool = True,
-            return_hidden: bool = False, compute_dtype=None) -> torch.Tensor:
+            return_hidden: bool = False, compute_dtype=None,
+            layout: TrainLayout | None = None) -> torch.Tensor:
     """inputs: int tokens (B, S), or float embeddings (B, S, D) for the
     stub frontends, on the spec tree.  Returns f32 logits
     (B, S, vocab), or the final hidden states (B, S, D) when
@@ -377,22 +492,34 @@ def forward(params: dict, inputs: torch.Tensor, cfg: ModelConfig,
     The loop over stacked units indexes the ``(num_units, ...)`` leaves,
     so gradients land in them.  ``remat=True`` recomputes each unit in the
     backward (``torch.utils.checkpoint``, non-reentrant), as
-    ``jax.checkpoint`` does."""
+    ``jax.checkpoint`` does.
+
+    ``layout``: a rank's :class:`TrainLayout`; ``params`` then hold the
+    rank's shards, with the leaves outside the units already whole
+    (``layout.outer``).  Each unit's and tail block's leaves are gathered
+    inside it (so the recompute gathers again, in the same order on every
+    rank).  An MoE layer routes in the global batch's groups
+    (``moe.apply_moe``)."""
     _check_supported(cfg)
     x = _embed_inputs(params, inputs,
                       compute_dtype or params["final_norm"]["scale"].dtype)
 
+    def block(p, name):
+        return p if layout is None else layout.block(p, name)
+
     def unit_body(x, u):
         unit = _index_tree(params["blocks"], u)
         for i, kind in enumerate(cfg.pattern_unit):
-            x = apply_block(kind, unit[f"pos{i}"], x, cfg, fcfg)
+            x = apply_block(kind, block(unit[f"pos{i}"], f"pos{i}"), x, cfg,
+                            fcfg)
         return x
 
     for u in range(cfg.num_units):
         x = (checkpoint(unit_body, x, u, use_reentrant=False) if remat
              else unit_body(x, u))
     for i, kind in enumerate(cfg.tail_layers):
-        x = apply_block(kind, params[f"tail{i}"], x, cfg, fcfg)
+        x = apply_block(kind, block(params[f"tail{i}"], f"tail{i}"), x, cfg,
+                        fcfg)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     if return_hidden:
         return x

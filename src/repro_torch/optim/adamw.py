@@ -38,18 +38,32 @@ def init_opt_state(params, cfg: AdamWConfig):
             "count": torch.zeros((), dtype=torch.int32)}
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, specs=None, comm=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32 (a 0-dim tensor on
-    the leaves' device)."""
-    return torch.sqrt(sum(torch.sum(torch.square(l.to(torch.float32)))
-                          for l in tree_leaves(tree)))
+    the leaves' device).
+
+    On a mesh (``comm``, a ``parallel.sharding.MeshComm``, with the
+    leaves' ``specs``) ``tree`` holds this rank's shards: each leaf's sum
+    is divided by the number of ranks that hold it (its replication
+    count), the total summed over every rank, so each element counts
+    once, and every rank gets the same bits."""
+    if comm is None:
+        return torch.sqrt(sum(torch.sum(torch.square(l.to(torch.float32)))
+                              for l in tree_leaves(tree)))
+    total = sum(torch.sum(torch.square(l.to(torch.float32)))
+                / comm.replication(s)
+                for l, s in zip(tree_leaves(tree), tree_leaves(specs)))
+    return torch.sqrt(comm.sum_world(total.reshape(1))[0])
 
 
 @torch.no_grad()
 def apply_updates(params, grads, opt_state, cfg: AdamWConfig,
-                  lr_scale: float = 1.0):
-    """One AdamW step, in place.  Returns (params, opt_state, metrics)."""
-    gnorm = global_norm(grads)
+                  lr_scale: float = 1.0, specs=None, comm=None):
+    """One AdamW step, in place.  Returns (params, opt_state, metrics).
+    ``specs`` / ``comm``: on a mesh, the global norm over every rank's
+    shards (:func:`global_norm`); the update itself is elementwise and
+    stays on the rank."""
+    gnorm = global_norm(grads, specs, comm)
     scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
              if cfg.grad_clip else 1.0)
     count = int(opt_state["count"]) + 1

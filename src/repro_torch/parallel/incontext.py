@@ -3,11 +3,15 @@
 
 In JAX these pin an activation's layout for GSPMD inside a jitted
 function and do nothing without an ambient mesh.  The port has no
-partitioner: its serving engine splits every weight and cache explicitly
+partitioner, so each function here is the identity on its tensors: every
+layout is explicit.  The serving engine splits every weight and cache
 (``transformer.shard_params``) and sums the row-parallel products over the
-"model" group itself (``parallel.sharding.model_sum``), so each function
-here is the identity on its tensors.  Training at scale (ROADMAP Queue 1
-item 6) gives them meaning.
+"model" group itself (``parallel.sharding.model_sum``); the sharded train
+step holds each rank's shards, gathers what a unit reads whole and runs
+Megatron's f and g around the tensor-parallel products
+(``transformer.TrainLayout``), and each rank's activations are its own
+rows (``pipeline.make_global_batch``).  A constraint would have nothing
+left to place.
 """
 from __future__ import annotations
 

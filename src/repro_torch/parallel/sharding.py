@@ -9,10 +9,13 @@ its axes and their sizes: a ``torch.distributed.device_mesh.DeviceMesh``
 (``launch.mesh.make_serving_mesh``) or a ``launch.mesh.AbstractMesh``.
 
 Where JAX places arrays with ``NamedSharding``s and lets GSPMD insert the
-collectives, the port's serving engine slices each leaf to its rank
-(:func:`local_shard`) and sums the partial products of a row-parallel
-matmul over the "model" group itself (:func:`model_sum`), one process a
-rank.
+collectives, the port slices each leaf to its rank (:func:`local_shard`),
+one process a rank, and issues the collectives itself: the serving engine
+sums the partial products of a row-parallel matmul over the "model" group
+(:func:`model_sum`, in place); the sharded train step gathers leaves,
+runs Megatron's f and g around tensor-parallel products and sums
+gradients over the batch axes through :class:`MeshComm`, whose
+operations have gradients.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ import warnings
 from typing import Any, Optional, Sequence
 
 import torch
+
+from repro_torch.models.module import tree_map2
 
 Rules = dict[str, Any]
 
@@ -301,3 +306,174 @@ def model_sum(mesh) -> Optional[ModelSum]:
     if mesh is None or axis_sizes(mesh).get("model", 1) == 1:
         return None
     return ModelSum(mesh)
+
+
+# ---------------------------------------------------------------------------
+# the sharded train step's collectives
+# ---------------------------------------------------------------------------
+
+
+def entry_axes(entry) -> tuple[str, ...]:
+    """The mesh axes of one spec entry, as a tuple (empty for None)."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def spec_axes(spec: tuple) -> set:
+    """Every mesh axis a spec uses."""
+    return {a for entry in spec for a in entry_axes(entry)}
+
+
+def batch_ranks(mesh, rules: Rules | None = None) -> int:
+    """How many ways ``rules`` split the batch on ``mesh``: the product of
+    the sizes of the mesh axes "batch" resolves to."""
+    sizes = axis_sizes(mesh)
+    return math.prod(sizes[a] for a in entry_axes(
+        rule_axes(mesh, rules or DEFAULT_RULES, "batch")))
+
+
+class MeshComm:
+    """The collectives of the sharded train step on one rank of a
+    ``DeviceMesh``.
+
+    Every collective is an all-reduce: PyTorch's gloo backend gathers and
+    reduce-scatters CPU tensors only, and the chip check runs several gloo
+    ranks on one card's CUDA tensors.  A gather places the rank's shard in
+    a zero-filled buffer of the whole leaf and sums it (exact: one rank
+    contributes each element).  A spec entry or a group of several mesh
+    axes ("pod" and "data", say) is summed one axis after another, nested:
+    after the first sum the ranks that share the other coordinates hold
+    equal values, so every rank ends with the same bits.
+
+    ``batch_axes`` are the mesh axes ``rules`` give "batch" to: ranks that
+    differ along them see different rows of the global batch; ranks that
+    differ only along the others ("model") see the same rows and compute
+    the same replicated values.  ``dp`` is the product of their sizes.
+    Scalars (loss, flags) live on the mesh's device type."""
+
+    def __init__(self, mesh, rules: Rules | None = None):
+        self.mesh = mesh
+        self.sizes = axis_sizes(mesh)
+        self.coords = mesh_coords(mesh)
+        self.batch_axes = entry_axes(rule_axes(mesh, rules or DEFAULT_RULES,
+                                               "batch"))
+        self.dp = batch_ranks(mesh, rules)
+        self.device = torch.device(mesh.device_type)
+        # rank 0 of the mesh: the one that writes checkpoints
+        self.lead = not any(self.coords.values())
+
+    def all_reduce(self, x: torch.Tensor, axes, op: str = "sum"):
+        """``x`` reduced in place over each of ``axes`` in turn (axes of
+        size 1 skipped).  ``x`` must be contiguous."""
+        import torch.distributed as dist
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        for a in axes:
+            if self.sizes[a] > 1:
+                dist.all_reduce(x, op=red, group=self.mesh.get_group(a))
+        return x
+
+    def sum_over(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """A contiguous copy of ``x`` summed over ``axes``."""
+        return self.all_reduce(x.clone(memory_format=torch.contiguous_format),
+                               axes)
+
+    def replication(self, spec: tuple) -> int:
+        """How many ranks hold each element of a leaf under ``spec``: the
+        product of the sizes of the mesh axes the spec does not use."""
+        used = spec_axes(spec)
+        return math.prod(n for a, n in self.sizes.items() if a not in used)
+
+    def sum_world(self, x: torch.Tensor) -> torch.Tensor:
+        return self.sum_over(x, tuple(self.sizes))
+
+    def agree(self, *flags: bool) -> tuple[bool, ...]:
+        """Each flag, true on every rank when it is true on any (one
+        all-reduce)."""
+        t = torch.tensor([int(f) for f in flags], dtype=torch.int32,
+                         device=self.device)
+        return tuple(bool(x) for x in
+                     self.all_reduce(t, tuple(self.sizes), "max").tolist())
+
+    def barrier(self) -> None:
+        self.sum_world(torch.zeros(1, device=self.device))
+
+    def gather(self, t: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """The whole leaf from this rank's shard ``t`` under ``spec`` (``t``
+        itself when nothing is sharded), one sharded dim at a time."""
+        for dim, entry in enumerate(spec):
+            idx, n = _dim_index(entry, self.sizes, self.coords)
+            if n == 1:
+                continue
+            shape = list(t.shape)
+            shape[dim] *= n
+            full = t.new_zeros(shape)
+            full.narrow(dim, idx * t.shape[dim], t.shape[dim]).copy_(t)
+            t = self.all_reduce(full, entry_axes(entry))
+        return t
+
+    def gather_grad(self, t: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """:meth:`gather` with a gradient: the whole leaf's gradient summed
+        over the batch axes the spec uses (their ranks saw other rows),
+        then cut to this rank's shard (the other axes' ranks computed the
+        same values, so their gradients are already whole).  ``t`` itself
+        when nothing is sharded."""
+        if all(_dim_index(e, self.sizes, self.coords)[1] == 1 for e in spec):
+            return t
+        return _Gather.apply(t, self, spec)
+
+    def copy_to_model(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's f, before a column-parallel product: the identity
+        forward, the sum over "model" of the input's gradient backward."""
+        return _CopyToModel.apply(x, self)
+
+    def reduce_from_model(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's g, after a row-parallel product: the sum over
+        "model" forward, the identity backward (the differentiable twin
+        of :class:`ModelSum`, on a copy)."""
+        return _ReduceFromModel.apply(x, self)
+
+    def reduce_grads(self, grads, specs) -> None:
+        """Sum each gradient leaf in place over the batch axes its spec
+        does not use (those its gather's backward did not sum)."""
+        def one(g, spec):
+            axes = [a for a in self.batch_axes if a not in spec_axes(spec)]
+            if any(self.sizes[a] > 1 for a in axes):
+                g.copy_(self.sum_over(g, axes))
+        tree_map2(one, grads, specs)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm, spec):
+        ctx.comm, ctx.spec = comm, spec
+        return comm.gather(t, spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, spec = ctx.comm, ctx.spec
+        g = comm.sum_over(g, [a for a in comm.batch_axes
+                              if a in spec_axes(spec)])
+        return local_shard(g, spec, comm.mesh, comm.coords).contiguous(), \
+            None, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.sum_over(g, ("model",)), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        return comm.sum_over(x, ("model",))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None

@@ -10,6 +10,14 @@ are renamed into place, so a preemption mid-write never corrupts the
 latest checkpoint.  ``AsyncCheckpointer`` copies the state to host memory,
 then writes it on a background thread while training goes on.  bf16
 leaves are stored as f32 (exact) and cast back on restore.
+
+On a mesh (``specs=`` and ``mesh=``: the state's specs and its
+``DeviceMesh``) every rank holds its shards.  A save gathers each leaf
+whole on the calling thread (the gathers are collectives, and no
+collective runs on the writer thread); rank 0 writes the same layout,
+and every rank passes a barrier after the rename.  A restore reads the
+whole leaves and keeps each rank's shard, so a checkpoint restores onto
+any mesh (``train/elastic.py``).
 """
 from __future__ import annotations
 
@@ -22,6 +30,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.models.module import ShapeDtype
+from repro_torch.parallel import sharding as shd
 
 
 def _flatten(state, prefix: str = "") -> list:
@@ -42,13 +53,37 @@ def _to_host(leaf) -> np.ndarray:
     return np.array(leaf)
 
 
-def _host_tree(state):
+def _host_tree(state, specs=None, comm=None):
+    """A host copy of ``state``; on a mesh (``comm``) each leaf gathered
+    whole under its spec first."""
     if isinstance(state, dict):
-        return {k: _host_tree(v) for k, v in state.items()}
+        return {k: _host_tree(v, None if specs is None else specs[k], comm)
+                for k, v in state.items()}
+    if comm is not None and isinstance(state, torch.Tensor):
+        return _to_host(comm.gather(state.detach(), specs))
     return _to_host(state)
 
 
-def save_checkpoint(ckpt_dir: str, step: int, state, keep: int = 3) -> str:
+def _comm(mesh):
+    return None if mesh is None else shd.MeshComm(mesh)
+
+
+def save_checkpoint(ckpt_dir: str, step: int, state, keep: int = 3,
+                    specs=None, mesh=None) -> str:
+    """Write ``state`` as step ``step``, keeping the last ``keep``.  On a
+    mesh every rank calls it: the leaves are gathered whole, rank 0
+    writes, and a barrier follows."""
+    comm = _comm(mesh)
+    if comm is None:
+        return _write(ckpt_dir, step, state, keep)
+    host = _host_tree(state, specs, comm)
+    final = _write(ckpt_dir, step, host, keep) if comm.lead else \
+        os.path.join(ckpt_dir, f"step_{step:08d}")
+    comm.barrier()
+    return final
+
+
+def _write(ckpt_dir: str, step: int, state, keep: int) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f".tmp_{step}")
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
@@ -92,24 +127,63 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, state_like, step: Optional[int] = None):
-    """Restore into new tensors of ``state_like``'s structure, dtypes and
-    devices (shapes are validated); leaves that require grad in
-    ``state_like`` do so in the result.  Returns (state, step)."""
+def _step_dir(ckpt_dir: str, step: Optional[int]) -> tuple[str, int, dict]:
+    """(the step's directory, the step, leaf file by path) of ``step`` or
+    the latest one."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
-    by_path = {l["path"]: l["file"] for l in manifest["leaves"]}
+    return d, step, {l["path"]: l["file"] for l in manifest["leaves"]}
+
+
+def checkpoint_shapes(ckpt_dir: str, state_like, step: Optional[int] = None):
+    """The whole shape and dtype of every leaf of a checkpoint, as a tree
+    of ``module.ShapeDtype`` of ``state_like``'s structure (read from the
+    files' headers, no data)."""
+    d, _, by_path = _step_dir(ckpt_dir, step)
+
+    def walk(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{prefix}[{k!r}]") for k, v in tree.items()}
+        arr = np.load(os.path.join(d, by_path[prefix]), mmap_mode="r")
+        return ShapeDtype(tuple(arr.shape), arr.dtype)
+
+    return walk(state_like)
+
+
+def restore_checkpoint(ckpt_dir: str, state_like, step: Optional[int] = None,
+                       specs=None, mesh=None):
+    """Restore into new tensors of ``state_like``'s structure, dtypes and
+    devices (shapes are validated); leaves that require grad in
+    ``state_like`` do so in the result.  On a mesh (``specs``, ``mesh``)
+    ``state_like`` holds the rank's shards: each whole leaf's shape must
+    be the one its spec cuts to the shard's, and the rank keeps its shard.
+    Returns (state, step)."""
+    d, step, by_path = _step_dir(ckpt_dir, step)
+    spec_of = dict(_flatten(specs)) if mesh is not None else {}
+    coords = shd.mesh_coords(mesh) if mesh is not None else None
     vals = {}
     for path, like in _flatten(state_like):
         arr = np.load(os.path.join(d, by_path[path]))
-        if tuple(arr.shape) != tuple(like.shape):
-            raise ValueError(f"{path}: checkpoint shape {arr.shape}, "
-                             f"state shape {tuple(like.shape)}")
-        t = torch.from_numpy(arr).to(device=like.device, dtype=like.dtype)
+        if mesh is None:
+            if tuple(arr.shape) != tuple(like.shape):
+                raise ValueError(f"{path}: checkpoint shape {arr.shape}, "
+                                 f"state shape {tuple(like.shape)}")
+            t = torch.from_numpy(arr)
+        else:
+            spec = spec_of[path]
+            whole = tuple(n * shd.sharded_size(e, mesh) for n, e in zip(
+                like.shape, tuple(spec) + (None,) * len(like.shape)))
+            if tuple(arr.shape) != whole:
+                raise ValueError(
+                    f"{path}: checkpoint shape {arr.shape}, but the leaf "
+                    f"is {whole} whole ({tuple(like.shape)} a rank under "
+                    f"{spec})")
+            t = shd.local_shard(torch.from_numpy(arr), spec, mesh, coords)
+        t = t.to(device=like.device, dtype=like.dtype).contiguous()
         vals[path] = t.requires_grad_(like.requires_grad)
 
     def build(tree, prefix=""):
@@ -121,23 +195,33 @@ def restore_checkpoint(ckpt_dir: str, state_like, step: Optional[int] = None):
 
 
 class AsyncCheckpointer:
-    """Fire-and-forget saves on a background thread (one in flight)."""
+    """Fire-and-forget saves on a background thread (one in flight).  On
+    a mesh (``specs``, ``mesh``) every rank calls :meth:`save` and
+    :meth:`wait` at the same points: the save gathers on the calling
+    thread, only rank 0 starts a writer, and the wait that follows a save
+    ends in a barrier, after rank 0's rename."""
 
-    def __init__(self, ckpt_dir: str, keep: int = 3):
+    def __init__(self, ckpt_dir: str, keep: int = 3, specs=None, mesh=None):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
+        self.specs = specs
+        self.comm = _comm(mesh)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._saved = False
 
     def save(self, step: int, state):
         self.wait()
         # copy to host before returning control to the training loop, which
         # updates the state in place
-        host_state = _host_tree(state)
+        host_state = _host_tree(state, self.specs, self.comm)
+        self._saved = True
+        if self.comm is not None and not self.comm.lead:
+            return
 
         def work():
             try:
-                save_checkpoint(self.ckpt_dir, step, host_state, self.keep)
+                _write(self.ckpt_dir, step, host_state, self.keep)
             except BaseException as e:  # surfaced on next wait()
                 self._error = e
 
@@ -148,6 +232,9 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.comm is not None and self._saved:
+            self.comm.barrier()
+        self._saved = False
         if self._error is not None:
             err, self._error = self._error, None
             raise err

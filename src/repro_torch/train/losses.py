@@ -40,9 +40,20 @@ def chunked_lm_loss(params, hidden: torch.Tensor, targets: torch.Tensor,
 
 def lm_loss(params, batch: dict, cfg: ModelConfig, fcfg, *,
             remat: bool = True, chunk: int = 512, z_loss: float = 0.0,
-            compute_dtype=None):
+            compute_dtype=None, layout=None):
+    """The mean next-token loss of ``batch``.  With a ``layout``
+    (``transformer.TrainLayout``) ``params`` are the rank's shards and
+    ``batch`` the rank's rows: the loss of those rows divided by the
+    number of batch ranks, whose sum over them is the global batch's mean
+    (so every batch-axis collective of the gradient is a plain sum)."""
+    if layout is not None:
+        params = layout.outer(params,
+                              tokens=not batch["inputs"].is_floating_point())
     hidden = transformer.forward(params, batch["inputs"], cfg, fcfg,
                                  remat=remat, return_hidden=True,
-                                 compute_dtype=compute_dtype)
-    return chunked_lm_loss(params, hidden, batch["targets"].long(), cfg,
+                                 compute_dtype=compute_dtype, layout=layout)
+    loss = chunked_lm_loss(params, hidden, batch["targets"].long(), cfg,
                            chunk=chunk, z_loss=z_loss)
+    if layout is not None and layout.comm.dp > 1:
+        loss = loss / layout.comm.dp
+    return loss

@@ -12,6 +12,13 @@
     ``launch/train.py``) finishes the in-flight step, forces a final
     checkpoint, and exits cleanly.
 
+On a mesh (``mesh=``, ``state_specs=``: the sharded train step's) every
+rank runs the loop.  Checkpoints gather and restore the rank's shards
+(``train/checkpoint.py``), and before a step every rank agrees, in one
+all-reduce, whether ``fault_hook`` or ``batch_fn`` failed on any rank or
+any rank was asked to stop: one rank restoring or leaving alone would
+hang the others in the next collective.
+
 The step's wall time ends at ``torch.cuda.synchronize()`` when the metrics
 live on a CUDA device (JAX's ``block_until_ready``).  ``ckpt_dir=None``
 turns checkpointing off (a run whose state is too large to write at every
@@ -29,6 +36,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.parallel import sharding as shd
 from repro_torch.train import checkpoint as ckpt_lib
 
 
@@ -65,16 +73,22 @@ class Trainer:
     def __init__(self, step_fn: Callable, state, batch_fn: Callable,
                  cfg: TrainerConfig,
                  fault_hook: Optional[Callable[[int], None]] = None,
-                 straggler_hook: Optional[Callable[[StragglerEvent], None]] = None):
+                 straggler_hook: Optional[Callable[[StragglerEvent], None]] = None,
+                 mesh=None, state_specs=None):
         """batch_fn(step) -> batch.  fault_hook(step) may raise to inject
-        failures (tests).  straggler_hook receives StragglerEvents."""
+        failures (tests).  straggler_hook receives StragglerEvents.
+        ``mesh`` / ``state_specs``: the sharded step's mesh and the
+        state's specs (``train_step.state_specs``)."""
         self.step_fn = step_fn
         self.state = state
         self.batch_fn = batch_fn
         self.cfg = cfg
         self.fault_hook = fault_hook
         self.straggler_hook = straggler_hook or (lambda e: None)
-        self.ckpt = (ckpt_lib.AsyncCheckpointer(cfg.ckpt_dir, cfg.keep)
+        self.mesh, self.state_specs = mesh, state_specs
+        self.comm = None if mesh is None else shd.MeshComm(mesh)
+        self.ckpt = (ckpt_lib.AsyncCheckpointer(cfg.ckpt_dir, cfg.keep,
+                                                state_specs, mesh)
                      if cfg.ckpt_dir else None)
         self.metrics_log: list[dict] = []
         self.failures: list[dict] = []
@@ -97,9 +111,27 @@ class Trainer:
 
     def _restore(self):
         self.ckpt.wait()  # an in-flight async save may hold the checkpoint
-        self.state, step = ckpt_lib.restore_checkpoint(self.cfg.ckpt_dir,
-                                                       self.state)
+        self.state, step = ckpt_lib.restore_checkpoint(
+            self.cfg.ckpt_dir, self.state, specs=self.state_specs,
+            mesh=self.mesh)
         return step
+
+    def _prepare(self, step: int):
+        """``fault_hook`` then ``batch_fn``: (the error either raised or
+        None, the batch).  On a mesh every rank then agrees whether any
+        rank failed or was asked to stop."""
+        err, batch = None, None
+        try:
+            if self.fault_hook is not None:
+                self.fault_hook(step)
+            batch = self.batch_fn(step)
+        except (FloatingPointError, RuntimeError, ValueError) as e:
+            err = e
+        if self.comm is not None:
+            failed, self._stop = self.comm.agree(err is not None, self._stop)
+            if failed and err is None:
+                err = RuntimeError(f"step {step} failed on another rank")
+        return err, batch
 
     def _watch_stragglers(self, step: int, dt: float):
         self._durations.append(dt)
@@ -114,17 +146,24 @@ class Trainer:
     # -- main loop ----------------------------------------------------------
     def run(self):
         cfg = self.cfg
-        if self.ckpt is not None and ckpt_lib.latest_step(cfg.ckpt_dir) is not None:
+        found = (self.ckpt is not None
+                 and ckpt_lib.latest_step(cfg.ckpt_dir) is not None)
+        if self.comm is not None:
+            # every rank looks before rank 0 can write step 0
+            (found,) = self.comm.agree(found)
+        if found:
             self._restore()
         if self._current_step() == 0:
             self._save(0)
 
         while self._current_step() < cfg.total_steps and not self._stop:
             step = self._current_step()
+            err, batch = self._prepare(step)
+            if self.comm is not None and self._stop and err is None:
+                break
             try:
-                if self.fault_hook is not None:
-                    self.fault_hook(step)
-                batch = self.batch_fn(step)
+                if err is not None:
+                    raise err
                 t0 = time.monotonic()
                 self.state, metrics = self.step_fn(self.state, batch)
                 _block_until_ready(metrics)
@@ -148,7 +187,8 @@ class Trainer:
             self.ckpt.wait()
             if self._stop:  # preemption: persist progress before exit
                 ckpt_lib.save_checkpoint(cfg.ckpt_dir, self._current_step(),
-                                         self.state, cfg.keep)
+                                         self.state, cfg.keep,
+                                         self.state_specs, self.mesh)
         return self.state
 
 

@@ -259,7 +259,8 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.configs.qwen3_32b', 'repro_torch.configs.deepseek_7b', "
         "'repro_torch.configs.command_r_plus_104b', "
         "'repro_torch.parallel.sharding', 'repro_torch.parallel.incontext', "
-        "'repro_torch.launch.mesh'}\n"
+        "'repro_torch.launch.mesh', 'repro_torch.train.elastic', "
+        "'repro_torch.optim.compression'}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
