@@ -152,15 +152,21 @@ Phases, in order; any failure exits non-zero before the result line:
      ``mesh=make_serving_mesh(tp=1)`` over a process group of one rank,
      a graph parity pair whose tokens, final caches (bit for bit),
      census, kernel launches and cache bytes must equal the ``mesh=None``
-     engine's on the same weights, then its ``step_breakdown``; 18b,
-     2-layer qwen2-7b (contiguous, then paged) and one recurrentgemma-2b
-     unit at full width in f32, served on a mesh of one rank here and on
-     TP=2 and TP=4 meshes of spawned ranks sharing the card over gloo,
-     eagerly (a gloo sum cannot be captured): every rank's tokens must
-     equal TP=1's, every serving kernel of the slice must launch on every
-     rank with no plain version run, and qwen2-7b's cache bytes a rank
-     times TP must equal TP=1's; each rank's peak memory and each spawn's
-     seconds are printed;
+     engine's on the same weights, then its ``step_breakdown``; the same
+     pairs for grok-1-314b at 4 of 64 layers and the full 24-layer
+     rwkv6-1.6b; 18b, 2-layer qwen2-7b (contiguous, then paged), one
+     recurrentgemma-2b unit, one grok-1-314b layer (experts split over
+     the ranks; contiguous, then paged) and 2 rwkv6-1.6b layers
+     (contiguous, then paged) at full width in f32, each rank drawing
+     its weights leaf by leaf and keeping only its shards, served on a
+     mesh of one rank here and on TP=2 and TP=4 meshes of spawned ranks
+     sharing the card over gloo, eagerly (a gloo sum cannot be
+     captured): every rank's tokens must equal TP=1's, every serving
+     kernel of the slice must launch on every rank with no plain version
+     run, qwen2-7b's and grok-1's cache bytes a rank times TP must equal
+     TP=1's, and rwkv6-1.6b's be TP=1's with the wkv state cut TP ways;
+     each slice's peak memory a rank and each spawn's seconds are
+     printed;
  19. duplicate page ids in monolithic paged prefill: 20 scatters of a
      stripe whose page-table row names the null page 126 times must leave
      every page its last stretch, and a shrunk grok-1-314b served
@@ -176,10 +182,12 @@ Phases, in order; any failure exits non-zero before the result line:
      famous-bert on (data=2), (model=2), (pod=2) and (data=2, model=2)
      meshes under DEFAULT_RULES (20b), the data=2 run's step-2
      checkpoint restored by ``elastic.reshard_restore`` on model=2 for
-     step 3, and qwen2-7b at TP=2 under TP_ONLY_RULES (20c).  On every
+     step 3, qwen2-7b at TP=2 under TP_ONLY_RULES (20c), and on model=2
+     under DEFAULT_RULES recurrentgemma-2b's 2 units and rwkv6-1.6b's 2
+     layers (B=1, S=2048, 2 steps; 20d).  On every
      rank each step's loss within 1e-5 and grad norm within 1e-4 of the
-     reference (relative), the parameters gathered after the last step
-     within 1e-4 of each leaf's norm, every training kernel launched and
+     reference (relative), the parameters after the last step within
+     1e-4 of each leaf's norm, every training kernel launched and
      no plain version run; each rank's peak memory and each run's
      seconds are printed.
 
@@ -200,7 +208,12 @@ tensor-parallel rank's shapes (phase 18): ``matmul_tiled`` at qwen2-7b's
 fused widths 2304 (TP=2) and 1152 (TP=4), the serving kernels at its 14 /
 2 and 7 / 1 heads of 128, ``rglru_scan`` at R=1280; a TP=2 famous-bert
 training rank's (phase 20): the MHA kernels at 4 / 4 heads of 96 and
-``matmul_tiled`` with its VJP at T=4096, D=768, F=1152; training
+``matmul_tiled`` with its VJP at T=4096, D=768, F=1152; the MoE and
+recurrent families' rank shapes (phases 18 and 20): ``matmul_tiled`` at
+grok-1's fused widths 4096 (TP=2) and 2048 (TP=4), the serving kernels
+at its 24 / 4 and 12 / 2 heads of 128, ``wkv6_scan`` at 16 and 8 heads
+of the 256-token chunk, and the MHA kernels at a recurrentgemma-2b
+training rank's 5 / 1 heads of 256 (S=2048, window 2048); training
 parity also a recurrentgemma-2b unit (S=3072) and 2 qwen3-32b layers;
 the training runs also recurrentgemma-2b (2 units) and rwkv6-1.6b (2
 layers) at B=1, S=2048.
@@ -377,6 +390,19 @@ TRAIN_PROJ = (("famous-bert", 8 * 512, 768, 3 * 768),
 # fused projection's 3 x 4 x 96 columns
 TP_TRAIN_ATTN = (("famous-bert TP=2", 8, 512, 4, 4, 96, False),)
 TP_TRAIN_PROJ = (("famous-bert TP=2", 8 * 512, 768, 3 * 4 * 96),)
+# the MoE and recurrent families' rank shapes (phases 18 and 20): grok-1's
+# fused projection at TP=2 ((24 + 2 x 4) x 128 columns) and TP=4 ((12 + 2
+# x 2) x 128), at decode (T=4) and a chunk (256); its 24 / 4 and 12 / 2
+# heads of 128; rwkv6-1.6b's wkv at 16 and 8 of its 32 heads (one slot,
+# the serving chunk); a recurrentgemma-2b training rank's local attention
+# at model=2: 5 of its 10 query heads over its one kv head of 256, B=1,
+# S=2048 in a 2048-token window
+GROK_TP_PROJ = tuple((T, 6144, F) for F in (4096, 2048) for T in (4, 256))
+GROK_TP_LAYOUTS = (("grok-1-314b TP=2", 24, 4, 128),
+                   ("grok-1-314b TP=4", 12, 2, 128))
+WKV6_TP_BH = (16, 8)
+RG_TP_ATTN = (("recurrentgemma-2b TP=2", 1, 2048, 2048, 5, 1, 256, True,
+               2048, 0),)
 
 
 class SmokeFailure(RuntimeError):
@@ -805,6 +831,8 @@ def kernel_phase(torch, iters, seed):
     training_kernel_rows(torch, F, dts, randn, record, iters)
     scan_kernel_rows(torch, dts, randn, record, iters)
     tp_kernel_rows(torch, F, dts, randn, record, decode_row, gen, iters)
+    family_tp_kernel_rows(torch, F, dts, randn, record, decode_row, gen,
+                          iters)
     torch.cuda.synchronize()
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
@@ -856,6 +884,23 @@ def tp_kernel_rows(torch, F, dts, randn, record, decode_row, gen, iters):
     matmul_rows(torch, dts, randn, record,
                 [(T, D, Fo) for _, T, D, Fo in TP_TRAIN_PROJ])
     proj_vjp_rows(torch, dts, randn, record, slow, TP_TRAIN_PROJ)
+
+
+def family_tp_kernel_rows(torch, F, dts, randn, record, decode_row, gen,
+                          iters):
+    """The MoE and recurrent families' rank shapes (phases 18 and 20),
+    drawn after every other row: ``matmul_tiled`` at GROK_TP_PROJ, the
+    serving kernels at GROK_TP_LAYOUTS' heads (as ``layout_kernel_rows``),
+    ``wkv6_scan`` at WKV6_TP_BH heads of the 256-token chunk, and the MHA
+    kernels at RG_TP_ATTN."""
+    matmul_rows(torch, dts, randn, record, GROK_TP_PROJ)
+    layout_kernel_rows(torch, F, randn, record, decode_row, gen,
+                       max(10, iters // 2), layouts=GROK_TP_LAYOUTS)
+    for BH in WKV6_TP_BH:
+        wkv6_rows(torch, dts, randn, record, 256, BH)
+    for args in RG_TP_ATTN:
+        attention_rows(torch, F, dts, randn, record, max(5, iters // 5),
+                       *args)
 
 
 def int8_kernel_rows(torch, gen, record, iters):
@@ -1641,69 +1686,75 @@ def scan_kernel_rows(torch, dts, randn, record, iters):
     No single PyTorch call computes either scan, so they have no library
     time.  Both run every product on f32 FMA units, so their operation
     bound is at the f32 rate whatever the input type."""
+    for S in (256, SCAN_LONG["rglru_scan"]):
+        rglru_rows(torch, dts, randn, record, S, 2560)
+
+    for S in (256, SCAN_LONG["wkv6_scan"]):
+        wkv6_rows(torch, dts, randn, record, S, 32)
+
+
+def wkv6_rows(torch, dts, randn, record, S, BH):
+    """``wkv6_scan`` at B·H = ``BH`` heads of 64 over S steps, chunk 64
+    (see :func:`scan_kernel_rows`)."""
     from repro_torch.kernels.scan import linear_scan
     from repro_torch.kernels.scan import ref as scan_ref
 
     f32 = torch.float32
-    for S in (256, SCAN_LONG["rglru_scan"]):
-        rglru_rows(torch, dts, randn, record, S, 2560)
+    dh, C = 64, 64
+    n_chunks = S // C
+    # multiply-adds the chunked form needs: inter and state 2 C dh^2
+    # each, the strictly lower scores and their product with v C (C-1)
+    # dh each, the diagonal bonus and the elementwise decay terms
+    flops = float(n_chunks * BH * (4 * C * dh * dh + 2 * C * (C - 1) * dh
+                                   + 8 * C * dh + 2 * dh * dh))
+    n_ws = linear_scan.wkv6_plan(BH, S, dh, C)[1]
+    want = linear_scan.wkv6_workspace_elems(BH, S, dh, C)
+    print(f"  (wkv6_scan BH={BH} S={S}: the C plan's workspace {n_ws} f32, "
+          f"the Python formula {want}) {'ok' if n_ws == want else 'FAIL'}",
+          flush=True)
+    check(n_ws == want, f"wkv6_scan BH={BH} S={S}: plan workspace {n_ws} "
+          f"!= {want}")
+    for dt, dtype in dts.items():
+        e = torch.tensor([], dtype=dtype).element_size()
+        for carried in (False, True):
+            def operands():
+                r, k, v = (randn((BH, S, dh), dtype, 0.5)
+                           for _ in range(3))
+                logw = -torch.exp(torch.clamp(randn((BH, S, dh), f32),
+                                              -20, 0))
+                u = randn((BH, dh), f32, 0.5)
+                s0 = randn((BH, dh, dh), f32) if carried else None
+                return r, k, v, logw, u, s0
 
-    BH, dh, C = 32, 64, 64
-    for S in (256, SCAN_LONG["wkv6_scan"]):
-        n_chunks = S // C
-        # multiply-adds the chunked form needs: inter and state 2 C dh^2
-        # each, the strictly lower scores and their product with v C (C-1)
-        # dh each, the diagonal bonus and the elementwise decay terms
-        flops = float(n_chunks * BH * (4 * C * dh * dh + 2 * C * (C - 1) * dh
-                                       + 8 * C * dh + 2 * dh * dh))
-        n_ws = linear_scan.wkv6_plan(BH, S, dh, C)[1]
-        want = linear_scan.wkv6_workspace_elems(BH, S, dh, C)
-        print(f"  (wkv6_scan S={S}: the C plan's workspace {n_ws} f32, the "
-              f"Python formula {want}) {'ok' if n_ws == want else 'FAIL'}",
-              flush=True)
-        check(n_ws == want, f"wkv6_scan S={S}: plan workspace {n_ws} != "
-              f"{want}")
-        for dt, dtype in dts.items():
-            e = torch.tensor([], dtype=dtype).element_size()
-            for carried in (False, True):
-                def operands():
-                    r, k, v = (randn((BH, S, dh), dtype, 0.5)
-                               for _ in range(3))
-                    logw = -torch.exp(torch.clamp(randn((BH, S, dh), f32),
-                                                  -20, 0))
-                    u = randn((BH, dh), f32, 0.5)
-                    s0 = randn((BH, dh, dh), f32) if carried else None
-                    return r, k, v, logw, u, s0
+            per = 3 * BH * S * dh * e + 4 * BH * S * dh
+            sets = [operands() for _ in range(n_sets(per))]
 
-                per = 3 * BH * S * dh * e + 4 * BH * S * dh
-                sets = [operands() for _ in range(n_sets(per))]
+            def kern(r, k, v, logw, u, s0):
+                return linear_scan.wkv6_scan(r, k, v, logw, u, s0,
+                                             chunk=C)
 
-                def kern(r, k, v, logw, u, s0):
-                    return linear_scan.wkv6_scan(r, k, v, logw, u, s0,
-                                                 chunk=C)
+            def plain(r, k, v, logw, u, s0):
+                return scan_ref.wkv6_chunked_reference(r, k, v, logw, u,
+                                                       s0, chunk=C)
 
-                def plain(r, k, v, logw, u, s0):
-                    return scan_ref.wkv6_chunked_reference(r, k, v, logw, u,
-                                                           s0, chunk=C)
-
-                out = kern(*sets[0])
-                state_bytes = 4 * BH * dh * dh * (2 if carried else 1)
-                record("wkv6_scan", f"BH={BH} S={S} dh={dh} chunk={C} "
-                       f"s0={'random' if carried else 'none'} (logw f32)", dt,
-                       out, plain(*sets[0]), TOL[dt], kern, plain, None, sets,
-                       per + 4 * BH * dh + 4 * BH * S * dh + state_bytes,
-                       flops, ops_dt="f32", again=kern(*sets[0]))
-                if not carried and (S == 256 or dt == "f32"):
-                    seq = scan_ref.wkv6_reference(*sets[0][:5])
-                    err = float((out[0] - seq).abs().max())
-                    ok = bool(torch.all((out[0] - seq).abs()
-                                        <= 1e-4 + 1e-3 * seq.abs()))
-                    print(f"  (wkv6_scan {dt} S={S} vs the sequential "
-                          f"recurrence: max_abs_err {err:.3e}, limit 1e-4 + "
-                          f"1e-3 |ref| {'ok' if ok else 'FAIL'})", flush=True)
-                    check(ok, f"wkv6_scan {dt} S={S} differs from the "
-                          f"sequential recurrence by {err}")
-                del sets
+            out = kern(*sets[0])
+            state_bytes = 4 * BH * dh * dh * (2 if carried else 1)
+            record("wkv6_scan", f"BH={BH} S={S} dh={dh} chunk={C} "
+                   f"s0={'random' if carried else 'none'} (logw f32)", dt,
+                   out, plain(*sets[0]), TOL[dt], kern, plain, None, sets,
+                   per + 4 * BH * dh + 4 * BH * S * dh + state_bytes,
+                   flops, ops_dt="f32", again=kern(*sets[0]))
+            if not carried and (S == 256 or dt == "f32"):
+                seq = scan_ref.wkv6_reference(*sets[0][:5])
+                err = float((out[0] - seq).abs().max())
+                ok = bool(torch.all((out[0] - seq).abs()
+                                    <= 1e-4 + 1e-3 * seq.abs()))
+                print(f"  (wkv6_scan {dt} S={S} vs the sequential "
+                      f"recurrence: max_abs_err {err:.3e}, limit 1e-4 + "
+                      f"1e-3 |ref| {'ok' if ok else 'FAIL'})", flush=True)
+                check(ok, f"wkv6_scan {dt} S={S} differs from the "
+                      f"sequential recurrence by {err}")
+            del sets
 
 
 def rglru_rows(torch, dts, randn, record, S, R, B=1):
@@ -4061,18 +4112,28 @@ def paged_prefill_writes_phase(torch, seed):
 # phase 18: tensor-parallel serving (parallel/sharding.py, launch/mesh.py)
 # ---------------------------------------------------------------------------
 
-# phase 18b's slices at full width: arch, layers, cache kind, and the
-# serving kernels the slice launches.  qwen2-7b's
-# 28 / 4 heads run 14 / 2 a rank at TP=2 and 7 / 1 at TP=4; one
-# recurrentgemma-2b unit (RG-LRU, RG-LRU, local attention) runs 5 / 1
-# heads of its 10 / 1 and LRU width 1280 at TP=2, and at TP=4 keeps its
-# heads whole (10 does not divide by 4) while the FFN and LRU hidden
-# shard (its local attention's chunk runs torch ops, its decode the
-# decode kernel)
-TP_SLICES = (("qwen2-7b", 2, "contiguous", SERVING_KERNELS),
-             ("qwen2-7b", 2, "paged", ("matmul_tiled",) + PAGED_KERNELS["fp"]),
+# phase 18b's slices at full width: arch, layers, cache kind, the
+# serving kernels the slice launches, and how a rank's cache bytes follow
+# TP=1's ("split": times TP; "rwkv": the wkv state split, the token-shift
+# rows whole; None: not gated).  qwen2-7b's 28 / 4 heads run 14 / 2 a rank
+# at TP=2 and 7 / 1 at TP=4; one recurrentgemma-2b unit (RG-LRU, RG-LRU,
+# local attention) runs 5 / 1 heads of its 10 / 1 and LRU width 1280 at
+# TP=2, and at TP=4 keeps its heads whole (10 does not divide by 4) while
+# the FFN and LRU hidden shard (its local attention's chunk runs torch
+# ops, its decode the decode kernel); one grok-1-314b layer holds 4 of its
+# 8 experts and 24 / 4 heads a rank at TP=2, 2 and 12 / 2 at TP=4; two
+# rwkv6-1.6b layers 16 and 8 of their 32 heads (the wkv6 kernel in each
+# chunk; decode and the channel mix are torch ops)
+TP_SLICES = (("qwen2-7b", 2, "contiguous", SERVING_KERNELS, "split"),
+             ("qwen2-7b", 2, "paged", ("matmul_tiled",) + PAGED_KERNELS["fp"],
+              "split"),
              ("recurrentgemma-2b", 3, "contiguous",
-              ("matmul_tiled", "decode_attention", "rglru_scan")))
+              ("matmul_tiled", "decode_attention", "rglru_scan"), None),
+             ("grok-1-314b", 1, "contiguous", SERVING_KERNELS, "split"),
+             ("grok-1-314b", 1, "paged",
+              ("matmul_tiled",) + PAGED_KERNELS["fp"], "split"),
+             ("rwkv6-1.6b", 2, "contiguous", ("wkv6_scan",), "rwkv"),
+             ("rwkv6-1.6b", 2, "paged", ("wkv6_scan",), "rwkv"))
 TP_JOIN_S = 300
 
 
@@ -4090,31 +4151,47 @@ def mesh_phase(torch, seed):
     return out
 
 
+# phase 18a's graph pairs, a TP=1 mesh against mesh=None on the same bf16
+# weights: arch, layers (None: all), new tokens a request.  qwen2-7b on
+# phase 8's prompts; grok-1-314b at 4 of 64 layers (9.7 GB of experts
+# each, as in phase 16); rwkv6-1.6b at full depth
+TP1_RUNS = (("qwen2-7b", None, 32), ("grok-1-314b", 4, 16),
+            ("rwkv6-1.6b", None, 16))
+
+
 def tp1_phase(torch, seed):
-    """Phase 18a: full-depth qwen2-7b in bf16 (phase 8's prompts, the same
-    random weights as its spec tree) served by ``mesh=None`` and by
+    """Phase 18a: TP1_RUNS served by ``mesh=None`` and by
     ``mesh=make_serving_mesh(tp=1)`` over a process group of one rank,
-    each as a graph parity pair.  Over a "model" axis of size 1 nothing is
-    cut and no collective runs, so tokens, final caches (bit for bit),
-    census, kernel launch counts and cache bytes must all be equal.  Then
-    the mesh engine's step times (``step_breakdown``)."""
+    each as a graph parity pair on 8 prompts of 64-1536 tokens.  Over a
+    "model" axis of size 1 nothing is cut and no collective runs, so
+    tokens, final caches (bit for bit), census, kernel launch counts and
+    cache bytes must all be equal.  Then qwen2-7b's mesh engine's step
+    times (``step_breakdown``)."""
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    mesh = make_serving_mesh(tp=1)
+    return {arch: tp1_pair(torch, seed, mesh, arch, layers, max_new)
+            for arch, layers, max_new in TP1_RUNS}
+
+
+def tp1_pair(torch, seed, mesh, arch, layers, max_new):
     import numpy as np
 
     from repro_torch.configs.base import get_config
     from repro_torch.core.famous import FamousConfig
-    from repro_torch.launch.mesh import make_serving_mesh
     from repro_torch.serve.engine import Request, ServingEngine
 
-    cfg = get_config("qwen2-7b")
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     tree = random_params(torch, cfg, torch.bfloat16, seed, prepare=False)
-    mesh = make_serving_mesh(tp=1)
     rng = np.random.default_rng(seed)
     lens = [int(x) for x in rng.integers(64, 1537, size=8)]
     prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, size=n)]
                for n in lens]
 
     def make_reqs():
-        return [Request(rid=i, tokens=list(p), max_new=32)
+        return [Request(rid=i, tokens=list(p), max_new=max_new)
                 for i, p in enumerate(prompts)]
 
     runs, res = {}, {}
@@ -4126,9 +4203,9 @@ def tp1_phase(torch, seed):
                                  device="cuda")
 
         (done, engine, launches, plain, wall), pair = graph_pair(
-            torch, f"qwen2-7b {label}", make_engine, make_reqs)
-        check(not any(plain.values()), f"{label}: a plain version ran on "
-              f"CUDA tensors: {plain}")
+            torch, f"{arch} {label}", make_engine, make_reqs)
+        check(not any(plain.values()), f"{arch} {label}: a plain version "
+              f"ran on CUDA tensors: {plain}")
         runs[label] = dict(
             tokens=[r.out for r in done], launches=launches,
             census=engine.compilations, bytes=engine.cache_bytes_per_device(),
@@ -4137,7 +4214,7 @@ def tp1_phase(torch, seed):
         res[label] = dict(pair=pair, launches=launches,
                           census=runs[label]["census"],
                           cache_bytes=runs[label]["bytes"])
-        if m is not None:
+        if m is not None and arch == "qwen2-7b":
             res["steps"] = step_breakdown(torch, engine)
         del engine
         torch.cuda.empty_cache()
@@ -4150,14 +4227,14 @@ def tp1_phase(torch, seed):
                 cache_bytes=a["bytes"] == b["bytes"])
     res["equal"] = same
     res["launches"] = b["launches"]
-    print(f"tensor parallel 18a: qwen2-7b bf16 28 layers, TP=1 mesh "
-          f"{mesh} against mesh=None: {same}; graph tok/s "
+    print(f"tensor parallel 18a: {arch} bf16 {cfg.num_layers} layers, TP=1 "
+          f"mesh {mesh} against mesh=None: {same}; graph tok/s "
           f"{res['TP=1 mesh']['pair']['graph']['tok_per_s']:.1f} against "
           f"{res['mesh=None']['pair']['graph']['tok_per_s']:.1f}, eager "
           f"{res['TP=1 mesh']['pair']['eager']['tok_per_s']:.1f} against "
           f"{res['mesh=None']['pair']['eager']['tok_per_s']:.1f} "
           f"{'ok' if all(same.values()) else 'FAIL'}", flush=True)
-    check(all(same.values()), f"the TP=1 mesh engine differs from "
+    check(all(same.values()), f"the {arch} TP=1 mesh engine differs from "
           f"mesh=None: {same}")
     del tree, runs
     gc.collect()
@@ -4165,12 +4242,50 @@ def tp1_phase(torch, seed):
     return res
 
 
+def rank_params(torch, cfg, dtype, seed, mesh):
+    """This rank's shards of random weights on the card, in the spec
+    tree's layout (``ServingEngine(mesh=)`` takes them as they are):
+    leaf by leaf in the spec's order from one generator, each drawn
+    whole (biases and norm scales then redrawn, as in ``random_params``),
+    cut to the rank's shard under SERVE_TP_RULES and copied, and the
+    whole leaf freed before the next draw.  Every rank draws the same
+    weights and holds its shards plus one whole leaf at a time (a whole
+    f32 grok-1 layer with its vocab tables is 26 GB); on a mesh of one
+    rank nothing is cut."""
+    from repro_torch.models import module, transformer
+    from repro_torch.parallel import sharding as shd
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    spec = transformer.model_spec(cfg)
+    specs = shd.tree_specs(mesh, module.logical_axes(spec),
+                           shd.SERVE_TP_RULES, module.param_shapes(spec))
+    coords = shd.mesh_coords(mesh)
+
+    def draw(name, leaf, leaf_spec):
+        t = module.init_params(leaf, gen, dtype, dev)
+        if name.startswith("b"):
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev) * 0.1)
+        elif name == "scale":
+            t.copy_(1 + 0.1 * torch.randn(t.shape, generator=gen,
+                                          device=dev))
+        part = shd.local_shard(t, leaf_spec, mesh, coords)
+        return t if part is t else part.clone()
+
+    def walk(tree, specs):
+        return {k: walk(v, specs[k]) if isinstance(v, dict)
+                else draw(k, v, specs[k]) for k, v in tree.items()}
+
+    return walk(spec, specs)
+
+
 def tp_slices(torch, mesh, seed):
     """TP_SLICES served on ``mesh`` in f32, eagerly (a gloo group's sum
     cannot be captured): 4 requests of 40-300 tokens, 8 new each, 4 slots,
     max_seq 512, chunk 128.  Per slice: tokens, kernel launches and plain
-    versions run on CUDA tensors, cache bytes, seconds.  Every process
-    draws the same weights from ``seed``."""
+    versions run on CUDA tensors, cache bytes, seconds, peak memory.
+    Every process draws the same weights from ``seed`` and keeps its
+    shards (``rank_params``)."""
     import numpy as np
 
     from repro_torch.configs.base import get_config
@@ -4180,10 +4295,12 @@ def tp_slices(torch, mesh, seed):
     from repro_torch.serve.engine import Request, ServingEngine
 
     out = {}
-    for arch, layers, kind, kernels in TP_SLICES:
+    for arch, layers, kind, kernels, bytes_rule in TP_SLICES:
         cfg = dataclasses.replace(get_config(arch), num_layers=layers)
-        tree = random_params(torch, cfg, torch.float32, seed + 18,
-                             prepare=False)
+        torch.cuda.reset_peak_memory_stats()
+        tree = rank_params(torch, cfg, torch.float32, seed + 18, mesh)
+        draw_peak = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
         rng = np.random.default_rng(seed + 18)
         prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, size=n)]
                    for n in (40, 129, 300, 77)]
@@ -4206,8 +4323,13 @@ def tp_slices(torch, mesh, seed):
             launches=dict(lib.STATS.launches),
             plain_on_cuda=dict(lib.STATS.plain_on_cuda),
             cache_bytes=engine.cache_bytes_per_device(),
-            kernels=kernels,
-            seconds=time.perf_counter() - t0)
+            kernels=kernels, bytes_rule=bytes_rule,
+            # the wkv state's bytes, which an RWKV-6 rank splits
+            state_bytes=(4 * layers * 4 * cfg.d_model * cfg.rwkv_head_dim
+                         if bytes_rule == "rwkv" else 0),
+            seconds=time.perf_counter() - t0,
+            draw_peak_gb=draw_peak,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
         del engine
         gc.collect()
         torch.cuda.empty_cache()
@@ -4246,10 +4368,11 @@ def tp_ranks_phase(torch, seed):
     TP=2 and TP=4 meshes of spawned ranks sharing the card over gloo,
     eagerly.  Every rank's tokens must equal the TP=1 engine's; every
     serving kernel of a slice must launch on every rank and no plain
-    version run on CUDA tensors; qwen2-7b's cache bytes times TP must equal
-    TP=1's.  Each rank's peak memory and each spawn's seconds are
-    printed; every join has a deadline, and a rank still running at it is
-    killed."""
+    version run on CUDA tensors; qwen2-7b's and grok-1's cache bytes times
+    TP must equal TP=1's, and rwkv6-1.6b's must be TP=1's with the wkv
+    state cut TP ways.  Each slice's peak memory a rank and each spawn's
+    seconds are printed; every join has a deadline, and a rank still
+    running at it is killed."""
     import torch.multiprocessing as mp
 
     from repro_torch.launch.mesh import make_serving_mesh
@@ -4290,16 +4413,21 @@ def tp_ranks_phase(torch, seed):
                            for k in g["kernels"])
             plain_none = not any(v for g in got
                                  for v in g["plain_on_cuda"].values())
-            bytes_ok = (not name.startswith("qwen2-7b")
-                        or all(g["cache_bytes"] * world == want["cache_bytes"]
-                               for g in got))
+            state = want["state_bytes"]
+            bytes_ok = all({
+                "split": g["cache_bytes"] * world == want["cache_bytes"],
+                "rwkv": g["cache_bytes"] == (want["cache_bytes"] - state
+                                             + state // world),
+                None: True}[want["bytes_rule"]] for g in got)
             res["slices"][name] = dict(
                 tokens_equal=tokens_ok, kernels_launched=launched,
                 no_plain=plain_none, cache_bytes_ok=bytes_ok,
                 cache_bytes=[g["cache_bytes"] for g in got],
                 launches=[{k: g["launches"][k] for k in g["kernels"]}
                           for g in got],
-                seconds=[g["seconds"] for g in got])
+                seconds=[g["seconds"] for g in got],
+                draw_peak_gb=[g["draw_peak_gb"] for g in got],
+                peak_mem_gb=[g["peak_mem_gb"] for g in got])
             ok = tokens_ok and launched and plain_none and bytes_ok
             print(f"tensor parallel 18b TP={world} {name}: tokens equal to "
                   f"TP=1 on every rank {tokens_ok}, kernels launched on "
@@ -4309,7 +4437,13 @@ def tp_ranks_phase(torch, seed):
                   f"{res['slices'][name]['cache_bytes'][0]} against TP=1 "
                   f"{want['cache_bytes']}; rank seconds "
                   f"{[round(x, 2) for x in res['slices'][name]['seconds']]} "
-                  f"against TP=1 {want['seconds']:.2f} "
+                  f"against TP=1 {want['seconds']:.2f}; peak memory a rank "
+                  f"serving "
+                  f"{[round(x, 2) for x in res['slices'][name]['peak_mem_gb']]}"
+                  f" GB against TP=1 {want['peak_mem_gb']:.2f}, drawing the "
+                  f"weights "
+                  f"{[round(x, 2) for x in res['slices'][name]['draw_peak_gb']]}"
+                  f" GB against {want['draw_peak_gb']:.2f} "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             check(ok, f"TP={world} {name}: {res['slices'][name]}")
         print(f"tensor parallel 18b TP={world}: {seconds:.1f} s for the "
@@ -4330,7 +4464,18 @@ SHARDED_MESHES = (("data=2", (2, 1)), ("model=2", (1, 2)),
                   ("pod=2", (2, 1, 1)), ("data=2 model=2", (2, 2)))
 # the one-rank references: key, arch, layers (None: all), S, B, steps
 SHARDED_REFS = (("famous-bert", "famous-bert", None, 512, 8, 3),
-                ("qwen2-7b TP=2", "qwen2-7b", 2, 2048, 1, 2))
+                ("qwen2-7b TP=2", "qwen2-7b", 2, 2048, 1, 2),
+                ("recurrentgemma-2b model=2", "recurrentgemma-2b", 6, 2048,
+                 1, 2),
+                ("rwkv6-1.6b model=2", "rwkv6-1.6b", 2, 2048, 1, 2))
+# 20d: the recurrent families on model=2 under DEFAULT_RULES (run key and
+# reference, the training kernels the run launches): recurrentgemma-2b's
+# 2 units (RG-LRU channels, 5 of 10 query heads over the whole kv head,
+# the MLP hidden), rwkv6-1.6b's 2 layers at full width (16 of 32 heads,
+# the norm's statistics summed, the channel mix's hidden; its wkv is the
+# model's differentiable torch scan, so it launches no kernel)
+SHARDED_FAMILIES = {"recurrentgemma-2b model=2": TRAINING_KERNELS,
+                    "rwkv6-1.6b model=2": ()}
 SHARDED_STEP_AT_SAVE = 2
 SHARDED_JOIN_S = 480
 
@@ -4461,12 +4606,14 @@ def sharded_run(torch, key, mesh, rules, ref_path, seed, steps,
     ``state`` (default: the build's, this rank's shards of the full
     draw); ``save``: a directory to checkpoint into after step
     SHARDED_STEP_AT_SAVE.  Returns this rank's losses and gradient norms,
-    the worst ||gathered - reference|| / ||reference|| over the parameter
-    leaves against ``ref_path``, the launch counts of the steps, the plain
-    versions run on CUDA tensors, seconds and peak memory."""
+    the worst ||params - reference|| / ||reference|| over the whole
+    parameter leaves against ``ref_path`` (the ranks' shards' sums of
+    squares summed over the mesh), the launch counts of the steps, the
+    plain versions run on CUDA tensors, seconds and peak memory."""
     from repro_torch.kernels import lib
     from repro_torch.launch import train as train_launch
     from repro_torch.models.module import tree_leaves
+    from repro_torch.parallel import sharding as shd
     from repro_torch.train import checkpoint as ckpt_lib
 
     _, arch, layers, S, B, _ = next(r for r in SHARDED_REFS if r[0] == key)
@@ -4494,14 +4641,20 @@ def sharded_run(torch, key, mesh, rules, ref_path, seed, steps,
     plain = dict(lib.STATS.plain_on_cuda)
     comm = ts.layout.comm
     ref = torch.load(ref_path, mmap=True)
-    worst = 0.0
-    for leaf, spec, want in zip(tree_leaves(state["params"]),
-                                tree_leaves(ts.state_specs["params"]), ref):
-        whole = comm.gather(leaf.detach(), spec)
-        want = want.to(whole.device)
-        worst = max(worst, float(torch.linalg.vector_norm(whole - want)
-                                 / torch.linalg.vector_norm(want)))
-        del whole, want
+    # each leaf's squared error and squared norm over this rank's shard
+    # against the same slice of the reference, summed over every rank in
+    # one all-reduce: a leaf that r ranks hold counts r times in both, so
+    # the ratio is the whole leaf's (no leaf is gathered)
+    sq = torch.zeros((len(ref), 2), dtype=torch.float64, device="cuda")
+    for i, (leaf, spec, want) in enumerate(zip(
+            tree_leaves(state["params"]),
+            tree_leaves(ts.state_specs["params"]), ref)):
+        want = shd.local_shard(want, spec, mesh, comm.coords).to(leaf.device)
+        sq[i, 0] = (leaf.detach() - want).double().square().sum()
+        sq[i, 1] = want.double().square().sum()
+        del want
+    sq = comm.sum_world(sq)
+    worst = float((sq[:, 0] / sq[:, 1]).sqrt().max())
     res = dict(losses=losses, grad_norms=gnorms, worst_param_rel=worst,
                launches=launches, plain_on_cuda=plain, seconds=seconds,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -4515,7 +4668,8 @@ def sharded_rank(rank, world, tmp, ref_dir, seed):
     """One rank of phase 20 (a spawned process): joins the gloo group over
     ``tmp``'s FileStore and runs its world size's meshes of
     SHARDED_MESHES; the world of 2 also saves its data=2 run at step 2,
-    resumes it on model=2 (``elastic.reshard_restore``) and runs 20c.
+    resumes it on model=2 (``elastic.reshard_restore``) and runs 20c and
+    20d.
     Writes the results to ``tmp/rank{rank}.json``."""
     import traceback
 
@@ -4571,17 +4725,22 @@ def sharded_rank_runs(torch, world, tmp, ref_dir, seed):
     out["qwen2-7b TP=2"] = sharded_run(
         torch, "qwen2-7b TP=2", meshes["model=2"], shd.TP_ONLY_RULES,
         str(Path(ref_dir) / "qwen2-7b TP=2.pt"), seed, 2)
+    for key in SHARDED_FAMILIES:
+        out[key] = sharded_run(torch, key, meshes["model=2"],
+                               shd.DEFAULT_RULES,
+                               str(Path(ref_dir) / f"{key}.pt"), seed, 2)
     return out
 
 
 def sharded_rank_phase(torch, seed):
-    """20b, 20c and the resize.  The one-rank references (SHARDED_REFS)
-    run here first; then the ranks of world 2 and of world 4 are spawned
-    at once, sharing the card over gloo.  On every rank of every run: each
-    step's loss within TRAIN_TOL["f32"][0] relative and grad norm within
-    [1] of the reference's, the parameters gathered after the last step
-    within 1e-4 relative (each leaf's norm) of the reference's, every
-    kernel of TRAINING_KERNELS launched and no plain version run.  Each
+    """20b, 20c, 20d and the resize.  The one-rank references
+    (SHARDED_REFS) run here first; then the ranks of world 2 and of world
+    4 are spawned at once, sharing the card over gloo.  On every rank of
+    every run: each step's loss within TRAIN_TOL["f32"][0] relative and
+    grad norm within [1] of the reference's, the parameters after the
+    last step within 1e-4 relative (each whole leaf's norm) of the
+    reference's, every kernel of TRAINING_KERNELS (20d: of
+    SHARDED_FAMILIES) launched and no plain version run.  Each
     rank's peak memory and each run's seconds are printed; every join has
     a deadline, and a rank still running at it is killed."""
     import torch.multiprocessing as mp
@@ -4631,8 +4790,8 @@ def sharded_rank_phase(torch, seed):
             check("error" not in res, f"sharded training world {w} rank "
                   f"{r}: {res.get('error')}")
         for name in got[0]:
-            key = ("qwen2-7b TP=2" if name.startswith("qwen")
-                   else "famous-bert")
+            key = (name if name in refs else "famous-bert")
+            kernels = SHARDED_FAMILIES.get(name, TRAINING_KERNELS)
             ref = refs[key]
             first = SHARDED_STEP_AT_SAVE if name.startswith("resize") else 0
             loss_tol, norm_tol = TRAIN_TOL["f32"][:2]
@@ -4643,8 +4802,7 @@ def sharded_rank_phase(torch, seed):
                     run["losses"], ref["losses"][first:]))
                 norm_err = max(abs(a - b) / b for a, b in zip(
                     run["grad_norms"], ref["grad_norms"][first:]))
-                launched = all(run["launches"][k] > 0
-                               for k in TRAINING_KERNELS)
+                launched = all(run["launches"][k] > 0 for k in kernels)
                 plain_none = not any(run["plain_on_cuda"].values())
                 ok = (loss_err <= loss_tol and norm_err <= norm_tol
                       and run["worst_param_rel"] <= 1e-4 and launched
@@ -4657,11 +4815,11 @@ def sharded_rank_phase(torch, seed):
                                 ok=ok, seconds=run["seconds"],
                                 peak_mem_gb=run["peak_mem_gb"],
                                 launches={k: run["launches"][k]
-                                          for k in TRAINING_KERNELS}))
+                                          for k in kernels}))
                 print(f"sharded training {name} (world {w}) rank {r}: "
                       f"losses {['%.6f' % x for x in run['losses']]}, loss "
                       f"rel {loss_err:.2e} (tol {loss_tol:g}), grad norm "
-                      f"rel {norm_err:.2e} (tol {norm_tol:g}), gathered "
+                      f"rel {norm_err:.2e} (tol {norm_tol:g}), whole "
                       f"params rel {run['worst_param_rel']:.2e} (tol 1e-4), "
                       f"launches {per[-1]['launches']}, no plain "
                       f"{plain_none}, {run['seconds']:.1f} s, peak memory "
@@ -4750,7 +4908,7 @@ def main(argv=None) -> int:
     paths += [r["launches"] for r in moe_serving.values()]
     paths += [r["launches"] for r in frontend_training.values()
               if "launches" in r]
-    paths += [mesh_serving["tp1"][k]["launches"]
+    paths += [run[k]["launches"] for run in mesh_serving["tp1"].values()
               for k in ("mesh=None", "TP=1 mesh")]
     paths += [paged_writes["launches"]]
     paths += [sharded["20a"][k]["launches"] for k in ("mesh=None",

@@ -176,7 +176,8 @@ class RunConfig:
     """Bundle of (arch, shape, parallelism) for a serving launch.
 
     ``tp`` is tensor parallelism on the "model" mesh axis (attention heads /
-    kv heads / FFN hidden — see ``parallel.sharding.SERVE_TP_RULES``), ``dp``
+    kv heads / RWKV-6 heads / FFN and LRU hidden / MoE experts — see
+    ``parallel.sharding.SERVE_TP_RULES``), ``dp``
     replica groups on "data".  ``tp == dp == 1`` means no mesh at all: the
     engine runs its unsharded single-device baseline.
     """

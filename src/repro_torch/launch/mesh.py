@@ -124,7 +124,7 @@ def make_training_mesh(shape, device_type: str = "cuda"):
 
 def make_serving_mesh(tp: int = 1, dp: int = 1, device_type: str = "cuda"):
     """Inference mesh for ``ServingEngine(mesh=...)``: ``tp``-way tensor
-    parallelism on the "model" axis (attention heads / kv heads / FFN
-    hidden), ``dp`` replica groups on "data"; ``tp * dp`` ranks, one
-    process each."""
+    parallelism on the "model" axis (attention heads / kv heads / RWKV-6
+    heads / FFN and LRU hidden / MoE experts), ``dp`` replica groups on
+    "data"; ``tp * dp`` ranks, one process each."""
     return make_mesh((dp, tp), ("data", "model"), device_type)

@@ -18,7 +18,8 @@ the CPU.
 
 ``--tp N`` (or ``--mesh-shape D,T``) serves tensor-parallel, one process
 a rank: ``torchrun --nproc-per-node N -m repro_torch.launch.serve --tp
-N``.  Every rank draws the same weights from ``--seed`` and keeps its
+N`` (an MoE config splits its experts over the ranks, rwkv6-1.6b its
+heads).  Every rank draws the same weights from ``--seed`` and keeps its
 shard; rank 0 prints the mesh, its cache bytes and the run.  ``--tp 1``
 (the default) runs without a mesh.  NCCL serves where every rank has a
 card of its own, with CUDA graphs; ranks that share one card run over
@@ -101,9 +102,10 @@ def main(argv=None):
                          "step's width is draft-k + 1)")
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor parallelism: shard attention heads / kv "
-                         "heads / FFN hidden over a 'model' mesh axis of "
-                         "this size, one process a rank (torchrun "
-                         "--nproc-per-node N). 1 = unsharded baseline")
+                         "heads / RWKV-6 heads / FFN and LRU hidden / MoE "
+                         "experts over a 'model' mesh axis of this size, "
+                         "one process a rank (torchrun --nproc-per-node "
+                         "N). 1 = unsharded baseline")
     ap.add_argument("--mesh-shape", default="",
                     help="explicit 'data,model' mesh shape, e.g. '1,2' "
                          "(overrides --tp; the data axis is reserved for "

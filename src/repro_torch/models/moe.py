@@ -16,6 +16,15 @@ and an f32 ``combine`` cast to ``x.dtype``.  The JAX module's sharding
 hints (``constrain``) and remat names (``checkpoint_name``) do nothing
 without a mesh and are dropped; no Pallas kernel is involved there, and
 the grouped products here are ``torch.einsum`` as JAX's are XLA einsums.
+
+Expert parallelism (``transformer.shard_params`` and ``TrainLayout`` on a
+"model" axis that divides E): a rank holds the experts ``tp_experts`` =
+[lo, hi) of ``w_in`` / ``w_gate`` / ``w_out`` and the whole router.  It
+routes every token over all E experts with the unsharded capacity, so
+routing and drops are the unsharded layer's, then keeps its experts'
+columns of ``dispatch`` and ``combine`` (Python int bounds: the shapes
+stay fixed), multiplies only its experts, and the ranks' shares of the
+output are summed over the "model" group (``tp_sum``).
 """
 from __future__ import annotations
 
@@ -109,14 +118,22 @@ def _rank_groups(p: dict, T: int) -> tuple[int, int]:
 
 def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
               return_aux: bool = False):
-    """x: (B, S, D) -> (B, S, D).  Grouped dense top-k routing."""
+    """x: (B, S, D) -> (B, S, D).  Grouped dense top-k routing.  Under
+    expert parallelism (``tp_experts``) the rank's share of y, summed over
+    the "model" group by ``tp_sum``; in sharded training ``tp_in``
+    (Megatron's f) takes the input first."""
     B, S, D = x.shape
     K = cfg.experts_per_token
     G, Sg = _rank_groups(p, B * S)
     xg = x.reshape(G, Sg, D)
+    if "tp_in" in p:
+        xg = p["tp_in"](xg)
 
     dispatch, combine, aux = router_dispatch(
         _router_logits(p, xg), K, cfg.capacity_factor, cfg.logit_softcap)
+    if "tp_experts" in p:
+        lo, hi = p["tp_experts"]
+        dispatch, combine = dispatch[:, :, lo:hi], combine[:, :, lo:hi]
 
     dt = x.dtype
     buf = torch.einsum("gsec,gsd->gecd", dispatch.to(dt), xg)
@@ -126,6 +143,8 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
     out_buf = torch.einsum("gecf,efd->gecd", h, p["w_out"].to(dt))
 
     y = torch.einsum("gsec,gecd->gsd", combine.to(dt), out_buf)
+    if "tp_sum" in p:
+        y = p["tp_sum"](y)
     y = y.reshape(B, S, D)
     if return_aux:
         return y, aux

@@ -54,7 +54,9 @@ def rglru_spec(cfg: ModelConfig) -> dict:
 
 def _channels(p, name):
     """A replicated (R,) parameter, cut to this rank's channels under
-    tensor parallelism (``tp_channels``)."""
+    tensor parallelism (``tp_channels``; in sharded training the leaf
+    comes through Megatron's f, so the ranks' slices of its gradient are
+    summed)."""
     if "tp_channels" in p:
         lo, hi = p["tp_channels"]
         return p[name][lo:hi]
@@ -65,14 +67,16 @@ def _gates(p, xc):
     """Recurrence gate r_t and input gate i_t from the conv output.  Under
     tensor parallelism xc holds this rank's channels and ``w_a``/``w_i``
     their rows: the partial products are summed over the "model" group
-    (``tp_sum``) and the gates cut back to the rank's channels."""
+    and cut back to the rank's channels in one reduce-scatter
+    (``tp_scatter``; in training its backward gathers the ranks'
+    slices)."""
     pre_a = xc @ p["w_a"].to(xc.dtype)
     pre_i = xc @ p["w_i"].to(xc.dtype)
-    if "tp_sum" in p:
+    if "tp_channels" in p:
         lo, hi = p["tp_channels"]
         r = pre_a.shape[-1]
-        pre = p["tp_sum"](torch.cat([pre_a, pre_i], dim=-1))
-        pre_a, pre_i = pre[..., lo:hi], pre[..., r + lo:r + hi]
+        pre_a, pre_i = p["tp_scatter"](torch.cat([pre_a, pre_i], dim=-1),
+                                       ((lo, hi), (r + lo, r + hi)))
     rg = torch.sigmoid(pre_a.to(f32) + _channels(p, "b_a").to(f32))
     ig = torch.sigmoid(pre_i.to(f32) + _channels(p, "b_i").to(f32))
     return rg, ig
@@ -236,7 +240,10 @@ def apply_rglru(p: dict, x: torch.Tensor, cfg: ModelConfig,
     (monolithic prefill from a fresh state; its ``conv`` window feeds the
     conv) it is the ``rglru_scan`` kernel under ``impl="pallas"`` and the
     associative scan otherwise, and the result is (out, new state {"h",
-    "conv"})."""
+    "conv"}).  In sharded training ``tp_in`` (Megatron's f) takes x
+    first."""
+    if "tp_in" in p:
+        x = p["tp_in"](x)
     xb = x @ p["w_x"].to(x.dtype)
     gate = x @ p["w_gate"].to(x.dtype)
     xc, conv_state = _conv1d(p, xb, None if cache is None else cache["conv"])

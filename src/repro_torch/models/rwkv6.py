@@ -17,6 +17,17 @@ engine chunks.  Decode runs one step in torch ops, as JAX does.  The
 time-mix block takes ``fcfg`` only to choose between the kernel and the
 plain versions.  As in JAX, a sequence of S tokens is cut into chunks of
 ``min(64, S)``, which must divide S.
+
+Tensor parallelism (``transformer.shard_params`` and ``TrainLayout``
+under "heads_flat" / "heads" / "mlp" -> "model"): a rank holds its heads'
+columns of ``w_r``, ``w_k``, ``w_v``, ``w_g``, ``w0`` and ``wB``, their
+``u``, ``ln_scale`` and ``ln_bias``, the matching rows of ``w_o`` and its
+slice of the channel mix's hidden; ``mu``, ``wA`` and the channel mix's
+``w_r`` stay whole.  Head counts come from the rank's projection width,
+never from the (whole) input width.  The output norm spans the model
+width, so its two statistics are sums over the "model" group
+(``tp_stat``), and the row-parallel products after ``w_o`` and the
+channel mix's ``w_v`` are summed by ``tp_sum``.
 """
 from __future__ import annotations
 
@@ -170,16 +181,43 @@ def _time_mix_qkvwg(p, x, x_prev):
     return r, k, v, g, logw
 
 
-def _heads(x, h, dh):
-    return x.reshape(x.shape[0], x.shape[1], h, dh).transpose(1, 2)
+def _heads(x, dh):
+    """(B, S, H * dh) -> (B, H, S, dh), H from the width of ``x`` (a
+    tensor-parallel rank's own heads)."""
+    return x.reshape(x.shape[0], x.shape[1], -1, dh).transpose(1, 2)
+
+
+def _sharded_layernorm(p, x, width: int, eps: float = 1e-6):
+    """``layers.apply_norm``'s LayerNorm over a row of ``width`` whose
+    columns are spread over the "model" group, this rank holding ``x``'s:
+    JAX's two passes, the mean from the summed f32 partial sums, then the
+    variance from the summed centred squares (``tp_stat``), each rank
+    scaling its own columns."""
+    dt = x.dtype
+    mu = p["tp_stat"](torch.sum(x, -1, keepdim=True, dtype=f32)) / width
+    xc = x - mu.to(dt)
+    var = p["tp_stat"](torch.sum(xc.square(), -1, keepdim=True,
+                                 dtype=f32)) / width
+    y = xc * torch.rsqrt(var + eps).to(dt)
+    return y * p["ln_scale"].to(dt) + p["ln_bias"].to(dt)
 
 
 def _finish(p, out, g, x):
-    """Norm over the model width, the silu gate and the output projection."""
-    out = layers.apply_norm({"scale": p["ln_scale"], "bias": p["ln_bias"]},
-                            out.to(x.dtype), "layernorm")
+    """Norm over the model width, the silu gate and the output
+    projection; under tensor parallelism the norm of the rank's columns
+    (:func:`_sharded_layernorm`) and its partial product summed over the
+    "model" group (``tp_sum``)."""
+    if "tp_stat" in p:
+        out = _sharded_layernorm(p, out.to(x.dtype), x.shape[-1])
+    else:
+        out = layers.apply_norm({"scale": p["ln_scale"],
+                                 "bias": p["ln_bias"]},
+                                out.to(x.dtype), "layernorm")
     out = out * F.silu(g)
-    return out @ p["w_o"].to(x.dtype)
+    y = out @ p["w_o"].to(x.dtype)
+    if "tp_sum" in p:
+        y = p["tp_sum"](y)
+    return y
 
 
 def last_valid(x, n_valid):
@@ -197,19 +235,22 @@ def apply_rwkv_time_mix(p, x, cfg: ModelConfig, cache=None, chunk: int = 64,
     carried state and token shift) the wkv runs from ``cache["s"]`` on the
     ``wkv6_scan`` kernel under ``impl="pallas"`` and on
     :func:`wkv6_chunked` otherwise, and the result is (y, {"s", "x_tm"}).
-    S must be at most ``chunk`` or a multiple of it (``ValueError``)."""
-    B, S, D = x.shape
-    h, dh = D // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    S must be at most ``chunk`` or a multiple of it (``ValueError``).  In
+    sharded training ``tp_in`` (Megatron's f) takes x first."""
+    if "tp_in" in p:
+        x = p["tp_in"](x)
+    B, S = x.shape[:2]
+    dh = cfg.rwkv_head_dim
     x_prev = _token_shift(x, None if cache is None else cache["x_tm"])
     r, k, v, g, logw = _time_mix_qkvwg(p, x, x_prev)
-    rh, kh, vh, wh = (_heads(t, h, dh) for t in (r, k, v, logw))
+    rh, kh, vh, wh = (_heads(t, dh) for t in (r, k, v, logw))
     s0 = None if cache is None else cache["s"]
     if cache is not None and fcfg.impl == "pallas":
         out, s_fin = scan_ops.wkv6(rh, kh, vh, wh, p["u"].to(f32), s0=s0,
                                    chunk=chunk)
     else:
         out, s_fin = wkv6_chunked(rh, kh, vh, wh, p["u"], s0=s0, chunk=chunk)
-    y = _finish(p, out.transpose(1, 2).reshape(B, S, D), g, x)
+    y = _finish(p, out.transpose(1, 2).reshape(B, S, -1), g, x)
     if cache is None:
         return y
     return y, {"s": s_fin, "x_tm": x[:, -1]}
@@ -227,8 +268,8 @@ def apply_rwkv_time_mix_chunk(p, x, cache, cfg: ModelConfig, n_valid,
     decay), so ``s_final`` is the state after the last real token; the
     token-shift state becomes ``x[:, n_valid - 1]``.  Pad outputs are junk,
     discarded upstream."""
-    B, S, D = x.shape
-    h, dh = D // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    B, S = x.shape[:2]
+    dh = cfg.rwkv_head_dim
     n_valid = lib.device_scalar("apply_rwkv_time_mix_chunk", n_valid,
                                 x.device)
     x_prev = _token_shift(x, cache["x_tm"])
@@ -237,10 +278,10 @@ def apply_rwkv_time_mix_chunk(p, x, cache, cfg: ModelConfig, n_valid,
     k = torch.where(valid, k, torch.zeros((), dtype=k.dtype, device=k.device))
     logw = torch.where(valid, logw, torch.zeros((), dtype=f32,
                                                 device=logw.device))
-    rh, kh, vh, wh = (_heads(t, h, dh) for t in (r, k, v, logw))
+    rh, kh, vh, wh = (_heads(t, dh) for t in (r, k, v, logw))
     out, s_fin = scan_ops.wkv6(rh, kh, vh, wh, p["u"].to(f32), s0=cache["s"],
                                chunk=chunk, plain=fcfg.impl != "pallas")
-    out = out.transpose(1, 2).reshape(B, S, D)
+    out = out.transpose(1, 2).reshape(B, S, -1)
     return _finish(p, out, g, x), {"s": s_fin,
                                    "x_tm": last_valid(x, n_valid)}
 
@@ -248,24 +289,31 @@ def apply_rwkv_time_mix_chunk(p, x, cache, cfg: ModelConfig, n_valid,
 def apply_rwkv_time_mix_decode(p, x, cache, cfg: ModelConfig):
     """One token. x: (B, 1, D); cache: {"s", "x_tm"}.  Returns (y, new
     {"s", "x_tm"})."""
-    B, _, D = x.shape
-    h, dh = D // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    B = x.shape[0]
+    dh = cfg.rwkv_head_dim
     x_prev = cache["x_tm"].to(x.dtype)[:, None]
     r, k, v, g, logw = _time_mix_qkvwg(p, x, x_prev)
-    out, s_new = wkv6_step(r.reshape(B, h, dh), k.reshape(B, h, dh),
-                           v.reshape(B, h, dh), logw.reshape(B, h, dh),
+    out, s_new = wkv6_step(*(t.reshape(B, -1, dh) for t in (r, k, v, logw)),
                            p["u"].to(f32), cache["s"])
-    return _finish(p, out.reshape(B, 1, D), g, x), {"s": s_new,
-                                                    "x_tm": x[:, -1]}
+    return _finish(p, out.reshape(B, 1, -1), g, x), {"s": s_new,
+                                                     "x_tm": x[:, -1]}
 
 
 def apply_channel_mix(p, x, cfg: ModelConfig, cache_x=None):
-    """RWKV channel mix (relu² FFN with token shift). Returns (y, x_last)."""
+    """RWKV channel mix (relu² FFN with token shift). Returns (y, x_last).
+    Under tensor parallelism the rank's slice of the hidden: its partial
+    ``kk @ w_v`` summed over the "model" group (``tp_sum``) before the
+    whole receptance gate; in sharded training ``tp_in`` (Megatron's f)
+    takes ``xk``, the only input of the sharded product."""
     x_prev = _token_shift(x, cache_x)
     xk = _mix(x, x_prev, p["mu"][0])
     xr = _mix(x, x_prev, p["mu"][1])
+    if "tp_in" in p:
+        xk = p["tp_in"](xk)
     dt = x.dtype
     kk = layers.act_fn("relu_sq")(xk @ p["w_k"].to(dt))
     vv = kk @ p["w_v"].to(dt)
+    if "tp_sum" in p:
+        vv = p["tp_sum"](vv)
     rr = torch.sigmoid(xr @ p["w_r"].to(dt))
     return rr * vv, x[:, -1]

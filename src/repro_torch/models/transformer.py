@@ -30,8 +30,9 @@ layers, per slot even when the attention is paged — written in place (see
 
 Tensor parallelism (``ServingEngine(mesh=)``): :func:`param_axes` and
 :func:`cache_axes` name every leaf's logical axes, as JAX's do;
-:func:`shard_params` cuts the spec tree to one rank's shards and marks
-the layers whose products need a sum over the "model" group, and
+:func:`shard_params` cuts the spec tree to one rank's shards (attention
+heads, RWKV-6 heads, the FFN / LRU hidden, MoE experts) and marks the
+parts whose products need a collective over the "model" group, and
 ``make_caches(mesh=)`` allocates the rank's cache shapes.  The step
 functions below run unchanged on a rank's layout.
 
@@ -207,9 +208,11 @@ def cache_axes(cfg: ModelConfig, cache_kind: str = "contiguous",
     return [dict(block_axes(k)) for k in layer_kinds(cfg)]
 
 
-# the logical axes tensor-parallel serving splits; a rule that shards any
-# other axis of the model or its caches over more than one rank raises
-TP_AXES = ("heads", "kv_heads", "mlp")
+# the logical axes tensor parallelism splits over "model": attention heads
+# and kv heads, RWKV-6's flat heads, the FFN / LRU hidden and the MoE
+# experts; a serving rule set that shards any other axis of the model or
+# its caches over more than one rank raises
+TP_AXES = ("heads", "kv_heads", "heads_flat", "mlp", "experts")
 
 
 def _item_7b(what: str) -> NotImplementedError:
@@ -218,20 +221,33 @@ def _item_7b(what: str) -> NotImplementedError:
         f"7b (what tensor-parallel serving, the old slice 10, leaves out)")
 
 
+def _check_rwkv_heads(cfg: ModelConfig, mesh, rules) -> None:
+    """An RWKV-6 rank holds whole heads: raise the item-7b
+    ``NotImplementedError`` where "heads_flat" (the D columns) and
+    "heads" (D / rwkv_head_dim) would split differently, which would cut
+    a head's columns."""
+    if RWKV6 not in layer_kinds(cfg):
+        return
+    d = cfg.d_model
+    ways = [shd.sharded_size(shd.spec_for_axes(mesh, (name,), rules, (n,))[0],
+                             mesh)
+            for name, n in (("heads_flat", d), ("heads", d // cfg.rwkv_head_dim))]
+    if ways[0] != ways[1]:
+        raise _item_7b(f"{cfg.name}: RWKV-6 columns split {ways[0]} ways "
+                       f"over heads split {ways[1]} ways")
+
+
 def check_mesh(cfg: ModelConfig, mesh, rules) -> None:
     """Raise ``NotImplementedError`` (ROADMAP Queue 1 item 7b) for what
-    the port's tensor-parallel serving does not split: replica groups
-    (a data or pod axis of size > 1), MoE experts, RWKV-6 heads, and a
-    rule set that shards any axis but heads, kv heads and the FFN or LRU
-    hidden over more than one rank (FSDP's "embed", "vocab", "batch")."""
+    the port's tensor-parallel serving does not split: replica groups (a
+    data or pod axis of size > 1), a rule set that shards any axis but
+    :data:`TP_AXES` over more than one rank (FSDP's "embed", "vocab",
+    "batch"), and RWKV-6 heads cut inside a head.  MoE experts, RWKV-6
+    heads and every attention, FFN and RG-LRU split serve."""
     if shd.dp_size(mesh) > 1:
         raise _item_7b(f"a mesh with {shd.dp_size(mesh)} replica groups "
                        f"(dp > 1)")
-    if cfg.num_experts:
-        raise _item_7b(f"{cfg.name}: MoE (experts over \"model\") under a "
-                       f"mesh")
-    if RWKV6 in layer_kinds(cfg):
-        raise _item_7b(f"{cfg.name}: RWKV-6 (\"heads_flat\") under a mesh")
+    _check_rwkv_heads(cfg, mesh, rules)
     trees = [param_axes(cfg)] + [cache_axes(cfg, k, d) for k, d in (
         ("contiguous", "fp"), ("paged", "int8"))]
     names = {a for t in trees for leaf in shd.axes_leaves(t) for a in leaf
@@ -243,25 +259,81 @@ def check_mesh(cfg: ModelConfig, mesh, rules) -> None:
 
 
 def check_train_mesh(cfg: ModelConfig, mesh, rules) -> None:
-    """Raise for what the sharded train step does not split: a "model"
-    axis of size > 1 under MoE, RWKV-6 or RG-LRU blocks
-    (``NotImplementedError``, ROADMAP Queue 1 item 7b), and a rule set
+    """Raise for what the sharded train step does not split: a rule set
     that gives "batch" to "model" (``ValueError``: tensor parallelism
-    needs the "model" ranks to see the same rows).  Any data or pod axis
-    and every rule set of ``parallel/sharding.py`` train every config."""
+    needs the "model" ranks to see the same rows) and RWKV-6 heads cut
+    inside a head (the item-7b ``NotImplementedError``).  Every config
+    trains on any data, pod and model axes under every rule set of
+    ``parallel/sharding.py``."""
     if "model" in shd.entry_axes(shd.rule_axes(mesh, rules, "batch")):
         raise ValueError("a rule set that shards \"batch\" over \"model\" "
                          "cannot train: the model ranks must see the same "
                          "rows")
-    if shd.axis_sizes(mesh).get("model", 1) == 1:
-        return
-    kinds = set(layer_kinds(cfg))
-    if cfg.num_experts:
-        raise _item_7b(f"{cfg.name}: MoE training on a \"model\" axis > 1")
-    for kind, name in ((RWKV6, "RWKV-6"), (RGLRU, "RG-LRU")):
-        if kind in kinds:
-            raise _item_7b(f"{cfg.name}: {name} training on a \"model\" "
-                           f"axis > 1")
+    _check_rwkv_heads(cfg, mesh, rules)
+
+
+def _tp_parts(cfg: ModelConfig, spec: dict, mesh, coords: dict,
+              ops: dict) -> dict:
+    """The tensor-parallel entries of one block, by part, from its leaves'
+    specs ``spec`` (one layer's, no "layers" entry) on ``mesh``.  Where a
+    part's heads, flat heads, hidden or experts split over more than one
+    rank, the collectives its functions apply, from ``ops``: "sum" after
+    the row-parallel products (``tp_sum``), "stat" for RWKV-6's norm
+    statistics (``tp_stat``), "scatter" for the RG-LRU gates
+    (``tp_scatter``) and, in training, "in", Megatron's f (``tp_in``);
+    and the rank's ranges: its experts (``tp_experts``), LRU channels
+    (``tp_channels``), and ``kv_head`` = (KV, k) where its query heads
+    split over kv heads that stay whole, all of them in kv head k's
+    group (``attention._spread_heads``).  A part that stays whole gets
+    nothing."""
+    def split(entry):
+        return shd.sharded_size(entry, mesh) > 1
+
+    def rank_range(entry, n):
+        return shd.shard_range(entry, n, mesh, coords)
+
+    f = {"tp_in": ops["in"]} if "in" in ops else {}
+    parts = {}
+    if "attn" in spec and split(spec["attn"]["wq"][1]):
+        a, H, KV = spec["attn"], cfg.num_heads, cfg.num_kv_heads
+        parts["attn"] = dict(f, tp_sum=ops["sum"])
+        lo, hi = rank_range(a["wq"][1], H)
+        if not split(a["wk"][1]) and KV > 1:
+            group = H // KV
+            if group % (hi - lo):
+                raise _item_7b(
+                    f"{cfg.name}: {hi - lo} query heads a rank over {KV} "
+                    f"replicated kv heads of {group} query heads each (a "
+                    f"rank's heads span two kv heads)")
+            parts["attn"]["kv_head"] = (KV, lo // group)
+    if "ffn" in spec:
+        w_in = spec["ffn"]["w_in"]
+        if cfg.num_experts and split(w_in[0]):
+            parts["ffn"] = dict(f, tp_sum=ops["sum"], tp_experts=rank_range(
+                w_in[0], cfg.num_experts))
+        elif not cfg.num_experts and split(w_in[1]):
+            parts["ffn"] = dict(f, tp_sum=ops["sum"])
+    if "rec" in spec and split(spec["rec"]["w_x"][1]):
+        parts["rec"] = dict(f, tp_sum=ops["sum"], tp_scatter=ops["scatter"],
+                            tp_channels=rank_range(
+                                spec["rec"]["w_x"][1],
+                                cfg.lru_width or cfg.d_model))
+    if "tm" in spec and split(spec["tm"]["w_r"][1]):
+        parts["tm"] = dict(f, tp_sum=ops["sum"], tp_stat=ops["stat"])
+    if "cm" in spec and split(spec["cm"]["w_k"][1]):
+        parts["cm"] = dict(f, tp_sum=ops["sum"])
+    return parts
+
+
+# the leaves a tensor-parallel part reads for the rank's share only while
+# they stay whole over "model" (kv projections whose heads do not split,
+# qk-norm scales, the router, the RG-LRU's per-channel gate biases and
+# decay, the RWKV-6 token-shift mixes and decay LoRA's first factor): in
+# training each comes through Megatron's f, so that the ranks' partial
+# gradients are summed
+TRAIN_F_LEAVES = {"attn": ("wk", "wv", "bk", "bv", "q_norm", "k_norm"),
+                  "ffn": ("router",), "rec": ("b_a", "b_i", "lam"),
+                  "tm": ("mu", "wA")}
 
 
 class TrainLayout:
@@ -270,22 +342,28 @@ class TrainLayout:
     (default ``DEFAULT_RULES``) on ``mesh``, and the collectives
     (``comm``, a :class:`~repro_torch.parallel.sharding.MeshComm`).
 
-    Each rank holds every leaf as its ``local_shard``.  A leaf whose heads,
-    kv heads or FFN hidden are sharded over "model" stays split for
-    compute (true tensor parallelism): the block gets ``tp_in`` (Megatron's
-    f) before its column-parallel products and ``tp_sum`` (g) after its
-    row-parallel one.  Every other sharded dim — "embed" over "data"
-    (FSDP), "vocab" over "model", ZERO_SEQ's "embed" over every axis — is
-    gathered to whole inside the unit that uses it, so remat gathers
-    again; the gather's backward sums over the batch axes and keeps the
-    rank's slice.  A rank whose query heads are sharded while its kv heads
-    stay whole raises the item-7b ``NotImplementedError``."""
+    Each rank holds every leaf as its ``local_shard``.  A leaf whose
+    :data:`TP_AXES` dim is sharded over "model" stays split for compute
+    (true tensor parallelism), and the block's part gets the entries of
+    :func:`_tp_parts`: Megatron's f (``tp_in``) on the last replicated
+    activation before its sharded products, g (``tp_sum``) after its
+    row-parallel one, the all-reduce with an all-reduce backward for
+    RWKV-6's norm statistics and the reduce-scatter with a gathering
+    backward for the RG-LRU gates.  The whole leaves such a part reads for
+    the rank's share only (:data:`TRAIN_F_LEAVES`) come through f
+    themselves.  Every other sharded dim — "embed" over "data" (FSDP),
+    "vocab" over "model", grok-1's "expert_ff" over "data", ZERO_SEQ's
+    "embed" over every axis — is gathered to whole inside the unit that
+    uses it, so remat gathers again; the gather's backward sums over the
+    batch axes and keeps the rank's slice.  Only a rank whose query heads
+    span two whole kv heads, and RWKV-6 columns cut inside a head, raise
+    the item-7b ``NotImplementedError``."""
 
     def __init__(self, cfg: ModelConfig, mesh, rules=None):
         rules = rules or shd.DEFAULT_RULES
         check_train_mesh(cfg, mesh, rules)
         self.cfg = cfg
-        self.comm = shd.MeshComm(mesh, rules)
+        self.comm = c = shd.MeshComm(mesh, rules)
         spec_tree = model_spec(cfg)
         axes = module.logical_axes(spec_tree)
         self.specs = shd.tree_specs(mesh, axes, rules,
@@ -301,33 +379,29 @@ class TrainLayout:
                          for e, n in zip(spec, names))
 
         gspecs = module.tree_map2(gather_spec, self.specs, axes)
-        tp = module.tree_map2(
-            lambda spec, names: [split(e, n) for e, n in zip(spec, names)],
-            self.specs, axes)
+        ops = {"sum": c.reduce_from_model, "stat": c.sum_over_model,
+               "scatter": c.scatter_to_model, "in": c.copy_to_model}
         # per block (stacked units' leaves lose their "layers" entry): the
-        # gather specs and which parts run tensor-parallel
+        # gather specs, the tensor-parallel entries of each part and its
+        # whole leaves that take f
         self.blocks = {}
         names = [f"pos{i}" for i in range(len(cfg.pattern_unit))]
         names += [f"tail{i}" for i in range(len(cfg.tail_layers))]
         for name in names:
             stacked = name.startswith("pos")
             g = gspecs["blocks"][name] if stacked else gspecs[name]
-            t = tp["blocks"][name] if stacked else tp[name]
+            s = self.specs["blocks"][name] if stacked else self.specs[name]
             if stacked:
-                g = module.tree_map(lambda s: s[1:], g)
-                t = module.tree_map(lambda s: s[1:], t)
-            marks = []
-            if "attn" in t:
-                q, kv = t["attn"]["wq"][1], t["attn"]["wk"][1]
-                if q and not kv:
-                    raise _item_7b(f"{cfg.name}: query heads sharded over "
-                                   f"\"model\" while the kv heads stay "
-                                   f"whole, in training")
-                if q:
-                    marks.append("attn")
-            if "ffn" in t and not cfg.num_experts and t["ffn"]["w_in"][1]:
-                marks.append("ffn")
-            self.blocks[name] = (g, tuple(marks))
+                g = module.tree_map(lambda x: x[1:], g)
+                s = module.tree_map(lambda x: x[1:], s)
+            parts = _tp_parts(cfg, s, mesh, c.coords, ops)
+            # a leaf stays split for compute where its gather spec drops
+            # an entry of its spec
+            whole = {part: tuple(
+                n for n in TRAIN_F_LEAVES.get(part, ())
+                if n in g[part] and g[part][n] == s[part][n])
+                for part in parts}
+            self.blocks[name] = (g, parts, whole)
         self.outer_specs = {k: gspecs[k] for k in
                             ("embed", "final_norm", "lm_head") if k in gspecs}
 
@@ -337,11 +411,13 @@ class TrainLayout:
     def block(self, p: dict, name: str) -> dict:
         """Block ``name`` ("pos<i>" of a unit, "tail<i>") from the rank's
         shards: gathered, and marked where it runs tensor-parallel."""
-        gspecs, marks = self.blocks[name]
+        gspecs, parts, whole = self.blocks[name]
         p = self._gather(p, gspecs)
-        for part in marks:
-            p[part] = dict(p[part], tp_in=self.comm.copy_to_model,
-                           tp_sum=self.comm.reduce_from_model)
+        for part, entries in parts.items():
+            q = dict(p[part], **entries)
+            for leaf in whole[part]:
+                q[leaf] = self.comm.copy_to_model(q[leaf])
+            p[part] = q
         if self.cfg.num_experts and "ffn" in p and self.comm.dp > 1:
             p["ffn"] = dict(p["ffn"], batch_ranks=self.comm.dp)
         return p
@@ -376,57 +452,45 @@ def shard_params(params: dict, cfg: ModelConfig, mesh, rules=None) -> dict:
     (a copy of) the rank's shard of its resolved spec (``rules``, default
     ``SERVE_TP_RULES``; a dim the rule's axes do not divide stays whole,
     the replicate fallback), then :func:`prepare_params`, so each rank
-    fuses [Wq|Wk|Wv] from its own heads' slices.  Each layer whose product
-    contracts a dim sharded over more than one rank gets the sum over the
-    "model" group (``tp_sum``: after ``wo``, an MLP's ``w_out``, and an
-    RG-LRU's gates and ``w_out``; an RG-LRU also its channel range
-    ``tp_channels``); a layer whose query heads are sharded over kv heads
-    that stay whole gets ``kv_head`` = (KV, k), the one kv head its heads
-    read (``attention._spread_heads``).  Over a "model" axis of size 1
-    nothing is cut and nothing added: the result is
-    ``prepare_params(params, cfg)``."""
+    fuses [Wq|Wk|Wv] from its own heads' slices.  A leaf that already has
+    the rank's shard shape is taken as that shard (a rank that drew its
+    weights leaf by leaf and kept only its shards).  Each part whose
+    heads, flat heads, hidden or experts split over more than one rank
+    gets :func:`_tp_parts`' entries, every collective the sum over the
+    "model" group (:class:`~repro_torch.parallel.sharding.ModelSum`).
+    Over a "model" axis of size 1 nothing is cut and nothing added: the
+    result is ``prepare_params(params, cfg)``."""
     if "layers" in params:
         raise ValueError("shard_params takes the spec tree (model_spec's "
                          "structure), not the serving layout")
     rules = rules or shd.SERVE_TP_RULES
     check_mesh(cfg, mesh, rules)
     coords = shd.mesh_coords(mesh)
-    specs = shd.tree_specs(mesh, param_axes(cfg), rules, params)
+    shapes = module.param_shapes(model_spec(cfg))
+    specs = shd.tree_specs(mesh, param_axes(cfg), rules, shapes)
 
-    def own(t, spec):
+    def own(t, spec_shape):
+        spec, whole = spec_shape
+        if tuple(t.shape) != whole.shape:
+            if tuple(t.shape) != shd.local_shape(whole.shape, spec, mesh):
+                raise ValueError(
+                    f"a leaf of shape {tuple(t.shape)} is neither whole "
+                    f"{whole.shape} nor this rank's shard of it under {spec}")
+            return t
         # a cut leaf is copied, so the whole tensor can be freed
         part = shd.local_shard(t, spec, mesh, coords)
         return t if part is t else part.clone()
 
-    local = module.tree_map2(own, params, specs)
+    local = module.tree_map2(
+        own, params, module.tree_map2(lambda s, w: (s, w), specs, shapes))
     out = prepare_params(local, cfg)
     msum = shd.model_sum(mesh)
-    H, KV = cfg.num_heads, cfg.num_kv_heads
-
-    def split(entry):
-        return shd.sharded_size(entry, mesh) > 1
-
+    ops = {} if msum is None else {"sum": msum, "stat": msum,
+                                   "scatter": msum.scatter}
     for blk, spec in zip(out["layers"], _layer_specs(specs, cfg)):
-        if "attn" in blk:
-            a = spec["attn"]
-            if split(a["wo"][0]):
-                blk["attn"]["tp_sum"] = msum
-            lo, hi = shd.shard_range(a["wq"][1], H, mesh, coords)
-            if hi - lo < H and not split(a["wk"][1]) and KV > 1:
-                group = H // KV
-                if group % (hi - lo):
-                    raise _item_7b(
-                        f"{cfg.name}: {hi - lo} query heads a rank over "
-                        f"{KV} replicated kv heads of {group} query heads "
-                        f"each (a rank's heads span two kv heads)")
-                blk["attn"]["kv_head"] = (KV, lo // group)
-        if "ffn" in blk and split(spec["ffn"]["w_out"][0]):
-            blk["ffn"]["tp_sum"] = msum
-        if "rec" in blk and split(spec["rec"]["w_a"][0]):
-            blk["rec"]["tp_sum"] = msum
-            blk["rec"]["tp_channels"] = shd.shard_range(
-                spec["rec"]["w_a"][0], cfg.lru_width or cfg.d_model, mesh,
-                coords)
+        for part, entries in _tp_parts(cfg, spec, mesh, coords,
+                                       ops).items():
+            blk[part] = dict(blk[part], **entries)
     return out
 
 

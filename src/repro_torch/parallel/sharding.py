@@ -12,10 +12,12 @@ Where JAX places arrays with ``NamedSharding``s and lets GSPMD insert the
 collectives, the port slices each leaf to its rank (:func:`local_shard`),
 one process a rank, and issues the collectives itself: the serving engine
 sums the partial products of a row-parallel matmul over the "model" group
-(:func:`model_sum`, in place); the sharded train step gathers leaves,
-runs Megatron's f and g around tensor-parallel products and sums
-gradients over the batch axes through :class:`MeshComm`, whose
-operations have gradients.
+(:func:`model_sum`, in place; for the RWKV-6 output norm also its
+statistics, and for the RG-LRU gates a reduce-scatter); the sharded train
+step gathers leaves, runs Megatron's f and g around tensor-parallel
+products, sums the statistics and scatters the gates with gradients of
+their own, and sums gradients over the batch axes through
+:class:`MeshComm`, whose operations have gradients.
 """
 from __future__ import annotations
 
@@ -55,11 +57,13 @@ DEFAULT_RULES: Rules = {
 TP_ONLY_RULES: Rules = {**DEFAULT_RULES, "embed": None}
 
 # serving tensor parallelism (``ServingEngine(mesh=...)``): attention
-# heads, kv heads and the FFN hidden shard over "model"; the embedding and
-# the LM head stay replicated ("vocab" unsharded), so logits come back
-# replicated and sampling and the host loop are unchanged on every rank.
-# The only collectives are the sums after the row-parallel products (wo,
-# w_out; in an RG-LRU block also its gates)
+# heads, kv heads, RWKV-6 heads, the FFN hidden and MoE experts shard over
+# "model"; the embedding and the LM head stay replicated ("vocab"
+# unsharded), so logits come back replicated and sampling and the host
+# loop are unchanged on every rank.  The only collectives are the sums
+# after the row-parallel products (wo, w_out, an MoE rank's expert share;
+# in an RG-LRU block also its gates, in an RWKV-6 block its output norm's
+# statistics)
 SERVE_TP_RULES: Rules = {**TP_ONLY_RULES, "vocab": None}
 
 # ZeRO-3 + sequence sharding, no tensor parallelism
@@ -293,6 +297,13 @@ class ModelSum:
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
         return x
 
+    def scatter(self, x: torch.Tensor, ranges) -> tuple:
+        """A reduce-scatter: the sum over the "model" group of ``x``'s
+        partial products (in place), cut to this rank's ``ranges`` of the
+        last dim, one view a range."""
+        x = self(x)
+        return tuple(x[..., lo:hi] for lo, hi in ranges)
+
     @property
     def backend(self) -> str:
         import torch.distributed as dist
@@ -433,6 +444,22 @@ class MeshComm:
         of :class:`ModelSum`, on a copy)."""
         return _ReduceFromModel.apply(x, self)
 
+    def sum_over_model(self, x: torch.Tensor) -> torch.Tensor:
+        """A sum over "model" that every rank reads for its own share only
+        (the RWKV-6 output norm's statistics, each rank's partial sums over
+        its columns): the all-reduce forward and, since each rank's
+        gradient of the sum holds only what its own columns contribute,
+        the all-reduce of the gradients backward."""
+        return _SumOverModel.apply(x, self)
+
+    def scatter_to_model(self, x: torch.Tensor, ranges) -> tuple:
+        """The RG-LRU gates' reduce-scatter: the sum over "model" of
+        ``x``'s partial products, cut to this rank's ``ranges`` of the last
+        dim (:meth:`ModelSum.scatter`'s twin).  Backward, the ranks'
+        slices of the gradient gathered whole (each placed in zeros and
+        summed): every rank's partial product reaches every channel."""
+        return _ScatterToModel.apply(x, self, tuple(ranges))
+
     def reduce_grads(self, grads, specs) -> None:
         """Sum each gradient leaf in place over the batch axes its spec
         does not use (those its gather's backward did not sum)."""
@@ -477,3 +504,29 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return comm.sum_over(x, ("model",))
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.sum_over(g, ("model",)), None
+
+
+class _ScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, ranges):
+        ctx.comm, ctx.ranges, ctx.shape = comm, ranges, x.shape
+        full = comm.sum_over(x, ("model",))
+        return tuple(full[..., lo:hi].clone() for lo, hi in ranges)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        full = gs[0].new_zeros(ctx.shape)
+        for (lo, hi), g in zip(ctx.ranges, gs):
+            full[..., lo:hi] = g
+        return ctx.comm.all_reduce(full, ("model",)), None, None

@@ -41,14 +41,15 @@ one process a rank): tensor parallelism over the "model" axis, as the
 JAX engine's ``mesh=`` places params and caches with ``NamedSharding``s.
 Every rank runs this whole engine — scheduler, allocator, drafter,
 sampler — on its own slice of the weights (``transformer.shard_params``:
-heads, kv heads and the FFN / LRU hidden under ``sharding_rules``,
-default ``SERVE_TP_RULES``) and of the caches (``make_caches(mesh=)``),
-and the row-parallel products sum over the "model" group.  The
-embedding and the LM head stay whole, so every rank computes the same
-logits, samples the same tokens and stays in lockstep with the others.
-Over a "model" axis of size 1 nothing is cut and no collective runs: the
-engine is bit-identical to ``mesh=None``.  Replica groups, MoE and
-RWKV-6 under a mesh, and rules that shard anything else raise
+attention heads and kv heads, RWKV-6 heads, the FFN / LRU hidden and
+MoE experts under ``sharding_rules``, default ``SERVE_TP_RULES``) and of
+the caches (``make_caches(mesh=)``), and the row-parallel products (an
+MoE rank's expert share, RWKV-6's norm statistics) sum over the "model"
+group.  The embedding and the LM head stay whole, so every rank computes
+the same logits, samples the same tokens and stays in lockstep with the
+others.  Over a "model" axis of size 1 nothing is cut and no collective
+runs: the engine is bit-identical to ``mesh=None``.  Replica groups
+(dp > 1) and rules that shard "embed", "vocab" or "batch" still raise
 ``NotImplementedError`` (ROADMAP Queue 1 item 7b).  Graphs capture the
 collective in the step (the first, eager call makes the communicator);
 a backend whose collectives cannot be captured (gloo, as when several

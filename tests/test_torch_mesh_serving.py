@@ -18,7 +18,11 @@ deadline, so a hung rank fails the module instead of eating the clock.
 The attn config is shrink(qwen2-7b) at 8 heads / 4 kv heads of 8 so that
 TP=4 shards the kv dim; the hybrid config (recurrentgemma-2b) keeps its 1
 kv head, so the replicate fallback runs live (kv replicated, heads, FFN
-and LRU hidden sharded; at TP=4 its 4 heads shard one a rank).
+and LRU hidden sharded; at TP=4 its 4 heads shard one a rank).  The moe
+config, shrink(grok-1-314b), splits its 4 experts 2 and 1 a rank
+(expert parallelism) and at TP=4 its 4 heads over 2 whole kv heads; the
+rwkv config, shrink(rwkv6-1.6b), its 4 heads of 16 and the channel mix's
+hidden, with the output norm's statistics summed over the ranks.
 """
 import os
 import pickle
@@ -47,7 +51,11 @@ ARCHS = {
     # beyond JAX's matrix: TP=4 shards the 8 query heads, but 2 kv heads
     # do not divide 4 and stay whole (each rank's 2 heads read one of them)
     "attn_kv2": ("qwen2-7b", dict(num_heads=8, num_kv_heads=2, head_dim=8)),
+    "moe": ("grok-1-314b", {}),
+    "rwkv": ("rwkv6-1.6b", {}),
 }
+# the configs whose TP=1 engine is held bit for bit to mesh=None
+TP1_ARCHS = ("attn", "moe", "rwkv")
 ENGINE = dict(n_slots=2, max_seq=32, chunk=8, page_size=8)
 JOIN_S = 300
 
@@ -55,7 +63,8 @@ JOIN_S = 300
 # "sampled" cases draw seeded top-k tokens
 MATRIX = [(f"{arch}-{ck}-{impl}", arch,
            dict(impl=impl, cache_kind=ck))
-          for arch in ("attn", "hybrid") for ck in ("contiguous", "paged")
+          for arch in ("attn", "hybrid", "moe", "rwkv")
+          for ck in ("contiguous", "paged")
           for impl in ("xla", "pallas")]
 MATRIX += [("seeded", "attn", dict(impl="xla", cache_kind="paged",
                                    sampled=True))]
@@ -120,6 +129,22 @@ def _case(fn):
         return {"error": traceback.format_exc()}
 
 
+def _tp1(arch, ck, weights, mesh):
+    """``arch`` served on a mesh of one rank and without a mesh."""
+    kw = dict(impl="xla", cache_kind=ck)
+    base, beng = _serve(arch, weights, None, kw)
+    toks, eng = _serve(arch, weights, mesh, kw)
+    return dict(
+        tokens=toks, base_tokens=base,
+        caches=[{n: b.numpy() for n, b in c.items()} for c in eng.caches],
+        base_caches=[{n: b.numpy() for n, b in c.items()}
+                     for c in beng.caches],
+        census=eng.compilations, base_census=beng.compilations,
+        keys=_keys(eng), base_keys=_keys(beng),
+        bytes=eng.cache_bytes_per_device(),
+        base_bytes=beng.cache_bytes_per_device())
+
+
 def _rank_cases(world, weights):
     from repro_torch.analysis.retrace_guard import retrace_guard
     from repro_torch.launch.mesh import make_serving_mesh
@@ -128,22 +153,10 @@ def _rank_cases(world, weights):
     mesh = make_serving_mesh(tp=world, device_type="cpu")
     out = {}
     if world == 1:
-        for ck in ("contiguous", "paged"):
-            def tp1(ck=ck):
-                kw = dict(impl="xla", cache_kind=ck)
-                base, beng = _serve("attn", weights, None, kw)
-                toks, eng = _serve("attn", weights, mesh, kw)
-                return dict(
-                    tokens=toks, base_tokens=base,
-                    caches=[{n: b.numpy() for n, b in c.items()}
-                            for c in eng.caches],
-                    base_caches=[{n: b.numpy() for n, b in c.items()}
-                                 for c in beng.caches],
-                    census=eng.compilations, base_census=beng.compilations,
-                    keys=_keys(eng), base_keys=_keys(beng),
-                    bytes=eng.cache_bytes_per_device(),
-                    base_bytes=beng.cache_bytes_per_device())
-            out[f"tp1-{ck}"] = _case(tp1)
+        for arch in TP1_ARCHS:
+            for ck in ("contiguous", "paged"):
+                out[f"tp1-{arch}-{ck}"] = _case(
+                    lambda arch=arch, ck=ck: _tp1(arch, ck, weights, mesh))
         return out
     for name, arch, kw in MATRIX + EXTRA.get(world, []):
         def run(arch=arch, kw=kw):
@@ -183,6 +196,27 @@ def _rank_cases(world, weights):
                 graphs.capture_enabled = enabled
             return dict(raised=None)
         out["capture-gloo"] = _case(capture)
+
+        def rank_leaves():
+            # the engine given this rank's shards alone (each leaf cut
+            # before the engine sees it) serves as when given whole leaves
+            from repro_torch.models import module, transformer
+            cfg = _cfg("moe")
+            tree = convert.tree_from_jax(weights["moe"], "cpu")
+            specs = shd.tree_specs(mesh, transformer.param_axes(cfg),
+                                   shd.SERVE_TP_RULES,
+                                   module.param_shapes(transformer.model_spec(
+                                       cfg)))
+            cut = module.tree_map2(lambda t, sp: shd.local_shard(
+                t, sp, mesh).clone(), tree, specs)
+            eng = ServingEngine(cut, cfg, FamousConfig(impl="xla"),
+                                mesh=mesh, device="cpu", **ENGINE)
+            done = eng.run([Request(rid=i, tokens=t, max_new=5)
+                            for i, t, _ in _prompts(cfg)])
+            return dict(tokens={r.rid: tuple(r.out) for r in done},
+                        w_in=tuple(eng.params["layers"][0]["ffn"]["w_in"]
+                                   .shape))
+        out["rank-leaves"] = _case(rank_leaves)
     return out
 
 
@@ -304,11 +338,8 @@ def _same_tokens_everywhere(ranks, world, case):
     return res
 
 
-@pytest.mark.parametrize("cache_kind", ["contiguous", "paged"])
-def test_tp1_mesh_bit_identical(ranks, cache_kind):
-    """A mesh of one rank changes nothing: same tokens, bitwise-equal final
-    caches, the same executables and census, the same cache bytes."""
-    (got,) = _per_rank(ranks, 1, f"tp1-{cache_kind}")
+def _tp1_bit_identical(ranks, arch, cache_kind):
+    (got,) = _per_rank(ranks, 1, f"tp1-{arch}-{cache_kind}")
     assert got["tokens"] == got["base_tokens"]
     for a, b in zip(got["caches"], got["base_caches"]):
         assert a.keys() == b.keys()
@@ -319,7 +350,23 @@ def test_tp1_mesh_bit_identical(ranks, cache_kind):
     assert got["bytes"] == got["base_bytes"]
 
 
-@pytest.mark.parametrize("arch", ["attn", "hybrid"])
+@pytest.mark.parametrize("cache_kind", ["contiguous", "paged"])
+def test_tp1_mesh_bit_identical(ranks, cache_kind):
+    """A mesh of one rank changes nothing: same tokens, bitwise-equal final
+    caches, the same executables and census, the same cache bytes."""
+    _tp1_bit_identical(ranks, "attn", cache_kind)
+
+
+@pytest.mark.parametrize("cache_kind", ["contiguous", "paged"])
+@pytest.mark.parametrize("arch", ["moe", "rwkv"])
+def test_tp1_mesh_bit_identical_moe_and_rwkv6(ranks, arch, cache_kind):
+    """The same for expert parallelism and RWKV-6 heads: over a "model"
+    axis of one rank no expert, head or hidden is cut and no collective
+    added."""
+    _tp1_bit_identical(ranks, arch, cache_kind)
+
+
+@pytest.mark.parametrize("arch", ["attn", "hybrid", "moe", "rwkv"])
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
 @pytest.mark.parametrize("cache_kind", ["contiguous", "paged"])
 @pytest.mark.parametrize("tp", [2, 4])
@@ -362,6 +409,27 @@ def test_cache_bytes_per_device_shrink(ranks, tp, cache_kind):
         assert got["bytes"] * tp == want
 
 
+@pytest.mark.parametrize("arch", ["moe", "rwkv"])
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("cache_kind", ["contiguous", "paged"])
+def test_cache_bytes_per_device_moe_and_rwkv6(ranks, cache_kind, tp, arch):
+    """grok-1's attention caches shrink with the kv heads (2 of them: at
+    TP=4 they stay whole, as JAX's replicate fallback places them);
+    RWKV-6's wkv state shrinks with the heads while the token-shift rows
+    stay whole on every rank."""
+    cfg = _cfg(arch)
+    want = _per_rank(ranks, 1, f"tp1-{arch}-{cache_kind}")[0]["base_bytes"]
+    if arch == "moe":
+        kv_ways = tp if cfg.num_kv_heads % tp == 0 else 1
+        expect = want // kv_ways
+    else:
+        h, dh = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        state = cfg.num_layers * ENGINE["n_slots"] * h * dh * dh * 4
+        expect = want - state + state // tp
+    for got in _per_rank(ranks, tp, f"{arch}-{cache_kind}-xla"):
+        assert got["bytes"] == expect
+
+
 @pytest.mark.parametrize("cache_kind", ["contiguous", "paged"])
 def test_tp4_heads_sharded_kv_replicated(ranks, cache_kind):
     """8 query heads over 2 kv heads at TP=4: each rank's 2 heads read one
@@ -378,6 +446,15 @@ def test_tp2_monolithic_prefill(ranks, cache_kind):
         assert got["keys"]["prefill"] == [4, 8, 16]
 
 
+def test_engine_takes_the_rank_shards(ranks):
+    """Each rank may hand the engine its shards alone (a rank that drew
+    its weights leaf by leaf): shrink(grok-1-314b) then serves JAX's
+    tokens with 2 of 4 experts a rank."""
+    for got in _per_rank(ranks, 2, "rank-leaves"):
+        assert got["tokens"] == ranks[1]["moe-contiguous-xla"]
+        assert got["w_in"][0] == 2
+
+
 def test_gloo_sum_refuses_capture(ranks):
     """A gloo group's sum stages through the host, so a TP engine over it
     raises at its first call with capture enabled, on every rank."""
@@ -385,14 +462,15 @@ def test_gloo_sum_refuses_capture(ranks):
         assert got["raised"] and "cannot be captured" in got["raised"]
 
 
-@pytest.mark.parametrize("case", ["moe", "rwkv6", "dp2", "default-rules",
-                                  "tp-only-rules", "zero-seq-rules"])
+@pytest.mark.parametrize("case", ["dp2", "default-rules", "tp-only-rules",
+                                  "zero-seq-rules", "rwkv6-head-cut"])
 def test_item_7b_raises(case):
     """What tensor-parallel serving does not split raises naming ROADMAP
-    Queue 1 item 7b, before any weight is touched."""
+    Queue 1 item 7b, before any weight is touched: replica groups, rule
+    sets that shard "embed", "vocab" or "batch", and an RWKV-6 mesh whose
+    8 ranks would cut the shrunk config's 4 heads of 16 columns."""
     arch, mesh, rules = {
-        "moe": ("grok-1-314b", (1, 2), None),
-        "rwkv6": ("rwkv6-1.6b", (1, 2), None),
+        "rwkv6-head-cut": ("rwkv6-1.6b", (1, 8), None),
         "dp2": ("qwen2-7b", (2, 1), None),
         "default-rules": ("qwen2-7b", (1, 2), shd.DEFAULT_RULES),
         "tp-only-rules": ("qwen2-7b", (1, 2), shd.TP_ONLY_RULES),
@@ -402,3 +480,14 @@ def test_item_7b_raises(case):
         ServingEngine({}, shrink(get_config(arch)), FamousConfig(),
                       mesh=abstract_mesh(mesh, ("data", "model")),
                       sharding_rules=rules, device="cpu")
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("arch", ["grok-1-314b", "rwkv6-1.6b"])
+def test_moe_and_rwkv6_meshes_pass_the_check(arch, tp):
+    """MoE experts and RWKV-6 heads over "model" no longer raise item 7b:
+    the check passes at the full configs' widths too."""
+    from repro_torch.models import transformer
+    for cfg in (shrink(get_config(arch)), get_config(arch)):
+        transformer.check_mesh(cfg, abstract_mesh((1, tp), ("data", "model")),
+                               shd.SERVE_TP_RULES)

@@ -17,15 +17,20 @@ Every join has a deadline.
 
 The matrix: shrink(famous-bert) and shrink(qwen2-7b) at 8 / 4 heads of 8
 on meshes (data 2, model 1), (1, 2), (pod 2, 1, 1) and (2, 2) under the
-default, tensor-parallel-only and ZeRO-3 + sequence rule sets; data
-parallelism alone (with FSDP) for shrink(grok-1-314b), shrink(rwkv6-1.6b)
-and shrink(recurrentgemma-2b) (grok-1 at 32 rows of 16 tokens, so each
-rank routes whole 256-token MoE groups); a mesh of one rank bit for bit
-against ``mesh=None``; the refusals (item 7b's ``NotImplementedError`` for
-model > 1 on those three, ``ValueError`` for a batch that does not split);
+default, tensor-parallel-only and ZeRO-3 + sequence rule sets;
+shrink(grok-1-314b), shrink(rwkv6-1.6b) and shrink(recurrentgemma-2b)
+(grok-1 at 32 rows of 16 tokens, so each rank routes whole 256-token MoE
+groups) on (2, 1) (data parallelism with FSDP) and on (1, 2) and (2, 2)
+under the default and tensor-parallel-only rule sets (expert parallelism,
+RWKV-6 heads, the RG-LRU's channels and recurrentgemma-2b's query heads
+over its one whole kv head); a mesh of one rank bit for bit against
+``mesh=None``; ``ValueError`` for a batch that does not split;
 ``make_global_batch`` row by row; an elastic resize (save on (2, 1) at
-step 2, restore on (1, 2) and on (pod 2) and go on to JAX's step 4); and a
-fault on one rank of a 2-rank ``Trainer`` that every rank restores from.
+step 2, restore on (1, 2) and on (pod 2) and go on to JAX's step 4); a
+fault on one rank of a 2-rank ``Trainer`` that every rank restores from;
+and on 2 ranks, the MoE layer's expert shares against the whole layer and
+the gradients of ``MeshComm``'s statistics sum and gate reduce-scatter
+against the same functions computed on one process.
 """
 import hashlib
 import os
@@ -53,7 +58,7 @@ torch.set_num_threads(1)
 HEADS = dict(num_heads=8, num_kv_heads=4, head_dim=8)
 ARCHS = {"bert": ("famous-bert", HEADS), "qwen": ("qwen2-7b", HEADS),
          "grok": ("grok-1-314b", {}), "rwkv": ("rwkv6-1.6b", {}),
-         "rg": ("recurrentgemma-2b", {})}
+         "rg": ("recurrentgemma-2b", {}), "qwen3": ("qwen3-32b", HEADS)}
 SHAPE = ShapeConfig("sharded", 16, 4, "train")
 SHAPES = {"grok": ShapeConfig("sharded_moe", 16, 32, "train")}
 MESHES = {"2x1": (2, 1), "1x2": (1, 2), "pod2": (2, 1, 1), "2x2": (2, 2)}
@@ -61,6 +66,11 @@ RULES = {"default": shd.DEFAULT_RULES, "tp_only": shd.TP_ONLY_RULES,
          "zero_seq": shd.ZERO_SEQ_RULES}
 WORLD_MESHES = {2: ("2x1", "1x2", "pod2"), 4: ("2x2",)}
 DP_ONLY = ("grok", "rwkv", "rg")
+# the families a "model" axis splits with collectives of their own, on
+# the meshes and rule sets they train on with model > 1
+MODEL_AXIS = ("grok", "rwkv", "rg")
+MODEL_MESHES = {2: ("1x2",), 4: ("2x2",)}
+MODEL_RULES = ("default", "tp_only")
 STEPS, LONG = 2, 4
 TOL = 1e-4
 LR = 1e-3
@@ -252,6 +262,72 @@ def _trainer_case(weights, mesh, tmp, rank, lead):
     return out
 
 
+def _moe_input():
+    return torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 128, _cfg("grok").d_model)).astype(np.float32))
+
+
+def _moe_shares(weights, mesh):
+    """This rank's share of layer 0's MoE output on ``mesh`` (1, 2):
+    ``transformer.shard_params``' experts and range, without the sum."""
+    from repro_torch.models import moe, transformer
+    cfg = _cfg("grok")
+    p = transformer.shard_params(convert.tree_from_jax(weights["grok"], "cpu"),
+                                 cfg, mesh)["layers"][0]["ffn"]
+    share = moe.apply_moe({k: v for k, v in p.items() if k != "tp_sum"},
+                          _moe_input(), cfg)
+    return dict(share=share.numpy(), experts=p["tp_experts"],
+                w_in=p["w_in"].shape[0])
+
+
+# the ranges of the last dim each of 2 ranks keeps in the reduce-scatter
+SCATTER_RANGES = {0: ((0, 2), (4, 6)), 1: ((2, 4), (6, 8))}
+
+
+def _comm_inputs(rank):
+    """Rank ``rank``'s partial products and the weights of its loss."""
+    rng = np.random.default_rng(100 + rank)
+    x, w = (torch.from_numpy(rng.standard_normal((3, 8)).astype(np.float32))
+            for _ in range(2))
+    return x, w
+
+
+COMM_FNS = ("sum_over_model", "scatter_to_model")
+
+
+def _comm_losses(fn, xs, ws, ranks, reduce, scatter):
+    """Each rank's loss through ``fn`` (the statistics sum ``reduce`` or
+    the gate reduce-scatter ``scatter``) of its partial product, and the
+    function's outputs."""
+    out = []
+    for r, x, w in zip(ranks, xs, ws):
+        if fn == "sum_over_model":
+            y = reduce(x)
+            out.append(((y * w).sum(), (y,)))
+        else:
+            parts = scatter(x, SCATTER_RANGES[r])
+            out.append((sum((q * w[:, lo:hi]).sum() for q, (lo, hi)
+                            in zip(parts, SCATTER_RANGES[r])), parts))
+    return out
+
+
+def _comm_grads(mesh, rank):
+    """``MeshComm.sum_over_model`` and ``scatter_to_model`` on this rank's
+    inputs: each one's outputs and the gradient of its loss."""
+    comm = shd.MeshComm(mesh)
+    res = {}
+    for fn in COMM_FNS:
+        x, w = _comm_inputs(rank)
+        x.requires_grad_(True)
+        ((loss, outs),) = _comm_losses(fn, [x], [w], [rank],
+                                       comm.sum_over_model,
+                                       comm.scatter_to_model)
+        loss.backward()
+        res[fn] = dict(outs=[q.detach().numpy() for q in outs],
+                       grad=x.grad.numpy())
+    return res
+
+
 def _rank_cases(world, rank, weights, tmp):
     from repro_torch.launch.mesh import make_training_mesh
     if world == 1:
@@ -268,6 +344,14 @@ def _rank_cases(world, rank, weights, tmp):
                                                 STEPS)
                     return _result(metrics, state, ts, lead)
                 out[f"{arch}-{mname}-{rname}"] = _case(run)
+    for mname in MODEL_MESHES[world]:
+        for arch in MODEL_AXIS:
+            for rname in MODEL_RULES:
+                def tp(arch=arch, mesh=meshes[mname], rules=RULES[rname]):
+                    metrics, state, ts = _train(arch, weights, mesh, rules,
+                                                STEPS)
+                    return _result(metrics, state, ts, lead)
+                out[f"{arch}-{mname}-{rname}"] = _case(tp)
     if world == 4:
         return out
     for arch in DP_ONLY:
@@ -276,10 +360,14 @@ def _rank_cases(world, rank, weights, tmp):
                                         STEPS)
             return _result(metrics, state, ts, lead)
         out[f"{arch}-2x1-default"] = _case(dp)
-        out[f"refuse-{arch}"] = _case(lambda arch=arch: _raises(
-            lambda: step_lib.make_train_step(
-                _cfg(arch), FamousConfig(impl="pallas"), _tcfg(),
-                meshes["1x2"])))
+
+    def qk_norm():
+        metrics, state, ts = _train("qwen3", weights, meshes["1x2"], None,
+                                    STEPS)
+        return _result(metrics, state, ts, lead)
+    out["qwen3-1x2-default"] = _case(qk_norm)
+    out["moe-shares"] = _case(lambda: _moe_shares(weights, meshes["1x2"]))
+    out["comm-grads"] = _case(lambda: _comm_grads(meshes["1x2"], rank))
 
     def microbatches():
         from repro_torch.data import pipeline
@@ -429,7 +517,7 @@ def ranks(tmp_path_factory):
         for r in range(world):
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
                 results[world].append(pickle.load(f))
-    return results, jax_runs, jax_batch
+    return results, jax_runs, jax_batch, weights
 
 
 def _to_numpy(tree):
@@ -502,11 +590,68 @@ def test_data_parallel_trains_moe_and_recurrent_like_jax(ranks, arch):
     _held_to_jax(res, ranks[1][arch], STEPS, f"{arch} 2x1")
 
 
-@pytest.mark.parametrize("arch", DP_ONLY)
-def test_model_axis_on_moe_and_recurrent_raises_item_7b(ranks, arch):
-    for got in _per_rank(ranks, 2, f"refuse-{arch}"):
-        assert got["raised"] == "NotImplementedError", got
-        assert "item 7b" in got["message"], got
+@pytest.mark.parametrize("rules", MODEL_RULES)
+@pytest.mark.parametrize("mesh", ["1x2", "2x2"])
+@pytest.mark.parametrize("arch", MODEL_AXIS)
+def test_model_axis_trains_moe_and_recurrent_like_jax(ranks, arch, mesh,
+                                                       rules):
+    """A "model" axis of 2 over grok-1's experts, RWKV-6's heads and
+    channel-mix hidden, and the RG-LRU's channels and recurrentgemma-2b's
+    query heads (over its one whole kv head), with data parallelism on
+    (2, 2): JAX's unsharded step on every rank, all ranks' states equal."""
+    world = 4 if mesh == "2x2" else 2
+    res = _per_rank(ranks, world, f"{arch}-{mesh}-{rules}")
+    _held_to_jax(res, ranks[1][arch], STEPS, f"{arch} {mesh} {rules}")
+
+
+def test_qk_norm_trains_on_a_model_axis(ranks):
+    """qwen3's per-head q and k norm scales stay whole while the heads
+    split: each rank reads them for its own heads only, so they come
+    through Megatron's f and their gradients are summed over "model"
+    (without it the ranks' scales drift apart from the first step)."""
+    res = _per_rank(ranks, 2, "qwen3-1x2-default")
+    _held_to_jax(res, ranks[1]["qwen3"], STEPS, "qwen3 1x2")
+
+
+def test_moe_expert_shares_sum_to_the_whole_layer(ranks):
+    """Each of 2 ranks multiplies its 2 of the 4 experts (routing over
+    all 4 with the whole layer's capacity); the shares summed equal the
+    unsharded layer's output."""
+    from repro_torch.models import moe
+    res = _per_rank(ranks, 2, "moe-shares")
+    assert [tuple(g["experts"]) for g in res] == [(0, 2), (2, 4)]
+    assert all(g["w_in"] == 2 for g in res)
+    cfg = _cfg("grok")
+    p = {k: torch.tensor(v[0]) for k, v in
+         ranks[3]["grok"]["blocks"]["pos0"]["ffn"].items()}
+    whole = moe.apply_moe(p, _moe_input(), cfg).numpy()
+    np.testing.assert_allclose(res[0]["share"] + res[1]["share"], whole,
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("fn", COMM_FNS)
+def test_mesh_comm_gradients_match_one_process(ranks, fn):
+    """The RWKV-6 norm statistics' all-reduce (its backward an all-reduce)
+    and the RG-LRU gates' reduce-scatter (its backward the ranks' slices
+    gathered), each on 2 ranks, against the same function of both ranks'
+    inputs on one process under autograd: the outputs, and every rank's
+    input gradient of the sum of the ranks' losses."""
+    res = [got[fn] for got in _per_rank(ranks, 2, "comm-grads")]
+    xs, ws = zip(*(_comm_inputs(r) for r in range(2)))
+    xs = [x.requires_grad_(True) for x in xs]
+
+    def scatter(x, ranges):
+        full = xs[0] + xs[1]
+        return tuple(full[:, lo:hi] for lo, hi in ranges)
+
+    runs = _comm_losses(fn, xs, ws, range(2), lambda x: xs[0] + xs[1],
+                        scatter)
+    sum(loss for loss, _ in runs).backward()
+    for r, (got, (_, outs)) in enumerate(zip(res, runs)):
+        for a, b in zip(got["outs"], outs):
+            np.testing.assert_allclose(a, b.detach().numpy(), rtol=1e-6)
+        np.testing.assert_allclose(got["grad"], xs[r].grad.numpy(),
+                                   rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("where", ["step", "pipeline"])
