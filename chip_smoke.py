@@ -166,7 +166,18 @@ Phases, in order; any failure exits non-zero before the result line:
      run, qwen2-7b's and grok-1's cache bytes a rank times TP must equal
      TP=1's, and rwkv6-1.6b's be TP=1's with the wkv state cut TP ways;
      each slice's peak memory a rank and each spawn's seconds are
-     printed;
+     printed; the same ranks then serve, eagerly in f32, 18c: 2-layer
+     qwen2-7b (contiguous, paged) and one grok-1-314b layer under
+     TP_ONLY_RULES (the vocabulary tables cut over "model"; each rank's
+     weights held, drawing and serving, printed), 18d: 2-layer qwen2-7b
+     under ZERO_SEQ_RULES on model=2 and DEFAULT_RULES on (data=2,
+     model=2) (every gathered leaf gathered at each step), and 18e:
+     replica groups under SERVE_TP_RULES on (data=2) and (data=2,
+     model=2), 2-layer qwen2-7b (contiguous, paged) and one
+     recurrentgemma-2b unit: every rank's tokens must equal TP=1's (18e:
+     a contiguous cache's bytes a rank half of one group's, a paged one's
+     equal), every serving kernel launched on every rank, no plain
+     version run; each run's seconds are printed;
  19. duplicate page ids in monolithic paged prefill: 20 scatters of a
      stripe whose page-table row names the null page 126 times must leave
      every page its last stretch, and a shrunk grok-1-314b served
@@ -184,7 +195,9 @@ Phases, in order; any failure exits non-zero before the result line:
      checkpoint restored by ``elastic.reshard_restore`` on model=2 for
      step 3, qwen2-7b at TP=2 under TP_ONLY_RULES (20c), and on model=2
      under DEFAULT_RULES recurrentgemma-2b's 2 units and rwkv6-1.6b's 2
-     layers (B=1, S=2048, 2 steps; 20d).  On every
+     layers (B=1, S=2048, 2 steps; 20d); 20c and recurrentgemma-2b's
+     20d take the vocab-parallel embedding, head and loss (each rank's
+     vocabulary range printed).  On every
      rank each step's loss within 1e-5 and grad norm within 1e-4 of the
      reference (relative), the parameters after the last step within
      1e-4 of each leaf's norm, every training kernel launched and
@@ -213,7 +226,10 @@ recurrent families' rank shapes (phases 18 and 20): ``matmul_tiled`` at
 grok-1's fused widths 4096 (TP=2) and 2048 (TP=4), the serving kernels
 at its 24 / 4 and 12 / 2 heads of 128, ``wkv6_scan`` at 16 and 8 heads
 of the 256-token chunk, and the MHA kernels at a recurrentgemma-2b
-training rank's 5 / 1 heads of 256 (S=2048, window 2048); training
+training rank's 5 / 1 heads of 256 (S=2048, window 2048); a replica
+group's (phase 18e): ``matmul_tiled`` at T=2 (2 of 4 slots) and the
+decode kernel at B=2 on qwen2-7b's 28 / 4 and 14 / 2 and
+recurrentgemma-2b's 10 / 1 and 5 / 1 heads; training
 parity also a recurrentgemma-2b unit (S=3072) and 2 qwen3-32b layers;
 the training runs also recurrentgemma-2b (2 units) and rwkv6-1.6b (2
 layers) at B=1, S=2048.
@@ -403,6 +419,14 @@ GROK_TP_LAYOUTS = (("grok-1-314b TP=2", 24, 4, 128),
 WKV6_TP_BH = (16, 8)
 RG_TP_ATTN = (("recurrentgemma-2b TP=2", 1, 2048, 2048, 5, 1, 256, True,
                2048, 0),)
+# a replica group's decode shapes (phase 18e): 2 of the 4 slots, so the
+# fused projection at T=2 (qwen2-7b's width at data=2, TP=1 and at
+# (data=2, model=2)) and the decode kernel at B=2 on the group's heads
+DP_PROJ = ((2, 3584, 4608), (2, 3584, 2304))
+DP_LAYOUTS = (("qwen2-7b dp=2", 28, 4, 128), ("qwen2-7b (2,2)", 14, 2, 128),
+              ("recurrentgemma-2b dp=2", 10, 1, 256),
+              ("recurrentgemma-2b (2,2)", 5, 1, 256))
+DP_LENS = [1000, 2048]
 
 
 class SmokeFailure(RuntimeError):
@@ -650,6 +674,7 @@ def kernel_phase(torch, iters, seed):
         ulp gate.  Returns the first input set, the kernel's output and the
         plain version's."""
         tol = tol or ATTN_TOL[dt]
+        B = len(lens_list)
         e = torch.tensor([], dtype=dtype).element_size()
         scale, live = dh ** -0.5, sum(lens_list)
         lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
@@ -833,6 +858,7 @@ def kernel_phase(torch, iters, seed):
     tp_kernel_rows(torch, F, dts, randn, record, decode_row, gen, iters)
     family_tp_kernel_rows(torch, F, dts, randn, record, decode_row, gen,
                           iters)
+    dp_kernel_rows(torch, dts, randn, record, decode_row)
     torch.cuda.synchronize()
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
@@ -901,6 +927,19 @@ def family_tp_kernel_rows(torch, F, dts, randn, record, decode_row, gen,
     for args in RG_TP_ATTN:
         attention_rows(torch, F, dts, randn, record, max(5, iters // 5),
                        *args)
+
+
+def dp_kernel_rows(torch, dts, randn, record, decode_row):
+    """A replica group's decode shapes (phase 18e), drawn after every
+    other row: ``matmul_tiled`` at DP_PROJ (f32 and bf16) and the decode
+    kernel at B=2 (DP_LENS) on DP_LAYOUTS' heads, bf16 (heads of 256
+    held as recurrentgemma-2b's B=4 row is: DECODE_NEW_TOL, in ulps)."""
+    matmul_rows(torch, dts, randn, record, DP_PROJ)
+    for label, H, KV, dh in DP_LAYOUTS:
+        wide = {"tol": DECODE_NEW_TOL["bf16"], "ulp": True} if dh > 128 \
+            else {}
+        decode_row("bf16", torch.bfloat16, H, KV, dh, DP_LENS, f" {label}",
+                   **wide)
 
 
 def int8_kernel_rows(torch, gen, record, iters):
@@ -4134,7 +4173,26 @@ TP_SLICES = (("qwen2-7b", 2, "contiguous", SERVING_KERNELS, "split"),
               ("matmul_tiled",) + PAGED_KERNELS["fp"], "split"),
              ("rwkv6-1.6b", 2, "contiguous", ("wkv6_scan",), "rwkv"),
              ("rwkv6-1.6b", 2, "paged", ("wkv6_scan",), "rwkv"))
-TP_JOIN_S = 300
+# 18c: "vocab" over "model" (TP_ONLY_RULES), on the TP=2 and TP=4 meshes
+VOCAB_SLICES = (TP_SLICES[0], TP_SLICES[1], TP_SLICES[3])
+# 18d: the rule sets whose leaves are gathered at each step, by world
+# size: rule set, mesh shape; on 2-layer qwen2-7b, 3 requests of one chunk
+# and 3 new tokens each (every step gathers gigabytes through the host;
+# the third request lands in the second replica group's first slot)
+GATHER_RUNS = {2: ("ZERO_SEQ_RULES", (1, 2)), 4: ("DEFAULT_RULES", (2, 2))}
+GATHER_SLICES = (("qwen2-7b", 2, "contiguous", SERVING_KERNELS, None),)
+GATHER_TRAFFIC = ((40, 77, 100), 3)
+# 18e: replica groups under SERVE_TP_RULES, (data=2) on 2 ranks and
+# (data=2, model=2) on 4; a rank's cache bytes against one group's at the
+# same "model" size: "half" (per-slot caches cut over the groups) or
+# "whole" (page pools)
+DP_SLICES = (("qwen2-7b", 2, "contiguous", SERVING_KERNELS, "half"),
+             ("qwen2-7b", 2, "paged", ("matmul_tiled",) + PAGED_KERNELS["fp"],
+              "whole"),
+             ("recurrentgemma-2b", 3, "contiguous",
+              ("matmul_tiled", "decode_attention", "rglru_scan"), "half"))
+TRAFFIC = ((40, 129, 300, 77), 8)
+TP_JOIN_S = 420
 
 
 def mesh_phase(torch, seed):
@@ -4242,16 +4300,16 @@ def tp1_pair(torch, seed, mesh, arch, layers, max_new):
     return res
 
 
-def rank_params(torch, cfg, dtype, seed, mesh):
+def rank_params(torch, cfg, dtype, seed, mesh, rules=None):
     """This rank's shards of random weights on the card, in the spec
     tree's layout (``ServingEngine(mesh=)`` takes them as they are):
     leaf by leaf in the spec's order from one generator, each drawn
     whole (biases and norm scales then redrawn, as in ``random_params``),
-    cut to the rank's shard under SERVE_TP_RULES and copied, and the
-    whole leaf freed before the next draw.  Every rank draws the same
-    weights and holds its shards plus one whole leaf at a time (a whole
-    f32 grok-1 layer with its vocab tables is 26 GB); on a mesh of one
-    rank nothing is cut."""
+    cut to the rank's shard under ``rules`` (default SERVE_TP_RULES) and
+    copied, and the whole leaf freed before the next draw.  Every rank
+    draws the same weights and holds its shards plus one whole leaf at a
+    time (a whole f32 grok-1 layer with its vocab tables is 26 GB); on a
+    mesh of one rank nothing is cut."""
     from repro_torch.models import module, transformer
     from repro_torch.parallel import sharding as shd
 
@@ -4259,7 +4317,8 @@ def rank_params(torch, cfg, dtype, seed, mesh):
     gen = torch.Generator(device=dev).manual_seed(seed)
     spec = transformer.model_spec(cfg)
     specs = shd.tree_specs(mesh, module.logical_axes(spec),
-                           shd.SERVE_TP_RULES, module.param_shapes(spec))
+                           rules or shd.SERVE_TP_RULES,
+                           module.param_shapes(spec))
     coords = shd.mesh_coords(mesh)
 
     def draw(name, leaf, leaf_spec):
@@ -4279,13 +4338,36 @@ def rank_params(torch, cfg, dtype, seed, mesh):
     return walk(spec, specs)
 
 
-def tp_slices(torch, mesh, seed):
-    """TP_SLICES served on ``mesh`` in f32, eagerly (a gloo group's sum
-    cannot be captured): 4 requests of 40-300 tokens, 8 new each, 4 slots,
-    max_seq 512, chunk 128.  Per slice: tokens, kernel launches and plain
-    versions run on CUDA tensors, cache bytes, seconds, peak memory.
-    Every process draws the same weights from ``seed`` and keeps its
-    shards (``rank_params``)."""
+def held_gb(params) -> float:
+    """GB of the distinct tensor storages a serving layout holds (the
+    fused QKV weight's views count once)."""
+    seen = {}
+
+    def walk(x):
+        if isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, list):
+            for v in x:
+                walk(v)
+        elif hasattr(x, "untyped_storage"):
+            st = x.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+
+    walk(params)
+    return sum(seen.values()) / 1e9
+
+
+def tp_slices(torch, mesh, seed, slices=TP_SLICES, rules=None,
+              traffic=TRAFFIC):
+    """``slices`` (default TP_SLICES) served on ``mesh`` under ``rules``
+    (default SERVE_TP_RULES) in f32, eagerly (a gloo group's collectives
+    cannot be captured): ``traffic`` (prompt lengths, new tokens; 4
+    requests of 40-300 tokens, 8 new each), 4 slots, max_seq 512, chunk
+    128.  Per slice: tokens, kernel launches and plain versions run on
+    CUDA tensors, cache bytes, the weights the engine holds, seconds, peak
+    memory.  Every process draws the same weights from ``seed`` and keeps
+    its shards (``rank_params``)."""
     import numpy as np
 
     from repro_torch.configs.base import get_config
@@ -4295,25 +4377,27 @@ def tp_slices(torch, mesh, seed):
     from repro_torch.serve.engine import Request, ServingEngine
 
     out = {}
-    for arch, layers, kind, kernels, bytes_rule in TP_SLICES:
+    lens, max_new = traffic
+    for arch, layers, kind, kernels, bytes_rule in slices:
         cfg = dataclasses.replace(get_config(arch), num_layers=layers)
         torch.cuda.reset_peak_memory_stats()
-        tree = rank_params(torch, cfg, torch.float32, seed + 18, mesh)
+        tree = rank_params(torch, cfg, torch.float32, seed + 18, mesh, rules)
         draw_peak = torch.cuda.max_memory_allocated() / 1e9
         torch.cuda.reset_peak_memory_stats()
         rng = np.random.default_rng(seed + 18)
         prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, size=n)]
-                   for n in (40, 129, 300, 77)]
+                   for n in lens]
         engine = ServingEngine(tree, cfg, FamousConfig(impl="pallas"),
                                n_slots=4, max_seq=512, chunk=128,
                                cache_kind=kind, page_size=16, mesh=mesh,
-                               device="cuda")
+                               sharding_rules=rules, device="cuda")
         del tree
         torch.cuda.synchronize()
         lib.STATS.reset()
         t0 = time.perf_counter()
         with graphs.disable_capture():
-            done = sorted(engine.run([Request(rid=i, tokens=p, max_new=8)
+            done = sorted(engine.run([Request(rid=i, tokens=p,
+                                              max_new=max_new)
                                       for i, p in enumerate(prompts)]),
                           key=lambda r: r.rid)
         torch.cuda.synchronize()
@@ -4323,6 +4407,7 @@ def tp_slices(torch, mesh, seed):
             launches=dict(lib.STATS.launches),
             plain_on_cuda=dict(lib.STATS.plain_on_cuda),
             cache_bytes=engine.cache_bytes_per_device(),
+            held_gb=held_gb(engine.params),
             kernels=kernels, bytes_rule=bytes_rule,
             # the wkv state's bytes, which an RWKV-6 rank splits
             state_bytes=(4 * layers * 4 * cfg.d_model * cfg.rwkv_head_dim
@@ -4351,11 +4436,20 @@ def tp_rank(rank, world, tmp, seed):
         "gloo", store=dist.FileStore(str(Path(tmp) / "store"), world),
         rank=rank, world_size=world)
     try:
-        from repro_torch.launch.mesh import make_serving_mesh
+        from repro_torch.launch.mesh import make_mesh, make_serving_mesh
+        from repro_torch.parallel import sharding as shd
         torch.cuda.reset_peak_memory_stats()
-        res = dict(slices=tp_slices(torch, make_serving_mesh(tp=world),
-                                    seed),
-                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        tp = make_serving_mesh(tp=world)
+        res = dict(slices=tp_slices(torch, tp, seed))
+        res["18c"] = tp_slices(torch, tp, seed, VOCAB_SLICES,
+                               shd.TP_ONLY_RULES)
+        rules, shape = GATHER_RUNS[world]
+        res["18d"] = tp_slices(torch, make_mesh(shape, ("data", "model")),
+                               seed, GATHER_SLICES, getattr(shd, rules),
+                               GATHER_TRAFFIC)
+        res["18e"] = tp_slices(torch, make_serving_mesh(tp=world // 2, dp=2),
+                               seed, DP_SLICES)
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     except Exception:
         res = dict(error=traceback.format_exc())
     finally:
@@ -4364,21 +4458,29 @@ def tp_rank(rank, world, tmp, seed):
 
 
 def tp_ranks_phase(torch, seed):
-    """Phase 18b: TP_SLICES on a mesh of one rank in this process, then on
-    TP=2 and TP=4 meshes of spawned ranks sharing the card over gloo,
-    eagerly.  Every rank's tokens must equal the TP=1 engine's; every
-    serving kernel of a slice must launch on every rank and no plain
-    version run on CUDA tensors; qwen2-7b's and grok-1's cache bytes times
-    TP must equal TP=1's, and rwkv6-1.6b's must be TP=1's with the wkv
-    state cut TP ways.  Each slice's peak memory a rank and each spawn's
-    seconds are printed; every join has a deadline, and a rank still
-    running at it is killed."""
+    """Phase 18b–18e: TP_SLICES (and GATHER_SLICES at GATHER_TRAFFIC) on
+    a mesh of one rank in this process, then on meshes of 2 and 4
+    spawned ranks sharing the card over gloo, eagerly: 18b TP_SLICES on
+    TP=2 and TP=4, 18c VOCAB_SLICES there under TP_ONLY_RULES, 18d
+    GATHER_RUNS, 18e DP_SLICES on (data=2) and (data=2, model=2).  Every
+    rank's tokens must equal TP=1's; every serving kernel of a slice must
+    launch on every rank and no plain version run on CUDA tensors; cache
+    bytes a rank (``rank_runs_check``): 18b and 18c qwen2-7b's and
+    grok-1's times TP equal TP=1's, rwkv6-1.6b's TP=1's with the wkv
+    state cut TP ways; 18e a contiguous cache's half of one group's at
+    the same "model" size, a paged one's equal.  Each run's weights held,
+    peak memory a rank and seconds, and each spawn's seconds, are
+    printed; every join has a deadline, and a rank still running at it
+    is killed."""
     import torch.multiprocessing as mp
 
     from repro_torch.launch.mesh import make_serving_mesh
 
-    base = tp_slices(torch, make_serving_mesh(tp=1), seed)
-    out = {"tp1": base}
+    tp1 = make_serving_mesh(tp=1)
+    base = tp_slices(torch, tp1, seed)
+    base_gather = tp_slices(torch, tp1, seed, GATHER_SLICES,
+                            traffic=GATHER_TRAFFIC)
+    out = {"tp1": base, "tp1 18d traffic": base_gather}
     for world in (2, 4):
         tmp = tempfile.mkdtemp(prefix=f"tp{world}-")
         t0 = time.perf_counter()
@@ -4402,55 +4504,87 @@ def tp_ranks_phase(torch, seed):
         for r, got in enumerate(ranks):
             check("error" not in got, f"TP={world} rank {r}: "
                   f"{got.get('error')}")
-        res = dict(seconds=seconds,
-                   peak_mem_gb=[got["peak_mem_gb"] for got in ranks],
-                   slices={})
-        for name, want in base.items():
-            got = [rk["slices"][name] for rk in ranks]
-            tokens_ok = all(g["tokens"] == want["tokens"] and not g["errors"]
-                            for g in got)
-            launched = all(g["launches"][k] > 0 for g in got
-                           for k in g["kernels"])
-            plain_none = not any(v for g in got
-                                 for v in g["plain_on_cuda"].values())
+
+        def tp_bytes(want, g):
             state = want["state_bytes"]
-            bytes_ok = all({
-                "split": g["cache_bytes"] * world == want["cache_bytes"],
-                "rwkv": g["cache_bytes"] == (want["cache_bytes"] - state
-                                             + state // world),
-                None: True}[want["bytes_rule"]] for g in got)
-            res["slices"][name] = dict(
-                tokens_equal=tokens_ok, kernels_launched=launched,
-                no_plain=plain_none, cache_bytes_ok=bytes_ok,
-                cache_bytes=[g["cache_bytes"] for g in got],
-                launches=[{k: g["launches"][k] for k in g["kernels"]}
-                          for g in got],
-                seconds=[g["seconds"] for g in got],
-                draw_peak_gb=[g["draw_peak_gb"] for g in got],
-                peak_mem_gb=[g["peak_mem_gb"] for g in got])
-            ok = tokens_ok and launched and plain_none and bytes_ok
-            print(f"tensor parallel 18b TP={world} {name}: tokens equal to "
-                  f"TP=1 on every rank {tokens_ok}, kernels launched on "
-                  f"every rank {launched} "
-                  f"{res['slices'][name]['launches'][0]}, no plain version "
-                  f"{plain_none}, cache bytes a rank "
-                  f"{res['slices'][name]['cache_bytes'][0]} against TP=1 "
-                  f"{want['cache_bytes']}; rank seconds "
-                  f"{[round(x, 2) for x in res['slices'][name]['seconds']]} "
-                  f"against TP=1 {want['seconds']:.2f}; peak memory a rank "
-                  f"serving "
-                  f"{[round(x, 2) for x in res['slices'][name]['peak_mem_gb']]}"
-                  f" GB against TP=1 {want['peak_mem_gb']:.2f}, drawing the "
-                  f"weights "
-                  f"{[round(x, 2) for x in res['slices'][name]['draw_peak_gb']]}"
-                  f" GB against {want['draw_peak_gb']:.2f} "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
-            check(ok, f"TP={world} {name}: {res['slices'][name]}")
-        print(f"tensor parallel 18b TP={world}: {seconds:.1f} s for the "
-              f"spawn, peak memory a rank "
+            return {"split": g["cache_bytes"] * world == want["cache_bytes"],
+                    "rwkv": g["cache_bytes"] == (want["cache_bytes"] - state
+                                                 + state // world),
+                    None: True}[want["bytes_rule"]]
+
+        # one group's bytes at 18e's "model" size: TP=1's on (data=2),
+        # TP=2's rank 0 on (data=2, model=2)
+        group = (base if world == 2 else
+                 {n: dict(r, cache_bytes=r["cache_bytes"][0])
+                  for n, r in out["tp2"]["slices"].items()})
+
+        def dp_bytes(want, g):
+            one = group[want["name"]]["cache_bytes"]
+            return {"half": g["cache_bytes"] * 2 == one,
+                    "whole": g["cache_bytes"] == one}[g["bytes_rule"]]
+
+        res = dict(seconds=seconds,
+                   peak_mem_gb=[got["peak_mem_gb"] for got in ranks])
+        rules, shape = GATHER_RUNS[world]
+        for key, label, want, bytes_ok in (
+                ("slices", f"18b TP={world}", base, tp_bytes),
+                ("18c", f"18c TP={world} TP_ONLY_RULES", base, tp_bytes),
+                ("18d", f"18d {rules} on {shape}", base_gather, tp_bytes),
+                ("18e", f"18e replica groups (data=2, model={world // 2})",
+                 base, dp_bytes)):
+            res[key] = rank_runs_check(label, [rk[key] for rk in ranks],
+                                       want, bytes_ok)
+        print(f"tensor parallel 18b–18e world {world}: {seconds:.1f} s for "
+              f"the spawn, peak memory a rank "
               f"{[round(x, 2) for x in res['peak_mem_gb']]} GB", flush=True)
         out[f"tp{world}"] = res
     return out
+
+
+def rank_runs_check(label, got, base, bytes_ok):
+    """The runs of each rank (``got``, a list by rank of {name: run})
+    against the TP=1 runs ``base`` of the same names: tokens, every
+    kernel of the run launched on every rank, no plain version, and
+    ``bytes_ok(want, run)`` for each rank's cache bytes.  Prints a line a
+    run and fails on any miss."""
+    res = {}
+    for name in got[0]:
+        want = dict(base[name], name=name)
+        runs = [g[name] for g in got]
+        tokens_ok = all(g["tokens"] == want["tokens"] and not g["errors"]
+                        for g in runs)
+        launched = all(g["launches"][k] > 0 for g in runs
+                       for k in g["kernels"])
+        plain_none = not any(v for g in runs
+                             for v in g["plain_on_cuda"].values())
+        bytes_good = all(bytes_ok(want, g) for g in runs)
+        r = res[name] = dict(
+            tokens_equal=tokens_ok, kernels_launched=launched,
+            no_plain=plain_none, cache_bytes_ok=bytes_good,
+            cache_bytes=[g["cache_bytes"] for g in runs],
+            launches=[{k: g["launches"][k] for k in g["kernels"]}
+                      for g in runs],
+            held_gb=[g["held_gb"] for g in runs],
+            seconds=[g["seconds"] for g in runs],
+            draw_peak_gb=[g["draw_peak_gb"] for g in runs],
+            peak_mem_gb=[g["peak_mem_gb"] for g in runs])
+        ok = tokens_ok and launched and plain_none and bytes_good
+        print(f"tensor parallel {label} {name}: tokens equal to TP=1 on "
+              f"every rank {tokens_ok}, kernels launched on every rank "
+              f"{launched} {r['launches'][0]}, no plain version "
+              f"{plain_none}, cache bytes a rank {r['cache_bytes']} against "
+              f"TP=1 {want['cache_bytes']} ({bytes_good}); weights held a "
+              f"rank {[round(x, 2) for x in r['held_gb']]} GB against TP=1 "
+              f"{want['held_gb']:.2f}; rank seconds "
+              f"{[round(x, 2) for x in r['seconds']]} against TP=1 "
+              f"{want['seconds']:.2f}; peak memory a rank serving "
+              f"{[round(x, 2) for x in r['peak_mem_gb']]} GB against TP=1 "
+              f"{want['peak_mem_gb']:.2f}, drawing the weights "
+              f"{[round(x, 2) for x in r['draw_peak_gb']]} GB against "
+              f"{want['draw_peak_gb']:.2f} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        check(ok, f"{label} {name}: {r}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -4609,7 +4743,8 @@ def sharded_run(torch, key, mesh, rules, ref_path, seed, steps,
     the worst ||params - reference|| / ||reference|| over the whole
     parameter leaves against ``ref_path`` (the ranks' shards' sums of
     squares summed over the mesh), the launch counts of the steps, the
-    plain versions run on CUDA tensors, seconds and peak memory."""
+    plain versions run on CUDA tensors, seconds, the peak memory of the
+    whole run and of the steps alone, and the vocabulary ranges."""
     from repro_torch.kernels import lib
     from repro_torch.launch import train as train_launch
     from repro_torch.models.module import tree_leaves
@@ -4625,6 +4760,10 @@ def sharded_run(torch, key, mesh, rules, ref_path, seed, steps,
     state = state or built
     del built
     torch.cuda.synchronize()
+    # the build draws whole leaves before it keeps the rank's shards: the
+    # steps' own peak is read apart
+    build_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
     lib.STATS.reset()
     t0 = time.perf_counter()
     losses, gnorms = [], []
@@ -4637,6 +4776,7 @@ def sharded_run(torch, key, mesh, rules, ref_path, seed, steps,
                                      specs=ts.state_specs, mesh=mesh)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    step_peak = torch.cuda.max_memory_allocated() / 1e9
     launches = dict(lib.STATS.launches)
     plain = dict(lib.STATS.plain_on_cuda)
     comm = ts.layout.comm
@@ -4657,7 +4797,9 @@ def sharded_run(torch, key, mesh, rules, ref_path, seed, steps,
     worst = float((sq[:, 0] / sq[:, 1]).sqrt().max())
     res = dict(losses=losses, grad_norms=gnorms, worst_param_rel=worst,
                launches=launches, plain_on_cuda=plain, seconds=seconds,
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+               peak_mem_gb=max(build_peak, step_peak,
+                               torch.cuda.max_memory_allocated() / 1e9),
+               step_peak_gb=step_peak, vocab=ts.layout.vocab)
     del state, ts, ref
     gc.collect()
     torch.cuda.empty_cache()
@@ -4814,6 +4956,8 @@ def sharded_rank_phase(torch, seed):
                                 launched=launched, no_plain=plain_none,
                                 ok=ok, seconds=run["seconds"],
                                 peak_mem_gb=run["peak_mem_gb"],
+                                step_peak_gb=run["step_peak_gb"],
+                                vocab=run["vocab"],
                                 launches={k: run["launches"][k]
                                           for k in kernels}))
                 print(f"sharded training {name} (world {w}) rank {r}: "
@@ -4823,7 +4967,9 @@ def sharded_rank_phase(torch, seed):
                       f"params rel {run['worst_param_rel']:.2e} (tol 1e-4), "
                       f"launches {per[-1]['launches']}, no plain "
                       f"{plain_none}, {run['seconds']:.1f} s, peak memory "
-                      f"{run['peak_mem_gb']:.2f} GB "
+                      f"{run['peak_mem_gb']:.2f} GB (the steps alone "
+                      f"{run['step_peak_gb']:.2f} GB), vocabulary rows / "
+                      f"head columns {run['vocab']} "
                       f"{'ok' if ok else 'FAIL'}", flush=True)
                 check(ok, f"sharded training {name} rank {r}: {per[-1]}")
             out[name] = per

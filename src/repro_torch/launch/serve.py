@@ -19,7 +19,9 @@ the CPU.
 ``--tp N`` (or ``--mesh-shape D,T``) serves tensor-parallel, one process
 a rank: ``torchrun --nproc-per-node N -m repro_torch.launch.serve --tp
 N`` (an MoE config splits its experts over the ranks, rwkv6-1.6b its
-heads).  Every rank draws the same weights from ``--seed`` and keeps its
+heads); ``--mesh-shape D,T`` with D > 1 adds D replica groups of T
+ranks, each computing its own slots (SERVE_TP_RULES, as JAX's launcher;
+other rule sets through ``ServingEngine(sharding_rules=)``).  Every rank draws the same weights from ``--seed`` and keeps its
 shard; rank 0 prints the mesh, its cache bytes and the run.  ``--tp 1``
 (the default) runs without a mesh.  NCCL serves where every rank has a
 card of its own, with CUDA graphs; ranks that share one card run over
@@ -107,9 +109,10 @@ def main(argv=None):
                          "one process a rank (torchrun --nproc-per-node "
                          "N). 1 = unsharded baseline")
     ap.add_argument("--mesh-shape", default="",
-                    help="explicit 'data,model' mesh shape, e.g. '1,2' "
-                         "(overrides --tp; the data axis is reserved for "
-                         "engine replicas)")
+                    help="explicit 'data,model' mesh shape, e.g. '2,2' "
+                         "(overrides --tp; data > 1 makes replica groups: "
+                         "the slots' caches cut over them, each group "
+                         "computing its own slots)")
     ap.add_argument("--metrics", action="store_true",
                     help="attach an Observer and print the Prometheus text "
                          "exposition after the run")

@@ -69,8 +69,11 @@ def quantize_qkv(p: dict) -> dict:
     int8 (F, D) (the int8 kernel's transposed layout) and ``w_qkv_s`` its
     f32 (1, F) per-column scale.  Quantized from the weights' own dtype, as
     JAX quantizes the fused W on every call, so the two agree bit for bit;
-    at qwen2-7b this adds 28 x 3584 x 4608 bytes (462 MB) of int8."""
-    if "w_qkv_q" in p:
+    at qwen2-7b this adds 28 x 3584 x 4608 bytes (462 MB) of int8.  A
+    layer with no fused weight (a mesh gathers its leaves at each step)
+    is returned as it is: the projection quantizes the gathered weight at
+    each call, as JAX does."""
+    if "w_qkv_q" in p or "w_qkv" not in p:
         return p
     out = dict(p)
     out["w_qkv_q"], out["w_qkv_s"] = qkv_ops.quantize_weight(p["w_qkv"])
@@ -205,17 +208,35 @@ def _project(p, x, cfg: ModelConfig, fcfg: famous.FamousConfig, positions):
     return q, k, v
 
 
+def head_spread(H: int, KV: int, lo: int, hi: int) -> tuple:
+    """The kernels' head layout for a tensor-parallel rank that holds
+    query heads [lo, hi) of H while the KV kv heads stay whole (groups of
+    H / KV query heads): ``(KV, width, runs)``.  The rank's heads in kv
+    head k's group form the run (k, n), n heads; each of the KV groups of
+    the layout has ``width`` slots (the longest run), a run in the first
+    slots of its group and zeros in the others, so the kernels' head map
+    (q head j reads kv head ``j // width``) pairs every local head with
+    its own kv head of the replicated cache, whether the rank's heads lie
+    in one group or span several."""
+    group = H // KV
+    runs = tuple((k, min(hi, (k + 1) * group) - max(lo, k * group))
+                 for k in range(lo // group, (hi - 1) // group + 1))
+    return KV, max(n for _, n in runs), runs
+
+
 def _spread_heads(q, kv_head):
-    """A tensor-parallel rank whose query heads are sharded while the kv
-    heads are replicated (``transformer.shard_params``: ``kv_head`` = (KV,
-    k), all of the rank's heads in kv head k's group): its q (..., Hl, dh)
-    placed in group k of a (..., KV * Hl, dh) layout, zeros elsewhere, so
-    the kernels' head map (q head j reads kv head ``j // (H / KV)``) pairs
-    every local head with kv head k of the replicated cache.  The zero
+    """A rank's q (..., Hl, dh) placed in the (..., KV * width, dh) layout
+    of :func:`head_spread` (``kv_head``), zeros elsewhere.  The zero
     heads' outputs are dropped in :func:`_attn_out`."""
-    KV, k = kv_head
-    z = q.new_zeros(q.shape)
-    return torch.cat([z] * k + [q] + [z] * (KV - 1 - k), dim=-2)
+    KV, width, runs = kv_head
+    z = q.new_zeros(q.shape[:-2] + (width, q.shape[-1]))
+    pieces, at, nxt = [], 0, 0
+    for k, n in runs:
+        pieces += [z] * (k - nxt) + [q[..., at:at + n, :]]
+        if n < width:
+            pieces.append(z[..., :width - n, :])
+        at, nxt = at + n, k + 1
+    return torch.cat(pieces + [z] * (KV - nxt), dim=-2)
 
 
 def _out_proj(out, wo):
@@ -231,9 +252,9 @@ def _attn_out(out, p):
     one rank), after dropping the zero heads :func:`_spread_heads`
     added."""
     if "kv_head" in p:
-        KV, k = p["kv_head"]
-        hl = out.shape[-2] // KV
-        out = out[..., k * hl:(k + 1) * hl, :]
+        _, width, runs = p["kv_head"]
+        out = torch.cat([out[..., k * width:k * width + n, :]
+                         for k, n in runs], dim=-2)
     y = _out_proj(out, p["wo"])
     if "tp_sum" in p:
         y = p["tp_sum"](y)

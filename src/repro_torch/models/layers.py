@@ -124,9 +124,24 @@ def embed_spec(vocab: int, d: int) -> dict:
 
 
 def embed_lookup(p: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return p["embedding"].to(dtype)[tokens]
+    """The embedding rows of ``tokens`` in ``dtype``.  Vocab-parallel (a
+    rank holding rows ``vocab_range`` = [lo, hi) of the table): the
+    rank's rows, zero for the tokens outside its range, summed over the
+    "model" group by ``tp_sum`` (one rank contributes each row, so the sum
+    is exact)."""
+    table = p["embedding"].to(dtype)
+    if "vocab_range" not in p:
+        return table[tokens]
+    lo, hi = p["vocab_range"]
+    local = tokens - lo
+    inside = (local >= 0) & (local < hi - lo)
+    x = table[local.clamp(0, hi - lo - 1)]
+    x = torch.where(inside[..., None], x,
+                    torch.zeros((), dtype=x.dtype, device=x.device))
+    return p["tp_sum"](x)
 
 
 def unembed_logits(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """f32 logits through the tied embedding: x (..., d) @ embedding^T."""
+    """f32 logits through the tied embedding: x (..., d) @ embedding^T
+    (a vocab-parallel rank's rows give its columns)."""
     return x.to(torch.float32) @ p["embedding"].to(torch.float32).t()

@@ -28,18 +28,20 @@ int8) that global-attention layers address through a ``page_table``;
 layers, per slot even when the attention is paged — written in place (see
 ``models/attention.py``).
 
-Tensor parallelism (``ServingEngine(mesh=)``): :func:`param_axes` and
-:func:`cache_axes` name every leaf's logical axes, as JAX's do;
-:func:`shard_params` cuts the spec tree to one rank's shards (attention
-heads, RWKV-6 heads, the FFN / LRU hidden, MoE experts) and marks the
-parts whose products need a collective over the "model" group, and
-``make_caches(mesh=)`` allocates the rank's cache shapes.  The step
-functions below run unchanged on a rank's layout.
-
-Sharded training (``make_train_step(mesh=)``): :class:`TrainLayout`
-resolves the spec tree under a training rule set, and :func:`forward`
-gathers each unit's leaves inside the unit and runs the tensor-parallel
-blocks with Megatron's f and g.
+The mesh: :func:`param_axes` and :func:`cache_axes` name every leaf's
+logical axes, as JAX's do, and a :class:`MeshLayout` resolves them under
+a rule set: what stays split for compute (attention heads, RWKV-6 heads,
+the FFN / LRU hidden, MoE experts and the vocabulary over "model") and
+what is gathered inside the unit that reads it.  Serving
+(``ServingEngine(mesh=)``): :func:`shard_params` cuts the spec tree to
+one rank's shards and marks the parts whose products need a collective
+(:class:`ServeLayout`), ``make_caches(mesh=)`` allocates the rank's
+cache shapes (:func:`slot_range`: a replica group's slots), and the step
+functions below run on a rank's layout, gathering as it says
+(:func:`_layers`).  Sharded training (``make_train_step(mesh=)``):
+:class:`TrainLayout`, and :func:`forward` gathers each unit's leaves
+inside the unit and runs the tensor-parallel blocks with Megatron's f
+and g.
 """
 from __future__ import annotations
 
@@ -179,7 +181,7 @@ def quantize_qkv(params: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# logical axes and tensor parallelism
+# logical axes and the mesh
 # ---------------------------------------------------------------------------
 
 
@@ -210,81 +212,72 @@ def cache_axes(cfg: ModelConfig, cache_kind: str = "contiguous",
 
 # the logical axes tensor parallelism splits over "model": attention heads
 # and kv heads, RWKV-6's flat heads, the FFN / LRU hidden and the MoE
-# experts; a serving rule set that shards any other axis of the model or
-# its caches over more than one rank raises
+# experts
 TP_AXES = ("heads", "kv_heads", "heads_flat", "mlp", "experts")
+# what a rank keeps split for compute where it shards over "model": the
+# TP_AXES and the vocabulary (the vocab-parallel lookup, LM head and loss)
+SPLIT_AXES = TP_AXES + ("vocab",)
 
 
-def _item_7b(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with ROADMAP.md Queue 1 item "
-        f"7b (what tensor-parallel serving, the old slice 10, leaves out)")
+def check_mesh(cfg: ModelConfig, mesh, rules) -> None:
+    """Raise ``ValueError`` for a rule set that gives "batch" to "model":
+    tensor parallelism needs the "model" ranks to see the same rows (in
+    serving, the same slots).  Every other placement of every rule set of
+    ``parallel/sharding.py`` serves and trains, on any data, pod and model
+    axes."""
+    if "model" in shd.entry_axes(shd.rule_axes(mesh, rules, "batch")):
+        raise ValueError("a rule set that shards \"batch\" over \"model\" "
+                         "cannot run: the model ranks must see the same "
+                         "rows")
 
 
-def _check_rwkv_heads(cfg: ModelConfig, mesh, rules) -> None:
-    """An RWKV-6 rank holds whole heads: raise the item-7b
-    ``NotImplementedError`` where "heads_flat" (the D columns) and
-    "heads" (D / rwkv_head_dim) would split differently, which would cut
-    a head's columns."""
+def _rwkv_head_cut(cfg: ModelConfig, mesh, rules) -> bool:
+    """Whether RWKV-6's D columns ("heads_flat") split over more ranks
+    than its heads ("heads") do, so that a rank's columns would cut a
+    head: its time mix then runs on gathered leaves."""
     if RWKV6 not in layer_kinds(cfg):
-        return
+        return False
     d = cfg.d_model
     ways = [shd.sharded_size(shd.spec_for_axes(mesh, (name,), rules, (n,))[0],
                              mesh)
             for name, n in (("heads_flat", d), ("heads", d // cfg.rwkv_head_dim))]
-    if ways[0] != ways[1]:
-        raise _item_7b(f"{cfg.name}: RWKV-6 columns split {ways[0]} ways "
-                       f"over heads split {ways[1]} ways")
+    return ways[0] != ways[1]
 
 
-def check_mesh(cfg: ModelConfig, mesh, rules) -> None:
-    """Raise ``NotImplementedError`` (ROADMAP Queue 1 item 7b) for what
-    the port's tensor-parallel serving does not split: replica groups (a
-    data or pod axis of size > 1), a rule set that shards any axis but
-    :data:`TP_AXES` over more than one rank (FSDP's "embed", "vocab",
-    "batch"), and RWKV-6 heads cut inside a head.  MoE experts, RWKV-6
-    heads and every attention, FFN and RG-LRU split serve."""
-    if shd.dp_size(mesh) > 1:
-        raise _item_7b(f"a mesh with {shd.dp_size(mesh)} replica groups "
-                       f"(dp > 1)")
-    _check_rwkv_heads(cfg, mesh, rules)
-    trees = [param_axes(cfg)] + [cache_axes(cfg, k, d) for k, d in (
-        ("contiguous", "fp"), ("paged", "int8"))]
-    names = {a for t in trees for leaf in shd.axes_leaves(t) for a in leaf
-             if a is not None}
-    for name in sorted(names - set(TP_AXES)):
-        entry = shd.rule_axes(mesh, rules, name)
-        if shd.sharded_size(entry, mesh) > 1:
-            raise _item_7b(f"a rule sharding {name!r} over {entry!r}")
+def gather_spec(spec: tuple, axes: tuple, head_cut: bool) -> tuple:
+    """The entries of a leaf's ``spec`` (logical ``axes``) that are
+    gathered inside the unit that reads it, None elsewhere: every sharded
+    dim but a :data:`SPLIT_AXES` dim over "model" (split for compute;
+    RWKV-6's columns not where ``head_cut``) and the slot axis "batch" (a
+    rank computes its own slots)."""
+    def kept(entry, name):
+        return name == "batch" or (entry == "model" and name in SPLIT_AXES
+                                   and not (head_cut and name == "heads_flat"))
+    return tuple(None if kept(e, n) else e for e, n in zip(spec, axes))
 
 
-def check_train_mesh(cfg: ModelConfig, mesh, rules) -> None:
-    """Raise for what the sharded train step does not split: a rule set
-    that gives "batch" to "model" (``ValueError``: tensor parallelism
-    needs the "model" ranks to see the same rows) and RWKV-6 heads cut
-    inside a head (the item-7b ``NotImplementedError``).  Every config
-    trains on any data, pod and model axes under every rule set of
-    ``parallel/sharding.py``."""
-    if "model" in shd.entry_axes(shd.rule_axes(mesh, rules, "batch")):
-        raise ValueError("a rule set that shards \"batch\" over \"model\" "
-                         "cannot train: the model ranks must see the same "
-                         "rows")
-    _check_rwkv_heads(cfg, mesh, rules)
+def _compute_spec(spec: tuple, gspec: tuple) -> tuple:
+    """What stays split for compute: the entries the gather spec drops."""
+    return tuple(e if g is None else None for e, g in zip(spec, gspec))
+
+
+def _gathered(gspec: tuple) -> bool:
+    return any(e is not None for e in gspec)
 
 
 def _tp_parts(cfg: ModelConfig, spec: dict, mesh, coords: dict,
               ops: dict) -> dict:
     """The tensor-parallel entries of one block, by part, from its leaves'
-    specs ``spec`` (one layer's, no "layers" entry) on ``mesh``.  Where a
-    part's heads, flat heads, hidden or experts split over more than one
-    rank, the collectives its functions apply, from ``ops``: "sum" after
-    the row-parallel products (``tp_sum``), "stat" for RWKV-6's norm
-    statistics (``tp_stat``), "scatter" for the RG-LRU gates
-    (``tp_scatter``) and, in training, "in", Megatron's f (``tp_in``);
-    and the rank's ranges: its experts (``tp_experts``), LRU channels
-    (``tp_channels``), and ``kv_head`` = (KV, k) where its query heads
-    split over kv heads that stay whole, all of them in kv head k's
-    group (``attention._spread_heads``).  A part that stays whole gets
+    compute specs ``spec`` (one layer's, no "layers" entry) on ``mesh``.
+    Where a part's heads, flat heads, hidden or experts split over more
+    than one rank, the collectives its functions apply, from ``ops``:
+    "sum" after the row-parallel products (``tp_sum``), "stat" for
+    RWKV-6's norm statistics (``tp_stat``), "scatter" for the RG-LRU gates
+    (``tp_scatter``) and, in training, "in", Megatron's f (``tp_in``); and
+    the rank's ranges: its experts (``tp_experts``), LRU channels
+    (``tp_channels``), and, where its query heads split over kv heads
+    that stay whole, the kernels' head layout (``kv_head``,
+    :func:`attention.head_spread`).  A part that stays whole gets
     nothing."""
     def split(entry):
         return shd.sharded_size(entry, mesh) > 1
@@ -297,15 +290,9 @@ def _tp_parts(cfg: ModelConfig, spec: dict, mesh, coords: dict,
     if "attn" in spec and split(spec["attn"]["wq"][1]):
         a, H, KV = spec["attn"], cfg.num_heads, cfg.num_kv_heads
         parts["attn"] = dict(f, tp_sum=ops["sum"])
-        lo, hi = rank_range(a["wq"][1], H)
         if not split(a["wk"][1]) and KV > 1:
-            group = H // KV
-            if group % (hi - lo):
-                raise _item_7b(
-                    f"{cfg.name}: {hi - lo} query heads a rank over {KV} "
-                    f"replicated kv heads of {group} query heads each (a "
-                    f"rank's heads span two kv heads)")
-            parts["attn"]["kv_head"] = (KV, lo // group)
+            parts["attn"]["kv_head"] = attention.head_spread(
+                H, KV, *rank_range(a["wq"][1], H))
     if "ffn" in spec:
         w_in = spec["ffn"]["w_in"]
         if cfg.num_experts and split(w_in[0]):
@@ -325,6 +312,74 @@ def _tp_parts(cfg: ModelConfig, spec: dict, mesh, coords: dict,
     return parts
 
 
+def _block_names(cfg: ModelConfig) -> list:
+    return ([f"pos{i}" for i in range(len(cfg.pattern_unit))]
+            + [f"tail{i}" for i in range(len(cfg.tail_layers))])
+
+
+class MeshLayout:
+    """One rank's placement of the spec tree on ``mesh`` under ``rules``,
+    the part shared by the sharded train step (:class:`TrainLayout`) and
+    tensor-parallel serving (:class:`ServeLayout`).  JAX places the same
+    tree with ``tree_shardings``; GSPMD then computes the rest.  The port
+    keeps each leaf's shard (``specs``) and runs every sharded dim one of
+    two ways:
+
+      * split for compute: a :data:`TP_AXES` dim over "model" (Megatron's
+        tensor parallelism, the entries of :func:`_tp_parts` with the
+        collectives of :meth:`_ops`), and the vocabulary over "model"
+        (``vocab``: the rank's [lo, hi) of the embedding's and of the LM
+        head's, None where it stays whole; a vocab-parallel lookup, head
+        and loss);
+      * gathered whole inside the unit that reads it, at each use
+        (``gspecs``, :func:`gather_spec`): "embed" over "data" (FSDP) or
+        over every axis (ZERO_SEQ_RULES), grok-1's "expert_ff", RWKV-6
+        columns that would cut a head.  A part whose split is not whole
+        heads so runs on gathered leaves, with no collective of its own.
+
+    ``blocks``: per block ("pos<i>" of the unit, "tail<i>") its leaves'
+    gather specs and its parts' tensor-parallel entries (``compute``: its
+    leaves' compute specs, what stays split); ``comm``: the
+    collectives (:class:`~repro_torch.parallel.sharding.MeshComm`)."""
+
+    def __init__(self, cfg: ModelConfig, mesh, rules):
+        check_mesh(cfg, mesh, rules)
+        self.cfg, self.mesh = cfg, mesh
+        self.comm = c = shd.MeshComm(mesh, rules)
+        self.head_cut = _rwkv_head_cut(cfg, mesh, rules)
+        spec_tree = model_spec(cfg)
+        axes = module.logical_axes(spec_tree)
+        self.specs = shd.tree_specs(mesh, axes, rules,
+                                    module.param_shapes(spec_tree))
+        self.gspecs = module.tree_map2(
+            lambda s, a: gather_spec(s, a, self.head_cut), self.specs, axes)
+        cspecs = module.tree_map2(_compute_spec, self.specs, self.gspecs)
+        ops = self._ops()
+        self.blocks, self.compute = {}, {}
+        for name in _block_names(cfg):
+            stacked = name.startswith("pos")
+            g = self.gspecs["blocks"][name] if stacked else self.gspecs[name]
+            s = cspecs["blocks"][name] if stacked else cspecs[name]
+            if stacked:   # the stacked leaves lose their "layers" entry
+                g = module.tree_map(lambda x: x[1:], g)
+                s = module.tree_map(lambda x: x[1:], s)
+            self.blocks[name] = (g, _tp_parts(cfg, s, mesh, c.coords, ops))
+            self.compute[name] = s
+
+        def vocab(entry):
+            if shd.sharded_size(entry, mesh) == 1:
+                return None
+            return shd.shard_range(entry, cfg.vocab_size, mesh, c.coords)
+
+        self.vocab = {"embed": vocab(cspecs["embed"]["embedding"][0])}
+        self.vocab["head"] = (self.vocab["embed"] if cfg.tie_embeddings
+                              else vocab(cspecs["lm_head"]["w"][1]))
+
+    def _ops(self) -> dict:
+        """The collectives of the tensor-parallel parts (none here)."""
+        return {}
+
+
 # the leaves a tensor-parallel part reads for the rank's share only while
 # they stay whole over "model" (kv projections whose heads do not split,
 # qk-norm scales, the router, the RG-LRU's per-channel gate biases and
@@ -336,74 +391,40 @@ TRAIN_F_LEAVES = {"attn": ("wk", "wv", "bk", "bv", "q_norm", "k_norm"),
                   "tm": ("mu", "wA")}
 
 
-class TrainLayout:
+class TrainLayout(MeshLayout):
     """One rank's side of the sharded train step (``make_train_step(
-    mesh=)``): the spec of every leaf of the spec tree under ``rules``
-    (default ``DEFAULT_RULES``) on ``mesh``, and the collectives
-    (``comm``, a :class:`~repro_torch.parallel.sharding.MeshComm`).
-
-    Each rank holds every leaf as its ``local_shard``.  A leaf whose
-    :data:`TP_AXES` dim is sharded over "model" stays split for compute
-    (true tensor parallelism), and the block's part gets the entries of
-    :func:`_tp_parts`: Megatron's f (``tp_in``) on the last replicated
-    activation before its sharded products, g (``tp_sum``) after its
-    row-parallel one, the all-reduce with an all-reduce backward for
-    RWKV-6's norm statistics and the reduce-scatter with a gathering
-    backward for the RG-LRU gates.  The whole leaves such a part reads for
-    the rank's share only (:data:`TRAIN_F_LEAVES`) come through f
-    themselves.  Every other sharded dim — "embed" over "data" (FSDP),
-    "vocab" over "model", grok-1's "expert_ff" over "data", ZERO_SEQ's
-    "embed" over every axis — is gathered to whole inside the unit that
-    uses it, so remat gathers again; the gather's backward sums over the
-    batch axes and keeps the rank's slice.  Only a rank whose query heads
-    span two whole kv heads, and RWKV-6 columns cut inside a head, raise
-    the item-7b ``NotImplementedError``."""
+    mesh=)``) under ``rules`` (default ``DEFAULT_RULES``): the
+    :class:`MeshLayout` with Megatron's collectives, which have gradients
+    (``comm``'s): f (``tp_in``) on the last replicated activation before a
+    part's sharded products, g (``tp_sum``) after its row-parallel one,
+    the all-reduce with an all-reduce backward for RWKV-6's norm
+    statistics and the reduce-scatter with a gathering backward for the
+    RG-LRU gates.  The whole leaves such a part reads for the rank's share
+    only (:data:`TRAIN_F_LEAVES`) come through f themselves.  A gathered
+    dim's gradient is summed over the batch axes it spans and cut to the
+    rank's slice, so remat gathers again.  The vocabulary stays split over
+    "model": the lookup masks the tokens outside the rank's rows and sums
+    over "model" (g, whose backward is the identity, so each rank's table
+    gradient is its own rows'), the LM head is column-parallel behind f,
+    and ``losses.chunked_lm_loss`` takes the vocab-parallel cross
+    entropy."""
 
     def __init__(self, cfg: ModelConfig, mesh, rules=None):
-        rules = rules or shd.DEFAULT_RULES
-        check_train_mesh(cfg, mesh, rules)
-        self.cfg = cfg
-        self.comm = c = shd.MeshComm(mesh, rules)
-        spec_tree = model_spec(cfg)
-        axes = module.logical_axes(spec_tree)
-        self.specs = shd.tree_specs(mesh, axes, rules,
-                                    module.param_shapes(spec_tree))
-        sizes = self.comm.sizes
-
-        def split(entry, name):
-            return (name in TP_AXES and entry == "model"
-                    and sizes.get("model", 1) > 1)
-
-        def gather_spec(spec, names):
-            return tuple(None if split(e, n) else e
-                         for e, n in zip(spec, names))
-
-        gspecs = module.tree_map2(gather_spec, self.specs, axes)
-        ops = {"sum": c.reduce_from_model, "stat": c.sum_over_model,
-               "scatter": c.scatter_to_model, "in": c.copy_to_model}
-        # per block (stacked units' leaves lose their "layers" entry): the
-        # gather specs, the tensor-parallel entries of each part and its
-        # whole leaves that take f
-        self.blocks = {}
-        names = [f"pos{i}" for i in range(len(cfg.pattern_unit))]
-        names += [f"tail{i}" for i in range(len(cfg.tail_layers))]
-        for name in names:
-            stacked = name.startswith("pos")
-            g = gspecs["blocks"][name] if stacked else gspecs[name]
-            s = self.specs["blocks"][name] if stacked else self.specs[name]
-            if stacked:
-                g = module.tree_map(lambda x: x[1:], g)
-                s = module.tree_map(lambda x: x[1:], s)
-            parts = _tp_parts(cfg, s, mesh, c.coords, ops)
-            # a leaf stays split for compute where its gather spec drops
-            # an entry of its spec
-            whole = {part: tuple(
-                n for n in TRAIN_F_LEAVES.get(part, ())
-                if n in g[part] and g[part][n] == s[part][n])
+        super().__init__(cfg, mesh, rules or shd.DEFAULT_RULES)
+        self.whole = {}
+        for name, (g, parts) in self.blocks.items():
+            # a leaf is whole for compute where none of its dims stays
+            # split
+            self.whole[name] = {part: tuple(
+                n for n in TRAIN_F_LEAVES.get(part, ()) if n in g[part]
+                and not any(shd.sharded_size(e, mesh) > 1
+                            for e in self.compute[name][part][n]))
                 for part in parts}
-            self.blocks[name] = (g, parts, whole)
-        self.outer_specs = {k: gspecs[k] for k in
-                            ("embed", "final_norm", "lm_head") if k in gspecs}
+
+    def _ops(self) -> dict:
+        c = self.comm
+        return {"sum": c.reduce_from_model, "stat": c.sum_over_model,
+                "scatter": c.scatter_to_model, "in": c.copy_to_model}
 
     def _gather(self, tree, gspecs):
         return module.tree_map2(self.comm.gather_grad, tree, gspecs)
@@ -411,11 +432,11 @@ class TrainLayout:
     def block(self, p: dict, name: str) -> dict:
         """Block ``name`` ("pos<i>" of a unit, "tail<i>") from the rank's
         shards: gathered, and marked where it runs tensor-parallel."""
-        gspecs, parts, whole = self.blocks[name]
+        gspecs, parts = self.blocks[name]
         p = self._gather(p, gspecs)
         for part, entries in parts.items():
             q = dict(p[part], **entries)
-            for leaf in whole[part]:
+            for leaf in self.whole[name][part]:
                 q[leaf] = self.comm.copy_to_model(q[leaf])
             p[part] = q
         if self.cfg.num_experts and "ffn" in p and self.comm.dp > 1:
@@ -423,27 +444,100 @@ class TrainLayout:
         return p
 
     def outer(self, params: dict, tokens: bool = True) -> dict:
-        """``params`` with the leaves outside the units gathered whole:
-        the final norm, the LM head, and the embedding when ``tokens`` (a
-        stub frontend's embeddings never read it)."""
+        """``params`` with the leaves outside the units gathered: the
+        final norm, the LM head, and the embedding where it is read (for
+        ``tokens``, or as a tied head; a stub frontend's embeddings never
+        read it), each but its vocabulary dim where that splits over
+        "model".  A vocab-parallel embedding carries its rows' range and
+        g for :func:`layers.embed_lookup`."""
         out = dict(params)
-        for k, gspecs in self.outer_specs.items():
-            if k != "embed" or tokens:
-                out[k] = self._gather(params[k], gspecs)
+        for k in ("embed", "final_norm", "lm_head"):
+            if k in params and (k != "embed" or tokens
+                                or self.cfg.tie_embeddings):
+                out[k] = self._gather(params[k], self.gspecs[k])
+        if self.vocab["embed"] is not None and tokens:
+            out["embed"] = dict(out["embed"], vocab_range=self.vocab["embed"],
+                                tp_sum=self.comm.reduce_from_model)
         return out
 
 
-def _layer_specs(specs: dict, cfg: ModelConfig) -> list:
-    """Per-layer spec trees, in the serving layout's order, from the spec
-    tree's (stacked leaves lose their "layers" entry)."""
-    out = []
-    for _ in range(cfg.num_units):
-        for i in range(len(cfg.pattern_unit)):
-            out.append(module.tree_map(lambda s: s[1:],
-                                       specs["blocks"][f"pos{i}"]))
-    for i in range(len(cfg.tail_layers)):
-        out.append(specs[f"tail{i}"])
-    return out
+class ServeLayout(MeshLayout):
+    """Tensor-parallel serving's side of the :class:`MeshLayout`
+    (:func:`shard_params`; rules default ``SERVE_TP_RULES``): every
+    collective of a part is the in-place sum over the "model" group
+    (:class:`~repro_torch.parallel.sharding.ModelSum`).  Where a rule set
+    shards more than the :data:`TP_AXES`: each serving layer's leaves named in
+    ``gathers`` are gathered at every step inside the layer
+    (:meth:`layer`), the embedding's and the f32 LM head's likewise
+    (:meth:`embed`, :meth:`logits`), and a vocab-parallel head's logits
+    are gathered over "model" inside the step, as JAX's engine pins them
+    replicated, so the sampler and the host loop run as they are.
+    :meth:`shadow` issues a step's gathers alone, for a replica group
+    that does not own the slot a chunk or a prefill writes."""
+
+    def __init__(self, cfg: ModelConfig, mesh, rules=None):
+        super().__init__(cfg, mesh, rules or shd.SERVE_TP_RULES)
+        self.layer_names = [f"pos{i}" for i in range(len(cfg.pattern_unit))
+                            ] * cfg.num_units + [
+            f"tail{i}" for i in range(len(cfg.tail_layers))]
+        self.gathers = {name: {
+            part: {n: s for n, s in leaves.items() if _gathered(s)}
+            for part, leaves in g.items()
+            if any(_gathered(s) for s in leaves.values())}
+            for name, (g, _) in self.blocks.items()}
+        g = self.gspecs["embed"]["embedding"]
+        self.embed_gather = g if _gathered(g) else None
+        # the f32 head: the tied embedding transposed, or the LM head
+        g = (tuple(reversed(g)) if cfg.tie_embeddings
+             else self.gspecs["lm_head"]["w"])
+        self.head_gather = g if _gathered(g) else None
+
+    def _ops(self) -> dict:
+        msum = shd.model_sum(self.mesh)
+        return {} if msum is None else {"sum": msum, "stat": msum,
+                                        "scatter": msum.scatter}
+
+    def layer(self, i: int, p: dict) -> dict:
+        """Serving layer ``i``'s leaves ``p`` with the ones it gathers
+        gathered whole (a new dict; ``p`` itself where none is)."""
+        g = self.gathers[self.layer_names[i]]
+        if not g:
+            return p
+        p = dict(p)
+        for part, leaves in g.items():
+            p[part] = dict(p[part], **{n: self.comm.gather(p[part][n], s)
+                                       for n, s in leaves.items()})
+        return p
+
+    def embed(self, p: dict) -> dict:
+        if self.embed_gather is None:
+            return p
+        return dict(p, embedding=self.comm.gather(p["embedding"],
+                                                  self.embed_gather))
+
+    def logits(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """f32 logits of ``x`` through the rank's f32 head ``w``: gathered
+        first where the rule set cuts its embed dim; the vocab-parallel
+        columns then gathered over "model"."""
+        if self.head_gather is not None:
+            w = self.comm.gather(w, self.head_gather)
+        y = x.to(torch.float32) @ w
+        if self.vocab["head"] is not None:
+            y = self.comm.gather(y, (None,) * (y.ndim - 1) + ("model",))
+        return y
+
+    def shadow(self, params: dict, head: bool) -> None:
+        """The gathers of one prefill on the serving layout ``params``, in
+        its order, with nothing computed: the embedding's, every layer's
+        and, for a monolithic prefill (``head``), the LM head's.  A replica
+        group runs this for a slot another group owns, so that every
+        gather over the groups' axes meets its peers; every other
+        collective of a prefill stays inside the owning group."""
+        self.embed(params["embed"])
+        for i, p in enumerate(params["layers"]):
+            self.layer(i, p)
+        if head and self.head_gather is not None:
+            self.comm.gather(params["unembed_f32"], self.head_gather)
 
 
 def shard_params(params: dict, cfg: ModelConfig, mesh, rules=None) -> dict:
@@ -456,18 +550,21 @@ def shard_params(params: dict, cfg: ModelConfig, mesh, rules=None) -> dict:
     the rank's shard shape is taken as that shard (a rank that drew its
     weights leaf by leaf and kept only its shards).  Each part whose
     heads, flat heads, hidden or experts split over more than one rank
-    gets :func:`_tp_parts`' entries, every collective the sum over the
-    "model" group (:class:`~repro_torch.parallel.sharding.ModelSum`).
-    Over a "model" axis of size 1 nothing is cut and nothing added: the
-    result is ``prepare_params(params, cfg)``."""
+    gets :func:`_tp_parts`' entries, and the result holds the rank's
+    :class:`ServeLayout` as ``"layout"``.  Where the rule set shards more
+    — "vocab" over "model", "embed" over "data" or every axis, grok-1's
+    "expert_ff" — a vocab-parallel embedding carries its rows' range and
+    the "model" sum for :func:`layers.embed_lookup`, the f32 head keeps
+    the rank's columns, and an attention whose leaves are gathered at
+    each step is not fused (the projection fuses the gathered leaves).
+    Over a mesh of one rank nothing is cut, no collective runs and every
+    step computes what it computes on ``prepare_params(params, cfg)``."""
     if "layers" in params:
         raise ValueError("shard_params takes the spec tree (model_spec's "
                          "structure), not the serving layout")
-    rules = rules or shd.SERVE_TP_RULES
-    check_mesh(cfg, mesh, rules)
-    coords = shd.mesh_coords(mesh)
+    layout = ServeLayout(cfg, mesh, rules)
+    coords = layout.comm.coords
     shapes = module.param_shapes(model_spec(cfg))
-    specs = shd.tree_specs(mesh, param_axes(cfg), rules, shapes)
 
     def own(t, spec_shape):
         spec, whole = spec_shape
@@ -482,16 +579,78 @@ def shard_params(params: dict, cfg: ModelConfig, mesh, rules=None) -> dict:
         return t if part is t else part.clone()
 
     local = module.tree_map2(
-        own, params, module.tree_map2(lambda s, w: (s, w), specs, shapes))
+        own, params, module.tree_map2(lambda s, w: (s, w), layout.specs,
+                                      shapes))
     out = prepare_params(local, cfg)
-    msum = shd.model_sum(mesh)
-    ops = {} if msum is None else {"sum": msum, "stat": msum,
-                                   "scatter": msum.scatter}
-    for blk, spec in zip(out["layers"], _layer_specs(specs, cfg)):
-        for part, entries in _tp_parts(cfg, spec, mesh, coords,
-                                       ops).items():
+    for blk, name in zip(out["layers"], layout.layer_names):
+        for part, entries in layout.blocks[name][1].items():
             blk[part] = dict(blk[part], **entries)
+        if "attn" in layout.gathers[name]:
+            blk["attn"] = {k: v for k, v in blk["attn"].items()
+                           if k != "w_qkv"}
+    if layout.vocab["embed"] is not None:
+        out["embed"] = dict(out["embed"], vocab_range=layout.vocab["embed"],
+                            tp_sum=shd.model_sum(mesh))
+    out["layout"] = layout
     return out
+
+
+def slot_range(cfg: ModelConfig, n_slots: int, mesh, rules=None,
+               cache_kind: str = "contiguous", kv_dtype: str = "fp"):
+    """The slots this rank computes where its caches' slot axis ("batch")
+    splits over replica groups (the pod and data axes): ``(lo, hi,
+    entry)``, [lo, hi) and the spec entry that cuts them.  None where
+    every rank holds every slot: no per-slot cache leaf (global attention
+    on page pools, which have no slot axis and stay whole on every group,
+    as JAX replicates them) or a slot count the groups do not divide (the
+    replicate fallback)."""
+    if not any(ax[0] == "batch" for layer in cache_axes(cfg, cache_kind,
+                                                        kv_dtype)
+               for ax in layer.values()):
+        return None
+    entry = shd.spec_for_axes(mesh, ("batch",), rules or shd.SERVE_TP_RULES,
+                              (n_slots,))[0]
+    if shd.sharded_size(entry, mesh) == 1:
+        return None
+    lo, hi = shd.shard_range(entry, n_slots, mesh, shd.mesh_coords(mesh))
+    return lo, hi, entry
+
+
+class MeshCaches(list):
+    """A rank's caches (one dict a layer) with the leaves it holds cut
+    along a dim their layer does not split (RWKV-6's token-shift rows
+    under a rule set that shards "embed"): ``gathers`` names each layer's
+    and its gather spec, ``comm`` gathers them; :func:`_layers` gathers
+    them for the layer and writes the rank's shards back after it."""
+
+    def __init__(self, caches: list, gathers: list, comm):
+        super().__init__(caches)
+        self.gathers, self.comm = gathers, comm
+
+
+def _layers(params: dict, caches: list, cfg: ModelConfig):
+    """(kind, layer params, layer cache) of every layer, in order.  On a
+    mesh (the serving layout's ``"layout"``) each layer's leaves come
+    gathered where its rule set says (:meth:`ServeLayout.layer`), and a
+    cache leaf of :class:`MeshCaches` comes gathered whole, its shard
+    written back after the layer."""
+    layout = params.get("layout")
+    gathers = getattr(caches, "gathers", None)
+    for i, (kind, p, cache) in enumerate(zip(layer_kinds(cfg),
+                                             params["layers"], caches)):
+        if layout is not None:
+            p = layout.layer(i, p)
+        g = gathers[i] if gathers else None
+        if not g:
+            yield kind, p, cache
+            continue
+        comm = caches.comm
+        full = dict(cache, **{n: comm.gather(cache[n], s)
+                              for n, s in g.items()})
+        yield kind, p, full
+        for n, s in g.items():
+            cache[n].copy_(shd.local_shard(full[n], s, comm.mesh,
+                                           comm.coords))
 
 
 # ---------------------------------------------------------------------------
@@ -505,17 +664,25 @@ def _apply_ffn(p, x, cfg: ModelConfig):
     return layers.apply_mlp(p, x, cfg.act)
 
 
-def _ffn_residual(p, x, cfg: ModelConfig):
+def _ffn_residual(p, x, cfg: ModelConfig, slot_rows=None):
     """``x + FFN(ln2(x))``: the second half of an attention or RG-LRU
     block, on every path (full sequence, prefill, chunk, decode,
-    verify)."""
-    return x + _apply_ffn(p["ffn"], layers.apply_norm(p["ln2"], x, cfg.norm),
-                          cfg)
+    verify).  ``slot_rows`` (a replica group's decode or verify, see
+    :func:`decode_step`): an MoE FFN routes every slot's rows, gathered,
+    in one group as the unsharded step does, and keeps its own."""
+    h = layers.apply_norm(p["ln2"], x, cfg.norm)
+    if slot_rows is not None and cfg.num_experts:
+        gather, lo, hi = slot_rows
+        return x + _apply_ffn(p["ffn"], gather(h), cfg)[lo:hi]
+    return x + _apply_ffn(p["ffn"], h, cfg)
 
 
 def _embed_inputs(params, inputs, dtype):
     if not inputs.is_floating_point():
-        return layers.embed_lookup(params["embed"], inputs, dtype)
+        p = params["embed"]
+        if "layout" in params:   # a mesh's serving layout
+            p = params["layout"].embed(p)
+        return layers.embed_lookup(p, inputs, dtype)
     return inputs.to(dtype)  # frontend stub: precomputed embeddings
 
 
@@ -597,8 +764,13 @@ def forward(params: dict, inputs: torch.Tensor, cfg: ModelConfig,
 
 def logits_fn(params, x, cfg: ModelConfig):
     """f32 logits (..., vocab) from final hidden states, on either layout
-    (the serving layout holds its f32 LM head once)."""
+    (the serving layout holds its f32 LM head once; on a mesh whose head
+    is vocab-parallel, its columns' logits gathered over "model").  In the
+    sharded train step a vocab-parallel head gives the rank's columns
+    (``losses.chunked_lm_loss``)."""
     if "unembed_f32" in params:
+        if "layout" in params:
+            return params["layout"].logits(x, params["unembed_f32"])
         return x.to(torch.float32) @ params["unembed_f32"]
     if cfg.tie_embeddings:
         return layers.unembed_logits(params["embed"], x)
@@ -626,7 +798,8 @@ def _layer_cache(kind, cfg, batch, max_seq, dtype, device, cache_kind,
 def make_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype,
                 device="cuda", *, cache_kind: str = "contiguous",
                 page_size: int = 0, n_pages: int = 0,
-                kv_dtype: str = "fp", mesh=None, rules=None) -> list:
+                kv_dtype: str = "fp", mesh=None, rules=None,
+                slots: int | None = None) -> list:
     """One cache per layer.
 
     cache_kind="contiguous": a ``(batch, max_seq, kv, dh)`` K/V pair per
@@ -640,18 +813,36 @@ def make_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype,
     and recurrent state are O(window) or O(1) per slot and stay per slot
     in both kinds.  Given a ``mesh``, each leaf has this rank's shape of
     :func:`cache_axes` resolved under ``rules`` (default
-    ``SERVE_TP_RULES``), as JAX places the caches."""
+    ``SERVE_TP_RULES``), as JAX places the caches: the slot axis cut over
+    the replica groups (:func:`slot_range`), the kv heads, RWKV-6 heads
+    and LRU hidden over "model"; where a leaf is also cut along a dim its
+    layer does not split, the result is a :class:`MeshCaches`.
+    ``slots``: the slot count the placement is resolved for, where it is
+    not ``batch`` (a one-slot scratch cache placed as one slot of the
+    engine's)."""
     _check_supported(cfg)
     if mesh is not None:
-        full = make_caches(cfg, batch, max_seq, dtype, "meta",
+        rules = rules or shd.SERVE_TP_RULES
+        full = make_caches(cfg, slots or batch, max_seq, dtype, "meta",
                            cache_kind=cache_kind, page_size=page_size,
                            n_pages=n_pages, kv_dtype=kv_dtype)
-        specs = shd.tree_specs(mesh, cache_axes(cfg, cache_kind, kv_dtype),
-                               rules or shd.SERVE_TP_RULES, full)
-        return [{n: torch.zeros(shd.local_shape(buf.shape, spec[n], mesh),
-                                dtype=buf.dtype, device=device)
-                 for n, buf in cache.items()}
-                for cache, spec in zip(full, specs)]
+        axes = cache_axes(cfg, cache_kind, kv_dtype)
+        specs = shd.tree_specs(mesh, axes, rules, full)
+        cut = _rwkv_head_cut(cfg, mesh, rules)
+        caches, gathers = [], []
+        for cache, spec, ax in zip(full, specs, axes):
+            layer = {}
+            for n, buf in cache.items():
+                shape = list(shd.local_shape(buf.shape, spec[n], mesh))
+                if slots is not None and ax[n][0] == "batch":
+                    shape[0] = batch
+                layer[n] = torch.zeros(shape, dtype=buf.dtype, device=device)
+            caches.append(layer)
+            g = {n: gather_spec(spec[n], ax[n], cut) for n in cache}
+            gathers.append({n: s for n, s in g.items() if _gathered(s)})
+        if not any(gathers):
+            return caches
+        return MeshCaches(caches, gathers, shd.MeshComm(mesh, rules))
     if cache_kind not in ("contiguous", "paged"):
         raise ValueError(f"cache_kind {cache_kind!r}")
     if kv_dtype not in ("fp", "int8"):
@@ -712,7 +903,7 @@ def prefill(params, tokens, caches, cfg: ModelConfig,
     multiple of 64 (``ValueError`` otherwise, before its wkv runs).
     Returns (last-position logits (B, vocab) f32, caches)."""
     x = _embed_inputs(params, tokens, _compute_dtype(params))
-    for kind, p, cache in zip(layer_kinds(cfg), params["layers"], caches):
+    for kind, p, cache in _layers(params, caches, cfg):
         h = layers.apply_norm(p["ln1"], x, cfg.norm)
         if kind in (ATTN, LOCAL_ATTN):
             a, _ = attention.apply_attn_prefill(
@@ -761,7 +952,7 @@ def prefill_chunk(params, tokens, caches, slot, offset, n_valid,
     slot, offset, n_valid = (lib.device_scalar("prefill_chunk", v, dev)
                              for v in (slot, offset, n_valid))
     x = _embed_inputs(params, tokens, _compute_dtype(params))
-    for kind, p, cache in zip(layer_kinds(cfg), params["layers"], caches):
+    for kind, p, cache in _layers(params, caches, cfg):
         h = layers.apply_norm(p["ln1"], x, cfg.norm)
         if kind == ATTN and page_table is not None:
             a, _ = attention.apply_attn_chunk_paged(
@@ -794,7 +985,7 @@ def prefill_chunk(params, tokens, caches, slot, offset, n_valid,
 
 def decode_step(params, tokens, caches, cache_len, cfg: ModelConfig,
                 fcfg: FamousConfig = FamousConfig(), page_table=None,
-                active=None):
+                active=None, slot_rows=None):
     """tokens: (B,) int (or (B, D) embeddings); cache_len: (B,) int32 on
     the device; page_table: optional (B, n_p) int32 on the device, given
     when the global-attention caches are page pools; active: optional (B,) bool on the device.  Runs
@@ -803,23 +994,27 @@ def decode_step(params, tokens, caches, cache_len, cfg: ModelConfig,
     next chunk (or lands on the null page, or outside every later window).
     Recurrent state is read unconditionally and carried across prefill
     chunks, so it commits only where ``active`` (everywhere when None).
-    Returns (logits (B, vocab) f32, caches)."""
+    ``slot_rows``: where a replica group decodes its own slots (B of the
+    engine's, ``ServingEngine``), ``(gather, lo, hi)``: the gather of
+    every group's rows over the groups' axes and the group's slots, for
+    an MoE FFN (:func:`_ffn_residual`).  Returns (logits (B, vocab) f32,
+    caches)."""
     inputs = tokens[:, None] if tokens.ndim == 1 else tokens[:, None, :]
     x = _embed_inputs(params, inputs, _compute_dtype(params))
-    for kind, p, cache in zip(layer_kinds(cfg), params["layers"], caches):
+    for kind, p, cache in _layers(params, caches, cfg):
         h = layers.apply_norm(p["ln1"], x, cfg.norm)
         if kind == ATTN and page_table is not None:
             a, _ = attention.apply_attn_decode_paged(
                 p["attn"], h, cache, page_table, cache_len, cfg, fcfg)
-            x = _ffn_residual(p, x + a, cfg)
+            x = _ffn_residual(p, x + a, cfg, slot_rows)
         elif kind in (ATTN, LOCAL_ATTN):
             a, _ = attention.apply_attn_decode(
                 p["attn"], h, cache, cache_len, cfg, fcfg,
                 window=cfg.window if kind == LOCAL_ATTN else 0)
-            x = _ffn_residual(p, x + a, cfg)
+            x = _ffn_residual(p, x + a, cfg, slot_rows)
         elif kind == RGLRU:
             a, new = rglru.apply_rglru_decode(p["rec"], h, cache, cfg)
-            x = _ffn_residual(p, x + a, cfg)
+            x = _ffn_residual(p, x + a, cfg, slot_rows)
             _commit_state(cache, new, active)
         else:
             a, tm = rwkv6.apply_rwkv_time_mix_decode(p["tm"], h, cache, cfg)
@@ -834,7 +1029,8 @@ def decode_step(params, tokens, caches, cache_len, cfg: ModelConfig,
 
 
 def verify_step(params, tokens, caches, cache_len, cfg: ModelConfig,
-                fcfg: FamousConfig = FamousConfig(), page_table=None):
+                fcfg: FamousConfig = FamousConfig(), page_table=None,
+                slot_rows=None):
     """Speculative verify: decode W tokens per slot in ONE forward.
 
     tokens: (B, W) int — row b is ``[last_token, draft_1..draft_{W-1}]``
@@ -848,7 +1044,8 @@ def verify_step(params, tokens, caches, cache_len, cfg: ModelConfig,
     stay token-identical to plain decode.  Only global-attention stacks
     verify: a ring would overwrite its oldest rows before the accepted
     count is known, and recurrent state cannot roll back to an
-    intermediate position (the engine decodes plainly instead)."""
+    intermediate position (the engine decodes plainly instead).
+    ``slot_rows`` as in :func:`decode_step`."""
     kinds = set(layer_kinds(cfg))
     if kinds != {ATTN}:
         raise ValueError(f"verify_step only supports global-attention "
@@ -858,7 +1055,7 @@ def verify_step(params, tokens, caches, cache_len, cfg: ModelConfig,
     if page_table is None:   # every layer's write indices, made once
         writes = attention.verify_writes(cache_len, tokens.shape[1],
                                          caches[0]["k"].shape[1])
-    for p, cache in zip(params["layers"], caches):
+    for _, p, cache in _layers(params, caches, cfg):
         h = layers.apply_norm(p["ln1"], x, cfg.norm)
         if page_table is not None:
             a, _ = attention.apply_attn_verify_paged(
@@ -867,7 +1064,7 @@ def verify_step(params, tokens, caches, cache_len, cfg: ModelConfig,
             a, _ = attention.apply_attn_verify(p["attn"], h, cache,
                                                cache_len, cfg, fcfg,
                                                writes=writes)
-        x = _ffn_residual(p, x + a, cfg)
+        x = _ffn_residual(p, x + a, cfg, slot_rows)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     return logits_fn(params, x, cfg), caches
 

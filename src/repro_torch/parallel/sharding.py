@@ -13,7 +13,10 @@ collectives, the port slices each leaf to its rank (:func:`local_shard`),
 one process a rank, and issues the collectives itself: the serving engine
 sums the partial products of a row-parallel matmul over the "model" group
 (:func:`model_sum`, in place; for the RWKV-6 output norm also its
-statistics, and for the RG-LRU gates a reduce-scatter); the sharded train
+statistics, for the RG-LRU gates a reduce-scatter, for a vocab-parallel
+lookup its rows) and, through :class:`MeshComm`, gathers the leaves a
+rule set cuts along dims a layer does not split, a vocab-parallel head's
+logits and a replica group's slot rows; the sharded train
 step gathers leaves, runs Megatron's f and g around tensor-parallel
 products, sums the statistics and scatters the gates with gradients of
 their own, and sums gradients over the batch axes through
@@ -56,14 +59,13 @@ DEFAULT_RULES: Rules = {
 # pure tensor parallelism (no FSDP)
 TP_ONLY_RULES: Rules = {**DEFAULT_RULES, "embed": None}
 
-# serving tensor parallelism (``ServingEngine(mesh=...)``): attention
-# heads, kv heads, RWKV-6 heads, the FFN hidden and MoE experts shard over
-# "model"; the embedding and the LM head stay replicated ("vocab"
-# unsharded), so logits come back replicated and sampling and the host
-# loop are unchanged on every rank.  The only collectives are the sums
-# after the row-parallel products (wo, w_out, an MoE rank's expert share;
-# in an RG-LRU block also its gates, in an RWKV-6 block its output norm's
-# statistics)
+# serving tensor parallelism (``ServingEngine(mesh=...)``'s default):
+# attention heads, kv heads, RWKV-6 heads, the FFN hidden and MoE experts
+# shard over "model"; the embedding and the LM head stay replicated
+# ("vocab" unsharded), so the logits need no gather over "model".  The
+# only collectives over "model" are the sums after the row-parallel
+# products (wo, w_out, an MoE rank's expert share; in an RG-LRU block
+# also its gates, in an RWKV-6 block its output norm's statistics)
 SERVE_TP_RULES: Rules = {**TP_ONLY_RULES, "vocab": None}
 
 # ZeRO-3 + sequence sharding, no tensor parallelism
@@ -303,11 +305,6 @@ class ModelSum:
         last dim, one view a range."""
         x = self(x)
         return tuple(x[..., lo:hi] for lo, hi in ranges)
-
-    @property
-    def backend(self) -> str:
-        import torch.distributed as dist
-        return str(dist.get_backend(self.group))
 
 
 def model_sum(mesh) -> Optional[ModelSum]:

@@ -36,25 +36,43 @@ the paged kernels dequantize in their tiles.  ``FamousConfig(impl=
 "pallas", quant="int8")`` runs every QKV projection through the int8
 kernel on weights quantized once here.
 
-``mesh`` (``launch.mesh.make_serving_mesh(tp)``, a ``DeviceMesh`` over
-one process a rank): tensor parallelism over the "model" axis, as the
-JAX engine's ``mesh=`` places params and caches with ``NamedSharding``s.
-Every rank runs this whole engine — scheduler, allocator, drafter,
-sampler — on its own slice of the weights (``transformer.shard_params``:
-attention heads and kv heads, RWKV-6 heads, the FFN / LRU hidden and
-MoE experts under ``sharding_rules``, default ``SERVE_TP_RULES``) and of
-the caches (``make_caches(mesh=)``), and the row-parallel products (an
-MoE rank's expert share, RWKV-6's norm statistics) sum over the "model"
-group.  The embedding and the LM head stay whole, so every rank computes
-the same logits, samples the same tokens and stays in lockstep with the
-others.  Over a "model" axis of size 1 nothing is cut and no collective
-runs: the engine is bit-identical to ``mesh=None``.  Replica groups
-(dp > 1) and rules that shard "embed", "vocab" or "batch" still raise
-``NotImplementedError`` (ROADMAP Queue 1 item 7b).  Graphs capture the
-collective in the step (the first, eager call makes the communicator);
-a backend whose collectives cannot be captured (gloo, as when several
-ranks share one card) raises at capture, so such a mesh serves inside
-``graphs.disable_capture()``.
+``mesh`` (``launch.mesh.make_serving_mesh(tp, dp)``, a ``DeviceMesh``
+over one process a rank, ("data", "model") or ("pod", "data",
+"model")): the JAX engine's ``mesh=`` places params and caches with
+``NamedSharding``s under ``sharding_rules`` (default ``SERVE_TP_RULES``)
+and GSPMD computes the rest; here every rank holds the same shards
+(``transformer.shard_params``, ``make_caches(mesh=)``) under any rule set
+of ``parallel/sharding.py`` and runs this whole engine — scheduler,
+allocator, drafter, sampler — in lockstep with the others:
+
+  * tensor parallelism over "model": attention heads and kv heads (a
+    rank's query heads may span several whole kv heads), RWKV-6 heads,
+    the FFN / LRU hidden and MoE experts, the row-parallel products
+    summed over the "model" group;
+  * a vocabulary over "model" (TP_ONLY / DEFAULT / ZERO_SEQ rules):
+    the vocab-parallel lookup, and the head's logits gathered over
+    "model" inside the decode and verify steps, as JAX pins them
+    replicated, so every rank samples the same tokens;
+  * every other sharded dim ("embed" over "data" or every axis, grok-1's
+    "expert_ff", RWKV-6 columns that would cut a head) gathered at each
+    step inside the layer that reads it (``transformer.ServeLayout``);
+  * replica groups (the slot axis "batch" over "pod" and "data"): the
+    contiguous caches' and recurrent states' slots are cut over the
+    groups (``transformer.slot_range``); a decode or verify step computes
+    the group's slots and gathers the logits over the groups; a chunk,
+    a monolithic prefill or a clear of slot s runs on s's group, while
+    the other groups run the step's gathers alone
+    (``ServeLayout.shadow``).  Page pools have no slot axis: every group
+    holds the whole pool and computes every slot of an all-attention
+    stack (a hybrid stack's rings and states are per slot, so its
+    groups compute their own slots and write their slots' pages).
+
+Over a mesh of one rank nothing is cut and no collective runs: the
+engine is bit-identical to ``mesh=None``.  Graphs capture the
+collectives in the steps (the first, eager call makes the
+communicator); a backend whose collectives cannot be captured (gloo, as
+when several ranks share one card) raises at capture, so such a mesh
+serves inside ``graphs.disable_capture()``.
 
 The executables (``serve/graphs.py``): on a CUDA device the prefill chunk
 (or, monolithic, the prefill of each padded length, one graph a length),
@@ -96,6 +114,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Optional
 
 import numpy as np
@@ -168,8 +187,9 @@ class ServingEngine:
         ``speculative``: verify up to ``draft_k`` drafted tokens a step;
         ``drafter`` is any object with ``draft(seq, k) -> list`` (default
         :class:`~repro_torch.serve.draft.PromptLookupDrafter`).
-        ``mesh``: a serving mesh (see the module docstring); ``params``
-        must then be the spec tree."""
+        ``mesh``: a serving mesh and ``sharding_rules`` a rule set of
+        ``parallel/sharding.py`` (see the module docstring); ``params``
+        must then be the spec tree (or its rank's shards)."""
         if draft_k < 1:
             raise ValueError(f"draft_k must be at least 1, got {draft_k}")
         if fcfg.quant not in ("none", "int8"):
@@ -249,6 +269,11 @@ class ServingEngine:
             self.caches = transformer.make_caches(cfg, n_slots, max_seq,
                                                   dtype, self.device,
                                                   **mesh_kw)
+        # the slots this rank computes where the groups cut the slot axis
+        self._rows = None if mesh is None else transformer.slot_range(
+            cfg, n_slots, mesh, rules, cache_kind, kv_dtype)
+        self._first_slot = 0 if self._rows is None else self._rows[0]
+        self._comm = None if self._rows is None else shd.MeshComm(mesh, rules)
         # aliasing cached prompt blocks needs an architecture whose whole
         # prefix state lives in the page pool: rings and recurrent state are
         # per slot and not content-addressable, so hybrid and recurrent
@@ -301,17 +326,21 @@ class ServingEngine:
             # prompt is prefilled into one batch-1 contiguous scratch cache
             self._in["prefill_slot"] = static((1,), torch.int32, 2)
             self._prefill_tokens: dict[int, graphs.StaticInput] = {}
-            self._scratch = transformer.make_caches(cfg, 1, max_seq, dtype,
-                                                    self.device, **mesh_kw)
+            self._scratch = transformer.make_caches(
+                cfg, 1, max_seq, dtype, self.device, slots=n_slots,
+                **mesh_kw)
         self._pool = graphs.GraphPool(self.device)
         self._chunk_pool = graphs.GraphPool(self.device)
-        msum = shd.model_sum(mesh)
-        if msum is not None and msum.backend != "nccl":
-            # a gloo sum stages through the host: no graph can hold it
-            self._pool.blocker = self._chunk_pool.blocker = (
-                f"the {msum.backend} sum over this mesh's \"model\" group "
-                f"cannot be captured in a CUDA graph: serve it inside "
-                f"repro_torch.serve.graphs.disable_capture()")
+        if mesh is not None and math.prod(shd.axis_sizes(mesh).values()) > 1:
+            import torch.distributed as dist
+            backend = str(dist.get_backend())
+            if backend != "nccl":
+                # a gloo collective stages through the host: no graph can
+                # hold it
+                self._pool.blocker = self._chunk_pool.blocker = (
+                    f"the {backend} collectives over this mesh cannot be "
+                    f"captured in a CUDA graph: serve it inside "
+                    f"repro_torch.serve.graphs.disable_capture()")
         self._exec = {kind: graphs.Executable(
             functools.partial(self._step_fn, kind), self._pool)
             for kind in ("decode", "verify")}
@@ -385,9 +414,23 @@ class ServingEngine:
         """KV and state cache bytes resident on this rank's device: the
         pools and, for int8, their scale pools; under a mesh this rank's
         shards only (about 1/TP of the unsharded total where the kv-head
-        or hidden dims shard)."""
+        or hidden dims shard, 1/dp of the per-slot leaves where replica
+        groups cut the slots; a page pool stays whole on every group)."""
         return sum(buf.numel() * buf.element_size()
                    for cache in self.caches for buf in cache.values())
+
+    def _owns(self, slot: int) -> bool:
+        """Whether this rank's replica group computes ``slot``."""
+        return self._rows is None or self._rows[0] <= slot < self._rows[1]
+
+    def _local(self, t: torch.Tensor) -> torch.Tensor:
+        """The rows of a per-slot input (or the page table) that this
+        rank's group computes: a view, the whole tensor without groups."""
+        return t if self._rows is None else t[self._rows[0]:self._rows[1]]
+
+    def _shadow(self, head: bool) -> None:
+        """A prefill of a slot another group owns: its gathers alone."""
+        self.params["layout"].shadow(self.params, head)
 
     def _page_table(self):
         """The static device page table, copied into only when the
@@ -404,7 +447,7 @@ class ServingEngine:
         staged (slot, offset, n_valid), read on the device.  Returns
         nothing: the caches are updated in place."""
         sc = self._in["chunk_scalars"].tensor
-        kw = {"page_table": self._in["page_table"].tensor} \
+        kw = {"page_table": self._local(self._in["page_table"].tensor)} \
             if self.paged else {}
         transformer.prefill_chunk(self.params, self._in["chunk_tokens"].tensor,
                                   self.caches, sc[0:1], sc[1:2], sc[2:3],
@@ -423,8 +466,8 @@ class ServingEngine:
         transformer.prefill(self.params, self._prefill_tokens[length].tensor,
                             self._scratch, self.cfg, self.fcfg)
         slot = self._in["prefill_slot"].tensor
-        page_ids = (self._in["page_table"].tensor.index_select(0, slot)[0]
-                    if self.paged else None)
+        page_ids = (self._local(self._in["page_table"].tensor)
+                    .index_select(0, slot)[0] if self.paged else None)
         transformer.write_prefill_to_slot(self.caches, self._scratch, slot,
                                           self.cfg, page_ids=page_ids)
         return ()
@@ -445,9 +488,12 @@ class ServingEngine:
                             length=plen):
             if self.paged:
                 self._page_table()
-            self._prefill_tokens[plen].put(toks)
-            self._in["prefill_slot"].put((slot,))
-            self._exec["prefill"](plen)
+            if self._owns(slot):
+                self._prefill_tokens[plen].put(toks)
+                self._in["prefill_slot"].put((slot - self._first_slot,))
+                self._exec["prefill"](plen)
+            else:
+                self._shadow(head=True)
 
     def _clear_fn(self, key):
         """The ``"clear"`` executable's body: ``clear_slot`` at the staged
@@ -463,16 +509,22 @@ class ServingEngine:
         tokens.  Key ``(kind, k_cap)``: the sampler on that step's
         logits."""
         if key == kind:
-            kw = {"page_table": self._in["page_table"].tensor} \
+            kw = {"page_table": self._local(self._in["page_table"].tensor)} \
                 if self.paged else {}
             if kind == "decode":
                 step, kw["active"] = (transformer.decode_step,
-                                      self._in["active"].tensor)
+                                      self._local(self._in["active"].tensor))
             else:
                 step = transformer.verify_step
-            logits, _ = step(self.params, self._in["tokens"].tensor,
-                             self.caches, self._in["cache_len"].tensor,
+            if self._rows is not None and self.cfg.num_experts:
+                kw["slot_rows"] = (self._gather_slots, *self._rows[:2])
+            logits, _ = step(self.params,
+                             self._local(self._in["tokens"].tensor),
+                             self.caches,
+                             self._local(self._in["cache_len"].tensor),
                              self.cfg, self.fcfg, **kw)
+            if self._rows is not None:
+                logits = self._gather_slots(logits)
             return logits, torch.argmax(logits, dim=-1)
         sample = sampling.sample_tokens if kind == "decode" \
             else sampling.verify_tokens
@@ -480,6 +532,11 @@ class ServingEngine:
                       *(self._in[n].tensor for n in
                         ("temperature", "top_k", "seed", "index")),
                       k_cap=key[1])
+
+    def _gather_slots(self, x: torch.Tensor) -> torch.Tensor:
+        """Every group's slot rows of ``x`` (this group's, (B / dp, ...)),
+        gathered over the groups' axes."""
+        return self._comm.gather(x, (self._rows[2],) + (None,) * (x.ndim - 1))
 
     def _run_step(self, kind: str, active: list):
         """Run the ``kind`` step on the staged inputs, then its sampler
@@ -561,9 +618,9 @@ class ServingEngine:
             self.sched.mark_prefilled(slot)
             state = DECODE
         if (state == DECODE and self.sched.slots[slot].target == 0
-                and self._has_slot_state):
+                and self._has_slot_state and self._owns(slot)):
             # nothing to prefill: clear any stale per-slot state
-            self._in["clear_slot"].put(slot)
+            self._in["clear_slot"].put(slot - self._first_slot)
             self._exec["clear"]("clear")
         if state == DECODE:
             # generation restarts at the last prompt token: it is re-decoded
@@ -643,9 +700,13 @@ class ServingEngine:
             with self.obs.phase("prefill_chunk", slot=ch.slot,
                                 rid=self.sched.slots[ch.slot].req.rid,
                                 start=ch.start, n=ch.n):
-                self._in["chunk_tokens"].put(toks)
-                self._in["chunk_scalars"].put((ch.slot, ch.start, ch.n))
-                self._exec["prefill"]("prefill")
+                if self._owns(ch.slot):
+                    self._in["chunk_tokens"].put(toks)
+                    self._in["chunk_scalars"].put(
+                        (ch.slot - self._first_slot, ch.start, ch.n))
+                    self._exec["prefill"]("prefill")
+                else:
+                    self._shadow(head=False)
             self.cache_len[ch.slot] = ch.start + ch.n
             if self.sched.on_chunk(ch.slot, ch.n):
                 # prefill complete: decode restarts at the last token,

@@ -22,8 +22,11 @@ Warm-up and capture run under ``torch.cuda.set_sync_debug_mode("error")``
 (:func:`no_host_sync`): a device->host copy inside a step, whose value a
 graph would freeze, raises there.  A capture or replay that fails raises;
 nothing falls back to eager.  A pool whose steps cannot be captured at all
-(``GraphPool.blocker``: a tensor-parallel sum over a gloo group, which
-stages through the host) raises at its first call with capture enabled.  :func:`disable_capture` is the one switch to
+(``GraphPool.blocker``: a mesh's collectives over a gloo group — the
+"model" sums, the layout's gathers of sharded leaves, the logits gathers
+over "model" and over the replica groups — which stage through the host)
+raises at its first call with capture enabled; over NCCL they are
+captured in the step like any kernel.  :func:`disable_capture` is the one switch to
 the eager path, the counterpart of ``jax.disable_jit()``; on the CPU
 nothing is captured.
 

@@ -27,7 +27,6 @@ from repro_torch.core.famous import FamousConfig
 from repro_torch.kernels import lib
 from repro_torch.kernels.decode import chunk_prefill, decode_attn
 from repro_torch.kernels.qkv import qkv_proj
-from repro_torch.launch.mesh import abstract_mesh
 from repro_torch.models import module, transformer
 from repro_torch.serve import sampling
 from repro_torch.serve.engine import Request, ServingEngine
@@ -155,17 +154,14 @@ def test_seeded_tokens_match_jax_engine(timpl):
 @pytest.mark.parametrize("kw,exc,needle", [
     (dict(speculative=True, draft_k=0), ValueError,
      "draft_k must be at least 1"),
-    (dict(mesh=abstract_mesh((2, 1), ("data", "model"))),
-     NotImplementedError, "slice 10"),
     (dict(kv_dtype="int8"), ValueError, "int8' requires cache_kind='paged'"),
     (dict(prefix_cache=True), ValueError,
      "prefix_cache requires cache_kind='paged' and chunked"),
 ])
 def test_unported_options_raise(kw, exc, needle):
-    """Options of later slices raise naming the slice; int8 KV and the
-    prefix cache need the paged cache (and the prefix cache chunked
-    prefill); a speculative engine needs a draft of at least one token
-    (JAX asserts it)."""
+    """int8 KV and the prefix cache need the paged cache (and the prefix
+    cache chunked prefill); a speculative engine needs a draft of at least
+    one token (JAX asserts it)."""
     cfg, _ = _cfgs()
     with pytest.raises(exc, match=needle):
         ServingEngine({}, cfg, FamousConfig(), device="cpu", **kw)

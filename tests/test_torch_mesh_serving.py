@@ -11,8 +11,9 @@ engine on the same weights (``random_jax_params``: every leaf, biases and
 norm scales too, drawn from numpy) and each test compares one case: every
 rank's tokens equal the JAX engine's and rank 0's.  Beyond JAX's matrix:
 query heads sharded over replicated kv heads (8 / 2 heads at TP=4),
-monolithic prefill at TP=2, the NotImplementedError raises of ROADMAP
-item 7b and a gloo mesh refusing graph capture.  Every join has a
+monolithic prefill at TP=2 and a gloo mesh refusing graph capture (the
+other rule sets, replica groups, heads that span kv heads and the RWKV-6
+head cut: ``tests/test_torch_mesh_rules.py``).  Every join has a
 deadline, so a hung rank fails the module instead of eating the clock.
 
 The attn config is shrink(qwen2-7b) at 8 heads / 4 kv heads of 8 so that
@@ -462,31 +463,11 @@ def test_gloo_sum_refuses_capture(ranks):
         assert got["raised"] and "cannot be captured" in got["raised"]
 
 
-@pytest.mark.parametrize("case", ["dp2", "default-rules", "tp-only-rules",
-                                  "zero-seq-rules", "rwkv6-head-cut"])
-def test_item_7b_raises(case):
-    """What tensor-parallel serving does not split raises naming ROADMAP
-    Queue 1 item 7b, before any weight is touched: replica groups, rule
-    sets that shard "embed", "vocab" or "batch", and an RWKV-6 mesh whose
-    8 ranks would cut the shrunk config's 4 heads of 16 columns."""
-    arch, mesh, rules = {
-        "rwkv6-head-cut": ("rwkv6-1.6b", (1, 8), None),
-        "dp2": ("qwen2-7b", (2, 1), None),
-        "default-rules": ("qwen2-7b", (1, 2), shd.DEFAULT_RULES),
-        "tp-only-rules": ("qwen2-7b", (1, 2), shd.TP_ONLY_RULES),
-        "zero-seq-rules": ("qwen2-7b", (1, 2), shd.ZERO_SEQ_RULES),
-    }[case]
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        ServingEngine({}, shrink(get_config(arch)), FamousConfig(),
-                      mesh=abstract_mesh(mesh, ("data", "model")),
-                      sharding_rules=rules, device="cpu")
-
-
 @pytest.mark.parametrize("tp", [2, 4])
 @pytest.mark.parametrize("arch", ["grok-1-314b", "rwkv6-1.6b"])
 def test_moe_and_rwkv6_meshes_pass_the_check(arch, tp):
-    """MoE experts and RWKV-6 heads over "model" no longer raise item 7b:
-    the check passes at the full configs' widths too."""
+    """MoE experts and RWKV-6 heads over "model" pass the mesh check at
+    the shrunk and the full configs' widths."""
     from repro_torch.models import transformer
     for cfg in (shrink(get_config(arch)), get_config(arch)):
         transformer.check_mesh(cfg, abstract_mesh((1, tp), ("data", "model")),
