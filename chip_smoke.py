@@ -202,7 +202,28 @@ Phases, in order; any failure exits non-zero before the result line:
      reference (relative), the parameters after the last step within
      1e-4 of each leaf's norm, every training kernel launched and
      no plain version run; each rank's peak memory and each run's
-     seconds are printed.
+     seconds are printed;
+ 21. analysis (``repro_torch.analysis``): (a) ``python -m
+     repro_torch.analysis`` in this process (lint, the launch-contract
+     check of every kernel family at tiny shapes, the retrace guard on
+     three warmed engines) must exit 0; (b) every kernel row of phase 3
+     was relaunched once, untimed, with the contract checker on: no row
+     may have a violation, and each kernel's main-path row, its dh-256
+     rows and another row whose grid writes a workspace (split partials
+     or a second pass's input) print every launch's grid, threads,
+     dynamic + static shared memory against the budget, registers and
+     workspace;
+     (c) with the budget lowered to 48 KB the checker must refuse a
+     main-path launch that (b) shows needs more; (d) ``analytical.H100``'s
+     shared memory a block and SM count must equal the device's, and the
+     fixed cost of a kernel in a replayed CUDA graph is printed beside the
+     spec's launch latency; (e) the §VII model's predictions on
+     ``analytical.H100`` (autotuned tiles) are printed beside phase 3's
+     events: Table I's QKV_PM against ``matmul_tiled`` at T=64, D=768,
+     F=2304, its QK + SV against ``mha_forward`` (1 x 64 tokens, 8 heads of
+     96, full), and qwen2-7b's chunk (C=256 at offset 1792, 28 / 4 heads)
+     against ``chunk_prefill``; (f) ``examples/quickstart_torch.py`` runs as
+     a subprocess and must exit 0.
 
 The bf16 rows of the decode kernels at recurrentgemma-2b's heads and at
 their range boundaries (contiguous and paged, against the plain version
@@ -427,6 +448,11 @@ DP_LAYOUTS = (("qwen2-7b dp=2", 28, 4, 128), ("qwen2-7b (2,2)", 14, 2, 128),
               ("recurrentgemma-2b dp=2", 10, 1, 256),
               ("recurrentgemma-2b (2,2)", 5, 1, 256))
 DP_LENS = [1000, 2048]
+# Table I's topology (SL=64, d_model=768, h=8; examples/quickstart.py), for
+# the analytical model's predictions (phase 21e)
+TABLE_ONE_PROJ = ((64, 768, 3 * 768),)
+TABLE_ONE_ATTN = ("Table I", 1, 64, 64, 8, 8, 96, False, 0, 0)
+SMEM_LOW = 48 * 1024     # phase 21c's lowered budget
 
 
 class SmokeFailure(RuntimeError):
@@ -637,12 +663,14 @@ def kernel_phase(torch, iters, seed):
                     or library_ms
         plain_ms = time_ms(torch, plain, sets, max(3, n_iter // 4))
         b_ms, b_by = bound(nbytes, flops, ops_dt or dt)
+        contract = contract_check(torch, fn, sets[0])
         row = dict(name=name, shape=shape, dtype=dt, max_abs_err=err, tol=tol,
                    max_ulps=ulps, tol_share=share, ok=ok, ms=ms,
                    timed_by=timed_by,
                    plain_ms=plain_ms, library_ms=library_ms, device_ms=dev_ms,
                    bit_identical=identical,
-                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
+                   contract=contract)
         rows.append(row)
         same = "" if identical is None else \
             f" relaunch {'bit-identical' if identical else 'DIFFERS'}"
@@ -859,10 +887,32 @@ def kernel_phase(torch, iters, seed):
     family_tp_kernel_rows(torch, F, dts, randn, record, decode_row, gen,
                           iters)
     dp_kernel_rows(torch, dts, randn, record, decode_row)
+    # Table I's projection and attention, for phase 21e's model
+    matmul_rows(torch, dts, randn, record, TABLE_ONE_PROJ)
+    attention_rows(torch, F, dts, randn, record, max(5, iters // 5),
+                   *TABLE_ONE_ATTN)
     torch.cuda.synchronize()
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
     return rows
+
+
+def contract_check(torch, fn, inputs):
+    """One untimed call of ``fn(*inputs)`` with the launch-contract
+    checker on: every launch it made (``kernel_check.Launch`` fields and
+    the wrapper) and its violations (None: none)."""
+    from repro_torch.analysis import kernel_check
+
+    violations = None
+    with kernel_check.checking(True), kernel_check.collecting() as seen:
+        try:
+            fn(*inputs)
+        except kernel_check.KernelContractError as e:
+            violations = str(e)
+    torch.cuda.synchronize()
+    return dict(violations=violations, launches=[
+        dict(dataclasses.asdict(launch), wrapper=wrapper)
+        for wrapper, launch in seen])
 
 
 def matmul_rows(torch, dts, randn, record, shapes):
@@ -4978,6 +5028,216 @@ def sharded_rank_phase(torch, seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: analysis (repro_torch.analysis and the §VII model)
+# ---------------------------------------------------------------------------
+
+# each kernel's main-path row in phase 3 (its shape's prefix and dtype), as
+# the kernels JSON line reads it
+MAIN_SHAPE = {"matmul_tiled": "T=4 ", "matmul_tiled_int8": "T=4 ",
+              "decode_attention": "B=4",
+              "chunk_prefill": "C=256 offset=1792",
+              "mha_forward": "famous-bert", "mha_bwd_dq": "famous-bert",
+              "mha_bwd_dkv": "famous-bert",
+              "paged_decode_attention": "B=4",
+              "paged_decode_attention_int8": "B=4",
+              "paged_chunk_prefill": "C=256 offset=1792",
+              "paged_chunk_prefill_int8": "C=256 offset=1792",
+              "rglru_scan": "B=1 S=256",
+              "wkv6_scan": "BH=32 S=256 dh=64 chunk=64 s0=random"}
+# the dtypes the main path hands each kernel: the RG-LRU's a and b are f32
+# in a bf16 model
+MAIN_DT = {"matmul_tiled_int8": "int8", "rglru_scan": "f32"}
+
+
+def main_row(rows, name):
+    dt = MAIN_DT.get(name, "bf16")
+    return next(r for r in rows if r["name"] == name and r["dtype"] == dt
+                and r["shape"].startswith(MAIN_SHAPE[name]))
+
+
+def analysis_phase(torch, rows, seed):
+    """Phase 21 (see the module docstring): the analysis CLI, the contract
+    check of phase 3's launches, a lowered budget refused, the H100 spec
+    against the device, the §VII model beside phase 3's events, and the
+    quickstart twin."""
+    import os
+
+    from repro_torch.analysis import kernel_check
+    from repro_torch.analysis.__main__ import main as analysis_main
+    from repro_torch.core import analytical
+    from repro_torch.kernels import lib
+    from repro_torch.kernels.decode import chunk_prefill
+    from repro_torch.kernels.scan import linear_scan
+    from repro_torch.serve import graphs
+
+    res = {}
+    # (a) the CLI, on the card
+    t0 = time.perf_counter()
+    rc = analysis_main([])
+    res["cli_rc"], res["cli_s"] = rc, time.perf_counter() - t0
+    print(f"analysis (a): python -m repro_torch.analysis exit {rc} in "
+          f"{res['cli_s']:.1f}s {'ok' if rc == 0 else 'FAIL'}", flush=True)
+    check(rc == 0, f"python -m repro_torch.analysis exited {rc}")
+
+    # (b) every kernel row's checked relaunch
+    budget = kernel_check.smem_budget()
+    bad = [(r["name"], r["shape"], r["dtype"], r["contract"]["violations"])
+           for r in rows if r["contract"]["violations"]
+           or not r["contract"]["launches"]]
+    n_launches = sum(len(r["contract"]["launches"]) for r in rows)
+    checked = {r["name"] for r in rows if r["contract"]["launches"]}
+    print(f"analysis (b): {len(rows)} kernel rows, {n_launches} launches "
+          f"checked (budget {budget} B), {len(bad)} with a violation or no "
+          f"record", flush=True)
+    shown = []
+    for name in lib.KERNELS:
+        main = main_row(rows, name)
+        # another row of the main dtype whose grid writes a workspace
+        # (split partials, or a second pass's input)
+        ws_row = next((r for r in rows if r["name"] == name
+                       and r is not main and r["dtype"] == main["dtype"]
+                       and any(x["ws_written"]
+                               for x in r["contract"]["launches"])), None)
+        dh256 = [r for r in rows if r["name"] == name
+                 and "dh=256" in r["shape"]]
+        for tag, r in [("main", main), ("workspace", ws_row)] + [
+                ("dh 256", r) for r in dh256]:
+            if r is None:
+                continue
+            shown.append(dict(kernel=name, row=tag, shape=r["shape"],
+                              dtype=r["dtype"],
+                              launches=r["contract"]["launches"]))
+            print(f"  {name} [{tag}] {r['shape']} {r['dtype']}:")
+            for x in r["contract"]["launches"]:
+                launch = kernel_check.Launch(**{
+                    k: tuple(v) if isinstance(v, list) else v
+                    for k, v in x.items() if k != "wrapper"})
+                print(f"    {launch.text(budget)}", flush=True)
+    res.update(rows_checked=len(rows), launches_checked=n_launches,
+               violations=bad, shown=shown)
+    check(not bad, f"kernel contract violations: {bad}")
+    check(checked == set(lib.KERNELS),
+          f"kernels with no checked launch: {set(lib.KERNELS) - checked}")
+
+    # (c) the budget lowered to 48 KB: the main-path chunk launch, which
+    # (b) shows takes more, must be refused, naming its kernel
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((1, 256, 28, 128), generator=gen, device=dev).bfloat16()
+    kc, vc = (torch.randn((4, 2048, 4, 128), generator=gen,
+                          device=dev).bfloat16() for _ in range(2))
+
+    def chunk():
+        return chunk_prefill.chunk_prefill(q, kc, vc, 1792, scale=128 ** -0.5,
+                                           slot=2)
+
+    with kernel_check.checking(True), kernel_check.collecting() as seen:
+        chunk()
+    need = max(x.smem for _, x in seen)
+    big = next(x for _, x in seen if x.smem == need)
+    refused = None
+    prev = os.environ.get("REPRO_SMEM_BUDGET_BYTES")
+    os.environ["REPRO_SMEM_BUDGET_BYTES"] = str(SMEM_LOW)
+    try:
+        with kernel_check.checking(True):
+            chunk()
+    except kernel_check.KernelContractError as e:
+        refused = str(e)
+    finally:
+        if prev is None:
+            del os.environ["REPRO_SMEM_BUDGET_BYTES"]
+        else:
+            os.environ["REPRO_SMEM_BUDGET_BYTES"] = prev
+    torch.cuda.synchronize()
+    ok = (need > SMEM_LOW and refused is not None and big.name in refused
+          and f"budget of {SMEM_LOW}" in refused)
+    res["lowered_budget"] = dict(launch=big.name, smem=need, refused=refused)
+    print(f"analysis (c): chunk_prefill C=256 offset=1792 bf16 needs "
+          f"{need} B ({big.name}); at a {SMEM_LOW} B budget the checker "
+          f"{'refuses it: ' + refused.splitlines()[-1].strip() if refused else 'ACCEPTS it'} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, f"a {SMEM_LOW} B budget did not refuse {big.name} "
+          f"({need} B): {refused}")
+
+    # (d) the spec against the device; the fixed cost of a kernel in a
+    # replayed graph (100 tiny rglru_scan launches) beside the spec's
+    hw = analytical.H100
+    props = torch.cuda.get_device_properties(dev)
+    dev_smem = props.shared_memory_per_block_optin
+    dev_sms = props.multi_processor_count
+    a, b = (torch.zeros((1, 1, 32), device=dev) for _ in range(2))
+
+    def hundred():
+        return [linear_scan.rglru_scan(a, b) for _ in range(100)]
+
+    hundred()
+    torch.cuda.synchronize()
+    graph, _ = graphs.capture(hundred, graphs.GraphPool(dev))
+    per_launch_us = median_call_ms(torch, graph.replay, 20) * 1e3 / 100
+    del graph
+    ok = hw.smem_bytes == dev_smem and hw.sms == dev_sms
+    res["spec"] = dict(smem_spec=hw.smem_bytes, smem_device=dev_smem,
+                       sms_spec=hw.sms, sms_device=dev_sms,
+                       launch_us_spec=hw.launch_latency * 1e6,
+                       launch_us_graph=per_launch_us)
+    print(f"analysis (d): {hw.name} spec shared memory a block "
+          f"{hw.smem_bytes} B, SMs {hw.sms}; device {dev_smem} B, "
+          f"{dev_sms} SMs {'ok' if ok else 'FAIL'}; a tiny kernel in a "
+          f"replayed graph {per_launch_us:.2f} us (spec launch latency "
+          f"{hw.launch_latency * 1e6:.2f} us)", flush=True)
+    check(ok, f"H100 spec {hw.smem_bytes} B / {hw.sms} SMs against the "
+          f"device's {dev_smem} B / {dev_sms}")
+
+    # (e) the §VII model on the H100 beside phase 3's events
+    def row_ms(name, prefix):
+        return next(r["ms"] for r in rows if r["name"] == name
+                    and r["dtype"] == "bf16" and r["shape"].startswith(prefix))
+
+    preds = []
+    for label, call, modules, name, prefix in (
+            ("Table I QKV_PM", dict(batch=1, seq=64, heads=8, kv_heads=8,
+                                    head_dim=96, d_model=768),
+             ("QKV_PM",), "matmul_tiled", "T=64 D=768 F=2304"),
+            ("Table I QK+SV", dict(batch=1, seq=64, heads=8, kv_heads=8,
+                                   head_dim=96, d_model=768),
+             ("QK_PM", "SV_PM"), "mha_forward", "Table I"),
+            ("qwen2-7b chunk QK+SV", dict(batch=1, seq=256, kv_seq=2048,
+                                          heads=28, kv_heads=4, head_dim=128,
+                                          d_model=3584),
+             ("QK_PM", "SV_PM"), "chunk_prefill", "C=256 offset=1792")):
+        tuned = analytical.autotune_tiles(hw=hw, **call)
+        pred_us = sum(m.t_total for m in tuned["latency"].modules
+                      if m.name in modules) * 1e6
+        got_us = row_ms(name, prefix) * 1e3
+        preds.append(dict(label=label, tiles=tuned["tiles"], pred_us=pred_us,
+                          kernel=name, measured_us=got_us,
+                          ratio=got_us / pred_us))
+        print(f"analysis (e): {label}: predicted {pred_us:.2f} us at tiles "
+              f"{tuned['tiles']}; {name} measured {got_us:.2f} us (x"
+              f"{got_us / pred_us:.2f})", flush=True)
+    res["predictions"] = preds
+
+    # (f) the quickstart twin
+    t0 = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, str(ROOT / "examples" /
+                                               "quickstart_torch.py")],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    res["quickstart"] = dict(rc=proc.returncode,
+                             s=time.perf_counter() - t0,
+                             out=proc.stdout[-4000:], err=proc.stderr[-4000:])
+    print("\n".join("  | " + ln for ln in proc.stdout.splitlines()))
+    print(f"analysis (f): examples/quickstart_torch.py exit "
+          f"{proc.returncode} in {res['quickstart']['s']:.1f}s "
+          f"{'ok' if proc.returncode == 0 else 'FAIL'}", flush=True)
+    check(proc.returncode == 0, f"quickstart_torch.py exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -5042,6 +5302,7 @@ def main(argv=None) -> int:
     paged_writes = phase("paged prefill writes", paged_prefill_writes_phase,
                          args.seed)
     sharded = phase("sharded training", sharded_training_phase, args.seed)
+    analysis = phase("analysis", analysis_phase, rows, args.seed)
 
     paths = [r["launches"] for r in training.values()] + [serving["launches"]]
     paths += [r["launches"] for r in serving["shared_prefix"].values()]
@@ -5063,25 +5324,9 @@ def main(argv=None) -> int:
     check(all(v > 0 for v in launches.values()),
           f"a kernel never launched on the training and serving paths: "
           f"{launches}")
-    main_shape = {"matmul_tiled": "T=4 ", "matmul_tiled_int8": "T=4 ",
-                  "decode_attention": "B=4",
-                  "chunk_prefill": "C=256 offset=1792",
-                  "mha_forward": "famous-bert", "mha_bwd_dq": "famous-bert",
-                  "mha_bwd_dkv": "famous-bert",
-                  "paged_decode_attention": "B=4",
-                  "paged_decode_attention_int8": "B=4",
-                  "paged_chunk_prefill": "C=256 offset=1792",
-                  "paged_chunk_prefill_int8": "C=256 offset=1792",
-                  "rglru_scan": "B=1 S=256",
-                  "wkv6_scan": "BH=32 S=256 dh=64 chunk=64 s0=random"}
-    # the dtypes the main path hands each kernel: the RG-LRU's a and b are
-    # f32 in a bf16 model
-    main_dt = {"matmul_tiled_int8": "int8", "rglru_scan": "f32"}
     entries = []
     for name in lib.KERNELS:
-        dt = main_dt.get(name, "bf16")
-        r = next(r for r in rows if r["name"] == name and r["dtype"] == dt
-                 and r["shape"].startswith(main_shape[name]))
+        r = main_row(rows, name)
         entries.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=launches[name],
@@ -5109,6 +5354,7 @@ def main(argv=None) -> int:
                                    mesh_serving=mesh_serving,
                                    paged_prefill_writes=paged_writes,
                                    sharded_training=sharded,
+                                   analysis=analysis,
                                    phase_s=phase_s),
                               indent=1))
     print(json.dumps({"kernels": entries}))

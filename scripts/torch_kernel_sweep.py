@@ -457,7 +457,8 @@ def i8_tile_list():
 
 def build(out_dir: Path, parts) -> ctypes.CDLL:
     """Compile the generated files the parts need (one nvcc each, in
-    parallel) and link them with the error strings into one library."""
+    parallel) and link them with the error strings and the launch log
+    into one library."""
     from repro_torch.kernels import lib
 
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -482,7 +483,7 @@ def build(out_dir: Path, parts) -> ctypes.CDLL:
         run = subprocess.run(
             [lib.nvcc_path(), *lib.ARCH_FLAGS, *lib.NVCC_FLAGS, "-shared",
              "-o", str(so), *(str(o) for o, _ in procs),
-             str(lib.CSRC / "errors.cu")],
+             str(lib.CSRC / "errors.cu"), str(lib.CSRC / "launch_log.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         logs.append(f"== link (rc {run.returncode})\n{run.stdout}")
         if run.returncode != 0:

@@ -169,7 +169,7 @@ def _launch_forward(q, k, v, *, causal, window, scale, q_offset):
         code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), ws.data_ptr() if n_ws else None, splits, BH, BKV, Sq,
         Skv, dh, int(causal), window, q_offset, scale, lib.stream_of(q))
-    lib.check(name, err)
+    lib.check(name, err, ws)
     lib.STATS.launches[name] += 1
     return out, lse
 
@@ -200,7 +200,7 @@ def _launch_dq(q, k, v, dout, lse, delta, *, causal, window, scale,
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         ws.data_ptr() if n_ws else None, splits, BH, BKV, Sq, Skv, dh,
         int(causal), window, q_offset, scale, lib.stream_of(q))
-    lib.check(name, err)
+    lib.check(name, err, ws)
     lib.STATS.launches[name] += 1
     return dq
 
@@ -219,6 +219,6 @@ def _launch_dkv(q, k, v, dout, lse, delta, *, causal, window, scale,
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         ws.data_ptr() if n_ws else None, splits, BH, BKV, Sq, Skv, dh,
         int(causal), window, q_offset, scale, lib.stream_of(q))
-    lib.check(name, err)
+    lib.check(name, err, ws)
     lib.STATS.launches[name] += 1
     return dk, dv

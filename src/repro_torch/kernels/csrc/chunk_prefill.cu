@@ -191,6 +191,8 @@ static cudaError_t launch_chunk_f32(const void* q, const void* k, const void* v,
   cudaError_t e = allow_smem(chunk_prefill_kernel<float>, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((C + kCpBQ - 1) / kCpBQ, H, B);
+  record_launch(chunk_prefill_kernel<float>, "chunk_prefill_kernel<f32>", grid, kCpThreads, smem,
+                {C, kCpBQ}, {H, 1}, {B, 1});
   chunk_prefill_kernel<float><<<grid, kCpThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), C, H, KV, dh, Skv, slot, q_offset, k_sb, k_ss, k_sh, v_sb, v_ss,

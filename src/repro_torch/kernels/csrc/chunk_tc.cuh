@@ -815,6 +815,13 @@ static cudaError_t launch_tc(const bf16* q, const Rows& src, const QM& qm, bf16*
   const int nx = (rows + G::BQ - 1) / G::BQ;
   const dim3 grid = QM::kFlat ? dim3(H * B * splits, nx)
                               : dim3(nx, G::PACK ? KV : H, B * splits);
+  // each split's (O, m, l) for every (slot, chunk row, head)
+  const Cover rows_c{rows, G::BQ}, heads_c{(long long)H * B * splits, 1};
+  record_launch(kernel, "chunk_prefill_tc_kernel", grid, G::NT, smem,
+                QM::kFlat ? heads_c : rows_c,
+                QM::kFlat ? rows_c : Cover{G::PACK ? KV : H, 1},
+                QM::kFlat ? Cover{} : Cover{(long long)B * splits, 1},
+                splits > 1 ? (long long)splits * B * C * H * (dh + 2) : 0);
   kernel<<<grid, G::NT, smem, stream>>>(q, src, qm, out, splits > 1 ? part : nullptr, B, C, H,
                                         KV, dh, q_offset, scale, splits, vec);
   e = cudaGetLastError();
@@ -823,6 +830,8 @@ static cudaError_t launch_tc(const bf16* q, const Rows& src, const QM& qm, bf16*
   const long long blocks = (RT + kCombineWarps - 1) / kCombineWarps;
   float* lse = nullptr;
   if constexpr (QM::kFlat) lse = qm.lse;
+  record_launch(chunk_prefill_combine_kernel<Rows, QM>, "chunk_prefill_combine_kernel",
+                dim3(static_cast<unsigned>(blocks)), 32 * kCombineWarps, 0, {RT, kCombineWarps});
   chunk_prefill_combine_kernel<Rows, QM>
       <<<static_cast<unsigned>(blocks), 32 * kCombineWarps, 0, stream>>>(part, out, lse, RT,
                                                                          dh, splits);

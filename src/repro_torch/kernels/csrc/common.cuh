@@ -1,5 +1,6 @@
 // Helpers shared by the port's kernels: element conversion to and from the
-// f32 compute type, warp reductions, and the launch epilogue.
+// f32 compute type, warp reductions, the launch epilogue and the launch
+// record the contract checker reads.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -196,6 +197,72 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// The launch log that repro_torch/analysis/kernel_check.py reads through
+// kernels/lib.py (launch_log.cu).  The layout is mirrored by lib.py's
+// _LaunchRecord: keep the two in step.
+struct LaunchRecord {
+  char name[48];
+  int grid[3], block[3];
+  long long dyn_smem;     // dynamic shared memory asked at the launch
+  long long smem_cap;     // the function's dynamic shared-memory cap then
+  long long static_smem;  // the compiled kernel's static shared memory
+  int regs;               // registers a thread
+  int max_threads;        // the largest block the compiled kernel allows
+  int smem_optin;         // the device's opt-in shared memory a block
+  int grid_stride;        // bit d: the blocks loop over grid dim d
+  long long extent[3];    // per grid dim: what the grid must cover
+  long long tile[3];      // per grid dim: what one block covers of it
+  long long ws_written;   // workspace elements the launched grid writes
+};
+
+bool launch_log_on();
+void log_launch(const LaunchRecord& r);
+
+// One grid dimension as the contract checker reads it: the extent the
+// launch must cover and what one block covers of it; loop: the blocks
+// stride over the extent by the grid (a grid-stride loop).
+struct Cover {
+  long long extent = 1, tile = 1;
+  bool loop = false;
+};
+
+// Record a launch about to be made (only while kernels/lib.py turned the
+// log on: the contract checker is enabled).  Called just before each
+// <<<...>>> with the same kernel, grid, threads and dynamic shared memory.
+template <typename K>
+inline void record_launch(K kernel, const char* name, dim3 grid, unsigned threads, size_t smem,
+                          Cover x, Cover y = {}, Cover z = {}, long long ws_written = 0) {
+  if (!launch_log_on()) return;
+  LaunchRecord r{};
+  for (int i = 0; i < 47 && name[i]; ++i) r.name[i] = name[i];
+  r.grid[0] = grid.x, r.grid[1] = grid.y, r.grid[2] = grid.z;
+  r.block[0] = threads, r.block[1] = 1, r.block[2] = 1;
+  r.dyn_smem = static_cast<long long>(smem);
+  cudaFuncAttributes a{};
+  if (cudaFuncGetAttributes(&a, kernel) == cudaSuccess) {
+    r.smem_cap = a.maxDynamicSharedSizeBytes;
+    r.static_smem = static_cast<long long>(a.sharedSizeBytes);
+    r.regs = a.numRegs;
+    r.max_threads = a.maxThreadsPerBlock;
+  } else {
+    r.regs = -1;
+    cudaGetLastError();  // the launch that follows reports its own error
+  }
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&r.smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess)
+    cudaGetLastError();
+  const Cover c[3] = {x, y, z};
+  for (int d = 0; d < 3; ++d) {
+    r.extent[d] = c[d].extent;
+    r.tile[d] = c[d].tile;
+    if (c[d].loop) r.grid_stride |= 1 << d;
+  }
+  r.ws_written = ws_written;
+  log_launch(r);
 }
 
 }  // namespace famous

@@ -515,6 +515,9 @@ static cudaError_t launch_split(dim3 grid, size_t smem, cudaStream_t stream, con
   auto kernel = decode_split_kernel<T, Rows, LPK>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
+  // each (row, head, range): dh accumulators, then m and l
+  record_launch(kernel, "decode_split_kernel", grid, kDecThreads, smem, {Skv, L}, {KV, 1}, {R, 1},
+                (long long)grid.z * grid.y * (H / KV) * grid.x * (dh + 2));
   kernel<<<grid, kDecThreads, smem, stream>>>(q, src, lens, ws, R, H, KV, dh, Skv, rps, L, S,
                                               scale, vec);
   return cudaGetLastError();
@@ -548,6 +551,8 @@ static cudaError_t launch_decode_split(const T* q, const Rows& src, const int* l
   auto combine = decode_combine_kernel<T, Rows>;
   e = allow_smem(combine, csmem);
   if (e != cudaSuccess) return e;
+  record_launch(combine, "decode_combine_kernel", dim3(H, R), kCombineThreads, csmem, {H, 1},
+                {R, 1});
   combine<<<dim3(H, R), kCombineThreads, csmem, stream>>>(ws, lens, out, R, H, dh, Skv, L, S);
   return cudaGetLastError();
 }

@@ -114,8 +114,10 @@ template <int BT, int BF, int BD, int TM, int TN>
 static cudaError_t launch_f32(const float* x, const float* w, float* out, int Tn, int D, int F,
                               cudaStream_t stream) {
   dim3 grid((F + BF - 1) / BF, (Tn + BT - 1) / BT);
-  matmul_tiled_kernel<float, BT, BF, BD, TM, TN>
-      <<<grid, (BT / TM) * (BF / TN), 0, stream>>>(x, w, out, Tn, D, F);
+  constexpr unsigned threads = (BT / TM) * (BF / TN);
+  record_launch(matmul_tiled_kernel<float, BT, BF, BD, TM, TN>, "matmul_tiled_kernel<f32>", grid,
+                threads, 0, {F, BF}, {Tn, BT});
+  matmul_tiled_kernel<float, BT, BF, BD, TM, TN><<<grid, threads, 0, stream>>>(x, w, out, Tn, D, F);
   return cudaGetLastError();
 }
 
@@ -288,6 +290,9 @@ static cudaError_t launch_bf16(const bf16* x, const bf16* w, bf16* out, float* p
   const int nk = (D + BK - 1) / BK;
   const int kps = (nk + splits - 1) / splits;
   dim3 grid((F + BN - 1) / BN, (Tn + BM - 1) / BM, splits);
+  // the D steps over the z blocks; split partials of T x F each
+  record_launch(kernel, "matmul_tiled_bf16_kernel", grid, 32 * WM * WN, smem, {F, BN}, {Tn, BM},
+                {nk, kps}, part ? (long long)grid.z * Tn * F : 0);
   kernel<<<grid, 32 * WM * WN, smem, stream>>>(x, w, out, part, Tn, D, F, kps, vec);
   return cudaGetLastError();
 }
@@ -350,6 +355,8 @@ extern "C" int famous_matmul_tiled(int dtype, const void* x, const void* w, void
     if (e == cudaSuccess && pf) {
       const long long n = (long long)Tn * F;
       const int blocks = static_cast<int>(std::min<long long>((n + 255) / 256, 4096));
+      record_launch(matmul_tiled_reduce_kernel, "matmul_tiled_reduce_kernel", dim3(blocks), 256,
+                    0, {n, 256, true});
       matmul_tiled_reduce_kernel<<<blocks, 256, 0, s>>>(pf, ob, splits, n);
       e = cudaGetLastError();
     }

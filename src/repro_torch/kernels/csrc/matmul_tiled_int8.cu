@@ -220,12 +220,16 @@ static cudaError_t launch_int8(const int8_t* xq, const int8_t* wqt, const float*
   const int kps = (nk + splits - 1) / splits;
   const dim3 grid((F + G::BN - 1) / G::BN, (Tn + G::BM - 1) / G::BM, splits);
   if (grid.y > 65535 || splits > 65535) return cudaErrorInvalidValue;
+  record_launch(kernel, "matmul_int8_kernel", grid, G::NT, G::bytes, {F, G::BN}, {Tn, G::BM},
+                {nk, kps}, splits > 1 ? (long long)grid.z * Tn * F : 0);
   kernel<<<grid, G::NT, G::bytes, stream>>>(xq, wqt, sx, sw, out, splits > 1 ? part : nullptr, Tn,
                                             D, F, kps, vec);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
   const long long n = (long long)Tn * F;
   const int blocks = static_cast<int>(std::min<long long>((n + 255) / 256, 4096));
+  record_launch(matmul_int8_reduce_kernel, "matmul_int8_reduce_kernel", dim3(blocks), 256, 0,
+                {n, 256, true});
   matmul_int8_reduce_kernel<<<blocks, 256, 0, stream>>>(part, sx, sw, out, F, splits, n);
   return cudaGetLastError();
 }

@@ -204,6 +204,8 @@ static cudaError_t launch_dkv(const void* q, const void* k, const void* v, const
   cudaError_t e = allow_smem(mha_bwd_dkv_kernel<T, MaxDh>, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((Skv + kKvBK - 1) / kKvBK, BKV);
+  record_launch(mha_bwd_dkv_kernel<T, MaxDh>, "mha_bwd_dkv_kernel", grid, kKvThreads, smem,
+                {Skv, kKvBK}, {BKV, 1});
   mha_bwd_dkv_kernel<T, MaxDh><<<grid, kKvThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, dk, dv, Sq, Skv, dh, group, causal, window,
@@ -461,6 +463,10 @@ static cudaError_t launch_dkv_tc(const bf16* q, const bf16* k, const bf16* v, co
   const auto al = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   const int vec = dh % 8 == 0 && al(q) && al(k) && al(v) && al(dout);
   const dim3 grid(BKV * splits, (Skv + G::BK - 1) / G::BK);
+  // each split's dk and dv partials over (BKV, Skv, dh)
+  record_launch(kernel, "mha_bwd_dkv_tc_kernel", grid, G::NT, G::bytes,
+                {(long long)BKV * splits, 1}, {Skv, G::BK}, {},
+                splits > 1 ? 2LL * splits * BKV * Skv * dh : 0);
   kernel<<<grid, G::NT, G::bytes, stream>>>(q, k, v, dout, lse, delta, dk, dv,
                                             splits > 1 ? part : nullptr, BKV, group, Sq, Skv, dh,
                                             causal, window, q_offset, scale, splits, vec);
@@ -468,6 +474,8 @@ static cudaError_t launch_dkv_tc(const bf16* q, const bf16* k, const bf16* v, co
   if (e != cudaSuccess || splits == 1) return e;
   const long long N = (long long)BKV * Skv * dh;
   const long long blocks = std::min<long long>((N + 255) / 256, 8192);
+  record_launch(mha_bwd_dkv_combine_kernel, "mha_bwd_dkv_combine_kernel",
+                dim3(static_cast<unsigned>(blocks)), 256, 0, {N, 256, true});
   mha_bwd_dkv_combine_kernel<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(part, dk, dv, N,
                                                                                splits, scale);
   return cudaGetLastError();

@@ -196,6 +196,8 @@ static cudaError_t launch_dq(const void* q, const void* k, const void* v, const 
   if (e != cudaSuccess) return e;
   if (BH > 65535) return cudaErrorInvalidValue;
   dim3 grid((Sq + kDqBQ - 1) / kDqBQ, BH);
+  record_launch(mha_bwd_dq_kernel<T, MaxDh>, "mha_bwd_dq_kernel", grid, kDqThreads, smem,
+                {Sq, kDqBQ}, {BH, 1});
   mha_bwd_dq_kernel<T, MaxDh><<<grid, kDqThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, dq, Sq, Skv, dh, group, causal, window,
@@ -431,6 +433,9 @@ static cudaError_t launch_dq_tc(const bf16* q, const bf16* k, const bf16* v, con
   const int vec = dh % 8 == 0 && al(q) && al(k) && al(v) && al(dout);
   const dim3 grid(BH * splits, (Sq + G::BQ - 1) / G::BQ);
   if (grid.y > 65535) return cudaErrorInvalidValue;
+  // each split's dq partial over (BH, Sq, dh)
+  record_launch(kernel, "mha_bwd_dq_tc_kernel", grid, G::NT, G::bytes, {(long long)BH * splits, 1},
+                {Sq, G::BQ}, {}, splits > 1 ? (long long)splits * BH * Sq * dh : 0);
   kernel<<<grid, G::NT, G::bytes, stream>>>(q, k, v, dout, lse, delta, dq,
                                             splits > 1 ? part : nullptr, BH, group, Sq, Skv, dh,
                                             causal, window, q_offset, scale, splits, vec);
@@ -438,6 +443,8 @@ static cudaError_t launch_dq_tc(const bf16* q, const bf16* k, const bf16* v, con
   if (e != cudaSuccess || splits == 1) return e;
   const long long N = (long long)BH * Sq * dh;
   const long long blocks = std::min<long long>((N + 255) / 256, 8192);
+  record_launch(mha_bwd_dq_combine_kernel, "mha_bwd_dq_combine_kernel",
+                dim3(static_cast<unsigned>(blocks)), 256, 0, {N, 256, true});
   mha_bwd_dq_combine_kernel<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(part, dq, N,
                                                                               splits, scale);
   return cudaGetLastError();

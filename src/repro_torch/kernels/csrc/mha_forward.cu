@@ -190,6 +190,8 @@ static cudaError_t launch_fwd(const void* q, const void* k, const void* v, void*
   cudaError_t e = allow_smem(mha_forward_kernel<T, MaxDh>, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((Sq + kFwBQ - 1) / kFwBQ, BH);
+  record_launch(mha_forward_kernel<T, MaxDh>, "mha_forward_kernel", grid, kFwThreads, smem,
+                {Sq, kFwBQ}, {BH, 1});
   mha_forward_kernel<T, MaxDh><<<grid, kFwThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), lse, Sq, Skv, dh, group, causal, window, q_offset, scale);

@@ -203,6 +203,8 @@ static cudaError_t launch_paged_chunk(const void* q, const void* k, const void* 
   cudaError_t e = allow_smem(paged_chunk_prefill_kernel<T, E>, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((C + kPcBQ - 1) / kPcBQ, H, B);
+  record_launch(paged_chunk_prefill_kernel<T, E>, "paged_chunk_prefill_kernel", grid, kPcThreads,
+                smem, {C, kPcBQ}, {H, 1}, {B, 1});
   paged_chunk_prefill_kernel<T, E><<<grid, kPcThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const E*>(k), static_cast<const E*>(v), k_scale,
       v_scale, page_table, static_cast<T*>(out), C, H, KV, dh, ps, n_p, n_pages, slot, q_offset,

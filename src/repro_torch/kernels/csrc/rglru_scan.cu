@@ -86,6 +86,8 @@ static cudaError_t launch_rglru(const void* a, const void* b, float* out, int B,
                                 cudaStream_t stream) {
   static_assert(F * P <= 1024, "threads a block");
   dim3 grid((R + F - 1) / F, B);
+  record_launch(rglru_scan_kernel<T, F, P, L>, "rglru_scan_kernel", grid, F * P, 0, {R, F},
+                {B, 1});
   rglru_scan_kernel<T, F, P, L><<<grid, F * P, 0, stream>>>(static_cast<const T*>(a),
                                                            static_cast<const T*>(b), out, S, R);
   return cudaGetLastError();

@@ -531,7 +531,12 @@ static cudaError_t launch_wkv6(const void* r, const void* k, const void* v, cons
   auto pass1 = wkv6_chunk_kernel<T, TW, RS, CS, NT, QWS>;
   cudaError_t e = allow_smem(pass1, smem1);
   if (e != cudaSuccess) return e;
-  pass1<<<dim3(static_cast<unsigned>(nC * RS * CS), BH), NT, smem1, stream>>>(
+  // a block: one chunk's C steps at one of the RS x CS splits; writes every
+  // (bh, chunk)'s dS, exp(cw) and (QWS) qexp
+  const dim3 grid1(static_cast<unsigned>(nC * RS * CS), BH);
+  record_launch(pass1, "wkv6_chunk_kernel", grid1, NT, smem1, {(long long)S * RS * CS, C},
+                {BH, 1}, {}, wkv_ws_elems(BH, S, dh, C, QWS));
+  pass1<<<grid1, NT, smem1, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const TW*>(w), u, out, ws_s, ws_w, ws_q, S, dh, C);
   e = cudaGetLastError();
@@ -540,7 +545,11 @@ static cudaError_t launch_wkv6(const void* r, const void* k, const void* v, cons
   auto pass2 = wkv6_state_kernel<T, TW, CS2, NT2, QWS>;
   e = allow_smem(pass2, smem2);
   if (e != cudaSuccess) return e;
-  pass2<<<dim3(CS2, BH), NT2, smem2, stream>>>(
+  // the state's dh columns in blocks of E2 (no block past dh)
+  constexpr int E2 = WkvStateSmem<CS2, NT2, QWS>::E2;
+  const dim3 grid2((dh + E2 - 1) / E2, BH);
+  record_launch(pass2, "wkv6_state_kernel", grid2, NT2, smem2, {dh, E2}, {BH, 1});
+  pass2<<<grid2, NT2, smem2, stream>>>(
       static_cast<const T*>(r), static_cast<const TW*>(w), s0, ws_s, ws_w, ws_q, out, s_final, S,
       dh, C);
   return cudaGetLastError();

@@ -107,7 +107,7 @@ def _launch(q, k_cache, v_cache, q_offset, slot, scale):
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
         float(scale), lib.stream_of(q))
-    lib.check(NAME, err)
+    lib.check(NAME, err, ws)
     lib.STATS.launches[NAME] += 1
     return out
 
@@ -192,6 +192,6 @@ def _launch_paged(name, q, k_pages, v_pages, k_scale, v_scale, page_table,
         ws.data_ptr() if n_ws else None, splits, B, C, H, KV, dh, ps, n_p,
         n_pages, sl if sl is None else sl.data_ptr(), off.data_ptr(),
         float(scale), lib.stream_of(q))
-    lib.check(name, err)
+    lib.check(name, err, ws)
     lib.STATS.launches[name] += 1
     return out

@@ -78,7 +78,7 @@ def _launch(q, k_cache, v_cache, cache_len, scale, rows_per_slot):
         k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
         float(scale), lib.stream_of(q))
-    lib.check(NAME, err)
+    lib.check(NAME, err, ws)
     lib.STATS.launches[NAME] += 1
     return out
 
@@ -159,7 +159,7 @@ def _launch_paged(name, q, k_pages, v_pages, k_scale, v_scale, page_table,
         code, *ptrs, page_table.data_ptr(), cache_len.data_ptr(),
         out.data_ptr(), ws.data_ptr(), R, H, KV, dh, ps, n_p, n_pages,
         rows_per_slot, L, float(scale), lib.stream_of(q))
-    lib.check(name, err)
+    lib.check(name, err, ws)
     lib.STATS.launches[name] += 1
     return out
 

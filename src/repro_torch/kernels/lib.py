@@ -18,6 +18,13 @@ tensors (which the serving and training paths never do).  A CUDA graph
 replay runs none of that Python: ``serve/graphs.py`` takes the counts a
 capture made out of :data:`STATS` (:meth:`KernelStats.take_since`) and
 adds them back on every replay (:meth:`KernelStats.add`).
+
+While the launch-contract checker is on
+(:mod:`repro_torch.analysis.kernel_check`), :func:`load` turns the
+library's launch log on, every launcher records what it launches, and
+:func:`check` takes the records after each wrapper call and checks them
+against the workspace the wrapper allocated.  Off, a launch records
+nothing.
 """
 from __future__ import annotations
 
@@ -31,6 +38,8 @@ import subprocess
 from pathlib import Path
 
 import torch
+
+from repro_torch.analysis import kernel_check
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -239,9 +248,36 @@ _SIGNATURES = {
 }
 
 
+class _LaunchRecord(ctypes.Structure):
+    """``famous::LaunchRecord`` of ``csrc/common.cuh``, field for field."""
+
+    _fields_ = [("name", ctypes.c_char * 48), ("grid", _I * 3),
+                ("block", _I * 3), ("dyn_smem", _LL), ("smem_cap", _LL),
+                ("static_smem", _LL), ("regs", _I), ("max_threads", _I),
+                ("smem_optin", _I), ("grid_stride", _I), ("extent", _LL * 3),
+                ("tile", _LL * 3), ("ws_written", _LL)]
+
+    def launch(self) -> "kernel_check.Launch":
+        return kernel_check.Launch(
+            name=self.name.decode(), grid=tuple(self.grid),
+            block=tuple(self.block), dyn_smem=self.dyn_smem,
+            smem_cap=self.smem_cap, static_smem=self.static_smem,
+            regs=self.regs, max_threads=self.max_threads,
+            smem_optin=self.smem_optin, extent=tuple(self.extent),
+            tile=tuple(self.tile),
+            grid_stride=tuple(bool(self.grid_stride >> d & 1)
+                              for d in range(3)),
+            ws_written=self.ws_written)
+
+
+_LOG_CAP = 16          # records one wrapper call can leave
+_LOG_ON = False        # the library's launch log, as last set
+
+
 def load():
-    """The loaded kernel library (built on first use)."""
-    global _LIB
+    """The loaded kernel library (built on first use), its launch log on
+    exactly while the contract checker is."""
+    global _LIB, _LOG_ON
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         for name, argtypes in _SIGNATURES.items():
@@ -250,8 +286,29 @@ def load():
             fn.restype = ctypes.c_int
         lib.famous_error_string.argtypes = [ctypes.c_int]
         lib.famous_error_string.restype = ctypes.c_char_p
+        lib.famous_launch_log.argtypes = [ctypes.c_int]
+        lib.famous_launch_log.restype = None
+        lib.famous_launch_log_take.argtypes = [
+            ctypes.POINTER(_LaunchRecord), ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int)]
+        lib.famous_launch_log_take.restype = ctypes.c_int
         _LIB = lib
+        _LOG_ON = False
+        lib.famous_launch_log(0)
+    on = kernel_check.kernel_check_enabled()
+    if on != _LOG_ON:
+        _LIB.famous_launch_log(int(on))
+        _LOG_ON = on
     return _LIB
+
+
+def take_launches() -> tuple[list, int]:
+    """The launches recorded since the last take, as
+    :class:`kernel_check.Launch`, and how many records were lost."""
+    recs = (_LaunchRecord * _LOG_CAP)()
+    dropped = ctypes.c_int(0)
+    n = _LIB.famous_launch_log_take(recs, _LOG_CAP, ctypes.byref(dropped))
+    return [recs[i].launch() for i in range(n)], dropped.value
 
 
 def plan(query: str, *args) -> tuple[int, int]:
@@ -263,11 +320,19 @@ def plan(query: str, *args) -> tuple[int, int]:
     return first, n.value
 
 
-def check(name: str, err: int) -> None:
-    """Raise when a launch reported a CUDA error."""
+def check(name: str, err: int,
+          workspace: torch.Tensor | None = None) -> None:
+    """Raise when a launch reported a CUDA error; while the contract
+    checker is on, check what the call launched against ``workspace``, the
+    scratch the wrapper allocated for it (None or empty: none)."""
+    launches, dropped = take_launches() if _LOG_ON else ([], 0)
     if err != 0:
         msg = _LIB.famous_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+    if _LOG_ON:
+        kernel_check.check_wrapper(
+            name, launches, 0 if workspace is None else workspace.numel(),
+            dropped)
 
 
 @functools.lru_cache(maxsize=None)

@@ -97,7 +97,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         code, x.data_ptr(), w.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(), splits, T, D, F,
         lib.stream_of(x))
-    lib.check(NAME, err)
+    lib.check(NAME, err, part)
     lib.STATS.launches[NAME] += 1
     return out
 
@@ -152,6 +152,6 @@ def _launch_int8(xq, wqt, sx, sw):
         xq.data_ptr(), wqt.data_ptr(), sx.data_ptr(), sw.data_ptr(),
         out.data_ptr(), None if part is None else part.data_ptr(), splits,
         T, D, F, lib.stream_of(xq))
-    lib.check(NAME_INT8, err)
+    lib.check(NAME_INT8, err, part)
     lib.STATS.launches[NAME_INT8] += 1
     return out

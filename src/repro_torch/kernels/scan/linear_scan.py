@@ -109,6 +109,6 @@ def wkv6_scan(r, k, v, logw, u, s0=None, *, chunk: int = 64):
         None if s0 is None else s0.data_ptr(), out.data_ptr(),
         s_final.data_ptr(), ws.data_ptr(), BH, S, dh, chunk,
         lib.stream_of(r))
-    lib.check(WKV6, err)
+    lib.check(WKV6, err, ws)
     lib.STATS.launches[WKV6] += 1
     return out, s_final

@@ -116,9 +116,13 @@ def main(argv=None):
     ap.add_argument("--metrics", action="store_true",
                     help="attach an Observer and print the Prometheus text "
                          "exposition after the run")
+    ap.add_argument("--metrics-out", default="", metavar="PATH",
+                    help="also write the exposition to PATH (implies "
+                         "--metrics)")
     ap.add_argument("--trace-out", default="", metavar="PATH",
                     help="write Chrome/Perfetto trace_event JSON to PATH")
     args = ap.parse_args(argv)
+    args.metrics = args.metrics or bool(args.metrics_out)
 
     if args.mesh_shape:
         dp, tp = (int(x) for x in args.mesh_shape.split(","))
@@ -201,8 +205,13 @@ def main(argv=None):
             obs.write_trace(args.trace_out)
             print(f"trace: {len(obs.tracer.events)} events -> "
                   f"{args.trace_out}")
+        text = obs.prometheus_text()
+        if args.metrics_out:
+            with open(args.metrics_out, "w", encoding="utf-8") as fh:
+                fh.write(text)
+            print(f"metrics: exposition -> {args.metrics_out}")
         if args.metrics:
-            print(obs.prometheus_text(), end="")
+            print(text, end="")
     return done
 
 

@@ -14,9 +14,10 @@ Three pieces (see docs/observability.md):
     ``PromptLookupDrafter``, plus the zero-cost :data:`NULL_OBSERVER`
     default.
 
-Like the Scheduler, every module here is contractually jax-free (lint
-rule RA004, ``repro.analysis.lint.PURE_MODULES``): observability can
-never add a device sync or an executable to the hot loop.
+Like the Scheduler, every module here is contractually free of torch and
+jax (lint rule RA004, ``repro_torch.analysis.lint.PURE_MODULES``):
+observability can never add a device sync or an executable to the hot
+loop.
 """
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                                validate_prometheus_text)

@@ -4,8 +4,8 @@ The serving hot loop runs at ~millisecond step granularity, so the
 instruments here are built for cheap host-side updates: a counter
 increment is one dict lookup plus a float add, a histogram observation is
 one ``bisect`` into a *fixed* tuple of log-spaced bucket bounds (no numpy,
-no allocation, no device anything — the module is contractually jax-free,
-lint rule RA004).  Reading is pull-based: :meth:`MetricsRegistry.collect`
+no allocation, no device anything — the module is contractually free of
+torch and jax, lint rule RA004 of ``repro_torch.analysis.lint``).  Reading is pull-based: :meth:`MetricsRegistry.collect`
 / :meth:`snapshot` walk the instruments on demand, and
 :meth:`prometheus_text` renders the standard text exposition format
 (``# HELP`` / ``# TYPE`` / escaped labels / cumulative ``_bucket`` lines)

@@ -18,8 +18,9 @@ Everything is *host-side and pull-based*: hooks take plain python ints
 already on the host (the engine's one device→host sync per decode step is
 unchanged), counters are dict adds, and reading happens only when someone
 calls :meth:`Observer.snapshot` / :meth:`prometheus_text` /
-:meth:`trace_json`.  The module is contractually jax-free (lint rule
-RA004) so observability can never introduce a device sync.  Measured
+:meth:`trace_json`.  The module is contractually free of torch and jax
+(lint rule RA004 of ``repro_torch.analysis.lint``) so observability can
+never introduce a device sync.  Measured
 overhead of an enabled Observer is ≤2% tok/s on the serving benchmark's
 ``obs_on`` / ``obs_off`` row pair (gated at 5% in CI; see
 docs/observability.md for the catalog and the contract).

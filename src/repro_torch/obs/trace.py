@@ -17,8 +17,9 @@ trace timestamp come from this one clock, so TTFT/TPOT computed from
 request marks, trace durations, and benchmark timings can never disagree
 about what "a millisecond" was.
 
-Host-pure by contract (lint rule RA004): recording an event is a dict
-append — no numpy, no jax, no device syncs.  The buffer is bounded
+Host-pure by contract (lint rule RA004 of ``repro_torch.analysis.lint``:
+no torch or jax import): recording an event is a dict append — no numpy,
+no torch, no jax, no device syncs.  The buffer is bounded
 (``limit``); overflow drops *new* events and counts them in
 ``dropped`` rather than growing without bound under a long run.
 """

@@ -1,8 +1,10 @@
-"""Pure-policy scheduler for the serving engine (no jax, no device state).
+"""Pure-policy scheduler for the serving engine (no torch, no jax, no
+device state).
 
-The "no jax" contract is machine-enforced: lint rule RA004
-(``repro.analysis.lint``) fails the build if this module ever imports
-``jax``/``jax.numpy``, with no baseline escape hatch.
+The "no torch, no jax" contract is machine-enforced: lint rule RA004
+(``repro_torch.analysis.lint``) fails ``python -m repro_torch.analysis``
+and ``tests/test_torch_analysis.py`` if this module ever imports ``torch``
+or ``jax``, with no baseline escape hatch.
 
 The engine is split into two layers:
 
@@ -85,8 +87,9 @@ class Scheduler:
                  observer=None):
         assert cfg.chunk >= 1
         self.cfg = cfg
-        # the injectable observability seam (repro_torch.obs.runtime — jax-free
-        # like this module, so the RA004 purity contract holds transitively)
+        # the injectable observability seam (repro_torch.obs.runtime: free of
+        # torch and jax like this module, so the RA004 purity contract holds
+        # transitively)
         self.obs = observer if observer is not None else NULL_OBSERVER
         self.slots = [SlotInfo() for _ in range(n_slots)]
         self.pending: list = []   # fresh requests, FIFO
