@@ -223,7 +223,25 @@ Phases, in order; any failure exits non-zero before the result line:
      F=2304, its QK + SV against ``mha_forward`` (1 x 64 tokens, 8 heads of
      96, full), and qwen2-7b's chunk (C=256 at offset 1792, 28 / 4 heads)
      against ``chunk_prefill``; (f) ``examples/quickstart_torch.py`` runs as
-     a subprocess and must exit 0.
+     a subprocess and must exit 0;
+ 22. dry run (``repro_torch.launch.dryrun``): (a) the CLI in two
+     subprocesses, started together, on qwen2-7b ``decode_32k`` and
+     ``train_4k`` over a fake 256-rank pod1 group: each must print ``ALL
+     CELLS PASSED``; each cell's memory a device, dominant term, roofline
+     fraction and useful-FLOP ratio are printed; (b) the dry run's
+     prediction against the same step on the card (``impl="xla"``, no
+     mesh): full-width qwen2-7b's serving decode step (4 slots, max_seq
+     2048, bf16 weights) and a 2-layer training step (B=1, S=2048, f32
+     parameters), each counted on ``meta`` tensors by ``op_cost``, then
+     run with its arguments resident under ``FlopCounterMode`` after
+     ``reset_peak_memory_stats``: the FLOPs must be equal, the
+     arguments' bytes must equal the real arguments' summed ``nbytes``,
+     and the predicted peak (arguments + ``peak_bytes``) must lie within
+     25% of ``max_memory_allocated`` less what was allocated before the
+     arguments were made (printed); (c) the decode step's ``t_bound`` on
+     ``analytical.H100`` beside its time by CUDA events with
+     ``impl="pallas"`` (``matmul_tiled`` and ``decode_attention``), eager
+     and as a CUDA graph replay, ungated.
 
 The bf16 rows of the decode kernels at recurrentgemma-2b's heads and at
 their range boundaries (contiguous and paged, against the plain version
@@ -5238,6 +5256,191 @@ def analysis_phase(torch, rows, seed):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the dry run
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS = ("decode_32k", "train_4k")
+
+
+def dryrun_phase(torch, seed):
+    """Phase 22 (see the module docstring)."""
+    import os
+
+    out_dir = ROOT / "chiprun_out" / "dryrun"
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = {shape: subprocess.Popen(
+        [sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun",
+         "--arch", "qwen2-7b", "--shape", shape, "--mesh", "pod1",
+         "--out", str(out_dir)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for shape in DRYRUN_CELLS}
+    try:
+        res = {"b": dryrun_prediction(torch, seed)}
+        res["a"] = {}
+        for shape, p in procs.items():
+            stdout, stderr = p.communicate(timeout=300)
+            ok = p.returncode == 0 and "ALL CELLS PASSED" in stdout
+            print(f"dry run (a): qwen2-7b {shape} pod1: exit "
+                  f"{p.returncode} {'ALL CELLS PASSED' if ok else 'FAIL'}",
+                  flush=True)
+            check(ok, f"dry run CLI on {shape}: {stdout[-2000:]}"
+                      f"{stderr[-2000:]}")
+            cell = json.loads((out_dir / f"qwen2-7b__{shape}__pod1.json")
+                              .read_text())
+            rf, mem = cell["roofline"], cell["memory"]
+            res["a"][shape] = dict(memory=mem, roofline=rf,
+                                   t_run_s=cell["t_run_s"])
+            print(f"dry run (a): {shape}: {mem['per_device_gib']:.3f} GiB a "
+                  f"device (fits 80 GB: {mem['fits_80gb']}), dominant "
+                  f"{rf['dominant']}, roofline fraction "
+                  f"{rf['roofline_fraction']:.4g}, useful-FLOP ratio "
+                  f"{rf['useful_flop_ratio']:.4g}, step run on meta in "
+                  f"{cell['t_run_s']} s", flush=True)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res["c"] = dryrun_bound_vs_time(torch, res["b"].pop("decode_step"))
+    return res
+
+
+def predict_and_measure(torch, label, fn, meta_args, make_args):
+    """(b) for one step: ``fn`` counted on ``meta_args`` by ``op_cost``,
+    then run on the card on ``make_args()`` under ``FlopCounterMode``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.roofline import op_cost
+
+    pred = op_cost.analyse_ops(fn, *meta_args)
+    pred_args = op_cost.argument_bytes(meta_args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    args = make_args()
+    real_args = op_cost.argument_bytes(args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    flops = fc.get_total_flops()
+    predicted = pred_args + pred.peak_bytes
+    ratio = (peak - base) / predicted
+    row = dict(flops=flops, predicted_flops=pred.flops,
+               argument_bytes=real_args, predicted_argument_bytes=pred_args,
+               peak_bytes=pred.peak_bytes, predicted_peak=predicted,
+               max_memory_allocated=peak, allocated_before=base,
+               ratio=ratio)
+    print(f"dry run (b): {label}: FLOPs {flops:.6e} on the card, "
+          f"{pred.flops:.6e} predicted; arguments {real_args} B, "
+          f"{pred_args} B predicted; peak {peak - base} B "
+          f"(max_memory_allocated {peak} less {base} allocated before), "
+          f"{predicted} B predicted (arguments + peak_bytes "
+          f"{pred.peak_bytes}): x{ratio:.4f}", flush=True)
+    check(flops == pred.flops, f"{label}: FLOPs {flops} on the card, "
+                               f"{pred.flops} predicted")
+    check(real_args == pred_args, f"{label}: arguments {real_args} B, "
+                                  f"{pred_args} B predicted")
+    check(abs(ratio - 1) <= 0.25, f"{label}: peak x{ratio:.4f} of the "
+                                  f"prediction")
+    return row, args, pred
+
+
+def dryrun_prediction(torch, seed):
+    """22(b): qwen2-7b's decode step, then a 2-layer training step."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data import pipeline
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer
+    from repro_torch.train import step as step_lib
+
+    cfg = get_config("qwen2-7b")
+    dev = torch.device("cuda")
+    shape = ShapeConfig("serve_2048", 2048, 4, "decode")
+    low = dryrun.lower_serve(cfg, shape)
+
+    def decode_args():
+        params = random_params(torch, cfg, torch.bfloat16, seed)
+        caches = transformer.make_caches(cfg, 4, 2048, torch.bfloat16, dev)
+        tokens = torch.randint(0, cfg.vocab_size, (4,), device=dev)
+        clen = torch.full((4,), 1024, dtype=torch.int32, device=dev)
+        return params, tokens, caches, clen
+
+    out = {}
+    out["decode"], args, pred = predict_and_measure(
+        torch, "qwen2-7b decode step (4 x 2048, bf16)", low.fn, low.args,
+        decode_args)
+    out["decode_step"] = dict(args=args, pred=pred, cfg=cfg, shape=shape,
+                              arg_bytes=out["decode"]["argument_bytes"])
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    tshape = ShapeConfig("qwen_2048", 2048, 1, "train")
+    tcfg = step_lib.TrainConfig(schedule_warmup=5)
+    low = dryrun.lower_train(cfg2, tshape, tcfg=tcfg)
+
+    def train_args():
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        state = step_lib.init_state(cfg2, tcfg, gen, dev)
+        return state, pipeline.device_batch(cfg2, tshape, seed, 0, dev)
+
+    # the decode step's arguments stay for (c): 16.8 GB beside 38 GB
+    out["train"], _, _ = predict_and_measure(
+        torch, "qwen2-7b 2-layer train step (1 x 2048, f32)", low.fn,
+        low.args, train_args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_bound_vs_time(torch, decode):
+    """22(c): the decode step's roofline bound on ``analytical.H100``
+    beside its time through the kernels, eager and as a graph replay."""
+    from repro_torch.core.analytical import H100
+    from repro_torch.core.famous import FamousConfig
+    from repro_torch.models import transformer
+    from repro_torch.roofline import analysis
+    from repro_torch.serve import graphs
+
+    cfg, shape, pred = decode["cfg"], decode["shape"], decode["pred"]
+    params, tokens, caches, clen = decode["args"]
+    rf = analysis.analyse("qwen2-7b", shape.name, "1 card", cost=pred,
+                          chips=1,
+                          model_flops_total=analysis.model_flops(cfg, shape),
+                          hw=H100)
+    fcfg = FamousConfig(impl="pallas")
+
+    def step():
+        return transformer.decode_step(params, tokens, caches, clen, cfg,
+                                       fcfg)
+
+    eager = time_ms(torch, step, [()], 5)
+    pool = graphs.GraphPool(torch.device("cuda"))
+    ex = graphs.Executable(lambda key: step(), pool)
+    ex("decode")                          # the eager warm-up
+    ex("decode")                          # capture, then one replay
+    replay = median_call_ms(torch, lambda: ex("decode"), 10)
+    out = dict(t_bound_ms=rf.t_bound * 1e3, t_compute_ms=rf.t_compute * 1e3,
+               t_memory_ms=rf.t_memory * 1e3, dominant=rf.dominant,
+               args_read_ms=decode["arg_bytes"] / H100.hbm_bw * 1e3,
+               bytes_accessed=pred.bytes_accessed, flops=pred.flops,
+               eager_ms=eager, graph_ms=replay,
+               bound_over_eager=rf.t_bound * 1e3 / eager,
+               bound_over_graph=rf.t_bound * 1e3 / replay)
+    print(f"dry run (c): qwen2-7b decode step (4 x 2048, 1024 cached, bf16): "
+          f"t_bound {out['t_bound_ms']:.3f} ms on {H100.name} "
+          f"({rf.dominant}: {pred.bytes_accessed:.4e} B unfused, "
+          f"{pred.flops:.4e} FLOPs of the xla path; its arguments read "
+          f"once {out['args_read_ms']:.3f} ms); through the kernels "
+          f"{eager:.3f} ms eager (CUDA events, mean of 5), {replay:.3f} ms "
+          f"a graph replay (median of 10): t_bound x"
+          f"{out['bound_over_eager']:.3f} of eager, "
+          f"x{out['bound_over_graph']:.3f} of the replay", flush=True)
+    del ex, pool
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -5303,6 +5506,7 @@ def main(argv=None) -> int:
                          args.seed)
     sharded = phase("sharded training", sharded_training_phase, args.seed)
     analysis = phase("analysis", analysis_phase, rows, args.seed)
+    dry_run = phase("dry run", dryrun_phase, args.seed)
 
     paths = [r["launches"] for r in training.values()] + [serving["launches"]]
     paths += [r["launches"] for r in serving["shared_prefix"].values()]
@@ -5355,6 +5559,7 @@ def main(argv=None) -> int:
                                    paged_prefill_writes=paged_writes,
                                    sharded_training=sharded,
                                    analysis=analysis,
+                                   dry_run=dry_run,
                                    phase_s=phase_s),
                               indent=1))
     print(json.dumps({"kernels": entries}))

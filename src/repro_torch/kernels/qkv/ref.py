@@ -20,6 +20,20 @@ def matmul_reference(x: torch.Tensor, w: torch.Tensor,
     return (x.to(torch.float32) @ w.to(torch.float32)).to(out_dtype or x.dtype)
 
 
+def qkv_reference(x, wq, wk, wv, bq=None, bk=None, bv=None):
+    """x: (B, S, D); w*: (D, H, dh) -> q, k, v (B, S, H, dh): each an f32
+    product against its unfused weight, plus its f32 bias, cast back to
+    ``x``'s dtype (JAX's ``qkv_reference``)."""
+    def one(w, b):
+        y = torch.einsum("bsd,dhe->bshe", x.to(torch.float32),
+                         w.to(torch.float32))
+        if b is not None:
+            y = y + b.to(torch.float32)
+        return y.to(x.dtype)
+
+    return one(wq, bq), one(wk, bk), one(wv, bv)
+
+
 def matmul_int8_reference(xq: torch.Tensor, wq: torch.Tensor,
                           sx: torch.Tensor, sw: torch.Tensor,
                           out_dtype=torch.float32) -> torch.Tensor:

@@ -26,7 +26,7 @@ from repro_torch.core import quant as quant_lib
 from repro_torch.kernels import lib
 from repro_torch.kernels.qkv import ops as qkv_ops
 from repro_torch.models import layers
-from repro_torch.models.module import ParamSpec
+from repro_torch.models.module import ParamSpec, ShapeDtype, zeros_like_shapes
 
 
 def attn_spec(cfg: ModelConfig) -> dict:
@@ -80,15 +80,22 @@ def quantize_qkv(p: dict) -> dict:
     return out
 
 
+def attn_cache_shape(cfg: ModelConfig, batch: int, max_seq: int, window: int,
+                     dtype) -> dict:
+    """The :class:`~repro_torch.models.module.ShapeDtype` of each buffer of
+    :func:`make_attn_cache` (JAX's ``attn_cache_shape``)."""
+    rows = min(max_seq, window) if window else max_seq
+    sd = ShapeDtype((batch, rows, cfg.num_kv_heads, cfg.head_dim), dtype)
+    return {"k": sd, "v": sd}
+
+
 def make_attn_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
                     device="cuda", window: int = 0) -> dict:
     """Contiguous (batch, max_seq, kv, dh) K/V buffers of one layer; a
     sliding-window layer keeps an O(window) ring of ``min(max_seq,
     window)`` rows instead, position p in row p % ring."""
-    rows = min(max_seq, window) if window else max_seq
-    shape = (batch, rows, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return zeros_like_shapes(
+        attn_cache_shape(cfg, batch, max_seq, window, dtype), device)
 
 
 # logical axes of the caches (``transformer.cache_axes``): contiguous
@@ -104,6 +111,19 @@ PAGED_ATTN_CACHE_AXES_INT8 = {**PAGED_ATTN_CACHE_AXES,
                               "v_scale": (None, None, "kv_heads")}
 
 
+def paged_attn_cache_shape(cfg: ModelConfig, n_pages: int, page_size: int,
+                           dtype, kv_dtype: str = "fp") -> dict:
+    """The :class:`~repro_torch.models.module.ShapeDtype` of each pool of
+    :func:`make_paged_attn_cache` (JAX's ``paged_attn_cache_shape``)."""
+    shape = (n_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+    if kv_dtype == "int8":
+        sd = ShapeDtype(shape, torch.int8)
+        scale = ShapeDtype(shape[:3], torch.float32)
+        return {"k": sd, "v": sd, "k_scale": scale, "v_scale": scale}
+    sd = ShapeDtype(shape, dtype)
+    return {"k": sd, "v": sd}
+
+
 def make_paged_attn_cache(cfg: ModelConfig, n_pages: int, page_size: int,
                           dtype, kv_dtype: str = "fp", device="cuda") -> dict:
     """Shared page pool of one global-attention layer: every slot's K/V
@@ -112,16 +132,9 @@ def make_paged_attn_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     ``k_scale``/``v_scale`` pools of shape (n_pages, page_size, kv), one
     symmetric scale per (token, kv head), written in the same scatter as
     the row, so a scale row shares its page's id and lifetime."""
-    shape = (n_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
-    if kv_dtype == "int8":
-        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
-                "v": torch.zeros(shape, dtype=torch.int8, device=device),
-                "k_scale": torch.zeros(shape[:3], dtype=torch.float32,
-                                       device=device),
-                "v_scale": torch.zeros(shape[:3], dtype=torch.float32,
-                                       device=device)}
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return zeros_like_shapes(
+        paged_attn_cache_shape(cfg, n_pages, page_size, dtype, kv_dtype),
+        device)
 
 
 def _kv_quantize(x):

@@ -44,6 +44,11 @@ class ParamSpec:
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
+def is_spec_tree_leaf(x) -> bool:
+    """Whether ``x`` is a leaf of a spec tree (JAX's pytree ``is_leaf``)."""
+    return isinstance(x, ParamSpec)
+
+
 def tree_map(fn: Callable, tree: Tree) -> Tree:
     """Apply ``fn`` to every non-dict leaf of a nested dict."""
     if isinstance(tree, dict):
@@ -118,6 +123,12 @@ def param_shapes(spec_tree: Tree, default_dtype=torch.float32) -> Tree:
     return tree_map(lambda s: ShapeDtype(tuple(s.shape),
                                          s.dtype or default_dtype),
                     spec_tree)
+
+
+def zeros_like_shapes(shapes: Tree, device) -> Tree:
+    """Zero tensors on ``device`` of a :class:`ShapeDtype` tree's shapes."""
+    return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                          device=device), shapes)
 
 
 def logical_axes(spec_tree: Tree) -> Tree:

@@ -27,7 +27,7 @@ from repro_torch.core.famous import FamousConfig
 from repro_torch.kernels import lib
 from repro_torch.kernels.scan import ops as scan_ops
 from repro_torch.models import layers
-from repro_torch.models.module import ParamSpec
+from repro_torch.models.module import ParamSpec, ShapeDtype, zeros_like_shapes
 
 _C = 8.0  # RG-LRU decay sharpness constant (Griffin §2.4)
 f32 = torch.float32
@@ -209,16 +209,19 @@ def _conv1d(p, x, state=None, n_valid=None):
     return y, new_state
 
 
+def rglru_cache_shape(cfg: ModelConfig, batch: int, dtype) -> dict:
+    """The :class:`~repro_torch.models.module.ShapeDtype` of each buffer of
+    :func:`make_rglru_cache` (JAX's ``rglru_cache_shape``)."""
+    r = cfg.lru_width or cfg.d_model
+    return {"h": ShapeDtype((batch, r), f32),
+            "conv": ShapeDtype((batch, cfg.conv_width - 1, r), f32)}
+
+
 def make_rglru_cache(cfg: ModelConfig, batch: int, dtype,
                      device="cuda") -> dict:
     """Per-slot state: ``h`` (batch, R) and the conv window ``conv``
     (batch, W-1, R), both f32 whatever the model dtype, as in JAX."""
-    r = cfg.lru_width or cfg.d_model
-    return {
-        "h": torch.zeros((batch, r), dtype=f32, device=device),
-        "conv": torch.zeros((batch, cfg.conv_width - 1, r), dtype=f32,
-                            device=device),
-    }
+    return zeros_like_shapes(rglru_cache_shape(cfg, batch, dtype), device)
 
 
 RGLRU_CACHE_AXES = {"h": ("batch", "mlp"), "conv": ("batch", None, "mlp")}

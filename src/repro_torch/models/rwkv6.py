@@ -39,7 +39,7 @@ from repro_torch.core.famous import FamousConfig
 from repro_torch.kernels import lib
 from repro_torch.kernels.scan import ops as scan_ops
 from repro_torch.models import layers
-from repro_torch.models.module import ParamSpec
+from repro_torch.models.module import ParamSpec, ShapeDtype, zeros_like_shapes
 
 _LORA = 64  # low-rank width of the data-dependent decay projection
 f32 = torch.float32
@@ -146,18 +146,20 @@ def _mix(x, x_prev, mu):
     return x + (x_prev - x) * mu.to(x.dtype)
 
 
+def rwkv_cache_shape(cfg: ModelConfig, batch: int, dtype) -> dict:
+    """The :class:`~repro_torch.models.module.ShapeDtype` of each buffer of
+    :func:`make_rwkv_cache` (JAX's ``rwkv_cache_shape``)."""
+    d, dh = cfg.d_model, cfg.rwkv_head_dim
+    return {"s": ShapeDtype((batch, d // dh, dh, dh), f32),
+            "x_tm": ShapeDtype((batch, d), dtype),
+            "x_cm": ShapeDtype((batch, d), dtype)}
+
+
 def make_rwkv_cache(cfg: ModelConfig, batch: int, dtype,
                     device="cuda") -> dict:
     """Per-slot state: the wkv state ``s`` (batch, H, dh, dh) f32 and the
     two token-shift rows ``x_tm``/``x_cm`` (batch, D) in the model dtype."""
-    d = cfg.d_model
-    h = d // cfg.rwkv_head_dim
-    dh = cfg.rwkv_head_dim
-    return {
-        "s": torch.zeros((batch, h, dh, dh), dtype=f32, device=device),
-        "x_tm": torch.zeros((batch, d), dtype=dtype, device=device),
-        "x_cm": torch.zeros((batch, d), dtype=dtype, device=device),
-    }
+    return zeros_like_shapes(rwkv_cache_shape(cfg, batch, dtype), device)
 
 
 RWKV_CACHE_AXES = {"s": ("batch", "heads", None, None),

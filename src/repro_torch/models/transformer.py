@@ -781,25 +781,24 @@ def _compute_dtype(params):
     return params["final_norm"]["scale"].dtype
 
 
-def _layer_cache(kind, cfg, batch, max_seq, dtype, device, cache_kind,
-                 page_size, n_pages, kv_dtype):
+def _layer_cache_shape(kind, cfg, batch, max_seq, dtype, cache_kind,
+                       page_size, n_pages, kv_dtype) -> dict:
     if kind == ATTN and cache_kind == "paged":
-        return attention.make_paged_attn_cache(cfg, n_pages, page_size,
-                                               dtype, kv_dtype, device)
+        return attention.paged_attn_cache_shape(cfg, n_pages, page_size,
+                                                dtype, kv_dtype)
     if kind in (ATTN, LOCAL_ATTN):
         window = cfg.window if kind == LOCAL_ATTN else 0
-        return attention.make_attn_cache(cfg, batch, max_seq, dtype, device,
-                                         window=window)
+        return attention.attn_cache_shape(cfg, batch, max_seq, window, dtype)
     if kind == RGLRU:
-        return rglru.make_rglru_cache(cfg, batch, dtype, device)
-    return rwkv6.make_rwkv_cache(cfg, batch, dtype, device)
+        return rglru.rglru_cache_shape(cfg, batch, dtype)
+    return rwkv6.rwkv_cache_shape(cfg, batch, dtype)
 
 
 def make_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype,
                 device="cuda", *, cache_kind: str = "contiguous",
                 page_size: int = 0, n_pages: int = 0,
                 kv_dtype: str = "fp", mesh=None, rules=None,
-                slots: int | None = None) -> list:
+                slots: int | None = None, shapes_only: bool = False) -> list:
     """One cache per layer.
 
     cache_kind="contiguous": a ``(batch, max_seq, kv, dh)`` K/V pair per
@@ -819,13 +818,20 @@ def make_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype,
     layer does not split, the result is a :class:`MeshCaches`.
     ``slots``: the slot count the placement is resolved for, where it is
     not ``batch`` (a one-slot scratch cache placed as one slot of the
-    engine's)."""
+    engine's).  ``shapes_only``: the whole caches'
+    :class:`~repro_torch.models.module.ShapeDtype` leaves, allocating
+    nothing (JAX's ``shapes_only``, one dict a layer where JAX stacks a
+    unit's layers); ``device`` is not read, and no ``mesh`` is taken."""
     _check_supported(cfg)
     if mesh is not None:
+        if shapes_only:
+            raise ValueError("shapes_only gives the whole caches' shapes; "
+                             "a rank's are shd.local_shape of them")
         rules = rules or shd.SERVE_TP_RULES
-        full = make_caches(cfg, slots or batch, max_seq, dtype, "meta",
+        full = make_caches(cfg, slots or batch, max_seq, dtype,
                            cache_kind=cache_kind, page_size=page_size,
-                           n_pages=n_pages, kv_dtype=kv_dtype)
+                           n_pages=n_pages, kv_dtype=kv_dtype,
+                           shapes_only=True)
         axes = cache_axes(cfg, cache_kind, kv_dtype)
         specs = shd.tree_specs(mesh, axes, rules, full)
         cut = _rwkv_head_cut(cfg, mesh, rules)
@@ -852,9 +858,11 @@ def make_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype,
     if cache_kind == "paged" and (page_size <= 0 or n_pages <= 0):
         raise ValueError(f"paged caches need page_size and n_pages, got "
                          f"{page_size}, {n_pages}")
-    return [_layer_cache(kind, cfg, batch, max_seq, dtype, device,
-                         cache_kind, page_size, n_pages, kv_dtype)
-            for kind in layer_kinds(cfg)]
+    shapes = [_layer_cache_shape(kind, cfg, batch, max_seq, dtype,
+                                 cache_kind, page_size, n_pages, kv_dtype)
+              for kind in layer_kinds(cfg)]
+    return shapes if shapes_only else [module.zeros_like_shapes(c, device)
+                                       for c in shapes]
 
 
 def _read_slot_state(cache: dict, slot, offset) -> dict:

@@ -18,9 +18,10 @@ its group size:
     collective-permute    b
 
 :class:`Roofline` carries the spec it was built for and divides by that
-spec's peak.  Reading the terms out of a compiled program (JAX's
-``analyse`` and ``collective_bytes`` over XLA HLO text) belongs with the
-dry run and has no counterpart here yet.
+spec's peak.  :func:`analyse` builds one from what
+:func:`repro_torch.roofline.op_cost.analyse_ops` counted of a step's
+operators, where JAX's reads XLA's HLO text (``analyse``,
+``collective_bytes``), which the port never has.
 """
 from __future__ import annotations
 
@@ -105,6 +106,27 @@ class Roofline:
             "memory_per_device_gib": self.memory_per_device / 2**30,
             "collectives": self.coll_detail.get("counts", {}),
         }
+
+
+def analyse(arch: str, shape: str, mesh_name: str, *, cost, chips: int,
+            model_flops_total: float, memory_per_device: float = 0.0,
+            hw: GpuSpec = H100) -> Roofline:
+    """Roofline terms of one device from ``cost``, an
+    :class:`~repro_torch.roofline.op_cost.OpCost` of its step: FLOPs over
+    ``hw``'s bf16 peak, bytes over its HBM rate, moved collective bytes
+    over its link rate."""
+    coll = dict(cost.coll_by_type)
+    coll["counts"] = dict(cost.coll_counts)
+    coll["total_moved"] = cost.coll_moved
+    return Roofline(
+        arch=arch, shape=shape, mesh=mesh_name,
+        flops=cost.flops, bytes_accessed=cost.bytes_accessed,
+        coll_bytes=cost.coll_moved,
+        t_compute=cost.flops / hw.peak_bf16,
+        t_memory=cost.bytes_accessed / hw.hbm_bw,
+        t_collective=cost.coll_moved / hw.link_bw,
+        model_flops_total=model_flops_total, chips=chips, coll_detail=coll,
+        memory_per_device=memory_per_device, hw=hw)
 
 
 def model_flops(cfg, shape) -> float:

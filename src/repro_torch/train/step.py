@@ -67,6 +67,21 @@ def init_state(cfg: ModelConfig, tcfg: TrainConfig, gen: torch.Generator,
     return state if mesh is None else shard_state(state, cfg, mesh, rules)
 
 
+def state_shapes(cfg: ModelConfig, tcfg: TrainConfig) -> dict:
+    """The :class:`~repro_torch.models.module.ShapeDtype` tree of
+    :func:`init_state`'s state, allocating nothing (JAX's
+    ``state_shapes``): parameters in ``tcfg.param_dtype``, both moments in
+    ``tcfg.optimizer.moment_dtype``, ``count`` and ``step`` int32
+    scalars (which :func:`init_state` keeps on the host: the step reads
+    ``step`` there)."""
+    p = module.param_shapes(transformer.model_spec(cfg), tcfg.param_dtype)
+    mom = tree_map(lambda s: module.ShapeDtype(s.shape,
+                                               tcfg.optimizer.moment_dtype), p)
+    scalar = module.ShapeDtype((), torch.int32)
+    return {"params": p, "opt": {"m": mom, "v": mom, "count": scalar},
+            "step": scalar}
+
+
 def shard_state(state: dict, cfg: ModelConfig, mesh, rules=None) -> dict:
     """This rank's shards of a whole train state on ``mesh`` under
     :func:`state_specs`: each leaf cut to (a copy of) its shard, so the

@@ -256,8 +256,11 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.configs.command_r_plus_104b', "
         "'repro_torch.parallel.sharding', 'repro_torch.parallel.incontext', "
         "'repro_torch.launch.mesh', 'repro_torch.train.elastic', "
-        "'repro_torch.optim.compression'}\n"
+        "'repro_torch.optim.compression', 'repro_torch.launch.dryrun', "
+        "'repro_torch.launch.specs', 'repro_torch.roofline.op_cost'}\n"
         "assert new <= set(mods), new - set(mods)\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized(), 'an import started a group'\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,

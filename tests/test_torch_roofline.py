@@ -18,7 +18,8 @@ arithmetic (``roofline/analysis.py``) against the JAX package's.
 
 No number of a TPU is written here: the V5E figures are read from JAX's
 ``V5E``.  The HLO-reading half of JAX's roofline (``analyse``, the
-``hlo_cost`` cases of ``tests/test_roofline.py``) has no counterpart yet.
+``hlo_cost`` cases of ``tests/test_roofline.py``) is restated for the
+operator counter that stands in for it in ``tests/test_torch_op_cost.py``.
 """
 import dataclasses
 
