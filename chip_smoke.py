@@ -295,6 +295,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -415,8 +416,10 @@ MASK_ATTN = (("qwen2-7b window=512", 1, 2048, 2048, 28, 4, 128, True, 512, 0),
 # recurrentgemma-2b's local attention (configs/recurrentgemma_2b.py: 10
 # query heads over one kv head of 256, a 2048-token window) at its
 # max_seq, in the same row format: the MHA kernels above dh 128 (the bf16
-# forward's 64-row tensor-core blocks; dq and dk/dv on their CUDA-core
-# kernels in both dtypes, one split)
+# forward's 64-row tensor-core blocks; bf16 dq and dk/dv on their wide
+# tensor-core geometries, mha.dq_tiles / mha.dkv_tiles, split for the one
+# kv head, held to their mirrors; f32 dq and dk/dv on the CUDA-core
+# kernels)
 LOCAL_ATTN = (("recurrentgemma-2b local", 1, 4096, 4096, 10, 1, 256, True,
                2048, 0),
               # a ragged length, as an exact-length monolithic prefill of
@@ -510,6 +513,22 @@ def ptxas_summary(log: str) -> str:
         if spill:
             d["spill_store_bytes"].append(int(spill))
     return "ptxas " + json.dumps(merged)
+
+
+def kernel_ptxas(log: str, fragment: str) -> str:
+    """The registers and spill stores that ``nvcc -Xptxas -v`` reported
+    for the kernel instances whose mangled names contain ``fragment``."""
+    found, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1) if fragment in m.group(1) else None
+        elif name and "spill stores" in line:
+            found.append(f"{line.split(',')[1].strip().split()[0]} B spilled")
+        elif name and "registers" in line:
+            found.append(line.split("Used ")[1].split(",")[0])
+            name = None
+    return f"ptxas {fragment}: " + (", ".join(found) or "not in the log")
 
 
 # ---------------------------------------------------------------------------
@@ -1498,8 +1517,8 @@ def training_kernel_rows(torch, F, dts, randn, record, iters):
     in bf16, held to the plain mirrors of their tensor-core algebra, with
     the backward plans' longest runs within their caps; MASK_ATTN's rows
     run every mask of those bodies, LOCAL_ATTN's the head dim of 256
-    (whose bf16 dq and dk/dv run the CUDA-core kernels, held to the plain
-    versions alone)."""
+    (whose bf16 dq and dk/dv run their wide tensor-core geometries: each
+    row also prints the kernel's registers and spills)."""
     slow = max(5, iters // 5)
     for label, B, S, H, KV, dh, causal in TRAIN_ATTN:
         attention_rows(torch, F, dts, randn, record, slow, label, B, S, S, H,
@@ -1658,35 +1677,45 @@ def attention_rows(torch, F, dts, randn, record, n_iter, label, B, Sq, Skv, H,
                 return plain(*a, **kw)
 
             out, ref = kfn(*bsets[0]), pfn(*bsets[0])
-            record(name, shape, dt, out, ref, BWD_TOL[dt], kfn, pfn, lib_b,
-                   bsets, nbytes, flops, n_iter=n_iter, lib_sets=lsets,
-                   again=kfn(*bsets[0]))
+            row = record(name, shape, dt, out, ref, BWD_TOL[dt], kfn, pfn,
+                         lib_b, bsets, nbytes, flops, n_iter=n_iter,
+                         lib_sets=lsets, again=kfn(*bsets[0]))
             if name == "mha_bwd_dq" and bool(empty.any()):
                 zero = bool(torch.all(out[:, empty] == 0))
                 print(f"  (mha_bwd_dq {dt}: rows that see no key: dq "
                       f"{'exactly 0' if zero else 'NOT 0'}) "
                       f"{'ok' if zero else 'FAIL'}", flush=True)
                 check(zero, f"mha_bwd_dq {dt} {shape}: empty rows not 0")
-            if dt == "bf16" and dh > mha_k.TC_MAX_HEAD_DIM:
-                # the CUDA-core kernel: f32 FMAs on the bf16 values, one run
-                splits, _ = plan(code, B * H, B * KV, Sq, Skv, dh,
-                                 lib.sm_count(dev))
-                print(f"  ({name} {dt} {shape}: the CUDA-core route, "
-                      f"{splits} split, held to the plain version at "
-                      f"{BWD_TOL[dt]:g}) {'ok' if splits == 1 else 'FAIL'}",
-                      flush=True)
-                check(splits == 1, f"{name} {dt} {shape}: {splits} splits "
-                      f"on the CUDA-core route")
-            elif dt == "bf16":
-                splits, _ = plan(code, B * H, B * KV, Sq, Skv, dh,
-                                 lib.sm_count(dev))
-                run_cap_check(mha_ref, name, shape, splits, Sq, Skv, H // KV,
-                              kw)
-                mirror = mirror_fn(*bsets[0], splits=splits, **kw)
+            if dt == "bf16":
+                sms = lib.sm_count(dev)
+                splits, _ = plan(code, B * H, B * KV, Sq, Skv, dh, sms)
+                ptxas = (kernel_ptxas(lib.BUILD_LOG, name + "_wide")
+                         if dh > mha_k.TC_MAX_HEAD_DIM else None)
+                if name == "mha_bwd_dq":
+                    rule = mha_k.dq_split_rule(B * H, Sq, Skv, dh, sms)
+                    geom = dict(zip(("block_q", "tile_keys"),
+                                    mha_k.dq_tiles(dh)))
+                else:
+                    rule = mha_k.dkv_split_rule(B * H, B * KV, Sq, Skv, dh,
+                                                sms)
+                    geom = dict(zip(("block_keys", "block_q"),
+                                    mha_k.dkv_tiles(dh)))
+                print(f"  ({name} {dt} {shape}: plan {splits} splits, the "
+                      f"restated rule {rule}; geometry {geom}"
+                      + (f"; {ptxas}" if ptxas else "")
+                      + f") {'ok' if splits == rule else 'FAIL'}", flush=True)
+                check(splits == rule, f"{name} {dt} {shape}: plan {splits} "
+                      f"splits, rule {rule}")
+                longest = run_cap_check(mha_ref, name, shape, splits, Sq, Skv,
+                                        H // KV, kw, geom)
+                mirror = mirror_fn(*bsets[0], splits=splits, **geom, **kw)
                 m_err, m_ok = compare(torch, out, mirror, BWD_MIRROR_TOL)
+                m_share = tol_share(torch, out, mirror, BWD_MIRROR_TOL)
                 mirror_check(name, dt, shape, splits, m_err, m_ok,
-                             BWD_MIRROR_TOL, tol_share(torch, out, mirror,
-                                                       BWD_MIRROR_TOL))
+                             BWD_MIRROR_TOL, m_share)
+                row.update(splits=splits, geometry=geom, longest_run=longest,
+                           mirror_max_abs_err=m_err, mirror_tol_share=m_share,
+                           ptxas=ptxas)
                 del mirror
             del out, ref
         del bsets, lsets
@@ -1743,13 +1772,15 @@ def local_attention_through_ops(torch, dts, randn):
         del q, k, v, g, out, dq, dk, dv, ref_o, ref_dq, ref_dk, ref_dv
 
 
-def run_cap_check(mha_ref, name, shape, splits, Sq, Skv, group, kw):
+def run_cap_check(mha_ref, name, shape, splits, Sq, Skv, group, kw, geom):
     """The backward plans' run caps: the longest run that ``splits`` gives
-    the kernel's geometry (64-row blocks of 64-key tiles for dq, 64-key
-    blocks of 64-row items for dk/dv; the mirrors' run enumerations) stays
-    within ``ref.DQ_RUN_KEYS`` keys or ``ref.DKV_RUN_ITEMS`` items."""
+    the kernel's geometry ``geom`` (``mha.dq_tiles``' row blocks and key
+    tiles for dq, ``mha.dkv_tiles``' key blocks and row items for dk/dv;
+    the mirrors' run enumerations) stays within ``ref.DQ_RUN_KEYS`` keys
+    or ``ref.dkv_run_items`` items (``ref.DKV_RUN_ROWS`` rows); returns
+    that longest run."""
     mask = dict(causal=kw["causal"], window=kw["window"],
-                q_offset=kw["q_offset"], splits=splits)
+                q_offset=kw["q_offset"], splits=splits, **geom)
     if name == "mha_bwd_dq":
         longest = max((hi - lo for _, _, runs in mha_ref.dq_runs(Sq, Skv, **mask)
                        for lo, hi in runs), default=0)
@@ -1757,11 +1788,13 @@ def run_cap_check(mha_ref, name, shape, splits, Sq, Skv, group, kw):
     else:
         longest = max((hi - lo for *_, runs in mha_ref.dkv_runs(
             Sq, Skv, group, **mask) for lo, hi in runs), default=0)
-        cap, unit = mha_ref.DKV_RUN_ITEMS, "items"
+        cap = mha_ref.dkv_run_items(geom["block_q"])
+        unit = f"items of {geom['block_q']} rows"
     ok = longest <= cap
     print(f"  ({name} {shape}: {splits} splits, longest run {longest} {unit}"
           f" (cap {cap})) {'ok' if ok else 'FAIL'}", flush=True)
     check(ok, f"{name} {shape}: a run of {longest} {unit} past the cap {cap}")
+    return longest
 
 
 def mirror_check(name, dt, shape, splits, err, ok, tol, share):

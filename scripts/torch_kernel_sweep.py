@@ -41,6 +41,14 @@ card:
   padded, split counts 1 / 2 / 4, hi + lo against one pass; each against
   SDPA's forward or its whole backward on the same clock (``dq``: the
   dq sweep alone);
+- ``mha_bwd_dq`` and ``mha_bwd_dkv`` bf16 above dh 128 (``mha256``) at
+  recurrentgemma-2b's local attention (B=1, 10 / 1 heads of 256, causal,
+  a 2048-token window; 4096 and 1292 tokens, and a model=2 rank's 5 / 1
+  heads at 2048): the wide geometries (dq's rows a block, keys a tile,
+  warps to a 16-row strip and K / V ring stages; dk/dv's keys a block,
+  rows an item, warps to a 16-key strip and Q / dO ring stages) at split
+  counts 1-4 (dq) and 4-24 (dk/dv), against the kernels' own plans and
+  SDPA's whole backward;
 - ``matmul_tiled_int8`` (``int8``) at qwen2-7b's D = 3584, F = 4608:
   output-tile shapes (rows, W-stripe columns, D step, warps, ring stages)
   times split-K counts at decode (T = 4), verify (T = 20) and a chunk
@@ -129,13 +137,28 @@ MHA_DPS = [96, 128]
 MHA_DKV_TILES = [(64, 64, True), (128, 64, True), (64, 32, True),
                  (64, 64, False)]
 MHA_DKV_SPLITS = [1, 2, 4, 7]
-# mha_bwd_dkv.cu's kDkvRunItems: the longest run its plan allows
-DKV_RUN_ITEMS = 64
 # mha_bwd_dq variants (mha_bwd_dq.cu's DqTiles: query rows a block, keys
 # a tile, hi + lo products); the first is the kernel's own
 MHA_DQ_TILES = [(64, 64, True), (128, 64, True), (64, 32, True),
                 (64, 64, False)]
 MHA_DQ_SPLITS = [1, 2, 4]
+# the bf16 backward above dh 128 (the ``mha256`` part): mha_bwd_dq.cu's
+# DqWide (query rows a block, keys a tile, warps to a 16-row strip, ring
+# stages) and mha_bwd_dkv.cu's DkvWide (keys a block, query rows an item,
+# warps to a 16-key strip, ring stages); the first of each is the
+# kernel's own
+MHA_DQ_WIDE = [(64, 64, 2, 2), (64, 32, 2, 2), (64, 32, 2, 1),
+               (32, 64, 2, 2), (64, 64, 4, 2)]
+MHA_DQ_WIDE_SPLITS = [1, 2, 3, 4]
+MHA_DKV_WIDE = [(64, 32, 2, 2), (64, 64, 2, 1), (32, 64, 2, 2),
+                (32, 64, 4, 2), (64, 64, 4, 1), (32, 32, 2, 2)]
+MHA_DKV_WIDE_SPLITS = [4, 8, 12, 16, 24]
+# (label, B, S, H, KV, dh, window), causal: chip_smoke.py's LOCAL_ATTN and
+# RG_TP_ATTN (PERF.md rows 4b/5b, 4c/5c, 4f/5f)
+MHA_WIDE_SHAPES = [("recurrentgemma-2b local", 1, 4096, 10, 1, 256, 2048),
+                   ("recurrentgemma-2b local ragged", 1, 1292, 10, 1, 256,
+                    2048),
+                   ("recurrentgemma-2b TP=2", 1, 2048, 5, 1, 256, 2048)]
 # matmul_tiled_int8 variants (matmul_tiled_int8.cu's I8Tiles: BM, BN, BK,
 # warps along M and N, ring stages) by regime; the first of each is the
 # kernel's own
@@ -194,6 +217,7 @@ PART_SOURCES = {"matmul": ["sweep_mm.cu"], "decode": ["sweep_decode.cu"],
                 "mha": ["sweep_mha_fwd.cu", "sweep_mha_dkv.cu",
                         "sweep_mha_dq.cu"],
                 "dq": ["sweep_mha_dq.cu"],
+                "mha256": ["sweep_dq256.cu", "sweep_dkv256.cu"],
                 "int8": ["sweep_int8.cu"], "wkv6": ["sweep_wkv6.cu"],
                 "rglru": ["sweep_rglru.cu"]}
 
@@ -443,7 +467,57 @@ extern "C" int sweep_rglru(int cfg, const void* a, const void* b, float* out,
   return static_cast<int>(e);
 }}
 """
+    wide_args = ("(q), static_cast<const bf16*>(k), static_cast<const bf16*>"
+                 "(v), static_cast<const bf16*>(dout), lse, delta, ")
+    dq256_cases = "\n".join(
+        f"    case {i}: e = launch_dq_wide<DqWide<{bq}, {bk}, {wc}, {st}>>("
+        f"static_cast<const bf16*>{wide_args}dq, static_cast<float*>(part), "
+        "splits, BH, group, Sq, Skv, dh, causal, window, q_offset, scale, s); "
+        "break;"
+        for i, (bq, bk, wc, st) in enumerate(MHA_DQ_WIDE))
+    dq256 = f"""#include "{csrc / 'mha_bwd_dq.cu'}"
+
+extern "C" int sweep_dq256(int cfg, const void* q, const void* k,
+                           const void* v, const void* dout, const float* lse,
+                           const float* delta, float* dq, void* part,
+                           int splits, int BH, int group, int Sq, int Skv,
+                           int dh, int causal, int window, int q_offset,
+                           float scale, void* stream) {{
+  using namespace famous;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaErrorInvalidValue;
+  switch (cfg) {{
+{dq256_cases}
+  }}
+  return static_cast<int>(e);
+}}
+"""
+    dkv256_cases = "\n".join(
+        f"    case {i}: e = launch_dkv_wide<DkvWide<{bk}, {bq}, {wc}, {st}>>("
+        f"static_cast<const bf16*>{wide_args}dk, dv, static_cast<float*>"
+        "(part), splits, BKV, group, Sq, Skv, dh, causal, window, q_offset, "
+        "scale, s); break;"
+        for i, (bk, bq, wc, st) in enumerate(MHA_DKV_WIDE))
+    dkv256 = f"""#include "{csrc / 'mha_bwd_dkv.cu'}"
+
+extern "C" int sweep_dkv256(int cfg, const void* q, const void* k,
+                            const void* v, const void* dout,
+                            const float* lse, const float* delta, float* dk,
+                            float* dv, void* part, int splits, int BKV,
+                            int group, int Sq, int Skv, int dh, int causal,
+                            int window, int q_offset, float scale,
+                            void* stream) {{
+  using namespace famous;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaErrorInvalidValue;
+  switch (cfg) {{
+{dkv256_cases}
+  }}
+  return static_cast<int>(e);
+}}
+"""
     return {"sweep_mm.cu": mm, "sweep_decode.cu": dec, "sweep_chunk.cu": cp,
+            "sweep_dq256.cu": dq256, "sweep_dkv256.cu": dkv256,
             "sweep_paged_chunk.cu": pc, "sweep_mha_fwd.cu": fwd,
             "sweep_mha_dkv.cu": dkv, "sweep_mha_dq.cu": dq,
             "sweep_int8.cu": i8, "sweep_wkv6.cu": wkv, "sweep_rglru.cu": rg}
@@ -506,6 +580,10 @@ def build(out_dir: Path, parts) -> ctypes.CDLL:
                           I, I, F, P],
         "sweep_mha_dq": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
                          I, F, P],
+        "sweep_dq256": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
+                        I, F, P],
+        "sweep_dkv256": [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                         I, I, F, P],
         "sweep_int8": [I, P, P, P, P, P, P, I, I, I, I, P],
         "sweep_wkv6": [I, P, P, P, P, P, P, P, P, P, I, I, I, I, P],
         "sweep_rglru": [I, P, P, P, I, I, I, P],
@@ -561,7 +639,8 @@ def main(argv=None) -> int:
     result = {"card": smi, "matmul_tiles": [], "matmul_splits": [],
               "decode_L": [], "paged_decode_L": [], "chunk_prefill": [],
               "paged_chunk_prefill": [], "mha_forward": [],
-              "mha_bwd_dkv": [], "mha_bwd_dq": [], "matmul_tiled_int8": [],
+              "mha_bwd_dkv": [], "mha_bwd_dq": [], "mha_bwd_dq_wide": [],
+              "mha_bwd_dkv_wide": [], "matmul_tiled_int8": [],
               "wkv6_scan": [], "rglru_scan": []}
 
     def randn(shape, scale=1.0):
@@ -689,6 +768,8 @@ def main(argv=None) -> int:
         mha_sweep(torch, Fn, lib, so, randn, dev_ms, result, sms)
     elif "dq" in parts:
         mha_sweep(torch, Fn, lib, so, randn, dev_ms, result, sms, ("dq",))
+    if "mha256" in parts:
+        mha_wide_sweep(torch, Fn, lib, so, randn, dev_ms, result, sms)
     if "int8" in parts:
         int8_sweep(torch, lib, so, gen, dev_ms, result, sms)
     if "wkv6" in parts or "rglru" in parts:
@@ -700,7 +781,8 @@ def main(argv=None) -> int:
     bad = [k for sec in ("matmul_tiles", "matmul_splits", "decode_L",
                          "paged_decode_L", "chunk_prefill",
                          "paged_chunk_prefill", "mha_forward", "mha_bwd_dkv",
-                         "mha_bwd_dq", "matmul_tiled_int8", "wkv6_scan",
+                         "mha_bwd_dq", "mha_bwd_dq_wide", "mha_bwd_dkv_wide",
+                         "matmul_tiled_int8", "wkv6_scan",
                          "rglru_scan")
            for row in result[sec] for k, v in row.items()
            if isinstance(v, dict) and v.get("ok") is False
@@ -934,7 +1016,7 @@ def mha_sweep(torch, Fn, lib, so, randn, dev_ms, result, sms,
     split counts and MHA_DQ_TILES x MHA_DPS x split counts, checked
     against the plain versions (ATTN_TOL, BWD_TOL, with the share of the
     tolerance used; the one-pass backward variants, and dk/dv runs longer
-    than the plan allows (kDkvRunItems), may miss BWD_TOL: recorded, not
+    than the plan allows (``ref.dkv_run_items``), may miss BWD_TOL: recorded, not
     failed), against the kernels' own plans and SDPA's forward or whole
     backward on the same clock.  ``kernels`` names which of the three to
     sweep."""
@@ -1044,8 +1126,9 @@ def mha_sweep(torch, Fn, lib, so, randn, dev_ms, result, sms,
                         # the longest run: the first key block's items
                         items = (H // KV) * -(-S // bq)
                         run = -(-items // n)
+                        cap = mha_ref.dkv_run_items(bq)
                         miss = ("one pass" if not hilo else
-                                f"runs of {run} items" if run > DKV_RUN_ITEMS
+                                f"runs of {run} items" if run > cap
                                 else None)
                         row[name] = {"ms": dev_ms(kern, bsets), "max_abs_err": err,
                                      "ok": ok, "expected_miss": miss}
@@ -1097,6 +1180,132 @@ def mha_sweep(torch, Fn, lib, so, randn, dev_ms, result, sms,
                   f"{ms_text(row['library_ms'])} ms | " + row_text(row),
                   flush=True)
         del bsets, lsets
+
+
+def mha_wide_sweep(torch, Fn, lib, so, randn, dev_ms, result, sms):
+    """The bf16 ``mha_bwd_dq`` and ``mha_bwd_dkv`` above dh 128 at
+    MHA_WIDE_SHAPES: each geometry of MHA_DQ_WIDE and MHA_DKV_WIDE at each
+    split count, checked against the plain versions at BWD_TOL (with the
+    share of it used; a dk/dv split count whose runs pass the plan's cap of
+    ``ref.DKV_RUN_ROWS`` rows may miss: recorded, not failed), against the
+    kernels' own plans (through the port's entry points) and SDPA's whole
+    backward on the same clock."""
+    import chip_smoke as cs
+    from repro_torch.kernels.attention import mha as mha_k
+    from repro_torch.kernels.attention import ref as mha_ref
+
+    dev = torch.device("cuda")
+    code = lib.DTYPE_CODE[torch.bfloat16]
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, B, S, H, KV, dh, window in MHA_WIDE_SHAPES:
+        kw = dict(causal=True, window=window, scale=dh ** -0.5, q_offset=0)
+        BH, BKV, group = B * H, B * KV, H // KV
+        ok_mask = mha_ref.visible(S, S, causal=True, window=window,
+                                  q_offset=0, device=dev)
+        per = 2 * (2 * BH + 2 * BKV) * S * dh
+        bsets, lsets = [], []
+        for _ in range(cs.n_sets(per)):
+            q, k, v = (randn((BH, S, dh)), randn((BKV, S, dh)),
+                       randn((BKV, S, dh)))
+            o, lse = mha_ref.mha_forward_reference(q, k, v, **kw)
+            do = randn((BH, S, dh))
+            bsets.append((q, k, v, do, lse, (do.float() * o.float()).sum(-1)))
+            leaves = tuple(t.detach().clone().requires_grad_()
+                           for t in (q, k, v))
+            lo = Fn.scaled_dot_product_attention(
+                *(t.view(B, -1, S, dh) for t in leaves), attn_mask=ok_mask,
+                scale=kw["scale"], enable_gqa=True)
+            lsets.append((lo, leaves, do.view(lo.shape)))
+
+        def sdpa_b(lo, leaves, g):
+            return torch.autograd.grad(lo, leaves, g, retain_graph=True)
+
+        lib_b_ms = dev_ms(sdpa_b, lsets)
+        del lsets
+        ref_q = mha_ref.mha_bwd_dq_reference(*bsets[0], **kw)
+        q_splits, _ = mha_k.dq_plan(code, BH, BKV, S, S, dh, sms)
+        row = {"shape": label, "plan_splits": q_splits,
+               "library_ms": lib_b_ms,
+               "kernel_ms": dev_ms(lambda *a: mha_k.mha_bwd_dq(*a, **kw),
+                                   bsets)}
+        for i, (bq, bk, wc, st) in enumerate(MHA_DQ_WIDE):
+            for n in sorted(set(MHA_DQ_WIDE_SPLITS + [q_splits])):
+                part = torch.empty(n * BH * S * dh, dtype=torch.float32,
+                                   device=dev)
+
+                def kern(q, k, v, do, lse, delta, n=n, part=part, cfg=i):
+                    dq = torch.empty(q.shape, dtype=torch.float32, device=dev)
+                    lib.check("sweep_dq256", so.sweep_dq256(
+                        cfg, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                        dq.data_ptr(), part.data_ptr(), n, BH, group, S, S,
+                        dh, 1, window, 0, kw["scale"], stream))
+                    return dq
+                name = (f"{bq} rows {bk} keys {wc} warps a strip {st} "
+                        f"stages splits={n}")
+                try:
+                    got = kern(*bsets[0])
+                except RuntimeError as e:   # a launch the card refused
+                    torch.cuda.synchronize()
+                    row[name] = {"ms": None, "error": str(e), "ok": False}
+                    continue
+                err, ok = cs.compare(torch, got, ref_q, cs.BWD_TOL["bf16"])
+                row[name] = {"ms": dev_ms(kern, bsets), "max_abs_err": err,
+                             "ok": ok, "tol_share": cs.tol_share(
+                                 torch, got, ref_q, cs.BWD_TOL["bf16"])}
+        result["mha_bwd_dq_wide"].append(row)
+        print(f"mha_bwd_dq {label} dh {dh} (plan: {q_splits} splits): kernel "
+              f"{ms_text(row['kernel_ms'])} ms, SDPA backward (dq, dk, dv) "
+              f"{ms_text(lib_b_ms)} ms | " + row_text(row), flush=True)
+        del ref_q
+
+        ref_b = mha_ref.mha_bwd_dkv_reference(*bsets[0], **kw)
+        b_splits, _ = mha_k.dkv_plan(code, BH, BKV, S, S, dh, sms)
+        row = {"shape": label, "plan_splits": b_splits,
+               "library_ms": lib_b_ms,
+               "kernel_ms": dev_ms(lambda *a: mha_k.mha_bwd_dkv(*a, **kw),
+                                   bsets)}
+        for i, (bk, bq, wc, st) in enumerate(MHA_DKV_WIDE):
+            for n in sorted(set(MHA_DKV_WIDE_SPLITS + [b_splits])):
+                part = torch.empty(2 * n * BKV * S * dh, dtype=torch.float32,
+                                   device=dev)
+
+                def kern(q, k, v, do, lse, delta, n=n, part=part, cfg=i):
+                    dk = torch.empty(k.shape, dtype=torch.float32, device=dev)
+                    dv = torch.empty_like(dk)
+                    lib.check("sweep_dkv256", so.sweep_dkv256(
+                        cfg, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                        dk.data_ptr(), dv.data_ptr(), part.data_ptr(), n, BKV,
+                        group, S, S, dh, 1, window, 0, kw["scale"], stream))
+                    return dk, dv
+                name = (f"{bk} keys {bq} rows {wc} warps a strip {st} "
+                        f"stages splits={n}")
+                try:
+                    got = kern(*bsets[0])
+                except RuntimeError as e:   # a launch the card refused
+                    torch.cuda.synchronize()
+                    row[name] = {"ms": None, "error": str(e), "ok": False}
+                    continue
+                err, ok = cs.compare(torch, got, ref_b, cs.BWD_TOL["bf16"])
+                # the longest run: the key block that sees the most items
+                run = max((hi - lo for *_, runs in mha_ref.dkv_runs(
+                    S, S, group, causal=True, window=window, q_offset=0,
+                    splits=n, block_keys=bk, block_q=bq) for lo, hi in runs),
+                    default=0)
+                cap = mha_ref.dkv_run_items(bq)
+                row[name] = {
+                    "ms": dev_ms(kern, bsets), "max_abs_err": err, "ok": ok,
+                    "tol_share": cs.tol_share(torch, got, ref_b,
+                                              cs.BWD_TOL["bf16"]),
+                    "expected_miss": (f"runs of {run} items of {bq} rows"
+                                      if run > cap else None)}
+        result["mha_bwd_dkv_wide"].append(row)
+        print(f"mha_bwd_dkv {label} dh {dh} (plan: {b_splits} splits): kernel "
+              f"{ms_text(row['kernel_ms'])} ms, SDPA backward (dq, dk, dv) "
+              f"{ms_text(lib_b_ms)} ms | " + row_text(row), flush=True)
+        del ref_b, bsets
+        torch.cuda.empty_cache()
 
 
 def int8_sweep(torch, lib, so, gen, dev_ms, result, sms):

@@ -20,10 +20,12 @@ key block's work, as their C plans (:func:`forward_plan`,
 count, into an f32 workspace allocated here.  Head dims run up to
 :data:`MAX_HEAD_DIM`: above :data:`TC_MAX_HEAD_DIM` (recurrentgemma-2b's
 256) the bf16 forward runs 64-row blocks (:func:`forward_block_rows`) and
-dq and dk/dv run their CUDA-core kernels in both dtypes, in one split.
-On CPU
-tensors all three run the plain versions in
-:mod:`repro_torch.kernels.attention.ref`.
+dq and dk/dv their wide tensor-core geometries (:func:`dq_tiles`,
+:func:`dkv_tiles`: two warps to each 16-row or 16-key strip, each owning
+half the head dim's columns), split as :func:`dq_split_rule` and
+:func:`dkv_split_rule` restate the C plans.  In f32 dq and dk/dv run
+their CUDA-core kernels at every head dim.  On CPU tensors all three run
+the plain versions in :mod:`repro_torch.kernels.attention.ref`.
 """
 from __future__ import annotations
 
@@ -45,6 +47,62 @@ def forward_block_rows(dh: int) -> int:
     ServeTiles): 128, or 64 above :data:`TC_MAX_HEAD_DIM`, where a warp's
     32 rows of f32 accumulators would not fit in registers."""
     return 128 if dh <= TC_MAX_HEAD_DIM else 64
+
+
+def dq_tiles(dh: int) -> tuple[int, int]:
+    """(query rows a block, keys a tile) of the bf16 dq kernel
+    (``mha_bwd_dq.cu``'s DqServe): 64 x 64, or 64 x 32 above
+    :data:`TC_MAX_HEAD_DIM` (DqWideServe: one stage of 32-key K and V
+    tiles, so that two blocks fit an SM)."""
+    return (64, 64) if dh <= TC_MAX_HEAD_DIM else (64, 32)
+
+
+def dkv_tiles(dh: int) -> tuple[int, int]:
+    """(keys a block, query rows an item) of the bf16 dk/dv kernel
+    (``mha_bwd_dkv.cu``'s DkvServe, and DkvWideServe above
+    :data:`TC_MAX_HEAD_DIM`): 64 x 64 at every head dim."""
+    return 64, 64
+
+
+# mha_bwd_dq.cu's kDqOccupancySplits / kDqWideFill / kDqWideOccupancySplits
+# and mha_bwd_dkv.cu's kDkvOccupancySplits / kDkvWideFill /
+# kDkvWideOccupancySplits: (row or key blocks an SM to fill, the most
+# splits that fill may add), at dh <= TC_MAX_HEAD_DIM and above it
+DQ_FILL = {False: (2, 8), True: (4, 8)}
+DKV_FILL = {False: (4, 8), True: (2, 16)}
+
+
+def dq_split_rule(BH: int, Sq: int, Skv: int, dh: int, sms: int) -> int:
+    """The bf16 dq plan's split count (``mha_bwd_dq.cu``'s
+    ``dq_split_rule``): runs of at most :data:`ref.DQ_RUN_KEYS` keys, and
+    where the row blocks fill fewer than ``DQ_FILL`` blocks an SM, as many
+    splits as bring them there, at most its cap."""
+    bq, bk = dq_tiles(dh)
+    per_sm, cap = DQ_FILL[dh > TC_MAX_HEAD_DIM]
+    blocks = BH * -(-Sq // bq)
+    tiles = -(-Skv // bk)
+    run_tiles = ref.DQ_RUN_KEYS // bk
+    splits = -(-tiles // run_tiles)
+    if blocks < per_sm * sms:
+        splits = max(splits, min(cap, per_sm * sms // blocks))
+    return max(1, min(splits, tiles))
+
+
+def dkv_split_rule(BH: int, BKV: int, Sq: int, Skv: int, dh: int,
+                   sms: int) -> int:
+    """The bf16 dk/dv plan's split count (``mha_bwd_dkv.cu``'s
+    ``dkv_split_rule``): runs of at most :data:`ref.DKV_RUN_ROWS` query
+    rows, and where the key blocks fill fewer than ``DKV_FILL`` blocks an
+    SM, as many splits as bring them there, at most its cap."""
+    bk, bq = dkv_tiles(dh)
+    per_sm, cap = DKV_FILL[dh > TC_MAX_HEAD_DIM]
+    blocks = BKV * -(-Skv // bk)
+    items = BH // BKV * -(-Sq // bq)
+    run_items = ref.DKV_RUN_ROWS // bq
+    splits = -(-items // run_items)
+    if blocks < per_sm * sms:
+        splits = max(splits, min(cap, per_sm * sms // blocks))
+    return max(1, min(splits, items))
 
 
 def _scale(scale, dh):
@@ -139,9 +197,9 @@ def forward_plan(code: int, BH: int, BKV: int, Sq: int, Skv: int, dh: int,
 def dq_plan(code: int, BH: int, BKV: int, Sq: int, Skv: int, dh: int,
             sms: int) -> tuple[int, int]:
     """Splits of the bf16 dq kernel (each row block's key tiles cut into
-    that many runs, whose f32 partials are summed in order) and the f32
-    elements of their workspace (0 for one split; always 1 in f32 and on
-    the CUDA-core route above :data:`TC_MAX_HEAD_DIM`)."""
+    that many runs, whose f32 partials are summed in order;
+    :func:`dq_split_rule`) and the f32 elements of their workspace (0 for
+    one split; always 1 in f32)."""
     return lib.plan("famous_mha_bwd_dq_plan", code, BH, BKV, Sq, Skv, dh,
                     sms)
 
@@ -150,9 +208,9 @@ def dq_plan(code: int, BH: int, BKV: int, Sq: int, Skv: int, dh: int,
 def dkv_plan(code: int, BH: int, BKV: int, Sq: int, Skv: int, dh: int,
              sms: int) -> tuple[int, int]:
     """Splits of the bf16 dk/dv kernel (each key block's work items cut
-    into that many runs, whose f32 partials are summed in order) and the
-    f32 elements of their workspace (0 for one split; always 1 in f32 and
-    on the CUDA-core route above :data:`TC_MAX_HEAD_DIM`)."""
+    into that many runs, whose f32 partials are summed in order;
+    :func:`dkv_split_rule`) and the f32 elements of their workspace (0 for
+    one split; always 1 in f32)."""
     return lib.plan("famous_mha_bwd_dkv_plan", code, BH, BKV, Sq, Skv, dh,
                     sms)
 

@@ -61,10 +61,10 @@ def mha(q, k, v, *, causal=True, window=0, scale=None, q_offset=0,
     tiles and split counts from static shapes and the SM count, and mask
     ragged edges.  In bf16, on tensor cores, the forward runs 128-row
     query blocks over 64-key tiles (64-row blocks above dh 128), dq 64-row
-    blocks over 64-key tiles and dk/dv 64-key blocks over 64-row query
-    tiles; in f32 all three kernels run 32 x 32 tiles on the CUDA cores,
-    and so do dq and dk/dv in bf16 above dh 128 (up to 256,
-    recurrentgemma-2b's local attention)."""
+    blocks over 64-key tiles (32-key above dh 128) and dk/dv 64-key blocks
+    over 64-row query tiles (above dh 128, up to recurrentgemma-2b's 256,
+    two warps share each 16-row or 16-key strip); in f32 all three kernels
+    run 32 x 32 tiles on the CUDA cores."""
     del block_q, block_k
     B, Sq, H, dh = q.shape
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(dh)

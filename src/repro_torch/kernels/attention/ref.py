@@ -18,7 +18,11 @@ bf16 tensor-core kernels compute them (blocks, tiles, splits and the
 roundings to bf16), for the tests and ``chip_smoke.py`` only;
 :func:`dq_runs` and :func:`dkv_runs` enumerate the runs the two backward
 kernels cut their sums into, whose lengths their plans cap at
-:data:`DQ_RUN_KEYS` keys and :data:`DKV_RUN_ITEMS` items."""
+:data:`DQ_RUN_KEYS` keys and :data:`DKV_RUN_ROWS` query rows
+(:func:`dkv_run_items` items of a geometry's rows).  The same functions
+express the geometries above head dim 128 (``mha.dq_tiles``,
+``mha.dkv_tiles``): those kernels split the head dim's columns across
+warps, which changes no sum."""
 from __future__ import annotations
 
 import math
@@ -31,10 +35,15 @@ from repro_torch.kernels.lib import STATS
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 # the longest run of the tensor-core backward kernels' plans: keys a dq run
-# (mha_bwd_dq.cu's kDqRunKeys), work items a dk/dv run (mha_bwd_dkv.cu's
-# kDkvRunItems)
+# (mha_bwd_dq.cu's kDqRunKeys), query rows a dk/dv run (mha_bwd_dkv.cu's
+# kDkvRunRows: 64 items of 64 rows)
 DQ_RUN_KEYS = 4096
-DKV_RUN_ITEMS = 64
+DKV_RUN_ROWS = 4096
+
+
+def dkv_run_items(block_q: int = 64) -> int:
+    """The longest dk/dv run in work items of ``block_q`` rows."""
+    return DKV_RUN_ROWS // block_q
 
 
 def visible(Sq: int, Skv: int, *, causal: bool, window: int, q_offset: int,

@@ -178,11 +178,13 @@ __device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* dst, const __nv_bf
 
 // The head dims of the MHA kernels (mha_forward.cu, mha_bwd_dq.cu,
 // mha_bwd_dkv.cu): any dh up to kMhaMaxDh (recurrentgemma-2b's 256).  The
-// bf16 tensor-core geometries of dq and dk/dv hold dh <= kMhaTcMaxDh; above
-// it both dtypes run their CUDA-core kernels' kMhaMaxDh instantiation (the
-// bf16 forward runs chunk_tc.cuh's DP = 256 geometry).  The CUDA-core
-// kernels are templated on their largest dh, so the dh <= kMhaTcMaxDh
-// instantiations keep their registers.
+// bf16 tensor-core geometries of dq and dk/dv, one warp to each 16-row or
+// 16-key strip, hold dh <= kMhaTcMaxDh; above it bf16 runs their wide
+// geometries (DqWide, DkvWide: dh padded to kMhaMaxDh, the columns split
+// across two warps a strip), and the bf16 forward chunk_tc.cuh's DP = 256
+// geometry.  f32 runs the CUDA-core kernels at every dh, templated on
+// their largest dh, so the dh <= kMhaTcMaxDh instantiations keep their
+// registers.
 constexpr int kMhaTcMaxDh = 128, kMhaMaxDh = 256;
 
 // The padded head dim of the bf16 MHA kernels at dh <= kMhaTcMaxDh: 64 or

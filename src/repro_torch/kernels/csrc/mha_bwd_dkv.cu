@@ -64,11 +64,28 @@
 // split rule and the hi/lo products were chosen by
 // scripts/torch_kernel_sweep.py (PERF.md).
 //
+// Design, bf16 above dh 128 (recurrentgemma-2b's 256; DkvWide): the same
+// algebra, items, runs and split passes, in a geometry that fits.  Two
+// 64-key x 256 f32 accumulators are 128 KB of registers, 256 a thread at
+// one warp to a 16-key strip.  So two warps share each strip: each
+// computes S^T and dP^T for half the item's rows over the whole head dim,
+// writes P^T and dS^T as hi + lo pairs of bf16 tiles to shared memory,
+// and after a barrier each takes the strip's four tiles over all the
+// rows as A fragments by ldmatrix and accumulates half of dk's and dv's
+// columns (128 registers).  64 keys a block, 64-row items in one stage
+// (169 KB, one block an SM; two stages would pass 227 KB).  dh is padded
+// to 256 with zero columns.  recurrentgemma-2b has one kv head, so its
+// key blocks alone (21 at 1292 tokens, 64 at 4096) leave most of the 132
+// SMs idle: the plan splits the items into up to 16 runs there
+// (dkv_tc_plan).  scripts/torch_kernel_sweep.py (mha256) chose the
+// geometry and the split rule among 64 / 32 keys, 64 / 32 rows, two /
+// four warps a strip and one / two stages (PERF.md).
+//
 // f32: the CUDA-core kernel of the first port, in full f32 FMAs (no TF32):
 // 32 keys a block, staged Q, dO, K and V tiles, the group's heads looped
-// inside the block.  Above dh 128 (recurrentgemma-2b's 256) bf16 runs it
-// too, in one run (no split): its instantiation for dh <= 256 takes 140 KB
-// of shared memory at 256, so one block an SM.
+// inside the block, in one run (no split), at every dh: its
+// instantiation for dh <= 256 takes 140 KB of shared memory at 256, so
+// one block an SM.  bf16 never reaches it.
 #include "common.cuh"
 
 #include <algorithm>
@@ -503,46 +520,331 @@ static cudaError_t launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v, 
   }
 }
 
-// The split count of the bf16 kernel, from static shapes and the SM count
-// only: the larger of two needs.
-//  - Accuracy: runs of at most kDkvRunItems items, at every shape.  The
-//    tensor cores' f32 accumulation loses more than an IEEE f32 sum
-//    (truncated adds), so a run's error grows with its length: at
-//    qwen2-7b's shape one run of 224 items missed the 1e-4 gate (4.9e-4),
-//    two runs gave 2.3e-4 and four 1.3e-4 of absolute error (PERF.md);
-//    the second pass sums the runs in IEEE f32.  A key block's items are
-//    at most group x ceil(Sq / 64) (the block that every query sees), so
-//    that many over the cap bounds every block's runs.
-//  - Occupancy: where the key blocks (BKV x Skv / 64) number fewer than
-//    four an SM (two waves of two), as many splits as bring them to about
-//    four an SM, at most kDkvOccupancySplits.
-// *ws_elems: the f32 workspace of the partials (2 x splits x BKV x Skv x
-// dh; 0 for one split).
-constexpr int kDkvRunItems = 64, kDkvOccupancySplits = 8;
+// ---------------------------------------------------------------------------
+// bf16 above dh 128: tensor cores, the head dim split across warps
+// ---------------------------------------------------------------------------
 
-inline int dkv_tc_plan(int BKV, int group, int Sq, int Skv, int dh, int sms,
-                       long long* ws_elems) {
-  const long long blocks = (long long)BKV * ((Skv + 63) / 64);
-  const long long items = (long long)group * ((Sq + 63) / 64);
-  long long splits = (items + kDkvRunItems - 1) / kDkvRunItems;
-  if (blocks < 4LL * sms)
-    splits = std::max(splits, std::min<long long>(kDkvOccupancySplits, (4LL * sms) / blocks));
+// A geometry above kMhaTcMaxDh, dh padded to kMhaMaxDh: BK keys a block,
+// BQ query rows an item, WC warps to each 16-key strip, ST ring stages of
+// (Q, dO) tiles.  In an item, warp (strip, c) computes S^T and dP^T for
+// its strip's keys and the item's rows [c QW, (c + 1) QW), and then dK
+// and dV for its strip's keys and the columns [c CW, (c + 1) CW): 128
+// accumulators a thread at WC = 2, where one warp a strip would need 256.
+// Shared memory: K and V resident, ST stages of (Q, dO) tiles (rows of
+// DP + 8 elements) and (lse, delta) rows, then P^T and dS^T as hi and lo
+// (BK, BQ) bf16 tiles (rows of BQ + 8), through which the warps of a strip
+// trade their rows' products.  MINB: the blocks an SM that shared memory
+// allows (1 or 2), for __launch_bounds__.
+template <int BK_, int BQ_, int WC_, int ST_>
+struct DkvWide {
+  static constexpr int DP = kMhaMaxDh, BK = BK_, BQ = BQ_, WC = WC_, ST = ST_;
+  static constexpr int NT = BK / 16 * WC * 32, LD = DP + 8, LDP = BQ + 8;
+  static constexpr int QW = BQ / WC, CW = DP / WC;
+  static constexpr size_t KV = 2 * (size_t)BK * LD * sizeof(bf16);
+  static constexpr size_t QO = ST * 2 * (size_t)BQ * LD * sizeof(bf16);
+  static constexpr size_t ROWS = ST * 2 * (size_t)BQ * sizeof(float);
+  static constexpr size_t bytes = KV + QO + ROWS + 4 * (size_t)BK * LDP * sizeof(bf16);
+  static constexpr int MINB = 2 * (bytes + 1024) <= 233472 ? 2 : 1;
+};
+
+// Block (bkv * splits + z, key block y); the items, runs, masks and
+// partials are mha_bwd_dkv_tc_kernel's.
+template <typename G>
+__global__ void __launch_bounds__(G::NT, G::MINB)
+mha_bwd_dkv_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ part,
+                        int BKV, int group, int Sq, int Skv, int dh, int causal, int window,
+                        int q_offset, float scale, int splits, int vec) {
+  constexpr int DP = G::DP, BK = G::BK, BQ = G::BQ, WC = G::WC, ST = G::ST, NT = G::NT;
+  constexpr int LD = G::LD, LDP = G::LDP, QW = G::QW, CW = G::CW;
+  constexpr int NQ = QW / 8;   // 8-query tiles of S^T and dP^T a warp
+  constexpr int ND = CW / 8;   // 8-column tiles of dK and dV a warp
+  static_assert(NQ % 2 == 0 && ND % 2 == 0 && BK % 16 == 0 && BQ % 16 == 0, "tile shape");
+  static_assert(ST == 1 || ST == 2, "ring stages");
+  extern __shared__ __align__(16) unsigned char dkv_smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(dkv_smem);
+  bf16* v_s = k_s + BK * LD;
+  bf16* ring = v_s + BK * LD;  // stage s: Q at ring + 2 s BQ LD, dO after it
+  float* rows_s = reinterpret_cast<float*>(dkv_smem + G::KV + G::QO);  // stage s: lse, delta
+  bf16* p_hi = reinterpret_cast<bf16*>(dkv_smem + G::KV + G::QO + G::ROWS);
+  bf16* p_lo = p_hi + BK * LDP;
+  bf16* d_hi = p_lo + BK * LDP;
+  bf16* d_lo = d_hi + BK * LDP;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;  // mma group id, thread in group
+  const int w0 = warp / WC * 16, c = warp % WC;
+  const int qc0 = c * QW, dc = c * CW;     // the warp's rows of an item, its columns
+  const int bkv = blockIdx.x / splits, z = blockIdx.x % splits;
+  const int kb0 = blockIdx.y * BK;
+  const long long kvrow = (long long)bkv * Skv;
+
+  const int kmax = min(Skv, kb0 + BK) - 1;
+  const int qbeg = causal ? max(0, kb0 - q_offset) : 0;
+  const int qend = window > 0 ? min(Sq, kmax + window - q_offset) : Sq;
+  const int qt_lo = qbeg / BQ, nqt = max(0, (qend + BQ - 1) / BQ - qt_lo);
+  const int items = group * nqt, ips = (items + splits - 1) / splits;
+  const int i_lo = min(items, z * ips), i_hi = min(items, i_lo + ips);
+
+  auto load_tile = [&](bf16* dst, const bf16* src, long long row0, int R, int valid) {
+    load_rows_bf16<DP, LD, NT>(dst, src, row0, R, valid, dh, vec);
+  };
+  auto q0_of = [&](int it) { return (qt_lo + it % nqt) * BQ; };
+  auto load_item = [&](int stage, int it) {
+    const int q0 = q0_of(it);
+    const long long row0 = (long long)(bkv * group + it / nqt) * Sq + q0;
+    bf16* qt = ring + stage * 2 * BQ * LD;
+    load_tile(qt, q, row0, BQ, Sq - q0);
+    load_tile(qt + BQ * LD, dout, row0, BQ, Sq - q0);
+    for (int i = tid; i < 2 * BQ; i += NT) {
+      const int j = i % BQ;
+      const float* src = i < BQ ? lse : delta;
+      const bool ok = q0 + j < Sq;
+      cp_async4(rows_s + stage * 2 * BQ + i, ok ? src + row0 + j : src, ok ? 4 : 0);
+    }
+  };
+
+  load_tile(k_s, k, kvrow + kb0, BK, Skv - kb0);
+  load_tile(v_s, v, kvrow + kb0, BK, Skv - kb0);
+  if (i_lo < i_hi) load_item(0, i_lo);
+  cp_async_commit();
+
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  const float sl = scale * kLog2e;
+  const int kr0 = kb0 + w0 + g;     // this lane's keys: kr0, kr0 + 8
+
+  for (int it = i_lo; it < i_hi; ++it) {
+    const int st = ST == 2 ? (it - i_lo) & 1 : 0;
+    cp_async_wait<0>();  // item it (and K, V) have landed
+    __syncthreads();     // ... for every warp; item it - 1's stage and products are free
+    if constexpr (ST == 2) {
+      if (it + 1 < i_hi) load_item(st ^ 1, it + 1);
+      cp_async_commit();
+    }
+    const bf16* qt = ring + st * 2 * BQ * LD;
+    const bf16* ot = qt + BQ * LD;
+    const float* lt = rows_s + st * 2 * BQ;
+    const float* dt = lt + BQ;
+    const int q0 = q0_of(it);
+
+    // S^T = K Q^T and dP^T = V dO^T: the strip's 16 keys against the
+    // warp's QW rows of the item
+    float sa[NQ][4], pa[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sa[j][e] = pa[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks) {
+      if (ks * 16 >= dh) break;
+      unsigned ak[4], av[4];
+      ldmatrix_x4(ak, k_s + (w0 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
+      ldmatrix_x4(av, v_s + (w0 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < NQ; j += 2) {
+        const int off = (qc0 + j * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD + ks * 16 +
+                        ((lane >> 3) & 1) * 8;
+        unsigned r[4];
+        ldmatrix_x4(r, qt + off);
+        mma_bf16(sa[j], ak, r[0], r[1]);
+        mma_bf16(sa[j + 1], ak, r[2], r[3]);
+        ldmatrix_x4(r, ot + off);
+        mma_bf16(pa[j], av, r[0], r[1]);
+        mma_bf16(pa[j + 1], av, r[2], r[3]);
+      }
+    }
+
+    // P^T and dS^T; element e of query tile j is key kr0 (+8 for e >= 2),
+    // query q0 + qc0 + 8j + 2tq (+1 for odd e); both go to shared memory
+    // as hi + lo pairs
+    const bool edge = q0 + BQ > Sq || kb0 + BK > Skv || (causal && kb0 + BK - 1 > q_offset + q0) ||
+                      (window > 0 && kb0 <= q_offset + q0 + BQ - 1 - window);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const int qc = qc0 + 8 * j + 2 * tq;
+      const float2 l2 = *reinterpret_cast<const float2*>(lt + qc);
+      const float2 d2 = *reinterpret_cast<const float2*>(dt + qc);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lv = (e & 1) ? l2.y : l2.x, dl = (e & 1) ? d2.y : d2.x;
+        float p = ex2(fmaf(sa[j][e], sl, -lv * kLog2e));
+        if (edge) {
+          const int kp = kr0 + 8 * (e >> 1), qi = q0 + qc + (e & 1);
+          if (qi >= Sq || kp >= Skv || !key_visible(q_offset + qi, kp, causal, window)) p = 0.f;
+        }
+        sa[j][e] = p;
+        pa[j][e] = p * (pa[j][e] - dl);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        unsigned hi, lo;
+        const int at = (w0 + g + 8 * h) * LDP + qc;
+        split_bf16(sa[j][2 * h], sa[j][2 * h + 1], hi, lo);
+        *reinterpret_cast<unsigned*>(p_hi + at) = hi;
+        *reinterpret_cast<unsigned*>(p_lo + at) = lo;
+        split_bf16(pa[j][2 * h], pa[j][2 * h + 1], hi, lo);
+        *reinterpret_cast<unsigned*>(d_hi + at) = hi;
+        *reinterpret_cast<unsigned*>(d_lo + at) = lo;
+      }
+    }
+    __syncthreads();  // the strip's P^T and dS^T over all BQ rows
+
+    // dV[:, dc, dc + CW) += P^T dO and dK[:, dc, dc + CW) += dS^T Q: A
+    // fragments (hi and lo) by ldmatrix, B fragments of dO and Q by
+    // ldmatrix.trans, each feeding both halves
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      unsigned ph[4], pl[4], dh_[4], dl_[4];
+      const int at = (w0 + (lane & 15)) * LDP + kk * 16 + (lane >> 4) * 8;
+      ldmatrix_x4(ph, p_hi + at);
+      ldmatrix_x4(pl, p_lo + at);
+      ldmatrix_x4(dh_, d_hi + at);
+      ldmatrix_x4(dl_, d_lo + at);
+#pragma unroll
+      for (int n = 0; n < ND; n += 2) {
+        if (dc + n * 8 >= dh) break;
+        const int off = (kk * 16 + (lane & 15)) * LD + dc + n * 8 + (lane >> 4) * 8;
+        unsigned r[4];
+        ldmatrix_x4_trans(r, ot + off);
+        mma_bf16(dva[n], ph, r[0], r[1]);
+        mma_bf16(dva[n + 1], ph, r[2], r[3]);
+        mma_bf16(dva[n], pl, r[0], r[1]);
+        mma_bf16(dva[n + 1], pl, r[2], r[3]);
+        ldmatrix_x4_trans(r, qt + off);
+        mma_bf16(dka[n], dh_, r[0], r[1]);
+        mma_bf16(dka[n + 1], dh_, r[2], r[3]);
+        mma_bf16(dka[n], dl_, r[0], r[1]);
+        mma_bf16(dka[n + 1], dl_, r[2], r[3]);
+      }
+    }
+    if constexpr (ST == 1) {
+      __syncthreads();  // every warp is done with item it
+      if (it + 1 < i_hi) load_item(0, it + 1);
+      cp_async_commit();
+    }
+  }
+  cp_async_wait<0>();
+
+  const long long N = (long long)BKV * Skv * dh;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = kr0 + 8 * h;
+    if (key >= Skv) continue;
+    const long long at = (kvrow + key) * dh;
+    float* pk = part ? part + z * N + at : dk + at;
+    float* pv = part ? part + (splits + z) * N + at : dv + at;
+    const float sk = part ? 1.f : scale;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      const int col = dc + n * 8 + 2 * tq;
+      const float k0 = dka[n][2 * h] * sk, k1 = dka[n][2 * h + 1] * sk;
+      const float v0 = dva[n][2 * h], v1 = dva[n][2 * h + 1];
+      if (col + 1 < dh && dh % 2 == 0) {
+        *reinterpret_cast<float2*>(pk + col) = make_float2(k0, k1);
+        *reinterpret_cast<float2*>(pv + col) = make_float2(v0, v1);
+      } else {
+        if (col < dh) pk[col] = k0, pv[col] = v0;
+        if (col + 1 < dh) pk[col + 1] = k1, pv[col + 1] = v1;
+      }
+    }
+  }
+}
+
+// One wide geometry's launch, both passes (the second when splits > 1)
+template <typename G>
+static cudaError_t launch_dkv_wide(const bf16* q, const bf16* k, const bf16* v,
+                                   const bf16* dout, const float* lse, const float* delta,
+                                   float* dk, float* dv, float* part, int splits, int BKV,
+                                   int group, int Sq, int Skv, int dh, int causal, int window,
+                                   int q_offset, float scale, cudaStream_t stream) {
+  auto kernel = mha_bwd_dkv_wide_kernel<G>;
+  cudaError_t e = allow_smem(kernel, G::bytes);
+  if (e != cudaSuccess) return e;
+  const auto al = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const int vec = dh % 8 == 0 && al(q) && al(k) && al(v) && al(dout);
+  const dim3 grid(BKV * splits, (Skv + G::BK - 1) / G::BK);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  record_launch(kernel, "mha_bwd_dkv_wide_kernel", grid, G::NT, G::bytes,
+                {(long long)BKV * splits, 1}, {Skv, G::BK}, {},
+                splits > 1 ? 2LL * splits * BKV * Skv * dh : 0);
+  kernel<<<grid, G::NT, G::bytes, stream>>>(q, k, v, dout, lse, delta, dk, dv,
+                                            splits > 1 ? part : nullptr, BKV, group, Sq, Skv, dh,
+                                            causal, window, q_offset, scale, splits, vec);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  const long long N = (long long)BKV * Skv * dh;
+  const long long blocks = std::min<long long>((N + 255) / 256, 8192);
+  record_launch(mha_bwd_dkv_combine_kernel, "mha_bwd_dkv_combine_kernel",
+                dim3(static_cast<unsigned>(blocks)), 256, 0, {N, 256, true});
+  mha_bwd_dkv_combine_kernel<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(part, dk, dv, N,
+                                                                               splits, scale);
+  return cudaGetLastError();
+}
+
+// The geometry above dh 128: 64 keys a block (two warps to a 16-key
+// strip), 64-row items in one stage (169 KB of shared memory, one block
+// an SM)
+using DkvWideServe = DkvWide<64, 64, 2, 1>;
+
+// The split count of a bf16 geometry of BK-key blocks over BQ-row items,
+// from static shapes and the SM count only: the larger of two needs.
+//  - Accuracy: runs of at most kDkvRunRows query rows (64 items of 64
+//    rows at dh <= 128), at every shape.  The tensor cores' f32
+//    accumulation loses more than an IEEE f32 sum (truncated adds), so a
+//    run's error grows with its length: at qwen2-7b's shape one run of
+//    224 items missed the 1e-4 gate (4.9e-4), two runs gave 2.3e-4 and
+//    four 1.3e-4 of absolute error (PERF.md); the second pass sums the
+//    runs in IEEE f32.  A key block's items are at most group x ceil(Sq /
+//    BQ) (the block that every query sees), so that many over the cap
+//    bounds every block's runs.
+//  - Occupancy: where the key blocks (BKV x Skv / BK) number fewer than
+//    `fill`, as many splits as bring them to about `fill`, at most `cap`:
+//    at dh <= 128 four an SM (two waves of two), at most
+//    kDkvOccupancySplits; above it kDkvWideFill an SM (the wide geometry
+//    holds one), at most kDkvWideOccupancySplits, which a single kv head
+//    needs (recurrentgemma-2b: 21 key blocks at 1292 tokens).
+// *ws_elems: the f32 workspace of the partials (2 x splits x BKV x Skv x
+// dh; 0 for one split).  ref.dkv_splits restates it.
+constexpr int kDkvRunRows = 4096, kDkvOccupancySplits = 8;
+constexpr int kDkvWideFill = 2, kDkvWideOccupancySplits = 16;
+
+inline int dkv_split_rule(int BKV, int group, int Sq, int Skv, int dh, int BK, int BQ,
+                          long long fill, int cap, long long* ws_elems) {
+  const long long blocks = (long long)BKV * ((Skv + BK - 1) / BK);
+  const long long items = (long long)group * ((Sq + BQ - 1) / BQ);
+  const int run_items = kDkvRunRows / BQ;
+  long long splits = (items + run_items - 1) / run_items;
+  if (blocks < fill) splits = std::max(splits, std::min<long long>(cap, fill / blocks));
   splits = std::max(1LL, std::min<long long>(splits, items));
   *ws_elems = splits > 1 ? 2LL * splits * BKV * Skv * dh : 0;
   return static_cast<int>(splits);
 }
 
+inline int dkv_tc_plan(int BKV, int group, int Sq, int Skv, int dh, int sms,
+                       long long* ws_elems) {
+  if (dh > kMhaTcMaxDh)
+    return dkv_split_rule(BKV, group, Sq, Skv, dh, DkvWideServe::BK, DkvWideServe::BQ,
+                          (long long)kDkvWideFill * sms, kDkvWideOccupancySplits, ws_elems);
+  return dkv_split_rule(BKV, group, Sq, Skv, dh, 64, 64, 4LL * sms, kDkvOccupancySplits,
+                        ws_elems);
+}
+
 }  // namespace famous
 
-// The split count of the bf16 kernel (dkv_tc_plan), 1 for f32 and for the
-// CUDA-core route above dh 128.
-// *ws_elems: the f32 workspace of the partials (0 for one split), which
+// The split count of the bf16 kernels (dkv_tc_plan), 1 for f32.  *ws_elems: the f32 workspace of the partials (0 for one split), which
 // the wrapper allocates.
 extern "C" int famous_mha_bwd_dkv_plan(int dtype, int BH, int BKV, int Sq, int Skv, int dh,
                                        int sms, long long* ws_elems) {
   using namespace famous;
   *ws_elems = 0;
-  if (dtype != kBF16 || dh > kMhaTcMaxDh || BKV <= 0 || BH % BKV != 0 || Skv <= 0) return 1;
+  if (dtype != kBF16 || dh <= 0 || dh > kMhaMaxDh || BKV <= 0 || BH % BKV != 0 || Skv <= 0)
+    return 1;
   return dkv_tc_plan(BKV, BH / BKV, Sq, Skv, dh, sms, ws_elems);
 }
 
@@ -556,7 +858,7 @@ extern "C" int famous_mha_bwd_dkv(int dtype, const void* q, const void* k, const
   using namespace famous;
   if (BKV <= 0 || BH % BKV != 0 || BKV > 65535 || dh <= 0 || dh > kMhaMaxDh || splits < 1 ||
       (long long)BKV * splits > 0x7fffffffLL ||
-      (splits > 1 && (part == nullptr || dtype != kBF16 || dh > kMhaTcMaxDh)))
+      (splits > 1 && (part == nullptr || dtype != kBF16)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (Skv <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -569,8 +871,10 @@ extern "C" int famous_mha_bwd_dkv(int dtype, const void* q, const void* k, const
     e = launch_dkv<float, kMhaMaxDh>(q, k, v, dout, lse, delta, dk, dv, BKV, group, Sq, Skv, dh,
                                      causal, window, q_offset, scale, s);
   else if (dtype == kBF16 && dh > kMhaTcMaxDh)
-    e = launch_dkv<bf16, kMhaMaxDh>(q, k, v, dout, lse, delta, dk, dv, BKV, group, Sq, Skv, dh,
-                                    causal, window, q_offset, scale, s);
+    e = launch_dkv_wide<DkvWideServe>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+                                      lse, delta, dk, dv, static_cast<float*>(part), splits, BKV,
+                                      group, Sq, Skv, dh, causal, window, q_offset, scale, s);
   else if (dtype == kBF16)
     e = launch_dkv_bf16(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                         static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,

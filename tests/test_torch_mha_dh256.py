@@ -116,3 +116,166 @@ def test_launch_check_takes_dh256_and_refuses_257(dh, error):
                                      t((2, 8)), t((2, 8)))):
         with pytest.raises(ValueError, match=error):
             call()
+
+
+# the wide backward geometries' cases: (S, dh, window, q_offset); the
+# third's rows from 36 on see no key
+WIDE_CASES = {"dh256-window": (150, 256, 70, 0),
+              "dh200-window": (150, 200, 70, 0),
+              "dh256-empty-rows": (100, 256, 64, 100)}
+
+
+def _wide_inputs(case, seed):
+    S, dh, window, off = WIDE_CASES[case]
+    (q, k, v, do), kw = _inputs(S, dh, window, seed)
+    kw["q_offset"] = off
+    return (q, k, v, do), kw
+
+
+def _bf16_residuals(q, k, v, do, kw):
+    """bf16 inputs, JAX's forward residuals on them, and JAX's gradients
+    in f32 math on the same inputs."""
+    jq, jk, jv, jdo = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, do))
+    S = q.shape[1]
+    jout, jlse = jmha.mha_forward(jq, jk, jv, block_q=S, block_k=S,
+                                  interpret=True, return_lse=True, **kw)
+    grads = jmha.mha_backward(jq, jk, jv, jout, jlse, jdo, block_q=S,
+                              block_k=S, interpret=True, **kw)
+    tq, tk, tv, tdo = (torch.from_numpy(a).bfloat16() for a in (q, k, v, do))
+    out = torch.from_numpy(np.array(jout.astype(jnp.float32))).bfloat16()
+    lse = torch.from_numpy(np.array(jlse))
+    delta = (tdo.float() * out.float()).sum(-1)
+    return (tq, tk, tv, tdo, lse, delta), grads
+
+
+@pytest.mark.parametrize("part", ["dq", "dkv"])
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+def test_backward_mirrors_at_the_wide_geometry_match_jax(case, part):
+    """The bf16 dq and dk/dv kernels' algebra above dh 128 (hi + lo dS, P^T
+    and dS^T; runs summed in order) at their own geometry
+    (``mha.dq_tiles`` / ``mha.dkv_tiles``: 64-row blocks over 32-key
+    tiles, 64-key blocks over 64-row items) and 2 splits, on bf16 inputs,
+    against JAX's f32 math on the same inputs and residuals."""
+    (q, k, v, do), kw = _wide_inputs(case, seed=11)
+    S, dh = q.shape[1], q.shape[2]
+    args, (jdq, jdk, jdv) = _bf16_residuals(q, k, v, do, kw)
+    if part == "dq":
+        bq, bk = tmha.dq_tiles(dh)
+        got = (tref.mha_bwd_dq_tc_reference(*args, splits=2, block_q=bq,
+                                            tile_keys=bk, **kw),)
+        want = (jdq,)
+    else:
+        bk, bq = tmha.dkv_tiles(dh)
+        got = tref.mha_bwd_dkv_tc_reference(*args, splits=2, block_keys=bk,
+                                            block_q=bq, **kw)
+        want = (jdk, jdv)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=F32_TOL,
+                                   rtol=F32_TOL)
+    if case == "dh256-empty-rows":
+        empty = ~tref.visible(S, S, causal=True, window=kw["window"],
+                              q_offset=kw["q_offset"], device="cpu").any(-1)
+        assert 0 < int(empty.sum()) < S
+        if part == "dq":
+            assert torch.all(got[0][:, empty] == 0)
+
+
+@pytest.mark.parametrize("splits,tiles", [(1, (64, 64)), (3, (64, 32)),
+                                          (5, (32, 16)), (2, (48, 40))])
+@pytest.mark.parametrize("part", ["dq", "dkv"])
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+def test_backward_mirrors_above_dh128_match_plain_at_any_tiling(case, part,
+                                                                splits,
+                                                                tiles):
+    """f32 inputs (no hi/lo split): at dh 256 and 200 every split count
+    and tiling, the wide kernels' own among them, gives the plain
+    version's dq, dk and dv at 1e-5; and the runs cover every visible
+    (query, key) pair once."""
+    (q, k, v, do), kw = _wide_inputs(case, seed=12)
+    q, k, v, do = (torch.from_numpy(a) for a in (q, k, v, do))
+    out, lse = tref.mha_forward_reference(q, k, v, **kw)
+    delta = (do * out).sum(-1)
+    S = q.shape[1]
+    mask = dict(causal=True, window=kw["window"], q_offset=kw["q_offset"])
+    ok = tref.visible(S, S, device="cpu", **mask)
+    seen = torch.zeros((S, S), dtype=torch.int32)
+    if part == "dq":
+        got = (tref.mha_bwd_dq_tc_reference(
+            q, k, v, do, lse, delta, splits=splits, block_q=tiles[0],
+            tile_keys=tiles[1], **kw),)
+        want = (tref.mha_bwd_dq_reference(q, k, v, do, lse, delta, **kw),)
+        for q0, q1, runs in tref.dq_runs(S, S, splits=splits,
+                                         block_q=tiles[0],
+                                         tile_keys=tiles[1], **mask):
+            for k0, k1 in runs:
+                seen[q0:q1, k0:k1] += 1
+    else:
+        got = tref.mha_bwd_dkv_tc_reference(
+            q, k, v, do, lse, delta, splits=splits, block_keys=tiles[0],
+            block_q=tiles[1], **kw)
+        want = tref.mha_bwd_dkv_reference(q, k, v, do, lse, delta, **kw)
+        group = q.shape[0] // k.shape[0]
+        for kb0, kb1, qt_lo, nqt, runs in tref.dkv_runs(
+                S, S, group, splits=splits, block_keys=tiles[0],
+                block_q=tiles[1], **mask):
+            for i_lo, i_hi in runs:
+                for it in range(i_lo, i_hi):
+                    if it // nqt == 0:      # the first head's items
+                        q0 = (qt_lo + it % nqt) * tiles[1]
+                        seen[q0:q0 + tiles[1], kb0:kb1] += 1
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=F32_TOL,
+                                   rtol=F32_TOL)
+    assert torch.all(seen[ok] == 1)
+
+
+@pytest.mark.parametrize("dh,dq_tiles,dkv_tiles",
+                         [(64, (64, 64), (64, 64)), (128, (64, 64), (64, 64)),
+                          (129, (64, 32), (64, 64)),
+                          (256, (64, 32), (64, 64))])
+def test_backward_tiles_follow_the_geometry(dh, dq_tiles, dkv_tiles):
+    assert tmha.dq_tiles(dh) == dq_tiles
+    assert tmha.dkv_tiles(dh) == dkv_tiles
+
+
+# (BH, BKV, Sq, Skv, dh, dq splits, dk/dv splits) on 132 SMs: qwen2-7b's
+# rows whose plans the card printed at dh 128 (q_offset 3968's 128 rows,
+# one kv head's 7 heads over 8192 tokens), and recurrentgemma-2b's local
+# attention above it (its 4096-token max_seq, the ragged 1292-token
+# prompt, a model=2 training rank)
+SPLIT_CASES = [(28, 4, 128, 4096, 128, 4, 2), (7, 1, 8192, 8192, 128, 2, 14),
+               (10, 1, 4096, 4096, 256, 1, 10),
+               (10, 1, 1292, 1292, 256, 2, 12),
+               (5, 1, 2048, 2048, 256, 3, 8)]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_split_rules_cap_runs_and_fill_the_card(case):
+    """The restated plans (``mha.dq_split_rule``, ``mha.dkv_split_rule``,
+    which ``chip_smoke.py`` holds to the C plans): the expected split
+    counts; more than one split wherever the blocks alone fill less than
+    the rule's blocks an SM, as for recurrentgemma-2b's one kv head at
+    1292 tokens; and no run past its cap."""
+    BH, BKV, Sq, Skv, dh, want_q, want_kv = case
+    sms = 132
+    n_q = tmha.dq_split_rule(BH, Sq, Skv, dh, sms)
+    n_kv = tmha.dkv_split_rule(BH, BKV, Sq, Skv, dh, sms)
+    assert (n_q, n_kv) == (want_q, want_kv)
+    bk, bq = tmha.dkv_tiles(dh)
+    per_sm, _ = tmha.DKV_FILL[dh > tmha.TC_MAX_HEAD_DIM]
+    if BKV * -(-Skv // bk) < per_sm * sms:
+        assert n_kv > 1
+    rows, keys = tmha.dq_tiles(dh)
+    per_sm, _ = tmha.DQ_FILL[dh > tmha.TC_MAX_HEAD_DIM]
+    if BH * -(-Sq // rows) * 2 <= per_sm * sms:
+        assert n_q > 1
+    mask = dict(causal=True, window=0, q_offset=Skv - Sq)
+    longest_kv = max(hi - lo for *_, runs in tref.dkv_runs(
+        Sq, Skv, BH // BKV, splits=n_kv, block_keys=bk, block_q=bq, **mask)
+        for lo, hi in runs)
+    assert longest_kv <= tref.dkv_run_items(bq)
+    longest_q = max(hi - lo for *_, runs in tref.dq_runs(
+        Sq, Skv, splits=n_q, block_q=rows, tile_keys=keys, **mask)
+        for lo, hi in runs)
+    assert longest_q <= tref.DQ_RUN_KEYS

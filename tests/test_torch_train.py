@@ -347,17 +347,24 @@ def test_straggler_watchdog(tmp_path):
     import time
     cfg, _ = _cfgs("famous-bert")
     state, inner = _fresh(cfg)
+    factor = 5.0
+    durations = []   # this run's measured steps, so load cannot hide step 8
 
     def slow_step(state, batch):
         if int(state["step"]) == 8:
-            time.sleep(0.3)  # simulated straggler host
-        return inner(state, batch)
+            # simulated straggler host: at least 2 x factor x the longest
+            # earlier step, so step 8 exceeds factor x any rolling median
+            time.sleep(max(0.3, 2 * factor * max(durations)))
+        t0 = time.monotonic()
+        out = inner(state, batch)
+        durations.append(time.monotonic() - t0)
+        return out
 
     tr = trainer_lib.Trainer(
         slow_step, state, lambda s: _batch(cfg, s),
         trainer_lib.TrainerConfig(total_steps=12, ckpt_every=100,
                                   ckpt_dir=str(tmp_path / "st"),
-                                  straggler_factor=5.0))
+                                  straggler_factor=factor))
     tr.run()
     assert any(e.step == 8 for e in tr.straggler_events), tr.straggler_events
 
