@@ -116,12 +116,30 @@ def _rank_groups(p: dict, T: int) -> tuple[int, int]:
     return T // Sg, Sg
 
 
+def count_routing(counts, dispatch: torch.Tensor, K: int) -> None:
+    """Add one layer call's routing to ``counts`` = (acc (4,) int64, rows
+    (T,) bool: which of the call's T = G*S token rows are real): acc +=
+    [the real rows' top-k choices, those kept, those dropped, the capacity
+    rows computed (G*E*C)].  Device ops only, nothing read on the host,
+    so a captured graph adds on every replay; it reads ``dispatch`` and
+    changes nothing the layer computes."""
+    acc, rows = counts
+    G, S, E, C = dispatch.shape
+    kept = (dispatch.reshape(G * S, E * C) * rows[:, None]).sum(
+        dtype=torch.int64)
+    real = rows.sum(dtype=torch.int64) * K
+    acc[:3] += torch.stack((real, kept, real - kept))
+    acc[3] += G * E * C
+
+
 def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
-              return_aux: bool = False):
+              return_aux: bool = False, counts=None):
     """x: (B, S, D) -> (B, S, D).  Grouped dense top-k routing.  Under
     expert parallelism (``tp_experts``) the rank's share of y, summed over
     the "model" group by ``tp_sum``; in sharded training ``tp_in``
-    (Megatron's f) takes the input first."""
+    (Megatron's f) takes the input first.  ``counts``: see
+    :func:`count_routing` (over all E experts, before a rank keeps its
+    own)."""
     B, S, D = x.shape
     K = cfg.experts_per_token
     G, Sg = _rank_groups(p, B * S)
@@ -131,6 +149,8 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
     dispatch, combine, aux = router_dispatch(
         _router_logits(p, xg), K, cfg.capacity_factor, cfg.logit_softcap)
+    if counts is not None:
+        count_routing(counts, dispatch, K)
     if "tp_experts" in p:
         lo, hi = p["tp_experts"]
         dispatch, combine = dispatch[:, :, lo:hi], combine[:, :, lo:hi]

@@ -658,23 +658,25 @@ def _layers(params: dict, caches: list, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def _apply_ffn(p, x, cfg: ModelConfig):
+def _apply_ffn(p, x, cfg: ModelConfig, moe_counts=None):
     if cfg.num_experts:
-        return moe.apply_moe(p, x, cfg)
+        return moe.apply_moe(p, x, cfg, counts=moe_counts)
     return layers.apply_mlp(p, x, cfg.act)
 
 
-def _ffn_residual(p, x, cfg: ModelConfig, slot_rows=None):
+def _ffn_residual(p, x, cfg: ModelConfig, slot_rows=None, moe_counts=None):
     """``x + FFN(ln2(x))``: the second half of an attention or RG-LRU
     block, on every path (full sequence, prefill, chunk, decode,
     verify).  ``slot_rows`` (a replica group's decode or verify, see
     :func:`decode_step`): an MoE FFN routes every slot's rows, gathered,
-    in one group as the unsharded step does, and keeps its own."""
+    in one group as the unsharded step does, and keeps its own.
+    ``moe_counts``: where an MoE FFN adds its routing
+    (:func:`moe.count_routing`), with the real rows of what it routes."""
     h = layers.apply_norm(p["ln2"], x, cfg.norm)
     if slot_rows is not None and cfg.num_experts:
         gather, lo, hi = slot_rows
-        return x + _apply_ffn(p["ffn"], gather(h), cfg)[lo:hi]
-    return x + _apply_ffn(p["ffn"], h, cfg)
+        return x + _apply_ffn(p["ffn"], gather(h), cfg, moe_counts)[lo:hi]
+    return x + _apply_ffn(p["ffn"], h, cfg, moe_counts)
 
 
 def _embed_inputs(params, inputs, dtype):
@@ -936,7 +938,7 @@ def prefill(params, tokens, caches, cfg: ModelConfig,
 
 def prefill_chunk(params, tokens, caches, slot, offset, n_valid,
                   cfg: ModelConfig, fcfg: FamousConfig = FamousConfig(),
-                  page_table=None):
+                  page_table=None, moe_counts=None):
     """One fixed-shape prefill chunk for a single slot of the batched caches.
 
     tokens: (1, C) int (or (1, C, D) embeddings) at absolute positions
@@ -955,7 +957,9 @@ def prefill_chunk(params, tokens, caches, slot, offset, n_valid,
     keeps them in range (``0 <= slot < n_slots``, ``1 <= n_valid <= C``,
     ``offset + C <= max_seq`` for contiguous stripes).  Returns the caches
     only: prefill logits are dead weight (generation restarts by decoding
-    the last prompt token), so the LM head is never computed."""
+    the last prompt token), so the LM head is never computed.
+    ``moe_counts``: (accumulator, (C,) bool real rows) where each MoE
+    layer adds its routing (:func:`moe.count_routing`)."""
     dev = tokens.device
     slot, offset, n_valid = (lib.device_scalar("prefill_chunk", v, dev)
                              for v in (slot, offset, n_valid))
@@ -965,17 +969,17 @@ def prefill_chunk(params, tokens, caches, slot, offset, n_valid,
         if kind == ATTN and page_table is not None:
             a, _ = attention.apply_attn_chunk_paged(
                 p["attn"], h, cache, page_table, slot, offset, cfg, fcfg)
-            x = _ffn_residual(p, x + a, cfg)
+            x = _ffn_residual(p, x + a, cfg, moe_counts=moe_counts)
         elif kind in (ATTN, LOCAL_ATTN):
             a, _ = attention.apply_attn_chunk(
                 p["attn"], h, cache, slot, offset, n_valid, cfg, fcfg,
                 window=cfg.window if kind == LOCAL_ATTN else 0)
-            x = _ffn_residual(p, x + a, cfg)
+            x = _ffn_residual(p, x + a, cfg, moe_counts=moe_counts)
         elif kind == RGLRU:
             sub = _read_slot_state(cache, slot, offset)
             a, sub = rglru.apply_rglru_chunk(p["rec"], h, cfg, sub, n_valid,
                                              fcfg)
-            x = _ffn_residual(p, x + a, cfg)
+            x = _ffn_residual(p, x + a, cfg, moe_counts=moe_counts)
             _write_slot_state(cache, sub, slot)
         else:
             sub = _read_slot_state(cache, slot, offset)
@@ -993,7 +997,7 @@ def prefill_chunk(params, tokens, caches, slot, offset, n_valid,
 
 def decode_step(params, tokens, caches, cache_len, cfg: ModelConfig,
                 fcfg: FamousConfig = FamousConfig(), page_table=None,
-                active=None, slot_rows=None):
+                active=None, slot_rows=None, moe_counts=None):
     """tokens: (B,) int (or (B, D) embeddings); cache_len: (B,) int32 on
     the device; page_table: optional (B, n_p) int32 on the device, given
     when the global-attention caches are page pools; active: optional (B,) bool on the device.  Runs
@@ -1005,7 +1009,9 @@ def decode_step(params, tokens, caches, cache_len, cfg: ModelConfig,
     ``slot_rows``: where a replica group decodes its own slots (B of the
     engine's, ``ServingEngine``), ``(gather, lo, hi)``: the gather of
     every group's rows over the groups' axes and the group's slots, for
-    an MoE FFN (:func:`_ffn_residual`).  Returns (logits (B, vocab) f32,
+    an MoE FFN (:func:`_ffn_residual`).  ``moe_counts``: (accumulator,
+    real rows of what the MoE layers route, bool) where each adds its
+    routing (:func:`moe.count_routing`).  Returns (logits (B, vocab) f32,
     caches)."""
     inputs = tokens[:, None] if tokens.ndim == 1 else tokens[:, None, :]
     x = _embed_inputs(params, inputs, _compute_dtype(params))
@@ -1014,15 +1020,15 @@ def decode_step(params, tokens, caches, cache_len, cfg: ModelConfig,
         if kind == ATTN and page_table is not None:
             a, _ = attention.apply_attn_decode_paged(
                 p["attn"], h, cache, page_table, cache_len, cfg, fcfg)
-            x = _ffn_residual(p, x + a, cfg, slot_rows)
+            x = _ffn_residual(p, x + a, cfg, slot_rows, moe_counts)
         elif kind in (ATTN, LOCAL_ATTN):
             a, _ = attention.apply_attn_decode(
                 p["attn"], h, cache, cache_len, cfg, fcfg,
                 window=cfg.window if kind == LOCAL_ATTN else 0)
-            x = _ffn_residual(p, x + a, cfg, slot_rows)
+            x = _ffn_residual(p, x + a, cfg, slot_rows, moe_counts)
         elif kind == RGLRU:
             a, new = rglru.apply_rglru_decode(p["rec"], h, cache, cfg)
-            x = _ffn_residual(p, x + a, cfg, slot_rows)
+            x = _ffn_residual(p, x + a, cfg, slot_rows, moe_counts)
             _commit_state(cache, new, active)
         else:
             a, tm = rwkv6.apply_rwkv_time_mix_decode(p["tm"], h, cache, cfg)
@@ -1038,7 +1044,7 @@ def decode_step(params, tokens, caches, cache_len, cfg: ModelConfig,
 
 def verify_step(params, tokens, caches, cache_len, cfg: ModelConfig,
                 fcfg: FamousConfig = FamousConfig(), page_table=None,
-                slot_rows=None):
+                slot_rows=None, moe_counts=None):
     """Speculative verify: decode W tokens per slot in ONE forward.
 
     tokens: (B, W) int — row b is ``[last_token, draft_1..draft_{W-1}]``
@@ -1053,7 +1059,8 @@ def verify_step(params, tokens, caches, cache_len, cfg: ModelConfig,
     verify: a ring would overwrite its oldest rows before the accepted
     count is known, and recurrent state cannot roll back to an
     intermediate position (the engine decodes plainly instead).
-    ``slot_rows`` as in :func:`decode_step`."""
+    ``slot_rows`` and ``moe_counts`` (rows in (B, W) order) as in
+    :func:`decode_step`."""
     kinds = set(layer_kinds(cfg))
     if kinds != {ATTN}:
         raise ValueError(f"verify_step only supports global-attention "
@@ -1072,7 +1079,7 @@ def verify_step(params, tokens, caches, cache_len, cfg: ModelConfig,
             a, _ = attention.apply_attn_verify(p["attn"], h, cache,
                                                cache_len, cfg, fcfg,
                                                writes=writes)
-        x = _ffn_residual(p, x + a, cfg, slot_rows)
+        x = _ffn_residual(p, x + a, cfg, slot_rows, moe_counts)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     return logits_fn(params, x, cfg), caches
 

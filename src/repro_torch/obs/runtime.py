@@ -5,8 +5,11 @@ attention module, tile-level utilisation — and the serving analogue is a
 single seam that surfaces what each layer of the engine is doing:
 
   * **Runtime** (``ServingEngine``): step phases (prefill-chunk / decode /
-    verify) as trace spans + duration histograms, TTFT/TPOT per retired
-    request, speculation drafted/accepted, the executable census.
+    verify) as trace spans + duration histograms, the spans inside a step
+    (``step``, ``plan``, ``stage``, ``replay``, ``wait``, ``emit``), each
+    executable's device time on the trace's device track, TTFT/TPOT per
+    retired request, speculation drafted/accepted, the executable census,
+    the MoE layers' routing counts.
   * **Scheduler**: admissions, queue depth, prefill/decode token counts,
     preemptions.
   * **PageAllocator**: page grow/shrink/free/publish/evict, pool
@@ -14,16 +17,16 @@ single seam that surfaces what each layer of the engine is doing:
   * **Drafter** (``PromptLookupDrafter``): lookup hit rate and proposed
     token volume.
 
-Everything is *host-side and pull-based*: hooks take plain python ints
+Everything is *host-side and pull-based*: hooks take plain python numbers
 already on the host (the engine's one device→host sync per decode step is
-unchanged), counters are dict adds, and reading happens only when someone
-calls :meth:`Observer.snapshot` / :meth:`prometheus_text` /
+unchanged; the engine reads its CUDA events after that sync and hands
+over milliseconds), counters are dict adds, and reading happens only when
+someone calls :meth:`Observer.snapshot` / :meth:`prometheus_text` /
 :meth:`trace_json`.  The module is contractually free of torch and jax
 (lint rule RA004 of ``repro_torch.analysis.lint``) so observability can
-never introduce a device sync.  Measured
-overhead of an enabled Observer is ≤2% tok/s on the serving benchmark's
-``obs_on`` / ``obs_off`` row pair (gated at 5% in CI; see
-docs/observability.md for the catalog and the contract).
+never introduce a device sync in a step; a pull reads the engine's
+routing counts with one copy to the host.  What an enabled, tracing
+Observer costs on the card: docs/observability.md ("Cost on the card").
 
 ``observer=None`` (every constructor's default) resolves to
 :data:`NULL_OBSERVER`, whose hooks are empty methods — the off state
@@ -38,6 +41,7 @@ from repro_torch.obs.trace import Tracer, now
 
 # engine step phases the tracer records (docs/observability.md schema)
 PHASES = ("prefill_chunk", "decode", "verify")
+_NULL_CTX = contextlib.nullcontext()
 
 
 class Observer:
@@ -53,6 +57,7 @@ class Observer:
         self.tracer = Tracer(limit=trace_limit) if trace else None
         self.step = 0                       # engine step, for attribution
         self._census_source = None
+        self._routing_source = None
         m = self.metrics
         # -- request lifecycle ----------------------------------------------
         self._enqueued = m.counter(
@@ -118,6 +123,15 @@ class Observer:
             "repro_engine_compilations",
             "compiled executables per step kind (pull-refreshed from the "
             "engine census)", ("exec",))
+        # -- MoE routing (pull-refreshed from the engine's device counts) ----
+        self._moe_choices = m.counter(
+            "repro_moe_choices_total",
+            "real tokens' top-k expert choices, summed over MoE layer calls",
+            ("outcome",))
+        self._moe_capacity = m.counter(
+            "repro_moe_capacity_rows_total",
+            "expert capacity rows computed (groups x experts x capacity), "
+            "summed over MoE layer calls")
 
     # -- engine hooks --------------------------------------------------------
     def register_census(self, source) -> None:
@@ -134,6 +148,25 @@ class Observer:
         c = {str(k): int(v) for k, v in self._census_source().items()}
         for k, v in c.items():
             self._compilations.set(v, exec=k)
+        return c
+
+    def register_routing(self, source) -> None:
+        """``source()`` -> ``{"real", "kept", "dropped", "capacity_rows"}``
+        totals so far (the engine's MoE counts); re-read at every pull."""
+        self._routing_source = source
+
+    def routing(self) -> dict:
+        """Refresh the MoE routing counters from the registered source
+        and return its totals (``{}`` without one)."""
+        if self._routing_source is None:
+            return {}
+        c = {k: int(v) for k, v in self._routing_source().items()}
+        for outcome in ("kept", "dropped"):
+            self._moe_choices.inc(
+                c[outcome] - self._moe_choices.value(outcome=outcome),
+                outcome=outcome)
+        self._moe_capacity.inc(c["capacity_rows"]
+                               - self._moe_capacity.value())
         return c
 
     def on_step(self, queue_depth: int, occupied: int) -> None:
@@ -154,6 +187,22 @@ class Observer:
             if self.tracer is not None:
                 self.tracer.end(name, step=self.step)
             self._phase_s.observe(now() - t0, phase=name)
+
+    def span(self, name: str, **args):
+        """A trace span inside a step (``step``, ``plan``, ``stage``,
+        ``replay``, ``wait``, ``emit``): traced only, no histogram."""
+        if self.tracer is None:
+            return _NULL_CTX
+        args["step"] = self.step
+        return self.tracer.span(name, **args)
+
+    def device_span(self, name: str, t: float, seconds: float,
+                    **args) -> None:
+        """An executable's device time, measured by the engine: it began
+        at ``t`` (the host clock, :func:`~repro_torch.obs.trace.now`) and
+        lasted ``seconds``; on the trace's device track."""
+        if self.tracer is not None:
+            self.tracer.complete(name, t, seconds, **args)
 
     def on_enqueue(self, rid) -> None:
         self._enqueued.inc()
@@ -226,13 +275,16 @@ class Observer:
 
     # -- pull side -----------------------------------------------------------
     def snapshot(self) -> dict:
-        """Flat ``{"name{labels}": value}`` view (census refreshed)."""
+        """Flat ``{"name{labels}": value}`` view (census and routing
+        refreshed)."""
         self.census()
+        self.routing()
         return self.metrics.snapshot()
 
     def prometheus_text(self) -> str:
-        """Text exposition dump (census refreshed first)."""
+        """Text exposition dump (census and routing refreshed first)."""
         self.census()
+        self.routing()
         return self.metrics.prometheus_text()
 
     def trace_json(self) -> dict:
@@ -251,13 +303,19 @@ class NullObserver:
 
     tracer = None
     step = 0
-    _NULL_CTX = contextlib.nullcontext()
+    _NULL_CTX = _NULL_CTX
 
     def phase(self, name: str, **args):
         return self._NULL_CTX
 
+    def span(self, name: str, **args):
+        return self._NULL_CTX
+
+    def device_span(self, name, t, seconds, **args) -> None: pass
     def register_census(self, source) -> None: pass
     def census(self) -> dict: return {}
+    def register_routing(self, source) -> None: pass
+    def routing(self) -> dict: return {}
     def on_step(self, queue_depth: int, occupied: int) -> None: pass
     def on_enqueue(self, rid) -> None: pass
     def on_queue_depth(self, depth: int) -> None: pass

@@ -108,7 +108,17 @@ comes second depends on the traffic.  Apart, no replay can overwrite
 what another graph returned.
 
 Observability is one injectable seam: pass
-``observer=repro_torch.obs.Observer(...)``.
+``observer=repro_torch.obs.Observer(...)``.  With an observer that traces
+(``observer.tracer`` set), :meth:`ServingEngine.step` opens a ``step`` span
+holding ``plan``, ``stage`` (the static inputs' puts), ``replay`` (each
+executable call, by kind), ``wait`` (the host blocked on the device: the
+step's sync and any staging stall) and ``emit`` (token bookkeeping and
+retirement); on CUDA each executable call is timed between CUDA events,
+read after the step's sync (``graphs.ExecTimer``); an MoE stack adds each
+layer call's routing to one int64 device accumulator inside the
+executables (``moe.count_routing``), read only when the observer is
+pulled.  Without one, none of that exists: no event, no accumulator, the
+same graphs.
 """
 from __future__ import annotations
 
@@ -208,6 +218,17 @@ class ServingEngine:
                              "chunked prefill")
         self.device = resolve_device(device)
         self.obs = observer if observer is not None else NULL_OBSERVER
+        self._span = self.obs.span
+        tracing = self.obs.tracer is not None
+        # device time per executable call, where the events exist
+        self._timer = (graphs.ExecTimer(self.device, self.obs)
+                       if tracing and self.device.type == "cuda" else None)
+        # [real choices, kept, dropped, capacity rows] over MoE layer calls
+        self._moe_counts = (torch.zeros(4, dtype=torch.int64,
+                                        device=self.device)
+                            if tracing and cfg.num_experts else None)
+        if self._moe_counts is not None:
+            self.obs.register_routing(self._read_routing)
         self.mesh = mesh
         rules = sharding_rules or shd.SERVE_TP_RULES
         mesh_kw = {"mesh": mesh, "rules": rules} if mesh is not None else {}
@@ -279,7 +300,6 @@ class ServingEngine:
         # per slot and not content-addressable, so hybrid and recurrent
         # stacks prefill cold (``prefix_cache_active`` False), as in JAX
         self.prefix_cache_active = prefix_cache and all_attn
-        self.prefix_lookups = 0        # admissions that probed the index
         self.prefix_hit_pages = 0      # pages aliased instead of allocated
         self.prefix_hit_tokens = 0     # tokens whose prefill was skipped
         self._slot_hashes: list[Optional[list]] = [None] * n_slots
@@ -291,8 +311,10 @@ class ServingEngine:
         self._failed: list[Request] = []
         self._pt_version = -1          # page-table version on the device
         # -- the executables: static inputs, staged from pinned host copies
+        wait = functools.partial(self._span, "wait", on="stage")
+
         def static(shape, dtype, depth=1):
-            return graphs.StaticInput(shape, dtype, self.device, depth)
+            return graphs.StaticInput(shape, dtype, self.device, depth, wait)
 
         W = draft_k + 1
         self._in = {
@@ -393,6 +415,15 @@ class ServingEngine:
                 "chunk_stalls": sum(x.stalls for x in staged),
                 "chunk_stall_s": sum(x.stall_s for x in staged)}
 
+    def _read_routing(self) -> dict:
+        """The MoE routing totals (one copy to the host, which syncs:
+        device spans still unread are read after it)."""
+        real, kept, dropped, rows = self._moe_counts.tolist()
+        if self._timer is not None:
+            self._timer.synced()
+        return {"real": real, "kept": kept, "dropped": dropped,
+                "capacity_rows": rows}
+
     @property
     def acceptance_rate(self) -> float:
         """Accepted draft tokens / proposed draft tokens (bonus excluded)."""
@@ -449,6 +480,9 @@ class ServingEngine:
         sc = self._in["chunk_scalars"].tensor
         kw = {"page_table": self._local(self._in["page_table"].tensor)} \
             if self.paged else {}
+        if self._moe_counts is not None:
+            kw["moe_counts"] = (self._moe_counts, torch.arange(
+                self.chunk, device=self.device) < sc[2])
         transformer.prefill_chunk(self.params, self._in["chunk_tokens"].tensor,
                                   self.caches, sc[0:1], sc[1:2], sc[2:3],
                                   self.cfg, self.fcfg, **kw)
@@ -489,9 +523,10 @@ class ServingEngine:
             if self.paged:
                 self._page_table()
             if self._owns(slot):
-                self._prefill_tokens[plen].put(toks)
-                self._in["prefill_slot"].put((slot - self._first_slot,))
-                self._exec["prefill"](plen)
+                with self._span("stage"):
+                    self._prefill_tokens[plen].put(toks)
+                    self._in["prefill_slot"].put((slot - self._first_slot,))
+                self._call("prefill", plen)
             else:
                 self._shadow(head=True)
 
@@ -518,6 +553,15 @@ class ServingEngine:
                 step = transformer.verify_step
             if self._rows is not None and self.cfg.num_experts:
                 kw["slot_rows"] = (self._gather_slots, *self._rows[:2])
+            if self._moe_counts is not None:
+                # an MoE layer routes every slot's rows under replica
+                # groups, the group's own without
+                act = self._in["active"].tensor
+                if self._rows is None:
+                    act = self._local(act)
+                if kind == "verify":
+                    act = act[:, None].expand(-1, self.draft_k + 1)
+                kw["moe_counts"] = (self._moe_counts, act.reshape(-1))
             logits, _ = step(self.params,
                              self._local(self._in["tokens"].tensor),
                              self.caches,
@@ -538,18 +582,32 @@ class ServingEngine:
         gathered over the groups' axes."""
         return self._comm.gather(x, (self._rows[2],) + (None,) * (x.ndim - 1))
 
+    def _call(self, kind: str, key):
+        """Executable ``kind`` at ``key``, inside a ``replay`` span named by
+        what it runs (the sampler's keys are tuples) and, when the timer
+        exists, between its CUDA events."""
+        name = "sample" if isinstance(key, tuple) else kind
+        with self._span("replay", exec=name):
+            if self._timer is None:
+                return self._exec[kind](key)
+            start = self._timer.start()
+            out = self._exec[kind](key)
+            self._timer.stop(name, self.obs.step, start)
+            return out
+
     def _run_step(self, kind: str, active: list):
         """Run the ``kind`` step on the staged inputs, then its sampler
         where a request samples.  Returns the tokens (device)."""
-        _, greedy = self._exec[kind](kind)
+        _, greedy = self._call(kind, kind)
         temps, topks, seeds, idxs = self._sampling_operands(active)
         if not temps.any():              # an all-greedy step (the default)
             return greedy
-        for name, v in (("temperature", temps), ("top_k", topks),
-                        ("seed", seeds), ("index", idxs)):
-            self._in[name].put(v)
+        with self._span("stage"):
+            for name, v in (("temperature", temps), ("top_k", topks),
+                            ("seed", seeds), ("index", idxs)):
+                self._in[name].put(v)
         k_cap = next_pow2(max(int(topks.max()), 1))
-        return self._exec[kind]((kind, k_cap))
+        return self._call(kind, (kind, k_cap))
 
     # -- admission ------------------------------------------------------------
     def _prefix_hashes(self, req: Request, n: int):
@@ -594,7 +652,6 @@ class ServingEngine:
             if self.prefix_cache_active:
                 hashes, cap = self._prefix_hashes(req, n)
                 hits = self.alloc.lookup(hashes[:cap])
-                self.prefix_lookups += 1
                 self.obs.on_prefix_lookup(req.rid, len(hits),
                                           len(hits) * self.pcfg.page_size)
                 if hits:
@@ -620,8 +677,9 @@ class ServingEngine:
         if (state == DECODE and self.sched.slots[slot].target == 0
                 and self._has_slot_state and self._owns(slot)):
             # nothing to prefill: clear any stale per-slot state
-            self._in["clear_slot"].put(slot - self._first_slot)
-            self._exec["clear"]("clear")
+            with self._span("stage"):
+                self._in["clear_slot"].put(slot - self._first_slot)
+            self._call("clear", "clear")
         if state == DECODE:
             # generation restarts at the last prompt token: it is re-decoded
             # so its K/V entry lands at position n-1 (a private page, even
@@ -689,34 +747,38 @@ class ServingEngine:
         self.obs.on_step(
             queue_depth=len(self.sched.resume) + len(self.sched.pending),
             occupied=len(self.sched.occupied()))
-        plan = self.sched.plan()
-        if self.paged and plan.chunks:
-            self._page_table()
-        for ch in plan.chunks:
-            self._check_chunk(ch.slot, ch.start, ch.n)
-            seq = self._slot_seq[ch.slot]
-            toks = np.zeros((1, self.chunk), np.int64)
-            toks[0, :ch.n] = seq[ch.start:ch.start + ch.n]
-            with self.obs.phase("prefill_chunk", slot=ch.slot,
-                                rid=self.sched.slots[ch.slot].req.rid,
-                                start=ch.start, n=ch.n):
-                if self._owns(ch.slot):
-                    self._in["chunk_tokens"].put(toks)
-                    self._in["chunk_scalars"].put(
-                        (ch.slot - self._first_slot, ch.start, ch.n))
-                    self._exec["prefill"]("prefill")
-                else:
-                    self._shadow(head=False)
-            self.cache_len[ch.slot] = ch.start + ch.n
-            if self.sched.on_chunk(ch.slot, ch.n):
-                # prefill complete: decode restarts at the last token,
-                # whose K/V entry is then written exactly once at n-1
-                self.last_token[ch.slot] = seq[-1]
-        if self.speculative_active:
-            self._decode_speculative(list(plan.decode_slots), finished)
-        else:
-            self._decode_plain(list(plan.decode_slots), finished)
-        self.sched.tick()
+        with self._span("step"):
+            with self._span("plan"):
+                plan = self.sched.plan()
+            if self.paged and plan.chunks:
+                with self._span("stage"):
+                    self._page_table()
+            for ch in plan.chunks:
+                self._check_chunk(ch.slot, ch.start, ch.n)
+                seq = self._slot_seq[ch.slot]
+                toks = np.zeros((1, self.chunk), np.int64)
+                toks[0, :ch.n] = seq[ch.start:ch.start + ch.n]
+                with self.obs.phase("prefill_chunk", slot=ch.slot,
+                                    rid=self.sched.slots[ch.slot].req.rid,
+                                    start=ch.start, n=ch.n):
+                    if self._owns(ch.slot):
+                        with self._span("stage"):
+                            self._in["chunk_tokens"].put(toks)
+                            self._in["chunk_scalars"].put(
+                                (ch.slot - self._first_slot, ch.start, ch.n))
+                        self._call("prefill", "prefill")
+                    else:
+                        self._shadow(head=False)
+                self.cache_len[ch.slot] = ch.start + ch.n
+                if self.sched.on_chunk(ch.slot, ch.n):
+                    # prefill complete: decode restarts at the last token,
+                    # whose K/V entry is then written exactly once at n-1
+                    self.last_token[ch.slot] = seq[-1]
+            if self.speculative_active:
+                self._decode_speculative(list(plan.decode_slots), finished)
+            else:
+                self._decode_plain(list(plan.decode_slots), finished)
+            self.sched.tick()
         return finished
 
     def _check_chunk(self, slot: int, start: int, n: int) -> None:
@@ -781,24 +843,29 @@ class ServingEngine:
         # the observer phase wraps staging, dispatch or replay AND the
         # step's one device->host sync: the host-observed decode latency
         with self.obs.phase("decode", slots=len(active)):
-            if self.paged:
-                self._page_table()
-            self._in["tokens"].put(self.last_token)
-            self._in["cache_len"].put(self.cache_len)
-            self._in["active"].put(act)
+            with self._span("stage"):
+                if self.paged:
+                    self._page_table()
+                self._in["tokens"].put(self.last_token)
+                self._in["cache_len"].put(self.cache_len)
+                self._in["active"].put(act)
             next_tok = self._run_step("decode", active)
-            toks = next_tok.cpu().numpy()   # the step's ONE device->host sync
-        self.cache_len[act] += 1
-        self.last_token[act] = toks[act]
-        self.obs.on_tokens(len(active))
-        now = _clock()
-        for i in active:
-            req = self.sched.slots[i].req
-            req.out.append(int(toks[i]))
-            if req.t_first is None:
-                req.t_first = now
-            self.sched.on_decode_token(i)
-            self._maybe_retire(i, req, now, finished)
+            with self._span("wait", on="sync"):
+                toks = next_tok.cpu().numpy()   # the step's ONE host sync
+        if self._timer is not None:
+            self._timer.synced()
+        with self._span("emit"):
+            self.cache_len[act] += 1
+            self.last_token[act] = toks[act]
+            self.obs.on_tokens(len(active))
+            now = _clock()
+            for i in active:
+                req = self.sched.slots[i].req
+                req.out.append(int(toks[i]))
+                if req.t_first is None:
+                    req.t_first = now
+                self.sched.on_decode_token(i)
+                self._maybe_retire(i, req, now, finished)
 
     # -- speculative decode ---------------------------------------------------
     def _draft_for(self, i: int) -> list:
@@ -855,46 +922,56 @@ class ServingEngine:
                 toks[i, 1:1 + len(d)] = d
         with self.obs.phase("verify", slots=len(active),
                             drafted=sum(len(d) for d in drafts.values())):
-            if self.paged:
-                self._page_table()
-            self._in["tokens"].put(toks)
-            self._in["cache_len"].put(self.cache_len)
+            with self._span("stage"):
+                if self.paged:
+                    self._page_table()
+                self._in["tokens"].put(toks)
+                self._in["cache_len"].put(self.cache_len)
+                if self._moe_counts is not None:
+                    act = np.zeros((self.n_slots,), bool)
+                    act[active] = True
+                    self._in["active"].put(act)
             cand = self._run_step("verify", active)
-            cand = cand.cpu().numpy()    # (n_slots, W); the ONE host sync
-        now = _clock()
-        self.spec_steps += 1
-        self.obs.on_spec_step()
-        for i in active:
-            req = self.sched.slots[i].req
-            d = drafts.get(i, [])
-            # cand[i, j] is the token sequential decode would emit after the
-            # draft prefix d[:j]; draft token j survives iff it is exactly
-            # that, and the first mismatch position contributes the model's
-            # own token, so every step emits 1..W tokens of plain decode's
-            # stream
-            n_acc = 1
-            for j, dt in enumerate(d):
-                if int(cand[i, j]) != dt:
-                    break
-                n_acc += 1
-            emitted = [int(t) for t in cand[i, :n_acc]]
-            self.spec_drafted += len(d)
-            self.spec_accepted += n_acc - 1
-            self.obs.on_draft_verified(req.rid, len(d), n_acc - 1)
-            self.obs.on_tokens(n_acc)
-            self.sched.on_draft(i, len(d), n_acc - 1)
-            self.cache_len[i] += n_acc
-            self.last_token[i] = emitted[-1]
-            req.out.extend(emitted)
-            if req.t_first is None:
-                req.t_first = now
-            for _ in range(n_acc):
-                self.sched.on_decode_token(i)
-            if self.paged:
-                # rollback: return the pages grown for rejected draft
-                # tokens (a draft cut at a page boundary must not leak)
-                self.alloc.shrink(i, int(self.cache_len[i]))
-            self._maybe_retire(i, req, now, finished)
+            with self._span("wait", on="sync"):
+                cand = cand.cpu().numpy()    # (n_slots, W); the ONE sync
+        if self._timer is not None:
+            self._timer.synced()
+        with self._span("emit"):
+            now = _clock()
+            self.spec_steps += 1
+            self.obs.on_spec_step()
+            for i in active:
+                req = self.sched.slots[i].req
+                d = drafts.get(i, [])
+                # cand[i, j] is the token sequential decode would emit
+                # after the draft prefix d[:j]; draft token j survives iff
+                # it is exactly that, and the first mismatch position
+                # contributes the model's own token, so every step emits
+                # 1..W tokens of plain decode's stream
+                n_acc = 1
+                for j, dt in enumerate(d):
+                    if int(cand[i, j]) != dt:
+                        break
+                    n_acc += 1
+                emitted = [int(t) for t in cand[i, :n_acc]]
+                self.spec_drafted += len(d)
+                self.spec_accepted += n_acc - 1
+                self.obs.on_draft_verified(req.rid, len(d), n_acc - 1)
+                self.obs.on_tokens(n_acc)
+                self.sched.on_draft(i, len(d), n_acc - 1)
+                self.cache_len[i] += n_acc
+                self.last_token[i] = emitted[-1]
+                req.out.extend(emitted)
+                if req.t_first is None:
+                    req.t_first = now
+                for _ in range(n_acc):
+                    self.sched.on_decode_token(i)
+                if self.paged:
+                    # rollback: return the pages grown for rejected
+                    # draft tokens (a draft cut at a page boundary must
+                    # not leak)
+                    self.alloc.shrink(i, int(self.cache_len[i]))
+                self._maybe_retire(i, req, now, finished)
 
     # -- admission control ----------------------------------------------------
     def _admissible(self, req: Request) -> bool:

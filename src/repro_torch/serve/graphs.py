@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import lib
+from repro_torch.obs.trace import now
 
 _CAPTURE = contextvars.ContextVar("repro_torch_graph_capture", default=True)
 
@@ -91,9 +92,12 @@ class StaticInput:
     device copy is ordered on the stream, so a replay always reads the
     value staged just before it.  Before a host copy is overwritten, its
     previous transfer's event is waited on: ``stalls`` counts the waits
-    that found it still pending and ``stall_s`` their host seconds."""
+    that found it still pending and ``stall_s`` their host seconds, and
+    ``wait()`` (a context manager factory: the engine's ``wait`` span) is
+    open around each such wait."""
 
-    def __init__(self, shape, dtype, device, depth: int = 1):
+    def __init__(self, shape, dtype, device, depth: int = 1,
+                 wait=contextlib.nullcontext):
         self.device = torch.device(device)
         cuda = self.device.type == "cuda"
         self.tensor = torch.zeros(shape, dtype=dtype, device=self.device)
@@ -105,13 +109,15 @@ class StaticInput:
         self._next = 0
         self.stalls = 0
         self.stall_s = 0.0
+        self.wait = wait
 
     def put(self, values) -> torch.Tensor:
         i = self._next
         self._next = (i + 1) % len(self._hosts)
         if self._pending[i] and not self._copied[i].query():
             t0 = time.perf_counter()
-            self._copied[i].synchronize()
+            with self.wait():
+                self._copied[i].synchronize()
             self.stalls += 1
             self.stall_s += time.perf_counter() - t0
         self._hosts[i].numpy()[...] = np.asarray(values)
@@ -120,6 +126,56 @@ class StaticInput:
             self._copied[i].record(torch.cuda.current_stream(self.device))
             self._pending[i] = True
         return self.tensor
+
+
+class ExecTimer:
+    """Device time of executable calls: a CUDA event pair around each
+    (:meth:`start`, :meth:`stop`), read only after a host sync the caller
+    already makes (:meth:`synced`), and handed to ``observer.device_span``
+    on the host clock.  An anchor event recorded just after each sync,
+    when the stream is idle, ties the device's clock to the host's: a pair
+    recorded after it starts at the anchor's host time plus the time
+    between the two events.  The first anchor is taken at the first call,
+    before any sync, and sits early by whatever the device still had
+    queued then.  Events around a replay count the gaps between the
+    graph's kernels as busy.  Read events go back to a free list, so a
+    step creates none once warm."""
+
+    def __init__(self, device, observer):
+        self.device = torch.device(device)
+        self.obs = observer
+        self._anchor = None     # (event, host seconds)
+        self._pairs: list = []  # (name, step, start, end) since the anchor
+        self._free: list = []
+
+    def _record(self) -> torch.cuda.Event:
+        ev = (self._free.pop() if self._free
+              else torch.cuda.Event(enable_timing=True))
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def start(self) -> torch.cuda.Event:
+        """Record a call's start (and, before the first sync, the first
+        anchor)."""
+        if self._anchor is None:
+            self._anchor = (self._record(), now())
+        return self._record()
+
+    def stop(self, name: str, step: int, start: torch.cuda.Event) -> None:
+        self._pairs.append((name, step, start, self._record()))
+
+    def synced(self) -> None:
+        """Right after a host sync: read every pair, then anchor anew."""
+        if self._anchor is not None:
+            anchor, t = self._anchor
+            for name, step, start, end in self._pairs:
+                self.obs.device_span(
+                    name, t + anchor.elapsed_time(start) / 1e3,
+                    start.elapsed_time(end) / 1e3, step=step)
+                self._free += (start, end)
+            self._pairs.clear()
+            self._free.append(anchor)
+        self._anchor = (self._record(), now())
 
 
 class GraphPool:
