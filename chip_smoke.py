@@ -22,7 +22,12 @@ Phases, in order; any failure exits non-zero before the result line:
      ``decode_attention`` (also as verify rows, 5 per slot, at
      recurrentgemma-2b's 10 / 1 heads of 256, and at lengths on its range
      boundaries with an empty row, which must be exactly 0 and match the
-     plain mirror of the split-and-combine algebra) and ``chunk_prefill``
+     plain mirror of the split-and-combine algebra; at the
+     deepseek-7b benchmark cell's decode call, 24 rows of 32 / 32 heads
+     over a 4096-key cache, and as verify rows at deepseek-7b's and
+     grok-1's layouts, held to the stream design's mirror, relaunched
+     for bit identity, an empty row exactly 0, each launch counted under
+     its design) and ``chunk_prefill``
      (offsets 0, 1792 and 1000, the last in bf16 also against the plain
      mirror of its tensor-core algebra); ``matmul_tiled``,
      ``decode_attention``, ``chunk_prefill`` and the paged kernels
@@ -857,6 +862,8 @@ def kernel_phase(torch, iters, seed):
               f"error {s_err}, empty row zero {zero}")
         del q, k, v
 
+    cell_decode_rows(torch, F, randn, record, iters)
+
     # chunk_prefill: one slot of the batched cache, C = 256 at offsets 0,
     # 1792 and 1000 (off the 64-key tiles), read as the main path reads it:
     # the whole cache, the slot and the offset as int32 scalars in device
@@ -932,6 +939,120 @@ def kernel_phase(torch, iters, seed):
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
     return rows
+
+
+# the deepseek-7b.longctx-batch cell's decode call: rows, query and kv
+# heads, head dim, cache length (max_seq)
+CELL_DECODE = (24, 32, 32, 128, 4096)
+# verify rows at the layouts the stream design serves: (label, H, KV)
+STREAM_VERIFY_LAYOUTS = (("deepseek-7b", 32, 32), ("grok-1-314b", 48, 8))
+
+
+def cell_decode_rows(torch, F, randn, record, iters):
+    """``decode_attention`` in bf16 at the deepseek-7b cell's decode call
+    (CELL_DECODE): an empty row first, lengths on both sides of the plan's
+    tile and range boundaries, the rest drawn from a fixed seed over
+    1024-4096 as the cell's prompts and outputs reach; then as verify
+    rows (4 slots, 5 rows a slot, an empty first row) at
+    STREAM_VERIFY_LAYOUTS.  Each is held by the ulp gate to the mirror of
+    its plan's design (``ref.decode_split_reference``, with the stream
+    tiles where ``decode_attn.design`` says "stream"), relaunched for bit
+    identity, its empty row exactly 0, its launches contract-checked
+    (``record``) and counted under its design in
+    ``lib.STATS.designs``."""
+    import numpy as np
+
+    from repro_torch.kernels import lib
+    from repro_torch.kernels.decode import decode_attn
+    from repro_torch.kernels.decode import ref as dec_ref
+
+    dev = torch.device("cuda")
+    dtype, e = torch.bfloat16, 2
+    code = lib.DTYPE_CODE[dtype]
+    B, H, KV, dh, Skv = CELL_DECODE
+    scale = dh ** -0.5
+
+    def geometry(R, H, KV, Skv):
+        L, _ = decode_attn.plan(code, R, H, KV, dh, Skv, lib.sm_count(dev))
+        d = decode_attn.design(code, H, KV, dh)
+        return L, d, decode_attn.STREAM_TILES if d == "stream" else None
+
+    def gated(label, q, k, v, ln, rps, sets, nbytes, flops, library=None):
+        L, d, tiles = geometry(q.shape[0], q.shape[1], k.shape[2],
+                               k.shape[1])
+
+        def kern(q, k, v, ln):
+            return decode_attn.decode_attention(q, k, v, ln, scale=scale,
+                                                rows_per_slot=rps)
+
+        def plain(q, k, v, ln):
+            return dec_ref.decode_reference(q, k, v, ln, scale=scale,
+                                            rows_per_slot=rps)
+
+        before = dict(lib.STATS.designs)
+        out = kern(q, k, v, ln)
+        counted = {n: lib.STATS.designs[n] - before[n] for n in before}
+        mirror = dec_ref.decode_split_reference(
+            q.float(), k, v, ln, scale=scale, keys_per_split=L,
+            rows_per_slot=rps, stream_tiles=tiles)
+        row = record("decode_attention", f"{label} (L={L}, {d})", "bf16",
+                     out, plain(q, k, v, ln), ATTN_TOL["bf16"], kern, plain,
+                     library, sets, nbytes, flops, n_iter=max(10, iters // 2),
+                     again=kern(q, k, v, ln), ulp_ref=mirror)
+        empty = ln == 0
+        zero = bool(torch.all(out[empty] == 0)) and bool(empty.any())
+        served = counted == {n: int(n == f"decode_attention.{d}")
+                             for n in counted}
+        row.update(design=d, keys_per_range=L, empty_row_zero=zero,
+                   designs_counted=counted)
+        print(f"  (decode_attention {label}: the {d} design at L={L}, "
+              f"launches counted {counted}; empty row "
+              f"{'exactly 0' if zero else 'NOT 0'}) "
+              f"{'ok' if zero and served else 'FAIL'}", flush=True)
+        check(zero and served, f"decode_attention {label}: empty row zero "
+              f"{zero}, launches counted {counted} for the {d} design")
+
+    L, _, tiles = geometry(B, H, KV, Skv)
+    tk = tiles[1] if tiles else 1
+    edge = [0, 1, tk - 1, tk, tk + 1, L - 1, L, L + 1, 2 * L + tk + 1, Skv]
+    drawn = np.random.default_rng(36).integers(1024, Skv + 1, B - len(edge))
+    lens_list = edge + [int(x) for x in drawn]
+    lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+    live = sum(lens_list)
+    sets = [(randn((B, H, dh), dtype), randn((B, Skv, KV, dh), dtype),
+             randn((B, Skv, KV, dh), dtype), lens)
+            for _ in range(n_sets(2 * B * Skv * KV * dh * e))]
+    mask = (torch.arange(Skv, device=dev)[None, :]
+            < lens[:, None])[:, None, None, :]
+
+    def library(q, k, v, ln):   # SDPA with a length mask
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, scale=scale, enable_gqa=True)
+
+    gated(f"deepseek-7b cell B={B} H={H} KV={KV} dh={dh} Skv={Skv} "
+          f"lens=edges+1024..4096", *sets[0], 1, sets,
+          2 * B * H * dh * e + live * KV * dh * 2 * e + 4 * B,
+          4.0 * H * dh * live, library)
+    del sets
+
+    # verify rows: row j of slot b sees lens[b] + j keys (clipped to Skv)
+    Bv, W, Sv = 4, 5, 2048
+    for label, H, KV in STREAM_VERIFY_LAYOUTS:
+        slot_lens = [0, 511, 1000, Sv - 3]
+        vlens = torch.clamp(
+            torch.tensor(slot_lens, dtype=torch.int32, device=dev)[:, None]
+            + torch.arange(W, device=dev, dtype=torch.int32),
+            max=Sv).reshape(-1).contiguous()
+        slot_keys = sum(min(n + W - 1, Sv) for n in slot_lens)
+        sets = [(randn((Bv * W, H, dh), dtype), randn((Bv, Sv, KV, dh), dtype),
+                 randn((Bv, Sv, KV, dh), dtype), vlens)
+                for _ in range(n_sets(2 * Bv * Sv * KV * dh * e))]
+        gated(f"verify {label} B={Bv} W={W} H={H} KV={KV} dh={dh} Skv={Sv} "
+              f"lens={slot_lens}+j", *sets[0], W, sets,
+              2 * Bv * W * H * dh * e + slot_keys * KV * dh * 2 * e
+              + 4 * Bv * W, 4.0 * H * dh * int(vlens.sum()))
+        del sets
 
 
 def contract_check(torch, fn, inputs):

@@ -12,9 +12,14 @@ card:
   BK, warps, ring stages) at the serving-chunk and training shapes;
 - ``matmul_tiled`` bf16 at T <= 32: the split-K count at decode (T = 4)
   and verify (T = 20), against the count the kernel's plan picks;
-- ``decode_attention``: the keys per block range L, against the L the
-  kernel's plan picks, at the chip_smoke table shape, a qwen2-7b decode
-  step and recurrentgemma-2b's heads;
+- ``decode_attention``: the split design's keys per block range L and
+  the stream design's geometries (warps, keys a tile, ring stages) times
+  its L, against the design and L the kernel's plan picks and SDPA, each
+  with its share of the byte bound, at the chip_smoke table shape, a
+  qwen2-7b decode step, recurrentgemma-2b's heads, deepseek-7b's (group 1)
+  and grok-1's (group 6) layouts, and the decode steps of the two
+  benchmark cells (deepseek-7b 24 slots over 1024-4096 keys, grok-1 32
+  slots over 64-3840, and as chat rows sit, lognormal, some slots idle);
 - ``paged_decode_attention`` (bf16 and int8 pools): L against the plan's,
   at the table shape and a qwen2-7b decode step (513-page pool of
   16-token pages);
@@ -121,12 +126,40 @@ PC_VARIANTS = [("fp", "kCopy", (4, 2, 64, 2)),
                ("int8", "kRegs8", (8, 1, 64, 2))]
 PC_OFFSETS = [1024, 1792]
 PC_PAGE_SIZES = [16, 64]
-# (label, B, H, KV, dh, lens), Skv = 2048
-DEC_SHAPES = [("table", 4, 28, 4, 128, [1, 37, 1000, 2048]),
-              ("qwen2-7b step", 4, 28, 4, 128, [1025] * 4),
-              ("recurrentgemma-2b step", 4, 10, 1, 256, [1025] * 4)]
-DEC_SKV = 2048
+# (label, B, H, KV, dh, Skv, lens): the chip_smoke table shape, a qwen2-7b
+# and a recurrentgemma-2b decode step, the layouts of rows 8b / 8c at
+# group 1 (deepseek-7b) and 6 (grok-1) and grok-1's TP ranks, and the two
+# benchmark cells' decode steps: deepseek-7b.longctx-batch (24 slots
+# decoding over 1024-4096 keys, as its prompts and outputs reach) and
+# grok-1-314b-4L.chat-rate (32 slots over 64-3840 keys, uniform, and as
+# its chat rows sit: lognormal around 640 keys, 8 slots idle), and
+# deepseek-7b on short chat rows; lengths drawn from a fixed seed
+DEC_SHAPES = [("table", 4, 28, 4, 128, 2048, [1, 37, 1000, 2048]),
+              ("qwen2-7b step", 4, 28, 4, 128, 2048, [1025] * 4),
+              ("recurrentgemma-2b step", 4, 10, 1, 256, 2048, [1025] * 4),
+              ("deepseek-7b table", 4, 32, 32, 128, 2048,
+               [1, 37, 1000, 2048]),
+              ("grok-1 table", 4, 48, 8, 128, 2048, [1, 37, 1000, 2048]),
+              ("grok-1 TP=2 table", 4, 24, 4, 128, 2048,
+               [1, 37, 1000, 2048]),
+              ("grok-1 TP=4 table", 4, 12, 2, 128, 2048,
+               [1, 37, 1000, 2048]),
+              ("deepseek-7b cell", 24, 32, 32, 128, 4096,
+               "uniform 1024 4096"),
+              ("grok-1 cell", 32, 48, 8, 128, 4096, "uniform 64 3840"),
+              ("grok-1 chat rows", 32, 48, 8, 128, 4096,
+               "lognormal 640 0.8 64 3840 8"),
+              ("deepseek-7b chat rows", 24, 32, 32, 128, 4096,
+               "lognormal 384 0.8 32 2800 4")]
 DEC_L = [16, 32, 64, 128, 256]
+# the stream design (decode_split.cuh decode_stream_kernel): (group, dh,
+# warps W, keys a tile TK, ring stages NS); the first of each (group, dh)
+# is the kernel's own geometry (StreamServe)
+DEC_STREAM = [(1, 128, 4, 8, 4), (1, 128, 4, 8, 3), (1, 128, 4, 8, 6),
+              (1, 128, 4, 16, 3), (1, 128, 8, 8, 3), (1, 128, 2, 8, 4),
+              (1, 128, 4, 4, 4), (6, 128, 4, 8, 4), (7, 128, 4, 8, 4),
+              (10, 256, 4, 4, 4)]
+DEC_STREAM_L = [32, 64, 128, 256, 512, 1024]
 # mha_forward variants (chunk_tc.cuh's TcTiles warps, 16-row m-tiles a
 # warp) x padded head dims; the first tiling at the smallest DP is the
 # kernel's own
@@ -247,10 +280,43 @@ extern "C" int sweep_mm(int cfg, const void* x, const void* w, void* out,
   return static_cast<int>(e);
 }}
 """
+    st_cases = "\n".join(
+        f"    case {i}: e = launch_decode_stream<bf16, ContigRows<bf16>, {g}, "
+        f"{dh}, StreamTiles<{w}, {tk}, {ns}>>(qb, src, lb, ob, wb, R, H, KV, "
+        "Skv, 1, L, scale, vec, s); break;"
+        for i, (g, dh, w, tk, ns) in enumerate(DEC_STREAM))
     dec = f"""#include "{csrc / 'decode_attention.cu'}"
 
 extern "C" long long sweep_decode_ws(int R, int H, int dh, int Skv, int L) {{
   return famous::decode_ws_elems(R, H, dh, Skv, L);
+}}
+
+// cfg -1: the split design at L; cfg i >= 0: DEC_STREAM[i] at L
+extern "C" int sweep_decode(int cfg, const void* q, const void* k, const void* v,
+                            const void* lens, void* out, void* ws, int R, int H, int KV,
+                            int dh, int Skv, int L, long long k_sb, long long k_ss,
+                            long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+                            float scale, void* stream) {{
+  using namespace famous;
+  using bf16 = __nv_bfloat16;
+  const int vec = contig_vec<bf16>(q, k, v, dh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh);
+  const ContigRows<bf16> src{{static_cast<const bf16*>(k), static_cast<const bf16*>(v), k_sb,
+                             k_ss, k_sh, v_sb, v_ss, v_sh}};
+  const bf16* qb = static_cast<const bf16*>(q);
+  const int* lb = static_cast<const int*>(lens);
+  bf16* ob = static_cast<bf16*>(out);
+  float* wb = static_cast<float*>(ws);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaErrorInvalidValue;
+  if (cfg < 0) {{
+    if (L <= kDecMaxKeys)
+      e = launch_decode_split(qb, src, lb, ob, wb, R, H, KV, dh, Skv, 1, L, scale, vec, s);
+    return static_cast<int>(e);
+  }}
+  switch (cfg) {{
+{st_cases}
+  }}
+  return static_cast<int>(e);
 }}
 """
     cp_cases = "\n".join(
@@ -588,8 +654,10 @@ def build(out_dir: Path, parts) -> ctypes.CDLL:
         "sweep_wkv6": [I, P, P, P, P, P, P, P, P, P, I, I, I, I, P],
         "sweep_rglru": [I, P, P, P, I, I, I, P],
         "famous_matmul_tiled": lib._SIGNATURES["famous_matmul_tiled"],
-        "famous_decode_attention":
-            lib._SIGNATURES["famous_decode_attention"],
+        "sweep_decode": [I, P, P, P, P, P, P, I, I, I, I, I, I,
+                         ctypes.c_longlong, ctypes.c_longlong,
+                         ctypes.c_longlong, ctypes.c_longlong,
+                         ctypes.c_longlong, ctypes.c_longlong, F, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(so_lib, name, None)
@@ -707,57 +775,8 @@ def main(argv=None) -> int:
               + row_text(row), flush=True)
         del sets
 
-    # decode_attention: keys per block range
-    Skv = DEC_SKV
-    for label, B, H, KV, dh, lens_list in (DEC_SHAPES if "decode" in parts
-                                           else ()):
-        scale = dh ** -0.5
-        lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
-        mask = (torch.arange(Skv, device=dev)[None, :]
-                < lens[:, None])[:, None, None, :]
-        sets = [(randn((B, H, dh)), randn((B, Skv, KV, dh)),
-                 randn((B, Skv, KV, dh)))
-                for _ in range(cs.n_sets(4 * B * Skv * KV * dh))]
-        ref = dec_ref.decode_reference(*sets[0], lens, scale=scale)
-        chosen, _ = decode_attn.plan(code, B, H, KV, dh, Skv, sms)
-
-        def library(q, k, v):
-            return Fn.scaled_dot_product_attention(
-                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
-                attn_mask=mask, scale=scale, enable_gqa=True)
-        row = {"shape": label, "B": B, "H": H, "KV": KV, "dh": dh,
-               "lens": lens_list, "plan_L": chosen,
-               "library_ms": dev_ms(library, sets)}
-        for L in DEC_L:
-            ws = torch.empty(so.sweep_decode_ws(B, H, dh, Skv, L),
-                             dtype=torch.float32, device=dev)
-
-            def kern(q, k, v, L=L, ws=ws):
-                out = torch.empty_like(q)
-                err = so.famous_decode_attention(
-                    code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    lens.data_ptr(), out.data_ptr(), ws.data_ptr(), B, H,
-                    KV, dh, Skv, 1, L, *k.stride()[:3], *v.stride()[:3],
-                    scale, stream())
-                if err:
-                    raise RuntimeError(f"L={L}: CUDA error {err}")
-                return out
-            try:
-                out = kern(*sets[0])
-            except RuntimeError as e:   # K and V past shared memory
-                torch.cuda.synchronize()
-                row[f"L={L}"] = {"ms": None, "error": str(e)}
-                continue
-            err, ok = cs.compare(torch, out, ref, cs.ATTN_TOL["bf16"])
-            row[f"L={L}"] = {"ms": dev_ms(kern, sets), "max_abs_err": err,
-                             "ok": ok}
-        result["decode_L"].append(row)
-        print(f"decode_attention {label} B={B} H={H} KV={KV} dh={dh} "
-              f"lens={lens_list} (plan: L={chosen}): SDPA "
-              f"{ms_text(row['library_ms'])} ms | " + row_text(row),
-              flush=True)
-        del sets
-
+    if "decode" in parts:
+        decode_sweep(torch, Fn, lib, so, randn, dev_ms, result, sms)
     if "paged" in parts:
         paged_decode_sweep(torch, lib, so, randn, dev_ms, result, sms)
     if "chunk" in parts:
@@ -804,6 +823,103 @@ def row_text(row):
             f" (misses the gate: {v['expected_miss']})"
             if v.get("expected_miss") else " WRONG")
         for k, v in row.items() if isinstance(v, dict))
+
+
+def dec_lens(spec, B, seed=0):
+    """A shape's lengths: its list; "uniform lo hi": B lengths drawn
+    uniformly from [lo, hi]; "lognormal median sigma lo hi idle": B - idle
+    lognormal lengths clipped to [lo, hi], then idle empty rows; drawn
+    with a fixed seed."""
+    import numpy as np
+
+    if not isinstance(spec, str):
+        return list(spec)
+    kind, *a = spec.split()
+    rng = np.random.default_rng(seed)
+    if kind == "uniform":
+        return [int(x) for x in rng.integers(int(a[0]), int(a[1]) + 1, B)]
+    med, sigma, lo, hi, idle = float(a[0]), float(a[1]), *map(int, a[2:])
+    x = np.clip(med * np.exp(sigma * rng.standard_normal(B - idle)), lo, hi)
+    return [int(v) for v in x] + [0] * idle
+
+
+def decode_sweep(torch, Fn, lib, so, randn, dev_ms, result, sms):
+    """``decode_attention`` bf16 at each DEC_SHAPES entry: the split
+    design at each L of DEC_L and the stream design's DEC_STREAM variants
+    of the shape's (group, dh) at each L of DEC_STREAM_L, each checked
+    against the plain version and timed with its share of the byte bound
+    (q, out and each live key's K and V row read once), against the plan's
+    design and L and SDPA."""
+    import chip_smoke as cs
+    from repro_torch.kernels.decode import decode_attn
+    from repro_torch.kernels.decode import ref as dec_ref
+
+    dev = torch.device("cuda")
+    code = lib.DTYPE_CODE[torch.bfloat16]
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, B, H, KV, dh, Skv, spec in DEC_SHAPES:
+        lens_list = dec_lens(spec, B)
+        scale = dh ** -0.5
+        lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+        mask = (torch.arange(Skv, device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        sets = [(randn((B, H, dh)), randn((B, Skv, KV, dh)),
+                 randn((B, Skv, KV, dh)))
+                for _ in range(cs.n_sets(4 * B * Skv * KV * dh))]
+        ref = dec_ref.decode_reference(*sets[0], lens, scale=scale)
+        chosen, _ = decode_attn.plan(code, B, H, KV, dh, Skv, sms)
+        nbytes = 2 * (2 * B * H * dh + sum(lens_list) * 2 * KV * dh) + 4 * B
+        bound_ms = nbytes / cs.HBM_BYTES_PER_S * 1e3
+
+        def library(q, k, v):
+            return Fn.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, scale=scale, enable_gqa=True)
+        row = {"shape": label, "B": B, "H": H, "KV": KV, "dh": dh,
+               "Skv": Skv, "lens": lens_list,
+               "plan": [decode_attn.design(code, H, KV, dh), chosen],
+               "bound_ms": bound_ms, "library_ms": dev_ms(library, sets)}
+        variants = [("split", -1, L) for L in DEC_L] + [
+            ("stream {}x{}x{}".format(*geo[2:]), i, L)
+            for i, geo in enumerate(DEC_STREAM)
+            if geo[:2] == (H // KV, dh) for L in DEC_STREAM_L]
+        for name, cfg, L in variants:
+            ws = torch.empty(so.sweep_decode_ws(B, H, dh, Skv, L),
+                             dtype=torch.float32, device=dev)
+
+            def kern(q, k, v, cfg=cfg, L=L, ws=ws):
+                out = torch.empty_like(q)
+                err = so.sweep_decode(
+                    cfg, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    lens.data_ptr(), out.data_ptr(), ws.data_ptr(), B, H,
+                    KV, dh, Skv, L, *k.stride()[:3], *v.stride()[:3],
+                    scale, stream)
+                if err:
+                    raise RuntimeError(f"{name} L={L}: CUDA error {err}")
+                return out
+            key = f"{name} L={L}"
+            try:
+                out = kern(*sets[0])
+            except RuntimeError as e:   # past shared memory or the keys cap
+                torch.cuda.synchronize()
+                row[key] = {"ms": None, "error": str(e)}
+                continue
+            err, ok = cs.compare(torch, out, ref, cs.ATTN_TOL["bf16"])
+            ms = dev_ms(kern, sets)
+            row[key] = {"ms": ms, "max_abs_err": err, "ok": ok,
+                        "pct_of_bound": None if not ms else
+                        100.0 * bound_ms / ms}
+        result["decode_L"].append(row)
+        timed = [(v["ms"], k) for k, v in row.items()
+                 if isinstance(v, dict) and v.get("ms")]
+        best = min(timed)
+        print(f"decode_attention {label} B={B} H={H} KV={KV} dh={dh} "
+              f"Skv={Skv} (plan: {row['plan'][0]} L={chosen}; bound "
+              f"{bound_ms:.4f} ms; best {best[1]} {best[0]:.4f} ms, "
+              f"{100 * bound_ms / best[0]:.1f}% of bound): SDPA "
+              f"{ms_text(row['library_ms'])} ms | " + row_text(row),
+              flush=True)
+        del sets
 
 
 def paged_decode_sweep(torch, lib, so, randn, dev_ms, result, sms):

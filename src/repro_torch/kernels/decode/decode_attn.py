@@ -7,12 +7,20 @@ flash-decoding.  Each block owns a range of L keys of one (row, kv head),
 the grouped query heads as its rows, and reads the cache in place by
 strides; a range past the row's length exits at once.  L comes from static
 shapes only (:func:`plan`), so the grid never depends on a length read on
-the host.  The blocks write f32 partials to a workspace allocated here (its
-size from the same plan), and the kernel's second pass combines them in a
-fixed order (one launch count per call, bit-identical relaunches).
+the host.  Two designs (:func:`design`, from the static group and head
+dim): "stream" for bf16 at dh 128 and one or six query heads a kv head
+(deepseek-7b, grok-1): ranges of up to 512 keys, each of a block's four
+warps streaming its 8-key tiles through its own ring of cp.async stages
+with an online softmax, bounded by HBM bandwidth (84-88% of it at the
+deepseek-7b cell's shape on an H100); "split" elsewhere: ranges of up to
+256 keys held whole in shared memory.  The blocks write f32 partials to a
+workspace allocated here (its size from the same plan), and the kernel's
+second pass combines them in a fixed order (one launch count per call in
+``lib.STATS.launches``, one under its design in ``lib.STATS.designs``;
+bit-identical relaunches).
 On CPU tensors it runs the plain version in
 :mod:`repro_torch.kernels.decode.ref` (where ``decode_split_reference``
-mirrors the split-and-combine algebra for the tests).
+mirrors either design's split-and-combine algebra for the tests).
 
 ``paged_decode_attention`` and ``paged_decode_attention_int8`` launch the
 kernels of ``kernels/csrc/paged_decode_attention.cu`` (the ports of the
@@ -80,6 +88,7 @@ def _launch(q, k_cache, v_cache, cache_len, scale, rows_per_slot):
         float(scale), lib.stream_of(q))
     lib.check(NAME, err, ws)
     lib.STATS.launches[NAME] += 1
+    lib.STATS.designs[f"{NAME}.{design(code, H, KV, dh)}"] += 1
     return out
 
 
@@ -90,9 +99,23 @@ def plan(code: int, rows: int, H: int, KV: int, dh: int, Skv: int,
     (``lib.DTYPE_CODE`` dtype code, row count, query and kv heads, head
     dim, cache length, SM count), and the f32 elements of its workspace:
     the grid splits Skv into ``ceil(Skv / L)`` ranges, whatever the
-    lengths."""
+    lengths.  L is :func:`design`'s: at most 256 for "split", 512 for
+    "stream"."""
     return lib.plan("famous_decode_attention_plan", code, rows, H, KV, dh,
                     Skv, sms)
+
+
+STREAM_TILES = (4, 8)   # decode_split.cuh StreamServe: warps, keys a tile
+
+
+@functools.lru_cache(maxsize=None)
+def design(code: int, H: int, KV: int, dh: int) -> str:
+    """The design a launch at these static shapes takes: "stream" (bf16,
+    dh 128, 1 or 6 query heads a kv head: ``decode_stream_kernel``, its
+    algebra ``ref.decode_split_reference(..., stream_tiles=STREAM_TILES)``)
+    or "split" (``decode_split_kernel``, the plain split algebra)."""
+    d = lib.load().famous_decode_attention_design(code, H, KV, dh)
+    return lib.DESIGNS[d].split(".")[1]
 
 
 PAGED = "paged_decode_attention"

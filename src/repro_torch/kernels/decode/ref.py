@@ -71,7 +71,8 @@ def _decode(q, k_cache, v_cache, cache_len, scale):
 
 
 def decode_split_reference(q, k_cache, v_cache, cache_len, *, scale: float,
-                           keys_per_split: int, rows_per_slot: int = 1):
+                           keys_per_split: int, rows_per_slot: int = 1,
+                           stream_tiles: tuple[int, int] | None = None):
     """The contiguous decode kernel's split-and-combine algebra, in f32:
     :func:`decode_reference` computed as the kernel computes it.  The key
     axis is cut into ranges of ``keys_per_split`` keys; each range that
@@ -79,8 +80,15 @@ def decode_split_reference(q, k_cache, v_cache, cache_len, *, scale: float,
     live scores, the sum of exp(s - m) and exp(s - m) @ V.  The live ranges
     are then combined in order, ``M = max m_s``, ``out = sum e^(m_s - M)
     acc_s / max(sum e^(m_s - M) l_s, 1e-30)``; a row with no live range
-    (length 0) comes out exactly 0.  Used by the tests and ``chip_smoke.py``
-    only, never on the serving path."""
+    (length 0) comes out exactly 0.
+
+    ``stream_tiles`` = (W, TK): the stream design's partials
+    (``decode_stream_kernel``, the launches :func:`decode_attn.design`
+    names "stream"): the range is cut into tiles of TK keys, warp w takes
+    tiles w, w + W, ... as an online softmax, and the W warps' partials
+    are merged in warp order (:func:`_stream_partial`).  None: the split
+    design's one softmax over the range.  Used by the tests and
+    ``chip_smoke.py`` only, never on the serving path."""
     _count("decode_attention", q)
     if rows_per_slot > 1:
         k_cache = k_cache.repeat_interleave(rows_per_slot, dim=0)
@@ -91,7 +99,7 @@ def decode_split_reference(q, k_cache, v_cache, cache_len, *, scale: float,
                 v_cache[:, lo:hi].to(torch.float32))
 
     return _split_combine(q, keys, cache_len, k_cache.shape[1],
-                          keys_per_split, scale)
+                          keys_per_split, scale, stream_tiles)
 
 
 def paged_decode_split_reference(q, k_pages, v_pages, page_table, cache_len,
@@ -127,7 +135,7 @@ def paged_decode_split_reference(q, k_pages, v_pages, page_table, cache_len,
                           keys_per_split, scale)
 
 
-def _split_combine(q, keys, cache_len, Skv, L, scale):
+def _split_combine(q, keys, cache_len, Skv, L, scale, stream_tiles=None):
     """Partials over ranges of L keys and their ordered combine (see
     :func:`decode_split_reference`); ``keys(lo, hi)`` gives the range's f32
     K and V rows, (R, hi - lo, KV, dh) each."""
@@ -139,11 +147,16 @@ def _split_combine(q, keys, cache_len, Skv, L, scale):
         hi = min(lo + L, Skv)
         k, v = keys(lo, hi)
         KV = k.shape[2]
+        pos = torch.arange(lo, hi, device=q.device)
+        ok = (pos[None, :] < lens[:, None])[:, None, None, :]
+        if stream_tiles is not None:
+            q32 = q.to(torch.float32).reshape(R, KV, H // KV, dh)
+            parts.append((lens > lo, *_stream_partial(q32, k, v, ok, scale,
+                                                      *stream_tiles)))
+            continue
         if qf is None:
             qf = q.to(torch.float32).reshape(R, KV, H // KV, dh) * scale
         s = qf @ k.permute(0, 2, 3, 1)                        # (R, KV, g, n)
-        pos = torch.arange(lo, hi, device=q.device)
-        ok = (pos[None, :] < lens[:, None])[:, None, None, :]
         s = s.masked_fill(~ok, -1e30)
         m = s.amax(-1)
         p = torch.where(ok, torch.exp(s - m[..., None]), 0.0)
@@ -159,6 +172,40 @@ def _split_combine(q, keys, cache_len, Skv, L, scale):
         acc = acc + w[..., None] * a
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(R, H, dh).to(q.dtype)
+
+
+def _stream_partial(q32, k, v, ok, scale, W, TK):
+    """One range's partial (m, l, acc) as ``decode_stream_kernel`` forms
+    it: q32 (R, KV, g, dh) unscaled, the range's K and V (R, n, KV, dh),
+    ok (R, 1, 1, n) its live keys.  Tile t (keys [t TK, t TK + TK)) goes to
+    warp t % W, whose running (m, l, acc) rescales by e^(m - m') as each
+    tile raises its max m' (scores (q . k) * scale, dead keys at -1e30 and
+    weight 0); the warps then merge in order w = 0, 1, ...: M = max m_w,
+    l = sum e^(m_w - M) l_w, acc likewise.  A warp with no live key keeps
+    (-1e30, 0, 0) and weighs 0."""
+    n = k.shape[1]
+    kt, vt = k.permute(0, 2, 3, 1), v.permute(0, 2, 1, 3)
+    warps = []
+    for w in range(W):
+        m = torch.full(q32.shape[:3], -1e30, device=q32.device)
+        l, acc = torch.zeros_like(m), torch.zeros_like(q32)
+        for t in range(w, -(-n // TK), W):
+            sl = slice(t * TK, min(t * TK + TK, n))
+            okt = ok[..., sl]
+            s = ((q32 @ kt[..., sl]) * scale).masked_fill(~okt, -1e30)
+            mn = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - mn)
+            p = torch.where(okt, torch.exp(s - mn[..., None]), 0.0)
+            m, l = mn, l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + p @ vt[:, :, sl]
+        warps.append((m, l, acc))
+    M = torch.stack([m for m, _, _ in warps]).amax(0)
+    ls, a = torch.zeros_like(M), torch.zeros_like(q32)
+    for m, l, acc in warps:
+        wt = torch.exp(m - M)
+        ls = ls + wt * l
+        a = a + wt[..., None] * acc
+    return M, ls, a
 
 
 def chunk_prefill_reference(q, k_cache, v_cache, q_offset, *, scale: float,

@@ -14,7 +14,9 @@ that lie on the CPU.
 :data:`STATS` holds the launch counters: each kernel wrapper adds one to
 ``STATS.launches[name]`` where it launches its kernel, and each plain
 version adds one to ``STATS.plain_on_cuda[name]`` when it is handed CUDA
-tensors (which the serving and training paths never do).  A CUDA graph
+tensors (which the serving and training paths never do);
+``STATS.designs`` counts a wrapper's launches by the design its static
+shapes picked (:data:`DESIGNS`).  A CUDA graph
 replay runs none of that Python: ``serve/graphs.py`` takes the counts a
 capture made out of :data:`STATS` (:meth:`KernelStats.take_since`) and
 adds them back on every replay (:meth:`KernelStats.add`).
@@ -55,6 +57,9 @@ KERNELS = ("matmul_tiled", "matmul_tiled_int8", "decode_attention",
 
 # dtype codes of the C interface
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the designs a wrapper chooses between by its static shapes, each counted
+# apart in STATS.designs (``<kernel>.<design>``)
+DESIGNS = ("decode_attention.split", "decode_attention.stream")
 
 
 class KernelStats:
@@ -63,24 +68,28 @@ class KernelStats:
     def __init__(self):
         self.launches = {k: 0 for k in KERNELS}
         self.plain_on_cuda = {k: 0 for k in KERNELS}
+        self.designs = {k: 0 for k in DESIGNS}
+
+    def _counters(self):
+        return (("launches", self.launches),
+                ("plain_on_cuda", self.plain_on_cuda),
+                ("designs", self.designs))
 
     def reset(self) -> None:
-        for d in (self.launches, self.plain_on_cuda):
+        for _, d in self._counters():
             for k in d:
                 d[k] = 0
 
     def snapshot(self) -> dict:
-        """A copy of both counters."""
-        return {"launches": dict(self.launches),
-                "plain_on_cuda": dict(self.plain_on_cuda)}
+        """A copy of the counters."""
+        return {name: dict(d) for name, d in self._counters()}
 
     def take_since(self, snap: dict) -> dict:
         """Remove the counts added since ``snap`` and return them (in
         :meth:`snapshot`'s layout): what a graph capture counted, which
         launched nothing yet."""
         taken = {}
-        for name, counts in (("launches", self.launches),
-                             ("plain_on_cuda", self.plain_on_cuda)):
+        for name, counts in self._counters():
             taken[name] = {k: counts[k] - snap[name].get(k, 0)
                            for k in counts}
             counts.update(snap[name])
@@ -88,8 +97,7 @@ class KernelStats:
 
     def add(self, counts: dict) -> None:
         """Add counts in :meth:`snapshot`'s layout (one graph replay)."""
-        for name, d in (("launches", self.launches),
-                        ("plain_on_cuda", self.plain_on_cuda)):
+        for name, d in self._counters():
             for k, n in counts[name].items():
                 d[k] += n
 
@@ -190,6 +198,8 @@ _SIGNATURES = {
     # dtype, rows, H, KV, dh, Skv, SM count, [out] workspace elements ->
     # keys per range
     "famous_decode_attention_plan": [_I, _I, _I, _I, _I, _I, _I, _PLL],
+    # dtype, H, KV, dh -> design (0 split, 1 stream)
+    "famous_decode_attention_design": [_I, _I, _I, _I],
     # dtype, q, k, v, out, split workspace (or null), splits, B, C, H, KV,
     # dh, Skv, slot (int32 on the device, or null), q_offset (int32 on the
     # device), k strides (slot, pos, head), v strides, scale, stream
