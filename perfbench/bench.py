@@ -4,7 +4,15 @@ sub-window, the comparison with the reference, and the result line.
 Everything a cell needs is found by name (``BENCHMARK.json`` at the
 checkout's root names the cell's configuration and traffic mix):
 
-- ``perfbench/configs/<config>.json``: the model (see ``model_config``);
+- ``perfbench/configs/<config>.json``: the model's sizes and type (see
+  ``model_config``), and, under the optional key ``"reference"``, the name
+  of its model module;
+- ``perfbench/reference/<reference>.py``: the model module, ``model.py``
+  where the file names none: the layout of the weights drawn from the
+  seed, the plain reference that decides ``correct``, the operations and
+  bytes the per-layer readers count, and the configuration keys the port
+  names otherwise or does not take (``perfbench/reference/__init__.py``
+  lists what it defines);
 - ``perfbench/traffic/<traffic>.json``: the mix (``perfbench/traffic.py``);
 - ``perfbench/cells/<cell>.json``: the limits of the numbers compared,
   with the readings they were set from;
@@ -29,14 +37,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from perfbench import devtrace, observe, readers, traffic, weights
+from perfbench import devtrace, observe, readers, reference, traffic, weights
 from perfbench.reference import check
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
-# the model keys of a configuration file and the port's ModelConfig
-# fields they are (the rest have the same name)
-PORT_NAMES = {"router_softcap": "logit_softcap"}
-NOT_PORT = ("norm_eps", "context_length")
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 DRAIN_S = 60.0
 # the traced sub-window: the window's last seconds, at least this many
@@ -76,18 +80,21 @@ def reader(root: Path, kind: str, name: str):
     return mod.read
 
 
-def model_config(conf_file: dict):
+def model_config(conf_file: dict, mod):
     """The port's ModelConfig of a configuration file: the registry's
-    config of ``registry_id`` with the file's sizes.  A size that differs
-    from the registry's must be listed in ``reduced``."""
+    config of ``registry_id`` with the file's sizes, named as the model
+    module ``mod`` maps them.  A size that differs from the registry's
+    must be listed in ``reduced``."""
     from repro_torch.configs.base import get_config
 
     base = get_config(conf_file["registry_id"])
+    names = getattr(mod, "PORT_NAMES", {})
+    skip = getattr(mod, "NOT_PORT", ())
     over = {}
     for k, v in conf_file["model"].items():
-        if k in NOT_PORT:
+        if k in skip:
             continue
-        field = PORT_NAMES.get(k, k)
+        field = names.get(k, k)
         if getattr(base, field) != v:
             if k not in conf_file["reduced"]:
                 raise ValueError(
@@ -119,11 +126,14 @@ class Cell:
     limits: dict        # the cell file
     e2e: list           # end-to-end metric entries reported here
     per_layer: list     # per-layer metric entries reported here
+    reference: str      # the name of the model module
+    model: object       # the model module (perfbench/reference/)
 
 
 def load_cell(root: Path, workload: str) -> Cell:
     bench, cell, conf = find_cell(root, workload)
     conf_file = load_json(root / conf["file"])
+    name = conf_file.get("reference", reference.DEFAULT)
     mix = traffic.load(root / "perfbench" / "traffic"
                        / f"{cell['traffic']}.json")
     limits = load_json(root / "perfbench" / "cells" / f"{workload}.json")
@@ -132,7 +142,8 @@ def load_cell(root: Path, workload: str) -> Cell:
         return [m for m in ms if workload in m.get("workloads", [workload])]
 
     return Cell(workload, conf_file, mix, limits,
-                here(bench["end_to_end"]), here(bench["per_layer"]))
+                here(bench["end_to_end"]), here(bench["per_layer"]),
+                name, reference.load(root, name))
 
 
 class Window:
@@ -152,7 +163,7 @@ class Window:
         self.m = m
         self.mix = mix = cell.mix
         eng = mix["engine"]
-        self.cfg = model_config(cell.conf)
+        self.cfg = model_config(cell.conf, cell.model)
         self.dtype = DTYPES[cell.conf["dtype"]]
         t = time.perf_counter()
         if device.type == "cuda":
@@ -160,7 +171,8 @@ class Window:
             # run, before any clock of the traffic starts
             from repro_torch.kernels import lib
             lib.load()
-        self.tree = weights.make(m, self.dtype, seed, device)
+        self.tree = weights.make(cell.model.layout(m), self.dtype, seed,
+                                 device)
         check_layout(self.tree, self.cfg)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -350,9 +362,10 @@ class Window:
             prof = devtrace.reduce(devtrace.trace_events(self.prof),
                                    lib.KERNELS)
         return {"cell": self.cell.name, "model": self.m,
-                "loop": self.mix["loop"], "t_open": self.t_open,
-                "t_close": self.t_close, "setup_s": self.setup_s,
-                "requests": self.rec, "steps": steps, "profile": prof}
+                "reference": self.cell.reference, "loop": self.mix["loop"],
+                "t_open": self.t_open, "t_close": self.t_close,
+                "setup_s": self.setup_s, "requests": self.rec,
+                "steps": steps, "profile": prof}
 
 
 def run_cell(root: Path, workload: str, seed: int, seconds: float,

@@ -4,13 +4,15 @@
 gives it nothing to read.
 
 Percentiles are taken over every sample of the window (numpy's linear
-interpolation), never as a median of chunks.
+interpolation), never as a median of chunks.  Operations and bytes are
+counted by the cell's model module, which the record names
+(``rec["reference"]``; ``perfbench/reference/``).
 """
 from __future__ import annotations
 
 import numpy as np
 
-from perfbench import costs
+from perfbench import costs, reference
 
 
 def _window(rec):
@@ -86,6 +88,10 @@ def prefill_chunk_ms(rec):
     return float(np.mean(xs)) if xs else None
 
 
+def _model(rec):
+    return reference.named(rec.get("reference", reference.DEFAULT))
+
+
 def _prof(rec):
     p = rec.get("profile") or {}
     return p if p.get("steps") else None
@@ -106,27 +112,29 @@ def step_idle_pct(rec):
 
 def decode_attention_roofline_pct(rec):
     """The byte bound of the sub-window's decode_attention calls (what
-    their inputs need, ``costs.decode_attention_bytes``) at the HBM peak,
-    over the kernel group's profiled time."""
+    their inputs need, the model module's ``decode_attention_bytes``) at
+    the HBM peak, over the kernel group's profiled time."""
     p = _prof(rec)
     if p is None or not p["groups_ms"].get("decode_attention"):
         return None
-    nbytes = sum(costs.decode_attention_bytes(rec["model"], s["cache_len"])
+    count = _model(rec).decode_attention_bytes
+    nbytes = sum(count(rec["model"], s["cache_len"])
                  for s in rec["steps"] if s["profiled"])
     bound_s = nbytes / costs.HBM_BYTES_PER_S
     return 100.0 * bound_s / (p["groups_ms"]["decode_attention"] / 1e3)
 
 
 def mfu_pct(rec):
-    """Model FLOPs of the window's unprofiled steps (``costs``: real
-    prefill tokens and decoding slots) over their summed engine-step time
-    (host spans, each ending in the step's sync) at the bf16 peak."""
+    """Model FLOPs of the window's unprofiled steps (the model module's
+    ``chunk_flops`` and ``decode_flops``: real prefill tokens and decoding
+    slots) over their summed engine-step time (host spans, each ending in
+    the step's sync) at the bf16 peak."""
     steps = _unprofiled(rec)
     if not steps:
         return None
-    m = rec["model"]
-    flops = sum(sum(costs.chunk_flops(m, start, n)
+    m, mod = rec["model"], _model(rec)
+    flops = sum(sum(mod.chunk_flops(m, start, n)
                     for _slot, start, n in s["chunks"])
-                + costs.decode_flops(m, s["cache_len"]) for s in steps)
+                + mod.decode_flops(m, s["cache_len"]) for s in steps)
     seconds = sum(s["t1"] - s["t0"] for s in steps)
     return 100.0 * flops / (seconds * costs.PEAK_BF16_FLOPS)

@@ -12,11 +12,11 @@ reference logit lies below the reference's best there.  The cell's file
 holds to a limit: the widest gap of the sample, or the share of its
 served tokens that are not the reference's best.
 
-Models without experts are run one request at a time
-(:func:`model.sequence_logits`); an expert model's routing groups are the
-batches the program ran, so its reference runs the program's steps again
-(:func:`model.replay`) from the engine's first step to the last step of
-a sampled request.
+The reference is the cell's model module (``Cell.model``: the one its
+configuration file names, ``model.py`` by default; this package's
+``__init__`` says what such a module defines).  Its ``logits_for`` reads
+the program's requests (:func:`sequences`), or its steps where requests
+share its batches (:func:`steps_to`).
 
 ``control=True`` also judges the control: the same reference in fp8 put
 in the program's place, its first token at each of the same positions
@@ -30,7 +30,13 @@ import math
 import torch
 
 from perfbench import observe, traffic
-from perfbench.reference import model
+
+
+def precise() -> None:
+    """Matrix products in true float32 (no TF32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
 
 
 def sample(rec: dict, requests: dict, seed: int, served: int,
@@ -67,21 +73,26 @@ def _gaps(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return best - logits.gather(1, tokens[:, None])[:, 0]
 
 
-def logits_for(m: dict, engine: dict, tree: dict, log: list, requests: dict,
-               rids: list[int], device, quant=None):
-    """The reference's logits at every served position of ``rids``, and
-    the served tokens there, in one order."""
-    ref = model.Reference(tree, m, quant)
-    if not m["num_experts"]:
-        seqs, first, served = [], [], []
-        for rid in rids:
-            req = requests[rid]
-            seq = list(req.tokens) + list(req.out[:-1])
-            seqs.append(torch.tensor(seq, dtype=torch.int64, device=device))
-            first.append(len(req.tokens) - 1)
-            served += list(req.out)
-        lg = torch.cat(model.sequence_logits(ref, seqs, first))
-        return lg, torch.tensor(served, device=device), ref.drops
+def sequences(requests: dict, rids: list[int], device):
+    """Each request of ``rids`` as one sequence (int64 tokens on the
+    device: its prompt and its served tokens but the last), the position
+    of its first served token's logits, and the served tokens, in
+    order."""
+    seqs, first, served = [], [], []
+    for rid in rids:
+        req = requests[rid]
+        seq = list(req.tokens) + list(req.out[:-1])
+        seqs.append(torch.tensor(seq, dtype=torch.int64, device=device))
+        first.append(len(req.tokens) - 1)
+        served += list(req.out)
+    return seqs, first, torch.tensor(served, device=device)
+
+
+def steps_to(log: list, requests: dict, rids: list[int], device):
+    """The program's steps (``observe.replay_steps``) from the engine's
+    first to the last decode step that emitted a token of ``rids``; the
+    (step index, slot row) of each such token, and the tokens, in
+    order."""
     steps = observe.replay_steps(log)
     want = set(rids)
     last = max(i for i, st in enumerate(steps) if st["kind"] == "decode"
@@ -95,14 +106,21 @@ def logits_for(m: dict, engine: dict, tree: dict, log: list, requests: dict,
             if rid in want:
                 scored.append((i, slot))
                 served.append(requests[rid].out[j])
-    lg = model.replay(ref, steps, engine["slots"], engine["max_seq"], scored,
-                      device)
-    return lg, torch.tensor(served, device=device), ref.drops
+    return steps, scored, torch.tensor(served, device=device)
+
+
+def logits_for(mod, m: dict, engine: dict, tree: dict, log: list,
+               requests: dict, rids: list[int], device, quant=None):
+    """Model module ``mod``'s reference logits at every served position
+    of ``rids``, the served tokens there, and the reference's drops."""
+    ref = mod.Reference(tree, m, quant)
+    lg, served = mod.logits_for(ref, engine, log, requests, rids, device)
+    return lg, served, ref.drops
 
 
 def judge(cell, rec: dict, requests: dict, log: list, tree: dict, seed: int,
           device, control: bool = False) -> dict:
-    model.precise()
+    precise()
     m, eng = cell.conf["model"], cell.mix["engine"]
     want = cell.mix["check"]
     rids = sample(rec, requests, seed, int(want["served_tokens"]),
@@ -113,8 +131,8 @@ def judge(cell, rec: dict, requests: dict, log: list, tree: dict, seed: int,
         return {"checks": none, "sample": {"requests": 0},
                 "control": {"checks": none, "correct": False}}
     with torch.no_grad():
-        lg, served, drops = logits_for(m, eng, tree, log, requests, rids,
-                                       device)
+        lg, served, drops = logits_for(cell.model, m, eng, tree, log,
+                                       requests, rids, device)
         got = readings(_gaps(lg, served))
         out = {"checks": held(got, limits),
                "sample": dict(got, requests=len(rids),
@@ -123,8 +141,8 @@ def judge(cell, rec: dict, requests: dict, log: list, tree: dict, seed: int,
                               + len(requests[rids[0]].out),
                               reference_drops=drops)}
         if control:
-            lg8, _, _ = logits_for(m, eng, tree, log, requests, rids, device,
-                                   quant="fp8")
+            lg8, _, _ = logits_for(cell.model, m, eng, tree, log, requests,
+                                   rids, device, quant="fp8")
             ctl = held(readings(_gaps(lg, lg8.argmax(dim=-1))), limits)
             out["control"] = {"checks": ctl, "correct": passes(ctl)}
         del lg

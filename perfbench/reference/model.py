@@ -1,8 +1,14 @@
-"""The plain reference: the configuration's decoder in float32 PyTorch,
-with TF32 off, no kernels, no cache layout of the program's and no
-batching of its own.  It imports nothing of the program; it reads the
-spec tree that the benchmark drew (``perfbench/weights.py``) and the sizes
-of the configuration file, and upcasts one layer's weights at a time.
+"""The default model module: the benchmark's definition of a
+configuration whose file names no ``"reference"`` (``perfbench/reference/
+__init__.py`` says what a model module defines).  It holds the layout
+that ``perfbench/weights.py`` draws, the plain reference that decides
+``correct``, and the operations and bytes the per-layer readers count.
+
+The reference is the configuration's decoder in float32 PyTorch, with
+TF32 off, no kernels, no cache layout of the program's and no batching of
+its own.  It imports nothing of the program; it reads the spec tree that
+the benchmark drew and the sizes of the configuration file, and upcasts
+one layer's weights at a time.
 
 The model, as the configuration states it: token embedding; per layer
 ``x += attn(rms(x) * ln1)`` then ``x += ffn(rms(x) * ln2)``; ``rms(x) =
@@ -35,17 +41,45 @@ import math
 import torch
 import torch.nn.functional as F
 
+from perfbench.reference import check
 from perfbench.weights import leaf as _leaf
 
 BLOCK = "blocks/pos0/"
 FP8_MAX = 448.0
+# the model keys of a configuration file that the port's ModelConfig
+# names otherwise, and those it does not take (the rest have the same
+# name)
+PORT_NAMES = {"router_softcap": "logit_softcap"}
+NOT_PORT = ("norm_eps", "context_length")
 
 
-def precise() -> None:
-    """Matrix products in true float32 (no TF32)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+def layout(m: dict) -> dict:
+    """``{path: (shape, contracting width or None, kind)}`` of the spec
+    tree of model sizes ``m`` (a configuration file's ``model``), in the
+    order ``weights.make`` draws them; kind is ``"w"`` (a matrix),
+    ``"scale"`` (a norm scale), ``"embed"`` or ``"router"``."""
+    L, D, V = m["num_layers"], m["d_model"], m["vocab_size"]
+    H, KV, dh, F = m["num_heads"], m["num_kv_heads"], m["head_dim"], m["d_ff"]
+    E = m["num_experts"]
+    out = {"embed/embedding": ((V, D), None, "embed"),
+           BLOCK + "ln1/scale": ((L, D), None, "scale"),
+           BLOCK + "attn/wq": ((L, D, H, dh), D, "w"),
+           BLOCK + "attn/wk": ((L, D, KV, dh), D, "w"),
+           BLOCK + "attn/wv": ((L, D, KV, dh), D, "w"),
+           BLOCK + "attn/wo": ((L, H, dh, D), H * dh, "w"),
+           BLOCK + "ln2/scale": ((L, D), None, "scale")}
+    if E:
+        out.update({BLOCK + "ffn/router": ((L, D, E), D, "router"),
+                    BLOCK + "ffn/w_in": ((L, E, D, F), D, "w"),
+                    BLOCK + "ffn/w_gate": ((L, E, D, F), D, "w"),
+                    BLOCK + "ffn/w_out": ((L, E, F, D), F, "w")})
+    else:
+        out.update({BLOCK + "ffn/w_in": ((L, D, F), D, "w"),
+                    BLOCK + "ffn/w_gate": ((L, D, F), D, "w"),
+                    BLOCK + "ffn/w_out": ((L, F, D), F, "w")})
+    out["final_norm/scale"] = ((D,), None, "scale")
+    out["lm_head/w"] = ((D, V), D, "w")
+    return out
 
 
 def _fp8(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -298,3 +332,65 @@ def replay(ref: Reference, steps: list, n_slots: int, max_seq: int,
     idx = torch.tensor([rows_of[s][0] + r for s, r in scored],
                        dtype=torch.int64, device=device)
     return ref.logits(X[idx])
+
+
+def logits_for(ref: Reference, engine: dict, log: list, requests: dict,
+               rids: list[int], device):
+    """The reference's logits at every served position of ``rids``, and
+    the served tokens there, in one order: a model without experts one
+    request at a time (:func:`sequence_logits`), an expert model by
+    running the program's steps again (:func:`replay`), from the engine's
+    first step to the last step of a sampled request."""
+    if not ref.m["num_experts"]:
+        seqs, first, served = check.sequences(requests, rids, device)
+        return torch.cat(sequence_logits(ref, seqs, first)), served
+    steps, scored, served = check.steps_to(log, requests, rids, device)
+    return replay(ref, steps, engine["slots"], engine["max_seq"], scored,
+                  device), served
+
+
+# -- operations and bytes, read by perfbench/readers.py -----------------------
+def block_params(m: dict) -> int:
+    """Weights one token multiplies in one layer: the q, k, v and output
+    projections and the FFN, an expert layer's ``experts_per_token``
+    experts and its router."""
+    D, H, KV, dh, F = (m["d_model"], m["num_heads"], m["num_kv_heads"],
+                       m["head_dim"], m["d_ff"])
+    attn = D * (H + 2 * KV) * dh + H * dh * D
+    if m["num_experts"]:
+        return attn + m["experts_per_token"] * 3 * D * F + D * m["num_experts"]
+    return attn + 3 * D * F
+
+
+def token_flops(m: dict, context: int, head: bool) -> float:
+    """Model FLOPs of one real token that attends over ``context`` keys:
+    2 x the weights it multiplies (the LM head where ``head``: decode
+    computes logits, a prefill chunk does not) plus attention's
+    4 x context x heads x head_dim, in every layer."""
+    L = m["num_layers"]
+    w = L * block_params(m) + (m["d_model"] * m["vocab_size"] if head else 0)
+    return 2.0 * w + 4.0 * context * m["num_heads"] * m["head_dim"] * L
+
+
+def chunk_flops(m: dict, start: int, n: int) -> float:
+    """A prefill chunk's ``n`` real tokens at positions start.. (pads not
+    counted); token i attends over start + i + 1 keys."""
+    ctx = n * start + n * (n + 1) // 2
+    return token_flops(m, 0, False) * n + \
+        4.0 * ctx * m["num_heads"] * m["head_dim"] * m["num_layers"]
+
+
+def decode_flops(m: dict, cache_lens) -> float:
+    """A decode step's tokens, one a decoding slot at ``cache_len``: each
+    attends over cache_len + 1 keys."""
+    return sum(token_flops(m, int(c) + 1, True) for c in cache_lens)
+
+
+def decode_attention_bytes(m: dict, cache_lens, elem: int = 2) -> float:
+    """What one decode step's ``decode_attention`` calls need, over every
+    layer: each decoding slot's q and output row, and its K and V rows
+    up to and including its new one (cache_len + 1), each read once."""
+    H, KV, dh = m["num_heads"], m["num_kv_heads"], m["head_dim"]
+    n = len(cache_lens)
+    kv = sum(int(c) + 1 for c in cache_lens)
+    return float(m["num_layers"] * elem * (2 * n * H * dh + 2 * kv * KV * dh))

@@ -4,6 +4,7 @@ import math
 import pytest
 
 from perfbench import costs, devtrace, readers
+from perfbench.reference import model
 
 
 def rec_of(requests, t_open=10.0, t_close=20.0, **kw):
@@ -77,20 +78,20 @@ def test_decode_attention_bytes_from_cache_len():
     # per layer: q and out 2 * 2 slots * 4 heads * 2 dims; K and V over
     # (3 + 1) + (0 + 1) rows * 2 kv heads * 2 dims, each twice; 2 bytes
     want = 2 * 2 * (2 * 2 * 4 * 2 + 2 * 5 * 2 * 2)
-    assert costs.decode_attention_bytes(M, [3, 0]) == want
+    assert model.decode_attention_bytes(M, [3, 0]) == want
 
 
 def test_model_flops():
     attn = 8 * (4 + 4) * 2 + 4 * 2 * 8
     per_layer = attn + 3 * 8 * 16
     # one decode token at cache_len 3: weights, head, 4 keys of attention
-    assert costs.decode_flops(M, [3]) == \
+    assert model.decode_flops(M, [3]) == \
         2 * (2 * per_layer + 8 * 10) + 4 * 4 * 4 * 2 * 2
     # a chunk of 3 tokens from position 5: 6 + 7 + 8 keys, no head
-    assert costs.chunk_flops(M, 5, 3) == \
+    assert model.chunk_flops(M, 5, 3) == \
         3 * 2 * 2 * per_layer + 4 * 21 * 4 * 2 * 2
     moe = dict(M, num_experts=4, experts_per_token=2)
-    assert costs.block_params(moe) == attn + 2 * 3 * 8 * 16 + 8 * 4
+    assert model.block_params(moe) == attn + 2 * 3 * 8 * 16 + 8 * 4
 
 
 def test_roofline_and_mfu_readers():
@@ -98,14 +99,14 @@ def test_roofline_and_mfu_readers():
               "decode_slots": [0, 1], "t0": 0.0, "t1": 1.0},
              {"profiled": False, "cache_len": [9], "chunks": [(1, 2, 4)],
               "decode_slots": [0], "t0": 1.0, "t1": 1.002}]
-    nbytes = costs.decode_attention_bytes(M, [3, 0])
+    nbytes = model.decode_attention_bytes(M, [3, 0])
     t = nbytes / costs.HBM_BYTES_PER_S          # seconds at the bound
     prof = {"steps": 1, "step_s": 1e-3, "step_idle_pct": 5.0,
             "groups_ms": {"decode_attention": 2e3 * t, "other": 1.0}}
     rec = rec_of({}, steps=steps, profile=prof, model=M)
     # the roofline reads the profiled steps; MFU the others, by host spans
     assert readers.decode_attention_roofline_pct(rec) == pytest.approx(50.0)
-    flops = costs.decode_flops(M, [9]) + costs.chunk_flops(M, 2, 4)
+    flops = model.decode_flops(M, [9]) + model.chunk_flops(M, 2, 4)
     assert readers.mfu_pct(rec) == pytest.approx(
         100 * flops / (2e-3 * costs.PEAK_BF16_FLOPS))
     assert readers.group_ms_per_step(rec, "other") == 1.0

@@ -36,8 +36,39 @@ def test_no_jax(path):
 
 
 def test_reference_imports_nothing_of_the_program():
-    for path in (PB / "reference").glob("*.py"):
+    paths = sorted((PB / "reference").glob("*.py"))
+    # the default model module among them
+    assert PB / "reference" / "model.py" in paths
+    for path in paths:
         assert "repro_torch" not in imports(path), path
+
+
+def bound_names(path: Path) -> set:
+    """Names a module binds at its top level."""
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.Assign):
+            out |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.ImportFrom):
+            out |= {a.asname or a.name for a in node.names}
+    return out
+
+
+@pytest.mark.parametrize(
+    "conf", sorted((PB / "configs").glob("*.json")), ids=lambda p: p.stem)
+def test_configurations_name_a_model_module(conf):
+    """A configuration's ``reference`` (``model`` where it names none) is a
+    module under perfbench/reference/ that defines what the harness
+    calls, and imports nothing of the program."""
+    from perfbench import reference
+    name = json.loads(conf.read_text()).get("reference", reference.DEFAULT)
+    assert NAME.match(name) and "." not in name
+    path = PB / "reference" / f"{name}.py"
+    assert path.is_file(), path
+    assert set(reference.REQUIRED) <= bound_names(path)
+    assert not imports(path) & (FORBIDDEN | {"repro_torch"})
 
 
 def test_forbidden_names_compared_whole():

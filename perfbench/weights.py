@@ -1,5 +1,6 @@
 """Random weights from ``--seed``, made on the device in the spec-tree
-layout that the port's engine takes and that the reference reads.
+layout that the port's engine takes and that the reference reads; the
+cell's model module (``perfbench/reference/``) gives the layout.
 
 A frozen copy of the pattern of ``chip_smoke.random_params``: one
 ``torch.Generator`` on the device, one draw a stacked leaf (all layers of
@@ -17,42 +18,15 @@ import math
 import torch
 
 
-def layout(m: dict) -> dict:
-    """``{path: (shape, contracting width or None, kind)}`` of the spec
-    tree of model sizes ``m`` (a configuration file's ``model``); kind is
-    ``"w"`` (a matrix), ``"scale"`` (a norm scale), ``"embed"`` or
+def make(layout: dict, dtype: torch.dtype, seed: int, device) -> dict:
+    """The spec tree of ``layout`` (a model module's ``layout(m)``: path
+    to shape, contracting width and kind, in draw order), drawn from
+    ``seed`` on ``device``; kind is ``"w"``, ``"scale"``, ``"embed"`` or
     ``"router"``."""
-    L, D, V = m["num_layers"], m["d_model"], m["vocab_size"]
-    H, KV, dh, F = m["num_heads"], m["num_kv_heads"], m["head_dim"], m["d_ff"]
-    E = m["num_experts"]
-    blk = "blocks/pos0/"
-    out = {"embed/embedding": ((V, D), None, "embed"),
-           blk + "ln1/scale": ((L, D), None, "scale"),
-           blk + "attn/wq": ((L, D, H, dh), D, "w"),
-           blk + "attn/wk": ((L, D, KV, dh), D, "w"),
-           blk + "attn/wv": ((L, D, KV, dh), D, "w"),
-           blk + "attn/wo": ((L, H, dh, D), H * dh, "w"),
-           blk + "ln2/scale": ((L, D), None, "scale")}
-    if E:
-        out.update({blk + "ffn/router": ((L, D, E), D, "router"),
-                    blk + "ffn/w_in": ((L, E, D, F), D, "w"),
-                    blk + "ffn/w_gate": ((L, E, D, F), D, "w"),
-                    blk + "ffn/w_out": ((L, E, F, D), F, "w")})
-    else:
-        out.update({blk + "ffn/w_in": ((L, D, F), D, "w"),
-                    blk + "ffn/w_gate": ((L, D, F), D, "w"),
-                    blk + "ffn/w_out": ((L, F, D), F, "w")})
-    out["final_norm/scale"] = ((D,), None, "scale")
-    out["lm_head/w"] = ((D, V), D, "w")
-    return out
-
-
-def make(m: dict, dtype: torch.dtype, seed: int, device) -> dict:
-    """The spec tree of sizes ``m``, drawn from ``seed`` on ``device``."""
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed) % (1 << 63))
     tree: dict = {}
-    for path, (shape, fan_in, kind) in layout(m).items():
+    for path, (shape, fan_in, kind) in layout.items():
         dt = torch.float32 if kind == "router" else dtype
         x = torch.randn(shape, generator=gen, dtype=dt, device=device)
         if kind == "scale":
