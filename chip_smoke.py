@@ -53,7 +53,13 @@ Phases, in order; any failure exits non-zero before the result line:
      256-token chunk and a 4096-token prompt, B=1, R=2560, bit-equal to the
      plain version; ``wkv6_scan``: rwkv6-1.6b's chunk and a 2048-token
      prompt, B·H=32, dh=64, chunk 64, without and with a carried state, out
-     and final state checked; both relaunched for bit identity);
+     and final state checked; both relaunched for bit identity); and
+     ``mla_decode`` at the kimi-k2-instruct cell's decode call (128 rows
+     over a 17408-row latent cache, lengths on the plan's tile and range
+     boundaries and drawn over 3072-17407), once with the model's own
+     latent rows and absorbed queries and once with peaked queries, each
+     against the plain version and, by the ulp gate at 2e-3, the split
+     mirror at the plan's L, relaunched for bit identity;
   4. Table I: the paper's topology (SL=64, d_model=768, h=8) through
      ``famous.qkv_projection`` + ``famous.attention`` with impl reference,
      xla and pallas; the three must agree; then ``mha_block`` with the
@@ -146,7 +152,13 @@ Phases, in order; any failure exits non-zero before the result line:
  16. MoE and vlm serving, chunked graph parity pairs at full width, bf16:
      grok-1-314b (4 of 64 layers; contiguous, then paged int8 KV with the
      prefix cache), kimi-k2-1t-a32b (1 of 61 layers) and llava-next-34b's
-     backbone (30 of 60 layers), each with its peak memory;
+     backbone (30 of 60 layers), each with its peak memory; 16b,
+     kimi-k2-instruct at its published widths as its benchmark cell cuts
+     it (the dense layer 0 and MoE layers 1-7, routed experts 0-7 of 384,
+     vocabulary ids 0-20479), on contiguous latent caches: each chunk
+     launches ``chunk_prefill`` and each decode step ``mla_decode`` once a
+     layer, no other kernel of the port; then its decode step and chunk
+     timed;
  17. training on the stub frontends' embeddings through
      ``launch.train.build`` + ``Trainer``: hubert-xlarge at full size (48
      layers, B=8, S=512, 10 steps; the loss must fall) and llava-next-34b
@@ -284,7 +296,7 @@ serving engine's model eagerly, and the decode step again as a CUDA graph
 events against profiled device time.
 
 The launch counters are set to 0 before each run of phases 7, 8, 10, 12,
-13, 16, 17, 18, 19 and 20 and read after it: every kernel must have launched on those paths and no plain
+13, 16, 16b, 17, 18, 19 and 20 and read after it: every kernel must have launched on those paths and no plain
 version may have run on the card.  Each phase prints its seconds.  The
 last three lines of output are the per-kernel JSON record
 (``{"kernels": [...]}``), the ``nvidia-smi`` name and power limit, and
@@ -380,6 +392,7 @@ REPLACES = {
         "src/repro/kernels/decode/chunk_prefill.py:285",
     "rglru_scan": "src/repro/kernels/scan/linear_scan.py:57",
     "wkv6_scan": "src/repro/kernels/scan/linear_scan.py:127",
+    "mla_decode": "none (no Pallas site)",
 }
 # the paged int8 kernels are instantiations in their fp kernels' sources;
 # the int8 projection has a source of its own
@@ -863,6 +876,7 @@ def kernel_phase(torch, iters, seed):
         del q, k, v
 
     cell_decode_rows(torch, F, randn, record, iters)
+    mla_kernel_rows(torch, F, randn, gen, record, iters)
 
     # chunk_prefill: one slot of the batched cache, C = 256 at offsets 0,
     # 1792 and 1000 (off the 64-key tiles), read as the main path reads it:
@@ -1053,6 +1067,123 @@ def cell_decode_rows(torch, F, randn, record, iters):
               2 * Bv * W * H * dh * e + slot_keys * KV * dh * 2 * e
               + 4 * Bv * W, 4.0 * H * dh * int(vlens.sum()))
         del sets
+
+
+# the kimi-k2-instruct.agent-batch cell's decode call: rows (slots), cache
+# rows a slot (max_seq), and the range its lengths are drawn over (the
+# cell's prompts plus outputs)
+CELL_MLA = (128, 17408, 3072, 17407)
+# the peaked row's queries: N(0, MLA_PEAK_Q) against unit-RMS latent rows
+# of 576 values gives scores (times the softmax scale 0.1309) of standard
+# deviation near 4.7, so one key outweighs the rest and the running max
+# climbs across tiles and ranges
+MLA_PEAK_Q = 1.5
+
+
+def mla_kernel_rows(torch, F, randn, gen, record, iters):
+    """``mla_decode`` in bf16 at the kimi-k2-instruct cell's decode call
+    (CELL_MLA): lengths on both sides of the plan's tile (64 keys) and
+    range boundaries, the rest drawn over 3072-17407.  The latent rows and
+    the first row's queries are the model's own: one latent-attention
+    layer at kimi-k2-instruct's widths, drawn as ``random_params`` draws
+    it (the benchmark's weights), projects unit-RMS hidden states at each
+    row's position (``attention._mla_project``) and absorbs ``W_UK`` into
+    the queries (``mla_absorbed_q``); the second row keeps those latent
+    rows and takes queries of MLA_PEAK_Q, so the softmax is peaked.  Each
+    row is held to the plain version (ATTN_TOL, through ``record``) and
+    to the kernel's split mirror at the plan's L
+    (``ref.mla_decode_split_reference``, on the CPU in f32) by the ulp
+    gate at DECODE_NEW_TOL: half a bf16 ulp of the output's rounding past
+    the mirror's unrounded f32 output, plus 2e-3 for the kernel's own f32
+    arithmetic (its exp2, and the order of its tensor-core sums); and
+    relaunched for bit identity, its launch counted once under
+    ``mla_decode.tc``."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import lib
+    from repro_torch.kernels.decode import mla_decode as mla
+    from repro_torch.kernels.decode import ref as dec_ref
+    from repro_torch.models import attention, module
+
+    dev = torch.device("cuda")
+    cfg = get_config("kimi-k2-instruct")
+    scale = attention.mla_softmax_scale(cfg)
+    R, Skv, lo, hi = CELL_MLA
+    L, _ = mla.plan(R, Skv, lib.sm_count(dev))
+    tk = 64
+    edge = [1, tk - 1, tk, tk + 1, L - 1, L, L + 1, 2 * L + tk + 1, Skv]
+    drawn = np.random.default_rng(38).integers(lo, hi + 1, R - len(edge))
+    lens_list = edge + [int(x) for x in drawn]
+    lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+    live = sum(lens_list)
+
+    p = attention.mla_prepare(module.init_params(
+        attention.mla_spec(cfg), gen, torch.bfloat16, dev))
+    kv = torch.empty((R, Skv, mla.DK), dtype=torch.bfloat16, device=dev)
+    positions = torch.arange(Skv, device=dev)
+    with torch.no_grad():
+        for r in range(R):
+            x = randn((1, Skv, cfg.d_model), torch.bfloat16)
+            kv[r] = attention._mla_project(p, x, cfg, positions)[1][0]
+        x = randn((R, 1, cfg.d_model), torch.bfloat16)
+        q, _ = attention._mla_project(p, x, cfg, (lens - 1)[:, None].long())
+        nope = cfg.qk_nope_head_dim
+        q_model = attention.mla_absorbed_q(
+            p, q[:, 0, :, :nope], q[:, 0, :, nope:]).contiguous()
+    del p, x, q
+    q_peak = randn((R, mla.HEADS, mla.DK), torch.bfloat16, MLA_PEAK_Q)
+    kv_cpu, lens_cpu = kv.cpu(), lens.cpu()
+    mask = (torch.arange(Skv, device=dev)[None, :]
+            < lens[:, None])[:, None, None, :]
+
+    def kern(q, kv, ln):
+        return mla.mla_decode(q, kv, ln, scale=scale, dv=mla.DV)
+
+    def plain(q, kv, ln):
+        return dec_ref.mla_decode_reference(q, kv, ln, scale=scale,
+                                            dv=mla.DV)
+
+    def library(q, kv, ln):
+        # SDPA on the absorbed form: the 64 heads as 64 queries of one
+        # head over the latent rows (values their first 512 columns)
+        return F.scaled_dot_product_attention(
+            q[:, None], kv[:, None], kv[:, None, :, :mla.DV],
+            attn_mask=mask, scale=scale)[:, 0]
+
+    for label, q in ((f"kimi-k2-instruct cell R={R} Skv={Skv} "
+                      f"lens=edges+{lo}..{hi} (L={L}, model q)", q_model),
+                     (f"peaked q={MLA_PEAK_Q} R={R} Skv={Skv} (L={L})",
+                      q_peak)):
+        sets = [(q, kv, lens)]
+        before = dict(lib.STATS.designs)
+        out = kern(q, kv, lens)
+        counted = {n: lib.STATS.designs[n] - before[n] for n in before}
+        row = record("mla_decode", label, "bf16", out, plain(q, kv, lens),
+                     ATTN_TOL["bf16"], kern, plain, library, sets,
+                     2 * (live * mla.DK + R * mla.HEADS * (mla.DK + mla.DV))
+                     + 4 * R, 2.0 * mla.HEADS * (mla.DK + mla.DV) * live,
+                     n_iter=max(10, iters // 2), again=kern(q, kv, lens))
+        mirror = dec_ref.mla_decode_split_reference(
+            q.cpu().float(), kv_cpu, lens_cpu, scale=scale, dv=mla.DV, L=L)
+        m_err, m_ulps, m_ok = lib.ulp_gate(out.cpu(), mirror,
+                                           DECODE_NEW_TOL["bf16"])
+        served = counted == {n: int(n == "mla_decode.tc") for n in counted}
+        spread = float((q.float() @ kv[:, :1].float().transpose(1, 2))
+                       .std() * scale)
+        row.update(keys_per_range=L, mirror_err=m_err, mirror_ulps=m_ulps,
+                   designs_counted=counted, score_std=spread,
+                   out_max=float(out.float().abs().max()))
+        print(f"  (mla_decode {label}: against the split mirror at L={L} "
+              f"max_abs_err {m_err:.3e}, {m_ulps:.2f} ulp past "
+              f"{DECODE_NEW_TOL['bf16']:g} (gate 0.5); scores' std "
+              f"{spread:.2f}, |out| up to {row['out_max']:.3f}; launches "
+              f"counted {counted}) {'ok' if m_ok and served else 'FAIL'}",
+              flush=True)
+        check(m_ok and served, f"mla_decode {label}: mirror error {m_err} "
+              f"({m_ulps} ulp), launches counted {counted}")
+        del sets, out, mirror
+    del kv, kv_cpu, q_model, q_peak
 
 
 def contract_check(torch, fn, inputs):
@@ -3595,7 +3726,7 @@ def monolithic_slice_phase(torch, seed):
 
 def serving_run(torch, label, arch, layers, prompts, max_seq, seed, kw,
                 max_new=16, want=None, guard=None, params=None,
-                breakdown=False):
+                breakdown=False, cfg=None):
     """One serving configuration as a graph parity pair (``graph_pair``) at
     full width, ``layers`` deep, bf16, random weights from ``seed``: every
     request must finish with in-range tokens, no plain version may run on
@@ -3603,16 +3734,19 @@ def serving_run(torch, label, arch, layers, prompts, max_seq, seed, kw,
     path must show.  Then the warm engine serves 4 fresh requests under
     ``retrace_guard`` (``guard``: whole prompts whose lengths a monolithic
     engine captured; default the first 512 tokens of 4 prompts), and, with
-    ``breakdown``, times its decode step and chunk (``step_breakdown``)."""
+    ``breakdown``, times its decode step and chunk (``step_breakdown``).
+    ``cfg``: the config to serve, in place of ``arch``'s cut to
+    ``layers``."""
     import numpy as np
 
     from repro_torch.configs.base import get_config
     from repro_torch.core.famous import FamousConfig
     from repro_torch.serve.engine import Request, ServingEngine
 
-    cfg = get_config(arch)
-    if layers:
-        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if cfg is None:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
     t0 = time.perf_counter()
     if params is None:
         params = random_params(torch, cfg, torch.bfloat16, seed)
@@ -4211,6 +4345,52 @@ def moe_serving_phase(torch, seed):
 
     return layered_serving(torch, seed, np.random.default_rng(seed + 16),
                            MOE_SERVING)
+
+
+# kimi-k2-instruct as its benchmark cell cuts it: the dense layer 0 and MoE
+# layers 1-7 of 61, routed experts 0-7 of 384 held (the router keeps its
+# 384 outputs), vocabulary ids 0-20479 of 163840
+KIMI_CUT = dict(num_layers=8, expert_lo=0, experts_held=8, vocab_size=20480)
+
+
+def mla_serving_phase(torch, seed):
+    """Phase 16b: kimi-k2-instruct at its published widths, cut as KIMI_CUT,
+    bf16, served chunked on contiguous latent caches as a graph parity
+    pair (``serving_run``: 8 prompts of 88-1316 tokens, chunk 256, 4
+    slots, max_seq 2048, 16 new tokens).  Per chunk every layer launches
+    ``chunk_prefill`` once, per decode step ``mla_decode`` once, and
+    nothing else of the port's kernels runs (the projections and experts
+    are library GEMMs); the decode step and a chunk are then timed
+    (``step_breakdown``)."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import lib
+
+    cfg = dataclasses.replace(get_config("kimi-k2-instruct"), **KIMI_CUT)
+    rng = np.random.default_rng(seed + 17)
+    lens = [int(x) for x in rng.integers(88, 1317, size=8)]
+    torch.cuda.reset_peak_memory_stats()
+    params = random_params(torch, cfg, torch.bfloat16, seed)
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    L = cfg.num_layers
+
+    def want(phases, engine):
+        n, steps = phases.get("prefill_chunk", 0), phases.get("decode", 0)
+        return {k: 0 for k in lib.KERNELS} | {
+            "chunk_prefill": L * n, "mla_decode": L * steps}
+
+    res = serving_run(torch, "kimi-k2-instruct contiguous",
+                      "kimi-k2-instruct", L,
+                      _prompts(rng, cfg.vocab_size, lens), 2048, seed, {},
+                      want=want, params=params, breakdown=True, cfg=cfg)
+    res["init_peak_mem_gb"] = init_peak
+    check(res["launches"]["mla_decode"] > 0,
+          "kimi-k2-instruct: mla_decode never launched")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"kimi-k2-instruct contiguous": res}
 
 
 # ---------------------------------------------------------------------------
@@ -5216,7 +5396,8 @@ MAIN_SHAPE = {"matmul_tiled": "T=4 ", "matmul_tiled_int8": "T=4 ",
               "paged_chunk_prefill": "C=256 offset=1792",
               "paged_chunk_prefill_int8": "C=256 offset=1792",
               "rglru_scan": "B=1 S=256",
-              "wkv6_scan": "BH=32 S=256 dh=64 chunk=64 s0=random"}
+              "wkv6_scan": "BH=32 S=256 dh=64 chunk=64 s0=random",
+              "mla_decode": "kimi-k2-instruct cell"}
 # the dtypes the main path hands each kernel: the RG-LRU's a and b are f32
 # in a bf16 model
 MAIN_DT = {"matmul_tiled_int8": "int8", "rglru_scan": "f32"}
@@ -5653,6 +5834,8 @@ def main(argv=None) -> int:
     flexible = phase("flexible", flexible_phase, args.seed)
     moe_parity = phase("moe slice parity", moe_slice_phase, args.seed)
     moe_serving = phase("moe serving", moe_serving_phase, args.seed)
+    mla_serving = phase("latent attention serving", mla_serving_phase,
+                        args.seed)
     frontend_training = phase("frontend training", frontend_training_phase,
                               args.seed)
     mesh_serving = phase("tensor-parallel serving", mesh_phase, args.seed)
@@ -5671,6 +5854,7 @@ def main(argv=None) -> int:
               if "launches" in r]
     paths += [r["launches"] for r in zoo_serving.values()]
     paths += [r["launches"] for r in moe_serving.values()]
+    paths += [r["launches"] for r in mla_serving.values()]
     paths += [r["launches"] for r in frontend_training.values()
               if "launches" in r]
     paths += [run[k]["launches"] for run in mesh_serving["tp1"].values()
@@ -5708,6 +5892,7 @@ def main(argv=None) -> int:
                                    flexible=flexible,
                                    moe_slice_parity=moe_parity,
                                    moe_serving=moe_serving,
+                                   mla_serving=mla_serving,
                                    frontend_training=frontend_training,
                                    mesh_serving=mesh_serving,
                                    paged_prefill_writes=paged_writes,

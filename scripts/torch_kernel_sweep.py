@@ -252,7 +252,9 @@ PART_SOURCES = {"matmul": ["sweep_mm.cu"], "decode": ["sweep_decode.cu"],
                 "dq": ["sweep_mha_dq.cu"],
                 "mha256": ["sweep_dq256.cu", "sweep_dkv256.cu"],
                 "int8": ["sweep_int8.cu"], "wkv6": ["sweep_wkv6.cu"],
-                "rglru": ["sweep_rglru.cu"]}
+                "rglru": ["sweep_rglru.cu"],
+                # the port's own library: no generated source
+                "mla": []}
 
 
 def sweep_sources() -> dict[str, str]:
@@ -697,7 +699,8 @@ def main(argv=None) -> int:
         return 2
     dev = torch.device("cuda")
     lib.load()   # the port's library: the plans and error strings
-    so = build(ROOT / "build" / "sweep", parts)
+    so = (build(ROOT / "build" / "sweep", parts)
+          if any(PART_SOURCES[p] for p in parts) else None)
     gen = torch.Generator(device=dev).manual_seed(0)
     sms = lib.sm_count(dev)
     code = lib.DTYPE_CODE[torch.bfloat16]
@@ -709,7 +712,7 @@ def main(argv=None) -> int:
               "paged_chunk_prefill": [], "mha_forward": [],
               "mha_bwd_dkv": [], "mha_bwd_dq": [], "mha_bwd_dq_wide": [],
               "mha_bwd_dkv_wide": [], "matmul_tiled_int8": [],
-              "wkv6_scan": [], "rglru_scan": []}
+              "wkv6_scan": [], "rglru_scan": [], "mla_decode": []}
 
     def randn(shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev)
@@ -793,6 +796,8 @@ def main(argv=None) -> int:
         int8_sweep(torch, lib, so, gen, dev_ms, result, sms)
     if "wkv6" in parts or "rglru" in parts:
         scan_sweep(torch, so, gen, it, result, parts)
+    if "mla" in parts:
+        mla_sweep(torch, lib, randn, dev_ms, result, sms)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -802,7 +807,7 @@ def main(argv=None) -> int:
                          "paged_chunk_prefill", "mha_forward", "mha_bwd_dkv",
                          "mha_bwd_dq", "mha_bwd_dq_wide", "mha_bwd_dkv_wide",
                          "matmul_tiled_int8", "wkv6_scan",
-                         "rglru_scan")
+                         "rglru_scan", "mla_decode")
            for row in result[sec] for k, v in row.items()
            if isinstance(v, dict) and v.get("ok") is False
            and not v.get("expected_miss")]
@@ -1506,6 +1511,99 @@ def device_ms_by_kernel(torch, fn, sets, iters):
             name = ev.key.split("(")[0].split("<")[0].split("::")[-1]
             out[name] = out.get(name, 0.0) + us / 1e3 / iters
     return out
+
+
+# mla_decode: (rows, cache rows a slot, lengths) of the correctness rows,
+# then the kimi-k2-instruct cell's decode step (128 slots over 3k-17k
+# latent rows of a 17408-row cache), timed at each L and the plan's
+MLA_CHECKS = ((3, 300, [1, 63, 65]), (4, 4200, [64, 2048, 2049, 4200]),
+              (2, 17408, [17408, 3072]))
+MLA_TIMED = (128, 17408, "uniform 3072 17407")
+MLA_L = (256, 512, 1024, 2048)
+
+
+def mla_sweep(torch, lib, randn, dev_ms, result, sms):
+    """``mla_decode`` (bf16, 64 heads of 576 / 512): at MLA_CHECKS against
+    the plain version (f32 of the same bf16 inputs, unrounded) and the
+    kernel's split mirror, relaunched bit-identically; then the cell's
+    decode step at each L of MLA_L and the plan's, each with its share of
+    the byte bound (every live latent row read once, q and out)."""
+    import chip_smoke as cs
+    from repro_torch.kernels.decode import mla_decode as mla
+    from repro_torch.kernels.decode import ref as dec_ref
+
+    dev = torch.device("cuda")
+    scale = 0.1309
+    for R, Skv, lens in MLA_CHECKS:
+        q = randn((R, mla.HEADS, mla.DK), 0.05)
+        kv = randn((R, Skv, mla.DK))
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out = mla.mla_decode(q, kv, ln, scale=scale, dv=mla.DV)
+        again = mla.mla_decode(q, kv, ln, scale=scale, dv=mla.DV)
+        plain = dec_ref.mla_decode_reference(q.float(), kv.float(), ln,
+                                             scale=scale, dv=mla.DV)
+        L, _ = mla.plan(R, Skv, sms)
+        mirror = dec_ref.mla_decode_split_reference(
+            q.cpu(), kv.cpu(), ln.cpu(), scale=scale, dv=mla.DV, L=L).to(dev)
+        err, ok = cs.compare(torch, out, plain, cs.DECODE_NEW_TOL["bf16"])
+        merr, mok = cs.compare(torch, out, mirror, cs.DECODE_NEW_TOL["bf16"])
+        row = {"R": R, "Skv": Skv, "lens": lens, "L": L,
+               "plain": {"ms": None, "max_abs_err": err, "ok": ok},
+               "mirror": {"ms": None, "max_abs_err": merr, "ok": mok},
+               "relaunch": {"ms": None, "ok": bool(torch.equal(out, again))}}
+        result["mla_decode"].append(row)
+        print(f"mla_decode check R={R} Skv={Skv} lens={lens} L={L}: plain "
+              f"err {err:.2e} ok {ok} | mirror err {merr:.2e} ok {mok} | "
+              f"relaunch equal {row['relaunch']['ok']}", flush=True)
+    R, Skv, spec = MLA_TIMED
+    lens = dec_lens(spec, R)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    nbytes = 2 * (sum(lens) * mla.DK + R * mla.HEADS * (mla.DK + mla.DV))
+    bound_ms = nbytes / cs.HBM_BYTES_PER_S * 1e3
+    sets = [(randn((R, mla.HEADS, mla.DK), 0.05), randn((R, Skv, mla.DK)))
+            for _ in range(2)]
+    plan_L, _ = mla.plan(R, Skv, sms)
+    mask = (torch.arange(Skv, device=dev)[None, :]
+            < ln[:, None])[:, None, None, :]
+
+    def library(q, kv):
+        # SDPA on the absorbed form: the 64 query heads as 64 queries of
+        # one head over the latent rows (keys the whole row, values its
+        # first 512 columns), so nothing is repeated per head
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, None], kv[:, None], kv[:, None, :, :mla.DV],
+            attn_mask=mask, scale=scale)
+
+    def plain(q, kv):
+        return dec_ref.mla_decode_reference(q, kv, ln, scale=scale,
+                                            dv=mla.DV)
+    row = {"R": R, "Skv": Skv, "lens": spec, "plan_L": plan_L,
+           "bound_ms": bound_ms, "library_ms": dev_ms(library, sets),
+           "plain_ms": dev_ms(plain, sets[:1])}
+    for L in sorted(set(MLA_L) | {plan_L}):
+        # the C entry at this L, its workspace decode_split.cuh's
+        # decode_ws_elems at 64 heads of 512 (the serving wrapper takes L
+        # and the workspace from the plan)
+        ws = torch.empty(R * mla.HEADS * -(-Skv // L) * (mla.DV + 2),
+                         dtype=torch.float32, device=dev)
+        out = torch.empty((R, mla.HEADS, mla.DV), dtype=torch.bfloat16,
+                          device=dev)
+
+        def kern(q, kv, L=L, ws=ws, out=out):
+            lib.check("famous_mla_decode", lib.load().famous_mla_decode(
+                q.data_ptr(), kv.data_ptr(), ln.data_ptr(), out.data_ptr(),
+                ws.data_ptr(), R, Skv, kv.stride(0), L, scale,
+                lib.stream_of(q)), ws)
+            return out
+        ms = dev_ms(kern, sets)
+        row[f"L={L}"] = {"ms": ms, "bound_pct": None if not ms
+                         else 100.0 * bound_ms / ms}
+    result["mla_decode"].append(row)
+    print(f"mla_decode R={R} Skv={Skv} lens {spec} (plan L={plan_L}, bound "
+          f"{bound_ms:.4f} ms, SDPA {ms_text(row['library_ms'])}, plain "
+          f"{ms_text(row['plain_ms'])}): " + " | ".join(
+              f"{k} {ms_text(v['ms'])} ({v['bound_pct'] or 0:.1f}%)"
+              for k, v in row.items() if isinstance(v, dict)), flush=True)
 
 
 def scan_sweep(torch, so, gen, iters, result, parts):

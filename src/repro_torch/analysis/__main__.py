@@ -63,6 +63,7 @@ def kernel_launches(torch, dev, gen):
     from repro_torch.kernels.attention import mha
     from repro_torch.kernels.decode import chunk_prefill as cp
     from repro_torch.kernels.decode import decode_attn as da
+    from repro_torch.kernels.decode import mla_decode as mla
     from repro_torch.kernels.qkv import qkv_proj
     from repro_torch.kernels.scan import linear_scan as ls
 
@@ -140,6 +141,12 @@ def kernel_launches(torch, dev, gen):
             ls.wkv6_scan, arr((2, 8, 8), dt), arr((2, 8, 8), dt),
             arr((2, 8, 8), dt), -arr((2, 8, 8), dt).abs(), arr((2, 8)),
             arr((2, 8, 8)), chunk=4)))
+    # the latent decode takes bf16 at 64 heads of 576 / 512 only: two rows
+    # over 300 latent rows, split into ranges of 64
+    out.append(("decode/mla_decode bf16", functools.partial(
+        mla.mla_decode, arr((2, 64, 576), torch.bfloat16, 0.05),
+        arr((2, 300, 576), torch.bfloat16), i32([5, 300]), scale=0.07,
+        dv=512)))
     return out
 
 

@@ -46,6 +46,42 @@ class ModelConfig:
     num_experts: int = 0
     experts_per_token: int = 0
     capacity_factor: float = 1.25
+    # DeepSeek-V3's routing (kimi-k2-instruct), all off by default:
+    # ``scoring_func`` "sigmoid" scores ``sigmoid(x R)`` in f32, picks the
+    # top-k by score plus a correction bias (its "noaux_tc"), weights the
+    # chosen scores normalised to sum 1 times ``routed_scaling_factor``,
+    # and routes every token (no capacity, no drop); ``shared_experts``
+    # SwiGLU experts of width ``shared_experts * d_ff`` see every token.  The chip holds the routed experts
+    # [expert_lo, expert_lo + experts_held) (0: all of them): the router
+    # keeps its ``num_experts`` outputs and the layer computes its own
+    # experts' part of the result.
+    scoring_func: str = "softmax"   # softmax | sigmoid
+    routed_scaling_factor: float = 1.0
+    shared_experts: int = 0
+    expert_lo: int = 0
+    experts_held: int = 0
+    # Depth: ``first_dense_layers`` leading layers with a dense FFN of
+    # width ``dense_d_ff`` before the block stack (DeepSeek-V3's
+    # ``first_k_dense_replace``)
+    first_dense_layers: int = 0
+    dense_d_ff: int = 0
+    # Latent attention (MLA, DeepSeek-V3), on where ``kv_lora_rank`` > 0:
+    # q through a rank ``q_lora_rank`` bottleneck, K/V from one latent row
+    # of ``kv_lora_rank`` values and a shared rotary key of
+    # ``qk_rope_head_dim``; heads of ``qk_nope_head_dim`` + rope dims for
+    # the scores and ``v_head_dim`` for the values
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # YaRN on the rotary dims (``yarn_factor`` 0: plain rope)
+    yarn_factor: float = 0.0
+    yarn_original_max: int = 0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
     # SSM / recurrence --------------------------------------------------------
     lru_width: int = 0              # RG-LRU state width (0 -> d_model)
     conv_width: int = 4             # temporal conv in the recurrent block
@@ -77,12 +113,24 @@ class ModelConfig:
         return all(k != ATTN for k in self.pattern_unit)
 
     @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def experts_here(self) -> tuple[int, int]:
+        """The routed experts [lo, hi) whose weights this chip holds."""
+        n = self.experts_held or self.num_experts
+        return self.expert_lo, self.expert_lo + n
+
+    @property
     def num_units(self) -> int:
-        return self.num_layers // len(self.pattern_unit)
+        return (self.num_layers - self.first_dense_layers) \
+            // len(self.pattern_unit)
 
     @property
     def tail_layers(self) -> tuple[str, ...]:
-        n_tail = self.num_layers % len(self.pattern_unit)
+        n_tail = (self.num_layers - self.first_dense_layers) \
+            % len(self.pattern_unit)
         return self.pattern_unit[:n_tail]
 
     def param_count(self) -> int:
@@ -97,9 +145,13 @@ class ModelConfig:
         total = self.param_count()
         if self.num_experts == 0:
             return total
-        d_ff, e, k = self.d_ff, self.num_experts, self.experts_per_token
+        lo, hi = self.experts_here
+        d_ff, k = self.d_ff, self.experts_per_token
         per_expert = 3 * self.d_model * d_ff
-        inactive = self.num_layers * per_expert * (e - k)  # every block is MoE
+        # every block after the leading dense ones is MoE; a token
+        # multiplies k of the held experts at most
+        moe_layers = self.num_layers - self.first_dense_layers
+        inactive = moe_layers * per_expert * max(hi - lo - k, 0)
         return total - inactive
 
 
@@ -125,6 +177,9 @@ SMOKE_SHAPES: dict[str, ShapeConfig] = {
 }
 
 _REGISTRY: dict[str, "ModelConfig"] = {}
+# the configurations the port registers and the JAX package does not: the
+# tests that hold the port's registry to JAX's leave these out
+PORT_ONLY = ("kimi-k2-instruct",)
 
 
 def register(cfg: ModelConfig) -> ModelConfig:
@@ -152,6 +207,7 @@ def _ensure_loaded():
         grok_1_314b,
         hubert_xlarge,
         kimi_k2_1t_a32b,
+        kimi_k2_instruct,
         llava_next_34b,
         qwen2_7b,
         qwen3_32b,

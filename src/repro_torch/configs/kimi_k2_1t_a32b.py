@@ -1,7 +1,11 @@
-"""kimi-k2-1t-a32b — trillion-parameter MoE: 384 experts, top-8.
+"""kimi-k2-1t-a32b — the JAX package's GQA placeholder for Kimi-K2, not
+the published model: 384 experts, top-8.
 
 [arXiv:2501.kimi2; unverified]
-61L d_model=7168 64H (GQA kv=8) d_ff=2048 vocab=163840, MoE 384e top-8.
+61L d_model=7168 64H (GQA kv=8) d_ff=2048 vocab=163840, MoE 384e top-8,
+softmax GShard routing with capacity; no latent attention, no shared
+expert, no dense first layer.  It stays the twin of the JAX registry's
+entry; the released model is ``kimi-k2-instruct``.
 ``d_ff`` is the per-expert hidden width (fine-grained experts).
 """
 from repro_torch.configs.base import ModelConfig, register

@@ -464,3 +464,62 @@ def _paged_chunk_tc(q, k_pages, v_pages, k_scale, v_scale, page_table,
     return _chunk_tc(q, keys, pt.shape[1] * ps, k_pages.shape[2], q_offset,
                      scale, splits, block_rows, tile_keys,
                      round_out=round_out)[0]
+
+
+def mla_decode_reference(q, kv, lens, *, scale: float, dv: int):
+    """The absorbed latent decode (``mla_decode``): q (R, H, dk); kv
+    (slots >= R, Skv, dk) latent rows, row r reading slot r; lens (R,)
+    int.  Softmax of ``scale`` q.row over the first lens[r] rows, times
+    rows[..., :dv].  Returns (R, H, dv); a row with no visible key gives
+    0."""
+    _count("mla_decode", q)
+    R = q.shape[0]
+    rows = kv[:R].to(torch.float32)                          # (R, Skv, dk)
+    s = (q.to(torch.float32) * scale) @ rows.transpose(1, 2)  # (R, H, Skv)
+    pos = torch.arange(rows.shape[1], device=q.device)
+    ok = (pos[None, :] < lens.to(q.device)[:, None])[:, None, :]
+    return _softmax_pv(s, ok, rows[..., :dv]).to(q.dtype)
+
+
+def mla_decode_split_reference(q, kv, lens, *, scale: float, dv: int,
+                               L: int, tile: int = 64):
+    """The ``mla_decode`` kernel's algebra, in f32 on the CPU: each row's
+    keys cut into ranges of L, each range walked in tiles of ``tile``
+    keys with a base-2 online softmax (running max, the accumulator and
+    the sum rescaled by 2^(m - m') when a tile raises it), P rounded to
+    bf16 before P V and before it is summed into l; each range's
+    (m, l, acc) then combined in range order, out = sum_s e^(m_s - M)
+    acc_s / max(sum_s e^(m_s - M) l_s, 1e-30), rounded to q's dtype."""
+    R, H, _ = q.shape
+    log2e = 1.4426950408889634
+    out = []
+    qf = q.to(torch.float32)
+    for r in range(R):
+        n = int(lens[r])
+        rows = kv[r, :n].to(torch.float32)
+        parts = []
+        for k0 in range(0, n, L):
+            m = torch.full((H,), -1e30, device=q.device)
+            ls = torch.zeros(H, device=q.device)
+            acc = torch.zeros(H, dv, device=q.device)
+            for t0 in range(k0, min(n, k0 + L), tile):
+                blk = rows[t0:min(n, k0 + L, t0 + tile)]
+                s = (qf[r] @ blk.T) * (scale * log2e)        # (H, keys)
+                m_new = torch.maximum(m, s.amax(-1))
+                alpha = torch.exp2(m - m_new)
+                p = torch.exp2(s - m_new[:, None]).to(torch.bfloat16).to(
+                    torch.float32)
+                ls = ls * alpha + p.sum(-1)
+                acc = acc * alpha[:, None] + p @ blk[:, :dv].to(
+                    torch.bfloat16).to(torch.float32)
+                m = m_new
+            parts.append((m * 0.6931471805599453, ls, acc))
+        if not parts:
+            out.append(torch.zeros(H, dv, device=q.device))
+            continue
+        M = torch.stack([p[0] for p in parts]).amax(0)
+        w = [torch.exp(p[0] - M) for p in parts]
+        lsum = sum(wi * p[1] for wi, p in zip(w, parts))
+        a = sum(wi[:, None] * p[2] for wi, p in zip(w, parts))
+        out.append(a / lsum.clamp_min(1e-30)[:, None])
+    return torch.stack(out).to(q.dtype)

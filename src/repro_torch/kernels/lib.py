@@ -53,13 +53,14 @@ KERNELS = ("matmul_tiled", "matmul_tiled_int8", "decode_attention",
            "mha_forward", "mha_bwd_dq", "mha_bwd_dkv",
            "paged_decode_attention", "paged_decode_attention_int8",
            "paged_chunk_prefill", "paged_chunk_prefill_int8",
-           "rglru_scan", "wkv6_scan")
+           "rglru_scan", "wkv6_scan", "mla_decode")
 
 # dtype codes of the C interface
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the designs a wrapper chooses between by its static shapes, each counted
 # apart in STATS.designs (``<kernel>.<design>``)
-DESIGNS = ("decode_attention.split", "decode_attention.stream")
+DESIGNS = ("decode_attention.split", "decode_attention.stream",
+           "mla_decode.tc")
 
 
 class KernelStats:
@@ -255,6 +256,11 @@ _SIGNATURES = {
                          _I, _I, _P],
     # BH, S, dh, chunk, [out] workspace elements -> chunks a batch·head
     "famous_wkv6_scan_plan": [_I, _I, _I, _I, _PLL],
+    # q, latent rows, lens, out, workspace, rows, Skv, slot stride, keys
+    # per range, scale, stream
+    "famous_mla_decode": [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _F, _P],
+    # rows, Skv, SM count, [out] workspace elements -> keys per range
+    "famous_mla_decode_plan": [_I, _I, _I, _PLL],
 }
 
 

@@ -39,8 +39,8 @@ from typing import Callable
 
 import torch
 
-from repro_torch.configs.base import (SHAPES, get_config, list_configs,
-                                      supported_cells)
+from repro_torch.configs.base import (PORT_ONLY, SHAPES, get_config,
+                                      list_configs, supported_cells)
 from repro_torch.core.analytical import H100
 from repro_torch.core.famous import FamousConfig
 from repro_torch.launch import mesh as mesh_lib
@@ -271,6 +271,8 @@ def all_cells() -> list[tuple[str, str]]:
     for arch in list_configs():
         if arch == "famous-bert":
             continue  # paper topology exercised by benchmarks, not the grid
+        if arch in PORT_ONLY:
+            continue  # runs unsharded only: no mesh to dry-run it on
         for s in supported_cells(arch):
             cells.append((arch, s))
     return cells

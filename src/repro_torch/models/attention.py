@@ -3,7 +3,10 @@ per-head qk RMSNorm where the config asks for it — full-sequence
 attention for training and encoders, and for serving a contiguous
 per-slot KV cache, a sliding-window ring, or a shared page pool, fp or
 int8, by monolithic or chunked prefill, decode or speculative verify
-(the port of ``repro.models.attention``).
+(the port of ``repro.models.attention``).  Latent attention (MLA,
+DeepSeek-V3 / kimi-k2-instruct, ``cfg.is_mla``) has a section of its own
+at the end: a per-slot cache of one latent row a token, chunked prefill
+and an absorbed decode on the ``mla_decode`` kernel.
 
 Cache writes are **in place**: ``apply_attn_prefill`` writes a whole
 prompt's K/V rows (or its ring), ``apply_attn_chunk`` writes the chunk's K/V
@@ -18,6 +21,8 @@ copies); all return the cache so the call sites read alike.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -30,6 +35,8 @@ from repro_torch.models.module import ParamSpec, ShapeDtype, zeros_like_shapes
 
 
 def attn_spec(cfg: ModelConfig) -> dict:
+    if cfg.is_mla:
+        return mla_spec(cfg)
     d, h, kv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     spec = {
         "wq": ParamSpec((d, h, dh), ("embed", "heads", "head_dim")),
@@ -50,7 +57,11 @@ def attn_spec(cfg: ModelConfig) -> dict:
 def fuse_qkv(p: dict) -> dict:
     """One layer's attention params with [Wq|Wk|Wv] fused once into
     ``w_qkv`` (D, F); ``wq``/``wk``/``wv`` become views into it, so the
-    fused copy costs no memory beyond the separate leaves it replaces."""
+    fused copy costs no memory beyond the separate leaves it replaces.  A
+    latent-attention layer gets its absorbed decode weights instead
+    (:func:`mla_prepare`)."""
+    if "wkv_b" in p:
+        return mla_prepare(p)
     D, H, dh = p["wq"].shape
     KV = p["wk"].shape[1]
     w = famous.fuse_qkv_weights(p["wq"], p["wk"], p["wv"]).contiguous()
@@ -84,6 +95,8 @@ def attn_cache_shape(cfg: ModelConfig, batch: int, max_seq: int, window: int,
                      dtype) -> dict:
     """The :class:`~repro_torch.models.module.ShapeDtype` of each buffer of
     :func:`make_attn_cache` (JAX's ``attn_cache_shape``)."""
+    if cfg.is_mla:
+        return {"kv": ShapeDtype((batch, max_seq, mla_row_width(cfg)), dtype)}
     rows = min(max_seq, window) if window else max_seq
     sd = ShapeDtype((batch, rows, cfg.num_kv_heads, cfg.head_dim), dtype)
     return {"k": sd, "v": sd}
@@ -104,6 +117,7 @@ def make_attn_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
 # and the page table stays one host copy for every rank
 ATTN_CACHE_AXES = {"k": ("batch", None, "kv_heads", "head_dim"),
                    "v": ("batch", None, "kv_heads", "head_dim")}
+MLA_CACHE_AXES = {"kv": ("batch", None, None)}
 PAGED_ATTN_CACHE_AXES = {"k": (None, None, "kv_heads", "head_dim"),
                          "v": (None, None, "kv_heads", "head_dim")}
 PAGED_ATTN_CACHE_AXES_INT8 = {**PAGED_ATTN_CACHE_AXES,
@@ -281,6 +295,8 @@ def apply_attn(p: dict, x: torch.Tensor, cfg: ModelConfig,
     counts come from the weights, so a tensor-parallel rank runs its own
     heads; ``tp_in`` (sharded training's Megatron f) takes the input of
     its column-parallel projections."""
+    if cfg.is_mla:
+        return apply_mla(p, x, cfg, fcfg, q_offset=q_offset)
     if "tp_in" in p:
         x = p["tp_in"](x)
     S = x.shape[1]
@@ -300,6 +316,7 @@ def apply_attn_prefill(p: dict, x: torch.Tensor, cache: dict,
     rows [0, S) when the cache holds S rows, else, in a sliding-window
     ring, the last ``rows`` positions, position p in row p % rows (the
     layout the chunk and decode paths read).  Returns (out, cache)."""
+    _no_mla(cfg, "monolithic prefill")
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     q, k, v = _project(p, x, cfg, fcfg, positions)
@@ -355,6 +372,8 @@ def apply_attn_chunk(p: dict, x: torch.Tensor, cache: dict, slot, offset,
     and then the ring is rewritten whole, as JAX rewrites ``row_k``: each
     row takes the chunk position :func:`ring_write_source` names, or keeps
     its contents.  Returns (out (1, C, D), cache)."""
+    if cfg.is_mla:
+        return apply_mla_chunk(p, x, cache, slot, offset, cfg, fcfg)
     C = x.shape[1]
     slot, offset, n_valid = (lib.device_scalar("apply_attn_chunk", t,
                                                x.device)
@@ -398,6 +417,8 @@ def apply_attn_decode(p: dict, x: torch.Tensor, cache: dict,
     in a ring, whose rows hold positions out of order: attention does not
     care).  Inactive slots write junk that the next chunk overwrites or
     that lies outside every later window.  Returns (out, cache)."""
+    if cfg.is_mla:
+        return apply_mla_decode(p, x, cache, cache_len, cfg, fcfg)
     B = x.shape[0]
     positions = cache_len[:, None]                 # (B, 1) absolute positions
     q, k, v = _project(p, x, cfg, fcfg, positions)
@@ -429,6 +450,7 @@ def apply_attn_chunk_paged(p: dict, x: torch.Tensor, cache: dict,
     prefix-cache hit ``offset`` starts past the slot's shared pages, so
     every write lands in a private page.  The kernel reads the whole table
     at the device ``slot``.  Returns (out, cache)."""
+    _no_mla(cfg, "a paged cache")
     C = x.shape[1]
     slot, offset = (lib.device_scalar("apply_attn_chunk_paged", t, x.device)
                     for t in (slot, offset))
@@ -454,6 +476,7 @@ def apply_attn_decode_paged(p: dict, x: torch.Tensor, cache: dict,
     private page of a decoding slot (aliased prefix pages lie before it),
     the null page of a free slot, the next private page of a slot mid
     prefill (its next chunk overwrites the junk).  Returns (out, cache)."""
+    _no_mla(cfg, "a paged cache")
     positions = cache_len[:, None]
     q, k, v = _project(p, x, cfg, fcfg, positions)
     ps = cache["k"].shape[1]
@@ -504,6 +527,7 @@ def apply_attn_verify(p: dict, x: torch.Tensor, cache: dict,
     the accepted ``cache_len``, masked by every later read and overwritten
     before they become visible.  Returns (out, cache).
     """
+    _no_mla(cfg, "speculative verify")
     B, W = x.shape[:2]
     positions = cache_len[:, None] + torch.arange(W, device=x.device)
     q, k, v = _project(p, x, cfg, fcfg, positions)
@@ -530,6 +554,7 @@ def apply_attn_verify_paged(p: dict, x: torch.Tensor, cache: dict,
     Rollback of rejected tokens is the allocator's (``PageAllocator.
     shrink``); their junk in kept pages is masked and overwritten as in
     the contiguous case.  Returns (out, cache)."""
+    _no_mla(cfg, "speculative verify")
     B, W = x.shape[:2]
     positions = cache_len[:, None] + torch.arange(W, device=x.device)
     q, k, v = _project(p, x, cfg, fcfg, positions)
@@ -541,3 +566,267 @@ def apply_attn_verify_paged(p: dict, x: torch.Tensor, cache: dict,
                                         page_table, cache_len, cfg=fcfg,
                                         **_pool_scales(cache))
     return _attn_out(out, p), cache
+
+
+# ---------------------------------------------------------------------------
+# latent attention (MLA): DeepSeek-V3's DeepseekV3Attention, kimi-k2-instruct
+# ---------------------------------------------------------------------------
+#
+# Per token: q = (rms(x W_qa) * q_a_norm) W_qb, heads of [nope | rope];
+# [c | k_rope] = x W_kva, c normed by kv_a_norm; per head [k_nope | v] =
+# c W_kvb; k_rope one rotary key all heads share.  Scores q.k over the
+# nope + rope dims times ``mla_softmax_scale``, causal softmax, then the
+# heads' values through wo.  The rotary dims rotate halves with YaRN's
+# frequencies (the release rotates interleaved pairs, the same model with
+# its rope columns permuted; the reference rotates halves alike).
+#
+# The cache holds one row a token and layer: [c (kv_lora_rank, after its
+# norm) | k_rope (rotated)], 576 values at kimi-k2-instruct.  A prefill
+# chunk expands its slot's rows to per-head K = [k_nope | k_rope] and V
+# and attends with the chunk kernel; decode is absorbed: W_UK folded into
+# q (q_nope W_UK^T, kv_lora_rank wide) so every head scores the latent row
+# itself, attention's output stays a latent row, and W_UV follows it
+# (the ``mla_decode`` kernel reads each latent row once for all heads).
+
+
+def _no_mla(cfg: ModelConfig, what: str) -> None:
+    if cfg.is_mla:
+        raise ValueError(f"{cfg.name}: latent attention runs on the "
+                         f"contiguous cache with chunked prefill and plain "
+                         f"decode; {what} is not supported for it")
+
+
+def mla_row_width(cfg: ModelConfig) -> int:
+    """Values of one cached latent row: kv_lora_rank + qk_rope_head_dim."""
+    return cfg.kv_lora_rank + cfg.qk_rope_head_dim
+
+
+def mla_spec(cfg: ModelConfig) -> dict:
+    if not cfg.q_lora_rank:
+        raise ValueError(f"{cfg.name}: latent attention needs q_lora_rank")
+    d, h, qr, kr = (cfg.d_model, cfg.num_heads, cfg.q_lora_rank,
+                    cfg.kv_lora_rank)
+    nope, rope, v = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq_a": ParamSpec((d, qr), ("embed", None)),
+        "q_a_norm": ParamSpec((qr,), (None,), init="ones"),
+        "wq_b": ParamSpec((qr, h, nope + rope), (None, "heads", "head_dim")),
+        "wkv_a": ParamSpec((d, kr + rope), ("embed", None)),
+        "kv_a_norm": ParamSpec((kr,), (None,), init="ones"),
+        "wkv_b": ParamSpec((kr, h, nope + v), (None, "heads", "head_dim")),
+        "wo": ParamSpec((h, v, d), ("heads", "head_dim", "embed")),
+    }
+
+
+def mla_prepare(p: dict) -> dict:
+    """One latent-attention layer's serving params: the absorbed decode's
+    ``w_uk`` (H, nope, kv_lora_rank) and ``w_uv`` (H, kv_lora_rank, v),
+    contiguous per head, cut once from ``wkv_b`` (8 MB a layer at
+    kimi-k2-instruct in bf16); and the chunk's ``w_exp`` (kr + rope, H,
+    nope + rope + v) of :func:`mla_expand_weight` (24 MB a layer)."""
+    if "w_uk" in p:
+        return p
+    w = p["wkv_b"]
+    nope = p["wq_b"].shape[2] - (p["wkv_a"].shape[1] - w.shape[0])
+    out = dict(p)
+    out["w_uk"] = w[..., :nope].permute(1, 2, 0).contiguous()
+    out["w_uv"] = w[..., nope:].permute(1, 0, 2).contiguous()
+    out["w_exp"] = mla_expand_weight(p)
+    return out
+
+
+def mla_expand_weight(p: dict) -> torch.Tensor:
+    """(kr + rope, H, nope + rope + v): a whole latent row to each head's
+    [k_nope | k_rope | v] in one product, ``wkv_b``'s columns on the c
+    rows and an identity on the k_rope rows, so the expansion writes no
+    concatenation."""
+    w = p["wkv_b"]
+    kr, H, _ = w.shape
+    rope = p["wkv_a"].shape[1] - kr
+    nope = p["wq_b"].shape[2] - rope
+    exp = w.new_zeros((kr + rope, H, w.shape[2] + rope))
+    exp[:kr, :, :nope] = w[..., :nope]
+    exp[kr:, :, nope:nope + rope] = torch.eye(
+        rope, dtype=w.dtype, device=w.device)[:, None, :]
+    exp[:kr, :, nope + rope:] = w[..., nope:]
+    return exp
+
+
+def _yarn_get_mscale(scale: float, mscale: float) -> float:
+    """DeepSeek-V3's ``yarn_get_mscale``."""
+    return 1.0 if scale <= 1 else 0.1 * mscale * math.log(scale) + 1.0
+
+
+def _yarn_correction_dim(rot: float, dim: int, base: float,
+                         max_pos: int) -> float:
+    return (dim * math.log(max_pos / (rot * 2 * math.pi))) / \
+        (2 * math.log(base))
+
+
+def mla_inv_freq(cfg: ModelConfig, device=None) -> tuple:
+    """The rotary dims' inverse frequencies (qk_rope_head_dim / 2,) f32
+    and the cos/sin scale: plain rope, or YaRN as DeepSeek-V3's
+    ``DeepseekV3YarnRotaryEmbedding`` makes them (``yarn_find_correction_
+    range`` over beta_fast / beta_slow, a linear ramp between the
+    interpolated and the extrapolated frequencies)."""
+    dim, base = cfg.qk_rope_head_dim, cfg.rope_theta
+    expo = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    extra = 1.0 / (base ** expo)
+    f = cfg.yarn_factor
+    if not f:
+        return extra, 1.0
+    inter = 1.0 / (f * base ** expo)
+    low = max(math.floor(_yarn_correction_dim(
+        cfg.yarn_beta_fast, dim, base, cfg.yarn_original_max)), 0)
+    high = min(math.ceil(_yarn_correction_dim(
+        cfg.yarn_beta_slow, dim, base, cfg.yarn_original_max)), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device)
+             - low) / (high - low)).clamp(0, 1)
+    mask = 1.0 - ramp
+    inv = inter * (1 - mask) + extra * mask
+    mscale = (_yarn_get_mscale(f, cfg.yarn_mscale)
+              / _yarn_get_mscale(f, cfg.yarn_mscale_all_dim))
+    return inv, mscale
+
+
+def mla_softmax_scale(cfg: ModelConfig) -> float:
+    """(nope + rope)^-0.5, times YaRN's mscale(factor, mscale_all_dim)
+    squared (DeepseekV3Attention's ``softmax_scale``)."""
+    s = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    if cfg.yarn_factor and cfg.yarn_mscale_all_dim:
+        m = _yarn_get_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim)
+        s *= m * m
+    return s
+
+
+def mla_rope(x: torch.Tensor, positions: torch.Tensor,
+             cfg: ModelConfig) -> torch.Tensor:
+    """Rotate halves of x (..., S, [heads,] rope) at positions (..., S)
+    with :func:`mla_inv_freq`'s frequencies, f32 angles, x's dtype out.
+    ``x`` has a heads axis where its ndim exceeds positions' by 2."""
+    inv, msc = mla_inv_freq(cfg, x.device)
+    ang = positions.to(torch.float32)[..., None] * inv
+    if x.ndim == positions.ndim + 2:
+        ang = ang[..., None, :]
+    cos, sin = ang.cos() * msc, ang.sin() * msc
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].to(torch.float32), x[..., half:].to(torch.float32)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def _mla_project(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor):
+    """x (B, S, D) at positions (B, S) or (S,) -> q (B, S, H, nope +
+    rope), contiguous, its rope dims rotated in place (no concatenation
+    of a chunk's heads), and the latent rows (B, S, kr + rope) to cache,
+    all in x's dtype."""
+    B, S, _ = x.shape
+    dt, nope = x.dtype, cfg.qk_nope_head_dim
+    qa = layers.apply_norm({"scale": p["q_a_norm"]}, x @ p["wq_a"].to(dt))
+    q = (qa @ p["wq_b"].to(dt).flatten(1)).unflatten(-1, (cfg.num_heads, -1))
+    kv = x @ p["wkv_a"].to(dt)
+    c = layers.apply_norm({"scale": p["kv_a_norm"]}, kv[..., :cfg.kv_lora_rank])
+    pos = positions if positions.ndim == 2 else positions[None].expand(B, S)
+    k_rope = mla_rope(kv[..., cfg.kv_lora_rank:], pos, cfg)
+    q[..., nope:] = mla_rope(q[..., nope:], pos, cfg)
+    return q, torch.cat([c, k_rope], dim=-1)
+
+
+def mla_expand(p: dict, rows: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Latent rows (..., kr + rope) -> per-head (..., H, nope + rope + v):
+    [k_nope | k_rope | v], so K is the first nope + rope dims and V the
+    last v (the chunk kernel reads the two as views of one tensor): one
+    product by :func:`mla_expand_weight` (the serving layout's ``w_exp``,
+    made once; made here from the spec tree's leaves in training)."""
+    w = p["w_exp"] if "w_exp" in p else mla_expand_weight(p)
+    return (rows @ w.to(rows.dtype).flatten(1)).unflatten(
+        -1, (cfg.num_heads, -1))
+
+
+def _mla_kv_views(e: torch.Tensor, cfg: ModelConfig):
+    """K and V as same-width views of an expanded tensor: K = [k_nope |
+    k_rope], V' = [k_rope | v]; the attention output's last v columns are
+    P V (its first rope columns are discarded)."""
+    dq = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    return e[..., :dq], e[..., e.shape[-1] - dq:]
+
+
+def _mla_out(out: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Attention output (..., H, width) whose last v columns are P V,
+    through wo."""
+    return _out_proj(out[..., out.shape[-1] - cfg.v_head_dim:], p["wo"])
+
+
+def apply_mla(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              fcfg: famous.FamousConfig, *, q_offset: int = 0):
+    """Full-sequence latent attention (the expanded equations), x
+    (B, S, D) at positions q_offset.. ; causal."""
+    S = x.shape[1]
+    positions = q_offset + torch.arange(S, device=x.device)
+    q, rows = _mla_project(p, x, cfg, positions)
+    k, v = _mla_kv_views(mla_expand(p, rows, cfg), cfg)
+    out = famous.attention(q, k.contiguous(), v.contiguous(),
+                           causal=cfg.causal,
+                           scale=mla_softmax_scale(cfg), q_offset=q_offset,
+                           cfg=fcfg)
+    return _mla_out(out, p, cfg)
+
+
+def apply_mla_chunk(p: dict, x: torch.Tensor, cache: dict, slot, offset,
+                    cfg: ModelConfig, fcfg: famous.FamousConfig):
+    """A prefill chunk x (1, C, D) of one slot at positions [offset,
+    offset + C): its latent rows written into the slot's stripe of
+    ``cache["kv"]`` (n_slots, max_seq, kr + rope) in place, then the
+    stripe expanded whole to per-head K and V (a fixed shape, so one
+    captured graph serves every slot and offset) and attended by the
+    chunk kernel, which reads keys up to each row's own position only.
+    ``slot``, ``offset``: runtime scalars as in :func:`apply_attn_chunk`.
+    Returns (out (1, C, D), cache)."""
+    C = x.shape[1]
+    slot, offset = (lib.device_scalar("apply_mla_chunk", t, x.device)
+                    for t in (slot, offset))
+    positions = offset + torch.arange(C, device=x.device)
+    q, rows = _mla_project(p, x, cfg, positions)
+    buf = cache["kv"]
+    buf.index_put_((slot.expand(C), positions), rows[0].to(buf.dtype))
+    e = mla_expand(p, buf.index_select(0, slot).to(x.dtype), cfg)
+    k, v = _mla_kv_views(e, cfg)
+    out = famous.chunked_prefill_attention(
+        q, k, v, offset,
+        scale=mla_softmax_scale(cfg), cfg=fcfg)
+    return _mla_out(out, p, cfg), cache
+
+
+def mla_absorbed_q(p: dict, q_nope: torch.Tensor,
+                   q_rope: torch.Tensor) -> torch.Tensor:
+    """(B, H, nope) and (B, H, rope) -> (B, H, kr + rope): [q_nope
+    W_UK^T | q_rope], the query that scores latent rows directly."""
+    q_lat = torch.bmm(q_nope.transpose(0, 1), p["w_uk"].to(q_nope.dtype))
+    return torch.cat([q_lat.transpose(0, 1), q_rope], dim=-1)
+
+
+def apply_mla_decode(p: dict, x: torch.Tensor, cache: dict,
+                     cache_len: torch.Tensor, cfg: ModelConfig,
+                     fcfg: famous.FamousConfig):
+    """One-token decode, absorbed: x (B, 1, D); cache_len (B,) int32 rows
+    before this token, on the device.  Each slot writes its latent row at
+    ``cache_len`` (clamped to the last row), then the ``mla_decode``
+    kernel scores the absorbed query against cache_len + 1 latent rows
+    for all heads at once and returns latent outputs (B, H, kr), which
+    W_UV takes to the heads' values.  Returns (out (B, 1, D), cache)."""
+    from repro_torch.kernels.decode import mla_decode as mla_ops
+    B = x.shape[0]
+    q, rows = _mla_project(p, x, cfg, cache_len[:, None])
+    buf = cache["kv"]
+    at = cache_len.clamp(max=buf.shape[1] - 1)
+    buf[torch.arange(B, device=x.device), at] = rows[:, 0].to(buf.dtype)
+    nope = cfg.qk_nope_head_dim
+    q = mla_absorbed_q(p, q[:, 0, :, :nope], q[:, 0, :, nope:])
+    o_lat = mla_ops.mla_decode(q.contiguous(), buf, cache_len + 1,
+                               scale=mla_softmax_scale(cfg),
+                               dv=cfg.kv_lora_rank)
+    o = torch.bmm(o_lat.transpose(0, 1), p["w_uv"].to(o_lat.dtype))
+    return _out_proj(o.transpose(0, 1)[:, None], p["wo"]), cache

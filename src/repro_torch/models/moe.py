@@ -25,6 +25,20 @@ routing and drops are the unsharded layer's, then keeps its experts'
 columns of ``dispatch`` and ``combine`` (Python int bounds: the shapes
 stay fixed), multiplies only its experts, and the ranks' shares of the
 output are summed over the "model" group (``tp_sum``).
+
+DeepSeek-V3's routing (kimi-k2-instruct, ``cfg.scoring_func ==
+"sigmoid"``, :func:`apply_moe_dropless`): scores ``sigmoid(x R)`` in f32,
+the top-k by score plus the correction bias ``router_bias`` (``noaux_tc``;
+the bias picks, it never weights), weights the chosen scores
+normalised to sum 1 times ``routed_scaling_factor``; every token is
+routed, nothing dropped.  The layer holds the routed experts
+``cfg.experts_here`` = [lo, hi) of the router's E (one chip's share of an
+expert-parallel deployment; all E by default) and computes only their
+part: each held expert over every row, weighted by the row's weight on it
+(0 where the row did not choose it).  With K held experts and every row
+a group, that is the worst case of top-K over the held ones, a dense and
+fixed shape with no (G, S, E, C) dispatch built.  ``shared`` SwiGLU
+experts see every row and are added to the routed part.
 """
 from __future__ import annotations
 
@@ -37,14 +51,21 @@ from repro_torch.models.module import ParamSpec
 
 def moe_spec(cfg: ModelConfig) -> dict:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
-    return {
+    lo, hi = cfg.experts_here
+    spec = {
         # the router stays f32 whatever the model's dtype
         "router": ParamSpec((d, e), ("embed", None), scale=0.02,
                             dtype=torch.float32),
-        "w_in": ParamSpec((e, d, f), ("experts", None, "expert_ff")),
-        "w_gate": ParamSpec((e, d, f), ("experts", None, "expert_ff")),
-        "w_out": ParamSpec((e, f, d), ("experts", "expert_ff", None)),
+        "w_in": ParamSpec((hi - lo, d, f), ("experts", None, "expert_ff")),
+        "w_gate": ParamSpec((hi - lo, d, f), ("experts", None, "expert_ff")),
+        "w_out": ParamSpec((hi - lo, f, d), ("experts", "expert_ff", None)),
     }
+    if cfg.scoring_func == "sigmoid":
+        spec["router_bias"] = ParamSpec((e,), (None,), init="zeros",
+                                        dtype=torch.float32)
+    if cfg.shared_experts:
+        spec["shared"] = layers.mlp_spec(d, cfg.shared_experts * f)
+    return spec
 
 
 def _group_shape(T: int, target_group: int = 256) -> tuple[int, int]:
@@ -117,7 +138,7 @@ def _rank_groups(p: dict, T: int) -> tuple[int, int]:
 
 
 def count_routing(counts, dispatch: torch.Tensor, K: int) -> None:
-    """Add one layer call's routing to ``counts`` = (acc (4,) int64, rows
+    """Add one layer call's routing to ``counts`` = (acc (4+,) int64, rows
     (T,) bool: which of the call's T = G*S token rows are real): acc +=
     [the real rows' top-k choices, those kept, those dropped, the capacity
     rows computed (G*E*C)].  Device ops only, nothing read on the host,
@@ -140,6 +161,11 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
     (Megatron's f) takes the input first.  ``counts``: see
     :func:`count_routing` (over all E experts, before a rank keeps its
     own)."""
+    if cfg.scoring_func == "sigmoid":
+        if return_aux:
+            raise ValueError("the dropless sigmoid router has no auxiliary "
+                             "load-balance loss")
+        return apply_moe_dropless(p, x, cfg, counts)
     B, S, D = x.shape
     K = cfg.experts_per_token
     G, Sg = _rank_groups(p, B * S)
@@ -169,6 +195,63 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if return_aux:
         return y, aux
     return y
+
+
+def sigmoid_route(logits: torch.Tensor, bias, K: int, scale: float):
+    """DeepSeek-V3's ``noaux_tc`` routing with one group: logits (T, E)
+    f32 -> (top-k experts (T, K), their weights (T, K) f32).  The top-k
+    of ``sigmoid(logits) + bias`` (``bias`` None: of the scores), weighted
+    by their scores normalised to sum 1, times ``scale``."""
+    scores = torch.sigmoid(logits)
+    pick = scores if bias is None else scores + bias.to(torch.float32)
+    topi = torch.topk(pick, K, dim=-1).indices
+    w = scores.gather(-1, topi)
+    return topi, w / (w.sum(-1, keepdim=True) + 1e-20) * scale
+
+
+def count_dropless(counts, topi: torch.Tensor, lo: int, hi: int) -> None:
+    """Add one dropless layer call's routing to ``counts`` (see
+    :func:`count_routing`): every real choice kept, none dropped, the held
+    experts' rows computed ((hi - lo) x T), and, in the fifth entry, the
+    real choices that land on the held experts [lo, hi)."""
+    acc, rows = counts
+    real = rows.sum(dtype=torch.int64) * topi.shape[1]
+    acc[:3] += torch.stack((real, real, torch.zeros_like(real)))
+    acc[3] += (hi - lo) * topi.shape[0]
+    held = (topi >= lo) & (topi < hi) & rows[:, None]
+    acc[4] += held.sum(dtype=torch.int64)
+
+
+def apply_moe_dropless(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                       counts=None) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D): sigmoid routing over all E experts
+    (:func:`sigmoid_route`), the held experts [lo, hi) computed over
+    every row and weighted, plus the shared experts.  Device ops only,
+    nothing read on the host."""
+    if "tp_experts" in p:
+        raise ValueError(f"{cfg.name}: the dropless router runs on one "
+                         "chip's expert share (cfg.expert_lo / "
+                         "experts_held), not under tensor parallelism")
+    B, S, D = x.shape
+    xt = x.reshape(B * S, D)
+    topi, w = sigmoid_route(xt.to(torch.float32) @ p["router"].to(
+        torch.float32), p.get("router_bias"), cfg.experts_per_token,
+        cfg.routed_scaling_factor)
+    lo, hi = cfg.experts_here
+    if counts is not None:
+        count_dropless(counts, topi, lo, hi)
+    held = torch.arange(lo, hi, device=x.device)
+    # each row's weight on each held expert, 0 where it did not pick it
+    comb = ((topi[:, :, None] == held) * w[:, :, None]).sum(1)  # (T, Eh)
+    dt = x.dtype
+    h = layers.act_fn(cfg.act)(torch.matmul(xt, p["w_gate"].to(dt))) \
+        * torch.matmul(xt, p["w_in"].to(dt))                     # (Eh, T, F)
+    out = torch.bmm(h, p["w_out"].to(dt))                        # (Eh, T, D)
+    y = torch.bmm(comb[:, None, :], out.transpose(0, 1).to(
+        torch.float32))[:, 0].to(dt)                             # (T, D)
+    if "shared" in p:
+        y = y + layers.apply_mlp(p["shared"], xt, cfg.act)
+    return y.reshape(B, S, D)
 
 
 def aux_load_balance_loss(p: dict, x: torch.Tensor,

@@ -76,26 +76,32 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 def layer_kinds(cfg: ModelConfig) -> tuple[str, ...]:
-    """The block kind of every layer, in order: the pattern unit repeated
-    ``num_units`` times, then the tail (the serving layout's order)."""
-    return tuple(cfg.pattern_unit) * cfg.num_units + tuple(cfg.tail_layers)
+    """The block kind of every layer, in order: the leading dense layers
+    (global attention), the pattern unit repeated ``num_units`` times,
+    then the tail (the serving layout's order)."""
+    return ((ATTN,) * cfg.first_dense_layers
+            + tuple(cfg.pattern_unit) * cfg.num_units
+            + tuple(cfg.tail_layers))
 
 
-def _ffn_spec(cfg: ModelConfig):
-    if cfg.num_experts:
+def _ffn_spec(cfg: ModelConfig, lead: bool = False):
+    if cfg.num_experts and not lead:
         return moe.moe_spec(cfg)
     gated = cfg.act in ("silu", "gelu") and cfg.norm == "rmsnorm"
-    return layers.mlp_spec(cfg.d_model, cfg.d_ff, cfg.act, gated=gated)
+    return layers.mlp_spec(cfg.d_model, cfg.dense_d_ff if lead else cfg.d_ff,
+                           cfg.act, gated=gated)
 
 
-def block_spec(kind: str, cfg: ModelConfig) -> dict:
+def block_spec(kind: str, cfg: ModelConfig, lead: bool = False) -> dict:
+    """One block's spec; ``lead``: a leading dense layer (its FFN dense,
+    ``dense_d_ff`` wide, in an MoE model)."""
     d = cfg.d_model
     if kind in (ATTN, LOCAL_ATTN):
         return {
             "ln1": layers.norm_spec(d, cfg.norm),
             "attn": attention.attn_spec(cfg),
             "ln2": layers.norm_spec(d, cfg.norm),
-            "ffn": _ffn_spec(cfg),
+            "ffn": _ffn_spec(cfg, lead),
         }
     if kind == RGLRU:
         return {
@@ -119,10 +125,12 @@ def model_spec(cfg: ModelConfig) -> dict:
     unit = {f"pos{i}": block_spec(k, cfg)
             for i, k in enumerate(cfg.pattern_unit)}
     spec: dict[str, Any] = {
-        "embed": layers.embed_spec(cfg.vocab_size, cfg.d_model),
-        "blocks": stack_specs(unit, cfg.num_units),
-        "final_norm": layers.norm_spec(cfg.d_model, cfg.norm),
-    }
+        "embed": layers.embed_spec(cfg.vocab_size, cfg.d_model)}
+    # the leading dense layers ("lead<i>", unstacked), then the stack
+    for i in range(cfg.first_dense_layers):
+        spec[f"lead{i}"] = block_spec(ATTN, cfg, lead=True)
+    spec["blocks"] = stack_specs(unit, cfg.num_units)
+    spec["final_norm"] = layers.norm_spec(cfg.d_model, cfg.norm)
     for i, k in enumerate(cfg.tail_layers):
         spec[f"tail{i}"] = block_spec(k, cfg)
     if not cfg.tie_embeddings:
@@ -149,7 +157,7 @@ def prepare_params(params: dict, cfg: ModelConfig) -> dict:
     if "layers" in params:
         return params
     _check_supported(cfg)
-    per_layer = []
+    per_layer = [params[f"lead{i}"] for i in range(cfg.first_dense_layers)]
     for u in range(cfg.num_units):
         unit = _index_tree(params["blocks"], u)
         for i in range(len(cfg.pattern_unit)):
@@ -197,6 +205,8 @@ def cache_axes(cfg: ModelConfig, cache_kind: str = "contiguous",
     contiguous attention caches ("batch", seq, "kv_heads", "head_dim");
     page pools drop the slot axis and, int8, add the scale pools."""
     def block_axes(kind):
+        if cfg.is_mla and kind == ATTN:
+            return attention.MLA_CACHE_AXES
         if kind == ATTN and cache_kind == "paged":
             return (attention.PAGED_ATTN_CACHE_AXES_INT8
                     if kv_dtype == "int8"
@@ -224,7 +234,14 @@ def check_mesh(cfg: ModelConfig, mesh, rules) -> None:
     tensor parallelism needs the "model" ranks to see the same rows (in
     serving, the same slots).  Every other placement of every rule set of
     ``parallel/sharding.py`` serves and trains, on any data, pod and model
-    axes."""
+    axes.  A model with latent attention or leading dense layers
+    (kimi-k2-instruct) runs on one chip's expert share, never on a
+    mesh."""
+    if cfg.is_mla or cfg.first_dense_layers:
+        raise ValueError(f"{cfg.name}: latent attention and leading dense "
+                         "layers run unsharded (one chip's expert share); "
+                         "tensor parallelism and sharded training are not "
+                         "supported for them")
     if "model" in shd.entry_axes(shd.rule_axes(mesh, rules, "batch")):
         raise ValueError("a rule set that shards \"batch\" over \"model\" "
                          "cannot run: the model ranks must see the same "
@@ -659,7 +676,7 @@ def _layers(params: dict, caches: list, cfg: ModelConfig):
 
 
 def _apply_ffn(p, x, cfg: ModelConfig, moe_counts=None):
-    if cfg.num_experts:
+    if "router" in p:
         return moe.apply_moe(p, x, cfg, counts=moe_counts)
     return layers.apply_mlp(p, x, cfg.act)
 
@@ -673,7 +690,7 @@ def _ffn_residual(p, x, cfg: ModelConfig, slot_rows=None, moe_counts=None):
     ``moe_counts``: where an MoE FFN adds its routing
     (:func:`moe.count_routing`), with the real rows of what it routes."""
     h = layers.apply_norm(p["ln2"], x, cfg.norm)
-    if slot_rows is not None and cfg.num_experts:
+    if slot_rows is not None and "router" in p["ffn"]:
         gather, lo, hi = slot_rows
         return x + _apply_ffn(p["ffn"], gather(h), cfg, moe_counts)[lo:hi]
     return x + _apply_ffn(p["ffn"], h, cfg, moe_counts)
@@ -747,6 +764,9 @@ def forward(params: dict, inputs: torch.Tensor, cfg: ModelConfig,
                             fcfg)
         return x
 
+    for i in range(cfg.first_dense_layers):
+        x = apply_block(ATTN, block(params[f"lead{i}"], f"lead{i}"), x, cfg,
+                        fcfg)
     for u in range(cfg.num_units):
         x = (checkpoint(unit_body, x, u, use_reentrant=False) if remat
              else unit_body(x, u))
@@ -857,6 +877,10 @@ def make_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype,
         raise ValueError(f"kv_dtype {kv_dtype!r}")
     if cache_kind == "contiguous" and kv_dtype != "fp":
         raise ValueError("kv_dtype='int8' requires paged caches")
+    if cfg.is_mla and cache_kind != "contiguous":
+        raise ValueError(f"{cfg.name}: latent attention keeps a contiguous "
+                         "cache of latent rows; paged and int8 caches are "
+                         "not supported for it")
     if cache_kind == "paged" and (page_size <= 0 or n_pages <= 0):
         raise ValueError(f"paged caches need page_size and n_pages, got "
                          f"{page_size}, {n_pages}")
@@ -1065,6 +1089,7 @@ def verify_step(params, tokens, caches, cache_len, cfg: ModelConfig,
     if kinds != {ATTN}:
         raise ValueError(f"verify_step only supports global-attention "
                          f"layers, got {sorted(kinds)}")
+    attention._no_mla(cfg, "speculative verify")
     x = _embed_inputs(params, tokens, _compute_dtype(params))
     writes = None
     if page_table is None:   # every layer's write indices, made once

@@ -132,6 +132,11 @@ class Observer:
             "repro_moe_capacity_rows_total",
             "expert capacity rows computed (groups x experts x capacity), "
             "summed over MoE layer calls")
+        # -- latent attention ------------------------------------------------
+        self._mla_rows = m.counter(
+            "repro_mla_latent_rows_total",
+            "latent rows the decode steps read (cache_len + 1 of each "
+            "decoding slot), summed over layers")
 
     # -- engine hooks --------------------------------------------------------
     def register_census(self, source) -> None:
@@ -161,7 +166,9 @@ class Observer:
         if self._routing_source is None:
             return {}
         c = {k: int(v) for k, v in self._routing_source().items()}
-        for outcome in ("kept", "dropped"):
+        # held: real choices on this chip's experts (the dropless router)
+        for outcome in ("kept", "dropped") + (("held",) if "held" in c
+                                              else ()):
             self._moe_choices.inc(
                 c[outcome] - self._moe_choices.value(outcome=outcome),
                 outcome=outcome)
@@ -227,6 +234,9 @@ class Observer:
 
     def on_tokens(self, n: int) -> None:
         self._tokens.inc(n)
+
+    def on_latent_rows(self, n: int) -> None:
+        self._mla_rows.inc(n)
 
     def on_preempt(self, rid, slot: int) -> None:
         self._preempts.inc()
@@ -323,6 +333,7 @@ class NullObserver:
     def on_prefix_lookup(self, rid, hit_pages, hit_tokens) -> None: pass
     def on_prefill_tokens(self, n) -> None: pass
     def on_tokens(self, n) -> None: pass
+    def on_latent_rows(self, n) -> None: pass
     def on_preempt(self, rid, slot) -> None: pass
     def on_retire(self, req, slot=-1) -> None: pass
     def on_spec_step(self) -> None: pass

@@ -216,6 +216,11 @@ class ServingEngine:
                              or prefill_mode != "chunked"):
             raise ValueError("prefix_cache requires cache_kind='paged' and "
                              "chunked prefill")
+        if cfg.is_mla and (speculative or prefill_mode != "chunked"):
+            raise ValueError(f"{cfg.name}: latent attention serves with "
+                             "chunked prefill and plain decode; speculative "
+                             "verify and monolithic prefill are not "
+                             "supported for it")
         self.device = resolve_device(device)
         self.obs = observer if observer is not None else NULL_OBSERVER
         self._span = self.obs.span
@@ -223,8 +228,10 @@ class ServingEngine:
         # device time per executable call, where the events exist
         self._timer = (graphs.ExecTimer(self.device, self.obs)
                        if tracing and self.device.type == "cuda" else None)
-        # [real choices, kept, dropped, capacity rows] over MoE layer calls
-        self._moe_counts = (torch.zeros(4, dtype=torch.int64,
+        # [real choices, kept, dropped, capacity rows, held] over MoE layer
+        # calls (held: real choices that land on this chip's experts, for
+        # the dropless router; moe.count_dropless)
+        self._moe_counts = (torch.zeros(5, dtype=torch.int64,
                                         device=self.device)
                             if tracing and cfg.num_experts else None)
         if self._moe_counts is not None:
@@ -418,11 +425,14 @@ class ServingEngine:
     def _read_routing(self) -> dict:
         """The MoE routing totals (one copy to the host, which syncs:
         device spans still unread are read after it)."""
-        real, kept, dropped, rows = self._moe_counts.tolist()
+        real, kept, dropped, rows, held = self._moe_counts.tolist()
         if self._timer is not None:
             self._timer.synced()
-        return {"real": real, "kept": kept, "dropped": dropped,
-                "capacity_rows": rows}
+        out = {"real": real, "kept": kept, "dropped": dropped,
+               "capacity_rows": rows}
+        if self.cfg.scoring_func == "sigmoid":
+            out["held"] = held
+        return out
 
     @property
     def acceptance_rate(self) -> float:
@@ -855,6 +865,11 @@ class ServingEngine:
         if self._timer is not None:
             self._timer.synced()
         with self._span("emit"):
+            if self.cfg.is_mla:
+                # every layer's decode read cache_len + 1 latent rows of
+                # each decoding slot
+                self.obs.on_latent_rows(len(transformer.layer_kinds(
+                    self.cfg)) * int((self.cache_len[act] + 1).sum()))
             self.cache_len[act] += 1
             self.last_token[act] = toks[act]
             self.obs.on_tokens(len(active))

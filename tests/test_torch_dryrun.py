@@ -83,7 +83,10 @@ def flat(tree, prefix=()) -> dict:
     return {prefix: (tuple(tree.shape), dtype_name(tree.dtype))}
 
 
-CELLS = [(a, s) for a in base.list_configs() for s in base.supported_cells(a)]
+# kimi-k2-instruct (base.PORT_ONLY) has no JAX twin to hold its specs to,
+# and runs unsharded only, so the dry run over a mesh leaves it out
+JAX_ARCHS = [a for a in base.list_configs() if a not in base.PORT_ONLY]
+CELLS = [(a, s) for a in JAX_ARCHS for s in base.supported_cells(a)]
 
 
 def test_cells_match_jax():
@@ -115,7 +118,7 @@ KINDS = [dict(), dict(cache_kind="paged", page_size=16, n_pages=10),
 
 
 # encoder-only configs have no caches
-DECODERS = [a for a in base.list_configs()
+DECODERS = [a for a in JAX_ARCHS
             if not base.get_config(a).is_encoder_only]
 
 
@@ -137,7 +140,7 @@ def test_shapes_only_caches_match_jax(arch, kind):
         assert port_layers(real) == port_layers(got)
 
 
-@pytest.mark.parametrize("arch", base.list_configs())
+@pytest.mark.parametrize("arch", JAX_ARCHS)
 @pytest.mark.parametrize("moments", ["float32", "bfloat16"])
 def test_state_shapes_match_jax(arch, moments):
     tdt, jdt = getattr(torch, moments), getattr(jnp, moments)

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import random_jax_params, tokens
+from torch_port_helpers import config_as_jax, random_jax_params, tokens
 from repro.configs.base import get_config as jget_config
 from repro.configs.base import shrink as jshrink
 from repro.core import famous as jfamous
@@ -65,8 +65,8 @@ def _weights(arch, seed=3):
 def test_configs_and_spec_trees_are_copies(arch):
     from repro.models import module as jmodule
     cfg, jcfg = _cfgs(arch)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
-    assert dataclasses.asdict(get_config(arch)) == \
+    assert config_as_jax(cfg, jcfg) == dataclasses.asdict(jcfg)
+    assert config_as_jax(get_config(arch), jget_config(arch)) == \
         dataclasses.asdict(jget_config(arch))
     tleaves = module.tree_leaves(transformer.model_spec(cfg))
     jleaves = jmodule._leaves_with_path(jtransformer.model_spec(jcfg))[0]

@@ -120,7 +120,8 @@ def test_paper_gops_matches_jax(seq, d_model, heads):
 
 
 def test_model_flops_match_jax_for_every_config_and_shape():
-    names = base.list_configs()
+    # the port-only configs (base.PORT_ONLY) have no JAX twin to compare
+    names = [n for n in base.list_configs() if n not in base.PORT_ONLY]
     assert names == jbase.list_configs()
     assert set(base.SHAPES) == set(jbase.SHAPES)
     for name in names:

@@ -46,7 +46,9 @@ MESHES = [((1, 1), ("data", "model")), ((1, 2), ("data", "model")),
           ((1, 4), ("data", "model")), ((2, 2), ("data", "model")),
           ((16, 16), ("data", "model")),
           ((2, 16, 16), ("pod", "data", "model"))]
-ARCHS = base.list_configs()
+# kimi-k2-instruct (base.PORT_ONLY) has no JAX twin to hold its axes to,
+# and latent attention runs on no mesh (transformer.check_mesh refuses it)
+ARCHS = [a for a in base.list_configs() if a not in base.PORT_ONLY]
 CACHES = [("contiguous", "fp"), ("paged", "fp"), ("paged", "int8")]
 
 

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import random_jax_params, tokens
+from torch_port_helpers import config_as_jax, random_jax_params, tokens
 from repro.configs.base import get_config as jget_config
 from repro.configs.base import shrink as jshrink
 from repro.core.famous import FamousConfig as JFamousConfig
@@ -28,7 +28,7 @@ def _configs():
 def test_configs_are_copies():
     import dataclasses
     t, j = _configs()
-    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert config_as_jax(t, j) == dataclasses.asdict(j)
     assert get_config("qwen2-7b").num_layers == 28
 
 

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import random_jax_params
+from torch_port_helpers import config_as_jax, random_jax_params
 from repro.configs.base import SMOKE_SHAPES as JSMOKE_SHAPES
 from repro.configs.base import get_config as jget_config
 from repro.configs.base import shrink as jshrink
@@ -68,7 +68,7 @@ def test_spec_tree_matches_jax(arch):
     """Same tree, leaf shapes, initializers and scales (LayerNorm biases
     and the ungated MLP included for famous-bert)."""
     cfg, jcfg = _cfgs(arch)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert config_as_jax(cfg, jcfg) == dataclasses.asdict(jcfg)
     tleaves = module.tree_leaves(transformer.model_spec(cfg))
     jleaves = jmodule._leaves_with_path(jtransformer.model_spec(jcfg))[0]
     assert [(s.shape, s.init, s.scale) for s in tleaves] == \

@@ -15,6 +15,20 @@ from repro.models import transformer as jax_transformer
 torch.set_num_threads(1)
 
 
+def config_as_jax(cfg, jcfg) -> dict:
+    """The port's ``cfg`` as a dict on the JAX dataclass's fields, to hold
+    equal to ``dataclasses.asdict(jcfg)``, after checking that each field
+    the JAX dataclass lacks (the port's latent attention, DeepSeek-V3
+    routing and leading dense layers) holds its default, off."""
+    import dataclasses
+    jax_names = {f.name for f in dataclasses.fields(jcfg)}
+    port = dataclasses.asdict(cfg)
+    own = {f.name: f.default for f in dataclasses.fields(cfg)
+           if f.name not in jax_names}
+    assert {k: port[k] for k in own} == own, cfg.name
+    return {k: port[k] for k in jax_names}
+
+
 def _leaf_name(path) -> str:
     return str(getattr(path[-1], "key", path[-1]))
 
